@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["to_tensor", "params_from_numpy", "random_params"]
+__all__ = ["to_tensor", "params_from_numpy", "random_params",
+           "adam_state_from_numpy", "adam_state_to_numpy"]
 
 
 def to_tensor(value, device) -> torch.Tensor:
@@ -30,6 +31,25 @@ def params_from_numpy(arg_params, aux_params, device):
     device = torch.device(device)
     return ({k: to_tensor(v, device) for k, v in arg_params.items()},
             {k: to_tensor(v, device) for k, v in (aux_params or {}).items()})
+
+
+def adam_state_from_numpy(states, device):
+    """An Adam/AdamW state ``{name: (m, v, t)}`` of numpy-convertible
+    arrays (the JAX package's ``init_state_tree`` layout) in the port's
+    layout: the moments as float32 tensors on ``device``, the step counter
+    as a 0-d float32 tensor on the CPU."""
+    device = torch.device(device)
+    return {k: (to_tensor(m, device).float(), to_tensor(v, device).float(),
+                torch.tensor(float(np.asarray(t)), dtype=torch.float32))
+            for k, (m, v, t) in states.items()}
+
+
+def adam_state_to_numpy(states):
+    """The port's Adam state as ``{name: (m, v, t)}`` of float32 numpy
+    arrays, t 0-d, which the JAX package's optimizer takes as it is."""
+    return {k: tuple(np.array(x.detach().cpu().numpy(), np.float32)
+                     for x in (m, v, t))
+            for k, (m, v, t) in states.items()}
 
 
 def random_params(symbol, seed, **input_shapes):

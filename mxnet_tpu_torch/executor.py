@@ -1,18 +1,26 @@
-"""Graph execution for inference.
+"""Graph execution: the Symbol as a function of tensors, and the bound
+Executor.
 
-Counterpart of ``mxnet_tpu/executor.py``'s ``_fusion_plan`` and
-``_build_graph_fn(is_train=False)``: the Symbol is walked once into a plain
-function of (arguments, auxiliary states) that runs each node's eval forward
-on torch tensors in topological order. PyTorch runs eagerly, so there is no
-counterpart of ``jit``. Remat segments, ``Executor`` and ``bind`` come with
-the training slice of the port.
+Counterpart of ``mxnet_tpu/executor.py`` without remat: ``_fusion_plan``,
+``_build_graph_fn(symbol, is_train)`` and ``Executor`` with ``bind`` and
+``simple_bind``. The Symbol is walked once into a plain function of
+(arguments, auxiliary states, generator, loss mask) that runs each node's
+forward on torch tensors in topological order and returns the heads and the
+updated auxiliary states. PyTorch runs eagerly, so there is no counterpart
+of ``jit``; gradients come from autograd over that function. Remat
+(``_remat_segments``) is left to a later slice.
 """
 
 from __future__ import annotations
 
-from .base import env_int
+import torch
 
-__all__ = ["_fusion_plan", "_build_graph_fn"]
+from . import random as _random
+from .base import MXNetError, env_int
+from .context import Context, current_context
+from .convert import to_tensor
+
+__all__ = ["Executor", "simple_bind", "_fusion_plan", "_build_graph_fn"]
 
 
 def _fusion_plan(symbol):
@@ -76,16 +84,20 @@ def _fusion_plan(symbol):
         fused_add
 
 
-def _build_graph_fn(symbol):
-    """Compile the symbol DAG into a function ``fn(arg_values, aux_values) ->
-    outputs`` (a tuple, one tensor per head) that runs it in eval mode."""
+def _build_graph_fn(symbol, is_train: bool = False):
+    """Compile the symbol DAG into ``fn(arg_values, aux_values, rng=None,
+    mask=None) -> (outputs, new_aux)``: a tuple with one tensor per head and
+    the auxiliary states after the pass (BatchNorm's running stats move in
+    training mode). ``rng`` is the ``torch.Generator`` that nodes with
+    ``need_rng`` draw from; ``mask`` is an optional (batch,) row mask that
+    loss heads apply to their injected gradients (``fwd_masked``)."""
     nodes = symbol._topo()
     fused_bn, passthrough, skip_bn, fused_add = _fusion_plan(symbol)
 
     def aux_names(node):
         return [f"{node.name}_{a}" for a in node.op.list_auxiliary_states()]
 
-    def exec_node(node, env, aux_values):
+    def exec_node(node, env, aux_values, new_aux, rng, mask):
         if id(node) in skip_bn:  # runs inside its fused add below
             return
         if id(node) in passthrough:  # relu folded into the producer
@@ -95,26 +107,216 @@ def _build_graph_fn(symbol):
         if id(node) in fused_add:
             bn, z_idx = fused_add[id(node)]
             z_src, z_k = node.inputs[z_idx]
-            ins = [env[(id(s), k)] for s, k in bn.inputs] + [env[(id(z_src), z_k)]]
-            aux = [aux_values[a] for a in aux_names(bn)]
-            env[(id(node), 0)] = bn.op.fwd_fused_add_relu(ins, aux)[0]
+            ins = [env[(id(s), k)] for s, k in bn.inputs] + \
+                [env[(id(z_src), z_k)]]
+            names = aux_names(bn)
+            outs, updated = bn.op.fwd_fused_add_relu(
+                ins, [aux_values[a] for a in names], is_train, None)
+            env[(id(node), 0)] = outs[0]
+            new_aux.update(zip(names, updated))
             return
         ins = [env[(id(s), k)] for s, k in node.inputs]
-        aux = [aux_values[a] for a in aux_names(node)]
+        names = aux_names(node)
+        aux = [aux_values[a] for a in names]
+        key = rng if node.op.need_rng else None
         if id(node) in fused_bn:
-            outs = node.op.fwd_fused_relu(ins, aux)
+            outs, updated = node.op.fwd_fused_relu(ins, aux, is_train, key)
+        elif mask is not None and node.op.is_loss:
+            outs, updated = node.op.fwd_masked(ins, aux, is_train, key, mask)
         else:
-            outs = node.op.fwd(ins, aux)
+            outs, updated = node.op.fwd(ins, aux, is_train, key)
         for k, o in enumerate(outs):
             env[(id(node), k)] = o
+        new_aux.update(zip(names, updated))
 
-    def fn(arg_values: dict, aux_values: dict):
+    def fn(arg_values: dict, aux_values: dict, rng=None, mask=None):
         env = {}
+        new_aux = dict(aux_values)
         for node in nodes:
             if node.is_variable:
                 env[(id(node), 0)] = arg_values[node.name]
             else:
-                exec_node(node, env, aux_values)
-        return tuple(env[(id(n), i)] for n, i in symbol._heads)
+                exec_node(node, env, aux_values, new_aux, rng, mask)
+        return tuple(env[(id(n), i)] for n, i in symbol._heads), new_aux
 
     return fn
+
+
+def _normalize(names, values, what):
+    if values is None:
+        return {}
+    if isinstance(values, dict):
+        return dict(values)
+    values = list(values)
+    if len(values) != len(names):
+        raise MXNetError(f"{what}: expected {len(names)} entries, got {len(values)}")
+    return dict(zip(names, values))
+
+
+class Executor:
+    """A bound computation (reference: include/mxnet/symbolic.h Executor).
+
+    ``arg_dict``, ``grad_dict`` and ``aux_dict`` hold torch tensors on the
+    context's device; arrays of another kind are copied there at bind.
+    ``forward(is_train=True)`` keeps the autograd graph of the pass, and
+    ``backward`` writes (``grad_req="write"``) or adds (``"add"``) the
+    gradients into the bound grad tensors. Missing head gradients are seeded
+    with ones; loss heads ignore the seed by construction (ops/loss.py). The
+    graph stays until the next forward, so ``backward`` may run twice.
+    """
+
+    def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
+                 aux_states=None):
+        self._symbol = symbol
+        self._ctx = ctx if isinstance(ctx, Context) else current_context()
+        dev = self._ctx.torch_device
+        arg_names = symbol.list_arguments()
+        aux_names = symbol.list_auxiliary_states()
+
+        def on_device(values, names, what):
+            return {k: to_tensor(v, dev)
+                    for k, v in _normalize(names, values, what).items()}
+
+        self.arg_dict = on_device(args, arg_names, "args")
+        missing = [n for n in arg_names if n not in self.arg_dict]
+        if missing:
+            raise MXNetError(f"bind: missing arguments {missing}")
+        self.grad_dict = on_device(args_grad, arg_names, "args_grad")
+        self.aux_dict = on_device(aux_states, aux_names, "aux_states")
+        if set(aux_names) - set(self.aux_dict):
+            raise MXNetError(
+                f"bind: missing aux states {sorted(set(aux_names) - set(self.aux_dict))}")
+        if isinstance(grad_req, str):
+            self.grad_req = {n: grad_req for n in arg_names}
+        else:
+            self.grad_req = dict(_normalize(arg_names, grad_req, "grad_req"))
+        for n in arg_names:
+            self.grad_req.setdefault(n, "null")
+        self._fwd_fns = {}  # is_train -> graph function
+        self._outputs = None
+        self._graph = None  # (heads, leaves) of the last training forward
+        self._needs_rng = any(not n.is_variable and n.op.need_rng
+                              for n in symbol._topo())
+
+    @property
+    def arg_arrays(self):
+        return [self.arg_dict[n] for n in self._symbol.list_arguments()]
+
+    @property
+    def grad_arrays(self):
+        return [self.grad_dict.get(n) for n in self._symbol.list_arguments()]
+
+    @property
+    def aux_arrays(self):
+        return [self.aux_dict[n] for n in self._symbol.list_auxiliary_states()]
+
+    @property
+    def outputs(self):
+        if self._outputs is None:
+            raise MXNetError("call forward() before reading outputs")
+        return self._outputs
+
+    def _diff_names(self):
+        return sorted(n for n, r in self.grad_req.items() if r != "null")
+
+    def _fn(self, is_train):
+        if is_train not in self._fwd_fns:
+            self._fwd_fns[is_train] = _build_graph_fn(self._symbol, is_train)
+        return self._fwd_fns[is_train]
+
+    def forward(self, is_train=False, **kwargs):
+        dev = self._ctx.torch_device
+        with torch.no_grad():
+            for k, v in kwargs.items():
+                if k not in self.arg_dict:
+                    raise MXNetError(f"forward: unknown argument {k!r}")
+                self.arg_dict[k].copy_(to_tensor(v, dev))
+        rng = _random.generator(dev) if self._needs_rng else None
+        is_train = bool(is_train)
+        diff_names = self._diff_names()
+        self._graph = None
+        if is_train and diff_names:
+            leaves = {n: self.arg_dict[n].detach().requires_grad_(True)
+                      for n in diff_names}
+            with torch.enable_grad():
+                outs, new_aux = self._fn(True)({**self.arg_dict, **leaves},
+                                               self.aux_dict, rng)
+            self._graph = (outs, leaves)
+        else:
+            with torch.no_grad():
+                outs, new_aux = self._fn(is_train)(self.arg_dict,
+                                                   self.aux_dict, rng)
+        if is_train:
+            with torch.no_grad():
+                for n, a in self.aux_dict.items():
+                    a.copy_(new_aux[n])
+        self._outputs = [o.detach() for o in outs]
+        return self._outputs
+
+    def backward(self, out_grads=None):
+        """Compute gradients into the bound grad tensors (reference:
+        GraphExecutor::Backward)."""
+        if self._graph is None:
+            raise MXNetError("backward() requires a prior forward(is_train=True)")
+        outs, leaves = self._graph
+        if out_grads is None:
+            cots = [torch.ones_like(o) for o in outs]
+        else:
+            if isinstance(out_grads, torch.Tensor):
+                out_grads = [out_grads]
+            cots = [to_tensor(g, o.device) for g, o in zip(out_grads, outs)]
+        pairs = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+        names = list(leaves)
+        grads = [None] * len(names)
+        if pairs:
+            grads = torch.autograd.grad(
+                [o for o, _ in pairs], [leaves[n] for n in names],
+                [c for _, c in pairs], retain_graph=True, allow_unused=True)
+        with torch.no_grad():
+            for n, g in zip(names, grads):
+                holder = self.grad_dict.get(n)
+                if holder is None:
+                    continue
+                if g is None:  # no path from the heads: a zero gradient
+                    g = torch.zeros_like(holder)
+                if self.grad_req[n] == "add":
+                    holder.add_(g.to(holder.dtype))
+                else:
+                    holder.copy_(g)
+
+    def copy_params_from(self, arg_params, aux_params=None):
+        """Copy parameter dicts into the bound tensors (reference:
+        Executor::CopyParamsFrom)."""
+        with torch.no_grad():
+            for name, arr in arg_params.items():
+                if name in self.arg_dict:
+                    self.arg_dict[name].copy_(
+                        to_tensor(arr, self.arg_dict[name].device))
+            for name, arr in (aux_params or {}).items():
+                if name in self.aux_dict:
+                    self.aux_dict[name].copy_(
+                        to_tensor(arr, self.aux_dict[name].device))
+
+
+def simple_bind(symbol, ctx, grad_req="write", **input_shapes) -> Executor:
+    """Allocate every buffer as zeros from the inferred shapes and bind
+    (reference: symbol.py simple_bind -> MXExecutorBind)."""
+    arg_shapes, _, aux_shapes = symbol.infer_shape(**input_shapes)
+    arg_names = symbol.list_arguments()
+    aux_names = symbol.list_auxiliary_states()
+    dev = (ctx if isinstance(ctx, Context) else current_context()).torch_device
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    if isinstance(grad_req, str):
+        reqs = {n: grad_req for n in arg_names}
+    elif isinstance(grad_req, dict):
+        reqs = {n: grad_req.get(n, "null") for n in arg_names}
+    else:
+        reqs = dict(zip(arg_names, grad_req))
+    args = {n: zeros(s) for n, s in zip(arg_names, arg_shapes)}
+    grads = {n: zeros(s) for n, s in zip(arg_names, arg_shapes)
+             if reqs.get(n, "null") != "null"}
+    aux = {n: zeros(s) for n, s in zip(aux_names, aux_shapes)}
+    return Executor(symbol, ctx, args, grads, reqs, aux)

@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
+_STEM_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -90,8 +91,12 @@ def _build(stem: str) -> Path:
 
 
 def load_library(stem: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<stem>.cu``, built if needed."""
+    """The loaded library built from ``csrc/<stem>.cu``, built if needed.
+    Different sources build concurrently when called from several
+    threads; one source is built once."""
     with _LOCK:
+        stem_lock = _STEM_LOCKS.setdefault(stem, threading.Lock())
+    with stem_lock:
         lib = _LIBS.get(stem)
         if lib is None:
             lib = _LIBS[stem] = ctypes.CDLL(str(_build(stem)))

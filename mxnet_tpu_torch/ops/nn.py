@@ -1,4 +1,4 @@
-"""Neural-network layer operators, inference forward.
+"""Neural-network layer operators.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` for FullyConnected (with its int8
 serving route), Convolution, Pooling, Activation, Dropout and BatchNorm,
@@ -6,7 +6,9 @@ including BatchNorm's fused ReLU and fused add+ReLU forms that the
 executor's fusion plan selects. Parameters, shape rules and weight layouts
 (OIHW in both activation layouts) are the JAX package's, so checkpoints and
 serialised graphs map 1:1. Dense work goes to torch (cuBLAS and cuDNN on the
-card); the int8 matmul goes to this package's own kernel.
+card); the int8 matmul goes to this package's own kernel. FullyConnected,
+Convolution, Pooling and Activation get their gradients from autograd;
+BatchNorm's training forms carry the JAX package's hand-written backward.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ class FullyConnectedOp(OpProp):
             shapes.append((self.num_hidden,))
         return shapes, [(d[0], self.num_hidden)], []
 
-    def fwd(self, ins, aux):
+    def fwd(self, ins, aux, is_train, rng):
         x = ins[0]
         x = x.reshape(x.shape[0], -1)
         w = ins[1]
@@ -60,7 +62,14 @@ class FullyConnectedOp(OpProp):
             y = torch.matmul(x, w.to(x.dtype).t())
         if not self.no_bias:
             y = y + ins[2].to(x.dtype)
-        return [y]
+        return [y], []
+
+
+def at_least_f32(x):
+    """``x`` in the type that sums and statistics are taken in: float32, or
+    float64 for a float64 input (the JAX package, without x64, has no such
+    input; the port takes one for a double-precision reference)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _nhwc_to_nchw(x):
@@ -116,7 +125,7 @@ class ConvolutionOp(OpProp):
         shapes = [d, wshape] + ([] if self.no_bias else [(self.num_filter,)])
         return shapes, [out], []
 
-    def fwd(self, ins, aux):
+    def fwd(self, ins, aux, is_train, rng):
         x = ins[0]
         w = ins[1].to(x.dtype)
         nhwc = self.layout == "NHWC"
@@ -137,7 +146,7 @@ class ConvolutionOp(OpProp):
         if not self.no_bias:
             bshape = (1, 1, 1, -1) if nhwc else (1, -1, 1, 1)
             y = y + ins[2].to(x.dtype).reshape(bshape)
-        return [y]
+        return [y], []
 
 
 @register_op("Pooling")
@@ -179,17 +188,17 @@ class PoolingOp(OpProp):
         out[sh], out[sw] = oh, ow
         return [d], [tuple(out)], []
 
-    def fwd(self, ins, aux):
+    def fwd(self, ins, aux, is_train, rng):
         x = ins[0]
         sdims = self._spatial()
         if self.global_pool:
             if self.pool_type == "max":
                 y = torch.amax(x, dim=sdims, keepdim=True)
             else:
-                y = torch.sum(x.float(), dim=sdims, keepdim=True)
+                y = torch.sum(at_least_f32(x), dim=sdims, keepdim=True)
                 if self.pool_type == "avg":
                     y = y / (x.shape[sdims[0]] * x.shape[sdims[1]])
-            return [y.to(x.dtype)]
+            return [y.to(x.dtype)], []
         nhwc = self.layout == "NHWC"
         xc = _nhwc_to_nchw(x) if nhwc else x
         kernel, stride, pad = self.kernel, self.stride, self.pad
@@ -208,7 +217,7 @@ class PoolingOp(OpProp):
                              else None)
         if nhwc:
             y = _nchw_to_nhwc(y)
-        return [y.to(x.dtype)]
+        return [y.to(x.dtype)], []
 
 
 @register_op("Activation")
@@ -220,44 +229,157 @@ class ActivationOp(OpProp):
                      "activation kind")
     }
 
-    def fwd(self, ins, aux):
+    def fwd(self, ins, aux, is_train, rng):
         x = ins[0]
         if self.act_type == "relu":
-            return [torch.relu(x)]
+            return [torch.relu(x)], []
         if self.act_type == "sigmoid":
-            return [torch.sigmoid(x)]
+            return [torch.sigmoid(x)], []
         if self.act_type == "tanh":
-            return [torch.tanh(x)]
+            return [torch.tanh(x)], []
         # softrelu = log(1 + exp(x)), without softplus's linear cut-over
         return [torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
-                                                device=x.device))]
+                                                device=x.device))], []
 
 
 @register_op("Dropout")
 class DropoutOp(OpProp):
-    """Inverted dropout: identity at inference."""
+    """Inverted dropout: at training time each unit is kept with
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``; identity at
+    inference. The mask is drawn from ``rng``, the executor's generator
+    (torch and JAX draw different bits from the same seed)."""
 
     params = {"p": (Range(float, lo=0.0, hi=1.0, hi_exclusive=True), 0.5,
                     "fraction of units to drop")}
+    need_rng = True
 
-    def fwd(self, ins, aux):
-        return [ins[0]]
+    def fwd(self, ins, aux, is_train, rng):
+        x = ins[0]
+        if not is_train or self.p <= 0.0:
+            return [x], []
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        return [torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))], []
+
+
+def _bn_reduce_axes(ndim, ch):
+    return tuple(i for i in range(ndim) if i != ch)
+
+
+def _bn_bshape(ndim, ch):
+    return tuple(-1 if i == ch else 1 for i in range(ndim))
+
+
+def _bn_stats(x, eps, ch):
+    """One-pass batch statistics in f32 (mxnet_tpu/ops/nn.py:425-443):
+    ``var = max(E[x²] - mean², 0)`` and ``inv = rsqrt(var + eps)``. Neither
+    ``torch.var`` nor cuDNN's batch norm, which round differently."""
+    axes = _bn_reduce_axes(x.ndim, ch)
+    n = x.numel() // x.shape[ch]
+    xf = at_least_f32(x)
+    s1 = torch.sum(xf, dim=axes)
+    s2 = torch.sum(xf * xf, dim=axes)
+    mean = s1 / n
+    var = torch.clamp_min(s2 / n - mean * mean, 0.0)
+    return mean, var, torch.rsqrt(var + eps)
 
 
 def _bn_affine(x, g, b, mean, inv, ch):
     """y = x·scale + shift with per-channel f32 scalars, applied in x.dtype,
-    in the JAX package's order (mxnet_tpu/ops/nn.py:446-453)."""
-    bshape = tuple(-1 if i == ch else 1 for i in range(x.ndim))
+    in the JAX package's order (mxnet_tpu/ops/nn.py:446-453). Forward and
+    backward share it, so the recomputed ReLU mask is the forward's."""
+    bshape = _bn_bshape(x.ndim, ch)
     scale = g * inv
     shift = b - mean * scale
     return x * scale.reshape(bshape).to(x.dtype) + \
         shift.reshape(bshape).to(x.dtype)
 
 
+def _bn_core_bwd(x, g, mean, inv, dy, ch):
+    """BatchNorm's backward given the (already masked) cotangent, in the
+    JAX package's order (mxnet_tpu/ops/nn.py:464-482): per-channel sums in
+    f32, ``dx = g·inv · (dy - Σdy/n - x̂·Σ(dy·x̂)/n)`` elementwise in
+    dy.dtype. Returns (dx, dgamma, dbeta)."""
+    axes = _bn_reduce_axes(x.ndim, ch)
+    n = x.numel() // x.shape[ch]
+    bshape = _bn_bshape(x.ndim, ch)
+    mean_b, inv_b = mean.reshape(bshape), inv.reshape(bshape)
+    xhat_f = (at_least_f32(x) - mean_b) * inv_b
+    xhat = xhat_f if x.dtype == xhat_f.dtype else \
+        (x - mean_b.to(x.dtype)) * inv_b.to(x.dtype)
+    dyf = at_least_f32(dy)
+    dbeta = torch.sum(dyf, dim=axes)
+    dgamma = torch.sum(dyf * xhat_f, dim=axes)
+    k = (g * inv).reshape(bshape).to(dy.dtype)
+    dx = k * (dy - (dbeta / n).reshape(bshape).to(dy.dtype)
+              - xhat * (dgamma / n).reshape(bshape).to(dy.dtype))
+    return dx.to(x.dtype), dgamma, dbeta
+
+
+class _BnActTrain(torch.autograd.Function):
+    """Training BatchNorm, optionally + ReLU, with the JAX package's
+    hand-written backward (``_bn_act_train``, mxnet_tpu/ops/nn.py:401-496).
+    Saved tensors are (x, g, b, mean, inv): the input, already live as the
+    conv output, and per-channel vectors. With ``relu`` the mask is
+    recomputed in backward from the forward's exact expression, so the BN
+    output is never saved. Returns (y, mean, var); mean and var feed the
+    running stats and carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, eps, ch, relu):
+        mean, var, inv = _bn_stats(x, eps, ch)
+        y = _bn_affine(x, g, b, mean, inv, ch)
+        if relu:
+            y = torch.relu(y)
+        ctx.save_for_backward(x, g, b, mean, inv)
+        ctx.ch, ctx.relu = ch, relu
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, g, b, mean, inv = ctx.saved_tensors
+        if ctx.relu:
+            dy = torch.where(_bn_affine(x, g, b, mean, inv, ctx.ch) > 0, dy,
+                             torch.zeros((), dtype=dy.dtype, device=dy.device))
+        dx, dgamma, dbeta = _bn_core_bwd(x, g, mean, inv, dy, ctx.ch)
+        return dx, dgamma, dbeta, None, None, None
+
+
+class _BnAddReluTrain(torch.autograd.Function):
+    """Training BatchNorm + residual add + ReLU (``_bn_add_relu_train``,
+    mxnet_tpu/ops/nn.py:499-525). Saved: (x, g, b, z, mean, inv); the
+    block output is not saved and the mask is recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, z, eps, ch):
+        mean, var, inv = _bn_stats(x, eps, ch)
+        y = torch.relu(_bn_affine(x, g, b, mean, inv, ch) + z)
+        ctx.save_for_backward(x, g, b, z, mean, inv)
+        ctx.ch = ch
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, g, b, z, mean, inv = ctx.saved_tensors
+        pre = _bn_affine(x, g, b, mean, inv, ctx.ch) + z  # the forward's
+        dy = torch.where(pre > 0, dy,
+                         torch.zeros((), dtype=dy.dtype, device=dy.device))
+        dx, dgamma, dbeta = _bn_core_bwd(x, g, mean, inv, dy, ctx.ch)
+        return dx, dgamma, dbeta, dy.to(z.dtype), None, None
+
+
 @register_op("BatchNorm")
 class BatchNormOp(OpProp):
-    """Batch normalisation in eval mode: normalise by the running stats.
-    Gamma/beta are per-channel (``axis``; last axis for 2-D inputs)."""
+    """Batch normalisation with running-stat auxiliary states.
+
+    Train: normalise by the batch statistics and update the running stats in
+    f32, ``momentum * moving + (1 - momentum) * batch``, detached. Eval:
+    normalise by the running stats. Gamma/beta are per-channel (``axis``;
+    last axis for 2-D inputs). ``fix_gamma`` uses 1 for gamma, which then
+    gets no gradient."""
 
     params = {
         "eps": (Range(float, lo=0.0), 1e-3, "numerical stability constant"),
@@ -282,28 +404,37 @@ class BatchNormOp(OpProp):
         c = (self._channels(d),)
         return [d, c, c], [d], [c, c]
 
-    def fwd(self, ins, aux):
-        return self._fwd_impl(ins, aux, relu=False)
+    def fwd(self, ins, aux, is_train, rng):
+        return self._fwd_impl(ins, aux, is_train, relu=False)
 
-    def fwd_fused_relu(self, ins, aux):
+    def fwd_fused_relu(self, ins, aux, is_train, rng):
         """BatchNorm + ReLU, for BatchNorm -> Activation(relu) chains."""
-        return self._fwd_impl(ins, aux, relu=True)
+        return self._fwd_impl(ins, aux, is_train, relu=True)
 
-    def fwd_fused_add_relu(self, ins, aux):
+    def fwd_fused_add_relu(self, ins, aux, is_train, rng):
         """BatchNorm + residual add + ReLU; ``ins`` is [x, gamma, beta, z]
         with z the shortcut operand."""
-        return self._fwd_impl(ins[:3], aux, relu=True, z=ins[3])
+        return self._fwd_impl(ins[:3], aux, is_train, relu=True, z=ins[3])
 
-    def _fwd_impl(self, ins, aux, relu, z=None):
+    def _fwd_impl(self, ins, aux, is_train, relu, z=None):
         x, gamma, beta = ins
         moving_mean, moving_var = aux
         ch = 1 if x.ndim == 2 else self.axis % x.ndim
-        g = (torch.ones_like(gamma) if self.fix_gamma else gamma).float()
-        b = beta.float()
+        g = at_least_f32(torch.ones_like(gamma) if self.fix_gamma else gamma)
+        b = at_least_f32(beta)
+        if is_train:
+            if z is not None:
+                y, mean, var = _BnAddReluTrain.apply(x, g, b, z, self.eps, ch)
+            else:
+                y, mean, var = _BnActTrain.apply(x, g, b, self.eps, ch, relu)
+            m = self.momentum
+            new_mean = m * moving_mean + (1 - m) * mean
+            new_var = m * moving_var + (1 - m) * var
+            return [y], [new_mean.detach(), new_var.detach()]
         inv = torch.rsqrt(moving_var + self.eps)
         y = _bn_affine(x, g, b, moving_mean, inv, ch)
         if z is not None:
             y = y + z
         if relu:
             y = torch.relu(y)
-        return [y]
+        return [y], [moving_mean, moving_var]

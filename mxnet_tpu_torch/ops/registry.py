@@ -1,9 +1,13 @@
 """Operator registry and the OpProp contract.
 
 Counterpart of ``mxnet_tpu/ops/registry.py``. One class per op: metadata
-(arguments, outputs, auxiliary states, shape inference) and an inference
-forward ``fwd(ins, aux) -> outs`` on torch tensors. Training forwards and
-backwards come with the training slice of the port.
+(arguments, outputs, auxiliary states, shape inference) and a forward
+``fwd(ins, aux, is_train, rng) -> (outs, new_aux)`` on torch tensors, the JAX
+package's signature. Gradients come from autograd; ops whose reference
+backward is not the derivative of their forward (the loss heads, BlockGrad)
+or that save fewer residuals than autograd would (the fused BatchNorm
+forms) wrap a ``torch.autograd.Function``. ``rng`` is a ``torch.Generator``
+on the tensors' device, or None where no node draws.
 """
 
 from __future__ import annotations
@@ -17,17 +21,24 @@ OPS = Registry("operator")
 
 
 class OpProp:
-    """Base class for operator properties (metadata + inference forward).
+    """Base class for operator properties (metadata + forward).
 
     Subclasses define:
       params       : dict name -> (type, default|REQUIRED, doc)
       list_arguments / list_outputs / list_auxiliary_states
       infer_shape(in_shapes) -> (in_shapes, out_shapes, aux_shapes)
-      fwd(ins, aux) -> list of output tensors (eval mode)
+      fwd(ins, aux, is_train, rng) -> (outs, new_aux)
+      need_rng     : True if fwd draws random numbers in training mode
+      is_loss      : the op is a loss head whose backward injects its own
+                     gradient and ignores the incoming one
     """
 
     params: dict = {}
+    need_rng = False
     is_loss = False
+    # loss heads that can zero padded rows' injected gradients implement
+    # fwd_masked: forward identical to fwd, backward times a (batch,) mask
+    supports_loss_mask = False
 
     def __init__(self, **kwargs):
         self.attr = apply_params(type(self).__name__, type(self).params, kwargs)
@@ -71,8 +82,18 @@ class OpProp:
             )
         return tuple(s)
 
-    def fwd(self, ins, aux):
+    def fwd(self, ins, aux, is_train, rng):
         raise NotImplementedError
+
+    def fwd_masked(self, ins, aux, is_train, rng, mask):
+        raise MXNetError(
+            f"{type(self).__name__} does not support loss masking")
+
+    def loss_value(self, out, label, mask=None):
+        """The scalar loss whose gradient this head injects, from its
+        already-computed output; None where the op prices no loss."""
+        del out, label, mask
+        return None
 
     def serialize_params(self) -> dict:
         """JSON-able param dict for Symbol save/load."""

@@ -1,8 +1,9 @@
-"""Structural and elementwise operators, inference forward.
+"""Structural and elementwise operators.
 
 Counterpart of ``mxnet_tpu/ops/tensor.py``: _Plus/_Minus/_Mul/_Div,
 ElementWiseSum, Concat, SliceChannel, Reshape, Flatten, BlockGrad and
-Transpose, with the same parameters and shape rules.
+Transpose, with the same parameters and shape rules. Their gradients come
+from autograd; BlockGrad's output is detached, so nothing flows through it.
 """
 
 from __future__ import annotations
@@ -31,32 +32,32 @@ class _BinaryOp(OpProp):
 class PlusOp(_BinaryOp):
     """Elementwise addition."""
 
-    def fwd(self, ins, aux):
-        return [ins[0] + ins[1]]
+    def fwd(self, ins, aux, is_train, rng):
+        return [ins[0] + ins[1]], []
 
 
 @register_op("_Minus")
 class MinusOp(_BinaryOp):
     """Elementwise subtraction."""
 
-    def fwd(self, ins, aux):
-        return [ins[0] - ins[1]]
+    def fwd(self, ins, aux, is_train, rng):
+        return [ins[0] - ins[1]], []
 
 
 @register_op("_Mul")
 class MulOp(_BinaryOp):
     """Elementwise multiplication."""
 
-    def fwd(self, ins, aux):
-        return [ins[0] * ins[1]]
+    def fwd(self, ins, aux, is_train, rng):
+        return [ins[0] * ins[1]], []
 
 
 @register_op("_Div")
 class DivOp(_BinaryOp):
     """Elementwise division."""
 
-    def fwd(self, ins, aux):
-        return [ins[0] / ins[1]]
+    def fwd(self, ins, aux, is_train, rng):
+        return [ins[0] / ins[1]], []
 
 
 @register_op("ElementWiseSum", aliases=["add_n"])
@@ -74,11 +75,11 @@ class ElementWiseSumOp(OpProp):
             raise MXNetError("ElementWiseSum: no input shape known")
         return [s] * self.num_args, [s], []
 
-    def fwd(self, ins, aux):
+    def fwd(self, ins, aux, is_train, rng):
         out = ins[0]
         for x in ins[1:]:
             out = out + x
-        return [out]
+        return [out], []
 
 
 @register_op("Concat")
@@ -112,8 +113,8 @@ class ConcatOp(OpProp):
             filled.append(s)
         return filled, [tuple(out)], []
 
-    def fwd(self, ins, aux):
-        return [torch.cat(ins, dim=self.dim)]
+    def fwd(self, ins, aux, is_train, rng):
+        return [torch.cat(ins, dim=self.dim)], []
 
 
 @register_op("SliceChannel")
@@ -150,11 +151,11 @@ class SliceChannelOp(OpProp):
             out = tuple(d)
         return [tuple(self._known(in_shapes, 0))], [out] * self._n(), []
 
-    def fwd(self, ins, aux):
+    def fwd(self, ins, aux, is_train, rng):
         parts = torch.chunk(ins[0], self._n(), dim=self.axis)
         if self.squeeze_axis:
             parts = [p.squeeze(self.axis) for p in parts]
-        return list(parts)
+        return list(parts), []
 
 
 @register_op("Reshape")
@@ -190,8 +191,8 @@ class ReshapeOp(OpProp):
         d = self._known(in_shapes, 0)
         return [d], [self._resolve(d)], []
 
-    def fwd(self, ins, aux):
-        return [ins[0].reshape(self._resolve(tuple(ins[0].shape)))]
+    def fwd(self, ins, aux, is_train, rng):
+        return [ins[0].reshape(self._resolve(tuple(ins[0].shape)))], []
 
 
 @register_op("Flatten")
@@ -205,17 +206,18 @@ class FlattenOp(OpProp):
             flat *= x
         return [d], [(d[0], flat)], []
 
-    def fwd(self, ins, aux):
+    def fwd(self, ins, aux, is_train, rng):
         x = ins[0]
-        return [x.reshape(x.shape[0], -1)]
+        return [x.reshape(x.shape[0], -1)], []
 
 
 @register_op("BlockGrad")
 class BlockGradOp(OpProp):
-    """Identity forward, zero gradient."""
+    """Identity forward, zero gradient (``lax.stop_gradient`` in the JAX
+    package): the output is detached from the graph."""
 
-    def fwd(self, ins, aux):
-        return [ins[0].detach()]
+    def fwd(self, ins, aux, is_train, rng):
+        return [ins[0].detach()], []
 
 
 @register_op("Transpose")
@@ -237,5 +239,5 @@ class TransposeOp(OpProp):
         axes = self._axes(len(d))
         return [d], [tuple(d[a] for a in axes)], []
 
-    def fwd(self, ins, aux):
-        return [ins[0].permute(self._axes(ins[0].ndim))]
+    def fwd(self, ins, aux, is_train, rng):
+        return [ins[0].permute(self._axes(ins[0].ndim))], []

@@ -74,6 +74,16 @@ class Predictor:
                     self._run_params[w_name] = quantize_channels(
                         self._cast(self._params[w_name]))
 
+    @staticmethod
+    def create(prefix: str, epoch: int, ctx=None, **kwargs) -> "Predictor":
+        """From a training checkpoint pair ``prefix-symbol.json`` and
+        ``prefix-%04d.params``, as either package's ``save_checkpoint``
+        writes it (reference: MXPredCreate)."""
+        from .model import load_checkpoint
+
+        symbol, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        return Predictor(symbol, arg_params, aux_params, ctx=ctx, **kwargs)
+
     def _cast(self, v):
         cdt = self.compute_dtype
         if cdt is not None and v.is_floating_point():
@@ -98,7 +108,7 @@ class Predictor:
         args.update(self._fill_labels())
         with torch.inference_mode(), \
                 int8_predict_scope(self.quantize == "int8"):
-            outs = self._graph_fn(args, self._aux)
+            outs, _ = self._graph_fn(args, self._aux)
             self._outputs = tuple(o.float() for o in outs)
         return self
 

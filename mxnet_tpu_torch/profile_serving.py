@@ -50,12 +50,23 @@ def main(argv=None) -> int:
     pred.forward(data=image).get_output(0)
     torch.cuda.synchronize()
 
+    report = device_report(lambda: pred.forward(data=image).get_output(0),
+                           REQUESTS, "request")
+    print(json.dumps({"quantize": args.quantize, "batch": BATCH, **report}))
+    return 0
+
+
+def device_report(run_once, repeats: int, unit: str) -> dict:
+    """Trace ``repeats`` calls of ``run_once`` with ``torch.profiler`` and
+    return the card's name and power limit, wall and device time per call,
+    the device's idle share of the window and the kernels with the most
+    device time."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        for _ in range(REQUESTS):
-            pred.forward(data=image).get_output(0)
+        for _ in range(repeats):
+            run_once()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side rows only (kernels, copies): CPU-op rows also report the
@@ -69,19 +80,17 @@ def main(argv=None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-    print(json.dumps({
-        "nvidia_smi": smi, "quantize": args.quantize, "batch": BATCH,
-        "requests": REQUESTS, "wall_ms_per_request":
-            wall_us / REQUESTS / 1e3,
-        "device_ms_per_request": device_us / REQUESTS / 1e3,
+    return {
+        "nvidia_smi": smi, f"{unit}s": repeats,
+        f"wall_ms_per_{unit}": wall_us / repeats / 1e3,
+        f"device_ms_per_{unit}": device_us / repeats / 1e3,
         "device_idle_share": 1.0 - device_us / wall_us,
         "top_kernels": [
-            {"name": e.key[:90], "calls_per_request": e.count / REQUESTS,
-             "ms_per_request": e.self_device_time_total / REQUESTS / 1e3,
+            {"name": e.key[:90], f"calls_per_{unit}": e.count / repeats,
+             f"ms_per_{unit}": e.self_device_time_total / repeats / 1e3,
              "share": e.self_device_time_total / device_us}
             for e in events[:TOP]],
-    }))
-    return 0
+    }
 
 
 if __name__ == "__main__":

@@ -197,6 +197,16 @@ class Symbol:
     def __repr__(self):
         return f"<Symbol {' '.join(self.list_outputs())}>"
 
+    def bind(self, ctx, args, args_grad=None, grad_req="write", aux_states=None):
+        from .executor import Executor
+
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+
+    def simple_bind(self, ctx, grad_req="write", **input_shapes):
+        from .executor import simple_bind
+
+        return simple_bind(self, ctx, grad_req, **input_shapes)
+
 
 def Variable(name, shape=None) -> Symbol:
     """A named input/parameter placeholder; ``shape`` declares its shape for

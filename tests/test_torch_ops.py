@@ -40,8 +40,9 @@ def _run_both(op, params, ins, aux=(), method="fwd"):
         [[tuple(s) for s in group] for group in j_shapes]
     j_outs, _ = getattr(jop, method)([jnp.asarray(a) for a in ins],
                                      [jnp.asarray(a) for a in aux], False, None)
-    t_outs = getattr(top, method)([torch.from_numpy(a) for a in ins],
-                                  [torch.from_numpy(a) for a in aux])
+    t_outs, _ = getattr(top, method)([torch.from_numpy(a) for a in ins],
+                                     [torch.from_numpy(a) for a in aux],
+                                     False, None)
     assert len(t_outs) == len(j_outs)
     return [np.asarray(o) for o in j_outs], [o.numpy() for o in t_outs]
 
@@ -105,10 +106,11 @@ def test_fully_connected_int8_route(no_bias):
         y_j = jax.jit(lambda *a: jop.fwd(list(a), [], False, None)[0][0])(
             *[jnp.asarray(a) for a in ins])
     with int8_predict_scope():
-        y_t = top.fwd([torch.from_numpy(a) for a in ins], [])[0]
+        y_t = top.fwd([torch.from_numpy(a) for a in ins], [], False,
+                      None)[0][0]
     tol = EXACT if no_bias else dict(rtol=2.5e-7, atol=1e-7)
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **tol)
-    y_f32 = top.fwd([torch.from_numpy(a) for a in ins], [])[0]
+    y_f32 = top.fwd([torch.from_numpy(a) for a in ins], [], False, None)[0][0]
     assert not torch.equal(y_t, y_f32)  # the scope really switched routes
 
 

@@ -122,9 +122,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import json, sys\n"
         "before = set(sys.modules)\n"
         "import mxnet_tpu_torch, mxnet_tpu_torch.predictor, "
-        "mxnet_tpu_torch.convert, mxnet_tpu_torch.profile_serving\n"
-        "from mxnet_tpu_torch.kernels import int8_matmul, _common, registry\n"
-        "from mxnet_tpu_torch import models, executor\n"
+        "mxnet_tpu_torch.convert, mxnet_tpu_torch.profile_serving, "
+        "mxnet_tpu_torch.profile_training\n"
+        "from mxnet_tpu_torch.kernels import int8_matmul, fused_adam, "
+        "_common, registry\n"
+        "from mxnet_tpu_torch import models, executor, model, optimizer, "
+        "metric, io, initializer, lr_scheduler, callback, ndarray, random\n"
         "print(json.dumps(sorted(m for m in set(sys.modules) - before\n"
         "    if m.split('.')[0] in ('jax', 'jaxlib', 'mxnet_tpu'))))\n")
     out = subprocess.run([sys.executable, "-c", code], check=True,
