@@ -31,9 +31,28 @@ together), and then:
    fell, and the card's gradients at batch 4 against the CPU's and against a
    float64 CPU run, and prints the step time, images per second and one
    step's forward / backward / update split;
-6. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
+6. flash: holds the three flash-attention kernels (forward, dq, dk/dv)
+   against their plain versions on the card, row by row, and lse at f32's
+   precision, at the transformer LM's shape (q, k, v views of one packed
+   qkv, 8x8x2048x64 bf16, causal), at a non-causal shape and at a ragged f32
+   one, checks that two launches agree bitwise, and times each beside its
+   bound, its plain version and
+   ``F.scaled_dot_product_attention`` (forward, or its backward);
+7. lm_serve: the full-width transformer LM (vocab 32000, d_model 512, 8
+   heads, 4 layers, d_ff 2048, bf16, seeded random weights) computes the
+   logits of 8 sequences of 2048 tokens through ``TransformerLM.forward``,
+   checks them, that each forward launched ``flash_fwd`` 4 times, and the
+   card against the CPU on 1 x 256 tokens in f32, and prints latency and
+   tokens per second;
+8. lm_train: trains that LM for 8 steps through ``make_train_step`` with
+   ``Adam(fused=True)`` on one fixed batch of 8 x 2048 tokens, checks the
+   launches per step (4 of each flash kernel, 1 ``fused_adam``), that the
+   loss fell and the parameters are finite and moved, and the card's
+   gradients at 1 x 256 tokens in f32 against the CPU's, and prints the
+   step time, tokens per second and the forward / backward / update split;
+9. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
    main path, error, times and bound;
-7. ends with ``{"ok": true, "device": {...}}``.
+10. ends with ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without CUDA it exits non-zero at once. It imports nothing of JAX or of
@@ -59,11 +78,22 @@ REQUESTS = 8
 KERNEL_SHAPES = ((32, 2048, 1000), (1, 2048, 1000), (37, 100, 23),
                  (256, 4096, 4096))
 MAIN_SHAPE = KERNEL_SHAPES[0]
-KERNEL_SOURCES = ("int8_matmul", "fused_adam")
+KERNEL_SOURCES = ("int8_matmul", "fused_adam", "flash_attention")
 TRAIN_STEPS = 8
 LEARNING_RATE = 1e-3
 # tests/test_pallas_kernels.py:259, the JAX package's own odd leaf set
 ODD_SHAPES = {"w1": (64, 33), "b1": (33,), "w2": (7, 5), "s": ()}
+# the transformer LM: batch x sequence of the full-width runs, requests
+# served, training steps, and the cut (batch, sequence) of card-vs-CPU checks
+LM_BATCH, LM_SEQ = 8, 2048
+LM_REQUESTS = 5
+LM_STEPS = 8
+LM_CUT = (1, 256)
+# (shape, dtype, causal): the LM's attention, a non-causal shape and the JAX
+# package's ragged tail test (tests/test_pallas.py:35)
+FLASH_CASES = (((LM_BATCH, 8, LM_SEQ, 64), "bfloat16", True),
+               ((4, 8, 1024, 64), "bfloat16", False),
+               ((1, 2, 48, 24), "float32", True))
 
 
 def emit(obj):
@@ -526,6 +556,330 @@ def phase_train(torch, mt, kfa):
     return launches
 
 
+def flash_row_bound(torch, dtype):
+    """Kernel against plain version, row by row: each (batch, head, row)'s
+    error over head_dim (rows of o and dq are queries, of dk and dv keys)
+    within ``tol`` of that row's norm, plus ``ROW_FLOOR`` of the slab's RMS
+    row norm, so that late causal rows and keys, whose values are a few
+    hundredths, are held about as tightly as the large ones. Sums run in
+    another order (mma fragments against blocked matmuls; no atomics, so the
+    kernel repeats itself bitwise), and in bf16 an output, p or ds may round
+    to the other neighbour: one bf16 step of each element is at most 2^-7
+    of its row (readings up to 3.6e-3). In f32, 1e-5 (readings up to
+    7.7e-7)."""
+    return 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+
+
+# A row whose value cancels to rounding noise (dq of the first query, which
+# sees one key: dp - delta is zero up to f32 rounding) has no relative error
+# to hold; its noise read 0.7-1.8e-6 of the slab's RMS row norm, and
+# 2^-16 = 1.5e-5 of it leaves room for that and for nothing a real row holds.
+ROW_FLOOR = 2.0 ** -16
+# lse is f32 on both sides: |error| <= 1e-5 * max(1, |lse|)
+LSE_BOUND = 1e-5
+
+
+def row_errors(torch, got, want, tol):
+    """``(error / allowed, error / norm)`` per (batch, head, row), the second
+    over the rows whose norm is at least 2^-7 of the slab's RMS (rows not
+    lost to cancellation)."""
+    g, w = got.float(), want.float()
+    err, norm = (g - w).norm(dim=-1), w.norm(dim=-1)
+    rms = norm.pow(2).mean(-1, keepdim=True).sqrt()
+    share = err / (tol * norm + ROW_FLOOR * rms).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    real = norm >= 2.0 ** -7 * rms
+    rel = torch.where(real, err / norm.clamp_min(
+        torch.finfo(torch.float32).tiny), torch.zeros_like(err))
+    return share, rel
+
+
+def flash_operands(torch, shape, dtype, gen):
+    """q, k, v as the transformer hands them (views of one packed
+    (b, s, 3, h, d) qkv), and do."""
+    b, h, s, d = shape
+    qkv = torch.randn((b, s, 3, h, d), generator=gen, device="cuda").to(dtype)
+    q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+    do = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def phase_flash(torch, tfa, registry):
+    """The three flash kernels against their plain versions, and their
+    times at the LM's shape."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    rows = {}
+    for shape, dtype_name, causal in FLASH_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, do = flash_operands(torch, shape, dtype, gen)
+        o, lse = tfa.flash_fwd(q, k, v, causal)
+        delta = tfa.attention_delta(o, do)
+        dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        again = (*tfa.flash_fwd(q, k, v, causal),
+                 tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+                 *tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal))
+        po, plse = tfa.flash_fwd_plain(q, k, v, causal)
+        pdq, pdk, pdv = tfa.flash_bwd_plain(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in
+                    zip((o, lse, dq, dk, dv), again)),
+                f"flash kernels {shape} repeat themselves bitwise")
+        bound = flash_row_bound(torch, dtype)
+        lse_err = float(((lse - plse).abs() / plse.abs().clamp_min(1)).max())
+        case = {"lse": {"max_rel_err": lse_err,
+                        "max_abs_err": float((lse - plse).abs().max())}}
+        shares = {}
+        for kernel, name, got, want in (
+                ("flash_fwd", "o", o, po), ("flash_bwd_dq", "dq", dq, pdq),
+                ("flash_bwd_dkv", "dk", dk, pdk),
+                ("flash_bwd_dkv", "dv", dv, pdv)):
+            share, rel = row_errors(torch, got, want, bound)
+            shares[name] = (kernel, float(share.max()))
+            err = float((got.float() - want.float()).abs().max())
+            errs[kernel] = max(errs[kernel], err)
+            late = rel[..., 3 * rel.shape[-1] // 4:]
+            case[name] = {"max_abs_err": err,
+                          "share_of_bound_max": shares[name][1],
+                          "row_rel_err_max": float(rel.max()),
+                          "row_rel_err_median": float(rel.median()),
+                          # the last quarter of rows: late queries or keys
+                          "row_rel_err_max_late": float(late.max())}
+        errs["flash_fwd"] = max(errs["flash_fwd"], case["lse"]["max_abs_err"])
+        emit({"phase": "flash_parity", "shape": list(shape),
+              "dtype": dtype_name, "causal": causal, "errors": case,
+              "row_rel_bound": bound, "row_floor_of_rms": ROW_FLOOR,
+              "lse_rel_bound": LSE_BOUND, "bitwise_repeat": True})
+        require(lse_err <= LSE_BOUND,
+                f"flash_fwd {shape} {dtype_name} causal={causal}: lse differs "
+                f"from the plain version by {lse_err} relative")
+        for name, (kernel, worst) in shares.items():
+            require(worst <= 1.0,
+                    f"{kernel} {shape} {dtype_name} causal={causal}: a row of "
+                    f"{name} differs from the plain version by {worst} of "
+                    f"its bound ({bound} of its norm + {ROW_FLOOR} of the "
+                    "RMS row)")
+        if shape != FLASH_CASES[0][0]:
+            continue
+        # times at the LM's shape; the library call gets contiguous copies
+        qc, kc, vc = (t.detach().contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        lib_o = F.scaled_dot_product_attention(qc, kc, vc, is_causal=causal)
+        costs = {
+            "flash_fwd": registry.get_kernel("flash_fwd").cost(
+                [q, k, v], [o, lse], causal=causal),
+            "flash_bwd_dq": registry.get_kernel("flash_bwd_dq").cost(
+                [q, k, v, do, lse, delta], [dq], causal=causal),
+            "flash_bwd_dkv": registry.get_kernel("flash_bwd_dkv").cost(
+                [q, k, v, do, lse, delta], [dk, dv], causal=causal),
+        }
+        plain_bwd_ms = time_ms(torch, lambda: tfa.flash_bwd_plain(
+            q, k, v, do, lse, delta, causal), reps=5)
+        lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+            lib_o, (qc, kc, vc), do, retain_graph=True))
+        timed = {
+            "flash_fwd": (
+                time_ms(torch, lambda: tfa.flash_fwd(q, k, v, causal)),
+                time_ms(torch, lambda: tfa.flash_fwd_plain(q, k, v, causal),
+                        reps=5),
+                time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qc, kc, vc, is_causal=causal))),
+            "flash_bwd_dq": (
+                time_ms(torch, lambda: tfa.flash_bwd_dq(
+                    q, k, v, do, lse, delta, causal)),
+                plain_bwd_ms, lib_bwd_ms),
+            "flash_bwd_dkv": (
+                time_ms(torch, lambda: tfa.flash_bwd_dkv(
+                    q, k, v, do, lse, delta, causal)),
+                plain_bwd_ms, lib_bwd_ms),
+        }
+        for name, (ms, plain_ms, lib_ms) in timed.items():
+            bound_s, bound_by = costs[name].bound()
+            rows[name] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "bound_ms": bound_s * 1e3,
+                          "bound_by": bound_by}
+            emit({"phase": "kernel", "name": name, "shape": list(shape),
+                  "dtype": dtype_name, "causal": causal,
+                  "ops": costs[name].flops, "bytes": costs[name].bytes,
+                  **rows[name],
+                  "library": ("F.scaled_dot_product_attention"
+                              if name == "flash_fwd" else
+                              "its backward (dq, dk and dv together)"),
+                  "plain": ("flash_fwd_plain" if name == "flash_fwd" else
+                            "flash_bwd_plain (dq, dk and dv together)")})
+    return rows, errs
+
+
+def lm_tokens(rng, batch, seq, vocab):
+    return (rng.integers(0, vocab, (batch, seq)),
+            rng.integers(0, vocab, (batch, seq)))
+
+
+def lm_card_vs_cpu(torch, mt, TransformerLM, transformer_lm_config, params):
+    """Logits and gradients of the f32 LM at the cut size, on the card
+    (flash kernels) and on the CPU (dense attention), from the same
+    parameters: relative Frobenius errors."""
+    cfg = transformer_lm_config(dtype=torch.float32)
+    model = TransformerLM(cfg)
+    tokens, targets = lm_tokens(np.random.default_rng(SEED + 5), *LM_CUT,
+                                cfg["vocab_size"])
+    out = {}
+    for ctx in (mt.gpu(0), mt.cpu()):
+        dev = ctx.torch_device
+        leaves = {k: v.detach().to(dev).requires_grad_(True)
+                  for k, v in params.items()}
+        logits = model.forward(leaves, torch.from_numpy(tokens))
+        loss = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, cfg["vocab_size"]),
+            torch.from_numpy(targets).to(dev).reshape(-1))
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out[ctx.device_type] = (
+            logits.detach().cpu().double().numpy(),
+            {k: g.cpu().double().numpy() for k, g in zip(leaves, grads)})
+    card, host = out["gpu"], out["cpu"]
+    logit_err = rel_fro(card[0], host[0])
+    grad_errs = {k: float(np.linalg.norm(card[1][k] - host[1][k])
+                          / max(np.linalg.norm(host[1][k]), 1e-30))
+                 for k in params}
+    return logit_err, grad_errs
+
+
+def phase_lm_serve(torch, mt, tfa):
+    """The full-width LM's forward on the card: logits of 8 x 2048 tokens."""
+    from mxnet_tpu_torch.models import TransformerLM, transformer_lm_config
+
+    # the f32 card-vs-CPU check below; the bf16 GEMMs' rounding is the model's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = transformer_lm_config()
+    model = TransformerLM(cfg)
+    params = model.init_params(SEED, ctx=mt.gpu(0))
+    rng = np.random.default_rng(SEED + 3)
+    requests = [torch.from_numpy(lm_tokens(rng, LM_BATCH, LM_SEQ,
+                                           cfg["vocab_size"])[0]).cuda()
+                for _ in range(LM_REQUESTS)]
+    with torch.no_grad():
+        model.forward(params, requests[0])   # warm-up: cuBLAS, allocator
+        torch.cuda.synchronize()
+        # the main path: the kernel's count is read around the requests
+        tfa.flash_fwd.launches = 0
+        lat, finite = [], True
+        for tokens in requests:
+            t0 = time.perf_counter()
+            logits = model.forward(params, tokens)
+            finite = finite and bool(torch.isfinite(logits).all())
+            lat.append((time.perf_counter() - t0) * 1e3)
+        launches = {"flash_fwd": tfa.flash_fwd.launches}
+    require(tuple(logits.shape) == (LM_BATCH, LM_SEQ, cfg["vocab_size"])
+            and logits.dtype == torch.float32 and finite,
+            f"logits are finite f32 {(LM_BATCH, LM_SEQ, cfg['vocab_size'])}")
+    require(launches["flash_fwd"] == cfg["n_layers"] * LM_REQUESTS,
+            f"flash_fwd launched {launches['flash_fwd']} times in "
+            f"{LM_REQUESTS} forwards of {cfg['n_layers']} layers")
+    del logits
+    # The card (flash kernels, f32 on the CUDA cores, cuBLAS f32 without
+    # TF32) against the CPU (dense attention) in f32 at 1 x 256 tokens:
+    # sums in other orders through 4 layers and a 32000-way projection.
+    # 1e-5 leaves room above f32's rounding (the CPU tests read 1e-7 at
+    # their width) and none for a wrong mask, scale or tile.
+    logit_err, grad_errs = lm_card_vs_cpu(torch, mt, TransformerLM,
+                                          transformer_lm_config, params)
+    require(logit_err < 1e-5, f"LM card vs CPU logits rel. error {logit_err}")
+    med = statistics.median(lat)
+    emit({"phase": "lm_serve", "batch": LM_BATCH, "seq": LM_SEQ,
+          "config": {k: str(v) for k, v in cfg.items()},
+          "params": sum(v.numel() for v in params.values()),
+          "requests": LM_REQUESTS, "launches": launches,
+          "card_vs_cpu_logits_rel_err": logit_err, "bound": 1e-5,
+          "request_ms": lat, "request_ms_median": med,
+          "tokens_per_s": LM_BATCH * LM_SEQ * 1e3 / med})
+    return launches, params, grad_errs
+
+
+def phase_lm_train(torch, mt, topt, tfa, kfa, params0, grad_errs):
+    """The full-width LM trained 8 steps through make_train_step with the
+    fused Adam step, on one fixed batch."""
+    from mxnet_tpu_torch.models import TransformerLM, transformer_lm_config
+
+    cfg = transformer_lm_config()
+    model = TransformerLM(cfg)
+    opt = topt.create("adam", learning_rate=LEARNING_RATE, fused=True)
+    params = {k: v.clone() for k, v in params0.items()}
+    state = opt.init_state_tree(params)
+    step = model.make_train_step(None, optimizer=opt)
+    tokens, targets = (torch.from_numpy(t).cuda() for t in lm_tokens(
+        np.random.default_rng(SEED + 4), LM_BATCH, LM_SEQ,
+        cfg["vocab_size"]))
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    kernels = {n: getattr(tfa, n) for n in names}
+    kernels["fused_adam"] = kfa.fused_adam
+    torch.cuda.synchronize()
+    # the main path: every count is read around the 8 steps
+    for fn in kernels.values():
+        fn.launches = 0
+    losses, stamps = [], [time.perf_counter()]
+    for _ in range(LM_STEPS):
+        params, state, loss = step(params, state, tokens, targets)
+        losses.append(float(loss))   # syncs the host with the step
+        stamps.append(time.perf_counter())
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    per_step = {"flash_fwd": cfg["n_layers"], "flash_bwd_dq": cfg["n_layers"],
+                "flash_bwd_dkv": cfg["n_layers"], "fused_adam": 1}
+    for n, k in per_step.items():
+        require(launches[n] == k * LM_STEPS,
+                f"{n} launched {launches[n]} times in {LM_STEPS} steps "
+                f"(expected {k} a step)")
+    require(np.isfinite(losses).all() and losses[-1] < losses[0],
+            f"the loss of the fixed batch fell: {losses}")
+    for k, v in params.items():
+        require(bool(torch.isfinite(v).all()), f"parameter {k} is finite")
+        require(not torch.equal(v, params0[k]), f"parameter {k} changed")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+    median_ms = statistics.median(step_ms)
+
+    # one step split into its phases, on the card's clock
+    split = {"forward_ms": [], "backward_ms": [], "update_ms": []}
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss = model.loss(leaves, tokens, targets)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        ev[2].record()
+        with torch.no_grad():
+            grads = {k: g.contiguous() for k, g in zip(leaves, grads)}
+            params, state = opt.apply(params, grads, state, opt.lr)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for key, (a, b) in zip(split, zip(ev, ev[1:])):
+            split[key].append(a.elapsed_time(b))
+    split = {k: statistics.median(v) for k, v in split.items()}
+
+    # The card's f32 gradients at 1 x 256 tokens against the CPU's (taken in
+    # lm_card_vs_cpu, from the same initial parameters): the same sums in
+    # other orders, per leaf relative Frobenius error. The embedding rows of
+    # tokens seen once carry one token's gradient and are the noisiest.
+    worst = sorted(grad_errs.items(), key=lambda kv: -kv[1])[:3]
+    median_err = statistics.median(grad_errs.values())
+    emit({"phase": "lm_card_vs_cpu_grads", "cut": list(LM_CUT),
+          "leaves": len(grad_errs), "median": median_err, "worst": worst,
+          "bounds": {"worst": 1e-4, "median": 1e-5}})
+    require(worst[0][1] < 1e-4 and median_err < 1e-5,
+            f"LM card vs CPU gradient rel. error {worst[0]}, median "
+            f"{median_err}")
+    emit({"phase": "lm_train", "batch": LM_BATCH, "seq": LM_SEQ,
+          "steps": LM_STEPS, "optimizer": "adam", "fused": True,
+          "learning_rate": LEARNING_RATE, "launches": launches,
+          "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+          "step_ms": step_ms, "step_ms_median": median_ms,
+          "tokens_per_s": LM_BATCH * LM_SEQ * 1e3 / median_ms,
+          "split": split})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -536,6 +890,7 @@ def main() -> int:
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import optimizer as topt
     from mxnet_tpu_torch.kernels import _common as common
+    from mxnet_tpu_torch.kernels import flash_attention as tfa
     from mxnet_tpu_torch.kernels import fused_adam as kfa
     from mxnet_tpu_torch.kernels import int8_matmul as k8
     from mxnet_tpu_torch.kernels import registry
@@ -545,6 +900,12 @@ def main() -> int:
     launches = phase_slice(torch, mt, k8)
     adam_row, adam_err = phase_fused_adam(torch, topt, kfa, registry)
     launches.update(phase_train(torch, mt, kfa))
+    flash_rows, flash_errs = phase_flash(torch, tfa, registry)
+    serve_launches, lm_params, lm_grad_errs = phase_lm_serve(torch, mt, tfa)
+    train_launches = phase_lm_train(torch, mt, topt, tfa, kfa, lm_params,
+                                    lm_grad_errs)
+    require(serve_launches["flash_fwd"] > 0, "the LM forward ran flash_fwd")
+    launches.update({n: train_launches[n] for n in flash_rows})
     require(not any(m.split(".")[0] in ("jax", "mxnet_tpu")
                     for m in sys.modules), "the run imported JAX")
 
@@ -552,7 +913,9 @@ def main() -> int:
     kernels = []
     for name, err, row, library_ms in (
             ("int8_matmul", max_err, main_row, main_row["int_mm_ms"]),
-            ("fused_adam", adam_err, adam_row, adam_row["library_ms"])):
+            ("fused_adam", adam_err, adam_row, adam_row["library_ms"]),
+            *((n, flash_errs[n], r, r["library_ms"])
+              for n, r in flash_rows.items())):
         spec = registry.get_kernel(name)
         kernels.append({
             "name": name, "route": "cuda", "source": spec.source,

@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 __all__ = ["to_tensor", "params_from_numpy", "random_params",
-           "adam_state_from_numpy", "adam_state_to_numpy"]
+           "adam_state_from_numpy", "adam_state_to_numpy",
+           "transformer_params_from_numpy"]
 
 
 def to_tensor(value, device) -> torch.Tensor:
@@ -31,6 +32,16 @@ def params_from_numpy(arg_params, aux_params, device):
     device = torch.device(device)
     return ({k: to_tensor(v, device) for k, v in arg_params.items()},
             {k: to_tensor(v, device) for k, v in (aux_params or {}).items()})
+
+
+def transformer_params_from_numpy(params, device):
+    """A transformer LM's flat parameter dict of numpy-convertible arrays
+    (the JAX package's ``TransformerLM.init_params``) as f32 tensors on
+    ``device``, under the same names and layouts: ``wqkv`` stays ``(d, 3d)``
+    applied as ``x @ W``, ``lm_head`` stays ``(d, vocab)``. The built-in
+    SGD-momentum state has the same layout and crosses the same way."""
+    device = torch.device(device)
+    return {k: to_tensor(v, device).float() for k, v in params.items()}
 
 
 def adam_state_from_numpy(states, device):

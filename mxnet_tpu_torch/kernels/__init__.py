@@ -5,4 +5,4 @@ first launch (see ``_common.py``). Importing this package registers every
 kernel's cost model.
 """
 
-from . import fused_adam, int8_matmul  # noqa: F401
+from . import flash_attention, fused_adam, int8_matmul  # noqa: F401

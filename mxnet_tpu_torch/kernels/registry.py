@@ -19,6 +19,7 @@ __all__ = ["KernelCost", "KernelSpec", "register_kernel", "get_kernel",
 H100_HBM_BYTES_PER_S = 3.35e12
 H100_PEAK_OPS = {
     "int8": 1979e12,  # tensor cores
+    "bf16": 989e12,   # tensor cores
     "f32": 67e12,     # outside the tensor cores
 }
 
@@ -51,16 +52,18 @@ class KernelCost:
 
 @dataclass(frozen=True)
 class KernelSpec:
-    """One registered kernel: ``cost_fn(ins, outs) -> KernelCost``, the
-    CUDA source it is built from and the TPU kernel it replaces."""
+    """One registered kernel: ``cost_fn(ins, outs, **static) ->
+    KernelCost`` (``static``: what the call fixes besides its operands,
+    such as ``causal``), the CUDA source it is built from and the TPU
+    kernel it replaces."""
 
     name: str
     cost_fn: object
     source: str
     replaces: str
 
-    def cost(self, ins, outs) -> KernelCost:
-        return self.cost_fn(ins, outs)
+    def cost(self, ins, outs, **static) -> KernelCost:
+        return self.cost_fn(ins, outs, **static)
 
 
 _KERNELS: dict[str, KernelSpec] = {}

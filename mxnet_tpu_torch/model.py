@@ -51,9 +51,9 @@ __all__ = ["FeedForward", "save_checkpoint", "load_checkpoint"]
 _LATER_SLICES = {
     "sharded_checkpoint_dir": "A3 (utils/checkpoint.py)",
     "checkpoint_every_n_steps": "A3 (utils/checkpoint.py)",
-    "compression": "A4 (slice 3: comm/)",
-    "overlap": "A4 (slice 3: comm/)",
-    "comm_kernels": "A4 and B3 (slice 3: the comm kernels)",
+    "compression": "A4 (slice 4: comm/)",
+    "overlap": "A4 (slice 4: comm/)",
+    "comm_kernels": "A4 and B3 (slice 4: the comm kernels)",
     "guards": "A6 (resilience/)",
     "elastic": "A6 (resilience/)",
     "controller": "A6 (resilience/)",
@@ -244,7 +244,7 @@ class FeedForward:
         if len(self.ctx) != 1:
             raise NotImplementedError(
                 f"FeedForward over {len(self.ctx)} devices is data-parallel "
-                "training: ROADMAP A4 (slice 3)")
+                "training: ROADMAP A4 (slice 4)")
         return self.ctx[0].torch_device
 
     def _init_params(self, input_shapes, overwrite=False):
@@ -323,7 +323,7 @@ class FeedForward:
         if kvstore not in (None, "local"):
             raise NotImplementedError(
                 f"fit(kvstore={kvstore!r}) is not ported yet: ROADMAP A4 "
-                "(slice 3: kvstore and data-parallel training)")
+                "(slice 4: kvstore and data-parallel training)")
         if self.compute_dtype is not None:
             raise NotImplementedError(
                 "FeedForward(compute_dtype=...) is not ported yet: ROADMAP A3")
