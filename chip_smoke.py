@@ -50,9 +50,27 @@ together), and then:
    loss fell and the parameters are finite and moved, and the card's
    gradients at 1 x 256 tokens in f32 against the CPU's, and prints the
    step time, tokens per second and the forward / backward / update split;
-9. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
+9. comm_kernels: holds the six gradient-compression kernels bitwise against
+   their plain versions on the card (NaN by position), at ResNet-50's
+   padded gradient split into 2, 4 and 8 rows, at (8, 2048) with chunk 256
+   and ``block_elems`` 512 and at a 1-D (64,) with chunk 4 (these two with a
+   NaN, an inf and a zero chunk), checks that two launches agree bitwise,
+   and times each at the two-rank exchange's shapes beside its bound, its
+   plain version and the codec path's torch composition;
+10. dp_train: two rank processes (spawn, gloo through pinned host buffers)
+   share the card and train the full-width ResNet-50 (batch 32 a rank) for
+   8 steps through ``FeedForward(ctx=gpu(0), optimizer="adam",
+   fused=True).fit(kvstore="dist_sync", compression=..., comm_kernels=True)``
+   with int8 and then twobit; checks the launches per step per rank, the
+   wire bytes against ``allreduce_plan``, that both ranks' parameters are
+   bitwise equal (from different initial weights: rank 0's broadcast), that
+   each rank's loss fell, and that the card's sync is bitwise the same
+   exchange run on CPU copies; prints the step time, global images per
+   second, one step's forward / backward / sync / update split and the
+   sync's kernel and host-transfer time;
+11. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
    main path, error, times and bound;
-10. ends with ``{"ok": true, "device": {...}}``.
+12. ends with ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without CUDA it exits non-zero at once. It imports nothing of JAX or of
@@ -61,6 +79,7 @@ the JAX package.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -72,13 +91,15 @@ import numpy as np
 
 SEED = 0
 BATCH = 32
+IMAGE = (3, 224, 224)
 REQUESTS = 8
 # (M, K, N): ResNet-50 fc1 at batch 32 and at batch 1, the JAX package's own
 # ragged test shape, and a large square-ish product
 KERNEL_SHAPES = ((32, 2048, 1000), (1, 2048, 1000), (37, 100, 23),
                  (256, 4096, 4096))
 MAIN_SHAPE = KERNEL_SHAPES[0]
-KERNEL_SOURCES = ("int8_matmul", "fused_adam", "flash_attention")
+KERNEL_SOURCES = ("int8_matmul", "fused_adam", "flash_attention",
+                  "comm_kernels")
 TRAIN_STEPS = 8
 LEARNING_RATE = 1e-3
 # tests/test_pallas_kernels.py:259, the JAX package's own odd leaf set
@@ -94,6 +115,20 @@ LM_CUT = (1, 256)
 FLASH_CASES = (((LM_BATCH, 8, LM_SEQ, 64), "bfloat16", True),
                ((4, 8, 1024, 64), "bfloat16", False),
                ((1, 2, 48, 24), "float32", True))
+# data-parallel training: ranks sharing the card, steps, modes, time limit
+DP_WORLD = 2
+DP_STEPS = 8
+DP_MODES = ("int8", "twobit")
+DP_TIMEOUT_S = 600
+# launches per step per rank on the dp_train path, by mode (the rest: 0)
+DP_LAUNCHES = {
+    "int8": {"quant_int8": 2, "dequant_sum_int8": 1, "dequant_int8": 1,
+             "fused_adam": 1},
+    "twobit": {"quant_twobit": 1, "dequant_sum_twobit": 1, "fused_adam": 1},
+}
+# ResNet-50's gradient: 161 leaves, 25,557,032 elements; int8 chunk
+RESNET50_GRAD = 25_557_032
+COMM_CHUNK = 256
 
 
 def emit(obj):
@@ -414,11 +449,31 @@ def phase_fused_adam(torch, topt, kfa, registry):
     return rows, max_err
 
 
+def step_loss_metric(mt):
+    """A metric holding SoftmaxOutput.loss_value of each step's training
+    outputs, per image; reading it syncs the host with the step."""
+    from mxnet_tpu_torch.ops import OPS
+
+    head = OPS.create("SoftmaxOutput")
+
+    class StepLoss(mt.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("softmax_loss")
+            self.steps = []
+
+        def update(self, labels, preds):
+            value = float(head.loss_value(preds[0], labels[0])) / BATCH
+            self.steps.append(value)
+            self.sum_metric += value
+            self.num_inst += 1
+
+    return StepLoss()
+
+
 def phase_train(torch, mt, kfa):
     """Full-width ResNet-50 trained through FeedForward.fit on the card."""
     from mxnet_tpu_torch.convert import random_params
     from mxnet_tpu_torch.models import resnet50
-    from mxnet_tpu_torch.ops import OPS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -432,23 +487,7 @@ def phase_train(torch, mt, kfa):
     X = np.ascontiguousarray(np.broadcast_to(
         batch_x, (TRAIN_STEPS,) + shape).reshape((-1,) + shape[1:]))
     Y = np.tile(batch_y, TRAIN_STEPS)
-    head = OPS.create("SoftmaxOutput")
-
-    class StepLoss(mt.metric.EvalMetric):
-        """SoftmaxOutput.loss_value of each step's training outputs, per
-        image; reading it syncs the host with the step."""
-
-        def __init__(self):
-            super().__init__("softmax_loss")
-            self.steps = []
-
-        def update(self, labels, preds):
-            value = float(head.loss_value(preds[0], labels[0])) / BATCH
-            self.steps.append(value)
-            self.sum_metric += value
-            self.num_inst += 1
-
-    metric, stamps = StepLoss(), []
+    metric, stamps = step_loss_metric(mt), []
     model = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1, optimizer="adam",
                            fused=True, learning_rate=LEARNING_RATE,
                            arg_params=args, aux_params=aux)
@@ -880,6 +919,512 @@ def phase_lm_train(torch, mt, topt, tfa, kfa, params0, grad_errs):
     return launches
 
 
+def bits_equal(torch, a, b):
+    """Bitwise equal, NaN by position (the sign and payload of a NaN are
+    the device's)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64,
+            torch.bfloat16: torch.int16}[a.dtype]
+    return torch.equal(na, nb) and torch.equal(a[~na].view(ints),
+                                               b[~nb].view(ints))
+
+
+def comm_rows(torch, gen, shape, chunk, specials=False):
+    """Gaussian rows whose chunks differ in scale by up to e^±6; with
+    ``specials`` a NaN chunk, an inf chunk, a -inf and an all-zero chunk."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    n = x.numel()
+    scales = torch.empty(-(-n // chunk), device="cuda").uniform_(
+        -6, 6, generator=gen).exp()
+    x = (x.reshape(-1) * scales.repeat_interleave(chunk)[:n]).reshape(shape)
+    if specials:
+        flat = x.view(-1)
+        flat[1] = float("nan")
+        flat[chunk + 2] = float("inf")
+        flat[2 * chunk + 3] = float("-inf")
+        flat[3 * chunk:4 * chunk] = 0.0
+    return x
+
+
+def comm_padded(comm, mode, world):
+    return comm.padded_flat_size(RESNET50_GRAD, comm.CompressionSpec(mode),
+                                 world)
+
+
+def phase_comm_kernels(torch, ck, comm, registry):
+    """The six comm kernels against their plain versions on the card,
+    bitwise; then their times at ResNet-50's two-rank exchange."""
+    from mxnet_tpu_torch.comm.allreduce import _row_sum
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for k in ck.KERNELS:
+        k.launches = 0
+    cases = [((r, comm_padded(comm, "int8", r) // r), COMM_CHUNK, None, False)
+             for r in (2, 4, 8)]
+    cases += [((8, 2048), COMM_CHUNK, 512, True), ((64,), 4, None, True)]
+    for shape, chunk, block, specials in cases:
+        for mode in ("int8", "twobit"):
+            spec = comm.CompressionSpec(mode, chunk=chunk)
+            x = comm_rows(torch, gen, shape, chunk, specials)
+            rows = x if x.dim() == 2 else x[None]
+            payload, dq = ck.fused_quantize(spec, x, want_dequant=True,
+                                            block_elems=block)
+            again = ck.fused_quantize(spec, x, want_dequant=True,
+                                      block_elems=block)
+            kp = {k: v if v.dim() == 2 else v[None] for k, v in payload.items()}
+            if mode == "int8":
+                plain = ck.quant_int8_plain(rows, chunk, True)[:3]
+                got = (kp["q"], kp["scale"], dq.reshape(rows.shape))
+                # the error feedback's x - dq, in both of its roundings
+                for rounding in ("fma", "sub"):
+                    got += (ck.quant_int8(rows, chunk, err=rounding)[3],)
+                    plain += (ck.quant_int8_plain(rows, chunk, False,
+                                                  rounding)[3],)
+                summed = (ck.dequant_sum_int8(kp["q"], kp["scale"], chunk),
+                          ck.dequant_sum_int8_plain(kp["q"], kp["scale"],
+                                                    chunk))
+                decoded = (ck.dequant_int8(kp["q"], kp["scale"], chunk),
+                           ck.dequant_int8_plain(kp["q"], kp["scale"], chunk))
+                names = ("quant_int8", "dequant_sum_int8", "dequant_int8")
+            else:
+                plain = ck.quant_twobit_plain(rows, spec.threshold, True)
+                got = (kp["q"], dq.reshape(rows.shape))
+                summed = (ck.dequant_sum_twobit(kp["q"], spec.threshold),
+                          ck.dequant_sum_twobit_plain(kp["q"], spec.threshold))
+                decoded = (ck.dequant_twobit(kp["q"], spec.threshold),
+                           ck.dequant_twobit_plain(kp["q"], spec.threshold))
+                names = ("quant_twobit", "dequant_sum_twobit",
+                         "dequant_twobit")
+            repeat = (ck.fused_dequant_sum(spec, kp, block_elems=block),
+                      ck.fused_dequant(spec, kp, block_elems=block))
+            torch.cuda.synchronize()
+            checks = {
+                names[0]: all(bits_equal(torch, a, b)
+                              for a, b in zip(got, plain)),
+                names[1]: bits_equal(torch, *summed),
+                names[2]: bits_equal(torch, *decoded)}
+            for name, ok in checks.items():
+                require(ok, f"{name} {list(shape)} chunk {chunk}: kernel "
+                        "differs from its plain version")
+            require(all(bits_equal(torch, payload[k], again[0][k])
+                        for k in payload)
+                    and bits_equal(torch, dq, again[1])
+                    and bits_equal(torch, summed[0], repeat[0])
+                    and bits_equal(torch, decoded[0].reshape(repeat[1].shape),
+                                   repeat[1]),
+                    f"comm kernels {mode} {list(shape)} repeat bitwise")
+            emit({"phase": "comm_parity", "mode": mode, "shape": list(shape),
+                  "chunk": chunk, "block_elems": block,
+                  "nan_inf_chunks": specials, "bitwise_equal_plain": True,
+                  "bitwise_repeat": True})
+    phase_launches = {k.__name__: k.launches for k in ck.KERNELS}
+
+    # times at the main path's shapes: ResNet-50's padded gradient, two ranks
+    rows = {}
+    for mode in ("int8", "twobit"):
+        spec = comm.CompressionSpec(mode)
+        x = comm_rows(torch, gen, (2, comm_padded(comm, mode, 2) // 2),
+                      COMM_CHUNK)
+        payload, dq = ck.fused_quantize(spec, x, want_dequant=True)
+        shard = ck.fused_dequant_sum(spec, payload)
+        decoded = ck.fused_dequant(spec, payload)
+        if mode == "int8":
+            q, scale = payload["q"], payload["scale"]
+            timed = {
+                "quant_int8": (
+                    lambda: ck.quant_int8(x, COMM_CHUNK, True),
+                    lambda: ck.quant_int8_plain(x, COMM_CHUNK, True),
+                    lambda: comm.decode(spec, comm.encode(spec, x)),
+                    [x], [q, scale, dq]),
+                "dequant_sum_int8": (
+                    lambda: ck.dequant_sum_int8(q, scale, COMM_CHUNK),
+                    lambda: ck.dequant_sum_int8_plain(q, scale, COMM_CHUNK),
+                    lambda: _row_sum(comm.decode(spec, payload)),
+                    [q, scale], [shard]),
+                "dequant_int8": (
+                    lambda: ck.dequant_int8(q, scale, COMM_CHUNK),
+                    lambda: ck.dequant_int8_plain(q, scale, COMM_CHUNK),
+                    lambda: comm.decode(spec, payload),
+                    [q, scale], [decoded]),
+            }
+        else:
+            q, t = payload["q"], spec.threshold
+            timed = {
+                "quant_twobit": (
+                    lambda: ck.quant_twobit(x, t, True),
+                    lambda: ck.quant_twobit_plain(x, t, True),
+                    lambda: comm.decode(spec, comm.encode(spec, x)),
+                    [x], [q, dq]),
+                "dequant_sum_twobit": (
+                    lambda: ck.dequant_sum_twobit(q, t),
+                    lambda: ck.dequant_sum_twobit_plain(q, t),
+                    lambda: _row_sum(comm.decode(spec, payload)),
+                    [q], [shard]),
+                "dequant_twobit": (
+                    lambda: ck.dequant_twobit(q, t),
+                    lambda: ck.dequant_twobit_plain(q, t),
+                    lambda: comm.decode(spec, payload),
+                    [q], [decoded]),
+            }
+        for name, (kernel, plain, codec, ins, outs) in timed.items():
+            cost = registry.get_kernel(name).cost(ins, outs)
+            bound_s, bound_by = cost.bound()
+            rows[name] = {"ms": time_ms(torch, kernel),
+                          "plain_ms": time_ms(torch, plain, reps=5),
+                          "library_ms": time_ms(torch, codec),
+                          "bound_ms": bound_s * 1e3, "bound_by": bound_by}
+            emit({"phase": "kernel", "name": name,
+                  "shapes": [list(t.shape) for t in ins],
+                  "bytes": cost.bytes, "ops": cost.flops, **rows[name],
+                  "library": "the codec path's torch composition",
+                  "phase_launches": phase_launches[name]})
+        if mode == "int8":
+            # the stage-2 form: the reduced shard, one row, with its error in
+            # the rounding of a many-step JAX grid
+            row = shard[None]
+            s_q, s_scale, _, s_err = ck.quant_int8(row, COMM_CHUNK, err="sub")
+            cost = registry.get_kernel("quant_int8").cost(
+                [row], [s_q, s_scale, s_err])
+            bound_s, bound_by = cost.bound()
+            emit({"phase": "kernel", "name": "quant_int8",
+                  "form": "stage 2: one row and its error, err='sub'",
+                  "shapes": [list(row.shape)], "bytes": cost.bytes,
+                  "ops": cost.flops,
+                  "ms": time_ms(torch, lambda: ck.quant_int8(
+                      row, COMM_CHUNK, err="sub")),
+                  "plain_ms": time_ms(torch, lambda: ck.quant_int8_plain(
+                      row, COMM_CHUNK, False, "sub"), reps=5),
+                  "bound_ms": bound_s * 1e3, "bound_by": bound_by})
+            del row, s_q, s_scale, s_err
+        del x, payload, dq, shard, decoded, timed
+    return rows, phase_launches
+
+
+def dp_train_rank(torch, rank, world, mode):
+    """One rank's dp_train run in ``mode``: ResNet-50 through
+    ``fit(kvstore="dist_sync", compression=mode, comm_kernels=True)``, then
+    one step split on the card's clock and one exchange run again on CPU
+    copies. Returns numpy and Python values only."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import comm
+    from mxnet_tpu_torch.comm import allreduce
+    from mxnet_tpu_torch.convert import random_params
+    from mxnet_tpu_torch.kernels import comm_kernels as ck
+    from mxnet_tpu_torch.kernels import fused_adam as kfa
+    from mxnet_tpu_torch.models import resnet50
+
+    net = resnet50(num_classes=1000)
+    shape = (BATCH,) + IMAGE
+    # each rank draws its own weights: rank 0's must reach every rank
+    args, aux = random_params(net, SEED + rank, data=shape)
+    rng = np.random.default_rng(SEED + 6)
+    X = rng.standard_normal((world * BATCH,) + shape[1:], np.float32)
+    Y = rng.integers(0, 1000, world * BATCH).astype(np.float32)
+    X, Y = X[rank * BATCH:(rank + 1) * BATCH], Y[rank * BATCH:(rank + 1) * BATCH]
+    # one fixed batch a rank every step: the run overfits it
+    Xs = np.ascontiguousarray(np.broadcast_to(
+        X, (DP_STEPS,) + shape).reshape((-1,) + shape[1:]))
+    Ys = np.tile(Y, DP_STEPS)
+
+    def digest(*dicts):
+        h = hashlib.sha256()
+        for d in dicts:
+            for k in sorted(d):
+                v = d[k]
+                v = v.numpy() if isinstance(v, torch.Tensor) else v
+                h.update(np.ascontiguousarray(v).tobytes())
+        return h.hexdigest()
+
+    sent, wire = [], allreduce._wire
+
+    def counting_wire(op, out, inp, group):
+        sent.append((op, inp.numel() * inp.element_size()))
+        return wire(op, out, inp, group)
+
+    kernels = {k.__name__: k for k in ck.KERNELS}
+    kernels["fused_adam"] = kfa.fused_adam
+    metric, stamps = step_loss_metric(mt), []
+    comm.reset_comm_stats()
+    model = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1, optimizer="adam",
+                           fused=True, learning_rate=LEARNING_RATE,
+                           arg_params=args, aux_params=aux)
+    torch.cuda.synchronize()
+    allreduce._wire = counting_wire
+    # the main path: every count is read around the fit
+    for fn in kernels.values():
+        fn.launches = 0
+    model.fit(mt.io.NDArrayIter(Xs, Ys, batch_size=BATCH),
+              kvstore="dist_sync", compression=mode, comm_kernels=True,
+              eval_metric=metric,
+              batch_end_callback=lambda p: stamps.append(time.perf_counter()))
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    allreduce._wire = wire
+    by_op = {}
+    for op, nbytes in sent:
+        by_op[op] = by_op.get(op, 0) + nbytes
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    out = {"launches": launches, "losses": list(metric.steps),
+           "step_ms": step_ms, "wire_bytes_by_op": by_op,
+           "init_digest": digest(args, aux),
+           "digest": digest(model.arg_params, model.aux_params),
+           "finite": all(bool(torch.isfinite(v).all())
+                         for v in model.arg_params.values()),
+           "comm_stats_wire_bytes": comm.comm_stats()["wire_bytes"]}
+
+    # one step split on the card's clock, in 3 more steps after the fit with
+    # synchronizes added: a barrier before the sync (the wait for the peer
+    # rank, host clock); inside the sync the kernels (CUDA events around each
+    # launch), the copies to and from pinned host buffers (host clock, card
+    # synchronized around each) and the gloo calls (host clock)
+    state, sync = model._train_state, model._train_state.grad_sync
+    arrays = {"data": torch.from_numpy(X).cuda(),
+              "softmax_label": torch.from_numpy(Y).cuda()}
+    kernel_events, host_s = [], {}
+    originals = {n: getattr(ck, n) for n in (k.__name__ for k in ck.KERNELS)}
+    hosts = {"_to_host": "sync_d2h_ms", "_wire": "sync_gloo_ms",
+             "_to_card": "sync_h2d_ms"}
+    host_fns = {n: getattr(allreduce, n) for n in hosts}
+
+    def timed_kernel(fn):
+        # wraps copies ``launches``: the wrapper's own count takes the adds
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            result = fn(*a, **kw)
+            ev[1].record()
+            kernel_events.append(ev)
+            return result
+        return run
+
+    def timed_host(fn, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*a, **kw)
+            torch.cuda.synchronize()
+            host_s[key] += time.perf_counter() - t0
+            return result
+        return run
+
+    split = {k: [] for k in ("forward_ms", "backward_ms", "peer_wait_ms",
+                             "sync_ms", "update_ms", "sync_kernels_ms",
+                             *hosts.values())}
+    for name, fn in originals.items():
+        setattr(ck, name, timed_kernel(fn))
+    for name, key in hosts.items():
+        setattr(allreduce, name, timed_host(host_fns[name], key))
+    try:
+        for _ in range(3):
+            kernel_events.clear()
+            host_s.update({k: 0.0 for k in hosts.values()})
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            state.forward(arrays)
+            ev[1].record()
+            state.backward()
+            ev[2].record()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.barrier()
+            split["peer_wait_ms"].append((time.perf_counter() - t0) * 1e3)
+            ev[3].record()
+            state.sync()
+            ev[4].record()
+            state.update(LEARNING_RATE)
+            ev[5].record()
+            torch.cuda.synchronize()
+            for key, (a, b) in (("forward_ms", ev[0:2]),
+                                ("backward_ms", ev[1:3]),
+                                ("sync_ms", ev[3:5]), ("update_ms", ev[4:6])):
+                split[key].append(a.elapsed_time(b))
+            split["sync_kernels_ms"].append(
+                sum(a.elapsed_time(b) for a, b in kernel_events))
+            for key, seconds in host_s.items():
+                split[key].append(seconds * 1e3)
+    finally:
+        for name, fn in originals.items():
+            setattr(ck, name, fn)
+        for name, fn in host_fns.items():
+            setattr(allreduce, name, fn)
+    out["split"] = {k: statistics.median(v) for k, v in split.items()}
+
+    # the same exchange on CPU copies of this step's gradients and residual:
+    # the kernels' plain versions and the gloo exchange of CPU tensors
+    state.forward(arrays)
+    state.backward()
+    grads_cpu = {k: g.detach().cpu() for k, g in state.grads.items()}
+    resid_cpu = None if sync.residual is None else sync.residual.cpu()
+    state.sync()
+    card = ({k: g.detach().cpu() for k, g in state.grads.items()},
+            None if sync.residual is None else sync.residual.cpu())
+    host = comm.error_feedback_allreduce(
+        grads_cpu, resid_cpu, sync.spec, axis_size=world, average=False,
+        kernels=sync.kernels)
+    state.update(LEARNING_RATE)
+    out["card_vs_cpu_sync_bitwise"] = (
+        all(bits_equal(torch, card[0][k], host[0][k]) for k in card[0])
+        and (card[1] is None or bits_equal(torch, card[1], host[1])))
+    out["residual_abs_max"] = float(card[1].abs().max())
+    del model, state, sync, arrays
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(rank, world, init_method, queue):
+    """A rank process of dp_train: joins the gloo group and reports to the
+    parent through ``queue``; it prints nothing."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        torch.set_num_threads(4)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=init_method, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+        results = {mode: dp_train_rank(torch, rank, world, mode)
+                   for mode in DP_MODES}
+        queue.put((rank, True, results))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which raises
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_dp_ranks(torch):
+    """Start the dp_train ranks (spawn), collect their results; a rank that
+    fails or a run past the time limit kills every rank and raises."""
+    import multiprocessing as mp
+    import os
+    import queue as queue_mod
+    from pathlib import Path
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rdv_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    rdv_dir.mkdir(parents=True, exist_ok=True)
+    rdv = rdv_dir / f"rendezvous-{os.getpid()}"
+    if rdv.exists():
+        rdv.unlink()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=dp_rank, daemon=True,
+                         args=(rank, DP_WORLD, f"file://{rdv}", queue))
+             for rank in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + DP_TIMEOUT_S
+    try:
+        while len(results) < DP_WORLD:
+            left = deadline - time.monotonic()
+            require(left > 0, f"dp_train ranks finished in {DP_TIMEOUT_S} s")
+            try:
+                rank, ok, value = queue.get(timeout=min(left, 5.0))
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in results]
+                require(not dead, f"dp_train rank(s) {dead} died")
+                continue
+            require(ok, f"dp_train rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if rdv.exists():
+            rdv.unlink()
+    return [results[r] for r in range(DP_WORLD)]
+
+
+def phase_dp_train(torch, comm):
+    """ResNet-50 trained data-parallel on two ranks that share the card,
+    int8 and twobit, through the comm kernels; checks and the time split."""
+    ranks = run_dp_ranks(torch)
+    launches = {}
+    for mode in DP_MODES:
+        per_step = DP_LAUNCHES[mode]
+        plan = comm.allreduce_plan(RESNET50_GRAD, DP_WORLD, mode)
+        rows = {r["op"]: r for r in plan["collectives"]}
+        for rank, res in enumerate(ranks):
+            got = res[mode]
+            for name, count in got["launches"].items():
+                want = per_step.get(name, 0) * DP_STEPS
+                require(count == want,
+                        f"dp_train {mode} rank {rank}: {name} launched "
+                        f"{count} times in {DP_STEPS} steps, expected {want}")
+            by_op = got["wire_bytes_by_op"]
+            require(by_op.get("all_to_all", 0) == DP_STEPS
+                    * rows["all-to-all"]["payload_bytes"]
+                    and by_op.get("all_gather", 0) * DP_WORLD == DP_STEPS
+                    * rows["all-gather"]["payload_bytes"],
+                    f"dp_train {mode} rank {rank}: wire bytes {by_op} against "
+                    f"the plan {rows}")
+            require(got["comm_stats_wire_bytes"] ==
+                    DP_STEPS * plan["wire_bytes"],
+                    f"dp_train {mode}: comm_stats against the plan")
+            losses = got["losses"]
+            require(len(losses) == DP_STEPS and np.isfinite(losses).all()
+                    and losses[-1] < losses[0],
+                    f"dp_train {mode} rank {rank}: the loss of its fixed "
+                    f"batch fell: {losses}")
+            require(got["finite"], f"dp_train {mode} rank {rank}: finite "
+                    "parameters")
+            require(got["card_vs_cpu_sync_bitwise"],
+                    f"dp_train {mode} rank {rank}: the card's sync equals "
+                    "the CPU's bitwise")
+        require(len({r[mode]["digest"] for r in ranks}) == 1,
+                f"dp_train {mode}: both ranks' parameters are bitwise equal")
+        require(len({r[mode]["init_digest"] for r in ranks}) == DP_WORLD,
+                "dp_train: the ranks drew different initial weights, so "
+                "equal parameters show rank 0's broadcast")
+        r0 = ranks[0][mode]
+        median_ms = statistics.median(r0["step_ms"])
+        wire_per_step = (DP_WORLD - 1) / DP_WORLD * (
+            r0["wire_bytes_by_op"]["all_to_all"]
+            + DP_WORLD * r0["wire_bytes_by_op"]["all_gather"]) / DP_STEPS
+        emit({"phase": "dp_train", "mode": mode, "model": "resnet50",
+              "world": DP_WORLD, "batch_per_rank": BATCH,
+              "global_batch": DP_WORLD * BATCH, "steps": DP_STEPS,
+              "optimizer": "adam", "fused": True, "comm_kernels": True,
+              "transport": "gloo through pinned host buffers, both ranks "
+                           "on one card",
+              "launches": r0["launches"], "launches_per_step": DP_LAUNCHES[mode],
+              "wire_bytes_per_step": wire_per_step,
+              "plan_wire_bytes_per_step": plan["wire_bytes"],
+              "fp32_wire_bytes_per_step": plan["fp32_wire_bytes"],
+              "params_bitwise_equal_across_ranks": True,
+              "card_vs_cpu_sync_bitwise": True,
+              "residual_abs_max": r0["residual_abs_max"],
+              "losses_rank0": r0["losses"],
+              "losses_rank1": ranks[1][mode]["losses"],
+              "step_ms": r0["step_ms"], "step_ms_median": median_ms,
+              "global_images_per_s": DP_WORLD * BATCH * 1e3 / median_ms,
+              "split_rank0": r0["split"],
+              "split_rank1": ranks[1][mode]["split"]})
+        for name, count in r0["launches"].items():
+            if name != "fused_adam" and DP_LAUNCHES[mode].get(name):
+                launches[name] = count
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -889,7 +1434,9 @@ def main() -> int:
         return 2
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch import comm
     from mxnet_tpu_torch.kernels import _common as common
+    from mxnet_tpu_torch.kernels import comm_kernels as ck
     from mxnet_tpu_torch.kernels import flash_attention as tfa
     from mxnet_tpu_torch.kernels import fused_adam as kfa
     from mxnet_tpu_torch.kernels import int8_matmul as k8
@@ -906,6 +1453,11 @@ def main() -> int:
                                     lm_grad_errs)
     require(serve_launches["flash_fwd"] > 0, "the LM forward ran flash_fwd")
     launches.update({n: train_launches[n] for n in flash_rows})
+    comm_rows_, comm_phase_launches = phase_comm_kernels(torch, ck, comm,
+                                                         registry)
+    launches.update(phase_dp_train(torch, comm))
+    # not on fit's path: twobit gathers in bf16 (comm/allreduce.py)
+    launches["dequant_twobit"] = 0
     require(not any(m.split(".")[0] in ("jax", "mxnet_tpu")
                     for m in sys.modules), "the run imported JAX")
 
@@ -915,7 +1467,9 @@ def main() -> int:
             ("int8_matmul", max_err, main_row, main_row["int_mm_ms"]),
             ("fused_adam", adam_err, adam_row, adam_row["library_ms"]),
             *((n, flash_errs[n], r, r["library_ms"])
-              for n, r in flash_rows.items())):
+              for n, r in flash_rows.items()),
+            # bitwise equal to their plain versions: no error
+            *((n, 0.0, r, r["library_ms"]) for n, r in comm_rows_.items())):
         spec = registry.get_kernel(name)
         kernels.append({
             "name": name, "route": "cuda", "source": spec.source,
@@ -923,6 +1477,9 @@ def main() -> int:
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": library_ms})
+        if name == "dequant_twobit":
+            kernels[-1]["comm_kernels_phase_launches"] = \
+                comm_phase_launches[name]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,8 +7,12 @@ keeps its own copies of what it needs. Slice 1 serves a Symbol graph through
 CUDA kernel (``csrc/int8_matmul.cu``). Slice 2 trains on one device through
 :class:`FeedForward` (and :class:`Executor` for bound graphs), with the Adam
 step in a hand-written multi-tensor CUDA kernel (``csrc/fused_adam.cu``).
-Entry points run on the card (``gpu(0)``) unless the caller passes
-``ctx=cpu()``.
+Slice 3 is the transformer LM on one card, with the flash-attention kernels
+(``csrc/flash_attention.cu``). Slice 4 trains data-parallel across
+``torch.distributed`` ranks (``fit(kvstore="dist_sync", compression=...,
+comm_kernels=...)``), with the gradient-compression kernels
+(``csrc/comm_kernels.cu``). Entry points run on the card (``gpu(0)``)
+unless the caller passes ``ctx=cpu()``.
 """
 
 from . import symbol, symbol as sym  # noqa: F401
@@ -22,9 +26,11 @@ from . import initializer, initializer as init  # noqa: F401
 from . import io, lr_scheduler, metric, optimizer, callback  # noqa: F401
 from .model import FeedForward, load_checkpoint, save_checkpoint
 from . import models  # noqa: F401
+from . import comm, kvstore, kvstore as kv, parallel  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "Predictor", "Executor", "simple_bind", "FeedForward",
            "save_checkpoint", "load_checkpoint", "symbol", "sym", "nd",
            "ndarray", "random", "init", "initializer", "io", "lr_scheduler",
-           "metric", "optimizer", "callback", "models"]
+           "metric", "optimizer", "callback", "models", "comm", "kvstore",
+           "kv", "parallel"]

@@ -13,7 +13,8 @@ import torch
 
 __all__ = ["to_tensor", "params_from_numpy", "random_params",
            "adam_state_from_numpy", "adam_state_to_numpy",
-           "transformer_params_from_numpy"]
+           "transformer_params_from_numpy", "residual_rows_from_numpy",
+           "residual_rows_to_numpy"]
 
 
 def to_tensor(value, device) -> torch.Tensor:
@@ -102,3 +103,22 @@ def random_params(symbol, seed, **input_shapes):
             v = rng.standard_normal(shape) * 0.1
         aux[name] = v.astype(np.float32)
     return args, aux
+
+
+def residual_rows_from_numpy(state, rank, device="cpu"):
+    """Rank ``rank``'s ``(1, Lp)`` float32 error-feedback row from the JAX
+    package's ``(axis_size, Lp)`` state (``comm.init_error_feedback``,
+    sharded ``P("dp")`` so device ``rank`` holds row ``rank``), for
+    ``comm.error_feedback_allreduce`` on that rank."""
+    rows = np.asarray(state, np.float32)
+    if rows.ndim != 2 or not 0 <= rank < rows.shape[0]:
+        raise ValueError(f"residual state of shape {rows.shape} has no row "
+                         f"{rank}")
+    return torch.from_numpy(rows[rank:rank + 1].copy()).to(device)
+
+
+def residual_rows_to_numpy(rows):
+    """The JAX package's ``(axis_size, Lp)`` float32 state from every
+    rank's ``(1, Lp)`` row, given in rank order."""
+    return np.concatenate([np.asarray(r.detach().cpu().numpy(), np.float32)
+                           .reshape(1, -1) for r in rows])

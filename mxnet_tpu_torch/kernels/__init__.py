@@ -5,4 +5,4 @@ first launch (see ``_common.py``). Importing this package registers every
 kernel's cost model.
 """
 
-from . import flash_attention, fused_adam, int8_matmul  # noqa: F401
+from . import comm_kernels, flash_attention, fused_adam, int8_matmul  # noqa: F401

@@ -1,6 +1,8 @@
-"""FeedForward: the estimator-style trainer, on one device.
+"""FeedForward: the estimator-style trainer, on one device, or on each rank
+of a data-parallel world.
 
-Counterpart of the single-device path of ``mxnet_tpu/model.py``:
+Counterpart of the single-device and multi-process paths of
+``mxnet_tpu/model.py``:
 ``FeedForward(symbol, ctx, num_epoch, optimizer, initializer, ...)`` with
 ``fit / predict / score / save / load / create``, and the checkpoint pair
 ``prefix-symbol.json`` + ``prefix-%04d.params`` with its ``.crc32``
@@ -17,6 +19,16 @@ package's order (``model.py:2159-2161``), and ``rescale_grad`` is
 ``1/batch_size``. Metrics accumulate on the device and are pulled once per
 epoch, unless a ``batch_end_callback`` needs them after every batch.
 
+Data-parallel training (``kvstore="dist_sync"``) runs one process per
+rank, as the JAX package's multi-process form does: every rank calls
+``fit`` on its own rows, rank 0's initial parameters are broadcast, and
+``rescale_grad`` is ``1/(batch_size*num_workers)``. After backward the
+gradients are summed over the ranks (``comm.compressed_allreduce``, or
+``comm.error_feedback_allreduce`` with a lossy ``compression``, whose
+residual each rank keeps across steps), float auxiliary states are
+averaged over the ranks and device metrics summed. ``comm_kernels`` routes
+the quantize stages through the fused kernels.
+
 Arguments of ``fit`` that belong to later slices of the port raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
@@ -32,8 +44,10 @@ import zlib
 import numpy as np
 import torch
 
+from . import comm as comm_mod
 from . import initializer as init_mod
 from . import io as io_mod
+from . import kvstore as kvs_mod
 from . import metric as metric_mod
 from . import ndarray as nd
 from . import optimizer as opt_mod
@@ -41,6 +55,7 @@ from . import random as random_mod
 from . import symbol as sym_mod
 from .base import MXNetError
 from .callback import BatchEndParam
+from .comm.allreduce import all_reduce_sum, broadcast_
 from .context import Context, current_context
 from .convert import to_tensor
 from .executor import _build_graph_fn
@@ -51,9 +66,7 @@ __all__ = ["FeedForward", "save_checkpoint", "load_checkpoint"]
 _LATER_SLICES = {
     "sharded_checkpoint_dir": "A3 (utils/checkpoint.py)",
     "checkpoint_every_n_steps": "A3 (utils/checkpoint.py)",
-    "compression": "A4 (slice 4: comm/)",
-    "overlap": "A4 (slice 4: comm/)",
-    "comm_kernels": "A4 and B3 (slice 4: the comm kernels)",
+    "overlap": "A4 (left from slice 4: comm/overlap.py)",
     "guards": "A6 (resilience/)",
     "elastic": "A6 (resilience/)",
     "controller": "A6 (resilience/)",
@@ -164,14 +177,70 @@ def _pad_rows(arrays: dict, target: int) -> dict:
     return out
 
 
+class _GradSync:
+    """The data-parallel part of a step, on one rank of ``num_workers``:
+    the gradient sum over the ranks (sum semantics; the optimizer's
+    ``rescale_grad`` makes it the mean), with this rank's error-feedback
+    residual for a lossy ``spec``; the mean of float auxiliary states; the
+    sum of device metric accumulators. Registers its wire plan with
+    ``comm.comm_stats()`` once and records one step per gradient sync
+    (mxnet_tpu/model.py:962-973)."""
+
+    LABEL = "train_step:dist_sync"
+
+    def __init__(self, spec, kernels, params, num_workers, device):
+        self.spec, self.kernels = spec, kernels
+        self.num_workers = num_workers
+        self.residual = comm_mod.init_error_feedback(
+            params, spec, num_workers, device=device)
+        comm_mod.registry().register_plan(
+            self.LABEL, comm_mod.allreduce_plan(
+                comm_mod.flat_size(params), num_workers, spec))
+
+    def grads(self, grads: dict) -> dict:
+        if self.residual is not None:
+            grads, self.residual = comm_mod.error_feedback_allreduce(
+                grads, self.residual, self.spec,
+                axis_size=self.num_workers, average=False,
+                kernels=self.kernels)
+        else:
+            grads = comm_mod.compressed_allreduce(
+                grads, self.spec, axis_size=self.num_workers, average=False,
+                kernels=self.kernels)
+        comm_mod.registry().record_step(self.LABEL)
+        return grads
+
+    def aux(self, aux: dict) -> dict:
+        """Float auxiliary states averaged over the ranks (``pmean``), in
+        one collective."""
+        names = [k for k in sorted(aux) if aux[k].is_floating_point()]
+        if not names:
+            return aux
+        flat = torch.cat([aux[k].reshape(-1).float() for k in names])
+        flat = all_reduce_sum(flat) / self.num_workers
+        out, off = dict(aux), 0
+        for k in names:
+            n = aux[k].numel()
+            out[k] = flat[off:off + n].reshape(aux[k].shape).to(aux[k].dtype)
+            off += n
+        return out
+
+    @staticmethod
+    def metric(state):
+        """A device metric's ``(sum, count)`` summed over the ranks."""
+        return tuple(all_reduce_sum(t) for t in state)
+
+
 class _TrainState:
     """The device state of one ``fit``: parameters (autograd leaves),
     auxiliary states and optimizer state, and the training step in its
-    three phases, so that a caller can time them apart."""
+    phases (forward, backward, the gradient sync of data-parallel
+    training, update), so that a caller can time them apart."""
 
-    def __init__(self, symbol, optimizer, params, aux, device):
+    def __init__(self, symbol, optimizer, params, aux, device, sync=None):
         self.graph_fn = _build_graph_fn(symbol, is_train=True)
         self.optimizer = optimizer
+        self.grad_sync = sync
         self.params = {k: v.requires_grad_(True) for k, v in params.items()}
         self.aux = aux
         self.opt_state = optimizer.init_state_tree(self.params)
@@ -200,6 +269,14 @@ class _TrainState:
         # a parameter no head depends on (fix_gamma's gamma) gets zeros
         self.grads = {k: torch.zeros_like(self.params[k]) if g is None else g
                       for k, g in zip(names, grads)}
+
+    def sync(self):
+        """Data-parallel training: the gradients summed over the ranks and
+        the auxiliary states averaged. A no-op on one device."""
+        if self.grad_sync is not None:
+            with torch.no_grad():
+                self.grads = self.grad_sync.grads(self.grads)
+                self.aux = self.grad_sync.aux(self.aux)
 
     def update(self, lr):
         with torch.no_grad():
@@ -243,8 +320,10 @@ class FeedForward:
     def _device(self) -> torch.device:
         if len(self.ctx) != 1:
             raise NotImplementedError(
-                f"FeedForward over {len(self.ctx)} devices is data-parallel "
-                "training: ROADMAP A4 (slice 4)")
+                f"FeedForward over {len(self.ctx)} devices in one process is "
+                "not ported yet: ROADMAP A4 (left from slice 4: the "
+                "single-process multi-device ctx); run one process per "
+                "device with kvstore='dist_sync'")
         return self.ctx[0].torch_device
 
     def _init_params(self, input_shapes, overwrite=False):
@@ -269,18 +348,19 @@ class FeedForward:
         self.arg_params, self.aux_params = arg_params, aux_params
         return param_names, aux_names
 
-    def _resolve_optimizer(self, param_names, batch_size):
+    def _resolve_optimizer(self, param_names, batch_size, num_workers=1):
         """The optimizer object; a registry name is created once per
-        (name, batch size, kwargs) with ``rescale_grad = 1/batch_size``
-        (mxnet_tpu/model.py:501-518)."""
+        (name, global batch size, kwargs) with ``rescale_grad =
+        1/(batch_size*num_workers)`` (mxnet_tpu/model.py:501-518)."""
         opt = self.optimizer
         if not isinstance(opt, str):
             return opt
-        sig = (opt, batch_size,
+        sig = (opt, batch_size * num_workers,
                repr(sorted(self.kwargs.items(), key=lambda kv: kv[0])))
         if self._opt_cache is not None and self._opt_cache[0] == sig:
             return self._opt_cache[1]
-        obj = opt_mod.create(opt, rescale_grad=1.0 / batch_size,
+        obj = opt_mod.create(opt,
+                             rescale_grad=1.0 / (batch_size * num_workers),
                              arg_names=list(param_names), **self.kwargs)
         self._opt_cache = (sig, obj)
         return obj
@@ -306,12 +386,19 @@ class FeedForward:
             telemetry=None, elastic=None, controller=None, health=None,
             profile=None, shard_audit=None, checkpoint_every_n_steps=None):
         """Train (reference: model.py:669 fit). ``work_load_list`` is
-        accepted and ignored, as in the JAX package."""
+        accepted and ignored, as in the JAX package.
+
+        ``kvstore="dist_sync"`` trains data-parallel across the ranks of
+        the world (``kvstore.create``): each rank passes its own rows. Then
+        ``compression`` (None, a mode name, a dict or a
+        ``comm.CompressionSpec``) picks what crosses the wire and
+        ``comm_kernels`` (``comm.CommKernelConfig.resolve``) whether the
+        quantize stages run as the fused kernels. On one rank compression
+        is ignored, as in the JAX package."""
         del work_load_list
         given = dict(sharded_checkpoint_dir=sharded_checkpoint_dir,
                      guards=guards, pad_policy=pad_policy,
-                     compression=compression, overlap=overlap,
-                     comm_kernels=comm_kernels, telemetry=telemetry,
+                     overlap=overlap, telemetry=telemetry,
                      elastic=elastic, controller=controller, health=health,
                      profile=profile, shard_audit=shard_audit,
                      checkpoint_every_n_steps=checkpoint_every_n_steps)
@@ -320,15 +407,21 @@ class FeedForward:
                 raise NotImplementedError(
                     f"fit({name}=...) is not ported yet: ROADMAP "
                     f"{_LATER_SLICES[name]}")
-        if kvstore not in (None, "local"):
-            raise NotImplementedError(
-                f"fit(kvstore={kvstore!r}) is not ported yet: ROADMAP A4 "
-                "(slice 4: kvstore and data-parallel training)")
         if self.compute_dtype is not None:
             raise NotImplementedError(
                 "FeedForward(compute_dtype=...) is not ported yet: ROADMAP A3")
         logger = logger or logging
         dev = self._device
+        kv = kvs_mod.create(kvstore, ctx=self.ctx[0]) if kvstore else None
+        num_workers = kv.num_workers if kv is not None else 1
+        dist_sync = kv is not None and "dist" in kv.type and num_workers > 1
+        comm_spec = comm_mod.CompressionSpec.resolve(compression)
+        comm_kernels = comm_mod.CommKernelConfig.resolve(comm_kernels)
+        if comm_spec is not None and not dist_sync:
+            logger.info("compression=%s ignored: single-device training "
+                        "moves no gradient bytes over a wire",
+                        comm_spec.mode)
+            comm_spec = None
         train_data = _init_iter(X, y, batch_size, shuffle=True)
         batch_size = train_data.batch_size or batch_size
         data_shapes = dict(train_data.provide_data)
@@ -336,12 +429,23 @@ class FeedForward:
         data_names, label_names = list(data_shapes), list(label_shapes)
         param_names, aux_names = self._init_params({**data_shapes,
                                                     **label_shapes})
-        optimizer = self._resolve_optimizer(param_names, batch_size)
+        optimizer = self._resolve_optimizer(param_names, batch_size,
+                                            num_workers)
         self._optimizer_obj = optimizer
+        params = self._on_device({k: self.arg_params[k] for k in param_names})
+        aux = self._on_device({k: self.aux_params[k] for k in aux_names})
+        sync = None
+        if dist_sync:
+            # rank 0's initialization wins, like kvstore.init from rank 0
+            # (mxnet_tpu/model.py:1273-1287)
+            for k in sorted(params):
+                broadcast_(params[k])
+            for k in sorted(aux):
+                broadcast_(aux[k])
+            sync = _GradSync(comm_spec, comm_kernels, params, num_workers,
+                             dev)
         state = self._train_state = _TrainState(
-            self.symbol, optimizer,
-            self._on_device({k: self.arg_params[k] for k in param_names}),
-            self._on_device({k: self.aux_params[k] for k in aux_names}), dev)
+            self.symbol, optimizer, params, aux, dev, sync=sync)
         eval_metric = metric_mod.create(eval_metric)
         device_metric = eval_metric.device_supported and \
             batch_end_callback is None
@@ -358,6 +462,7 @@ class FeedForward:
                 optimizer.num_update = num_update
                 outs = state.forward(arrays)
                 state.backward()
+                state.sync()
                 state.update(lr)
                 num_update += 1
                 labels = [arrays[n] for n in label_names]
@@ -373,6 +478,8 @@ class FeedForward:
                     for cb in _as_list(batch_end_callback):
                         cb(param)
             if device_metric:
+                if sync is not None:
+                    mstate = sync.metric(mstate)
                 eval_metric.absorb_device_state(mstate)
             name, value = eval_metric.get()
             logger.info("Epoch[%d] Train-%s=%f", epoch, name, value)

@@ -1,0 +1,124 @@
+"""Data-parallel helpers over ``torch.distributed`` ranks.
+
+Counterpart of ``mxnet_tpu/parallel/data_parallel.py``. Where the JAX
+package runs one program over a mesh with the batch sharded on its data
+axis, here every rank runs the same step on its own rows, and the process
+group (default: the world) is the data axis.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from ..base import MXNetError
+
+__all__ = ["allreduce_grads", "grad_accum", "make_data_parallel_step"]
+
+_LATER = "ROADMAP A4 (left from slice 4: comm/overlap.py, comm/bucketing.py)"
+
+
+def allreduce_grads(grads, group=None, average=True, compression=None,
+                    axis_size=None):
+    """Gradient allreduce over the ranks of ``group`` (reference:
+    ReduceSumCPU + the dist_sync server accumulate). With
+    ``compression=None`` a per-leaf sum; with a CompressionSpec or mode
+    name one fused quantized bucket (``comm/allreduce.py``)."""
+    from ..comm import compressed_allreduce
+
+    return compressed_allreduce(grads, compression, group=group,
+                                axis_size=axis_size, average=average)
+
+
+def grad_accum(loss_fn, params, batch, n_micro):
+    """Gradient accumulation over ``n_micro`` microbatches.
+
+    ``batch`` is a dict of tensors whose leading dimension is divisible by
+    ``n_micro``; ``loss_fn(params, microbatch)`` returns a scalar mean loss
+    and ``params`` is a dict of tensors. Returns ``(mean_loss,
+    mean_grads)``, the microbatch sums in order divided by ``n_micro``, as
+    the JAX package's ``lax.scan``."""
+    names = list(params)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss_acc = 0.0
+    grads_acc = {k: torch.zeros_like(v) for k, v in params.items()}
+    for i in range(n_micro):
+        micro = {k: v.reshape((n_micro, v.shape[0] // n_micro)
+                              + tuple(v.shape[1:]))[i]
+                 for k, v in batch.items()}
+        loss = loss_fn(leaves, micro)
+        grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+        loss_acc = loss_acc + loss.detach()
+        grads_acc = {k: grads_acc[k] + g for k, g in zip(names, grads)}
+    return (loss_acc / n_micro,
+            {k: g / n_micro for k, g in grads_acc.items()})
+
+
+def _value_and_grad(loss_fn, params, batch):
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss = loss_fn(leaves, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def make_data_parallel_step(loss_fn, update_fn, group=None, n_micro=1,
+                            compression=None, overlap=None):
+    """Build a data-parallel train step over the ranks of ``group``.
+
+    ``loss_fn(params, batch) -> scalar mean loss`` over this rank's rows;
+    ``update_fn(params, opt_state, grads) -> (params, opt_state)``. Each
+    rank computes its gradient (over ``n_micro`` microbatches with
+    :func:`grad_accum`), the gradients are averaged over the ranks, and
+    every rank applies the same update. The returned loss is the mean over
+    the ranks, like ``pmean``.
+
+    Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    loss)``. With a lossy ``compression`` (int8/twobit) the step carries
+    this rank's error-feedback residual: ``step(params, opt_state, batch,
+    comm_state) -> (params, opt_state, loss, comm_state)``, seeded with
+    ``comm.init_error_feedback(params, spec, world_size)``. The quantize
+    stages take the fused kernels when ``MXNET_TPU_COMM_KERNELS`` says so.
+    """
+    from ..comm import (CompressionSpec, compressed_allreduce,
+                        error_feedback_allreduce)
+    from ..comm.allreduce import all_reduce_sum
+
+    if overlap is not None:
+        raise NotImplementedError(
+            f"make_data_parallel_step(overlap=...) is not ported yet: {_LATER}")
+    spec = CompressionSpec.resolve(compression)
+    has_ef = spec is not None and spec.error_feedback
+    if not dist.is_initialized():
+        raise MXNetError("make_data_parallel_step needs a process group: "
+                         "call torch.distributed.init_process_group first")
+    ndev = dist.get_world_size(group)
+
+    def local(params, batch):
+        if n_micro > 1:
+            return grad_accum(loss_fn, params, batch, n_micro)
+        return _value_and_grad(loss_fn, params, batch)
+
+    def mean_loss(loss):
+        return all_reduce_sum(loss.float(), group) / ndev
+
+    if has_ef:
+        def step(params, opt_state, batch, comm_state):
+            loss, grads = local(params, batch)
+            grads, comm_state = error_feedback_allreduce(
+                grads, comm_state, spec, group=group, axis_size=ndev,
+                average=True)
+            with torch.no_grad():
+                params, opt_state = update_fn(params, opt_state, grads)
+            return params, opt_state, mean_loss(loss), comm_state
+
+        return step
+
+    def step(params, opt_state, batch):
+        loss, grads = local(params, batch)
+        grads = compressed_allreduce(grads, spec, group=group,
+                                     axis_size=ndev, average=True)
+        with torch.no_grad():
+            params, opt_state = update_fn(params, opt_state, grads)
+        return params, opt_state, mean_loss(loss)
+
+    return step

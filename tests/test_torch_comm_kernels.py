@@ -1,0 +1,545 @@
+"""The port's gradient-compression codecs and comm kernels against the JAX
+package's.
+
+The JAX side runs compiled (``jax.jit``), its Pallas kernels in interpret
+mode, as tests/test_pallas_kernels.py runs them on the CPU: the compiled
+form is the reference (XLA turns ``/ 127.0`` into a multiply by the f32
+reciprocal, fuses the int8 dequantize into the row sum as an FMA, and casts
+a NaN to int8 as 0). The port runs on CPU tensors: the codecs of
+``comm/compression.py`` and the plain version of each kernel.
+
+Tolerance: none. Payloads, scales, round trips and sums are bitwise equal,
+NaNs by position (the sign and payload of a NaN are the backend's), every
+other value by its bits, the sign of zero included.
+"""
+
+import os
+from fractions import Fraction
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu import comm as jcomm
+from mxnet_tpu.ops.pallas import comm_kernels as jck
+from mxnet_tpu.ops.pallas import registry as jreg
+from mxnet_tpu_torch import comm as tcomm
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.kernels import comm_kernels as tck
+from mxnet_tpu_torch.kernels import registry
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNEL_NAMES = ("quant_int8", "quant_twobit", "dequant_sum_int8",
+                "dequant_sum_twobit", "dequant_int8", "dequant_twobit")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    return torch.device("cuda", 0)
+
+
+def _specs(mode, chunk=256, threshold=0.5):
+    return (jcomm.CompressionSpec(mode, threshold=threshold, chunk=chunk),
+            tcomm.CompressionSpec(mode, threshold=threshold, chunk=chunk))
+
+
+def _rows(shape, chunk, seed, specials=True, threshold=0.5):
+    """Gaussian rows whose chunks differ in scale by up to e^±6, with a NaN
+    chunk, an inf chunk, a -inf, an all-zero chunk, a -0.0 and values at
+    exactly ±threshold."""
+    rng = np.random.RandomState(seed)
+    n = int(np.prod(shape))
+    x = rng.randn(n).astype(np.float32)
+    scales = np.exp(rng.uniform(-6, 6, -(-n // chunk))).astype(np.float32)
+    x = (x * np.repeat(scales, chunk)[:n]).astype(np.float32)
+    if specials and n >= 5 * chunk:
+        x[1] = np.nan
+        x[chunk + 2] = np.inf
+        x[2 * chunk + 3] = -np.inf
+        x[3 * chunk:4 * chunk] = 0.0
+        x[4 * chunk + 1] = -0.0
+        x[4 * chunk + 2] = np.float32(threshold)
+        x[4 * chunk + 3] = -np.float32(threshold)
+    return x.reshape(shape)
+
+
+def _same(got, want, what=""):
+    """Bitwise: NaN where the other has NaN, equal bits elsewhere."""
+    got, want = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                 else np.asarray(v) for v in (got, want))
+    assert got.dtype == want.dtype, (what, got.dtype, want.dtype)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    if got.dtype.kind == "f":
+        nan_g, nan_w = np.isnan(got), np.isnan(want)
+        assert (nan_g == nan_w).all(), f"{what}: NaN positions differ"
+        ints = {2: np.uint16, 4: np.uint32, 8: np.uint64}[
+            got.dtype.itemsize]
+        bits_g = got.view(ints)[~nan_g]
+        bits_w = want.view(ints)[~nan_w]
+        bad = np.flatnonzero(bits_g != bits_w)
+        assert bad.size == 0, (f"{what}: {bad.size} values differ, first "
+                               f"{got[~nan_g][bad[:3]]} vs "
+                               f"{want[~nan_w][bad[:3]]}")
+    else:
+        assert np.array_equal(got, want), what
+
+
+# --------------------------------------------------------------------------
+# the codecs against the jitted JAX codecs
+# --------------------------------------------------------------------------
+
+CODEC_CASES = [
+    ("int8", (8, 2048), 256), ("int8", (3, 96), 4), ("int8", (64,), 4),
+    ("int8", (2, 1200), 12), ("int8", (4, 2560), 512),
+    ("twobit", (8, 2048), 256), ("twobit", (64,), 4), ("twobit", (5, 36), 4),
+    ("bf16", (4, 1024), 256), ("none", (4, 1024), 256),
+]
+
+
+@pytest.mark.parametrize("mode,shape,chunk", CODEC_CASES)
+def test_codec_matches_jax_jitted(mode, shape, chunk):
+    js, ts = _specs(mode, chunk, threshold=0.75)
+    x = _rows(shape, chunk, seed=len(shape) + shape[-1], threshold=0.75)
+
+    @jax.jit
+    def ref(v):
+        p = jcomm.encode(js, v)
+        return p, jcomm.decode(js, p)
+
+    jp, jdq = ref(x)
+    tp = tcomm.encode(ts, torch.from_numpy(x))
+    tdq = tcomm.decode(ts, tp)
+    assert set(tp) == set(jp)
+    for k in jp:
+        if mode == "bf16":
+            # numpy has no bfloat16 of its own: compare the exact f32 values
+            # (a NaN's bits are the backend's: torch writes 0xffff)
+            assert tp[k].dtype == torch.bfloat16
+            _same(tp[k].float(), np.asarray(jp[k]).astype(np.float32),
+                  "bf16 payload")
+        else:
+            _same(tp[k], jp[k], f"{mode} payload {k}")
+    _same(tdq, jdq, f"{mode} decode")
+    assert tcomm.payload_bytes_of(tp) == jcomm.payload_bytes_of(jp)
+
+
+def test_int8_scale_is_the_reciprocal_multiply():
+    """The compiled reference multiplies max|x| by fl(1/127); a true divide
+    differs in about 6% of chunks (the port would then be off by an ulp)."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(256 * 512).astype(np.float32)
+    js, ts = _specs("int8", 256)
+    scale = tcomm.encode(ts, torch.from_numpy(x))["scale"].numpy()
+    _same(scale, jax.jit(lambda v: jcomm.encode(js, v)["scale"])(x))
+    amax = np.abs(x.reshape(-1, 256)).max(1)
+    assert (scale == amax * np.float32(1 / 127)).all()
+    assert (scale != amax / np.float32(127)).any()
+
+
+def test_nan_and_inf_chunks_stay_visible():
+    """A NaN chunk keeps a NaN scale and decodes to NaN; an inf chunk has
+    an inf scale and decodes to NaN (inf/inf and 0*inf): non-finite
+    gradients stay visible to a guard downstream, on both packages."""
+    js, ts = _specs("int8", 4)
+    x = np.array([1, np.nan, 2, 3, np.inf, 1, -2, .5, 1, 2, 3, 4], np.float32)
+    tp = tcomm.encode(ts, torch.from_numpy(x))
+    jp = jax.jit(lambda v: jcomm.encode(js, v))(x)
+    _same(tp["scale"], jp["scale"])
+    _same(tp["q"], jp["q"])
+    assert np.isnan(tp["scale"][0].item()) and np.isinf(tp["scale"][1].item())
+    assert (tp["q"][:8] == 0).all()   # NaN quotients cast to 0, as XLA does
+    dq = tcomm.decode(ts, tp).numpy()
+    assert np.isnan(dq[:8]).all() and np.isfinite(dq[8:]).all()
+
+
+def test_twobit_code_3_decodes_to_zero():
+    """Code 3 never comes out of encode; a payload that holds it decodes to
+    0 (neither +t nor -t), in the codec, the plain kernels and JAX."""
+    js, ts = _specs("twobit", threshold=0.25)
+    q = np.array([[0b11100100, 0b11111111, 0b00011011],
+                  [0b01010101, 0b10101010, 0b11001001]], np.uint8)
+
+    @jax.jit
+    def ref(p):
+        return (jcomm.decode(js, {"q": p}),
+                jck.fused_dequant(js, {"q": p}),
+                jck.fused_dequant_sum(js, {"q": p}))
+
+    dec, kdec, ksum = ref(q)
+    tq = torch.from_numpy(q)
+    _same(tcomm.decode(ts, {"q": tq}), dec)
+    _same(tck.fused_dequant(ts, {"q": tq}), kdec)
+    _same(tck.fused_dequant_sum(ts, {"q": tq}), ksum)
+    assert tcomm.decode(ts, {"q": tq})[0, 3].item() == 0.0
+
+
+@pytest.mark.parametrize("value,mode", [
+    (None, None), ("int8", "int8"), ("2bit", "twobit"), (True, "int8"),
+    (False, None), ("fp32", None), ({"type": "2bit", "threshold": 0.3},
+                                    "twobit")])
+def test_compression_spec_resolve_matches_jax(value, mode, monkeypatch):
+    monkeypatch.delenv("MXNET_TPU_GRAD_COMPRESSION", raising=False)
+    got = tcomm.CompressionSpec.resolve(value)
+    want = jcomm.CompressionSpec.resolve(value)
+    assert (got is None) == (want is None) == (mode is None)
+    if mode is not None:
+        assert got.key() == want.key() and got.mode == mode
+        assert got.error_feedback == want.error_feedback
+
+
+@pytest.mark.parametrize("env,mode", [("", None), ("1", "int8"),
+                                      ("bf16", "bf16"), ("off", None)])
+def test_compression_env_gate(env, mode, monkeypatch):
+    monkeypatch.setenv("MXNET_TPU_GRAD_COMPRESSION", env)
+    got = tcomm.CompressionSpec.resolve(None)
+    assert (got.mode if got else None) == mode
+    want = jcomm.CompressionSpec.resolve(None)
+    assert (want.mode if want else None) == mode
+
+
+def test_compression_spec_rejects_what_jax_rejects():
+    for kw in (dict(mode="int4"), dict(mode="int8", chunk=6),
+               dict(mode="twobit", threshold=0.0)):
+        with pytest.raises(MXNetError):
+            tcomm.CompressionSpec(**kw)
+    _, ts = _specs("int8", 8)
+    with pytest.raises(MXNetError, match="multiple of chunk"):
+        tcomm.encode(ts, torch.zeros(12))
+
+
+@pytest.mark.parametrize("mode,n,chunk", [
+    ("none", 1000, 256), ("bf16", 1000, 256), ("int8", 2048, 256),
+    ("int8", 64, 4), ("twobit", 2048, 256)])
+def test_payload_nbytes_matches_jax_and_the_payload(mode, n, chunk):
+    js, ts = _specs(mode, chunk)
+    assert tcomm.payload_nbytes(ts, n) == jcomm.payload_nbytes(js, n)
+    assert tcomm.quantization_unit(ts) == jcomm.quantization_unit(js)
+    payload = tcomm.encode(ts, torch.zeros(n))
+    assert tcomm.payload_bytes_of(payload) == tcomm.payload_nbytes(ts, n)
+
+
+# --------------------------------------------------------------------------
+# the plain kernels against the JAX Pallas kernels (interpret, jitted)
+# --------------------------------------------------------------------------
+
+QUANT_CASES = [
+    # (mode, shape, chunk, block_elems): the JAX test's (8, 2048) in 512
+    # blocks, the default block, a 1-D row with chunk 4, odd chunks
+    ("int8", (8, 2048), 256, 512), ("int8", (2, 4096), 256, None),
+    ("int8", (64,), 4, None), ("int8", (3, 1200), 12, 120),
+    ("twobit", (8, 2048), 256, 512), ("twobit", (2, 4096), 256, None),
+    ("twobit", (64,), 4, None), ("twobit", (3, 36), 4, 8),
+]
+
+
+@pytest.mark.parametrize("want_dq", [True, False])
+@pytest.mark.parametrize("mode,shape,chunk,block", QUANT_CASES)
+def test_plain_quantize_matches_jax_kernel(mode, shape, chunk, block,
+                                           want_dq):
+    js, ts = _specs(mode, chunk)
+    x = _rows(shape, chunk, seed=7 + shape[-1])
+    jp, jdq = jax.jit(lambda v: jck.fused_quantize(
+        js, v, want_dequant=want_dq, block_elems=block))(x)
+    tp, tdq = tck.fused_quantize(ts, torch.from_numpy(x),
+                                 want_dequant=want_dq, block_elems=block)
+    assert set(tp) == set(jp)
+    for k in jp:
+        _same(tp[k], jp[k], f"{mode} {k}")
+    if want_dq:
+        _same(tdq, jdq, f"{mode} dq")
+    else:
+        assert tdq is None and jdq is None
+    # the kernel payload is the codec's, as in the JAX package
+    codec = tcomm.encode(ts, torch.from_numpy(x))
+    for k in codec:
+        _same(tp[k], codec[k].numpy(), f"{mode} {k} vs codec")
+
+
+@pytest.mark.parametrize("shape,chunk,block,rounding", [
+    ((8192,), 256, None, "fma"), ((64,), 4, None, "fma"),
+    ((4096,), 256, 512, "sub"), ((1200,), 12, 120, "sub"),
+    ((2, 4096), 256, None, "sub")])
+def test_plain_error_matches_jax_compiled(shape, chunk, block, rounding):
+    """``want_error``: ``rows - dq`` as the jitted JAX kernel path computes
+    its stage-2 error ``shard - dq2``, bitwise, NaN and inf chunks included.
+    XLA contracts the interpreted kernel's product into the subtraction (one
+    rounding) only when the kernel's grid is one step: one row in one block.
+    Over more steps the product is rounded first. The two forms differ in
+    most values, so each case tells them apart."""
+    js, ts = _specs("int8", chunk)
+    x = _rows(shape, chunk, seed=shape[-1] + chunk)
+
+    @jax.jit
+    def ref(v):
+        p, dq = jck.fused_quantize(js, v, want_dequant=True,
+                                   block_elems=block)
+        return p, v - dq
+
+    jp, jerr = ref(x)
+    tp, tdq, terr = tck.fused_quantize(ts, torch.from_numpy(x),
+                                       want_error=True, block_elems=block)
+    assert tdq is None and terr.shape == shape
+    for k in jp:
+        _same(tp[k], jp[k], k)
+    _same(terr, jerr, "error")
+    rows = torch.from_numpy(x.reshape(-1, shape[-1]))
+    other = tck.quant_int8_plain(
+        rows, chunk, False, {"fma": "sub", "sub": "fma"}[rounding])[3]
+    finite = torch.isfinite(other)
+    assert (other[finite] != terr.reshape(other.shape)[finite]).float() \
+        .mean() > 0.1
+
+
+def test_want_error_is_int8s():
+    _, ts = _specs("twobit")
+    with pytest.raises(MXNetError, match="want_error"):
+        tck.fused_quantize(ts, torch.zeros(2, 8), want_error=True)
+    _, ts = _specs("int8", 4)
+    x = torch.from_numpy(_rows((2, 16), 4, seed=3, specials=False))
+    p, dq, err = tck.fused_quantize(ts, x, want_dequant=True, want_error=True)
+    assert err.shape == dq.shape == x.shape
+    _same(err, (x - dq).numpy(), "two rows: the rounded product")
+    with pytest.raises(ValueError, match="err must be"):
+        tck.quant_int8(x, 4, err="exact")
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode,chunk", [("int8", 256), ("int8", 4),
+                                        ("twobit", 256)])
+def test_plain_dequant_sum_matches_jax_kernel(mode, chunk, rows):
+    """The FMA sums, rows in order: bitwise at R = 1, 2, 4 and 8."""
+    js, ts = _specs(mode, chunk)
+    # one scale range for all rows, so the rows' products overlap and the
+    # order and rounding of the sum matter
+    x = _rows((rows, 64 * chunk), chunk, seed=rows, specials=False)
+    jp = jax.jit(lambda v: jcomm.encode(js, v))(x)
+    jsum = jax.jit(lambda p: jck.fused_dequant_sum(js, p,
+                                                   block_elems=512))(jp)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    _same(tck.fused_dequant_sum(ts, tp, block_elems=512), jsum)
+
+
+def test_plain_dequant_sum_rounds_once():
+    """The int8 sum is fma(q, scale, acc), not a rounded product added: on
+    these rows the two forms differ in most columns, and the port takes the
+    kernel's."""
+    js, ts = _specs("int8", 256)
+    x = _rows((4, 256 * 32), 256, seed=11, specials=False)
+    tp = tcomm.encode(ts, torch.from_numpy(x))
+    fused = tck.fused_dequant_sum(ts, tp)
+    rounded = tcomm.decode(ts, tp)
+    seq = torch.zeros_like(fused)
+    for r in range(4):
+        seq = seq + rounded[r]
+    assert (fused != seq).float().mean() > 0.1
+    jsum = jax.jit(lambda v: jck.fused_dequant_sum(js, jcomm.encode(js, v)))(x)
+    _same(fused, jsum)
+
+
+@pytest.mark.parametrize("mode,shape,chunk", [
+    ("int8", (8, 2048), 256), ("int8", (64,), 4), ("twobit", (8, 2048), 256),
+    ("twobit", (64,), 4)])
+def test_plain_dequant_matches_jax_kernel(mode, shape, chunk):
+    js, ts = _specs(mode, chunk)
+    x = _rows(shape, chunk, seed=5)
+    jp = jax.jit(lambda v: jcomm.encode(js, v))(x)
+    jdq = jax.jit(lambda p: jck.fused_dequant(js, p, block_elems=512))(jp)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    tdq = tck.fused_dequant(ts, tp, block_elems=512)
+    _same(tdq, jdq)
+    _same(tdq, tcomm.decode(ts, tp).numpy(), "vs codec decode")
+
+
+def _nearest_f32(exact: Fraction) -> np.float32:
+    """The float32 nearest to ``exact``, ties to even."""
+    f = np.float32(float(exact))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - exact),
+                                     int(c.view(np.uint32)) & 1))
+
+
+def test_fma_f32_is_correctly_rounded():
+    """fma_f32 against exact rational arithmetic, on products and sums far
+    apart in scale, where a float64 sum rounded again to float32 would
+    round twice."""
+    rng = np.random.RandomState(0)
+    q = rng.randint(-127, 128, 4000).astype(np.int8)
+    scale = np.exp(rng.uniform(-40, 40, 4000)).astype(np.float32)
+    acc = (rng.randn(4000) * np.exp(rng.uniform(-40, 40, 4000))).astype(
+        np.float32)
+    # products that are exact f32 ties plus a tiny accumulator
+    scale[:50] = np.float32(1 + 2 ** -23)
+    q[:50] = 3
+    acc[:50] = np.float32(2 ** -60)
+    got = tck.fma_f32(torch.from_numpy(q).double()
+                      * torch.from_numpy(scale).double(),
+                      torch.from_numpy(acc)).numpy()
+    for i in range(4000):
+        want = _nearest_f32(Fraction(int(q[i])) * Fraction(float(scale[i]))
+                            + Fraction(float(acc[i])))
+        assert got[i] == want, (i, q[i], scale[i], acc[i], got[i], want)
+
+
+def test_pick_block_matches_jax():
+    assert tck.pick_block(2048, 256, 512) == 512
+    assert tck.pick_block(2048, 256, 700) == 512
+    assert tck.pick_block(1280, 256, 512) == 256
+    assert tck.pick_block(12, 4, 8) == 4
+    for length, unit, cap in ((2048, 4, None), (4096 * 3, 12, 1000),
+                              (1 << 20, 256, 65536), (96, 4, 7)):
+        assert tck.pick_block(length, unit, cap) == \
+            jck.pick_block(length, unit, cap)
+    with pytest.raises(MXNetError):
+        tck.pick_block(10, 4)
+    _, ts = _specs("int8", 8)
+    with pytest.raises(MXNetError, match="not a multiple"):
+        tck.fused_quantize(ts, torch.zeros(2, 12))
+
+
+def test_block_elems_changes_no_result():
+    _, ts = _specs("int8", 4)
+    x = torch.from_numpy(_rows((4, 96), 4, seed=2))
+    base = tck.fused_quantize(ts, x, want_dequant=True)
+    for block in (4, 8, 24, 96, None):
+        p, dq = tck.fused_quantize(ts, x, want_dequant=True,
+                                   block_elems=block)
+        assert torch.equal(p["q"], base[0]["q"])
+        _same(dq, base[1].numpy())
+
+
+def test_none_and_bf16_have_no_kernel():
+    for mode in ("none", "bf16"):
+        _, ts = _specs(mode)
+        for fn in (lambda: tck.fused_quantize(ts, torch.zeros(2, 8)),
+                   lambda: tck.fused_dequant_sum(ts, {"q": torch.zeros(2, 8)}),
+                   lambda: tck.fused_dequant(ts, {"q": torch.zeros(2, 8)})):
+            with pytest.raises(MXNetError, match="no kernel"):
+                fn()
+
+
+def test_wrappers_check_their_operands():
+    with pytest.raises(ValueError, match="float32"):
+        tck.quant_int8(torch.zeros(2, 8, dtype=torch.float64), 4)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        tck.quant_int8(torch.zeros(2, 10), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        tck.dequant_int8(torch.zeros(8, 2, dtype=torch.int8).t(),
+                         torch.zeros(2, 2), 4)
+    with pytest.raises(ValueError, match="scale is"):
+        tck.dequant_sum_int8(torch.zeros(2, 8, dtype=torch.int8),
+                             torch.zeros(2, 3), 4)
+    with pytest.raises(ValueError, match="uint8"):
+        tck.dequant_twobit(torch.zeros(2, 8, dtype=torch.int8), 0.5)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    before = [k.launches for k in tck.KERNELS]
+    _, ts = _specs("int8", 4)
+    p, _ = tck.fused_quantize(ts, torch.ones(2, 8), want_dequant=True)
+    tck.fused_dequant_sum(ts, p)
+    tck.fused_dequant(ts, p)
+    assert [k.launches for k in tck.KERNELS] == before
+
+
+# --------------------------------------------------------------------------
+# the registry
+# --------------------------------------------------------------------------
+
+def _jax_cost(name, ins, outs):
+    spec = jreg.get_kernel(name)
+    avals = lambda ts: [jax.ShapeDtypeStruct(tuple(t.shape),  # noqa: E731
+                                             {torch.float32: jnp.float32,
+                                              torch.int8: jnp.int8,
+                                              torch.uint8: jnp.uint8}[t.dtype])
+                        for t in ts]
+    return spec.cost_fn(avals(ins), avals(outs))
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
+def test_registry_entries_match_jax(name):
+    spec = registry.get_kernel(name)
+    assert spec.source == "mxnet_tpu_torch/csrc/comm_kernels.cu"
+    path, line = spec.replaces.rsplit(":", 1)
+    assert path == "mxnet_tpu/ops/pallas/comm_kernels.py"
+    with open(os.path.join(REPO, path)) as f:
+        src = f.read().splitlines()
+    assert "pl.pallas_call" in src[int(line) - 1]
+    assert f'name="{name}"' in "\n".join(src[int(line):int(line) + 20])
+    R, L, chunk = 2, 4096, 256
+    x = torch.zeros(R, L)
+    q8, s8 = torch.zeros(R, L, dtype=torch.int8), torch.zeros(R, L // chunk)
+    q2 = torch.zeros(R, L // 4, dtype=torch.uint8)
+    ins, outs = {
+        "quant_int8": ([x], [q8, s8, x]),
+        "quant_twobit": ([x], [q2, x]),
+        "dequant_sum_int8": ([q8, s8], [torch.zeros(L)]),
+        "dequant_sum_twobit": ([q2], [torch.zeros(L)]),
+        "dequant_int8": ([q8, s8], [x]),
+        "dequant_twobit": ([q2], [x]),
+    }[name]
+    cost = spec.cost(ins, outs)
+    want = _jax_cost(name, ins, outs)
+    assert cost.flops == want.flops
+    assert cost.bytes == want.bytes == registry.KernelCost.io_bytes(ins, outs)
+    seconds, bound_by = cost.bound()
+    assert bound_by == "bytes" and seconds == cost.bytes / 3.35e12
+
+
+# --------------------------------------------------------------------------
+# on the card: each kernel against its plain version, bitwise
+# --------------------------------------------------------------------------
+
+CARD_CASES = [((2, 1 << 20), 256), ((4, 1 << 16), 256), ((8, 2048), 256),
+              ((3, 1200), 12), ((64,), 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk", CARD_CASES)
+def test_kernels_match_plain_on_card(cuda_device, shape, chunk):
+    for mode in ("int8", "twobit"):
+        _, ts = _specs(mode, chunk)
+        x = torch.from_numpy(_rows(shape, chunk, seed=1)).to(cuda_device)
+        counts = [k.launches for k in tck.KERNELS]
+        kp, kdq = tck.fused_quantize(ts, x, want_dequant=True)
+        torch.cuda.synchronize()
+        assert [k.launches for k in tck.KERNELS] != counts
+        pp, pdq = tck.fused_quantize(ts, x.cpu(), want_dequant=True)
+        for k in pp:
+            _same(kp[k].cpu(), pp[k].numpy(), f"{mode} {k}")
+        _same(kdq.cpu(), pdq.numpy(), f"{mode} dq")
+        if mode == "int8":
+            # the error in both roundings
+            rows = x if x.dim() == 2 else x[None]
+            for rounding in ("fma", "sub"):
+                kerr = tck.quant_int8(rows, chunk, err=rounding)[3]
+                perr = tck.quant_int8(rows.cpu(), chunk, err=rounding)[3]
+                _same(kerr.cpu(), perr.numpy(), f"int8 err {rounding}")
+        payload = {k: (v if v.dim() == 2 else v[None]) for k, v in kp.items()}
+        ksum = tck.fused_dequant_sum(ts, payload)
+        kdec = tck.fused_dequant(ts, payload)
+        cpu_payload = {k: v.cpu() for k, v in payload.items()}
+        _same(ksum.cpu(), tck.fused_dequant_sum(ts, cpu_payload).numpy())
+        _same(kdec.cpu(), tck.fused_dequant(ts, cpu_payload).numpy())
+
+
+@pytest.mark.cuda
+def test_kernels_repeat_bitwise_on_card(cuda_device):
+    _, ts = _specs("int8")
+    x = torch.from_numpy(_rows((4, 1 << 16), 256, seed=2)).to(cuda_device)
+    a = tck.fused_quantize(ts, x, want_dequant=True)
+    b = tck.fused_quantize(ts, x, want_dequant=True)
+    for k in a[0]:
+        _same(a[0][k], b[0][k], k)
+    _same(a[1], b[1], "dq")
+    for rounding in ("fma", "sub"):
+        _same(tck.quant_int8(x, 256, err=rounding)[3],
+              tck.quant_int8(x, 256, err=rounding)[3], rounding)
+    _same(tck.fused_dequant_sum(ts, a[0]), tck.fused_dequant_sum(ts, b[0]),
+          "sum")

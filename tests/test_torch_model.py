@@ -277,16 +277,16 @@ def test_save_load_predict_score(tmp_path):
         mt.load_checkpoint(prefix, 3)
 
 
-LATER = ["sharded_checkpoint_dir", "checkpoint_every_n_steps", "compression",
-         "overlap", "comm_kernels", "guards", "elastic", "controller",
-         "pad_policy", "telemetry", "health", "profile", "shard_audit"]
+LATER = ["sharded_checkpoint_dir", "checkpoint_every_n_steps", "overlap",
+         "guards", "elastic", "controller", "pad_policy", "telemetry",
+         "health", "profile", "shard_audit"]
 
 
 @pytest.mark.parametrize("arg", LATER + ["kvstore"])
 def test_later_slice_fit_arguments_raise(arg):
     model = mt.FeedForward(tmodels.mlp(), ctx=mt.cpu(), num_epoch=1)
     X = np.zeros((8, 64), np.float32)
-    value = "dist_sync" if arg == "kvstore" else True
+    value = "dist_async" if arg == "kvstore" else True
     with pytest.raises(NotImplementedError, match="ROADMAP A[0-9]"):
         model.fit(X, np.zeros(8, np.float32), batch_size=8, **{arg: value})
     assert model.arg_params is None  # raised before any work

@@ -1,0 +1,242 @@
+"""Run a function on several ``torch.distributed`` ranks of CPU processes,
+for the port's data-parallel tests. Not a test module: the ranks import it,
+and it imports torch, numpy and ``mxnet_tpu_torch`` only, never JAX.
+
+``run_ranks(body, world, tmp_path, *args)`` starts ``world`` processes with
+the ``spawn`` method, joins them into a gloo group through a ``file://``
+rendezvous in ``tmp_path``, calls ``body(rank, world, *args)`` in each and
+returns the results (numpy values) in rank order. A rank that fails raises
+here with its traceback; a run that outlasts ``timeout`` seconds kills every
+rank and raises, so no hang reaches the suite's time limit.
+"""
+
+from __future__ import annotations
+
+import datetime
+import multiprocessing as mp
+import os
+import queue as queue_mod
+import time
+import traceback
+
+import numpy as np
+
+RANK_TIMEOUT_S = 120.0
+
+
+def _rank_main(body, rank, world, init_method, join, args, queue):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        if join:
+            dist.init_process_group(
+                "gloo", init_method=init_method, rank=rank, world_size=world,
+                timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+        else:
+            # the port joins the world itself, from tools/launch.py's variables
+            os.environ.update(MXTPU_COORDINATOR=init_method,
+                              MXTPU_NUM_WORKERS=str(world),
+                              MXTPU_WORKER_RANK=str(rank))
+        queue.put((rank, True, body(rank, world, *args)))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which raises
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(body, world, tmp_path, *args, join=True,
+              timeout=RANK_TIMEOUT_S):
+    """``[body(rank, world, *args) for rank in range(world)]``, each in a
+    rank process of its own. With ``join=False`` the ranks get the
+    ``MXTPU_*`` variables instead of a joined group."""
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    init_method = f"file://{os.path.join(str(tmp_path), 'rendezvous')}"
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(body, rank, world, init_method, join, args,
+                               queue))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + timeout
+    try:
+        # drain the queue before joining (a writer blocks on a full pipe)
+        while len(results) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"{world} ranks of {body.__name__} did not "
+                                   f"finish in {timeout} s")
+            try:
+                rank, ok, value = queue.get(timeout=min(left, 1.0))
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in results]
+                if dead:
+                    raise RuntimeError(f"rank(s) {dead} of {body.__name__} "
+                                       "died without a result")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} of {body.__name__} "
+                                   f"failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=max(0.0, min(10.0, deadline - time.monotonic())))
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(world)]
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if tree is None:
+        return None
+    return tree.detach().cpu().numpy().copy()
+
+
+# -- rank bodies ---------------------------------------------------------------
+
+def exchange(rank, world, cases):
+    """Each case through ``error_feedback_allreduce`` (with a residual) or
+    ``compressed_allreduce``: ``{"mode", "kernels", "average", "grads":
+    {name: (world, ...) array}, "resid": (world, Lp) array or None}``; this
+    rank feeds row ``rank`` of each."""
+    import torch
+
+    from mxnet_tpu_torch import comm
+    from mxnet_tpu_torch.comm import allreduce
+    from mxnet_tpu_torch.convert import residual_rows_from_numpy
+
+    wire, sent = allreduce._wire, []
+
+    def counting_wire(op, out, inp, group):
+        sent.append((op, inp.numel() * inp.element_size()))
+        return wire(op, out, inp, group)
+
+    allreduce._wire = counting_wire
+    out = []
+    for case in cases:
+        sent.clear()
+        spec = comm.CompressionSpec(case["mode"], threshold=case["threshold"],
+                                    chunk=case["chunk"])
+        tree = {k: torch.from_numpy(v[rank].copy())
+                for k, v in case["grads"].items()}
+        if case["resid"] is not None:
+            resid = residual_rows_from_numpy(case["resid"], rank)
+            reduced, new = comm.error_feedback_allreduce(
+                tree, resid, spec, average=case["average"],
+                kernels=case["kernels"])
+        else:
+            reduced = comm.compressed_allreduce(
+                tree, spec if spec.mode != "none" else None,
+                average=case["average"], kernels=case["kernels"])
+            new = None
+        out.append({"out": _numpy(reduced), "resid": _numpy(new),
+                    "wire": list(sent)})
+    return out
+
+
+def kvstore_closed_form(rank, world):
+    """examples/distributed/dist_sync_kvstore.py through the port: the
+    store joins the world from the MXTPU_* variables; every rank pushes
+    ``rank + 1`` and pulls the BSP sum."""
+    import torch
+
+    import mxnet_tpu_torch as mt
+
+    kv = mt.kv.create("dist_sync", ctx=mt.cpu())
+    shape, keys, big_key, big_shape = (4, 4), [3, 5, 7], 99, (1200,)
+    kv.init(keys, [torch.ones(shape)] * len(keys))
+    kv.init(big_key, torch.ones(big_shape))
+    kv.push(keys, [[torch.ones(shape) * (kv.rank + 1)]] * len(keys))
+    kv.push(big_key, [torch.ones(big_shape) * (kv.rank + 1)])
+    outs = [torch.empty(shape) for _ in keys]
+    kv.pull(keys, out=outs)
+    big = torch.empty(big_shape)
+    kv.pull(big_key, out=big)
+    kv.barrier()
+    return {"rank": kv.rank, "num_workers": kv.num_workers,
+            "keys": [o.numpy() for o in outs], "big": big.numpy()}
+
+
+def data_parallel_steps(rank, world, w0, X, Y, compression, steps, n_micro):
+    """``steps`` steps of ``make_data_parallel_step`` on a linear
+    least-squares model with SGD, this rank on its share of the rows."""
+    import torch
+
+    from mxnet_tpu_torch import comm
+    from mxnet_tpu_torch.parallel import make_data_parallel_step
+
+    def loss_fn(p, batch):
+        pred = batch["x"] @ p["w"] + p["b"]
+        return ((pred - batch["y"]) ** 2).mean()
+
+    def update_fn(p, state, grads):
+        return {k: p[k] - 0.1 * grads[k] for k in p}, state
+
+    step = make_data_parallel_step(loss_fn, update_fn, n_micro=n_micro,
+                                   compression=compression)
+    params = {k: torch.from_numpy(v.copy()) for k, v in w0.items()}
+    per = X.shape[0] // world
+    batch = {"x": torch.from_numpy(X[rank * per:(rank + 1) * per].copy()),
+             "y": torch.from_numpy(Y[rank * per:(rank + 1) * per].copy())}
+    spec = comm.CompressionSpec.resolve(compression)
+    cstate = comm.init_error_feedback(params, spec, world)
+    losses, history = [], []
+    for _ in range(steps):
+        if cstate is not None:
+            params, _, loss, cstate = step(params, None, batch, cstate)
+        else:
+            params, _, loss = step(params, None, batch)
+        losses.append(float(loss))
+        history.append(_numpy(params))
+    return {"losses": losses, "params": history}
+
+
+def small_net(mt):
+    """FC(32) -> BatchNorm -> relu -> FC(10) -> SoftmaxOutput, in either
+    package's symbol API (``mt`` is the package)."""
+    s = mt.symbol
+    h = s.FullyConnected(s.Variable("data"), num_hidden=32, name="fc1")
+    h = s.BatchNorm(h, name="bn1")
+    h = s.Activation(h, act_type="relu", name="relu1")
+    h = s.FullyConnected(h, num_hidden=10, name="fc2")
+    return s.SoftmaxOutput(h, name="softmax")
+
+
+def fit_dist_sync(rank, world, args, aux, X, Y, epochs, fit_kw, model_kw):
+    """``FeedForward(small_net, ctx=cpu()).fit(kvstore="dist_sync", ...)``
+    on this rank's share of each global batch (the rows a dp mesh gives its
+    device ``rank``), without shuffling. Returns each epoch's parameters and
+    auxiliary states, each step's cross-entropy sum over this rank's rows,
+    the comm stats and the residual."""
+    import mxnet_tpu_torch as mt
+
+    batch = X.shape[0]
+    per = batch // world
+    rows = np.concatenate([np.arange(b + rank * per, b + (rank + 1) * per)
+                           for b in range(0, X.shape[0], batch)])
+    epochs_seen, sums = [], []
+
+    def on_epoch(epoch, symbol, arg_params, aux_params):
+        epochs_seen.append((_numpy(arg_params), _numpy(aux_params)))
+
+    mt.comm.reset_comm_stats()
+    model = mt.FeedForward(small_net(mt), ctx=mt.cpu(), num_epoch=epochs,
+                           arg_params=args, aux_params=aux, **model_kw)
+    model.fit(mt.io.NDArrayIter(X[rows], Y[rows], batch_size=per,
+                                shuffle=False),
+              kvstore="dist_sync", eval_metric="ce",
+              epoch_end_callback=on_epoch,
+              batch_end_callback=lambda p: sums.append(
+                  p.eval_metric.sum_metric), **fit_kw)
+    sync = model._train_state.grad_sync
+    return {"epochs": epochs_seen, "ce_sums": sums,
+            "stats": mt.comm.comm_stats(),
+            "residual": _numpy(sync.residual),
+            "rescale_grad": model._optimizer_obj.rescale_grad}
