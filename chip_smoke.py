@@ -34,10 +34,12 @@ together), and then:
 6. flash: holds the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the card, row by row, and lse at f32's
    precision, at the transformer LM's shape (q, k, v views of one packed
-   qkv, 8x8x2048x64 bf16, causal), at a non-causal shape and at a ragged f32
-   one, checks that two launches agree bitwise, and times each beside its
-   bound, its plain version and
-   ``F.scaled_dot_product_attention`` (forward, or its backward);
+   qkv, 8x8x2048x64 bf16, causal), at a non-causal shape, at a ragged f32
+   one and at the bf16 Hopper kernels' edges (head_dim 32, 40 and 128,
+   sequences of 77 and 1000, seq_q != seq_k), checks that two launches
+   agree bitwise, and times each beside its bound, its plain version and
+   ``F.scaled_dot_product_attention`` (forward, or its backward), with its
+   share of the bound and its compiled registers and shared memory;
 7. lm_serve: the full-width transformer LM (vocab 32000, d_model 512, 8
    heads, 4 layers, d_ff 2048, bf16, seeded random weights) computes the
    logits of 8 sequences of 2048 tokens through ``TransformerLM.forward``,
@@ -110,11 +112,19 @@ LM_BATCH, LM_SEQ = 8, 2048
 LM_REQUESTS = 5
 LM_STEPS = 8
 LM_CUT = (1, 256)
-# (shape, dtype, causal): the LM's attention, a non-causal shape and the JAX
-# package's ragged tail test (tests/test_pallas.py:35)
-FLASH_CASES = (((LM_BATCH, 8, LM_SEQ, 64), "bfloat16", True),
-               ((4, 8, 1024, 64), "bfloat16", False),
-               ((1, 2, 48, 24), "float32", True))
+# (q shape, dtype, causal, seq_k or None for seq_q): the LM's attention, a
+# non-causal shape, the JAX package's ragged tail test (tests/test_pallas.py
+# :35), and the Hopper kernels' edges at small size: head_dim 32 and 40
+# (TMA's zero fill), 128 (two boxes a row), sequences of 77 and 1000 (a
+# multiple of neither the 64-row tile nor the 128-row block), seq_q != seq_k
+FLASH_CASES = (((LM_BATCH, 8, LM_SEQ, 64), "bfloat16", True, None),
+               ((4, 8, 1024, 64), "bfloat16", False, None),
+               ((1, 2, 48, 24), "float32", True, None),
+               ((2, 2, 77, 32), "bfloat16", True, None),
+               ((1, 3, 1000, 40), "bfloat16", True, None),
+               ((2, 2, 1000, 128), "bfloat16", False, None),
+               ((1, 2, 300, 128), "bfloat16", False, 77),
+               ((2, 2, 100, 64), "bfloat16", False, 300))
 # data-parallel training: ranks sharing the card, steps, modes, time limit
 DP_WORLD = 2
 DP_STEPS = 8
@@ -182,15 +192,22 @@ def phase_card(torch, common):
     smi = nvidia_smi("name,power.limit")
     print(smi, flush=True)
     t0 = time.perf_counter()
+
+    def build(stem):
+        common.load_library(stem)
+        return time.perf_counter() - t0
+
     # nvcc on a fresh checkout: one compiler per source, all at once
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        list(pool.map(common.load_library, KERNEL_SOURCES))
+        library_s = dict(zip(KERNEL_SOURCES, pool.map(build, KERNEL_SOURCES)))
     build_s = time.perf_counter() - t0
     emit({"phase": "card", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernels_loaded": list(KERNEL_SOURCES), "build_s": build_s})
+          "kernels_loaded": list(KERNEL_SOURCES), "build_s": build_s,
+          # each library's build, from the common start (they run at once)
+          "library_build_s": library_s})
     return smi
 
 
@@ -633,12 +650,18 @@ def row_errors(torch, got, want, tol):
     return share, rel
 
 
-def flash_operands(torch, shape, dtype, gen):
+def flash_operands(torch, shape, dtype, gen, seq_k=None):
     """q, k, v as the transformer hands them (views of one packed
-    (b, s, 3, h, d) qkv), and do."""
+    (b, s, 3, h, d) qkv), and do; with ``seq_k``, k and v of their own."""
     b, h, s, d = shape
-    qkv = torch.randn((b, s, 3, h, d), generator=gen, device="cuda").to(dtype)
-    q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+    if seq_k is None:
+        qkv = torch.randn((b, s, 3, h, d), generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+    else:
+        q = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((b, h, seq_k, d), generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
     do = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     return q, k, v, do
 
@@ -651,9 +674,9 @@ def phase_flash(torch, tfa, registry):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     rows = {}
-    for shape, dtype_name, causal in FLASH_CASES:
+    for shape, dtype_name, causal, seq_k in FLASH_CASES:
         dtype = getattr(torch, dtype_name)
-        q, k, v, do = flash_operands(torch, shape, dtype, gen)
+        q, k, v, do = flash_operands(torch, shape, dtype, gen, seq_k)
         o, lse = tfa.flash_fwd(q, k, v, causal)
         delta = tfa.attention_delta(o, do)
         dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
@@ -689,7 +712,8 @@ def phase_flash(torch, tfa, registry):
                           "row_rel_err_max_late": float(late.max())}
         errs["flash_fwd"] = max(errs["flash_fwd"], case["lse"]["max_abs_err"])
         emit({"phase": "flash_parity", "shape": list(shape),
-              "dtype": dtype_name, "causal": causal, "errors": case,
+              "seq_k": k.shape[2], "dtype": dtype_name, "causal": causal,
+              "errors": case,
               "row_rel_bound": bound, "row_floor_of_rms": ROW_FLOOR,
               "lse_rel_bound": LSE_BOUND, "bitwise_repeat": True})
         require(lse_err <= LSE_BOUND,
@@ -743,7 +767,10 @@ def phase_flash(torch, tfa, registry):
             emit({"phase": "kernel", "name": name, "shape": list(shape),
                   "dtype": dtype_name, "causal": causal,
                   "ops": costs[name].flops, "bytes": costs[name].bytes,
-                  **rows[name],
+                  **rows[name], "share_of_bound": bound_s * 1e3 / ms,
+                  # the compiled kernel this call launches, per block
+                  "attributes": tfa.kernel_attributes(name, dtype,
+                                                      shape[3]),
                   "library": ("F.scaled_dot_product_attention"
                               if name == "flash_fwd" else
                               "its backward (dq, dk and dv together)"),

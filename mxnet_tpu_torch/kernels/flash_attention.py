@@ -10,22 +10,26 @@ its launches:
   the saved lse and ``delta = sum(do * o)``, which stays a torch expression
   (plain jnp outside the kernels in the JAX package too).
 
-On CUDA tensors each launches its kernel in ``csrc/flash_attention.cu``; on
-CPU tensors it runs the plain version, :func:`flash_fwd_plain` or
-:func:`flash_bwd_plain`: the blocked online-softmax algorithm written step
-by step, rounding where the JAX kernels round. The public functions are
+On CUDA tensors each launches its kernel in ``csrc/flash_attention.cu``:
+bf16 forward and dk/dv launch the Hopper kernels (TMA, wgmma, warp
+specialised), while f32 calls and dq launch the first design's CUDA-core
+and ``mma.sync`` kernels. On CPU tensors it runs the plain version,
+:func:`flash_fwd_plain` or :func:`flash_bwd_plain`: the blocked
+online-softmax algorithm written step by step, rounding where the JAX
+kernels round. The public functions are
 :func:`flash_attention` (differentiable, a ``torch.autograd.Function`` where
 JAX has a ``custom_vjp``), :func:`flash_attention_with_lse` and
 :func:`flash_block_grads` (a block's gradients from a GLOBAL lse).
 
-Tiles. The kernels work in 64x64 tiles. bf16 results depend on the key
-tile up to rounding, because the online softmax rescales by a running max;
-the query tile changes nothing (rows are independent, and a skipped causal
-tile adds exactly nothing). So every function takes ``block_k``: ``None``
-means the kernels' 64 on both devices, and on a CUDA tensor any other value
-raises. The public functions also take ``block_q``, for the JAX package's
-signature only: anything but ``None`` raises. (The JAX package's defaults
-are 512 and 2048.)
+Tiles. The kernels work in 64-key tiles (the Hopper forward in blocks of
+128 query rows, dk/dv of 128 keys, in 64-row halves). bf16 results depend
+on the key tile up to rounding, because the online softmax rescales by a
+running max; the query tile changes nothing (rows are independent, and a
+skipped causal tile adds exactly nothing). So every function takes
+``block_k``: ``None`` means the kernels' 64 on both devices, and on a CUDA
+tensor any other value raises. The public functions also take
+``block_q``, for the JAX package's signature only: anything but ``None``
+raises. (The JAX package's defaults are 512 and 2048.)
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from .registry import KernelCost, register_kernel
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_block_grads",
            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_plain",
            "flash_bwd_plain", "attention_delta", "attention_entries",
-           "KERNEL_BLOCK", "NEG_INF"]
+           "kernel_attributes", "KERNEL_BLOCK", "NEG_INF"]
 
 KERNEL_BLOCK = 64      # csrc/flash_attention.cu's kBlock
 NEG_INF = -1e30        # flash_attention.py:34: masked scores, not -inf
@@ -187,17 +191,38 @@ def _library():
         fn.restype = i32
     lib.mxtt_flash_error_string.argtypes = [i32]
     lib.mxtt_flash_error_string.restype = ctypes.c_char_p
+    lib.mxtt_flash_kernel_attributes.argtypes = [i32, i32, i32, ptr]
+    lib.mxtt_flash_kernel_attributes.restype = i32
     return lib
+
+
+_WHICH = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
+
+
+def kernel_attributes(name: str, dtype: torch.dtype, head_dim: int) -> dict:
+    """What the compiled kernel a call of ``name`` at ``dtype`` and
+    ``head_dim`` launches takes (``cudaFuncGetAttributes``): registers a
+    thread, static and dynamic shared memory a block (bytes), threads a
+    block and local memory a thread (bytes: spills). Builds the library."""
+    out = (ctypes.c_int * 5)()
+    lib = _library()
+    err = lib.mxtt_flash_kernel_attributes(_WHICH[name], _DTYPES[dtype],
+                                           head_dim, out)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel attributes: "
+                           + lib.mxtt_flash_error_string(err).decode())
+    return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                     "threads", "local_bytes"), out))
 
 
 def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself where the kernels can read it through its strides (unit
-    stride along head_dim, 16-byte aligned rows); a contiguous copy
-    otherwise. The transformer's q, k, v views of its packed qkv and its
-    gradients need no copy."""
+    stride along head_dim, 16-byte aligned rows: what a TMA tensor map
+    takes); a contiguous copy otherwise. The transformer's q, k, v views
+    of its packed qkv and its gradients need no copy."""
     size = t.element_size()
     if (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and all((s * size) % 16 == 0 for s in t.stride()[:3])):
+            and all(s > 0 and (s * size) % 16 == 0 for s in t.stride()[:3])):
         return t
     return t.contiguous()
 

@@ -212,6 +212,33 @@ def test_cuda_route_launches_or_raises(monkeypatch):
         tfa.flash_attention(*tx, block_k=32)
 
 
+def test_kernel_operands_are_read_in_place_or_copied():
+    # TMA tensor maps take unit stride along head_dim and positive strides
+    # that are multiples of 16 bytes: the transformer's views of its packed
+    # qkv are read in place, anything else is copied
+    packed = torch.zeros((2, 40, 3, 2, 16), dtype=torch.bfloat16)
+    q = packed[:, :, 0].transpose(1, 2)
+    assert tfa._kernel_operand(q) is q
+    expanded = torch.zeros((1, 2, 40, 16), dtype=torch.bfloat16).expand(
+        3, 2, 40, 16)
+    copy = tfa._kernel_operand(expanded)
+    assert copy is not expanded and copy.is_contiguous()
+    assert torch.equal(copy, expanded)
+    odd = torch.zeros((1, 2, 40, 20), dtype=torch.bfloat16)[..., :16]
+    assert tfa._kernel_operand(odd).is_contiguous()
+    assert tfa._kernel_operand(q.transpose(2, 3)).stride(3) == 1
+
+
+def test_kernel_attributes_need_the_build():
+    # the registers and shared memory of a kernel come from its compiled
+    # library: without nvcc the query raises, as a launch does
+    if torch.cuda.is_available():
+        pytest.skip("checks the build's absence without a card")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        with pytest.raises(MXNetError, match="nvcc"):
+            tfa.kernel_attributes(name, torch.bfloat16, 64)
+
+
 def test_rejected_operands():
     _, tx = _both(_qkv((1, 2, 48, 24)))
     half = [t.half() for t in tx]
@@ -266,11 +293,41 @@ def test_cost_counts_the_causal_entries():
 # on the card: each kernel against its plain version
 # --------------------------------------------------------------------------
 
-CARD_SHAPES = [((2, 3, 256, 64), torch.bfloat16, True),
-               ((2, 3, 200, 64), torch.bfloat16, False),
-               ((1, 2, 48, 24), torch.float32, True),
-               ((1, 2, 130, 128), torch.bfloat16, True),
-               ((1, 2, 96, 32), torch.float32, False)]
+# (q shape, seq_k or None for seq_q, dtype, causal, packed): packed q, k, v
+# are strided views of one (b, s, 3, h, d) qkv, as the transformer hands
+# them. The bf16 cases reach the Hopper kernels' edges: head_dim 32 and 40
+# (TMA's zero fill of the 64-column box), 128 (two 64-column boxes a row),
+# sequences that are a multiple of neither the 64-row tile nor the 128-row
+# block (77, 130, 1000), seq_q != seq_k, and causal blocks of both halves.
+CARD_SHAPES = [((2, 3, 256, 64), None, torch.bfloat16, True, False),
+               ((2, 3, 200, 64), None, torch.bfloat16, False, False),
+               ((1, 2, 48, 24), None, torch.float32, True, False),
+               ((1, 2, 130, 128), None, torch.bfloat16, True, False),
+               ((1, 2, 96, 32), None, torch.float32, False, False),
+               ((2, 2, 77, 32), None, torch.bfloat16, True, False),
+               ((1, 3, 1000, 40), None, torch.bfloat16, True, False),
+               ((2, 2, 77, 40), None, torch.bfloat16, False, True),
+               ((1, 2, 1000, 128), None, torch.bfloat16, False, True),
+               ((2, 4, 512, 64), None, torch.bfloat16, True, True),
+               ((1, 2, 100, 64), 300, torch.bfloat16, False, False),
+               ((1, 2, 300, 128), 77, torch.bfloat16, False, False),
+               ((1, 2, 130, 64), 200, torch.bfloat16, True, False)]
+
+
+def _card_operands(shape, seq_k, dtype, packed, device):
+    gen = torch.Generator(device=device).manual_seed(0)
+    b, h, sq, d = shape
+    sk = sq if seq_k is None else seq_k
+    if packed:
+        qkv = torch.randn((b, sq, 3, h, d), generator=gen,
+                          device=device).to(dtype)
+        q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+    else:
+        q = torch.randn(shape, generator=gen, device=device).to(dtype)
+        k, v = (torch.randn((b, h, sk, d), generator=gen, device=device)
+                .to(dtype) for _ in range(2))
+    do = torch.randn(shape, generator=gen, device=device).to(dtype)
+    return q, k, v, do
 
 
 def _row_bound_shares(got, want, tol):
@@ -295,20 +352,24 @@ def _card_row_bound(dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,causal", CARD_SHAPES)
-def test_kernels_match_plain_on_card(cuda_device, shape, dtype, causal):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v, do = (torch.randn(shape, generator=gen, device=cuda_device)
-                   .to(dtype) for _ in range(4))
+@pytest.mark.parametrize("shape,seq_k,dtype,causal,packed", CARD_SHAPES)
+def test_kernels_match_plain_on_card(cuda_device, shape, seq_k, dtype,
+                                     causal, packed):
+    q, k, v, do = _card_operands(shape, seq_k, dtype, packed, cuda_device)
     o, lse = tfa.flash_fwd(q, k, v, causal)
-    o2, lse2 = tfa.flash_fwd(q, k, v, causal)
     po, plse = tfa.flash_fwd_plain(q, k, v, causal)
     delta = tfa.attention_delta(o, do)
     dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
     dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    again = (*tfa.flash_fwd(q, k, v, causal),
+             tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+             *tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal))
     pgrads = tfa.flash_bwd_plain(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
-    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    # no atomics: a second launch is bitwise the first
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"),
+                          (o, lse, dq, dk, dv), again):
+        assert torch.equal(a, b), name
     # lse is f32 on both sides
     assert bool(((lse - plse).abs() <= 1e-5 * plse.abs().clamp_min(1)).all())
     tol = _card_row_bound(dtype)
