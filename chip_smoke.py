@@ -10,9 +10,12 @@ together), and then:
 1. card: prints the card's name and power limit as nvidia-smi reports them,
    and the kernels' build time;
 2. kernels: holds int8_matmul against its plain PyTorch version on the card,
-   bitwise, at the shapes the serving path gives it and a few more, and times
-   it (CUDA events, L2 flushed, median) beside its bound, its plain version
-   and the library calls that compute the same contraction;
+   bitwise, at the shapes the serving path gives it and a few more (split K
+   at small M, none at the large shape), also after the allocator's free
+   blocks are filled with NaN (the GEMM overlaps its row pre-pass), and
+   times it (CUDA events, L2
+   flushed, median) beside its bound, its plain version and the library
+   calls that compute the same contraction;
 3. slice (serving): serves a full-width ResNet-50 (batch 32, 3x224x224, 1000
    classes, seeded random weights) through
    ``Predictor(ctx=gpu(0), quantize="int8")`` and with ``quantize=None``,
@@ -35,11 +38,13 @@ together), and then:
    against their plain versions on the card, row by row, and lse at f32's
    precision, at the transformer LM's shape (q, k, v views of one packed
    qkv, 8x8x2048x64 bf16, causal), at a non-causal shape, at a ragged f32
-   one and at the bf16 Hopper kernels' edges (head_dim 32, 40 and 128,
-   sequences of 77 and 1000, seq_q != seq_k), checks that two launches
-   agree bitwise, and times each beside its bound, its plain version and
+   one, at the bf16 Hopper kernels' edges (head_dim 32, 40 and 128,
+   sequences of 77 and 1000, seq_q != seq_k) and at batch x heads 65,536
+   (one linear grid), checks that two launches agree bitwise, and times
+   each beside its bound, its plain version and
    ``F.scaled_dot_product_attention`` (forward, or its backward), with its
-   share of the bound and its compiled registers and shared memory;
+   share of the bound and its compiled registers, shared memory and spills
+   at the LM's head_dim and at 128;
 7. lm_serve: the full-width transformer LM (vocab 32000, d_model 512, 8
    heads, 4 layers, d_ff 2048, bf16, seeded random weights) computes the
    logits of 8 sequences of 2048 tokens through ``TransformerLM.forward``,
@@ -116,7 +121,8 @@ LM_CUT = (1, 256)
 # non-causal shape, the JAX package's ragged tail test (tests/test_pallas.py
 # :35), and the Hopper kernels' edges at small size: head_dim 32 and 40
 # (TMA's zero fill), 128 (two boxes a row), sequences of 77 and 1000 (a
-# multiple of neither the 64-row tile nor the 128-row block), seq_q != seq_k
+# multiple of neither the 64-row tile nor the 128-row block), seq_q != seq_k,
+# and batch x heads 65,536 (past gridDim.y's 65,535: one linear grid)
 FLASH_CASES = (((LM_BATCH, 8, LM_SEQ, 64), "bfloat16", True, None),
                ((4, 8, 1024, 64), "bfloat16", False, None),
                ((1, 2, 48, 24), "float32", True, None),
@@ -124,7 +130,8 @@ FLASH_CASES = (((LM_BATCH, 8, LM_SEQ, 64), "bfloat16", True, None),
                ((1, 3, 1000, 40), "bfloat16", True, None),
                ((2, 2, 1000, 128), "bfloat16", False, None),
                ((1, 2, 300, 128), "bfloat16", False, 77),
-               ((2, 2, 100, 64), "bfloat16", False, 300))
+               ((2, 2, 100, 64), "bfloat16", False, 300),
+               ((65536, 1, 16, 64), "bfloat16", True, None))
 # data-parallel training: ranks sharing the card, steps, modes, time limit
 DP_WORLD = 2
 DP_STEPS = 8
@@ -228,6 +235,15 @@ def phase_kernels(torch, k8, registry):
         require(torch.equal(y_float_w, plain) and torch.equal(y_prequant, plain),
                 f"int8_matmul {M}x{K}x{N} differs from its plain version "
                 f"(max abs {err})")
+        # the GEMM may start before its row pre-pass ends (programmatic
+        # dependent launch): with the allocator's scratch NaN-filled, a read
+        # of qx or sx ahead of the wait shows
+        for _ in range(10):
+            junk = [torch.full((n,), float("nan"), device="cuda")
+                    for n in (M * K // 4, M, M * N, 4096)]
+            del junk
+            require(torch.equal(k8.int8_matmul(x, wq, w_scale=sw), plain),
+                    f"int8_matmul {M}x{K}x{N} read stale scratch")
         max_err = max(max_err, err)
         cost = registry.get_kernel("int8_matmul").cost([x, wq, sw], [plain])
         bound_s, bound_by = cost.bound()
@@ -771,6 +787,8 @@ def phase_flash(torch, tfa, registry):
                   # the compiled kernel this call launches, per block
                   "attributes": tfa.kernel_attributes(name, dtype,
                                                       shape[3]),
+                  "attributes_head_dim_128": tfa.kernel_attributes(
+                      name, dtype, 128),
                   "library": ("F.scaled_dot_product_attention"
                               if name == "flash_fwd" else
                               "its backward (dq, dk and dv together)"),

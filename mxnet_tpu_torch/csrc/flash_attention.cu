@@ -19,12 +19,13 @@
 // What bounds it. At the transformer LM's shape (batch 8, 8 heads, seq 2048,
 // head_dim 64, causal, bf16) the forward reads q, k, v and writes o and lse:
 // 67.6 MB, 0.020 ms at 3.35 TB/s; the score entries of the causal triangle
-// need 34.4 GFLOP, 0.035 ms at 989 TFLOP/s; dk/dv needs 68.8 GFLOP, 0.070
-// ms. That is some 500 operations per byte, above the card's 295 op/byte
-// line: bound by operations, so every product belongs on the tensor cores
-// at their Hopper rate, and every score tile out of device memory.
+// need 34.4 GFLOP, 0.035 ms at 989 TFLOP/s; dq needs 51.6 GFLOP, 0.052 ms;
+// dk/dv 68.8 GFLOP, 0.070 ms. That is some 500 operations per byte, above
+// the card's 295 op/byte line: bound by operations, so every product
+// belongs on the tensor cores at their Hopper rate, and every score tile
+// out of device memory.
 //
-// bf16 forward and dk/dv: warp-specialised Hopper kernels (the second
+// bf16 (all three kernels): warp-specialised Hopper kernels (the second
 // half of this file). A block is 384 threads: two consumer warpgroups and
 // a producer warpgroup of which one warp works.
 //   - The producer warp issues TMA loads (cp.async.bulk.tensor) into a
@@ -37,53 +38,65 @@
 //   - Every product is a wgmma from 128B-swizzled shared memory. Forward:
 //     S = Q K^T (both operands in shared memory), then O += P V with P
 //     rounded to bf16 in registers as the A operand and V read MN-major.
-//     dk/dv: S^T = K Q^T and dP^T = V dO^T from shared memory, then
-//     dV += P^T dO and dK += dS^T Q with P^T and dS^T from the accumulator
-//     fragments; K and V stay resident, Q, dO, lse and delta stream.
-//   - Tiles: the forward's block owns 128 query rows (64 per consumer
-//     warpgroup) and streams 64-key K/V tiles, so each is loaded once per
-//     128 rows; dk/dv's block owns 128 keys and streams 64-query tiles. The
-//     key tile stays the 64 of the plain version, whose bf16 results depend
-//     on it through the online rescale.
+//     dq: S = Q K^T and dP = dO V^T from shared memory, then dQ += dS K
+//     with dS rounded to bf16 in registers and K read MN-major; Q, dO and
+//     the rows' lse and delta stay resident, K and V stream. dk/dv:
+//     S^T = K Q^T and dP^T = V dO^T from shared memory, then dV += P^T dO
+//     and dK += dS^T Q with P^T and dS^T from the accumulator fragments; K
+//     and V stay resident, Q, dO, lse and delta stream.
+//   - Tiles: the forward's and dq's block owns 128 query rows (64 per
+//     consumer warpgroup) and streams 64-key K/V tiles, so each is loaded
+//     once per 128 rows; dk/dv's block owns 128 keys and streams 64-query
+//     tiles. The key tile stays the 64 of the plain version, whose bf16
+//     results depend on it through the online rescale.
 //   - Softmax: masks only on the tile that crosses the causal diagonal and
 //     the one past the sequence's end; exponentials are ex2.approx of one
-//     FMA, s * (scale * log2 e) - m * (scale * log2 e); lse goes back to
-//     natural-log units once, at the end. Causal blocks are launched with
-//     the longest query tiles (forward) or key tiles (dk/dv) first.
+//     FMA, s * (scale * log2 e) - m * (scale * log2 e) in the forward and
+//     s * (scale * log2 e) - fl(lse * log2 e) in the backward; lse goes
+//     back to natural-log units once, at the end. Causal blocks are
+//     launched with the longest query tiles (forward, dq) or key tiles
+//     (dk/dv) first.
 //   - Budget a block: forward, Q 16 KB + 4 stages of K/V 16 KB = 80 KB at
-//     d = 64, 32 KB + 3 x 32 KB = 128 KB at d = 128; dk/dv, K and V 32 KB +
-//     4 stages of Q/dO/lse/delta 16.5 KB = 98 KB at d = 64, 64 KB + 3 x
-//     32.5 KB = 162 KB at d = 128 (plus 1 KB of alignment). Registers:
-//     setmaxnreg gives the producer 24 a thread and the consumers 240
-//     (64,512 of the SM's 65,536), so one block an SM.
+//     d = 64, 32 KB + 3 x 32 KB = 128 KB at d = 128; dq, Q and dO 32 KB + 4
+//     stages of K/V = 96 KB at d = 64, 64 KB + 3 x 32 KB = 160 KB at
+//     d = 128; dk/dv, K and V 32 KB + 4 stages of Q/dO/lse/delta 16.5 KB =
+//     98 KB at d = 64, 64 KB + 3 x 32.5 KB = 162 KB at d = 128 (plus 1 KB
+//     of alignment). Registers: setmaxnreg gives the producer 24 a thread
+//     and the consumers 240 (64,512 of the SM's 65,536), so one block an SM;
+//     ptxas compiles the block at 168 a thread. dq's consumers hold S, dP
+//     (32 each) and dQ (32 or 64) accumulators.
 //   - Rounding points that moved from the JAX kernels: p = 2^(s c - m c)
 //     with c = fl(scale * log2 e) in one FMA and ex2.approx (forward; the
 //     JAX kernel rounds s * scale, subtracts and calls exp), and
-//     p = 2^(s c - fl(lse * log2 e)) in dk/dv; each thread sums its share
-//     of a row's p over all tiles, l = fma(l, alpha, sum), and the four
-//     shares of a row are added once at the end (the JAX kernel adds each
-//     tile's row sum). lse = fl(max(s) * scale) + log(l_safe), as before.
+//     p = 2^(s c - fl(lse * log2 e)) in dq and dk/dv; each thread sums its
+//     share of a row's p over all tiles, l = fma(l, alpha, sum), and the
+//     four shares of a row are added once at the end (the JAX kernel adds
+//     each tile's row sum). lse = fl(max(s) * scale) + log(l_safe), as
+//     before.
 //   No atomics: every result is the same from run to run.
 //
-// f32 (the JAX tests' type and float32 configs), and the bf16 dq kernel:
-// FlashAttention-2's layout, from the port's first design (the first half
-// of this file). A block of 4 warps owns one 64-row tile: query rows for
-// the forward and dq, key rows for dk/dv; each warp owns 16 of its rows. A
-// loop over the other side's 64-row tiles takes the place of the TPU's
+// f32 (the JAX tests' type and float32 configs): FlashAttention-2's layout
+// on the CUDA cores, the port's first design (the first half of this
+// file). A block of 4 warps owns one 64-row tile: query rows for the
+// forward and dq, key rows for dk/dv; each warp owns 16 of its rows. A loop
+// over the other side's 64-row tiles takes the place of the TPU's
 // sequential grid axis; the running max and sum and the f32 accumulators
 // stay in registers, and causal tiles wholly above the diagonal are
 // skipped. Tiles are staged in shared memory with 16-byte loads through the
-// caller's strides, zero-padded to 32, 64 or 128 columns there. bf16 dq:
-// mma.sync m16n8k16 with P and dS reused from the score fragments and B
-// transposed by ldmatrix; f32: the products on the CUDA cores in full f32,
-// no TF32, as the JAX side runs at precision "highest" (wgmma has no full
-// f32 form). Multiplies that a sum follows use __fmul_rn, so nvcc contracts
-// none of them into an FMA. fp16 is refused.
+// caller's strides, zero-padded to 32, 64 or 128 columns there. The
+// products run in full f32, no TF32, as the JAX side runs at precision
+// "highest" (wgmma has no full f32 form). Multiplies that a sum follows use
+// __fmul_rn, so nvcc contracts none of them into an FMA. fp16 is refused.
+//
+// Grid. Every kernel runs on one linear grid over (row tile, batch x head),
+// tile-major: gridDim.x = tiles * B * H, so B * H is limited only by
+// gridDim.x's 2^31 - 1 (the wrapper checks that product first).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 #include <cstring>
 #include <type_traits>
@@ -106,16 +119,22 @@ struct Args {
   Operand q, k, v, o, dout, dq, dk, dv;
   float* lse;          // [B * H, seq_q]
   const float* delta;  // [B * H, seq_q]
-  int H, seq_q, seq_k, d, causal;
+  int BH, H, seq_q, seq_k, d, causal;
   float scale;
 };
 
-// shared-memory row stride of a DP-column tile: 16 bytes of padding, so the
-// fragment loads of 8 consecutive rows hit distinct banks
-template <typename T>
-__host__ __device__ constexpr int ld_of(int dp) {
-  return dp + 16 / static_cast<int>(sizeof(T));
+// The block's (row tile, batch x head slab) on the linear grid: block i
+// runs tile i / BH of slab i % BH; ``last_first`` runs the tiles from the
+// last (causal query tiles: the longest rows first).
+__device__ __forceinline__ int2 grid_pos(int BH, bool last_first) {
+  const int i = static_cast<int>(blockIdx.x);
+  const int t = i / BH;
+  const int tiles = static_cast<int>(gridDim.x) / BH;
+  return make_int2(last_first ? tiles - 1 - t : t, i - t * BH);
 }
+
+// shared-memory row stride of a DP-column f32 tile: 16 bytes of padding
+__host__ __device__ constexpr int ld_of(int dp) { return dp + 4; }
 
 template <typename T>
 __device__ __forceinline__ T* row_ptr(const Operand& t, int bh, int H,
@@ -127,35 +146,30 @@ __device__ __forceinline__ T* row_ptr(const Operand& t, int bh, int H,
 
 // Rows [row0, row0 + 64) of one (batch, head) slab into shared memory,
 // columns [0, DP); zero past the sequence and past d.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(T* __restrict__ smem,
+template <int DP>
+__device__ __forceinline__ void load_tile(float* __restrict__ smem,
                                           const Operand& t, int bh, int H,
                                           int row0, int rows, int d) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = DP / kVec;
-  constexpr int LD = ld_of<T>(DP);
+  constexpr int kChunks = DP / 4;
+  constexpr int LD = ld_of(DP);
   constexpr int kPer = kBlock * kChunks / kThreads;
   int4 val[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int c = threadIdx.x + i * kThreads;
-    const int r = c / kChunks, col = (c % kChunks) * kVec;
+    const int r = c / kChunks, col = (c % kChunks) * 4;
     val[i] = make_int4(0, 0, 0, 0);
     if (row0 + r < rows && col < d) {
-      val[i] = *reinterpret_cast<const int4*>(row_ptr<T>(t, bh, H, row0 + r) +
-                                              col);
+      val[i] = *reinterpret_cast<const int4*>(
+          row_ptr<float>(t, bh, H, row0 + r) + col);
     }
   }
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int c = threadIdx.x + i * kThreads;
-    *reinterpret_cast<int4*>(smem + (c / kChunks) * LD +
-                             (c % kChunks) * kVec) = val[i];
+    *reinterpret_cast<int4*>(smem + (c / kChunks) * LD + (c % kChunks) * 4) =
+        val[i];
   }
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -163,28 +177,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// Fragment layout of a warp's 16 x N f32 tile (mma's C): with g = lane / 4
-// and t = lane % 4, element c[j][e] is row g + 8 * (e / 2), column
-// 8 * j + 2 * t + e % 2.
+// Fragment layout of a warp's 16 x N f32 tile (mma's C, and wgmma's
+// accumulator within one warp): with g = lane / 4 and t = lane % 4,
+// element c[j][e] is row g + 8 * (e / 2), column 8 * j + 2 * t + e % 2.
 __device__ __forceinline__ int frag_row(int e) {
   return ((threadIdx.x & 31) >> 2) + (e >> 1) * 8;
 }
@@ -194,100 +189,60 @@ __device__ __forceinline__ int frag_col(int j, int e) {
 
 // c = A B^T: A is the warp's 16 rows, B a 64-row tile, both [row][DP] in
 // shared memory. c is 16 x 64 in fragments.
-template <typename T, int DP>
-__device__ __forceinline__ void qk_tile(float (&c)[8][4], const T* A,
-                                        const T* B) {
-  constexpr int LD = ld_of<T>(DP);
+template <int DP>
+__device__ __forceinline__ void qk_tile(float (&c)[8][4], const float* A,
+                                        const float* B) {
+  constexpr int LD = ld_of(DP);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[j][e] = 0.0f;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  for (int kk = 0; kk < DP; ++kk) {
+    const float a0 = A[g * LD + kk], a1 = A[(g + 8) * LD + kk];
 #pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      uint32_t a[4];
-      const T* pa = A + g * LD + kk + 2 * t;
-      a[0] = ld32(pa);
-      a[1] = ld32(pa + 8 * LD);
-      a[2] = ld32(pa + 8);
-      a[3] = ld32(pa + 8 * LD + 8);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const T* pb = B + (j * 8 + g) * LD + kk + 2 * t;
-        mma_bf16(c[j], a, ld32(pb), ld32(pb + 8));
-      }
-    }
-  } else {
-    for (int kk = 0; kk < DP; ++kk) {
-      const float a0 = A[g * LD + kk], a1 = A[(g + 8) * LD + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float b0 = B[(j * 8 + 2 * t) * LD + kk];
-        const float b1 = B[(j * 8 + 2 * t + 1) * LD + kk];
-        c[j][0] = fmaf(a0, b0, c[j][0]);
-        c[j][1] = fmaf(a0, b1, c[j][1]);
-        c[j][2] = fmaf(a1, b0, c[j][2]);
-        c[j][3] = fmaf(a1, b1, c[j][3]);
-      }
+    for (int j = 0; j < 8; ++j) {
+      const float b0 = B[(j * 8 + 2 * t) * LD + kk];
+      const float b1 = B[(j * 8 + 2 * t + 1) * LD + kk];
+      c[j][0] = fmaf(a0, b0, c[j][0]);
+      c[j][1] = fmaf(a0, b1, c[j][1]);
+      c[j][2] = fmaf(a1, b0, c[j][2]);
+      c[j][3] = fmaf(a1, b1, c[j][3]);
     }
   }
 }
 
-// acc += round_T(p) B: p is the warp's 16 x 64 fragments, B a 64-row tile
-// [row][DP] in shared memory, acc 16 x DP in fragments. ``scratch`` is the
-// warp's 16 x 68 f32 area (f32 only: the row of p a product needs is spread
-// over four threads).
-template <typename T, int DP>
+// acc += p B: p is the warp's 16 x 64 fragments, B a 64-row tile [row][DP]
+// in shared memory, acc 16 x DP in fragments. ``scratch`` is the warp's
+// 16 x 68 f32 area: the row of p a product needs is spread over four
+// threads.
+template <int DP>
 __device__ __forceinline__ void pv_tile(float (&acc)[DP / 8][4],
-                                        const float (&p)[8][4], const T* B,
-                                        float* scratch) {
-  constexpr int LD = ld_of<T>(DP);
+                                        const float (&p)[8][4],
+                                        const float* B, float* scratch) {
+  constexpr int LD = ld_of(DP);
   const int lane = threadIdx.x & 31;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // A fragment of keys [16 kc, 16 kc + 16) is the score fragments 2 kc
-    // and 2 kc + 1; B (keys x dims) comes transposed out of ldmatrix:
-    // matrices (keys 0-7 | 8-15) x (dims n0 | n0 + 8).
-    const int mrow = ((lane >> 3) & 1) * 8 + (lane & 7);
-    const int mcol = (lane >> 4) * 8;
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t a[4];
-      a[0] = pack_bf16(p[2 * kc][0], p[2 * kc][1]);
-      a[1] = pack_bf16(p[2 * kc][2], p[2 * kc][3]);
-      a[2] = pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]);
-      a[3] = pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3]);
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int n0 = 0; n0 < DP; n0 += 16) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, B + (kc * 16 + mrow) * LD + n0 + mcol);
-        mma_bf16(acc[n0 / 8], a, b[0], b[1]);
-        mma_bf16(acc[n0 / 8 + 1], a, b[2], b[3]);
-      }
+    for (int e = 0; e < 4; ++e)
+      scratch[frag_row(e) * kScratchLd + frag_col(j, e)] = p[j][e];
+  __syncwarp();
+  const int g = lane >> 2, t = lane & 3;
+  for (int key = 0; key < kBlock; ++key) {
+    const float p0 = scratch[g * kScratchLd + key];
+    const float p1 = scratch[(g + 8) * kScratchLd + key];
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const float b0 = B[key * LD + j * 8 + 2 * t];
+      const float b1 = B[key * LD + j * 8 + 2 * t + 1];
+      acc[j][0] = fmaf(p0, b0, acc[j][0]);
+      acc[j][1] = fmaf(p0, b1, acc[j][1]);
+      acc[j][2] = fmaf(p1, b0, acc[j][2]);
+      acc[j][3] = fmaf(p1, b1, acc[j][3]);
     }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        scratch[frag_row(e) * kScratchLd + frag_col(j, e)] = p[j][e];
-    __syncwarp();
-    const int g = lane >> 2, t = lane & 3;
-    for (int key = 0; key < kBlock; ++key) {
-      const float p0 = scratch[g * kScratchLd + key];
-      const float p1 = scratch[(g + 8) * kScratchLd + key];
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        const float b0 = B[key * LD + j * 8 + 2 * t];
-        const float b1 = B[key * LD + j * 8 + 2 * t + 1];
-        acc[j][0] = fmaf(p0, b0, acc[j][0]);
-        acc[j][1] = fmaf(p0, b1, acc[j][1]);
-        acc[j][2] = fmaf(p1, b0, acc[j][2]);
-        acc[j][3] = fmaf(p1, b1, acc[j][3]);
-      }
-    }
-    __syncwarp();
   }
+  __syncwarp();
 }
 
 // Element e of fragment j: from [DP / 8][4] (mma.sync's tiles) or from
@@ -346,31 +301,29 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <typename T, int DP>
+template <int DP>
 constexpr int tiles_bytes(int tiles) {
-  return tiles * kBlock * ld_of<T>(DP) * static_cast<int>(sizeof(T)) +
-         (std::is_same<T, float>::value
-              ? kWarps * 16 * kScratchLd * static_cast<int>(sizeof(float))
-              : 0);
+  return tiles * kBlock * ld_of(DP) * static_cast<int>(sizeof(float)) +
+         kWarps * 16 * kScratchLd * static_cast<int>(sizeof(float));
 }
 
 // ---------------------------------------------------------------- forward
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LD = ld_of<T>(DP);
-  T* sq = reinterpret_cast<T*>(smem);
-  T* sk = sq + kBlock * LD;
-  T* sv = sk + kBlock * LD;
+  constexpr int LD = ld_of(DP);
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sk = sq + kBlock * LD;
+  float* sv = sk + kBlock * LD;
   const int warp = threadIdx.x >> 5;
-  float* scratch = reinterpret_cast<float*>(sv + kBlock * LD) +
-                   warp * 16 * kScratchLd;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlock;
-  const T* sq_w = sq + warp * 16 * LD;
+  float* scratch = sv + kBlock * LD + warp * 16 * kScratchLd;
+  const int2 pos = grid_pos(a.BH, a.causal);
+  const int bh = pos.y;
+  const int q0 = pos.x * kBlock;
+  const float* sq_w = sq + warp * 16 * LD;
 
-  load_tile<T, DP>(sq, a.q, bh, a.H, q0, a.seq_q, a.d);
+  load_tile<DP>(sq, a.q, bh, a.H, q0, a.seq_q, a.d);
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
   float acc[DP / 8][4];
 #pragma unroll
@@ -382,11 +335,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   if (a.causal) nk = min(nk, (q0 + kBlock - 1) / kBlock + 1);
   for (int kj = 0; kj < nk; ++kj) {
     __syncthreads();  // every warp is done with the previous k, v tiles
-    load_tile<T, DP>(sk, a.k, bh, a.H, kj * kBlock, a.seq_k, a.d);
-    load_tile<T, DP>(sv, a.v, bh, a.H, kj * kBlock, a.seq_k, a.d);
+    load_tile<DP>(sk, a.k, bh, a.H, kj * kBlock, a.seq_k, a.d);
+    load_tile<DP>(sv, a.v, bh, a.H, kj * kBlock, a.seq_k, a.d);
     __syncthreads();
     float s[8][4];
-    qk_tile<T, DP>(s, sq_w, sk);
+    qk_tile<DP>(s, sq_w, sk);
     float mb[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -424,14 +377,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         acc[j][e] = __fmul_rn(acc[j][e], alpha[e >> 1]);
-    pv_tile<T, DP>(acc, s, sv, scratch);
+    pv_tile<DP>(acc, s, sv, scratch);
   }
 
   float l_safe[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) l_safe[r] = fmaxf(l[r], 1e-30f);
-  store_rows<T, DP, true>(acc, l_safe, a.o, bh, a.H, q0 + warp * 16, a.seq_q,
-                          a.d);
+  store_rows<float, DP, true>(acc, l_safe, a.o, bh, a.H, q0 + warp * 16,
+                              a.seq_q, a.d);
   if ((threadIdx.x & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -446,22 +399,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 
 // ---------------------------------------------------------- backward: dq
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LD = ld_of<T>(DP);
-  T* sq = reinterpret_cast<T*>(smem);
-  T* sdo = sq + kBlock * LD;
-  T* sk = sdo + kBlock * LD;
-  T* sv = sk + kBlock * LD;
+  constexpr int LD = ld_of(DP);
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sdo = sq + kBlock * LD;
+  float* sk = sdo + kBlock * LD;
+  float* sv = sk + kBlock * LD;
   const int warp = threadIdx.x >> 5;
-  float* scratch = reinterpret_cast<float*>(sv + kBlock * LD) +
-                   warp * 16 * kScratchLd;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlock;
+  float* scratch = sv + kBlock * LD + warp * 16 * kScratchLd;
+  const int2 pos = grid_pos(a.BH, a.causal);
+  const int bh = pos.y;
+  const int q0 = pos.x * kBlock;
 
-  load_tile<T, DP>(sq, a.q, bh, a.H, q0, a.seq_q, a.d);
-  load_tile<T, DP>(sdo, a.dout, bh, a.H, q0, a.seq_q, a.d);
+  load_tile<DP>(sq, a.q, bh, a.H, q0, a.seq_q, a.d);
+  load_tile<DP>(sdo, a.dout, bh, a.H, q0, a.seq_q, a.d);
   float lse[2], delta[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -480,12 +433,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   if (a.causal) nk = min(nk, (q0 + kBlock - 1) / kBlock + 1);
   for (int kj = 0; kj < nk; ++kj) {
     __syncthreads();
-    load_tile<T, DP>(sk, a.k, bh, a.H, kj * kBlock, a.seq_k, a.d);
-    load_tile<T, DP>(sv, a.v, bh, a.H, kj * kBlock, a.seq_k, a.d);
+    load_tile<DP>(sk, a.k, bh, a.H, kj * kBlock, a.seq_k, a.d);
+    load_tile<DP>(sv, a.v, bh, a.H, kj * kBlock, a.seq_k, a.d);
     __syncthreads();
     float s[8][4], dp[8][4];
-    qk_tile<T, DP>(s, sq + warp * 16 * LD, sk);
-    qk_tile<T, DP>(dp, sdo + warp * 16 * LD, sv);
+    qk_tile<DP>(s, sq + warp * 16 * LD, sk);
+    qk_tile<DP>(dp, sdo + warp * 16 * LD, sv);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -497,36 +450,37 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
                         (!a.causal || qpos >= kpos);
         const float p =
             ok ? expf(__fsub_rn(__fmul_rn(s[j][e], a.scale), lse[r])) : 0.0f;
-        // ds = (p * (dp - delta)) * scale, rounded to T inside pv_tile
+        // ds = (p * (dp - delta)) * scale
         s[j][e] =
             __fmul_rn(__fmul_rn(p, __fsub_rn(dp[j][e], delta[r])), a.scale);
       }
-    pv_tile<T, DP>(acc, s, sk, scratch);  // dq += ds k
+    pv_tile<DP>(acc, s, sk, scratch);  // dq += ds k
   }
   const float one[2] = {1.0f, 1.0f};
-  store_rows<T, DP, false>(acc, one, a.dq, bh, a.H, q0 + warp * 16, a.seq_q,
-                           a.d);
+  store_rows<float, DP, false>(acc, one, a.dq, bh, a.H, q0 + warp * 16,
+                               a.seq_q, a.d);
 }
 
 // --------------------------------------------------------- backward: dkv
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LD = ld_of<T>(DP);
-  T* sk = reinterpret_cast<T*>(smem);
-  T* sv = sk + kBlock * LD;
-  T* sq = sv + kBlock * LD;
-  T* sdo = sq + kBlock * LD;
+  constexpr int LD = ld_of(DP);
+  float* sk = reinterpret_cast<float*>(smem);
+  float* sv = sk + kBlock * LD;
+  float* sq = sv + kBlock * LD;
+  float* sdo = sq + kBlock * LD;
   const int warp = threadIdx.x >> 5;
-  float* scratch = reinterpret_cast<float*>(sdo + kBlock * LD) +
-                   warp * 16 * kScratchLd;
+  float* scratch = sdo + kBlock * LD + warp * 16 * kScratchLd;
   __shared__ float slse[kBlock], sdelta[kBlock];
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kBlock;
+  // causal: key tile 0 has the most work
+  const int2 pos = grid_pos(a.BH, false);
+  const int bh = pos.y;
+  const int k0 = pos.x * kBlock;
 
-  load_tile<T, DP>(sk, a.k, bh, a.H, k0, a.seq_k, a.d);
-  load_tile<T, DP>(sv, a.v, bh, a.H, k0, a.seq_k, a.d);
+  load_tile<DP>(sk, a.k, bh, a.H, k0, a.seq_k, a.d);
+  load_tile<DP>(sv, a.v, bh, a.H, k0, a.seq_k, a.d);
   float dk[DP / 8][4], dv[DP / 8][4];
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j)
@@ -539,8 +493,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   for (int qi = q_first; qi < nq; ++qi) {
     const int q0 = qi * kBlock;
     __syncthreads();
-    load_tile<T, DP>(sq, a.q, bh, a.H, q0, a.seq_q, a.d);
-    load_tile<T, DP>(sdo, a.dout, bh, a.H, q0, a.seq_q, a.d);
+    load_tile<DP>(sq, a.q, bh, a.H, q0, a.seq_q, a.d);
+    load_tile<DP>(sdo, a.dout, bh, a.H, q0, a.seq_q, a.d);
     if (threadIdx.x < kBlock) {
       const int qpos = q0 + threadIdx.x;
       const long long i = static_cast<long long>(bh) * a.seq_q + qpos;
@@ -550,8 +504,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
     __syncthreads();
     // transposed scores: rows are this warp's keys, columns the queries
     float st[8][4], dpt[8][4];
-    qk_tile<T, DP>(st, sk + warp * 16 * LD, sq);
-    qk_tile<T, DP>(dpt, sv + warp * 16 * LD, sdo);
+    qk_tile<DP>(st, sk + warp * 16 * LD, sq);
+    qk_tile<DP>(dpt, sv + warp * 16 * LD, sdo);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -568,17 +522,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
         dpt[j][e] =
             __fmul_rn(__fmul_rn(p, __fsub_rn(dpt[j][e], sdelta[ql])), a.scale);
       }
-    pv_tile<T, DP>(dv, st, sdo, scratch);  // dv += p^T do
-    pv_tile<T, DP>(dk, dpt, sq, scratch);  // dk += ds^T q
+    pv_tile<DP>(dv, st, sdo, scratch);  // dv += p^T do
+    pv_tile<DP>(dk, dpt, sq, scratch);  // dk += ds^T q
   }
   const float one[2] = {1.0f, 1.0f};
-  store_rows<T, DP, false>(dk, one, a.dk, bh, a.H, k0 + warp * 16, a.seq_k,
-                           a.d);
-  store_rows<T, DP, false>(dv, one, a.dv, bh, a.H, k0 + warp * 16, a.seq_k,
-                           a.d);
+  store_rows<float, DP, false>(dk, one, a.dk, bh, a.H, k0 + warp * 16,
+                               a.seq_k, a.d);
+  store_rows<float, DP, false>(dv, one, a.dv, bh, a.H, k0 + warp * 16,
+                               a.seq_k, a.d);
 }
 
-// ============================================== Hopper: bf16 forward, dk/dv
+
+// ======================================== Hopper: bf16 forward, dq, dk/dv
 //
 // One producer warp (warp 8; warps 9-11 only give their registers back)
 // and two consumer warpgroups (warps 0-3 and 4-7). The producer issues the
@@ -594,10 +549,10 @@ constexpr float kNegRaw = -1e30f;          // masked raw score, and m's start
 
 struct HopperParams {
   CUtensorMap tq, tk, tv, tdo;  // rank 4: (d, seq, head, batch)
-  Operand o, dk, dv;            // written through the caller's strides
+  Operand o, dq, dk, dv;        // written through the caller's strides
   float* lse;                   // [B * H, seq_q]
   const float* delta;           // [B * H, seq_q]
-  int H, seq_q, seq_k, d, causal;
+  int BH, H, seq_q, seq_k, d, causal;
   float scale;                  // 1 / sqrt(d), the f32 the JAX kernels use
   float scale_log2;             // scale * log2(e), rounded once
 };
@@ -778,6 +733,42 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   }
 }
 
+// d = A B^T over head_dim, A and B K-major in shared memory: A the
+// warpgroup's 64 rows of a 128-row block (64-column boxes 16 KB apart), B
+// a 64-row tile (boxes 8 KB apart). One commit group.
+template <int DP>
+__device__ __forceinline__ void wgmma_abt(float (&d)[32], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int c = kk / 4, o = (kk % 4) * 32;
+    wgmma_ss_n64(d, sw128_desc(a + c * 2 * kSubTile64 + o, 16),
+                 sw128_desc(b + c * kSubTile64 + o, 16), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// The producer of the forward's and dq's ring: the 64-key K and V tiles
+// 0..nk-1 into stages of ``kv`` bytes each (K then V) from ``ring`` on,
+// each stage refilled once the consumers have released it.
+template <int S, int kSub>
+__device__ __forceinline__ void load_kv_ring(const CUtensorMap* tk,
+                                             const CUtensorMap* tv,
+                                             uint32_t ring, int kv,
+                                             uint32_t full, uint32_t empty,
+                                             int nk, int h, int b) {
+  for (int j = 0; j < nk; ++j) {
+    const int s = j % S;
+    mbar_wait(empty + 8 * s, ((j / S) & 1) ^ 1);
+    const uint32_t kt = ring + s * 2 * kv, vt = kt + kv;
+    mbar_expect_tx(full + 8 * s, 2 * kv);
+    for (int c = 0; c < kSub; ++c) {
+      tma_load(kt + c * kSubTile64, tk, full + 8 * s, 64 * c, 64 * j, h, b);
+      tma_load(vt + c * kSubTile64, tv, full + 8 * s, 64 * c, 64 * j, h, b);
+    }
+  }
+}
+
 // The A operand of a product over this 64-column score tile's columns
 // [16 kc, 16 kc + 16), rounded to bf16, from the f32 accumulator
 // fragments (the same layout as mma.sync's: wgmma's accumulator of a
@@ -815,9 +806,10 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   const uint32_t full = base + L::kBars, empty = full + 8 * S,
                  qbar = empty + 8 * S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.x;
   // causal: the longest query tiles (the last rows) are launched first
-  const int q0 = 128 * (p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y);
+  const int2 pos = grid_pos(p.BH, p.causal);
+  const int bh = pos.y;
+  const int q0 = 128 * pos.x;
   int nk = (p.seq_k + 63) / 64;
   if (p.causal) nk = min(nk, (q0 + 127) / 64 + 1);
 
@@ -840,18 +832,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       for (int c = 0; c < L::kSub; ++c) {
         tma_load(base + c * 2 * kSubTile64, &p.tq, qbar, 64 * c, q0, h, b);
       }
-      for (int j = 0; j < nk; ++j) {
-        const int s = j % S;
-        mbar_wait(empty + 8 * s, ((j / S) & 1) ^ 1);
-        const uint32_t kt = base + L::kQ + s * L::kStage, vt = kt + L::kKV;
-        mbar_expect_tx(full + 8 * s, L::kStage);
-        for (int c = 0; c < L::kSub; ++c) {
-          tma_load(kt + c * kSubTile64, &p.tk, full + 8 * s, 64 * c, 64 * j,
-                   h, b);
-          tma_load(vt + c * kSubTile64, &p.tv, full + 8 * s, 64 * c, 64 * j,
-                   h, b);
-        }
-      }
+      load_kv_ring<S, L::kSub>(&p.tk, &p.tv, base + L::kQ, L::kKV, full,
+                               empty, nk, h, b);
     }
   } else {
     // ------------------------------------------------------ consumers
@@ -876,13 +858,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       if (!p.causal || k0 <= r0 + 63) {
         float sc[32];
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < DP / 16; ++kk) {
-          const int c = kk / 4, o = (kk % 4) * 32;
-          wgmma_ss_n64(sc, sw128_desc(qa + c * 2 * kSubTile64 + o, 16),
-                       sw128_desc(kt + c * kSubTile64 + o, 16), kk > 0);
-        }
-        wgmma_commit();
+        wgmma_abt<DP>(sc, qa, kt);
         wgmma_wait<0>();
         reg_fence(sc);
         // masks only where the tile crosses the diagonal or the keys' end
@@ -960,6 +936,145 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   }
 }
 
+// ---- dq: a block owns 128 query rows (Q, dO and the rows' lse and delta
+// resident), a ring of 64-key K/V tiles
+
+template <int DP>
+struct DqLayout {
+  static constexpr int kSub = DP / 64;
+  static constexpr int kStages = DP == 64 ? 4 : 3;
+  static constexpr int kQ = kSub * 2 * kSubTile64;  // 128 rows of Q or dO
+  static constexpr int kKV = kSub * kSubTile64;     // 64 rows of K or V
+  static constexpr int kStage = 2 * kKV;            // K then V
+  static constexpr int kBars = 2 * kQ + kStages * kStage;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_bwd_dq_hopper(const __grid_constant__ HopperParams p) {
+  using L = DqLayout<DP>;
+  constexpr int S = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = base + L::kBars, empty = full + 8 * S,
+                 qbar = empty + 8 * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // causal: the longest query tiles (the last rows) are launched first
+  const int2 pos = grid_pos(p.BH, p.causal);
+  const int bh = pos.y;
+  const int q0 = 128 * pos.x;
+  int nk = (p.seq_k + 63) / 64;
+  if (p.causal) nk = min(nk, (q0 + 127) / 64 + 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // ------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == kConsumerWarps && lane == 0) {
+      const int b = bh / p.H, h = bh % p.H;
+      mbar_expect_tx(qbar, 2 * L::kQ);
+      for (int c = 0; c < L::kSub; ++c) {
+        tma_load(base + c * 2 * kSubTile64, &p.tq, qbar, 64 * c, q0, h, b);
+        tma_load(base + L::kQ + c * 2 * kSubTile64, &p.tdo, qbar, 64 * c, q0,
+                 h, b);
+      }
+      load_kv_ring<S, L::kSub>(&p.tk, &p.tv, base + 2 * L::kQ, L::kKV, full,
+                               empty, nk, h, b);
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = warp >> 2, wq = warp & 3;
+    const int r0 = q0 + 64 * wg;   // the warpgroup's first query row
+    const int row0 = r0 + wq * 16;  // the warp's
+    const float c2 = p.scale_log2;
+    // the thread's two rows: lse in log2 units, fl(lse * log2 e), and delta
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = row0 + frag_row(2 * r);
+      const long long i = static_cast<long long>(bh) * p.seq_q + qpos;
+      lse2[r] = qpos < p.seq_q ? p.lse[i] * kLog2e : 0.0f;
+      dl[r] = qpos < p.seq_q ? p.delta[i] : 0.0f;
+    }
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+    mbar_wait(qbar, 0);
+    // the warpgroup's 64 rows of Q and dO: rows 64 wg of each 128-row box
+    const uint32_t qa = base + wg * kSubTile64;
+    const uint32_t oa = base + L::kQ + wg * kSubTile64;
+
+    for (int j = 0; j < nk; ++j) {
+      const int s = j % S, k0 = 64 * j;
+      const uint32_t kt = base + 2 * L::kQ + s * L::kStage, vt = kt + L::kKV;
+      mbar_wait(full + 8 * s, (j / S) & 1);
+      // causal: a key tile wholly above this warpgroup's rows adds nothing
+      if (!p.causal || k0 <= r0 + 63) {
+        float sc[32], dp[32];
+        wgmma_fence();
+        wgmma_abt<DP>(sc, qa, kt);  // S = Q K^T
+        wgmma_abt<DP>(dp, oa, vt);  // dP = dO V^T
+        wgmma_wait<1>();
+        reg_fence(sc);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          sc[i] = ex2(fmaf(sc[i], c2, -lse2[(i >> 1) & 1]));
+        }
+        // masks only where the tile crosses the diagonal or the keys' end
+        // (rows past the queries' end are never stored)
+        const bool edge =
+            (p.causal && k0 + 63 > r0) || k0 + 64 > p.seq_k;
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int qpos = row0 + frag_row(i & 3);
+            const int kpos = k0 + frag_col(i >> 2, i & 3);
+            if (kpos >= p.seq_k || (p.causal && qpos < kpos)) sc[i] = 0.0f;
+          }
+        }
+        wgmma_wait<0>();
+        reg_fence(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          // ds = (p * (dp - delta)) * scale, rounded to bf16 below
+          const float d = __fsub_rn(dp[i], dl[(i >> 1) & 1]);
+          dp[i] = __fmul_rn(__fmul_rn(sc[i], d), p.scale);
+        }
+        uint32_t da[4][4];
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) a_frag(da[kc], dp, kc);
+        reg_fence(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) {
+          // K is keys x d with d contiguous: MN-major, 16 keys a step
+          wgmma_rs<DP>(acc, da[kc], sw128_desc(kt + kc * 2048, kSubTile64));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    const float one[2] = {1.0f, 1.0f};
+    store_rows<__nv_bfloat16, DP, false>(acc, one, p.dq, bh, p.H, row0,
+                                         p.seq_q, p.d);
+  }
+}
+
 // ---- dk/dv: a block owns 128 keys (K, V resident), a ring of 64-query
 // Q/dO tiles with their lse and delta
 
@@ -987,8 +1102,9 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   const uint32_t full = base + L::kBars, empty = full + 8 * S,
                  kvbar = empty + 8 * S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.x;
-  const int k0 = 128 * blockIdx.y;  // causal: key tile 0 has the most work
+  const int2 pos = grid_pos(p.BH, false);  // causal: key tile 0 has the most
+  const int bh = pos.y;                    // work
+  const int k0 = 128 * pos.x;
   const int nq = (p.seq_q + 63) / 64;
   // the first query tile whose last row reaches this block's first key
   const int q_first = p.causal ? k0 / 64 : 0;
@@ -1069,20 +1185,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         // tile's queries
         float st[32], dpt[32];
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < DP / 16; ++kk) {
-          const int c = kk / 4, o = (kk % 4) * 32;
-          wgmma_ss_n64(st, sw128_desc(ka + c * 2 * kSubTile64 + o, 16),
-                       sw128_desc(qt + c * kSubTile64 + o, 16), kk > 0);
-        }
-        wgmma_commit();
-#pragma unroll
-        for (int kk = 0; kk < DP / 16; ++kk) {
-          const int c = kk / 4, o = (kk % 4) * 32;
-          wgmma_ss_n64(dpt, sw128_desc(va + c * 2 * kSubTile64 + o, 16),
-                       sw128_desc(dt + c * kSubTile64 + o, 16), kk > 0);
-        }
-        wgmma_commit();
+        wgmma_abt<DP>(st, ka, qt);   // S^T = K Q^T
+        wgmma_abt<DP>(dpt, va, dt);  // dP^T = V dO^T
         wgmma_wait<1>();
         reg_fence(st);
         // masks only on the diagonal tile and past the queries' end (keys
@@ -1205,50 +1309,48 @@ int tensor_map(CUtensorMap* map, const void* ptr, const long long* strides,
   return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
 }
 
-// The kernel of one call: its function, dynamic shared memory and threads.
+// The kernel of one call: its function, dynamic shared memory, threads and
+// rows a block.
 struct Choice {
   const void* fn;
   int bytes;
   int threads;
+  int rows;
 };
 
-template <typename T, int DP>
+template <int DP>
 Choice simt_choice(Which which) {
-  if constexpr (std::is_same<T, float>::value) {
-    if (which == kFwd)
-      return {reinterpret_cast<const void*>(flash_fwd_kernel<T, DP>),
-              tiles_bytes<T, DP>(3), kThreads};
-    if (which == kDkv)
-      return {reinterpret_cast<const void*>(flash_bwd_dkv_kernel<T, DP>),
-              tiles_bytes<T, DP>(4), kThreads};
-  }
-  return {reinterpret_cast<const void*>(flash_bwd_dq_kernel<T, DP>),
-          tiles_bytes<T, DP>(4), kThreads};
+  if (which == kFwd)
+    return {reinterpret_cast<const void*>(flash_fwd_kernel<DP>),
+            tiles_bytes<DP>(3), kThreads, kBlock};
+  if (which == kDq)
+    return {reinterpret_cast<const void*>(flash_bwd_dq_kernel<DP>),
+            tiles_bytes<DP>(4), kThreads, kBlock};
+  return {reinterpret_cast<const void*>(flash_bwd_dkv_kernel<DP>),
+          tiles_bytes<DP>(4), kThreads, kBlock};
 }
 
 template <int DP>
 Choice hopper_choice(Which which) {
   if (which == kFwd)
     return {reinterpret_cast<const void*>(flash_fwd_hopper<DP>),
-            FwdLayout<DP>::kBytes, kHopperThreads};
+            FwdLayout<DP>::kBytes, kHopperThreads, 128};
+  if (which == kDq)
+    return {reinterpret_cast<const void*>(flash_bwd_dq_hopper<DP>),
+            DqLayout<DP>::kBytes, kHopperThreads, 128};
   return {reinterpret_cast<const void*>(flash_bwd_dkv_hopper<DP>),
-          DkvLayout<DP>::kBytes, kHopperThreads};
+          DkvLayout<DP>::kBytes, kHopperThreads, 128};
 }
 
-// bf16 forward and dk/dv: the Hopper kernels (64 or 128 columns); every
-// other call: the CUDA-core / mma.sync kernels (32, 64 or 128 columns)
+// bf16: the Hopper kernels (64 or 128 columns); f32: the CUDA-core
+// kernels (32, 64 or 128 columns)
 Choice choose(Which which, int dtype, int d) {
-  if (dtype == 0 && which != kDq) {
+  if (dtype == 0) {
     return d <= 64 ? hopper_choice<64>(which) : hopper_choice<128>(which);
   }
-  if (dtype == 0) {
-    if (d <= 32) return simt_choice<__nv_bfloat16, 32>(which);
-    if (d <= 64) return simt_choice<__nv_bfloat16, 64>(which);
-    return simt_choice<__nv_bfloat16, 128>(which);
-  }
-  if (d <= 32) return simt_choice<float, 32>(which);
-  if (d <= 64) return simt_choice<float, 64>(which);
-  return simt_choice<float, 128>(which);
+  if (d <= 32) return simt_choice<32>(which);
+  if (d <= 64) return simt_choice<64>(which);
+  return simt_choice<128>(which);
 }
 
 Operand operand(const void* p, const long long* strides) {
@@ -1263,31 +1365,39 @@ Operand operand(const void* p, const long long* strides) {
 bool bad_shape(int B, int H, int seq_q, int seq_k, int d, int dtype) {
   // the wrapper checks these; a bad call must not reach the kernels
   return d < 8 || d > 128 || d % 8 != 0 || B < 1 || H < 1 || seq_q < 1 ||
-         seq_k < 1 || B * H > 65535 || (dtype != 0 && dtype != 1);
+         seq_k < 1 || static_cast<long long>(B) * H > INT_MAX ||
+         (dtype != 0 && dtype != 1);
 }
 
-int launch(const Choice& c, void** args, dim3 grid, cudaStream_t stream) {
+// One block a (tile of ``rows`` rows, batch x head slab), on one linear
+// grid; refused if the blocks pass gridDim.x's 2^31 - 1.
+int launch(const Choice& c, void** args, int rows, int BH,
+           cudaStream_t stream) {
+  const long long blocks =
+      static_cast<long long>((rows + c.rows - 1) / c.rows) * BH;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       c.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, c.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaLaunchKernel(c.fn, grid, dim3(c.threads), args, c.bytes, stream);
+  err = cudaLaunchKernel(c.fn, dim3(static_cast<unsigned>(blocks)),
+                         dim3(c.threads), args, c.bytes, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-int run_simt(Which which, const Args& a, int B, int dtype, void* stream) {
-  const Choice c = choose(which, dtype, a.d);
-  const int rows = which == kDkv ? a.seq_k : a.seq_q;
+int run_simt(Which which, const Args& a, int dtype, void* stream) {
   Args copy = a;
   void* args[] = {&copy};
-  return launch(c, args, dim3((rows + kBlock - 1) / kBlock, B * a.H),
+  return launch(choose(which, dtype, a.d), args,
+                which == kDkv ? a.seq_k : a.seq_q, a.BH,
                 static_cast<cudaStream_t>(stream));
 }
 
-HopperParams hopper_params(int H, int seq_q, int seq_k, int d, int causal,
-                           float scale) {
+HopperParams hopper_params(int B, int H, int seq_q, int seq_k, int d,
+                           int causal, float scale) {
   HopperParams p;
   memset(&p, 0, sizeof(p));
+  p.BH = B * H;
   p.H = H;
   p.seq_q = seq_q;
   p.seq_k = seq_k;
@@ -1298,8 +1408,10 @@ HopperParams hopper_params(int H, int seq_q, int seq_k, int d, int causal,
   return p;
 }
 
-Args base_args(int H, int seq_q, int seq_k, int d, int causal, float scale) {
+Args base_args(int B, int H, int seq_q, int seq_k, int d, int causal,
+               float scale) {
   Args a = {};
+  a.BH = B * H;
   a.H = H;
   a.seq_q = seq_q;
   a.seq_k = seq_k;
@@ -1326,15 +1438,15 @@ int mxtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (bad_shape(B, H, seq_q, seq_k, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
-    Args a = base_args(H, seq_q, seq_k, d, causal, scale);
+    Args a = base_args(B, H, seq_q, seq_k, d, causal, scale);
     a.q = operand(q, strides);
     a.k = operand(k, strides + 3);
     a.v = operand(v, strides + 6);
     a.o = operand(o, strides + 9);
     a.lse = lse;
-    return run_simt(kFwd, a, B, dtype, stream);
+    return run_simt(kFwd, a, dtype, stream);
   }
-  HopperParams p = hopper_params(H, seq_q, seq_k, d, causal, scale);
+  HopperParams p = hopper_params(B, H, seq_q, seq_k, d, causal, scale);
   int err = tensor_map(&p.tq, q, strides, B, H, seq_q, d, 128);
   if (!err) err = tensor_map(&p.tk, k, strides + 3, B, H, seq_k, d, 64);
   if (!err) err = tensor_map(&p.tv, v, strides + 6, B, H, seq_k, d, 64);
@@ -1342,8 +1454,7 @@ int mxtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
   p.o = operand(o, strides + 9);
   p.lse = lse;
   void* args[] = {&p};
-  return launch(choose(kFwd, dtype, d), args,
-                dim3(B * H, (seq_q + 127) / 128),
+  return launch(choose(kFwd, dtype, d), args, seq_q, p.BH,
                 static_cast<cudaStream_t>(stream));
 }
 
@@ -1354,15 +1465,29 @@ int mxtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                       int dtype, void* stream) {
   if (bad_shape(B, H, seq_q, seq_k, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a = base_args(H, seq_q, seq_k, d, causal, scale);
-  a.q = operand(q, strides);
-  a.k = operand(k, strides + 3);
-  a.v = operand(v, strides + 6);
-  a.dout = operand(dout, strides + 9);
-  a.dq = operand(dq, strides + 12);
-  a.lse = const_cast<float*>(lse);
-  a.delta = delta;
-  return run_simt(kDq, a, B, dtype, stream);
+  if (dtype == 1) {
+    Args a = base_args(B, H, seq_q, seq_k, d, causal, scale);
+    a.q = operand(q, strides);
+    a.k = operand(k, strides + 3);
+    a.v = operand(v, strides + 6);
+    a.dout = operand(dout, strides + 9);
+    a.dq = operand(dq, strides + 12);
+    a.lse = const_cast<float*>(lse);
+    a.delta = delta;
+    return run_simt(kDq, a, dtype, stream);
+  }
+  HopperParams p = hopper_params(B, H, seq_q, seq_k, d, causal, scale);
+  int err = tensor_map(&p.tq, q, strides, B, H, seq_q, d, 128);
+  if (!err) err = tensor_map(&p.tk, k, strides + 3, B, H, seq_k, d, 64);
+  if (!err) err = tensor_map(&p.tv, v, strides + 6, B, H, seq_k, d, 64);
+  if (!err) err = tensor_map(&p.tdo, dout, strides + 9, B, H, seq_q, d, 128);
+  if (err) return err;
+  p.dq = operand(dq, strides + 12);
+  p.lse = const_cast<float*>(lse);
+  p.delta = delta;
+  void* args[] = {&p};
+  return launch(choose(kDq, dtype, d), args, seq_q, p.BH,
+                static_cast<cudaStream_t>(stream));
 }
 
 int mxtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1373,7 +1498,7 @@ int mxtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (bad_shape(B, H, seq_q, seq_k, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
-    Args a = base_args(H, seq_q, seq_k, d, causal, scale);
+    Args a = base_args(B, H, seq_q, seq_k, d, causal, scale);
     a.q = operand(q, strides);
     a.k = operand(k, strides + 3);
     a.v = operand(v, strides + 6);
@@ -1382,9 +1507,9 @@ int mxtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
     a.dv = operand(dv, strides + 15);
     a.lse = const_cast<float*>(lse);
     a.delta = delta;
-    return run_simt(kDkv, a, B, dtype, stream);
+    return run_simt(kDkv, a, dtype, stream);
   }
-  HopperParams p = hopper_params(H, seq_q, seq_k, d, causal, scale);
+  HopperParams p = hopper_params(B, H, seq_q, seq_k, d, causal, scale);
   int err = tensor_map(&p.tq, q, strides, B, H, seq_q, d, 64);
   if (!err) err = tensor_map(&p.tk, k, strides + 3, B, H, seq_k, d, 128);
   if (!err) err = tensor_map(&p.tv, v, strides + 6, B, H, seq_k, d, 128);
@@ -1395,8 +1520,7 @@ int mxtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   p.lse = const_cast<float*>(lse);
   p.delta = delta;
   void* args[] = {&p};
-  return launch(choose(kDkv, dtype, d), args,
-                dim3(B * H, (seq_k + 127) / 128),
+  return launch(choose(kDkv, dtype, d), args, seq_k, p.BH,
                 static_cast<cudaStream_t>(stream));
 }
 

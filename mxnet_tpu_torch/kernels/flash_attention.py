@@ -11,25 +11,24 @@ its launches:
   (plain jnp outside the kernels in the JAX package too).
 
 On CUDA tensors each launches its kernel in ``csrc/flash_attention.cu``:
-bf16 forward and dk/dv launch the Hopper kernels (TMA, wgmma, warp
-specialised), while f32 calls and dq launch the first design's CUDA-core
-and ``mma.sync`` kernels. On CPU tensors it runs the plain version,
-:func:`flash_fwd_plain` or :func:`flash_bwd_plain`: the blocked
-online-softmax algorithm written step by step, rounding where the JAX
-kernels round. The public functions are
-:func:`flash_attention` (differentiable, a ``torch.autograd.Function`` where
-JAX has a ``custom_vjp``), :func:`flash_attention_with_lse` and
+bf16 calls launch the Hopper kernels (TMA, wgmma, warp specialised), f32
+calls the first design's CUDA-core kernels. On CPU tensors it runs the
+plain version, :func:`flash_fwd_plain` or :func:`flash_bwd_plain`: the
+blocked online-softmax algorithm written step by step, rounding where the
+JAX kernels round. The public functions are :func:`flash_attention`
+(differentiable, a ``torch.autograd.Function`` where JAX has a
+``custom_vjp``), :func:`flash_attention_with_lse` and
 :func:`flash_block_grads` (a block's gradients from a GLOBAL lse).
 
-Tiles. The kernels work in 64-key tiles (the Hopper forward in blocks of
-128 query rows, dk/dv of 128 keys, in 64-row halves). bf16 results depend
-on the key tile up to rounding, because the online softmax rescales by a
-running max; the query tile changes nothing (rows are independent, and a
-skipped causal tile adds exactly nothing). So every function takes
-``block_k``: ``None`` means the kernels' 64 on both devices, and on a CUDA
-tensor any other value raises. The public functions also take
-``block_q``, for the JAX package's signature only: anything but ``None``
-raises. (The JAX package's defaults are 512 and 2048.)
+Tiles. The kernels work in 64-key tiles (the Hopper forward and dq in
+blocks of 128 query rows, dk/dv of 128 keys, in 64-row halves). bf16
+results depend on the key tile up to rounding, because the online softmax
+rescales by a running max; the query tile changes nothing (rows are
+independent, and a skipped causal tile adds exactly nothing). So every
+function takes ``block_k``: ``None`` means the kernels' 64 on both
+devices, and on a CUDA tensor any other value raises. The public functions
+also take ``block_q``, for the JAX package's signature only: anything but
+``None`` raises. (The JAX package's defaults are 512 and 2048.)
 """
 
 from __future__ import annotations
@@ -50,6 +49,10 @@ __all__ = ["flash_attention", "flash_attention_with_lse", "flash_block_grads",
 KERNEL_BLOCK = 64      # csrc/flash_attention.cu's kBlock
 NEG_INF = -1e30        # flash_attention.py:34: masked scores, not -inf
 MAX_HEAD_DIM = 128
+# The kernels run one block a (row tile, batch x head) pair on one linear
+# grid, whose gridDim.x takes at most 2^31 - 1 blocks; the plain versions
+# have no limit.
+MAX_BLOCKS = 2 ** 31 - 1
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -66,6 +69,19 @@ def _key_block(block_k, on_card: bool) -> int:
             f"flash attention: the CUDA kernels work in {KERNEL_BLOCK}x"
             f"{KERNEL_BLOCK} tiles; got block_k={block_k} (pass None)")
     return KERNEL_BLOCK if block_k is None else int(block_k)
+
+
+def _check_grid(q, k):
+    """Raises where the kernels' grid cannot hold the call: one block per
+    64-row tile of the longer sequence and (batch, head) pair (CUDA route
+    only)."""
+    b, h, sq = q.shape[:3]
+    tiles = -(-max(sq, k.shape[2]) // KERNEL_BLOCK)
+    if b * h * tiles > MAX_BLOCKS:
+        raise ValueError(
+            f"flash attention: batch x heads {b} x {h} with {tiles} tiles of "
+            f"{KERNEL_BLOCK} rows needs {b * h * tiles} blocks; the CUDA "
+            f"kernels' grid takes at most {MAX_BLOCKS} (2^31 - 1)")
 
 
 def _no_block_q(block_q):
@@ -255,6 +271,7 @@ def flash_fwd(q, k, v, causal=False, block_k=None):
     block = _key_block(block_k, on_card)
     if not on_card:
         return flash_fwd_plain(q, k, v, causal, block)
+    _check_grid(q, k)
     q, k, v = map(_kernel_operand, (q, k, v))
     b, h, sq, d = q.shape
     o = torch.empty((b, sq, h, d), dtype=q.dtype,
@@ -277,7 +294,10 @@ def _bwd_route(q, k, v, do, lse, delta, block_k):
             raise ValueError(f"flash attention: {name} must be "
                              f"{tuple(q.shape[:3])} float32")
     on_card = use_kernel(q, k, v, do, lse, delta)
-    return on_card, _key_block(block_k, on_card)
+    block = _key_block(block_k, on_card)
+    if on_card:
+        _check_grid(q, k)
+    return on_card, block
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, block_k=None):

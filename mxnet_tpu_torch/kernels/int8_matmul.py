@@ -33,6 +33,11 @@ __all__ = ["int8_matmul", "int8_matmul_plain", "quantize_channels",
 # int32 accumulation stays exact while 127 * 127 * K < 2**31
 MAX_K = (2 ** 31 - 1) // (127 * 127)
 
+# The kernel's split of K (csrc/int8_matmul.cu): 64x64 output tiles, K in
+# slabs of 256 bytes, at most 8 blocks (one cluster) on one tile, and about
+# 128 blocks wanted in flight on the H100's 132 SMs.
+TILE, SLAB, MAX_SPLIT, BLOCKS_WANTED = 64, 256, 8, 128
+
 # Scales are max|.| times the f32 reciprocal of 127, not max|.| / 127: the
 # JAX package's compiled programs (its Pallas kernel, and quantize_channels
 # under jit in its Predictor) compute that, because XLA rewrites a divide by
@@ -106,10 +111,21 @@ def _check(x, wq, sw):
                          "overflow the int32 accumulator")
 
 
+def _k_split(M: int, N: int, K: int) -> tuple[int, int]:
+    """``(blocks on one output tile, slabs a block sums)``: split K until
+    about :data:`BLOCKS_WANTED` blocks run, where the output tiles are too
+    few to fill the card (small M); no split where they are not."""
+    tiles = -(-M // TILE) * -(-N // TILE)
+    slabs = -(-K // SLAB)
+    want = min(slabs, MAX_SPLIT, max(1, BLOCKS_WANTED // tiles))
+    per = -(-slabs // want)
+    return -(-slabs // per), per
+
+
 def _library():
     lib = load_library("int8_matmul")
     fn = lib.mxtt_int8_matmul
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
@@ -130,7 +146,8 @@ def _launch(x, wq, sw):
     with torch.cuda.device(x.device):
         err = lib.mxtt_int8_matmul(
             x.data_ptr(), wq.data_ptr(), sw.data_ptr(), qx.data_ptr(),
-            sx.data_ptr(), y.data_ptr(), M, N, K, stream)
+            sx.data_ptr(), y.data_ptr(), M, N, K, _k_split(M, N, K)[1],
+            stream)
     if err != 0:
         raise RuntimeError("int8_matmul: kernel launch failed: "
                            + lib.mxtt_cuda_error_string(err).decode())

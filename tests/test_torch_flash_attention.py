@@ -229,6 +229,42 @@ def test_kernel_operands_are_read_in_place_or_copied():
     assert tfa._kernel_operand(q.transpose(2, 3)).stride(3) == 1
 
 
+def test_plain_route_takes_batch_x_heads_past_65535():
+    # the JAX package has no batch x heads limit, and nor has the plain
+    # version: 65,536 (batch, head) slabs against the dense reference,
+    # values and gradients
+    shape = (65536, 1, 2, 8)
+    arrays = _qkv(shape, seed=13)
+    do = np.random.RandomState(14).randn(*shape).astype(np.float32)
+    jx, tx = _both(arrays)
+
+    def loss(q, k, v):
+        return jnp.sum(jreference(q, k, v, causal=True) * jnp.asarray(do))
+
+    want_o = jreference(*jx, causal=True)
+    want_grads = jax.grad(loss, argnums=(0, 1, 2))(*jx)
+    leaves = [t.clone().requires_grad_(True) for t in tx]
+    o = tfa.flash_attention(*leaves, causal=True)
+    (o * torch.from_numpy(do)).sum().backward()
+    np.testing.assert_allclose(_np(o), _np(want_o), rtol=2e-5, atol=2e-5)
+    for name, w, t in zip("qkv", want_grads, leaves):
+        np.testing.assert_allclose(_np(t.grad), _np(w), rtol=1e-4, atol=1e-4,
+                                   err_msg=f"d{name}")
+
+
+def test_cuda_route_refuses_a_grid_past_its_limit(monkeypatch):
+    # one block per (64-row tile, batch x head) pair on a linear grid of at
+    # most 2^31 - 1 blocks: a larger call raises before any build or copy
+    monkeypatch.setattr(tfa, "use_kernel", lambda *tensors: True)
+    q = torch.zeros((1, 1, 1, 8)).expand(2 ** 16, 2 ** 15, 1, 8)
+    lse = torch.zeros((1, 1, 1)).expand(2 ** 16, 2 ** 15, 1)
+    for call in (lambda: tfa.flash_fwd(q, q, q),
+                 lambda: tfa.flash_bwd_dq(q, q, q, q, lse, lse),
+                 lambda: tfa.flash_bwd_dkv(q, q, q, q, lse, lse)):
+        with pytest.raises(ValueError, match=r"2\^31 - 1"):
+            call()
+
+
 def test_kernel_attributes_need_the_build():
     # the registers and shared memory of a kernel come from its compiled
     # library: without nvcc the query raises, as a launch does
@@ -351,11 +387,8 @@ def _card_row_bound(dtype):
     return 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,seq_k,dtype,causal,packed", CARD_SHAPES)
-def test_kernels_match_plain_on_card(cuda_device, shape, seq_k, dtype,
-                                     causal, packed):
-    q, k, v, do = _card_operands(shape, seq_k, dtype, packed, cuda_device)
+def _hold_kernels_to_plain(shape, seq_k, dtype, causal, packed, device):
+    q, k, v, do = _card_operands(shape, seq_k, dtype, packed, device)
     o, lse = tfa.flash_fwd(q, k, v, causal)
     po, plse = tfa.flash_fwd_plain(q, k, v, causal)
     delta = tfa.attention_delta(o, do)
@@ -377,6 +410,47 @@ def test_kernels_match_plain_on_card(cuda_device, shape, seq_k, dtype,
                             ("dk", dk, pgrads[1]), ("dv", dv, pgrads[2])):
         share = float(_row_bound_shares(got, want, tol).max())
         assert share <= 1.0, (name, share)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,seq_k,dtype,causal,packed", CARD_SHAPES)
+def test_kernels_match_plain_on_card(cuda_device, shape, seq_k, dtype,
+                                     causal, packed):
+    _hold_kernels_to_plain(shape, seq_k, dtype, causal, packed, cuda_device)
+
+
+@pytest.mark.cuda
+def test_kernels_take_batch_x_heads_past_65535(cuda_device):
+    # 65,536 (batch, head) slabs: one linear grid, no "invalid argument"
+    _hold_kernels_to_plain((65536, 1, 16, 64), None, torch.bfloat16, True,
+                           True, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [32, 40, 64, 128])
+def test_bf16_dq_launches_the_hopper_kernel(cuda_device, head_dim):
+    # bf16 dq: the 384-thread warp-specialised kernel, Q and dO resident
+    # and a ring of K/V stages (96 KB at d <= 64, 160 KB at d = 128, plus
+    # barriers and 1 KB of alignment); f32 dq: the 128-thread CUDA-core one
+    attrs = tfa.kernel_attributes("flash_bwd_dq", torch.bfloat16, head_dim)
+    assert attrs["threads"] == 384, attrs
+    ring = 96 if head_dim <= 64 else 160
+    assert ring * 1024 < attrs["dynamic_smem_bytes"] <= ring * 1024 + 1100
+    assert tfa.kernel_attributes("flash_bwd_dq", torch.float32,
+                                 head_dim)["threads"] == 128
+
+
+@pytest.mark.cuda
+def test_bf16_dq_repeats_itself_bitwise(cuda_device):
+    # no atomics and one summation order: three launches, one result
+    q, k, v, do = _card_operands((2, 4, 512, 64), None, torch.bfloat16, True,
+                                 cuda_device)
+    o, lse = tfa.flash_fwd(q, k, v, True)
+    delta = tfa.attention_delta(o, do)
+    first = tfa.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    for _ in range(2):
+        assert torch.equal(tfa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+                           first)
 
 
 @pytest.mark.cuda

@@ -165,9 +165,32 @@ def test_cost_model_and_bound():
     assert seconds == pytest.approx(cost.bytes / 3.35e12)
 
 
+@pytest.mark.parametrize("M,K,N,blocks,per", [
+    (32, 2048, 1000, 8, 1),    # fc1: 16 N-tiles x 8 K-slices of one slab
+    (1, 2048, 1000, 8, 1),
+    (64, 2048, 1000, 8, 1),
+    (65, 2048, 1000, 4, 2),    # 32 tiles: 4 slices of 2 slabs
+    (32, 2064, 1000, 5, 2),    # 9 slabs do not split evenly
+    (32, 16, 1000, 1, 1),
+    (37, 100, 23, 1, 1),
+    (8, 1000, 300, 4, 1),
+    (256, 4096, 4096, 1, 16),  # 256 tiles fill the card: no split
+])
+def test_k_split_fills_the_card(M, K, N, blocks, per):
+    slabs = -(-K // k8.SLAB)
+    assert k8._k_split(M, N, K) == (blocks, per)
+    # every slab in exactly one block, at most one cluster a tile
+    assert (blocks - 1) * per < slabs <= blocks * per
+    assert blocks <= k8.MAX_SPLIT
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(32, 2048, 1000), (1, 2048, 1000),
-                                   (37, 100, 23), (130, 80, 70)])
+                                   (37, 100, 23), (130, 80, 70),
+                                   (64, 2048, 1000), (65, 2048, 1000),
+                                   (32, 2064, 1000), (32, 16, 1000),
+                                   (32, 100, 1000), (8, 1000, 300),
+                                   (256, 4096, 4096)])
 def test_kernel_matches_plain_on_card(cuda_device, monkeypatch, M, K, N):
     monkeypatch.setenv("MXNET_TPU_PALLAS_INTERPRET", "1")  # has no effect
     x, w = _operands(M, K, N, seed=6)
@@ -178,3 +201,21 @@ def test_kernel_matches_plain_on_card(cuda_device, monkeypatch, M, K, N):
     torch.cuda.synchronize()
     assert k8.int8_matmul.launches == before + 1
     assert torch.equal(y, k8.int8_matmul_plain(xt, wq, sw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(32, 2048, 1000), (8, 1000, 300),
+                                   (256, 4096, 4096)])
+def test_kernel_reads_its_prepass_not_stale_scratch(cuda_device, M, K, N):
+    # the GEMM may start before the row pre-pass ends (programmatic
+    # dependent launch) and must read qx and sx only after waiting for it:
+    # scratch handed back NaN-filled by the allocator shows a read too early
+    x, w = _operands(M, K, N, seed=7)
+    xt = torch.from_numpy(x).to(cuda_device)
+    wq, sw = k8.quantize_channels(torch.from_numpy(w).to(cuda_device))
+    plain = k8.int8_matmul_plain(xt, wq, sw)
+    for _ in range(20):
+        junk = [torch.full((n,), float("nan"), device=cuda_device)
+                for n in (M * K // 4, M, M * N, 4096)]
+        del junk
+        assert torch.equal(k8.int8_matmul(xt, wq, w_scale=sw), plain)
