@@ -61,7 +61,9 @@ together), and then:
    their plain versions on the card (NaN by position), at ResNet-50's
    padded gradient split into 2, 4 and 8 rows, at (8, 2048) with chunk 256
    and ``block_elems`` 512 and at a 1-D (64,) with chunk 4 (these two with a
-   NaN, an inf and a zero chunk), checks that two launches agree bitwise,
+   NaN, an inf and a zero chunk), ``dequant_sum_int8`` also on its char4
+   and byte loads (rows of 4100, codes 4 and 1 bytes off a 16-byte
+   boundary), checks that two launches agree bitwise,
    and times each at the two-rank exchange's shapes beside its bound, its
    plain version and the codec path's torch composition;
 10. dp_train: two rank processes (spawn, gloo through pinned host buffers)
@@ -75,9 +77,24 @@ together), and then:
    exchange run on CPU copies; prints the step time, global images per
    second, one step's forward / backward / sync / update split and the
    sync's kernel and host-transfer time;
-11. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
-   main path, error, times and bound;
-12. ends with ``{"ok": true, "device": {...}}``.
+11. lm_mesh: two rank processes (spawn, gloo through pinned host buffers)
+   share the card and train the full-width transformer LM (global batch 8
+   x 2048 tokens, bf16) for 4 steps each through ``make_train_step(mesh,
+   optimizer=Adam(fused=True))`` on a mesh of sp = 2 (ring flash attention:
+   1024 tokens a rank) and one of tp = 2 (4 heads and half the vocab a
+   rank); checks the launches per step per rank (on sp = 2 rank 0 runs one
+   flash call of each kind a layer and rank 1 two), that the first step's
+   loss is the single-rank step's within 1e-3, that the loss fell and the
+   parameters are finite and moved, that the replicated leaves are bitwise
+   equal across the ranks; holds ring flash attention alone at sp = 2
+   (the output and dq, dk, dv) against the f32 reference row by row (dq
+   and dk given the ring's output); prints
+   the step time, global tokens per second and one step's forward /
+   backward / gradient sum / update split per rank with the gloo time;
+12. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
+   main path, error, times and bound (the flash kernels and fused_adam also
+   their launches in lm_mesh);
+13. ends with ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without CUDA it exits non-zero at once. It imports nothing of JAX or of
@@ -117,6 +134,28 @@ LM_BATCH, LM_SEQ = 8, 2048
 LM_REQUESTS = 5
 LM_STEPS = 8
 LM_CUT = (1, 256)
+# the sharded LM: two ranks sharing the card, the meshes, steps, time limit
+LM_MESH_WORLD = 2
+LM_MESHES = {"sp2": {"sp": 2}, "tp2": {"tp": 2}}
+LM_MESH_STEPS = 4
+LM_MESH_TIMEOUT_S = 600
+# The first step on a mesh against the single-rank step from the same
+# parameters and tokens: the loss (a mean over 16,384 tokens of an f32
+# log-softmax), relative, and each rank's block of the logits, relative
+# Frobenius. Both are bf16 models: on sp = 2 the ring rounds each hop's
+# attention output to bf16 before the f32 merge and rounds the merge again
+# (once on one card); on tp = 2 the row-parallel products sum over tp in f32
+# in another order before their one rounding. Sound, these read (H100):
+# loss 1.2e-6 (sp = 2) and 2.1e-6 (tp = 2), logits 7.0e-3 (sp = 2, rank 1;
+# rank 0's block is bitwise) and 5.4e-3 (tp = 2). With one fault planted at
+# a time (lm_mesh_faults), each gated to read above both bounds, the
+# smallest readings were pos_embed from row 0 on sp = 2, loss 2.4e-5 and
+# logits 5.0e-2; the others read loss 1.7e-4 and up, logits 0.23 and up.
+# Each bound sits between: 3-8 times the sound readings, 2.4-2.5 times
+# below the smallest fault's. The loss alone, a mean near log(32000),
+# moves little under an attention fault.
+LM_MESH_LOSS_BOUND = 1e-5
+LM_MESH_LOGITS_BOUND = 2e-2
 # (q shape, dtype, causal, seq_k or None for seq_q): the LM's attention, a
 # non-causal shape, the JAX package's ragged tail test (tests/test_pallas.py
 # :35), and the Hopper kernels' edges at small size: head_dim 32 and 40
@@ -131,7 +170,18 @@ FLASH_CASES = (((LM_BATCH, 8, LM_SEQ, 64), "bfloat16", True, None),
                ((2, 2, 1000, 128), "bfloat16", False, None),
                ((1, 2, 300, 128), "bfloat16", False, 77),
                ((2, 2, 100, 64), "bfloat16", False, 300),
-               ((65536, 1, 16, 64), "bfloat16", True, None))
+               ((65536, 1, 16, 64), "bfloat16", True, None),
+               # the ring's blocks at sp = 2: the diagonal (views of one
+               # packed qkv) and the off-diagonal block, whose k and v are
+               # fresh contiguous tensors received from the other rank
+               ((LM_BATCH, 8, LM_SEQ // 2, 64), "bfloat16", True, None),
+               ((LM_BATCH, 8, LM_SEQ // 2, 64), "bfloat16", False,
+                LM_SEQ // 2),
+               # a rank's attention at tp = 2: half the heads, views of its
+               # packed (b, s, 3, h / tp, d) qkv
+               ((LM_BATCH, 8 // LM_MESH_WORLD, LM_SEQ, 64), "bfloat16", True,
+                None))
+FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # data-parallel training: ranks sharing the card, steps, modes, time limit
 DP_WORLD = 2
 DP_STEPS = 8
@@ -896,8 +946,7 @@ def phase_lm_train(torch, mt, topt, tfa, kfa, params0, grad_errs):
     tokens, targets = (torch.from_numpy(t).cuda() for t in lm_tokens(
         np.random.default_rng(SEED + 4), LM_BATCH, LM_SEQ,
         cfg["vocab_size"]))
-    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    kernels = {n: getattr(tfa, n) for n in names}
+    kernels = {n: getattr(tfa, n) for n in FLASH_NAMES}
     kernels["fused_adam"] = kfa.fused_adam
     torch.cuda.synchronize()
     # the main path: every count is read around the 8 steps
@@ -1066,6 +1115,28 @@ def phase_comm_kernels(torch, ck, comm, registry):
                   "chunk": chunk, "block_elems": block,
                   "nan_inf_chunks": specials, "bitwise_equal_plain": True,
                   "bitwise_repeat": True})
+    # dequant_sum_int8's char4 and byte loads: rows of 4100 (not a multiple
+    # of 16), codes 4 and 1 bytes past a 16-byte boundary
+    for offset, load_bytes in ((4, 4), (1, 1)):
+        rows, length, chunk = 2, 4100, 20
+        buf = torch.empty(rows * length + 48, dtype=torch.int8, device="cuda")
+        start = (-buf.data_ptr()) % 16 + offset
+        q = buf[start:start + rows * length].view(rows, length)
+        q.copy_(torch.randint(-127, 128, (rows, length), generator=gen,
+                              device="cuda", dtype=torch.int8))
+        scale = torch.rand((rows, length // chunk), generator=gen,
+                           device="cuda")
+        require(ck.dequant_sum_int8_load_bytes(q) == load_bytes,
+                f"dequant_sum_int8 takes its {load_bytes}-byte loads")
+        summed = (ck.dequant_sum_int8(q, scale, chunk),
+                  ck.dequant_sum_int8_plain(q, scale, chunk))
+        torch.cuda.synchronize()
+        require(bits_equal(torch, *summed),
+                f"dequant_sum_int8 {load_bytes}-byte loads: kernel differs "
+                "from its plain version")
+        emit({"phase": "comm_parity", "name": "dequant_sum_int8",
+              "shape": [rows, length], "chunk": chunk,
+              "load_bytes": load_bytes, "bitwise_equal_plain": True})
     phase_launches = {k.__name__: k.launches for k in ck.KERNELS}
 
     # times at the main path's shapes: ResNet-50's padded gradient, two ranks
@@ -1325,9 +1396,16 @@ def dp_train_rank(torch, rank, world, mode):
     return out
 
 
-def dp_rank(rank, world, init_method, queue):
-    """A rank process of dp_train: joins the gloo group and reports to the
-    parent through ``queue``; it prints nothing."""
+def dp_body(torch, rank, world):
+    """dp_train's work on one rank: each mode in turn."""
+    return {mode: dp_train_rank(torch, rank, world, mode)
+            for mode in DP_MODES}
+
+
+def rank_process(body, rank, world, init_method, timeout_s, queue):
+    """A rank process of a multi-rank phase: joins the gloo group, runs
+    ``body(torch, rank, world)`` and reports to the parent through
+    ``queue``; it prints nothing."""
     import datetime
     import traceback
 
@@ -1341,10 +1419,8 @@ def dp_rank(rank, world, init_method, queue):
         torch.backends.cudnn.allow_tf32 = False
         dist.init_process_group(
             "gloo", init_method=init_method, rank=rank, world_size=world,
-            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
-        results = {mode: dp_train_rank(torch, rank, world, mode)
-                   for mode in DP_MODES}
-        queue.put((rank, True, results))
+            timeout=datetime.timedelta(seconds=timeout_s))
+        queue.put((rank, True, body(torch, rank, world)))
     except BaseException:  # noqa: BLE001 - reported to the parent, which raises
         queue.put((rank, False, traceback.format_exc()))
     finally:
@@ -1352,9 +1428,10 @@ def dp_rank(rank, world, init_method, queue):
             dist.destroy_process_group()
 
 
-def run_dp_ranks(torch):
-    """Start the dp_train ranks (spawn), collect their results; a rank that
-    fails or a run past the time limit kills every rank and raises."""
+def run_ranks(torch, body, world, timeout_s, what):
+    """Start ``world`` rank processes (spawn) that run ``body`` and share
+    the card, and collect their results; a rank that fails or a run past
+    the time limit kills every rank and raises."""
     import multiprocessing as mp
     import os
     import queue as queue_mod
@@ -1369,24 +1446,25 @@ def run_dp_ranks(torch):
         rdv.unlink()
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=dp_rank, daemon=True,
-                         args=(rank, DP_WORLD, f"file://{rdv}", queue))
-             for rank in range(DP_WORLD)]
+    procs = [ctx.Process(target=rank_process, daemon=True,
+                         args=(body, rank, world, f"file://{rdv}", timeout_s,
+                               queue))
+             for rank in range(world)]
     for p in procs:
         p.start()
-    results, deadline = {}, time.monotonic() + DP_TIMEOUT_S
+    results, deadline = {}, time.monotonic() + timeout_s
     try:
-        while len(results) < DP_WORLD:
+        while len(results) < world:
             left = deadline - time.monotonic()
-            require(left > 0, f"dp_train ranks finished in {DP_TIMEOUT_S} s")
+            require(left > 0, f"{what} ranks finished in {timeout_s} s")
             try:
                 rank, ok, value = queue.get(timeout=min(left, 5.0))
             except queue_mod.Empty:
                 dead = [r for r, p in enumerate(procs)
                         if p.exitcode not in (None, 0) and r not in results]
-                require(not dead, f"dp_train rank(s) {dead} died")
+                require(not dead, f"{what} rank(s) {dead} died")
                 continue
-            require(ok, f"dp_train rank {rank} failed:\n{value}")
+            require(ok, f"{what} rank {rank} failed:\n{value}")
             results[rank] = value
     finally:
         for p in procs:
@@ -1396,13 +1474,13 @@ def run_dp_ranks(torch):
                 p.join()
         if rdv.exists():
             rdv.unlink()
-    return [results[r] for r in range(DP_WORLD)]
+    return [results[r] for r in range(world)]
 
 
 def phase_dp_train(torch, comm):
     """ResNet-50 trained data-parallel on two ranks that share the card,
     int8 and twobit, through the comm kernels; checks and the time split."""
-    ranks = run_dp_ranks(torch)
+    ranks = run_ranks(torch, dp_body, DP_WORLD, DP_TIMEOUT_S, "dp_train")
     launches = {}
     for mode in DP_MODES:
         per_step = DP_LAUNCHES[mode]
@@ -1470,6 +1548,383 @@ def phase_dp_train(torch, comm):
     return launches
 
 
+def lm_mesh_tokens(vocab):
+    """The global batch of lm_mesh (8 x 2048 tokens), the same on every
+    rank and in the parent."""
+    return lm_tokens(np.random.default_rng(SEED + 7), LM_BATCH, LM_SEQ, vocab)
+
+
+def lm_mesh_faults(torch, mt, model, mesh, params, tokens, targets):
+    """The first step's parameters ``params`` (this rank's blocks) read as
+    they are and with one fault planted at a time, each a layout the port
+    could get wrong and still run: for each, the loss of the fixed global
+    batch (``tokens``, ``targets``) and the relative Frobenius error of this
+    rank's block of the logits against the single-rank forward's. On tp >
+    1, ``wqkv`` cut in tp contiguous column blocks (the JAX spec read
+    literally) where the port cuts it by heads; on sp > 1, every rank's
+    positions read from row 0 of ``pos_embed``, and the ring's off-diagonal
+    block run under the causal mask. The code is not changed: the
+    parameters are, or the ring's call of the forward kernel is wrapped for
+    the one reading."""
+    from mxnet_tpu_torch.parallel import data_sharding, sequence
+
+    whole = model.init_params(SEED, ctx=mt.cpu())
+    data = data_sharding(mesh, "sp")
+    tok, tgt = data.shard(tokens), data.shard(targets)
+    with torch.no_grad():
+        want = data.shard(model.forward(
+            {k: v.to(mesh.device) for k, v in whole.items()},
+            torch.from_numpy(tokens).to(mesh.device)))
+
+    def read(p):
+        with torch.no_grad():
+            logits = model.forward(p, tok, mesh)
+            err = float(torch.linalg.vector_norm(logits - want)
+                        / torch.linalg.vector_norm(want))
+            del logits
+            return {"loss": float(model.loss(p, tok, tgt, mesh)),
+                    "logits_rel_err": err}
+
+    out = {"sound": read(params)}
+    if mesh.shape.get("tp", 1) > 1:
+        tp, cut = mesh.axis("tp"), dict(params)
+        for k, w in whole.items():
+            if k.endswith("_wqkv"):
+                n = w.shape[1] // tp.size
+                cut[k] = w[:, tp.index * n:(tp.index + 1) * n].to(params[k])
+        out["wqkv_contiguous"] = read(cut)
+    if mesh.shape.get("sp", 1) > 1:
+        start = mesh.axis("sp").index * tok.shape[1]
+        out["pos_embed_from_0"] = read(dict(
+            params, pos_embed=torch.roll(params["pos_embed"], start, 0)))
+        fwd = sequence.flash_attention_with_lse
+        sequence.flash_attention_with_lse = (
+            lambda q, k, v, causal=False: fwd(q, k, v, causal=True))
+        try:
+            out["off_diagonal_causal"] = read(params)
+        finally:
+            sequence.flash_attention_with_lse = fwd
+    del want
+    return out
+
+
+def lm_mesh_train(torch, rank, sizes):
+    """One rank's run of the full-width LM on a mesh: LM_MESH_STEPS steps of
+    ``make_train_step(mesh, optimizer=Adam(fused=True))`` on its blocks of
+    the fixed global batch, the launches counted around them; the first
+    step's loss with faults planted (:func:`lm_mesh_faults`); then one more
+    step split on the card's clock (the step's own ``mark``), the gloo
+    calls timed apart on the host's. Returns numpy and Python values
+    only."""
+    import hashlib
+    import types
+
+    import torch.distributed as dist
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.comm import allreduce
+    from mxnet_tpu_torch.kernels import flash_attention as tfa
+    from mxnet_tpu_torch.kernels import fused_adam as kfa
+    from mxnet_tpu_torch.models import TransformerLM, transformer_lm_config
+    from mxnet_tpu_torch.parallel import data_sharding, make_mesh
+
+    mesh = make_mesh(**sizes, devices=mt.gpu(0))
+    cfg = transformer_lm_config()
+    model = TransformerLM(cfg)
+    opt = topt.create("adam", learning_rate=LEARNING_RATE, fused=True)
+    params, state = model.init_sharded(mesh, seed=SEED, optimizer=opt)
+    params0 = {k: v.clone() for k, v in params.items()}
+    data = data_sharding(mesh, "sp")
+    tok, tgt = (data.shard(t) for t in lm_mesh_tokens(cfg["vocab_size"]))
+    step = model.make_train_step(mesh, optimizer=opt)
+    kernels = {n: getattr(tfa, n) for n in FLASH_NAMES}
+    kernels["fused_adam"] = kfa.fused_adam
+    torch.cuda.synchronize()
+    dist.barrier()
+    # the main path: every count is read around the steps
+    for fn in kernels.values():
+        fn.launches = 0
+    losses, stamps = [], [time.perf_counter()]
+    for _ in range(LM_MESH_STEPS):
+        params, state, loss = step(params, state, tok, tgt)
+        losses.append(float(loss))   # syncs the host with the step
+        stamps.append(time.perf_counter())
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    out = {
+        "launches": launches, "losses": losses,
+        "step_ms": [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])],
+        "local_tokens": list(tok.shape),
+        "finite": all(bool(torch.isfinite(v).all()) for v in params.values()),
+        "moved": all(not torch.equal(v, params0[k])
+                     for k, v in params.items()),
+        "digests": {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+                    for k, v in params.items()},
+        "faults": lm_mesh_faults(torch, mt, model, mesh, params0,
+                                 *lm_mesh_tokens(cfg["vocab_size"]))}
+    del params0
+
+    # one more step, split on the card's clock by the step's own marks; the
+    # gloo calls (host clock, the card synchronized before each) timed apart
+    gloo_s = [0.0]
+    wire, p2p = allreduce._wire, dist.batch_isend_irecv
+
+    def timed_wire(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wire(*a, **kw)
+        gloo_s[0] += time.perf_counter() - t0
+
+    def timed_p2p(ops):
+        # the batch's requests, each still waited on once by its caller;
+        # the time from the post to the last wait is added
+        torch.cuda.synchronize()
+        last = [time.perf_counter()]
+
+        def timed(req):
+            def wait(*a, **kw):
+                done = req.wait(*a, **kw)
+                now = time.perf_counter()
+                gloo_s[0] += now - last[0]
+                last[0] = now
+                return done
+            return types.SimpleNamespace(wait=wait)
+        return [timed(req) for req in p2p(ops)]
+
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+
+    def mark(phase):
+        events.append((phase, torch.cuda.Event(enable_timing=True)))
+        events[-1][1].record()
+
+    allreduce._wire, dist.batch_isend_irecv = timed_wire, timed_p2p
+    try:
+        events[0][1].record()
+        params, state, loss = step(params, state, tok, tgt, mark=mark)
+        torch.cuda.synchronize()
+    finally:
+        allreduce._wire, dist.batch_isend_irecv = wire, p2p
+    out["split"] = {f"{phase}_ms": a.elapsed_time(b)
+                    for (_, a), (phase, b) in zip(events, events[1:])}
+    out["split"]["gloo_ms"] = gloo_s[0] * 1e3
+    del params, state, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_ring(torch, rank):
+    """Ring flash attention alone at the LM's attention split over sp = 2
+    (8 x 8 x 1024 x 64 bf16 a rank, causal): the output and dq, dk, dv,
+    gathered on rank 0 and held row by row within ``flash_row_bound``
+    against references computed from the global q, k, v alone, never from
+    the ring's results. Gated: o and dv against ``attention_reference`` in
+    f32 and its gradient; dk against the f32 gradient whose ``delta =
+    rowsum(do * o)`` takes o as the reference output rounded once to bf16;
+    o, dq, dk and dv against the plain versions of the single-card kernels
+    (``flash_fwd_plain``, then ``attention_delta`` of its output, then
+    ``flash_bwd_plain``), which round p and ds to bf16 where the kernels do.
+
+    Printed only: dq and dk against ``attention_reference``'s own gradient,
+    and dq against the f32 gradient with the rounded delta. Flash
+    attention's backward (the JAX kernels' too) takes delta from its own
+    bf16 output, whose p was rounded to bf16 before the product with v;
+    where ``dp - delta`` cancels (a query that sees a few keys) that
+    rounding moves dq by more than 2^-7 of its norm against the f32
+    gradient, on one card as on the ring (``ROADMAP.md`` C.2)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.kernels.flash_attention import (
+        attention_delta, flash_bwd_plain, flash_fwd_plain)
+    from mxnet_tpu_torch.parallel import (attention_reference, make_mesh,
+                                          ring_flash_attention)
+    from mxnet_tpu_torch.parallel.mesh import P, Sharding
+
+    mesh = make_mesh(sp=2, devices=mt.gpu(0))
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 8)
+    shape = (LM_BATCH, 8, LM_SEQ, 64)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=mesh.device)
+                   .to(torch.bfloat16) for _ in range(4))
+    block = Sharding(mesh, P(None, None, "sp", None))
+    ql, kl, vl = (block.shard(t).requires_grad_(True) for t in (q, k, v))
+    o = ring_flash_attention(ql, kl, vl, mesh.axis("sp"), causal=True)
+    grads = torch.autograd.grad(o, (ql, kl, vl), block.shard(do))
+    got = dict(zip(("o", "dq", "dk", "dv"),
+                   (block.gather(t) for t in (o.detach(), *grads))))
+    del o, grads, ql, kl, vl
+    if rank != 0:
+        return {}
+    bound = flash_row_bound(torch, torch.bfloat16)
+    errors, gated = {}, []
+
+    def hold(name, of, want, gate):
+        share, rel = row_errors(torch, got[of], want, bound)
+        errors[name] = {"share_of_bound_max": float(share.max()),
+                        "rows_over_bound": int((share > 1).sum()),
+                        "row_rel_err_max": float(rel.max()),
+                        "row_rel_err_median": float(rel.median()),
+                        "max_abs_err": float((got[of].float() - want.float())
+                                             .abs().max())}
+        if gate:
+            gated.append(name)
+
+    po, plse = flash_fwd_plain(q, k, v, True)
+    plain = flash_bwd_plain(q, k, v, do, plse, attention_delta(po, do), True)
+    hold("o_plain", "o", po, True)
+    for name, want in zip(("dq", "dk", "dv"), plain):
+        hold(f"{name}_plain", name, want, True)
+    del po, plse, plain
+    qf, kf, vf = (t.float().requires_grad_(True) for t in (q, k, v))
+    ref = attention_reference(qf, kf, vf, causal=True)
+    rdq, rdk, rdv = torch.autograd.grad(ref, (qf, kf, vf), do.float())
+    hold("o", "o", ref.detach(), True)
+    hold("dv", "dv", rdv, True)
+    hold("dq_f32", "dq", rdq, False)
+    hold("dk_f32", "dk", rdk, False)
+    del rdq, rdk, rdv
+    with torch.no_grad():
+        root_d = torch.tensor(np.sqrt(np.float32(shape[3])),
+                              device=mesh.device)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) / root_d
+        seq = torch.arange(shape[2], device=mesh.device)
+        p = torch.softmax(torch.where(seq[:, None] >= seq[None, :], s,
+                                      float("-inf")), dim=-1)
+        del s
+        dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vf)
+        delta = attention_delta(ref.detach().to(torch.bfloat16), do)
+        ds = p * (dp - delta[..., None]) / root_d
+        del p, dp
+        hold("dq_f32_bf16_delta", "dq", ds @ kf, False)
+        hold("dk_f32_bf16_delta", "dk", ds.transpose(-1, -2) @ qf, True)
+        del ds
+    return {"shape": list(shape), "errors": errors, "row_rel_bound": bound,
+            "row_floor_of_rms": ROW_FLOOR, "gated": gated}
+
+
+def lm_mesh_body(torch, rank, world):
+    """lm_mesh's work on one rank: the meshes in turn, then the ring."""
+    out = {name: lm_mesh_train(torch, rank, sizes)
+           for name, sizes in LM_MESHES.items()}
+    out["ring"] = lm_mesh_ring(torch, rank)
+    return out
+
+
+def lm_mesh_launches(name, rank, n_layers):
+    """Launches a step of each kernel on ``rank`` of mesh ``name``: on
+    sp = 2, rank 0 computes its diagonal block and skips the later one
+    (one flash call of each kind a layer), rank 1 computes both."""
+    blocks = rank + 1 if name == "sp2" else 1
+    return {**{n: blocks * n_layers for n in FLASH_NAMES}, "fused_adam": 1}
+
+
+def phase_lm_mesh(torch, mt, params):
+    """The full-width LM trained on two meshes of two ranks sharing the card
+    (sp = 2 and tp = 2), and ring flash attention alone, with their checks;
+    returns each kernel's launches per mesh and rank."""
+    from mxnet_tpu_torch.models import TransformerLM, transformer_lm_config
+    from mxnet_tpu_torch.parallel.tensor_parallel import (
+        transformer_param_specs)
+
+    cfg = transformer_lm_config()
+    model = TransformerLM(cfg)
+    tokens, targets = (torch.from_numpy(t).cuda()
+                       for t in lm_mesh_tokens(cfg["vocab_size"]))
+    # the single-rank step's loss from the same parameters (init_params of
+    # the same seed: the ranks' init_sharded cuts exactly these)
+    with torch.no_grad():
+        ref_loss = float(model.loss(params, tokens, targets))
+    del tokens, targets
+    ranks = run_ranks(torch, lm_mesh_body, LM_MESH_WORLD, LM_MESH_TIMEOUT_S,
+                      "lm_mesh")
+    specs = transformer_param_specs(cfg["n_layers"])
+    ring = ranks[0]["ring"]
+    emit({"phase": "lm_mesh_ring", **ring})
+    launches = {}
+    for name, sizes in LM_MESHES.items():
+        runs = [r[name] for r in ranks]
+        err = abs(runs[0]["losses"][0] - ref_loss) / ref_loss
+        # each reading: the loss's relative error (the same on both ranks)
+        # and the larger of the two ranks' logits errors
+        readings = {f: {"loss_rel_err": abs(r["loss"] - ref_loss) / ref_loss,
+                        "logits_rel_err": max(run["faults"][f][
+                            "logits_rel_err"] for run in runs)}
+                    for f, r in runs[0]["faults"].items()}
+        faults = {f: r for f, r in readings.items() if f != "sound"}
+        # leaves a mesh axis replicates: bitwise equal on the ranks that
+        # hold them (on sp = 2 every leaf; on tp = 2 those not split on tp)
+        split = {k for k, spec in specs.items() if "tp" in spec} \
+            if sizes.get("tp", 1) > 1 else set()
+        replicated = [k for k in runs[0]["digests"] if k not in split]
+        median_ms = statistics.median(runs[0]["step_ms"])
+        emit({"phase": "lm_mesh", "mesh": name,
+              "mesh_shape": {"dp": 1, **sizes}, "world": LM_MESH_WORLD,
+              "transport": "gloo through pinned host buffers, both ranks "
+                           "on one card",
+              "global_batch": [LM_BATCH, LM_SEQ],
+              "local_tokens": runs[0]["local_tokens"],
+              "steps": LM_MESH_STEPS, "optimizer": "adam", "fused": True,
+              "learning_rate": LEARNING_RATE,
+              "launches": [r["launches"] for r in runs],
+              "launches_per_step": [lm_mesh_launches(name, r, cfg["n_layers"])
+                                    for r in range(LM_MESH_WORLD)],
+              "first_loss": runs[0]["losses"][0],
+              "single_rank_loss": ref_loss, "first_loss_rel_err": err,
+              "bound": LM_MESH_LOSS_BOUND,
+              "logits_bound": LM_MESH_LOGITS_BOUND,
+              "sound_and_planted_faults": readings,
+              "faults_by_rank": [r["faults"] for r in runs],
+              "losses": runs[0]["losses"],
+              "replicated_leaves_bitwise_equal": len(replicated),
+              "step_ms": runs[0]["step_ms"], "step_ms_median": median_ms,
+              "global_tokens_per_s": LM_BATCH * LM_SEQ * 1e3 / median_ms,
+              "split_rank0": runs[0]["split"],
+              "split_rank1": runs[1]["split"]})
+        for rank, run in enumerate(runs):
+            want = lm_mesh_launches(name, rank, cfg["n_layers"])
+            for kernel, per_step in want.items():
+                require(run["launches"][kernel] == per_step * LM_MESH_STEPS,
+                        f"lm_mesh {name} rank {rank}: {kernel} launched "
+                        f"{run['launches'][kernel]} times in {LM_MESH_STEPS} "
+                        f"steps, expected {per_step} a step")
+            losses = run["losses"]
+            require(np.isfinite(losses).all() and losses[-1] < losses[0],
+                    f"lm_mesh {name} rank {rank}: the loss of the fixed "
+                    f"batch fell: {losses}")
+            require(run["finite"] and run["moved"],
+                    f"lm_mesh {name} rank {rank}: parameters finite and moved")
+        require(runs[0]["losses"] == runs[1]["losses"] and
+                all(runs[0]["faults"][f]["loss"] == runs[1]["faults"][f]["loss"]
+                    for f in readings),
+                f"lm_mesh {name}: the ranks' losses are the global mean, "
+                f"bitwise the same: {[r['losses'] for r in runs]}")
+        require(err < LM_MESH_LOSS_BOUND,
+                f"lm_mesh {name}: first-step loss {runs[0]['losses'][0]} "
+                f"against the single-rank step's {ref_loss} ({err} relative)")
+        require(readings["sound"]["logits_rel_err"] < LM_MESH_LOGITS_BOUND,
+                f"lm_mesh {name}: the first step's logits differ from the "
+                f"single-rank forward's by {readings['sound']} relative")
+        require(len(faults) == (2 if "sp" in sizes else 1),
+                f"lm_mesh {name}: faults planted: {sorted(faults)}")
+        for fault, r in faults.items():
+            require(r["loss_rel_err"] > LM_MESH_LOSS_BOUND and
+                    r["logits_rel_err"] > LM_MESH_LOGITS_BOUND,
+                    f"lm_mesh {name}: the planted fault {fault} moves the "
+                    f"first step's loss and logits by {r} relative, within "
+                    f"a bound ({LM_MESH_LOSS_BOUND}, {LM_MESH_LOGITS_BOUND})")
+        require(all(runs[0]["digests"][k] == runs[1]["digests"][k]
+                    for k in replicated),
+                f"lm_mesh {name}: replicated leaves bitwise equal across "
+                "the ranks")
+        for kernel in (*FLASH_NAMES, "fused_adam"):
+            launches.setdefault(kernel, {})[name] = [
+                r["launches"][kernel] for r in runs]
+    for name in ring["gated"]:
+        e = ring["errors"][name]
+        require(e["share_of_bound_max"] <= 1.0,
+                f"ring flash attention at sp = 2: a row of {name} differs "
+                f"from its reference by {e['share_of_bound_max']} of its "
+                "bound")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1501,6 +1956,7 @@ def main() -> int:
     comm_rows_, comm_phase_launches = phase_comm_kernels(torch, ck, comm,
                                                          registry)
     launches.update(phase_dp_train(torch, comm))
+    mesh_launches = phase_lm_mesh(torch, mt, lm_params)
     # not on fit's path: twobit gathers in bf16 (comm/allreduce.py)
     launches["dequant_twobit"] = 0
     require(not any(m.split(".")[0] in ("jax", "mxnet_tpu")
@@ -1525,6 +1981,9 @@ def main() -> int:
         if name == "dequant_twobit":
             kernels[-1]["comm_kernels_phase_launches"] = \
                 comm_phase_launches[name]
+        if name in mesh_launches:
+            # per mesh, per rank: the steps of phase lm_mesh
+            kernels[-1]["lm_mesh_launches"] = mesh_launches[name]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

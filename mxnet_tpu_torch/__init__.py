@@ -11,8 +11,10 @@ Slice 3 is the transformer LM on one card, with the flash-attention kernels
 (``csrc/flash_attention.cu``). Slice 4 trains data-parallel across
 ``torch.distributed`` ranks (``fit(kvstore="dist_sync", compression=...,
 comm_kernels=...)``), with the gradient-compression kernels
-(``csrc/comm_kernels.cu``). Entry points run on the card (``gpu(0)``)
-unless the caller passes ``ctx=cpu()``.
+(``csrc/comm_kernels.cu``). Slice 7 shards the transformer LM's step over a
+``(dp, tp, sp)`` mesh of ranks (``parallel``), with ring flash attention
+over sp. Entry points run on the card (``gpu(0)``) unless the caller passes
+``ctx=cpu()``.
 """
 
 from . import symbol, symbol as sym  # noqa: F401

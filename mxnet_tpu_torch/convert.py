@@ -13,7 +13,9 @@ import torch
 
 __all__ = ["to_tensor", "params_from_numpy", "random_params",
            "adam_state_from_numpy", "adam_state_to_numpy",
-           "transformer_params_from_numpy", "residual_rows_from_numpy",
+           "transformer_params_from_numpy", "shard_transformer_params",
+           "gather_transformer_params", "shard_optimizer_state",
+           "gather_optimizer_state", "residual_rows_from_numpy",
            "residual_rows_to_numpy"]
 
 
@@ -43,6 +45,60 @@ def transformer_params_from_numpy(params, device):
     SGD-momentum state has the same layout and crosses the same way."""
     device = torch.device(device)
     return {k: to_tensor(v, device).float() for k, v in params.items()}
+
+
+def shard_transformer_params(params, mesh, model):
+    """This rank's blocks (f32 tensors on the mesh's device) of a
+    transformer LM's global parameters, numpy-convertible arrays in the
+    JAX package's layout, cut by ``model.param_shardings(mesh)``."""
+    shardings = model.param_shardings(mesh)
+    return {k: shardings[k].shard(np.asarray(_host(v), np.float32))
+            for k, v in params.items()}
+
+
+def gather_transformer_params(local, mesh, model):
+    """The global parameters as float32 numpy arrays from every rank's
+    blocks: a collective, which every rank of the mesh calls. The exact
+    inverse of :func:`shard_transformer_params`."""
+    shardings = model.param_shardings(mesh)
+    return {k: shardings[k].gather(v).cpu().numpy() for k, v in local.items()}
+
+
+def _map_state(states, shardings, fn):
+    """``fn(sharding, leaf)`` on each leaf of an optimizer state: one
+    tensor a parameter (SGD momentum) or a tuple (Adam's m, v, t)."""
+    return {k: (tuple(fn(shardings[k], x) for x in s)
+                if isinstance(s, (tuple, list)) else fn(shardings[k], s))
+            for k, s in states.items()}
+
+
+def shard_optimizer_state(states, mesh, model):
+    """This rank's blocks of a transformer optimizer state of
+    numpy-convertible arrays (``{name: m}`` for the built-in SGD,
+    ``{name: (m, v, t)}`` for Adam): each leaf shaped like its parameter is
+    cut like it, a step counter becomes the port's 0-d f32 CPU tensor."""
+    def one(sharding, x):
+        x = np.asarray(_host(x), np.float32)
+        return sharding.shard(x) if x.ndim else torch.tensor(float(x))
+
+    return _map_state(states, model.param_shardings(mesh), one)
+
+
+def gather_optimizer_state(states, mesh, model):
+    """The global optimizer state as float32 numpy arrays (a collective,
+    like :func:`gather_transformer_params`)."""
+    def one(sharding, x):
+        if x.dim():
+            return sharding.gather(x).cpu().numpy()
+        return np.asarray(_host(x), np.float32)
+
+    return _map_state(states, model.param_shardings(mesh), one)
+
+
+def _host(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return x.asnumpy() if hasattr(x, "asnumpy") else x
 
 
 def adam_state_from_numpy(states, device):

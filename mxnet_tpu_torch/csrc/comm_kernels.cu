@@ -44,7 +44,22 @@
 // coalesced, reduce |x| with shuffles, and read it again (from L1/L2) to
 // emit codes and round trip. Any chunk that is a multiple of 4 works; the
 // block size of the TPU kernels (`block_elems`) changes nothing here. Grids
-// stride over the work. Loads are scalar: vector loads are later work.
+// stride over the work. Loads are scalar, except in dequant_sum_int8.
+//
+// dequant_sum_int8 reads R rows of codes and writes one f32 row: at the
+// two-rank exchange (R = 2, L = 12.78 M) 25.6 MB in and 51 MB out, 0.023 ms
+// at 3.35 TB/s. A thread owns 16 consecutive columns: one 16-byte load a
+// row, one scale load a 4-column quad (chunk % 4 == 0, so no quad straddles
+// two chunks; the quad's scale index is stepped, not divided), four float4
+// stores. Stored straight from each thread, those four land 64 bytes apart
+// across a warp (half sectors), and the kernel read 54% of its bound
+// (chip_smoke.py on an H100); so a warp stages its 512 results in shared
+// memory and each store instruction writes 512 contiguous bytes.
+// That path needs L % 16 == 0 and a 16-byte aligned q; elsewhere a thread
+// owns 4 columns, read as one char4 (q 4-byte aligned) or as 4 bytes. The
+// grid is the SMs times the blocks that fit on one, striding over the
+// columns. The sum stays fmaf over rows 0..R-1 in order, so every path
+// gives the bits of the scalar form.
 
 #include <cuda_runtime.h>
 
@@ -120,20 +135,98 @@ quant_twobit_kernel(const float* __restrict__ x, uint8_t* __restrict__ q,
   }
 }
 
+// kCols columns a thread: 16 (one int4 load a row) or 4 (one char4 load a
+// row when kVector, else four byte loads). A warp's results go out through
+// shared memory, so that each of its store instructions writes contiguous
+// float4s. The loop runs whole warps (gb is the warp's first group), so
+// that __syncwarp sees every lane.
+template <int kCols, bool kVector>
 __global__ void __launch_bounds__(kThreads)
 dequant_sum_int8_kernel(const int8_t* __restrict__ q,
                         const float* __restrict__ scale,
                         float* __restrict__ out, int rows, long long length,
                         int chunk) {
+  static_assert(kCols == 16 || kCols == 4, "16 or 4 columns a thread");
+  constexpr int kQuads = kCols / 4;
+  __shared__ float4 stage[kThreads / 32][32 * kQuads];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long scales_per_row = length / chunk;
-  for (long long j = global_index(); j < length; j += global_stride()) {
-    const long long sj = j / chunk;
-    float acc = 0.0f;
-    for (int r = 0; r < rows; ++r)
-      acc = fmaf(static_cast<float>(q[r * length + j]),
-                 scale[r * scales_per_row + sj], acc);
-    out[j] = acc;
+  const long long groups = length / kCols;
+  for (long long gb = global_index() - lane; gb < groups;
+       gb += global_stride()) {
+    const long long g = gb + lane;
+    const bool live = g < groups;
+    const long long j0 = g * kCols;
+    float acc[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
+    if (live) {
+      // each quad's scale column: stepped from j0's, chunk a multiple of 4
+      long long sidx[kQuads];
+      {
+        long long s = j0 / chunk;
+        int off = static_cast<int>(j0 - s * chunk);
+#pragma unroll
+        for (int k = 0; k < kQuads; ++k) {
+          sidx[k] = s;
+          off += 4;
+          if (off == chunk) {
+            off = 0;
+            ++s;
+          }
+        }
+      }
+#pragma unroll 2
+      for (int r = 0; r < rows; ++r) {
+        const int8_t* src = q + r * length + j0;
+        alignas(16) int8_t b[kCols];
+        if constexpr (kCols == 16) {
+          const int4 v = __ldg(reinterpret_cast<const int4*>(src));
+          *reinterpret_cast<int4*>(b) = v;
+        } else if constexpr (kVector) {
+          const char4 v = __ldg(reinterpret_cast<const char4*>(src));
+          b[0] = v.x; b[1] = v.y; b[2] = v.z; b[3] = v.w;
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) b[c] = __ldg(src + c);
+        }
+        const float* srow = scale + r * scales_per_row;
+#pragma unroll
+        for (int k = 0; k < kQuads; ++k) {
+          const float s = __ldg(srow + sidx[k]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[4 * k + e] = fmaf(static_cast<float>(b[4 * k + e]), s,
+                                  acc[4 * k + e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kQuads; ++k)
+      stage[warp][lane * kQuads + k] = make_float4(
+          acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
+    __syncwarp();
+    // the warp's float4s in order: store s writes 32 of them side by side
+    float4* dst = reinterpret_cast<float4*>(out) + gb * kQuads;
+    const long long left = (groups - gb) * kQuads;
+#pragma unroll
+    for (int s = 0; s < kQuads; ++s)
+      if (s * 32 + lane < left) dst[s * 32 + lane] = stage[warp][s * 32 + lane];
+    __syncwarp();
   }
+}
+
+// blocks for `groups` threads: at most the SMs times the blocks of the
+// kernel that fit on one SM at once
+template <typename Kernel>
+int resident_grid(Kernel kernel, long long groups) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  const long long need = (groups + kThreads - 1) / kThreads;
+  const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  return static_cast<int>(need < cap ? (need > 0 ? need : 1) : cap);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -178,8 +271,8 @@ extern "C" {
 
 // Each returns cudaGetLastError() after its launch (0 = launched). `grid` is
 // the number of blocks of kThreads threads; the caller sizes it to the work
-// and the card. Null dq skips the round trip, null err the error; err_fma
-// picks its rounding.
+// and the card (dequant_sum_int8 sizes its own). Null dq skips the round
+// trip, null err the error; err_fma picks its rounding.
 
 int mxtt_quant_int8(const void* x, void* q, void* scale, void* dq, void* err,
                     int err_fma, long long n_chunks, int chunk, int grid,
@@ -199,13 +292,28 @@ int mxtt_quant_twobit(const void* x, void* q, void* dq, long long n_bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// load_bytes: 16 (L % 16 == 0, q 16-byte aligned), 4 (q 4-byte aligned)
+// or 1; the grid is sized here, to the card
 int mxtt_dequant_sum_int8(const void* q, const void* scale, void* out,
-                          int rows, long long length, int chunk, int grid,
-                          void* stream) {
-  dequant_sum_int8_kernel<<<grid, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(scale),
-      static_cast<float*>(out), rows, length, chunk);
+                          int rows, long long length, int chunk,
+                          int load_bytes, void* stream) {
+  const auto* qp = static_cast<const int8_t*>(q);
+  const auto* sp = static_cast<const float*>(scale);
+  auto* op = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (load_bytes == 16) {
+    auto kernel = dequant_sum_int8_kernel<16, true>;
+    kernel<<<resident_grid(kernel, length / 16), kThreads, 0, st>>>(
+        qp, sp, op, rows, length, chunk);
+  } else if (load_bytes == 4) {
+    auto kernel = dequant_sum_int8_kernel<4, true>;
+    kernel<<<resident_grid(kernel, length / 4), kThreads, 0, st>>>(
+        qp, sp, op, rows, length, chunk);
+  } else {
+    auto kernel = dequant_sum_int8_kernel<4, false>;
+    kernel<<<resident_grid(kernel, length / 4), kThreads, 0, st>>>(
+        qp, sp, op, rows, length, chunk);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

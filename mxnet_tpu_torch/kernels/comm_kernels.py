@@ -39,7 +39,8 @@ __all__ = ["fused_quantize", "fused_dequant_sum", "fused_dequant",
            "dequant_sum_twobit", "dequant_int8", "dequant_twobit",
            "quant_int8_plain", "quant_twobit_plain", "dequant_sum_int8_plain",
            "dequant_sum_twobit_plain", "dequant_int8_plain",
-           "dequant_twobit_plain", "fma_f32", "KERNELS"]
+           "dequant_twobit_plain", "dequant_sum_int8_load_bytes", "fma_f32",
+           "KERNELS"]
 
 DEFAULT_BLOCK_ELEMS = 65536
 # csrc/comm_kernels.cu's kThreads
@@ -153,7 +154,7 @@ _ARGTYPES = {
                         ctypes.c_int, _P],
     "mxtt_quant_twobit": [_P, _P, _P, _I64, ctypes.c_float, ctypes.c_int, _P],
     "mxtt_dequant_sum_int8": [_P, _P, _P, ctypes.c_int, _I64, ctypes.c_int,
-                              ctypes.c_int, _P],
+                              ctypes.c_int, _P],  # load_bytes, not a grid
     "mxtt_dequant_sum_twobit": [_P, _P, ctypes.c_int, _I64, ctypes.c_float,
                                 ctypes.c_int, _P],
     "mxtt_dequant_int8": [_P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P],
@@ -268,9 +269,19 @@ def dequant_sum_int8(q: torch.Tensor, scale: torch.Tensor,
     out = torch.empty(L, dtype=torch.float32, device=q.device)
     if L:
         _run("dequant_sum_int8", q.device, q.data_ptr(), scale.data_ptr(),
-             out.data_ptr(), R, L, chunk, _grid(L, q.device))
+             out.data_ptr(), R, L, chunk, dequant_sum_int8_load_bytes(q))
         dequant_sum_int8.launches += 1
     return out
+
+
+def dequant_sum_int8_load_bytes(q: torch.Tensor) -> int:
+    """The bytes of codes one thread of the ``dequant_sum_int8`` kernel
+    loads a row: 16 where every row starts 16-byte aligned (row length a
+    multiple of 16 and q aligned), else 4, as one char4 where q is 4-byte
+    aligned and as four bytes where it is not."""
+    if q.shape[1] % 16 == 0 and q.data_ptr() % 16 == 0:
+        return 16
+    return 4 if q.data_ptr() % 4 == 0 else 1
 
 
 def dequant_sum_twobit(q: torch.Tensor, threshold: float) -> torch.Tensor:

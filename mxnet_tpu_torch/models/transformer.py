@@ -1,4 +1,5 @@
-"""Transformer language model on one card.
+"""Transformer language model, on one card or sharded over a (dp, tp, sp)
+mesh of ranks.
 
 Counterpart of ``mxnet_tpu/models/transformer.py``: a decoder-only LM whose
 parameters are a flat dict of f32 tensors under the JAX package's names and
@@ -16,13 +17,22 @@ before it multiplies, and the logits are f32 sums of the bf16 operands,
 never rounded to bf16. An f32 config follows torch's TF32 setting (off by
 default).
 
-The sharded step (a ``(dp, tp, sp)`` mesh) is not ported: a ``mesh`` other
-than None raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+The sharded step. The JAX package runs one GSPMD program over a mesh; the
+port writes the same computation out per rank (``parallel/``), with the
+same global result. A rank holds its blocks of the parameters
+(:meth:`TransformerLM.param_shardings`) and its ``(dp, sp)`` block of the
+tokens. Over tp the embedding is vocab-parallel (a masked lookup summed
+over tp in f32), ``wqkv`` and ``w1`` are column-parallel (``wqkv`` split by
+heads), ``wo`` and ``w2`` row-parallel, and the logits vocab-parallel into
+a vocab-parallel log-softmax. Over sp, attention is a ring. Every gradient
+is summed over the ranks that hold the same block (dp x sp); the leaves
+replicated over tp get equal gradients on every tp rank without a sum.
+``mesh=None`` is the mesh of one rank: the same code, whose collectives are
+the identity.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
@@ -30,14 +40,17 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..base import MXNetError
-from ..context import current_context
+from ..context import cpu, current_context
 from ..kernels.flash_attention import flash_attention
-from ..parallel.sequence import attention_reference
+from ..parallel.mesh import Mesh, P, Sharding, all_reduce_max, local_mesh
+from ..parallel.mesh import all_reduce_sum as _all_reduce_sum
+from ..parallel.sequence import attention_reference, ring_self_attention
+from ..parallel.tensor_parallel import (column_parallel, gather_from_axis,
+                                        reduce_from_axis, row_parallel,
+                                        transformer_param_specs)
 
 __all__ = ["transformer_lm_config", "TransformerLM"]
 
-_MESH = ("the sharded transformer step (a (dp, tp, sp) mesh, param_shardings, "
-         "parallel/tensor_parallel.py) is not ported yet (ROADMAP.md A5)")
 _LAYER_PARAMS = ("ln1_scale", "ln1_bias", "wqkv", "wo", "ln2_scale",
                  "ln2_bias", "w1", "b1", "w2", "b2")
 
@@ -71,47 +84,6 @@ def _layernorm(x, scale, bias, eps=1e-5):
     c = xf - xf.mean(-1, keepdim=True)
     var = (c * c).mean(-1, keepdim=True)
     return (c * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
-
-
-@contextlib.contextmanager
-def _one_rounding():
-    """cuBLAS's reduced-precision bf16 reduction off for the GEMMs inside,
-    restored after, whatever the caller set (PyTorch's default is on)."""
-    matmul = torch.backends.cuda.matmul
-    before = matmul.allow_bf16_reduced_precision_reduction
-    matmul.allow_bf16_reduced_precision_reduction = False
-    try:
-        yield
-    finally:
-        matmul.allow_bf16_reduced_precision_reduction = before
-
-
-class _Matmul(torch.autograd.Function):
-    """``x @ w`` whose forward and gradient GEMMs each sum in f32 and round
-    once to the operands' type: the model's own rounding, not a process
-    flag's."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        with _one_rounding():
-            return torch.matmul(x, w)
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, w = ctx.saved_tensors
-        dx = dw = None
-        with _one_rounding():
-            if ctx.needs_input_grad[0]:
-                dx = torch.matmul(dy, w.t())
-            if ctx.needs_input_grad[1]:
-                dw = x.reshape(-1, x.shape[-1]).t() @ dy.reshape(-1, dy.shape[-1])
-        return dx, dw
-
-
-def _dense(x, w, dtype):
-    """``einsum(x, w.astype(dtype), preferred f32).astype(dtype)``."""
-    return _Matmul.apply(x, w.to(dtype))
 
 
 class TransformerLM:
@@ -151,8 +123,21 @@ class TransformerLM:
                 params[name] = dense(shape)
         return {k: v.to(device) for k, v in params.items()}
 
-    def param_shardings(self, mesh):
-        raise NotImplementedError(_MESH)
+    def param_shardings(self, mesh: Mesh) -> dict:
+        """Each leaf's :class:`~mxnet_tpu_torch.parallel.mesh.Sharding` on
+        ``mesh``: the JAX package's specs (``transformer_param_specs``),
+        except ``wqkv``, which is split by heads (its q, k and v columns of
+        this rank's ``n_heads / tp`` heads) where the JAX spec cuts the
+        fused columns contiguously; ``wo`` is split by rows to match."""
+        cfg, tp = self.cfg, self._mesh(mesh, None).shape["tp"]
+        for what, n in (("n_heads", cfg["n_heads"]), ("d_ff", cfg["d_ff"]),
+                        ("vocab_size", cfg["vocab_size"])):
+            if n % tp:
+                raise ValueError(f"{what}={n} is not a multiple of tp={tp}")
+        specs = transformer_param_specs(cfg["n_layers"])
+        return {k: Sharding(mesh, specs.get(k, P()),
+                            parts=3 if k.endswith("_wqkv") else 1)
+                for k in self.init_shapes()}
 
     def init_shapes(self):
         cfg = self.cfg
@@ -171,59 +156,123 @@ class TransformerLM:
         return shapes
 
     # -- forward ----------------------------------------------------------
-    def _layer(self, x, lp):
-        cfg = self.cfg
-        dtype = cfg["dtype"]
-        d, h = cfg["d_model"], cfg["n_heads"]
+    def _mesh(self, mesh, params) -> Mesh:
+        if mesh is None:
+            return local_mesh(params["embed"].device)
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh: a parallel.make_mesh mesh or None, got "
+                            f"{type(mesh).__name__}")
+        return mesh
+
+    def _attention(self, q, k, v, mesh):
+        if mesh.shape["sp"] > 1:
+            # flash blocks inside the ring on the card, dense on the CPU
+            # under "auto" (transformer.py:163-166)
+            return ring_self_attention(mesh, q, k, v, causal=True,
+                                       use_flash=self._use_flash(q))
+        if self._use_flash(q):
+            return flash_attention(q, k, v, causal=True)
+        return attention_reference(q, k, v, causal=True)
+
+    def _layer(self, x, lp, mesh):
+        d, h = self.cfg["d_model"], self.cfg["n_heads"]
+        tp = mesh.axis("tp")
         b, seq = x.shape[:2]
         y = _layernorm(x, lp["ln1_scale"], lp["ln1_bias"])
-        # (b, s, 3, h, hd): the 3 is outside the heads (transformer.py:158);
-        # q, k, v are strided views, which the kernels read in place
-        qkv = _dense(y, lp["wqkv"], dtype).reshape(b, seq, 3, h, d // h)
+        # (b, s, 3, h/tp, hd): the 3 is outside the heads (transformer.py:
+        # 158); q, k, v are strided views, which the kernels read in place
+        qkv = column_parallel(y, lp["wqkv"], group=tp).reshape(
+            b, seq, 3, h // tp.size, d // h)
         q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
-        if self._use_flash(x):
-            attn = flash_attention(q, k, v, causal=True)
-        else:
-            attn = attention_reference(q, k, v, causal=True)
-        attn = attn.transpose(1, 2).reshape(b, seq, d)
-        x = x + _dense(attn, lp["wo"], dtype)
+        attn = self._attention(q, k, v, mesh)
+        attn = attn.transpose(1, 2).reshape(b, seq, d // tp.size)
+        x = x + row_parallel(attn, lp["wo"], group=tp)
         y = _layernorm(x, lp["ln2_scale"], lp["ln2_bias"])
-        u = _dense(y, lp["w1"], dtype) + lp["b1"].to(dtype)
+        u = column_parallel(y, lp["w1"], lp["b1"], group=tp)
         u = F.gelu(u, approximate="tanh")   # jax.nn.gelu's default form
-        z = _dense(u, lp["w2"], dtype) + lp["b2"].to(dtype)
+        z = row_parallel(u, lp["w2"], lp["b2"], group=tp)
         return x + z
 
-    def forward(self, params, tokens, mesh=None):
-        """tokens ``[batch, seq]`` int -> logits ``[batch, seq, vocab]`` f32,
-        on the parameters' device."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
-        cfg = self.cfg
-        dtype = cfg["dtype"]
-        d = cfg["d_model"]
-        tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
-        seq = tokens.shape[1]
-        x = F.embedding(tokens, params["embed"]).to(dtype)
+    def _embed(self, params, tokens, mesh):
+        """The tokens' rows of ``embed`` in ``dtype``, scaled, plus their
+        positions' rows of ``pos_embed`` (this rank's sp block starts at
+        ``sp_index * seq``). Over tp a rank owns a block of vocab rows: it
+        looks up the tokens it owns, zeros elsewhere, and the sum over tp,
+        in f32, is exact (one rank is non-zero)."""
+        dtype = self.cfg["dtype"]
+        tp, embed = mesh.axis("tp"), params["embed"]
+        if tp.size == 1:
+            x = F.embedding(tokens, embed)
+        else:
+            rows = embed.shape[0]
+            local = tokens - tp.index * rows
+            own = (local >= 0) & (local < rows)
+            x = F.embedding(local.clamp(0, rows - 1), embed)
+            x = reduce_from_axis(torch.where(own[..., None], x, 0.0), tp)
+        x = x.to(dtype)
         # sqrt(d) rounded to dtype first (22.625 in bf16), then a dtype multiply
-        x = x * float(torch.tensor(math.sqrt(d), dtype=dtype))
-        x = x + params["pos_embed"][:seq].to(dtype)
+        x = x * float(torch.tensor(math.sqrt(self.cfg["d_model"]),
+                                   dtype=dtype))
+        seq = tokens.shape[1]
+        start = mesh.coords["sp"] * seq
+        return x + params["pos_embed"][start:start + seq].to(dtype)
+
+    def _local_logits(self, params, tokens, mesh):
+        """This rank's ``(dp, sp)`` block of the logits, f32, over its
+        block of the vocab."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
+        x = self._embed(params, tokens, mesh)
         for i in range(cfg["n_layers"]):
             lp = {n: params[f"layer{i}_{n}"] for n in _LAYER_PARAMS}
             if cfg.get("remat"):
-                x = checkpoint(self._layer, x, lp, use_reentrant=False)
+                x = checkpoint(self._layer, x, lp, mesh, use_reentrant=False)
             else:
-                x = self._layer(x, lp)
+                x = self._layer(x, lp, mesh)
         x = _layernorm(x, params["final_norm_scale"], params["final_norm_bias"])
         # f32 sums of the bf16 operands, never rounded to bf16
         # (transformer.py:217-219): the operands are upcast exactly
-        return _Matmul.apply(x.float(), params["lm_head"].to(dtype).float())
+        return column_parallel(x.float(), params["lm_head"].to(cfg["dtype"])
+                               .float(), group=mesh.axis("tp"))
+
+    def forward(self, params, tokens, mesh=None):
+        """tokens ``[batch, seq]`` int -> logits ``[batch, seq, vocab]`` f32,
+        on the parameters' device. With a mesh, ``params`` and ``tokens``
+        are this rank's blocks, and so are the logits: its ``(dp, sp)``
+        block with the whole vocab, gathered over tp (``P("dp", "sp",
+        None)``, transformer.py:219)."""
+        mesh = self._mesh(mesh, params)
+        return gather_from_axis(self._local_logits(params, tokens, mesh),
+                                mesh.axis("tp"))
+
+    def _nll_sum(self, logits, targets, tp):
+        """Sum of the next-token NLL of an f32 log-softmax over this rank's
+        tokens; over tp a vocab-parallel log-softmax (the max, the sum of
+        exps and the target's logit each combined over tp)."""
+        if tp.size == 1:
+            return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                   targets.reshape(-1), reduction="sum")
+        width = logits.shape[-1]
+        with torch.no_grad():   # log_softmax's max carries no gradient
+            top = all_reduce_max(logits.amax(-1, keepdim=True), tp)
+        shifted = logits - top
+        sumexp = reduce_from_axis(torch.exp(shifted).sum(-1), tp)
+        local = targets - tp.index * width
+        own = (local >= 0) & (local < width)
+        picked = shifted.gather(-1, local.clamp(0, width - 1)[..., None])
+        picked = reduce_from_axis(torch.where(own, picked[..., 0], 0.0), tp)
+        return (torch.log(sumexp) - picked).sum()
 
     def loss(self, params, tokens, targets, mesh=None):
-        """Mean next-token NLL of an f32 log-softmax (transformer.py:221)."""
-        logits = self.forward(params, tokens, mesh=mesh)
+        """Mean next-token NLL of an f32 log-softmax over every token of the
+        mesh (transformer.py:221), the same value on every rank; with a
+        mesh, each rank passes its blocks."""
+        mesh = self._mesh(mesh, params)
+        logits = self._local_logits(params, tokens, mesh)
         targets = torch.as_tensor(targets, device=logits.device).long()
-        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                               targets.reshape(-1))
+        count = targets.numel() * mesh.shape["dp"] * mesh.shape["sp"]
+        nll = self._nll_sum(logits, targets, mesh.axis("tp")) / count
+        return reduce_from_axis(nll, mesh.axis("dp", "sp"))
 
     # -- train step -------------------------------------------------------
     def make_train_step(self, mesh=None, lr=None, optimizer=None):
@@ -234,13 +283,23 @@ class TransformerLM:
         launch on the card). Pass the matching state from
         ``init_sharded(optimizer=...)``.
 
+        With a mesh every rank calls the step with its blocks of params,
+        state, tokens and targets; each gradient is summed over the ranks
+        that hold the same block (dp x sp) before the update, and the loss
+        is the global mean on every rank.
+
         Where JAX donates params and state to its step, this step may update
         them in place: the built-in rule and the fused Adam write into the
         given tensors, so keep copies of anything needed afterwards.
         ``lr=None`` takes the optimizer's lr (1e-3 for the built-in).
-        lr_schedulers are rejected, as the step carries no step counter."""
+        lr_schedulers are rejected, as the step carries no step counter.
+
+        ``step(..., mark=fn)`` calls ``fn(phase)`` as each phase of the step
+        ends, in order ``"forward"``, ``"backward"``, ``"grad_sum"``,
+        ``"update"``: a caller times the split of a step by recording a
+        CUDA event in ``fn``."""
         if mesh is not None:
-            raise NotImplementedError(_MESH)
+            self._mesh(mesh, None)
         if optimizer is not None and optimizer.lr_scheduler is not None:
             raise MXNetError(
                 "make_train_step: lr_scheduler is not consulted by the "
@@ -249,13 +308,18 @@ class TransformerLM:
         if lr is None:
             lr = optimizer.lr if optimizer is not None else 1e-3
 
-        def step(params, moms, tokens, targets):
+        def step(params, moms, tokens, targets, mark=None):
+            mark = mark or (lambda phase: None)
             names = list(params)
             leaves = {k: params[k].detach().requires_grad_(True)
                       for k in names}
-            loss = self.loss(leaves, tokens, targets)
+            m = self._mesh(mesh, params)
+            loss = self.loss(leaves, tokens, targets, m)
+            mark("forward")
             grads = torch.autograd.grad(loss, [leaves[k] for k in names])
-            grads = {k: g.contiguous() for k, g in zip(names, grads)}
+            mark("backward")
+            grads = _sum_over(dict(zip(names, grads)), m.axis("dp", "sp"))
+            mark("grad_sum")
             with torch.no_grad():
                 if optimizer is None:
                     for k in names:
@@ -265,17 +329,42 @@ class TransformerLM:
                 else:
                     new_params, new_moms = optimizer.apply(params, grads,
                                                            moms, lr)
+            mark("update")
             return new_params, new_moms, loss.detach()
 
         return step
 
     def init_sharded(self, mesh=None, seed=0, optimizer=None, ctx=None):
         """Parameters and optimizer state (zero momentum for the built-in
-        SGD, else ``optimizer.init_state_tree``) on ``ctx`` (default the
-        card)."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
-        params = self.init_params(seed, ctx=ctx)
+        SGD, else ``optimizer.init_state_tree``). Without a mesh, on ``ctx``
+        (default the card). With one, this rank's blocks on the mesh's
+        device: the global parameters are drawn from the rank-independent
+        generator of :meth:`init_params` and cut by
+        :meth:`param_shardings`, so every rank's block is the one
+        ``shard(init_params(seed))`` gives."""
+        if mesh is None:
+            params = self.init_params(seed, ctx=ctx)
+        else:
+            shardings = self.param_shardings(mesh)
+            if ctx is not None and ctx.torch_device != mesh.device:
+                raise ValueError(f"init_sharded: ctx {ctx} but the mesh's "
+                                 f"device is {mesh.device}")
+            params = {k: shardings[k].shard(v)
+                      for k, v in self.init_params(seed, ctx=cpu()).items()}
         if optimizer is None:
             return params, {k: torch.zeros_like(v) for k, v in params.items()}
         return params, optimizer.init_state_tree(params)
+
+
+def _sum_over(grads: dict, axis) -> dict:
+    """Each gradient summed over the ranks of ``axis`` (one collective over
+    the flattened f32 tree); unchanged on one rank."""
+    if axis.size == 1:
+        return {k: g.contiguous() for k, g in grads.items()}
+    flat = _all_reduce_sum(torch.cat([g.reshape(-1) for g in grads.values()]),
+                           axis)
+    out, off = {}, 0
+    for k, g in grads.items():
+        out[k] = flat[off:off + g.numel()].view(g.shape)
+        off += g.numel()
+    return out

@@ -1,13 +1,53 @@
-"""Parallelism of the port: data parallelism over ``torch.distributed``
-ranks (``data_parallel.py``) and the dense attention reference. The ring
-attention entry points need an ``sp`` axis over several cards and raise
-(``ROADMAP.md`` A5)."""
+"""Parallelism over meshes of ``torch.distributed`` ranks.
+
+Counterpart of ``mxnet_tpu/parallel``: a mesh with named axes
+
+    dp - data parallel (batch)
+    tp - tensor parallel (hidden)
+    sp - sequence/context parallel (ring attention)
+    pp - pipeline parallel (layers)
+    ep - expert parallel (MoE)
+
+where the JAX package's mesh is a grid of devices in one process, the port's
+is a grid of ranks, each holding its own blocks (``mesh.py``). Pipeline and
+expert parallelism are not ported: their entry points raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
+"""
 
 from .data_parallel import (allreduce_grads, grad_accum,
-                            make_data_parallel_step)
+                            make_data_parallel_step, replicate_params,
+                            shard_batch)
+from .mesh import auto_mesh, data_sharding, make_mesh, replicated
 from .sequence import (attention_reference, ring_attention,
                        ring_flash_attention, ring_self_attention)
+from .tensor_parallel import (column_parallel, row_parallel,
+                              transformer_param_specs)
 
-__all__ = ["allreduce_grads", "grad_accum", "make_data_parallel_step",
-           "attention_reference", "ring_attention", "ring_flash_attention",
-           "ring_self_attention"]
+__all__ = [
+    "make_mesh", "auto_mesh", "data_sharding", "replicated",
+    "shard_batch", "replicate_params", "allreduce_grads",
+    "column_parallel", "row_parallel", "transformer_param_specs",
+    "ring_attention", "ring_flash_attention", "ring_self_attention",
+    "attention_reference",
+    "spmd_pipeline", "moe_ffn", "init_moe_params",
+    "grad_accum", "make_data_parallel_step",
+]
+
+_NEXT = ("pipeline and expert parallelism (parallel/pipeline.py, "
+         "parallel/expert.py, models/moe_transformer.py) are not ported yet "
+         "(ROADMAP.md A5)")
+
+
+def spmd_pipeline(*args, **kwargs):
+    """The JAX package's SPMD pipeline over a 'pp' axis: not ported."""
+    raise NotImplementedError(_NEXT)
+
+
+def moe_ffn(*args, **kwargs):
+    """The JAX package's expert-parallel MoE feed-forward: not ported."""
+    raise NotImplementedError(_NEXT)
+
+
+def init_moe_params(*args, **kwargs):
+    """The JAX package's MoE parameters: not ported."""
+    raise NotImplementedError(_NEXT)

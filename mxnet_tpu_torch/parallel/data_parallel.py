@@ -3,7 +3,9 @@
 Counterpart of ``mxnet_tpu/parallel/data_parallel.py``. Where the JAX
 package runs one program over a mesh with the batch sharded on its data
 axis, here every rank runs the same step on its own rows, and the process
-group (default: the world) is the data axis.
+group (default: the world) is the data axis. :func:`shard_batch` and
+:func:`replicate_params` place arrays on a mesh (``mesh.py``): each rank
+keeps its own block, where the JAX package places a global array.
 """
 
 from __future__ import annotations
@@ -12,10 +14,26 @@ import torch
 import torch.distributed as dist
 
 from ..base import MXNetError
+from ..comm.allreduce import _tree_map
+from .mesh import P, Sharding, replicated
 
-__all__ = ["allreduce_grads", "grad_accum", "make_data_parallel_step"]
+__all__ = ["shard_batch", "replicate_params", "allreduce_grads",
+           "grad_accum", "make_data_parallel_step"]
 
 _LATER = "ROADMAP A4 (left from slice 4: comm/overlap.py, comm/bucketing.py)"
+
+
+def shard_batch(batch, mesh, axis="dp"):
+    """This rank's rows of a tree of host arrays (or tensors), split over
+    ``axis`` of ``mesh``, as tensors on the mesh's device."""
+    sharding = Sharding(mesh, P(axis))
+    return _tree_map(sharding.shard, batch)
+
+
+def replicate_params(params, mesh):
+    """A copy of a tree of arrays on the mesh's device, whole on every
+    rank."""
+    return _tree_map(replicated(mesh).shard, params)
 
 
 def allreduce_grads(grads, group=None, average=True, compression=None,

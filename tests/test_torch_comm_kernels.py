@@ -543,3 +543,61 @@ def test_kernels_repeat_bitwise_on_card(cuda_device):
               tck.quant_int8(x, 256, err=rounding)[3], rounding)
     _same(tck.fused_dequant_sum(ts, a[0]), tck.fused_dequant_sum(ts, b[0]),
           "sum")
+
+
+# --------------------------------------------------------------------------
+# dequant_sum_int8's load paths: 16 bytes a row, one char4, or four bytes
+# --------------------------------------------------------------------------
+
+def _offset_codes(rows, length, offset, seed, device="cpu"):
+    """(rows, length) int8 codes starting ``offset`` bytes past a 16-byte
+    boundary of a fresh buffer on ``device``."""
+    rng = np.random.RandomState(seed)
+    buf = torch.empty(rows * length + 48, dtype=torch.int8, device=device)
+    start = (-buf.data_ptr()) % 16 + offset
+    q = buf[start:start + rows * length].view(rows, length)
+    q.copy_(torch.from_numpy(rng.randint(-127, 128, (rows, length))
+                             .astype(np.int8)))
+    return q
+
+
+@pytest.mark.parametrize("length,offset,want", [
+    (4096, 0, 16), (4096, 16, 16), (4096, 4, 4), (4100, 0, 4), (20, 0, 4),
+    (4096, 1, 1), (20, 3, 1)])
+def test_dequant_sum_int8_picks_its_load_path(length, offset, want):
+    q = _offset_codes(2, length, offset, seed=0)
+    assert q.is_contiguous() and q.data_ptr() % 16 == offset % 16
+    assert tck.dequant_sum_int8_load_bytes(q) == want
+
+
+DQSUM_CARD_CASES = [(r, length, chunk, offset)
+                    for r in (1, 2, 8)
+                    for length, chunk in ((1 << 16, 256), (4100, 20),
+                                          (20, 4), (4096, 4))
+                    for offset in (0, 4, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,length,chunk,offset", DQSUM_CARD_CASES)
+def test_dequant_sum_int8_paths_match_plain_on_card(cuda_device, rows, length,
+                                                    chunk, offset):
+    # codes from a buffer offset by 0, 4 or 1 bytes (16-byte, char4 and
+    # byte loads), rows whose length is or is not a multiple of 16, chunk
+    # down to 4, scales with a NaN and an inf chunk
+    qc = _offset_codes(rows, length, offset, seed=rows + length,
+                       device=cuda_device)
+    rng = np.random.RandomState(length)
+    scale = np.exp(rng.uniform(-6, 6, (rows, length // chunk))).astype(
+        np.float32)
+    scale[0, 0] = np.nan
+    scale[-1, -1] = np.inf
+    sc = torch.from_numpy(scale).to(cuda_device)
+    before = tck.dequant_sum_int8.launches
+    got = tck.dequant_sum_int8(qc, sc, chunk)
+    again = tck.dequant_sum_int8(qc, sc, chunk)
+    torch.cuda.synchronize()
+    assert tck.dequant_sum_int8.launches == before + 2
+    want = tck.dequant_sum_int8_plain(qc.cpu(), torch.from_numpy(scale),
+                                      chunk)
+    _same(got.cpu(), want.numpy(), f"path {tck.dequant_sum_int8_load_bytes(qc)}")
+    _same(got, again, "repeat")

@@ -13,8 +13,6 @@ both round p and ds to bf16 at the same points, so a value differs by at
 most one bf16 rounding step of the result (2^-8 of values below 1).
 """
 
-import types
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -294,12 +292,31 @@ def test_rejected_operands():
 
 
 def test_ring_attention_is_not_ported():
+    # Ring attention is ported (tests/test_torch_parallel.py runs it over
+    # gloo ranks). On a ring of one rank (no process group) it is plain
+    # attention: the dense ring within f32 rounding of the reference, the
+    # flash ring bitwise flash_attention, values and gradients.
+    from mxnet_tpu_torch import cpu
+    from mxnet_tpu_torch.parallel import make_mesh
+
     _, tx = _both(_qkv((1, 2, 48, 24)))
-    for fn in (ring_attention, ring_flash_attention):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-            fn(*tx)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        ring_self_attention(types.SimpleNamespace(), *tx)
+    for causal in (False, True):
+        want = attention_reference(*tx, causal=causal)
+        np.testing.assert_allclose(_np(ring_attention(*tx, causal=causal)),
+                                   _np(want), rtol=2e-5, atol=2e-5)
+        leaves = [t.clone().requires_grad_(True) for t in tx]
+        flash = tfa.flash_attention(*leaves, causal=causal)
+        grads = torch.autograd.grad(flash.sum(), leaves)
+        leaves = [t.clone().requires_grad_(True) for t in tx]
+        ring = ring_flash_attention(*leaves, causal=causal)
+        assert torch.equal(ring, flash)
+        for a, b in zip(torch.autograd.grad(ring.sum(), leaves), grads):
+            assert torch.equal(a, b)
+        mesh = make_mesh(devices=cpu())
+        assert torch.equal(ring_self_attention(mesh, *tx, causal=causal,
+                                               use_flash=True), flash)
+    with pytest.raises(TypeError, match="MeshAxis"):
+        ring_attention(*tx, "sp")
 
 
 def test_cost_counts_the_causal_entries():

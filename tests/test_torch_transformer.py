@@ -232,6 +232,23 @@ def test_remat_gives_the_inline_loss_and_gradients():
         assert torch.equal(out[0][0][k], out[1][0][k]), k
 
 
+def test_step_marks_its_phases_and_keeps_its_result():
+    """``step(..., mark=fn)`` calls ``fn`` once a phase, in order, and the
+    step's result is bitwise the one without marks."""
+    tokens, targets = (torch.from_numpy(t) for t in _batch())
+    out, phases = [], []
+    for mark in (None, phases.append):
+        tm = TransformerLM(transformer_config(torch.float32, "dense"))
+        opt = topt.Adam(learning_rate=1e-2, fused=True)
+        tp, ts = tm.init_sharded(None, seed=6, optimizer=opt, ctx=cpu())
+        out.append(tm.make_train_step(optimizer=opt)(tp, ts, tokens, targets,
+                                                    mark=mark))
+    assert phases == ["forward", "backward", "grad_sum", "update"]
+    assert torch.equal(out[0][2], out[1][2])
+    for k in out[0][0]:
+        assert torch.equal(out[0][0][k], out[1][0][k]), k
+
+
 def test_gemms_round_once_whatever_the_process_flag(monkeypatch):
     # the model switches cuBLAS's reduced-precision bf16 reduction off for
     # each of its GEMMs, forward and gradient, and restores the caller's
@@ -275,13 +292,16 @@ def test_init_params_scales_and_shapes():
 
 
 def test_mesh_and_lr_scheduler_raise():
+    # a mesh is parallel.make_mesh's (tests/test_torch_sharded_transformer.py
+    # runs the sharded step); anything else raises
     tm = TransformerLM(transformer_config(torch.float32, "dense"))
     mesh = object()
+    params = tm.init_params(0, ctx=cpu())
     for call in (lambda: tm.make_train_step(mesh),
                  lambda: tm.init_sharded(mesh, ctx=cpu()),
                  lambda: tm.param_shardings(mesh),
-                 lambda: tm.forward({}, np.zeros((1, 4)), mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
+                 lambda: tm.forward(params, np.zeros((1, 4)), mesh=mesh)):
+        with pytest.raises(TypeError, match="make_mesh"):
             call()
     opt = topt.Adam(lr_scheduler=FactorScheduler(step=10))
     with pytest.raises(MXNetError, match="lr_scheduler"):

@@ -240,3 +240,118 @@ def fit_dist_sync(rank, world, args, aux, X, Y, epochs, fit_kw, model_kw):
             "stats": mt.comm.comm_stats(),
             "residual": _numpy(sync.residual),
             "rescale_grad": model._optimizer_obj.rescale_grad}
+
+
+def parallel_cases(rank, world, data):
+    """The cases of tests/test_torch_parallel.py on one rank of 8: meshes,
+    tensor-parallel products with their gradients over a tp axis of 8, the
+    dense and flash rings over an sp axis of 8, and ring self-attention on
+    a dp 2 x tp 2 x sp 2 mesh. Returns the meshes' shapes and this rank's
+    coordinates, and the gathered (global) results."""
+    import torch
+
+    from mxnet_tpu_torch import cpu
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.parallel.mesh import P, Sharding
+
+    def coords(mesh):
+        return {"shape": dict(mesh.shape), "coords": dict(mesh.coords)}
+
+    out = {}
+    mesh = par.make_mesh(dp=2, tp=2, sp=2, devices=cpu())
+    out["mesh"] = coords(mesh)
+    out["auto_mesh"] = coords(par.auto_mesh(tp=4, devices=cpu()))
+    try:
+        par.make_mesh(dp=3, tp=2, devices=cpu())
+    except ValueError as e:
+        out["mesh_error"] = str(e)
+
+    # a batch split over dp, parameters whole on every rank
+    out["shard_batch"] = _numpy(par.shard_batch(
+        {"x": data["batch"], "y": data["batch"][:, 0]}, mesh))
+    out["replicate_params"] = _numpy(par.replicate_params(
+        {"w": data["batch"]}, mesh))
+
+    # column then row parallel over tp = 8, a process group as the axis
+    m_tp = par.make_mesh(tp=8, devices=cpu())
+    group = m_tp.axis("tp").group
+    cols, rows = Sharding(m_tp, P(None, "tp")), Sharding(m_tp, P("tp", None))
+    x = torch.from_numpy(data["x"]).requires_grad_(True)
+    w1 = cols.shard(data["w1"]).requires_grad_(True)
+    w2 = rows.shard(data["w2"]).requires_grad_(True)
+    y = par.row_parallel(par.column_parallel(x, w1, group=group), w2,
+                         group=group)
+    dx, dw1, dw2 = torch.autograd.grad((y * torch.from_numpy(data["r"]))
+                                       .sum(), (x, w1, w2))
+    out["colrow"] = {"y": _numpy(y), "dx": _numpy(dx),
+                     "dw1": _numpy(cols.gather(dw1)),
+                     "dw2": _numpy(rows.gather(dw2))}
+
+    # the rings over sp = 8
+    m_sp = par.make_mesh(sp=8, devices=cpu())
+    seq = Sharding(m_sp, P(None, None, "sp", None))
+    sp = m_sp.axis("sp")
+    q, k, v = (seq.shard(t) for t in data["ring"])
+    for causal in (False, True):
+        out[f"ring_{causal}"] = _numpy(seq.gather(
+            par.ring_attention(q, k, v, sp, causal=causal)))
+    q, k, v = (seq.shard(t).requires_grad_(True) for t in data["flash"])
+    w = seq.shard(data["flash_w"])
+    for causal in (False, True):
+        o = par.ring_flash_attention(q, k, v, sp, causal=causal)
+        grads = torch.autograd.grad((o * w).sum(), (q, k, v))
+        out[f"ring_flash_{causal}"] = [_numpy(seq.gather(t))
+                                       for t in (o, *grads)]
+
+    # ring self-attention on this rank's P("dp", "tp", "sp", None) block
+    block = Sharding(mesh, P("dp", "tp", "sp", None))
+    for flash in (False, True):
+        q, k, v = (block.shard(t) for t in data[f"self_{flash}"])
+        out[f"self_{flash}"] = _numpy(block.gather(par.ring_self_attention(
+            mesh, q, k, v, causal=True, use_flash=flash)))
+    return out
+
+
+def sharded_transformer(rank, world, config, params, tokens, targets, cases):
+    """One train step of the transformer LM on a dp 2 x tp 2 x sp 2 mesh
+    for each case ``(name, attn_impl, optimizer, remat)`` from the global
+    ``params`` (numpy, the JAX package's layout), this rank on its blocks.
+    Returns, for each case, the loss, the gathered parameters (and Adam
+    state) and this rank's blocks; and the shard-then-gather round trip."""
+    import torch
+
+    from mxnet_tpu_torch import convert, cpu
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.models import TransformerLM, transformer_lm_config
+    from mxnet_tpu_torch.parallel import data_sharding, make_mesh
+
+    mesh = make_mesh(dp=2, tp=2, sp=2, devices=cpu())
+    data = data_sharding(mesh, "sp")
+    tok, tgt = data.shard(tokens), data.shard(targets)
+    out = {"coords": dict(mesh.coords)}
+    for name, attn_impl, opt_name, remat in cases:
+        model = TransformerLM(transformer_lm_config(
+            **config, dtype=torch.float32, attn_impl=attn_impl, remat=remat))
+        local = convert.shard_transformer_params(params, mesh, model)
+        if opt_name == "adam":
+            opt = topt.Adam(learning_rate=1e-2, epsilon=1e-3, fused=True)
+            state = opt.init_state_tree(local)
+            step = model.make_train_step(mesh, optimizer=opt)
+        else:
+            state = {k: torch.zeros_like(v) for k, v in local.items()}
+            step = model.make_train_step(mesh, lr=0.1)
+        local, state, loss = step(local, state, tok, tgt)
+        res = {"loss": float(loss), "local": _numpy(local),
+               "params": convert.gather_transformer_params(local, mesh,
+                                                           model)}
+        if opt_name == "adam":
+            res["state"] = convert.gather_optimizer_state(state, mesh, model)
+            res["state_roundtrip"] = convert.gather_optimizer_state(
+                convert.shard_optimizer_state(res["state"], mesh, model),
+                mesh, model)
+        out[name] = res
+    model = TransformerLM(transformer_lm_config(**config,
+                                                dtype=torch.float32))
+    out["roundtrip"] = convert.gather_transformer_params(
+        convert.shard_transformer_params(params, mesh, model), mesh, model)
+    return out
