@@ -57,6 +57,11 @@ together), and then:
    loss fell and the parameters are finite and moved, and the card's
    gradients at 1 x 256 tokens in f32 against the CPU's, and prints the
    step time, tokens per second and the forward / backward / update split;
+   lm_head: the LM's logits GEMM and its two gradients alone at the full
+   shape (bf16 operands, f32 sums on the tensor cores, the cotangent split
+   in two bf16 parts), each product within 2^-16 of sum |a||b| of the f64
+   product, the gradients bitwise the split products rounded once, timed
+   beside the f32 CUDA-core route they replace;
 9. comm_kernels: holds the six gradient-compression kernels bitwise against
    their plain versions on the card (NaN by position), at ResNet-50's
    padded gradient split into 2, 4 and 8 rows, at (8, 2048) with chunk 256
@@ -84,17 +89,36 @@ together), and then:
    1024 tokens a rank) and one of tp = 2 (4 heads and half the vocab a
    rank); checks the launches per step per rank (on sp = 2 rank 0 runs one
    flash call of each kind a layer and rank 1 two), that the first step's
-   loss is the single-rank step's within 1e-3, that the loss fell and the
+   loss is the single-rank step's within 1e-5 relative and each rank's
+   logits block within 2e-2 (relative Frobenius), and that three planted
+   faults each read above both bounds, that the loss fell and the
    parameters are finite and moved, that the replicated leaves are bitwise
    equal across the ranks; holds ring flash attention alone at sp = 2
    (the output and dq, dk, dv) against the f32 reference row by row (dq
    and dk given the ring's output); prints
    the step time, global tokens per second and one step's forward /
    backward / gradient sum / update split per rank with the gloo time;
-12. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
+12. moe_mesh: four rank processes (spawn, gloo through pinned host
+   buffers) share the card and train the MoE pipeline LM (vocab 32000,
+   d_model 512, 8 heads, d_ff 2048, 8 experts, one block on each of 2
+   stages, 4 microbatches, f32, seeded random weights, Zipf-distributed
+   token ids) on dp 1 x pp 2 x ep 2 for 4 steps of ``make_train_step(mesh,
+   lr=0.1, momentum=0.9)``; checks the first step's loss against a
+   yardstick written here (one process: each shard's microbatches through
+   stage 0 then stage 1, every expert local) within MOE_LOSS_BOUND, and
+   the second step's against the yardstick's after one SGD step of its own
+   autograd gradient within MOE_STEP_BOUND, each also bitwise the loss read
+   apart; that four planted forward faults each read above the first bound
+   and two planted backward faults above the second; that the loss is finite,
+   the parameters moved, the replicated blocks are bitwise equal across
+   the ranks and no hand-written kernel launched; prints the routing's
+   agreement with the yardstick, the step time, global tokens per second
+   and one step's forward / backward / gradient sum / update split per
+   rank with the gloo time;
+13. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
    main path, error, times and bound (the flash kernels and fused_adam also
-   their launches in lm_mesh);
-13. ends with ``{"ok": true, "device": {...}}``.
+   their launches in lm_mesh; every kernel its launches in moe_mesh, 0);
+14. ends with ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without CUDA it exits non-zero at once. It imports nothing of JAX or of
@@ -156,6 +180,38 @@ LM_MESH_TIMEOUT_S = 600
 # moves little under an attention fault.
 LM_MESH_LOSS_BOUND = 1e-5
 LM_MESH_LOGITS_BOUND = 2e-2
+# the MoE pipeline LM: four ranks sharing the card on dp 1 x pp 2 x ep 2
+# (the dryrun's second mesh at dp = 1); the LM's widths with Switch's 8
+# experts, depth the pp size (one block a stage); the global batch of the LM
+# phases, so a (dp, ep) shard holds 4 sequences, one a microbatch
+MOE_MESH_WORLD = 4
+MOE_MESH = {"pp": 2, "ep": 2}
+MOE_CONFIG = dict(vocab_size=32000, d_model=512, n_heads=8, d_ff=2048,
+                  n_experts=8, max_len=2048, n_micro=4, capacity_factor=2.0,
+                  aux_loss_coef=0.01)
+MOE_STEPS = 4
+MOE_LR, MOE_MOMENTUM = 0.1, 0.9
+MOE_MESH_TIMEOUT_S = 600
+# token ids drawn with Zipf frequencies, as text's are: top-1 routing then
+# overflows some experts' capacity at capacity factor 2, so that the drop
+# path runs (with uniform ids every expert gets about 256 of its 512 slots)
+MOE_ZIPF = 1.2
+# The first step's loss on the mesh against the yardstick (one process, the
+# same model written apart, relative): f32 throughout, so only the order of
+# the sums differs. Sound, it read 1.4e-8 and 0.0 (H100); with one fault
+# planted at a time (moe_mesh_faults), 5.0e-4 (the aux unmasked at the bubble
+# ticks), 6.8e-4 (capacity over the global tokens), 2.4e-3 (the inverse route
+# untransposed) and 2.3e-2 (the stages reversed). The bound sits 70 times
+# above the larger sound reading and 500 times below the smallest fault's;
+# each fault is gated to read above it.
+MOE_LOSS_BOUND = 1e-6
+# The second step's loss against the yardstick's after one SGD step of its
+# own autograd gradient (relative): the update amplifies the rounding of the
+# sound step's gradient, which read 5.5e-8 (H100); a step taken with the
+# dispatch all-to-all's gradient rows permuted read 3.6e-3, with the stage
+# gradients not summed over ep 9.3e-3. The bound sits 180 times above the
+# sound reading and 360 times below the smaller fault's.
+MOE_STEP_BOUND = 1e-5
 # (q shape, dtype, causal, seq_k or None for seq_q): the LM's attention, a
 # non-causal shape, the JAX package's ragged tail test (tests/test_pallas.py
 # :35), and the Hopper kernels' edges at small size: head_dim 32 and 40
@@ -1013,6 +1069,75 @@ def phase_lm_train(torch, mt, topt, tfa, kfa, params0, grad_errs):
     return launches
 
 
+def phase_lm_head(torch):
+    """The LM head's logits GEMM and its two gradients at the LM's full
+    shape (8 x 2048 tokens, d_model 512, vocab 32,000), bf16 operands and an
+    f32 cotangent at a softmax gradient's scale, on the card: the logits
+    and the split-cotangent products' f32 results (before their bf16
+    rounding) against the f64 products, each element within 2^-16 of
+    sum |a||b| (the bound of the CPU test); autograd's gradients bitwise
+    the split products rounded once to bf16; and the forward and backward
+    timed beside the f32 CUDA-core route they replace (upcast operands, TF32
+    off)."""
+    from mxnet_tpu_torch.parallel.tensor_parallel import (
+        column_parallel, column_parallel_f32, split_cotangent, wide_product)
+
+    bf16 = torch.bfloat16
+    n, d, v = LM_BATCH * LM_SEQ, 512, 32000
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    x = torch.randn(n, d, generator=gen, device="cuda").to(bf16)
+    w = torch.randn(d, v, generator=gen, device="cuda") / float(np.sqrt(d))
+    g = torch.randn(n, v, generator=gen, device="cuda") * 1e-4
+    wb = w.to(bf16)
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = column_parallel_f32(xs, ws)
+    dx, dw = torch.autograd.grad(y, (xs, ws), g)
+    errors = {}
+    with torch.no_grad():
+        hi, lo = split_cotangent(g, bf16)
+        split = {"dx": wide_product(hi, wb.t()) + wide_product(lo, wb.t()),
+                 "dw": wide_product(x.t(), hi) + wide_product(x.t(), lo)}
+        del hi, lo
+        for name, got, a, b in (
+                ("logits", y.detach(), x, wb),
+                ("dx", split["dx"], g, wb.t()),
+                ("dw", split["dw"], x.t(), g)):
+            exact = a.double() @ b.double()
+            scale = a.double().abs() @ b.double().abs()
+            errors[name] = float(((got.double() - exact).abs()
+                                  / scale).max()) / 2.0 ** -16
+            del exact, scale
+        rounded = {"dx": bool(torch.equal(dx, split["dx"].to(bf16))),
+                   "dw": bool(torch.equal(dw, split["dw"].to(bf16).float()))}
+    del y, dx, dw, split
+
+    def new():
+        torch.autograd.grad(column_parallel_f32(xs, ws), (xs, ws), g)
+
+    xf = x.float().requires_grad_(True)
+
+    def old():
+        torch.autograd.grad(column_parallel(xf, ws.to(bf16).float()),
+                            (xf, ws), g)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    times = {"f32_route_ms": time_ms(torch, old, reps=5),
+             "tensor_core_ms": time_ms(torch, new, reps=5)}
+    times["f32_route_again_ms"] = time_ms(torch, old, reps=5)
+    times["tensor_core_again_ms"] = time_ms(torch, new, reps=5)
+    emit({"phase": "lm_head", "shape": [n, d, v],
+          "share_of_2^-16_bound": errors,
+          "gradients_are_the_split_products_rounded": rounded,
+          "forward_and_backward": times})
+    for name, share in errors.items():
+        require(share <= 1.0, f"lm_head {name}: {share} of the 2^-16 bound")
+    require(all(rounded.values()),
+            f"lm_head: autograd's gradients are the split products rounded "
+            f"once: {rounded}")
+    del x, w, g, wb, xs, ws, xf
+    torch.cuda.empty_cache()
+
+
 def bits_equal(torch, a, b):
     """Bitwise equal, NaN by position (the sign and payload of a NaN are
     the device's)."""
@@ -1608,6 +1733,62 @@ def lm_mesh_faults(torch, mt, model, mesh, params, tokens, targets):
     return out
 
 
+def split_step(torch, run):
+    """The split of one step on the card's clock: ``run(mark)`` runs the
+    step, which calls ``mark(phase)`` as each phase ends (the step's own
+    marks, not a copy of its body), and each phase's time is read between
+    CUDA events; the gloo calls inside (the card synchronized before each)
+    are timed apart on the host's clock as ``gloo_ms``."""
+    import types
+
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.comm import allreduce
+
+    gloo_s = [0.0]
+    wire, p2p = allreduce._wire, dist.batch_isend_irecv
+
+    def timed_wire(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wire(*a, **kw)
+        gloo_s[0] += time.perf_counter() - t0
+
+    def timed_p2p(ops):
+        # the batch's requests, each still waited on once by its caller;
+        # the time from the post to the last wait is added
+        torch.cuda.synchronize()
+        last = [time.perf_counter()]
+
+        def timed(req):
+            def wait(*a, **kw):
+                done = req.wait(*a, **kw)
+                now = time.perf_counter()
+                gloo_s[0] += now - last[0]
+                last[0] = now
+                return done
+            return types.SimpleNamespace(wait=wait)
+        return [timed(req) for req in p2p(ops)]
+
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+
+    def mark(phase):
+        events.append((phase, torch.cuda.Event(enable_timing=True)))
+        events[-1][1].record()
+
+    allreduce._wire, dist.batch_isend_irecv = timed_wire, timed_p2p
+    try:
+        events[0][1].record()
+        run(mark)
+        torch.cuda.synchronize()
+    finally:
+        allreduce._wire, dist.batch_isend_irecv = wire, p2p
+    split = {f"{phase}_ms": a.elapsed_time(b)
+             for (_, a), (phase, b) in zip(events, events[1:])}
+    split["gloo_ms"] = gloo_s[0] * 1e3
+    return split
+
+
 def lm_mesh_train(torch, rank, sizes):
     """One rank's run of the full-width LM on a mesh: LM_MESH_STEPS steps of
     ``make_train_step(mesh, optimizer=Adam(fused=True))`` on its blocks of
@@ -1617,13 +1798,11 @@ def lm_mesh_train(torch, rank, sizes):
     calls timed apart on the host's. Returns numpy and Python values
     only."""
     import hashlib
-    import types
 
     import torch.distributed as dist
 
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import optimizer as topt
-    from mxnet_tpu_torch.comm import allreduce
     from mxnet_tpu_torch.kernels import flash_attention as tfa
     from mxnet_tpu_torch.kernels import fused_adam as kfa
     from mxnet_tpu_torch.models import TransformerLM, transformer_lm_config
@@ -1664,50 +1843,9 @@ def lm_mesh_train(torch, rank, sizes):
                                  *lm_mesh_tokens(cfg["vocab_size"]))}
     del params0
 
-    # one more step, split on the card's clock by the step's own marks; the
-    # gloo calls (host clock, the card synchronized before each) timed apart
-    gloo_s = [0.0]
-    wire, p2p = allreduce._wire, dist.batch_isend_irecv
-
-    def timed_wire(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        wire(*a, **kw)
-        gloo_s[0] += time.perf_counter() - t0
-
-    def timed_p2p(ops):
-        # the batch's requests, each still waited on once by its caller;
-        # the time from the post to the last wait is added
-        torch.cuda.synchronize()
-        last = [time.perf_counter()]
-
-        def timed(req):
-            def wait(*a, **kw):
-                done = req.wait(*a, **kw)
-                now = time.perf_counter()
-                gloo_s[0] += now - last[0]
-                last[0] = now
-                return done
-            return types.SimpleNamespace(wait=wait)
-        return [timed(req) for req in p2p(ops)]
-
-    events = [("start", torch.cuda.Event(enable_timing=True))]
-
-    def mark(phase):
-        events.append((phase, torch.cuda.Event(enable_timing=True)))
-        events[-1][1].record()
-
-    allreduce._wire, dist.batch_isend_irecv = timed_wire, timed_p2p
-    try:
-        events[0][1].record()
-        params, state, loss = step(params, state, tok, tgt, mark=mark)
-        torch.cuda.synchronize()
-    finally:
-        allreduce._wire, dist.batch_isend_irecv = wire, p2p
-    out["split"] = {f"{phase}_ms": a.elapsed_time(b)
-                    for (_, a), (phase, b) in zip(events, events[1:])}
-    out["split"]["gloo_ms"] = gloo_s[0] * 1e3
-    del params, state, loss
+    # one more step, split on the card's clock by the step's own marks
+    out["split"] = split_step(torch, lambda mark: step(params, state, tok,
+                                                       tgt, mark=mark))
     torch.cuda.empty_cache()
     return out
 
@@ -1925,6 +2063,404 @@ def phase_lm_mesh(torch, mt, params):
     return launches
 
 
+def moe_tokens(vocab):
+    """The global batch of moe_mesh (8 x 2048 tokens and their next
+    tokens), the same on every rank and in the parent: Zipf frequencies
+    (``MOE_ZIPF``) over a fixed random order of the vocabulary."""
+    rng = np.random.default_rng(SEED + 9)
+    freq = 1.0 / np.arange(1, vocab + 1) ** MOE_ZIPF
+    ids = rng.permutation(vocab)[rng.choice(
+        vocab, size=(LM_BATCH, LM_SEQ + 1), p=freq / freq.sum())]
+    return (ids[:, :-1].astype(np.int32), ids[:, 1:].astype(np.int32))
+
+
+def port_kernels():
+    """Every kernel wrapper of the port, by name."""
+    from mxnet_tpu_torch.kernels import comm_kernels as ck
+    from mxnet_tpu_torch.kernels import flash_attention as tfa
+    from mxnet_tpu_torch.kernels import fused_adam as kfa
+    from mxnet_tpu_torch.kernels import int8_matmul as k8
+
+    return {k.__name__: k for k in (k8.int8_matmul, kfa.fused_adam,
+                                    *(getattr(tfa, n) for n in FLASH_NAMES),
+                                    *ck.KERNELS)}
+
+
+def moe_yard_block(torch, whole, s, x):
+    """Stage ``s`` of the yardstick on one microbatch ``x`` ``[mb, seq,
+    d]``, f32: pre-LN causal attention, then the top-1 MoE FFN with every
+    expert local, each expert taking its first ``capacity`` tokens in order
+    (index lists, not one-hot products). Returns the output, the Switch aux
+    and each token's expert and slot (-1: dropped)."""
+    F = torch.nn.functional
+    cfg = MOE_CONFIG
+    mb, seq, d = x.shape
+    h, n_exp = cfg["n_heads"], cfg["n_experts"]
+    y = F.layer_norm(x, (d,), whole["ln1_scale"][s], whole["ln1_bias"][s],
+                     eps=1e-5)
+    q, k, v = (y @ whole["wqkv"][s]).reshape(mb, seq, 3, h, d // h).permute(
+        2, 0, 3, 1, 4)
+    scores = q @ k.transpose(-1, -2) / float(np.sqrt(np.float32(d // h)))
+    causal = torch.ones(seq, seq, dtype=torch.bool, device=x.device).tril()
+    att = torch.softmax(scores.masked_fill(~causal, float("-inf")), -1) @ v
+    x = x + att.transpose(1, 2).reshape(mb, seq, d) @ whole["wo"][s]
+    y = F.layer_norm(x, (d,), whole["ln2_scale"][s], whole["ln2_bias"][s],
+                     eps=1e-5).reshape(mb * seq, d)
+    probs = torch.softmax(y @ whole["gate"][s], -1)
+    gate, expert = probs.max(-1)
+    capacity = max(1, int(cfg["capacity_factor"] * y.shape[0] / n_exp))
+    out = torch.zeros_like(y)
+    slot = torch.full((y.shape[0],), -1, dtype=torch.long, device=x.device)
+    for e in range(n_exp):
+        mine = torch.nonzero(expert == e)[:capacity, 0]
+        slot[mine] = torch.arange(len(mine), device=x.device)
+        hid = F.gelu(y[mine] @ whole["w1"][s, e], approximate="tanh")
+        out[mine] = (hid @ whole["w2"][s, e]) * gate[mine, None]
+    frac = torch.bincount(expert, minlength=n_exp).float() / y.shape[0]
+    aux = n_exp * torch.sum(frac * probs.mean(0))
+    return x + out.reshape(mb, seq, d), aux, (expert, slot)
+
+
+def moe_yardstick(torch, whole, tokens, targets, backward=False):
+    """The MoE LM's loss, computed in one process on the card from the
+    global parameters ``whole`` and batch: each (dp, ep) shard's
+    microbatches through stage 0, then stage 1 (:func:`moe_yard_block`:
+    the shard's tokens, all experts local, so the same capacity and
+    routing as on the mesh), then the masked NLL and aux as the model
+    defines them. With ``backward``, each shard's share of the loss is
+    differentiated by autograd as it is formed, so the leaves of ``whole``
+    hold the step's gradient. Returns the loss and the routing by (stage,
+    shard, microbatch)."""
+    F = torch.nn.functional
+    cfg = MOE_CONFIG
+    n_micro, d = cfg["n_micro"], cfg["d_model"]
+    shards = MOE_MESH["ep"]
+    rows = LM_BATCH // shards
+    loss = 0.0
+    routes = {}
+    with torch.set_grad_enabled(backward):
+        for e in range(shards):
+            tok = torch.from_numpy(tokens[e * rows:(e + 1) * rows]).cuda()
+            tgt = torch.from_numpy(targets[e * rows:(e + 1) * rows]).cuda()
+            x = whole["embed"][tok.long()] * float(np.sqrt(d)) \
+                + whole["pos_embed"][:LM_SEQ]
+            outs, aux = [], 0.0
+            for m, xm in enumerate(x.chunk(n_micro)):
+                for s in range(MOE_MESH["pp"]):
+                    xm, a, route = moe_yard_block(torch, whole, s, xm)
+                    aux = aux + a
+                    routes[(s, e, m)] = tuple(r.cpu().numpy() for r in route)
+                outs.append(xm)
+            y = F.layer_norm(torch.cat(outs), (d,), whole["final_norm_scale"],
+                             whole["final_norm_bias"], eps=1e-5)
+            nll = F.cross_entropy((y @ whole["lm_head"]).reshape(
+                -1, cfg["vocab_size"]), tgt.long().reshape(-1),
+                reduction="sum")
+            share = (nll / (LM_BATCH * LM_SEQ)
+                     + cfg["aux_loss_coef"] * aux / n_micro / shards)
+            if backward:
+                share.backward()
+            loss += float(share.detach())
+            del x, outs, y, nll, share
+    return loss, routes
+
+
+def moe_yardstick_steps(torch, model, tokens, targets):
+    """The yardstick's losses before and after one step of SGD with
+    momentum from zero momentum (``w -= lr g``), and the routing of the
+    first: what the mesh's first two steps must return."""
+    whole = {k: v.requires_grad_(True) for k, v in
+             model.init_params(SEED, MOE_MESH["pp"]).items()}
+    first, routes = moe_yardstick(torch, whole, tokens, targets,
+                                  backward=True)
+    with torch.no_grad():
+        for w in whole.values():
+            w -= MOE_LR * w.grad   # the momentum from zero is the gradient
+            w.grad = None
+    second, _ = moe_yardstick(torch, whole, tokens, targets)
+    del whole
+    torch.cuda.empty_cache()
+    return first, second, routes
+
+
+def moe_mesh_faults(torch, model, mesh, params, tok, tgt):
+    """Readings of the loss with one fault planted at a time, each an error
+    the port could make and still run, and the same reading sound. The code
+    is not changed: the parameters or the configuration are, or a function
+    as a module or the model sees it is swapped for the one reading.
+
+    ``forward``: the loss of the first step's parameters ``params`` (this
+    rank's blocks): the stages in reverse order (the parameters of the other
+    stage), the inverse all-to-all without its transpose (the experts'
+    outputs go back to the wrong sources), the capacity counted over the
+    global tokens of a microbatch (every shard's, not this rank's: the
+    capacity factor times the shards), and the aux left unmasked at the
+    bubble ticks. The sound reading also records each real tick's routing
+    (expert and slot of every token), keyed by microbatch.
+
+    ``backward``: the loss after one train step from ``params`` and zero
+    momentum, the step taken with the fault: the gradient of the dispatch
+    all-to-all with its expert rows in the wrong order (local expert major,
+    where the global expert index is owner major), and the stage leaves'
+    gradients summed over dp only, not over dp x ep."""
+    from mxnet_tpu_torch.models import moe_transformer
+    from mxnet_tpu_torch.parallel import expert, pipeline
+
+    stage, n_micro = mesh.coords["pp"], MOE_CONFIG["n_micro"]
+    ep = mesh.shape["ep"]
+    shards = mesh.shape["dp"] * ep
+    routes, calls = {}, [0]
+    ffn, exchange = moe_transformer.moe_ffn, expert.all_to_all
+
+    def recording(x, gate_w, w1, w2, group=None, capacity_factor=2.0,
+                  return_aux=False):
+        tick = calls[0]
+        calls[0] += 1
+        if pipeline.holds_data(tick, stage, n_micro):
+            capacity = expert.expert_capacity(capacity_factor, x.shape[0],
+                                              gate_w.shape[1])
+            _, _, onehot, dispatch = expert.route(x.float(), gate_w,
+                                                  capacity)
+            slot = torch.where(dispatch.sum((1, 2)) > 0,
+                               dispatch.sum(1).argmax(-1), -1)
+            routes[tick - stage] = (onehot.argmax(-1).cpu().numpy(),
+                                    slot.cpu().numpy())
+        return ffn(x, gate_w, w1, w2, group, capacity_factor, return_aux)
+
+    def source_major_to_expert_major(t):
+        # rows s * e_local + j (rank s, its local expert j) as j * ep + s
+        return t.reshape(ep, t.shape[0] // ep, *t.shape[1:]).transpose(
+            0, 1).reshape(t.shape)
+
+    def untransposed(t, axis, split_axis, concat_axis):
+        # the inverse route (concat on 0) sent as the experts' outputs lie,
+        # without moving each source's slots to the front
+        if concat_axis == 0:
+            t = source_major_to_expert_major(t)
+        return exchange(t, axis, split_axis, concat_axis)
+
+    class ExpertMajorGradient(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t, axis, split_axis, concat_axis):
+            ctx.args = axis, concat_axis, split_axis
+            return exchange(t, axis, split_axis, concat_axis)
+
+        @staticmethod
+        def backward(ctx, g):
+            return (source_major_to_expert_major(exchange(g, *ctx.args)),
+                    None, None, None)
+
+    def dispatch_grad_expert_major(t, axis, split_axis, concat_axis):
+        if concat_axis == 1:   # the dispatch; the inverse route is sound
+            return ExpertMajorGradient.apply(t, axis, split_axis, concat_axis)
+        return exchange(t, axis, split_axis, concat_axis)
+
+    def read(p, m=model):
+        with torch.no_grad():
+            return float(m.loss(mesh, p, tok, tgt))
+
+    def swapped(target, name, fn, reading):
+        before = getattr(target, name)
+        setattr(target, name, fn)
+        try:
+            return reading()
+        finally:
+            if target is model:
+                delattr(model, name)
+            else:
+                setattr(target, name, before)
+
+    def after_step():
+        p = {k: v.clone() for k, v in params.items()}
+        moms = {k: torch.zeros_like(v) for k, v in p.items()}
+        p, _, _ = model.make_train_step(mesh, lr=MOE_LR,
+                                        momentum=MOE_MOMENTUM)(p, moms, tok,
+                                                               tgt)
+        return read(p)
+
+    forward = {"sound": swapped(moe_transformer, "moe_ffn", recording,
+                                lambda: read(params))}
+    whole = model.init_params(SEED, mesh.shape["pp"])
+    shardings = model.param_shardings(mesh)
+    forward["stages_reversed"] = read({
+        k: shardings[k].shard(v.flip(0) if k in moe_transformer.STAGE_KEYS
+                              else v) for k, v in whole.items()})
+    del whole
+    forward["inverse_route_untransposed"] = swapped(
+        expert, "all_to_all", untransposed, lambda: read(params))
+    forward["capacity_over_global_tokens"] = read(params, type(model)(dict(
+        model.cfg, capacity_factor=model.cfg["capacity_factor"] * shards)))
+    forward["aux_unmasked"] = swapped(pipeline, "holds_data",
+                                      lambda tick, stage, n_micro: True,
+                                      lambda: read(params))
+    sums = model.grad_axes(mesh)
+    backward = {
+        "sound": after_step(),
+        "dispatch_gradient_expert_major": swapped(
+            expert, "all_to_all", dispatch_grad_expert_major, after_step),
+        "stage_gradients_not_summed_over_ep": swapped(
+            model, "grad_axes", lambda m: {
+                k: m.axis("dp") if k in moe_transformer.STAGE_KEYS else a
+                for k, a in sums.items()}, after_step)}
+    return {"forward": forward, "backward": backward}, routes
+
+
+def moe_mesh_rank(torch, rank, world):
+    """One rank's run of the MoE pipeline LM on dp 1 x pp 2 x ep 2:
+    MOE_STEPS steps of ``make_train_step(mesh, lr, momentum)`` on its block
+    of the global batch, every kernel's launches counted around them; the
+    first step's loss with faults planted (:func:`moe_mesh_faults`); then
+    one more step split on the card's clock. Returns numpy and Python values
+    only."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import MoEPipelineLM, moe_pipeline_config
+    from mxnet_tpu_torch.parallel import make_mesh
+    from mxnet_tpu_torch.parallel.mesh import P, Sharding
+
+    mesh = make_mesh(**MOE_MESH, devices=mt.gpu(0))
+    model = MoEPipelineLM(moe_pipeline_config(**MOE_CONFIG))
+    params, moms = model.init_sharded(mesh, seed=SEED)
+    params0 = {k: v.clone() for k, v in params.items()}
+    batch = Sharding(mesh, P(("dp", "ep"), None))
+    tok, tgt = (batch.shard(t)
+                for t in moe_tokens(MOE_CONFIG["vocab_size"]))
+    step = model.make_train_step(mesh, lr=MOE_LR, momentum=MOE_MOMENTUM)
+    kernels = port_kernels()
+    torch.cuda.synchronize()
+    dist.barrier()
+    # the main path: every count is read around the steps
+    for fn in kernels.values():
+        fn.launches = 0
+    losses, stamps = [], [time.perf_counter()]
+    for _ in range(MOE_STEPS):
+        params, moms, loss = step(params, moms, tok, tgt)
+        losses.append(float(loss))   # syncs the host with the step
+        stamps.append(time.perf_counter())
+    out = {
+        "coords": dict(mesh.coords),
+        "launches": {n: fn.launches for n, fn in kernels.items()},
+        "losses": losses,
+        "step_ms": [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])],
+        "local_tokens": list(tok.shape),
+        "finite": all(bool(torch.isfinite(v).all()) for v in params.values()),
+        "moved": all(not torch.equal(v, params0[k])
+                     for k, v in params.items()),
+        "digests": {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+                    for k, v in params.items()},
+        # which block of each leaf this rank holds: its coordinates on the
+        # axes the leaf is split over
+        "blocks": {k: tuple(mesh.coords[a] for a in sh.spec if a is not None)
+                   for k, sh in model.param_shardings(mesh).items()},
+        "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    out["faults"], out["routes"] = moe_mesh_faults(torch, model, mesh,
+                                                   params0, tok, tgt)
+    del params0
+    # one more step, split on the card's clock by the step's own marks
+    out["split"] = split_step(torch, lambda mark: step(params, moms, tok,
+                                                       tgt, mark=mark))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_mesh(torch):
+    """The MoE pipeline LM trained on four ranks sharing the card, with its
+    checks against the yardstick; returns each kernel's launches per rank
+    (none: the path runs no hand-written kernel)."""
+    from mxnet_tpu_torch.models import MoEPipelineLM, moe_pipeline_config
+
+    model = MoEPipelineLM(moe_pipeline_config(**MOE_CONFIG))
+    tokens, targets = moe_tokens(MOE_CONFIG["vocab_size"])
+    *ref_losses, ref_routes = moe_yardstick_steps(torch, model, tokens,
+                                                  targets)
+    ranks = run_ranks(torch, moe_mesh_rank, MOE_MESH_WORLD,
+                      MOE_MESH_TIMEOUT_S, "moe_mesh")
+
+    r0 = ranks[0]
+    # the step's own first and second losses against the yardstick's, and
+    # each planted fault's reading against the same
+    readings = {}
+    for kind, ref, got in zip(("forward", "backward"), ref_losses,
+                              r0["losses"]):
+        readings[kind] = {"step": abs(got - ref) / ref, **{
+            f: abs(v - ref) / ref for f, v in r0["faults"][kind].items()}}
+    agree = total = dropped = 0
+    for run in ranks:
+        stage = run["coords"]["pp"]
+        shard = run["coords"]["dp"] * MOE_MESH["ep"] + run["coords"]["ep"]
+        for micro, (experts, slots) in run["routes"].items():
+            want_e, want_s = ref_routes[(stage, shard, micro)]
+            agree += int(((experts == want_e) & (slots == want_s)).sum())
+            total += len(want_e)
+            dropped += int((want_s < 0).sum())
+    mismatched = []
+    for k in r0["blocks"]:
+        held = {}
+        for run in ranks:
+            held.setdefault(run["blocks"][k], set()).add(run["digests"][k])
+        mismatched += [k for v in held.values() if len(v) > 1]
+    median_ms = statistics.median(r0["step_ms"])
+    emit({"phase": "moe_mesh", "mesh_shape": {"dp": 1, **MOE_MESH},
+          "world": MOE_MESH_WORLD, "config": MOE_CONFIG,
+          "transport": "gloo through pinned host buffers, four ranks on "
+                       "one card",
+          "global_batch": [LM_BATCH, LM_SEQ],
+          "local_tokens": r0["local_tokens"], "token_zipf": MOE_ZIPF,
+          "steps": MOE_STEPS, "optimizer": "sgd_momentum",
+          "learning_rate": MOE_LR, "momentum": MOE_MOMENTUM,
+          "yardstick_losses": ref_losses,
+          "first_loss_rel_err": readings["forward"]["step"],
+          "second_loss_rel_err": readings["backward"]["step"],
+          "bounds": {"forward": MOE_LOSS_BOUND, "backward": MOE_STEP_BOUND},
+          "step_sound_and_planted_faults": readings,
+          "routing_agreement": agree / total, "routed_tokens": total,
+          "dropped_tokens": dropped,
+          "losses": r0["losses"],
+          "replicated_leaves_mismatched": mismatched,
+          "step_ms": r0["step_ms"], "step_ms_median": median_ms,
+          "global_tokens_per_s": LM_BATCH * LM_SEQ * 1e3 / median_ms,
+          "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+          "split_by_rank": [dict(r["split"], coords=r["coords"])
+                            for r in ranks]})
+    for rank, run in enumerate(ranks):
+        require(np.isfinite(run["losses"]).all(),
+                f"moe_mesh rank {rank}: finite losses {run['losses']}")
+        require(run["finite"] and run["moved"],
+                f"moe_mesh rank {rank}: parameters finite and moved")
+        require(run["losses"] == r0["losses"] and run["faults"] == r0[
+                    "faults"],
+                f"moe_mesh rank {rank}: the loss is the global one, bitwise "
+                "the same on every rank")
+        require(not any(run["launches"].values()),
+                f"moe_mesh rank {rank}: a hand-written kernel ran on a path "
+                f"that has none: {run['launches']}")
+    for kind, bound in (("forward", MOE_LOSS_BOUND),
+                        ("backward", MOE_STEP_BOUND)):
+        got = readings[kind]
+        step = 0 if kind == "forward" else 1
+        require(got["step"] < bound,
+                f"moe_mesh: step {step + 1}'s loss {r0['losses'][step]} "
+                f"against the yardstick's {ref_losses[step]} ({got['step']} "
+                f"relative, bound {bound})")
+        require(r0["faults"][kind]["sound"] == r0["losses"][step],
+                f"moe_mesh: step {step + 1}'s loss {r0['losses'][step]} is "
+                f"the one read apart, {r0['faults'][kind]['sound']}")
+        faults = {f: r for f, r in got.items() if f not in ("step", "sound")}
+        require(len(faults) == (4 if kind == "forward" else 2),
+                f"moe_mesh: {kind} faults planted: {sorted(faults)}")
+        for fault, r in faults.items():
+            require(r > bound,
+                    f"moe_mesh: the planted fault {fault} moves step "
+                    f"{step + 1}'s loss by {r} relative, within the bound "
+                    f"{bound}")
+    require(not mismatched, f"moe_mesh: replicated blocks bitwise equal "
+            f"across the ranks: {mismatched} differ")
+    return {n: [r["launches"][n] for r in ranks] for n in r0["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -1952,11 +2488,14 @@ def main() -> int:
     train_launches = phase_lm_train(torch, mt, topt, tfa, kfa, lm_params,
                                     lm_grad_errs)
     require(serve_launches["flash_fwd"] > 0, "the LM forward ran flash_fwd")
+    phase_lm_head(torch)
     launches.update({n: train_launches[n] for n in flash_rows})
     comm_rows_, comm_phase_launches = phase_comm_kernels(torch, ck, comm,
                                                          registry)
     launches.update(phase_dp_train(torch, comm))
     mesh_launches = phase_lm_mesh(torch, mt, lm_params)
+    del lm_params
+    moe_launches = phase_moe_mesh(torch)
     # not on fit's path: twobit gathers in bf16 (comm/allreduce.py)
     launches["dequant_twobit"] = 0
     require(not any(m.split(".")[0] in ("jax", "mxnet_tpu")
@@ -1984,6 +2523,8 @@ def main() -> int:
         if name in mesh_launches:
             # per mesh, per rank: the steps of phase lm_mesh
             kernels[-1]["lm_mesh_launches"] = mesh_launches[name]
+        # per rank: the steps of phase moe_mesh, which runs no kernel
+        kernels[-1]["moe_mesh_launches"] = moe_launches[name]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,8 @@ import torch
 
 __all__ = ["to_tensor", "params_from_numpy", "random_params",
            "adam_state_from_numpy", "adam_state_to_numpy",
-           "transformer_params_from_numpy", "shard_transformer_params",
+           "transformer_params_from_numpy", "moe_params_from_numpy",
+           "shard_transformer_params",
            "gather_transformer_params", "shard_optimizer_state",
            "gather_optimizer_state", "residual_rows_from_numpy",
            "residual_rows_to_numpy"]
@@ -47,10 +48,21 @@ def transformer_params_from_numpy(params, device):
     return {k: to_tensor(v, device).float() for k, v in params.items()}
 
 
+def moe_params_from_numpy(params, device):
+    """The MoE pipeline LM's parameters in the JAX package's layout
+    (``MoEPipelineLM.init_params``: stage leaves lead with the stage
+    dimension, ``w1``/``w2`` with stage and expert) as f32 tensors on
+    ``device``, under the same names and layouts; so is its momentum.
+    :func:`shard_transformer_params` and :func:`gather_transformer_params`
+    cut and join them by an ``MoEPipelineLM``'s ``param_shardings``."""
+    return transformer_params_from_numpy(params, device)
+
+
 def shard_transformer_params(params, mesh, model):
     """This rank's blocks (f32 tensors on the mesh's device) of a
     transformer LM's global parameters, numpy-convertible arrays in the
-    JAX package's layout, cut by ``model.param_shardings(mesh)``."""
+    JAX package's layout, cut by ``model.param_shardings(mesh)`` (a
+    ``TransformerLM`` or an ``MoEPipelineLM``)."""
     shardings = model.param_shardings(mesh)
     return {k: shardings[k].shard(np.asarray(_host(v), np.float32))
             for k, v in params.items()}
@@ -61,7 +73,9 @@ def gather_transformer_params(local, mesh, model):
     blocks: a collective, which every rank of the mesh calls. The exact
     inverse of :func:`shard_transformer_params`."""
     shardings = model.param_shardings(mesh)
-    return {k: shardings[k].gather(v).cpu().numpy() for k, v in local.items()}
+    # a copy: a replicated leaf gathers to the rank's own tensor
+    return {k: shardings[k].gather(v).cpu().numpy().copy()
+            for k, v in local.items()}
 
 
 def _map_state(states, shardings, fn):

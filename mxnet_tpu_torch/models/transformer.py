@@ -42,12 +42,12 @@ from torch.utils.checkpoint import checkpoint
 from ..base import MXNetError
 from ..context import cpu, current_context
 from ..kernels.flash_attention import flash_attention
-from ..parallel.mesh import Mesh, P, Sharding, all_reduce_max, local_mesh
-from ..parallel.mesh import all_reduce_sum as _all_reduce_sum
+from ..parallel.mesh import (Mesh, P, Sharding, all_reduce_max, local_mesh,
+                             sum_gradients)
 from ..parallel.sequence import attention_reference, ring_self_attention
-from ..parallel.tensor_parallel import (column_parallel, gather_from_axis,
-                                        reduce_from_axis, row_parallel,
-                                        transformer_param_specs)
+from ..parallel.tensor_parallel import (column_parallel, column_parallel_f32,
+                                        gather_from_axis, reduce_from_axis,
+                                        row_parallel, transformer_param_specs)
 
 __all__ = ["transformer_lm_config", "TransformerLM"]
 
@@ -231,9 +231,9 @@ class TransformerLM:
                 x = self._layer(x, lp, mesh)
         x = _layernorm(x, params["final_norm_scale"], params["final_norm_bias"])
         # f32 sums of the bf16 operands, never rounded to bf16
-        # (transformer.py:217-219): the operands are upcast exactly
-        return column_parallel(x.float(), params["lm_head"].to(cfg["dtype"])
-                               .float(), group=mesh.axis("tp"))
+        # (transformer.py:217-219)
+        return column_parallel_f32(x, params["lm_head"],
+                                   group=mesh.axis("tp"))
 
     def forward(self, params, tokens, mesh=None):
         """tokens ``[batch, seq]`` int -> logits ``[batch, seq, vocab]`` f32,
@@ -318,7 +318,7 @@ class TransformerLM:
             mark("forward")
             grads = torch.autograd.grad(loss, [leaves[k] for k in names])
             mark("backward")
-            grads = _sum_over(dict(zip(names, grads)), m.axis("dp", "sp"))
+            grads = sum_gradients(dict(zip(names, grads)), m.axis("dp", "sp"))
             mark("grad_sum")
             with torch.no_grad():
                 if optimizer is None:
@@ -355,16 +355,3 @@ class TransformerLM:
             return params, {k: torch.zeros_like(v) for k, v in params.items()}
         return params, optimizer.init_state_tree(params)
 
-
-def _sum_over(grads: dict, axis) -> dict:
-    """Each gradient summed over the ranks of ``axis`` (one collective over
-    the flattened f32 tree); unchanged on one rank."""
-    if axis.size == 1:
-        return {k: g.contiguous() for k, g in grads.items()}
-    flat = _all_reduce_sum(torch.cat([g.reshape(-1) for g in grads.values()]),
-                           axis)
-    out, off = {}, 0
-    for k, g in grads.items():
-        out[k] = flat[off:off + g.numel()].view(g.shape)
-        off += g.numel()
-    return out

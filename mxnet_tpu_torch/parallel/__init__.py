@@ -9,15 +9,15 @@ Counterpart of ``mxnet_tpu/parallel``: a mesh with named axes
     ep - expert parallel (MoE)
 
 where the JAX package's mesh is a grid of devices in one process, the port's
-is a grid of ranks, each holding its own blocks (``mesh.py``). Pipeline and
-expert parallelism are not ported: their entry points raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+is a grid of ranks, each holding its own blocks (``mesh.py``).
 """
 
 from .data_parallel import (allreduce_grads, grad_accum,
                             make_data_parallel_step, replicate_params,
                             shard_batch)
+from .expert import init_moe_params, moe_ffn
 from .mesh import auto_mesh, data_sharding, make_mesh, replicated
+from .pipeline import spmd_pipeline
 from .sequence import (attention_reference, ring_attention,
                        ring_flash_attention, ring_self_attention)
 from .tensor_parallel import (column_parallel, row_parallel,
@@ -32,22 +32,3 @@ __all__ = [
     "spmd_pipeline", "moe_ffn", "init_moe_params",
     "grad_accum", "make_data_parallel_step",
 ]
-
-_NEXT = ("pipeline and expert parallelism (parallel/pipeline.py, "
-         "parallel/expert.py, models/moe_transformer.py) are not ported yet "
-         "(ROADMAP.md A5)")
-
-
-def spmd_pipeline(*args, **kwargs):
-    """The JAX package's SPMD pipeline over a 'pp' axis: not ported."""
-    raise NotImplementedError(_NEXT)
-
-
-def moe_ffn(*args, **kwargs):
-    """The JAX package's expert-parallel MoE feed-forward: not ported."""
-    raise NotImplementedError(_NEXT)
-
-
-def init_moe_params(*args, **kwargs):
-    """The JAX package's MoE parameters: not ported."""
-    raise NotImplementedError(_NEXT)

@@ -9,10 +9,12 @@ block. Ranks map to coordinates row-major over :data:`AXES`, ``tp``
 innermost, as the JAX package reshapes its device list.
 
 Each axis of size > 1 has a process group per line of ranks along it, and so
-has the product ``("dp", "sp")``, over which a sharded step sums its
-gradients. Every rank builds every group, in one order, when the mesh is
-made. A mesh of one rank needs no process group and takes the same code
-path: its collectives are the identity.
+have the products a step sums over: ``("dp", "sp")`` (the sharded LM's
+gradients), ``("dp", "ep")`` (the MoE LM's batch and its stage leaves'
+gradients) and ``("dp", "pp", "ep")`` (its loss and its replicated
+leaves' gradients). Every rank builds every group, in one order, when the
+mesh is made. A mesh of one rank needs no process group and takes the same
+code path: its collectives are the identity.
 
 The collectives here take a :class:`MeshAxis`. With the gloo backend a CUDA
 tensor travels through pinned host buffers (``comm/allreduce.py``); with
@@ -28,20 +30,30 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..comm.allreduce import _all_gather, _staged, _to_card, _to_host
+from ..comm.allreduce import (_all_gather, _all_to_all, _staged, _to_card,
+                              _to_host)
 from ..comm.allreduce import all_reduce_sum as _all_reduce_sum
 from ..context import Context, gpu
 
 __all__ = ["make_mesh", "auto_mesh", "data_sharding", "replicated", "AXES",
            "Mesh", "MeshAxis", "PartitionSpec", "P", "Sharding", "as_axis",
-           "all_reduce_sum", "all_reduce_max", "all_gather", "ring_shift"]
+           "all_reduce_sum", "all_reduce_max", "all_gather", "ring_shift",
+           "Shift", "all_to_all", "sum_gradients"]
 
 AXES = ("dp", "pp", "ep", "sp", "tp")
+# the products of axes a mesh builds groups for, besides each axis
+PRODUCTS = (("dp", "sp"), ("dp", "ep"), ("dp", "pp", "ep"))
+
+
+def _names(entry) -> tuple:
+    """A spec entry or an axis product as a tuple of axis names."""
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
 class PartitionSpec(tuple):
     """``jax.sharding.PartitionSpec``: one entry a dimension, the mesh axis
-    it is split over or None; missing trailing entries are None."""
+    it is split over, a tuple of axes (split over their product, the first
+    major), or None; missing trailing entries are None."""
 
     def __new__(cls, *parts):
         return super().__new__(cls, parts)
@@ -120,7 +132,7 @@ class Mesh:
                        zip(AXES, np.unravel_index(self.rank,
                                                   self._grid.shape))}
         self._axes = {}
-        for names in [(a,) for a in AXES] + [("dp", "sp")]:
+        for names in [(a,) for a in AXES] + list(PRODUCTS):
             self._build(names)
 
     def _build(self, names):
@@ -144,13 +156,16 @@ class Mesh:
         self._axes[names] = self._axes[live] = mine
 
     def axis(self, *names) -> MeshAxis:
-        """The ranks along ``names`` at this rank's other coordinates:
-        ``axis("tp")``, or ``axis("dp", "sp")`` for the gradient sums (the
-        products the mesh built its groups for)."""
-        if names not in self._axes:
-            raise ValueError(f"mesh axis {names}: one of {AXES}, or "
-                             "('dp', 'sp')")
-        return self._axes[names]
+        """The ranks along ``names`` at this rank's other coordinates, in
+        :data:`AXES` order whatever the order of ``names`` (the first
+        major): ``axis("tp")``, or one of the products of
+        :data:`PRODUCTS` (``axis("dp", "sp")``, ...)."""
+        key = tuple(sorted(names, key=lambda a: AXES.index(a)
+                           if a in AXES else -1))
+        if key not in self._axes:
+            raise ValueError(f"mesh axis {names}: one of {AXES}, or one of "
+                             f"{PRODUCTS}")
+        return self._axes[key]
 
     def __repr__(self):
         return (f"Mesh({self.shape}, rank={self.rank}, "
@@ -243,6 +258,80 @@ def ring_shift(tensors, axis: MeshAxis, reverse=False):
     return recvs
 
 
+class Shift(torch.autograd.Function):
+    """:func:`ring_shift` as an autograd function, ``Shift.apply(axis,
+    *tensors)``: the gradients travel the ring the other way (ppermute's
+    transpose)."""
+
+    @staticmethod
+    def forward(ctx, axis, *tensors):
+        ctx.axis = axis
+        return tuple(ring_shift(tensors, axis))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *ring_shift(grads, ctx.axis, reverse=True))
+
+
+def _exchange(t, axis, split_axis, concat_axis):
+    n = axis.size
+    if t.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dimension {split_axis} of "
+                         f"{tuple(t.shape)} is not a multiple of {n}")
+    # chunk i of the split dimension to rank i ...
+    chunks = t.unflatten(split_axis, (n, -1)).movedim(split_axis, 0)
+    got = _all_to_all(chunks, axis.group)
+    # ... and the chunks received, in source order, along the concat one
+    return got.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, split_axis, concat_axis):
+        ctx.args = axis, concat_axis, split_axis
+        return _exchange(t, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, *ctx.args), None, None, None
+
+
+def all_to_all(t: torch.Tensor, axis: MeshAxis, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """``lax.all_to_all(t, split_axis, concat_axis, tiled=True)`` over the
+    ranks of ``axis``: dimension ``split_axis`` is cut into ``axis.size``
+    chunks, chunk i goes to rank i, and the chunks received are concatenated
+    along ``concat_axis`` in source order. Differentiable: the gradient
+    takes the inverse exchange (split and concat swapped)."""
+    if axis.size == 1:
+        return t
+    return _AllToAll.apply(t, axis, split_axis, concat_axis)
+
+
+def sum_gradients(grads: dict, axes) -> dict:
+    """Each gradient summed over the ranks that hold the same block: over
+    ``axes``, one :class:`MeshAxis` for every leaf or a dict of one per
+    leaf. One collective per axis, over the flattened f32 leaves that sum
+    over it, in the order the leaves first name it (the same on every
+    rank); unchanged on one rank."""
+    by_leaf = axes if isinstance(axes, dict) else dict.fromkeys(grads, axes)
+    groups = {}
+    for k in grads:
+        groups.setdefault(id(by_leaf[k]), (by_leaf[k], []))[1].append(k)
+    out = {}
+    for axis, names in groups.values():
+        if axis.size == 1:
+            out.update({k: grads[k].contiguous() for k in names})
+            continue
+        flat = all_reduce_sum(torch.cat([grads[k].reshape(-1)
+                                         for k in names]), axis)
+        off = 0
+        for k in names:
+            out[k] = flat[off:off + grads[k].numel()].view(grads[k].shape)
+            off += grads[k].numel()
+    return {k: out[k] for k in grads}
+
+
 # --------------------------------------------------------------------------
 # shardings: where a global array's blocks live
 # --------------------------------------------------------------------------
@@ -258,7 +347,9 @@ def _tensor(x, device) -> torch.Tensor:
 class Sharding:
     """A global array cut over a mesh by ``spec`` (a :class:`P`): each
     dimension named there is split in equal contiguous blocks over that
-    axis, block ``coords[axis]`` to each rank. With ``parts`` > 1 the split
+    axis, block ``coords[axis]`` to each rank; a dimension named by a tuple
+    of axes (in :data:`AXES` order) over their product, the first major,
+    as JAX lays out ``P(("dp", "ep"))``. With ``parts`` > 1 the split
     dimension is first cut into ``parts`` equal parts and each part is
     split over the axis: the transformer's fused ``(d, 3d)`` qkv weight
     split by heads, so that a rank holds q, k and v of its own heads.
@@ -271,27 +362,41 @@ class Sharding:
         self.mesh = mesh
         self.spec = spec if isinstance(spec, PartitionSpec) else P(*spec)
         self.parts = int(parts)
-        split = [a for a in self.spec if a is not None]
+        split = [a for e in self.spec if e is not None for a in _names(e)]
         for a in split:
             if a not in AXES:
                 raise ValueError(f"unknown mesh axis {a!r} in {self.spec}")
         if len(set(split)) != len(split):
             raise ValueError(f"{self.spec} splits over one axis twice")
+        for e in self.spec:
+            if isinstance(e, (tuple, list)) and list(e) != sorted(
+                    e, key=AXES.index):
+                raise ValueError(f"{self.spec}: the axes of {e} must come "
+                                 f"in the mesh's order {AXES}")
 
     def _split_dims(self, ndim):
         if len(self.spec) > ndim:
             raise ValueError(f"{self.spec} has more entries than the "
                              f"array's {ndim} dimensions")
-        return [(i, a) for i, a in enumerate(self.spec) if a is not None]
+        return [(i, _names(e)) for i, e in enumerate(self.spec)
+                if e is not None]
+
+    def _block(self, names):
+        """The number of blocks over ``names`` and this rank's index."""
+        n, j = 1, 0
+        for a in names:
+            n, j = n * self.mesh.shape[a], j * self.mesh.shape[a] + \
+                self.mesh.coords[a]
+        return n, j
 
     def local_shape(self, global_shape) -> tuple:
         shape = list(global_shape)
-        for i, a in self._split_dims(len(shape)):
-            n = self.mesh.shape[a]
+        for i, names in self._split_dims(len(shape)):
+            n = self._block(names)[0]
             if shape[i] % (n * self.parts):
                 raise ValueError(
                     f"dimension {i} of {tuple(global_shape)} is not a "
-                    f"multiple of {self.parts} x {a}={n}")
+                    f"multiple of {self.parts} x {'*'.join(names)}={n}")
             shape[i] //= n
         return tuple(shape)
 
@@ -300,8 +405,8 @@ class Sharding:
         numpy-convertible array), a new tensor on the mesh's device."""
         t = x if isinstance(x, torch.Tensor) else _tensor(x, "cpu")
         self.local_shape(t.shape)
-        for i, a in self._split_dims(t.dim()):
-            n, j = self.mesh.shape[a], self.mesh.coords[a]
+        for i, names in self._split_dims(t.dim()):
+            n, j = self._block(names)
             part = t.shape[i] // self.parts
             t = t.unflatten(i, (self.parts, n, part // n)).select(i + 1, j)
             t = t.flatten(i, i + 1)
@@ -312,8 +417,8 @@ class Sharding:
         """The global array from every rank's block (a collective: every
         rank along the spec's axes calls it)."""
         t = local
-        for i, a in reversed(self._split_dims(t.dim())):
-            blocks = all_gather(t, self.mesh.axis(a))
+        for i, names in reversed(self._split_dims(t.dim())):
+            blocks = all_gather(t, self.mesh.axis(*names))
             m = t.shape[i] // self.parts
             t = torch.stack([b.unflatten(i, (self.parts, m)) for b in blocks],
                             dim=i + 1).flatten(i, i + 2)

@@ -21,7 +21,7 @@ import torch
 
 from ..kernels.flash_attention import (NEG_INF, flash_attention_with_lse,
                                        flash_block_grads)
-from .mesh import as_axis, ring_shift
+from .mesh import Shift, as_axis, ring_shift
 
 __all__ = ["ring_attention", "ring_flash_attention", "ring_self_attention",
            "attention_reference"]
@@ -43,20 +43,6 @@ def attention_reference(q, k, v, causal=False):
         s = torch.where(qpos >= kpos, s, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
-
-
-class _Shift(torch.autograd.Function):
-    """``ring_shift`` as an autograd function: the gradients travel the
-    ring the other way (ppermute's transpose)."""
-
-    @staticmethod
-    def forward(ctx, axis, *tensors):
-        ctx.axis = axis
-        return tuple(ring_shift(tensors, axis))
-
-    @staticmethod
-    def backward(ctx, *grads):
-        return (None, *ring_shift(grads, ctx.axis, reverse=True))
 
 
 def ring_attention(q, k, v, group=None, causal=False):
@@ -96,7 +82,7 @@ def ring_attention(q, k, v, group=None, causal=False):
                                                 v_blk.float())
         m = m_new
         if i != n - 1:   # the last hop's blocks would be dead
-            k_blk, v_blk = _Shift.apply(axis, k_blk, v_blk)
+            k_blk, v_blk = Shift.apply(axis, k_blk, v_blk)
     o = o / torch.clamp_min(l[..., None], 1e-30)
     return o.to(q.dtype)
 

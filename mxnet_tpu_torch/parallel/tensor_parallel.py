@@ -20,17 +20,25 @@ attention output projection and the MLP's down projection) are summed in
 f32 and then cast to bf16; so are the column-parallel products' input
 gradients in backward, and the vocab-parallel embedding's gather. Casting
 each partial first and summing after would round twice. So at tp > 1
-:func:`row_parallel` forms its partial product in f32 (operands upcast
-exactly) and :func:`column_parallel` its input gradient, and each sums over
-tp before the one cast. Those f32 GEMMs run in TF32 on the card where the
-operands come from bf16 or f16 (:func:`_upcast_tf32`): such values are
-exact in TF32, so the products are exact and the sums f32 as before, at
-the tensor cores' rate instead of the CUDA cores'. At tp = 1 both are the
-single-card GEMM of ``models/transformer.py``, bit for bit.
+:func:`row_parallel` forms its partial product in f32 and
+:func:`column_parallel` its input gradient, and each sums over tp before
+the one cast. Each such product is :func:`wide_product`: for bf16 or f16
+operands, exact products summed in f32 with an f32 result, on the card one
+tensor-core GEMM with an f32 output. At tp = 1 both are the single-card
+GEMM of ``models/transformer.py``, bit for bit.
 
 Every GEMM here sums in f32 and rounds once to its output type: cuBLAS's
 reduced-precision bf16 reduction is switched off for each call
 (:func:`one_rounding`), whatever the caller's process flag.
+
+The LM head (:func:`column_parallel_f32`) keeps its product in f32: the JAX
+model multiplies the bf16 operands with ``preferred_element_type=float32``
+(transformer.py:217-218), one :func:`wide_product`. Its gradients multiply
+the f32 cotangent by a bf16 operand and round the f32 sum to bf16 once;
+the port splits the cotangent into two bf16 parts, ``hi = bf16(g)`` and
+``lo = bf16(g - hi)`` (:func:`split_cotangent`, once for both gradients),
+and sums the two tensor-core products of each gradient in f32: within about
+2^-16 of sum |g||w| before the one rounding to bf16 (2^-9).
 """
 
 from __future__ import annotations
@@ -41,8 +49,9 @@ import torch
 
 from .mesh import P, all_gather, all_reduce_sum, as_axis
 
-__all__ = ["column_parallel", "row_parallel", "transformer_param_specs",
-           "reduce_from_axis", "gather_from_axis", "one_rounding", "Matmul"]
+__all__ = ["column_parallel", "column_parallel_f32", "row_parallel",
+           "transformer_param_specs", "reduce_from_axis", "gather_from_axis",
+           "one_rounding", "Matmul", "wide_product", "split_cotangent"]
 
 
 @contextlib.contextmanager
@@ -56,22 +65,6 @@ def one_rounding():
         yield
     finally:
         matmul.allow_bf16_reduced_precision_reduction = before
-
-
-@contextlib.contextmanager
-def _upcast_tf32(dtype):
-    """TF32 on for the f32 GEMMs inside, whose operands were upcast from
-    ``dtype``, where ``dtype`` is bf16 or f16: their significands (8 and 11
-    bits) fit TF32's 11, so each product is exact and the sums stay f32;
-    restored after. For any other type the caller's setting holds."""
-    matmul = torch.backends.cuda.matmul
-    before = matmul.allow_tf32
-    if dtype in (torch.bfloat16, torch.float16):
-        matmul.allow_tf32 = True
-    try:
-        yield
-    finally:
-        matmul.allow_tf32 = before
 
 
 def _weight_grad(x, dy):
@@ -104,7 +97,8 @@ class Matmul(torch.autograd.Function):
 class _ColumnMatmul(torch.autograd.Function):
     """``copy(x) @ w`` over a tp axis of more than one rank: forward and the
     weight gradient as :class:`Matmul`; the input gradient's partial
-    products in f32, summed over tp, then one cast."""
+    product in f32 (:func:`wide_product`), summed over tp, then one
+    cast."""
 
     @staticmethod
     def forward(ctx, x, w, axis):
@@ -118,37 +112,86 @@ class _ColumnMatmul(torch.autograd.Function):
         x, w = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            with _upcast_tf32(dy.dtype):
-                partial = torch.matmul(dy.float(), w.float().t())
-            dx = all_reduce_sum(partial, ctx.axis).to(x.dtype)
+            partial = wide_product(dy.reshape(-1, dy.shape[-1]), w.t())
+            dx = all_reduce_sum(partial, ctx.axis).to(x.dtype).reshape(
+                x.shape)
         if ctx.needs_input_grad[1]:
             with one_rounding():
                 dw = _weight_grad(x, dy)
         return dx, dw, None
 
 
-class _UpcastMatmul(torch.autograd.Function):
-    """``x.float() @ w.float()``, f32 out, for a row-parallel partial
-    product: the autograd of that expression (each gradient GEMM in f32,
-    then rounded to its operand's type), with every GEMM under
-    :func:`_upcast_tf32`. The output's gradient comes back through a cast
-    from ``x.dtype``, so all operands are upcast values."""
+def wide_product(a, b):
+    """``a @ b`` of two 2-D tensors of one type, summed in f32 with an f32
+    result. For bf16 or f16 operands the products are exact: on a card the
+    tensor cores' GEMM with an f32 output (``aten::mm.dtype``), on the CPU
+    an f32 GEMM of the upcast operands, which gives the same products. f32
+    operands take the f32 GEMM (TF32 as the caller set it)."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    with one_rounding():
+        return torch.matmul(a.float(), b.float())
+
+
+def split_cotangent(g, dtype):
+    """The f32 cotangent ``g`` as two ``dtype`` parts, ``hi = dtype(g)`` and
+    ``lo = dtype(g - hi)`` (``g - hi`` is exact in f32), in one pass each."""
+    hi = g.to(dtype)
+    return hi, torch.sub(g, hi, out=torch.empty_like(hi))
+
+
+class _WideMatmul(torch.autograd.Function):
+    """``x @ w`` of bf16 (or f16) operands with an f32 output, column
+    parallel over ``axis``: the forward one :func:`wide_product`; each
+    gradient the two :func:`wide_product` of the cotangent's parts
+    (:func:`split_cotangent`) summed in f32, the input gradient's summed
+    over tp in f32 too, then one cast."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, axis):
         ctx.save_for_backward(x, w)
-        with _upcast_tf32(x.dtype):
-            return torch.matmul(x.float(), w.float())
+        ctx.axis = axis
+        y = wide_product(x.reshape(-1, x.shape[-1]), w)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
+        hi, lo = split_cotangent(dy.reshape(-1, dy.shape[-1]), x.dtype)
         dx = dw = None
-        with _upcast_tf32(x.dtype):
-            if ctx.needs_input_grad[0]:
-                dx = torch.matmul(dy, w.float().t()).to(x.dtype)
-            if ctx.needs_input_grad[1]:
-                dw = _weight_grad(x.float(), dy).to(w.dtype)
+        if ctx.needs_input_grad[0]:
+            partial = wide_product(hi, w.t()) + wide_product(lo, w.t())
+            if ctx.axis.size > 1:
+                partial = all_reduce_sum(partial, ctx.axis)
+            dx = partial.to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            xt = x.reshape(-1, x.shape[-1]).t()
+            dw = (wide_product(xt, hi) + wide_product(xt, lo)).to(w.dtype)
+        return dx, dw, None
+
+
+class _UpcastMatmul(torch.autograd.Function):
+    """``x.float() @ w.float()``, f32 out, for a row-parallel partial
+    product: the autograd of that expression (each gradient GEMM in f32,
+    then rounded to its operand's type), every GEMM a :func:`wide_product`.
+    The output's gradient comes back through a cast from ``x.dtype``, so
+    it is exact in ``x.dtype`` and every operand is an upcast value."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = wide_product(x.reshape(-1, x.shape[-1]), w)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.reshape(-1, dy.shape[-1]).to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = wide_product(dy, w.t()).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = wide_product(x.reshape(-1, x.shape[-1]).t(), dy).to(w.dtype)
         return dx, dw
 
 
@@ -205,6 +248,17 @@ def column_parallel(x, w, b=None, group=None):
     if b is not None:
         y = y + b.to(x.dtype)
     return y
+
+
+def column_parallel_f32(x, w, group=None):
+    """:func:`column_parallel` with the product kept in f32, never rounded
+    to ``x.dtype``: the LM head's logits. For bf16 or f16 ``x`` the
+    operands are ``x`` and ``w`` cast to ``x.dtype``, multiplied on the
+    tensor cores with f32 sums (:class:`_WideMatmul`); for f32 ``x`` this
+    is :func:`column_parallel`."""
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return column_parallel(x, w, group=group)
+    return _WideMatmul.apply(x, w.to(x.dtype), as_axis(group))
 
 
 def row_parallel(x, w, b=None, group=None):

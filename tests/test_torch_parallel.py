@@ -179,18 +179,12 @@ def test_ring_self_attention_matches_jax(ranks, data, use_flash):
     _same_on_every_rank(ranks, f"self_{use_flash}")
 
 
-def test_pipeline_and_experts_are_not_ported():
-    for fn in (tpar.spmd_pipeline, tpar.moe_ffn, tpar.init_moe_params):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-            fn()
-    assert set(jpar.__all__) <= set(tpar.__all__)
-
-
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_row_parallel_partial_is_the_upcast_product(dtype):
     """The row-parallel partial product (one process, no ranks): value and
     both gradients bitwise those of autograd through ``x.float() @
-    w.float()``, which it replaces to run its GEMMs in TF32 on the card."""
+    w.float()``, which it replaces to run its GEMMs on the card's tensor
+    cores with f32 outputs."""
     import torch
 
     from mxnet_tpu_torch.parallel.tensor_parallel import _UpcastMatmul

@@ -33,6 +33,9 @@ from mxnet_tpu_torch.convert import transformer_params_from_numpy
 from mxnet_tpu_torch.kernels import flash_attention as tfa
 from mxnet_tpu_torch.lr_scheduler import FactorScheduler
 from mxnet_tpu_torch.models import TransformerLM, transformer_lm_config
+from mxnet_tpu_torch.parallel.tensor_parallel import (column_parallel_f32,
+                                                     split_cotangent,
+                                                     wide_product)
 
 torch.set_num_threads(1)
 
@@ -266,11 +269,92 @@ def test_gemms_round_once_whatever_the_process_flag(monkeypatch):
     leaves = {k: v.requires_grad_(True) for k, v in tp.items()}
     tokens, targets = _batch()
     tm.loss(leaves, tokens, targets).backward()
-    # 4 GEMMs a layer and the logits, forward and input gradient (the weight
-    # gradients and the dense attention's f32 einsums call no torch.matmul)
-    assert len(seen) == 2 * (4 * CFG["n_layers"] + 1)
+    # 4 GEMMs a layer, forward and input gradient (the weight gradients and
+    # the dense attention's f32 einsums call no torch.matmul); the logits'
+    # forward, and each of their two gradients as two products of the split
+    # cotangent
+    assert len(seen) == 2 * 4 * CFG["n_layers"] + 1 + 2 * 2
     assert not any(seen)
     assert flags.allow_bf16_reduced_precision_reduction is True
+
+
+def _head_operands(seed=7):
+    """The LM head's operands cut narrow (96 tokens, d_model 32, vocab
+    500): the f32 cotangent of the logits at a softmax gradient's scale,
+    and the bf16 input and weight."""
+    rng = np.random.RandomState(seed)
+    g = torch.from_numpy(rng.randn(96, 500).astype(np.float32) * 1e-3)
+    x, w = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+            .to(torch.bfloat16) for s in ((96, 32), (32, 500)))
+    return g, x, w
+
+
+def _split_products(g, x, w):
+    """dx and dw of the LM head as its backward forms them: the f32 sums of
+    the two products of the cotangent's bf16 parts, before the rounding."""
+    hi, lo = split_cotangent(g, torch.bfloat16)
+    return {"dx": wide_product(hi, w.t()) + wide_product(lo, w.t()),
+            "dw": wide_product(x.t(), hi) + wide_product(x.t(), lo)}
+
+
+@pytest.mark.parametrize("what", ["dx", "dw"])
+def test_split_cotangent_product_is_within_2_to_the_minus_16(what):
+    # the f32 result before its bf16 rounding, against the f64 product;
+    # the cotangent's hi part alone misses the bound
+    g, x, w = _head_operands()
+    got = _split_products(g, x, w)[what]
+    if what == "dx":
+        hi = g.to(torch.bfloat16).double() @ w.double().t()
+        exact = g.double() @ w.double().t()
+        scale = g.double().abs() @ w.double().abs().t()
+    else:
+        hi = x.double().t() @ g.to(torch.bfloat16).double()
+        exact = x.double().t() @ g.double()
+        scale = x.double().abs().t() @ g.double().abs()
+    assert got.dtype == torch.float32
+    assert ((got.double() - exact).abs() <= 2.0 ** -16 * scale).all()
+    assert not ((hi - exact).abs() <= 2.0 ** -16 * scale).all()
+
+
+def test_logits_product_keeps_f32_and_rounds_its_gradients_once():
+    # the bf16 LM head: f32 logits from the bf16 operands, dx and dw the
+    # split products rounded once to bf16 (dw back in the f32 master's type)
+    g, x, w = _head_operands()
+    xs, ws = x.clone().requires_grad_(True), w.float().requires_grad_(True)
+    y = column_parallel_f32(xs, ws)
+    dx, dw = torch.autograd.grad(y, (xs, ws), g)
+    assert y.dtype == torch.float32
+    assert torch.equal(y, x.float() @ w.float())
+    split = _split_products(g, x, w)
+    assert torch.equal(dx, split["dx"].to(torch.bfloat16))
+    assert dw.dtype == torch.float32 and torch.equal(
+        dw, split["dw"].to(torch.bfloat16).float())
+
+
+def test_logits_product_and_gradients_match_jax_in_bf16():
+    # the JAX head: bf16 operands, f32 products and sums
+    # (transformer.py:217-218); its gradients multiply the f32 cotangent by
+    # the bf16 operand in f32 and round once to bf16. The port's split
+    # products sit within 2^-16 of sum |g||w| of the exact ones, as do
+    # JAX's f32 sums, so each gradient element is the JAX one or, where the
+    # two sums straddle a bf16 rounding boundary, one bf16 step (2^-7 of
+    # the value) and those errors from it
+    g, x, w = _head_operands()
+    jx, jw = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (x, w))
+    y, vjp = jax.vjp(lambda a, b: jnp.einsum(
+        "td,dv->tv", a, b, preferred_element_type=jnp.float32), jx, jw)
+    want = [np.asarray(t, np.float32) for t in (y, *vjp(jnp.asarray(
+        g.numpy())))]
+    xs, ws = (t.clone().requires_grad_(True) for t in (x, w))
+    got_y = column_parallel_f32(xs, ws)
+    got = [t.detach().float().numpy() for t in (
+        got_y, *torch.autograd.grad(got_y, (xs, ws), g))]
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-6)
+    gd, xd, wd = (t.double().abs() for t in (g, x, w))
+    for a, b, scale in zip(got[1:], want[1:], (gd @ wd.t(), xd.t() @ gd)):
+        bound = 2.0 ** -7 * np.abs(b) + 2.0 ** -15 * scale.numpy()
+        assert np.all(np.abs(a - b) <= bound)
+        assert np.mean(a == b) > 0.99
 
 
 def test_init_params_scales_and_shapes():

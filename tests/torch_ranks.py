@@ -355,3 +355,117 @@ def sharded_transformer(rank, world, config, params, tokens, targets, cases):
     out["roundtrip"] = convert.gather_transformer_params(
         convert.shard_transformer_params(params, mesh, model), mesh, model)
     return out
+
+
+def pipeline_moe(rank, world, data):
+    """The cases of tests/test_torch_pipeline_moe.py on one rank of 8:
+    ``all_to_all`` over an ep axis of 4, the pipeline over a pp axis of 4
+    (with and without aux), ``moe_ffn`` over ep axes of 2 and 4 at two
+    capacity factors, and 3 steps of the MoE pipeline LM on a dp 2 x pp 2
+    x ep 2 mesh. Each dp line of a mesh computes the whole case; results
+    are gathered into global arrays (the LM's also kept as this rank's
+    blocks)."""
+    import torch
+
+    from mxnet_tpu_torch import convert, cpu
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.models import MoEPipelineLM, moe_pipeline_config
+    from mxnet_tpu_torch.parallel import expert
+    from mxnet_tpu_torch.parallel.mesh import (P, Sharding, all_gather,
+                                               all_reduce_sum, all_to_all)
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+
+    out = {}
+    # all_to_all over ep = 4, and its gradient
+    mesh = par.make_mesh(dp=2, ep=4, devices=cpu())
+    rows = Sharding(mesh, P("ep"))
+    for split, concat in data["a2a_cases"]:
+        x = rows.shard(data["a2a_x"]).requires_grad_(True)
+        y = all_to_all(x, mesh.axis("ep"), split, concat)
+        (g,) = torch.autograd.grad(y, x, rows.shard(data["a2a_r"][
+            (split, concat)]))
+        out[f"a2a_{split}{concat}"] = [_numpy(rows.gather(v))
+                                       for v in (y.detach(), g)]
+
+    # the pipeline over pp = 4: outputs, gradients of the stage weights and
+    # of x (summed over the stages), the aux summed over the stages
+    mesh = par.make_mesh(dp=2, pp=4, devices=cpu())
+    pp = mesh.axis("pp")
+    stages = Sharding(mesh, P("pp"))
+
+    def block(w, m):
+        return torch.tanh(m @ w[0])
+
+    def block_aux(w, m):
+        y = block(w, m)
+        return y, (y * y).mean()
+
+    for with_aux in (False, True):
+        w = stages.shard(data["pipe_w"]).requires_grad_(True)
+        x = t(data["pipe_x"]).requires_grad_(True)
+        pipe = par.spmd_pipeline(block_aux if with_aux else block,
+                                 data["n_micro"], pp, with_aux=with_aux)
+        res = pipe(w, x)
+        y, aux = res if with_aux else (res, torch.zeros(()))
+        loss = (y * t(data["pipe_r"])).sum() + aux
+        dw, dx = torch.autograd.grad(loss, (w, x))
+        out[f"pipe_{with_aux}"] = {
+            "y": _numpy(all_reduce_sum(y.detach(), pp)),
+            "dw": _numpy(stages.gather(dw)),
+            "dx": _numpy(all_reduce_sum(dx, pp)),
+            "aux": _numpy(all_reduce_sum(aux.detach(), pp))}
+
+    # moe_ffn: this rank's tokens and experts of an ep axis; output, aux and
+    # routing per rank (gathered), the gradients of x, gate, w1 and w2
+    for ep in (2, 4):
+        mesh = par.make_mesh(dp=world // ep, ep=ep, devices=cpu())
+        axis = mesh.axis("ep")
+        tok, exp = Sharding(mesh, P("ep")), Sharding(mesh, P("ep"))
+        m = data["moe"]
+        for cf in (2.0, 0.5):
+            x = tok.shard(m["x"]).requires_grad_(True)
+            gate = t(m["gate"]).requires_grad_(True)
+            w1 = exp.shard(m["w1"]).requires_grad_(True)
+            w2 = exp.shard(m["w2"]).requires_grad_(True)
+            y, aux = par.moe_ffn(x, gate, w1, w2, axis, capacity_factor=cf,
+                                 return_aux=True)
+            loss = (y * tok.shard(m["r"])).sum() + aux
+            dx, dg, d1, d2 = torch.autograd.grad(loss, (x, gate, w1, w2))
+            cap = expert.expert_capacity(cf, x.shape[0], m["gate"].shape[1])
+            _, _, onehot, dispatch = expert.route(x.detach(), gate.detach(),
+                                                  cap)
+            kept = dispatch.sum((1, 2)) > 0
+            slot = torch.where(kept, dispatch.sum(1).argmax(-1), -1)
+            out[f"moe_{ep}_{cf}"] = {
+                "y": _numpy(tok.gather(y.detach())),
+                "aux": _numpy(all_gather(aux.detach(), axis)),
+                "expert": _numpy(tok.gather(onehot.argmax(-1))),
+                "slot": _numpy(tok.gather(slot)),
+                "dx": _numpy(tok.gather(dx)),
+                "dgate": _numpy(all_reduce_sum(dg, axis)),
+                "dw1": _numpy(exp.gather(d1)), "dw2": _numpy(exp.gather(d2))}
+
+    # the MoE pipeline LM: 3 steps on dp 2 x pp 2 x ep 2
+    mesh = par.make_mesh(dp=2, pp=2, ep=2, devices=cpu())
+    model = MoEPipelineLM(moe_pipeline_config(**data["lm_config"]))
+    batch = Sharding(mesh, P(("dp", "ep"), None))
+    tokens, targets = (batch.shard(v) for v in data["lm_batch"])
+    params = convert.shard_transformer_params(data["lm_params"], mesh, model)
+    roundtrip = convert.gather_transformer_params(params, mesh, model)
+    moms = {k: torch.zeros_like(v) for k, v in params.items()}
+    step = model.make_train_step(mesh, lr=0.1)
+    losses = []
+    for _ in range(data["lm_steps"]):
+        params, moms, loss = step(params, moms, tokens, targets)
+        losses.append(float(loss))
+    out["lm"] = {"coords": dict(mesh.coords), "losses": losses,
+                 "local": _numpy(params), "roundtrip": roundtrip,
+                 "params": convert.gather_transformer_params(params, mesh,
+                                                             model),
+                 "moms": convert.gather_transformer_params(moms, mesh, model),
+                 "local_batch": _numpy(tokens),
+                 "batch": _numpy(batch.gather(tokens))}
+    return out
+
