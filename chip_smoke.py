@@ -34,6 +34,39 @@ together), and then:
    fell, and the card's gradients at batch 4 against the CPU's and against a
    float64 CPU run, and prints the step time, images per second and one
    step's forward / backward / update split;
+5a. train_bf16: the same ResNet-50 with ``compute_dtype=torch.bfloat16``:
+   one training forward against f32 (loss within BF16_LOSS_BOUND, centred
+   log-probabilities within BF16_LOGITS_BOUND) and two planted faults (the
+   loss head's softmax summed in bf16, gated above the bounds; BatchNorm
+   statistics in bf16, reported), then 8 fit steps plain, plain again and
+   under ``MXNET_TPU_REMAT='unit\\d+_out$'``, and phase train's f32 fit under
+   ``set_matmul_precision("default")`` (TF32); checks fused_adam once a
+   step, the loss falling, the bf16 fit's first loss against f32's, remat's
+   first loss bitwise the plain one's, its update within REMAT_UPDATE_BOUND
+   of the plain one's (the plain run repeated shows cuDNN's run-to-run
+   spread) and its peak memory below the plain run's; prints step time,
+   images per second, the forward / backward / update split and peak
+   memory of each run;
+5b. serve_bf16: phase slice's int8 request under ``"highest"`` and
+   ``"default"`` (int8_matmul launched on every request), and the bf16
+   ``FeedForward.predict`` of the same weights against the f32 logits;
+5c. zoo: full-width AlexNet (LRN, Dropout) and Inception-BN at 3x224x224,
+   batch 32, bf16, fused Adam, 6 steps each (the mean loss of the last
+   three steps below the first three's: Dropout moves each), AlexNet again
+   under remat with a boundary after each LRN and after its last Dropout:
+   the first loss bitwise the plain one's, and one step's gradients with
+   and without remat from the same generator state within
+   ZOO_REMAT_GRAD_BOUND, where a recompute that draws other Dropout masks
+   (a planted fault) lands above it;
+5d. ndarray: the imperative NDArray on the card at 4096 x 4096: arithmetic,
+   in-place operators, slices, writes, reductions and ``dot`` against numpy
+   on the same values (bitwise, or against f64 within 1e-4 / 1e-5), copies
+   across ``gpu(0)``, ``cpu()`` and ``cpu_pinned()``, ``wait_to_read`` and
+   ``waitall`` returning with the stream idle, and ``random.get_state`` /
+   ``set_state`` repeating the card's draws bitwise;
+5e. monitor: a ``Monitor`` on a bf16 ResNet-50 executor for two training
+   steps, one finite statistic for each of the 16 unit outputs, named as
+   ``get_internals().list_outputs()`` names them;
 6. flash: holds the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the card, row by row, and lse at f32's
    precision, at the transformer LM's shape (q, k, v views of one packed
@@ -79,9 +112,11 @@ together), and then:
    wire bytes against ``allreduce_plan``, that both ranks' parameters are
    bitwise equal (from different initial weights: rank 0's broadcast), that
    each rank's loss fell, and that the card's sync is bitwise the same
-   exchange run on CPU copies; prints the step time, global images per
-   second, one step's forward / backward / sync / update split and the
-   sync's kernel and host-transfer time;
+   exchange run on a CPU copy of the flat gradient buffer; prints the step
+   time, global images per second, one step's forward / backward / sync /
+   update split and the sync's kernel, host-transfer and gloo time and the
+   time of the gradient buffer's views (the gradients are views of one
+   flat buffer that backward accumulates into, the residual add included);
 11. lm_mesh: two rank processes (spawn, gloo through pinned host buffers)
    share the card and train the full-width transformer LM (global batch 8
    x 2048 tokens, bf16) for 4 steps each through ``make_train_step(mesh,
@@ -117,17 +152,22 @@ together), and then:
    rank with the gloo time;
 13. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
    main path, error, times and bound (the flash kernels and fused_adam also
-   their launches in lm_mesh; every kernel its launches in moe_mesh, 0);
+   their launches in lm_mesh; fused_adam its launches in train_bf16 and zoo;
+   every kernel its launches in moe_mesh, 0);
 14. ends with ``{"ok": true, "device": {...}}``.
 
-Any failed check raises, and the script exits non-zero without the last
-line. Without CUDA it exits non-zero at once. It imports nothing of JAX or of
-the JAX package.
+Every phase that holds the card to a reference runs with
+``set_matmul_precision("highest")`` (f32 contractions, TF32 off); the
+slice 9 phases time ``"default"`` (TF32) beside it. Any failed check
+raises, and the script exits non-zero without the last line. Without CUDA
+it exits non-zero at once. It imports nothing of JAX or of the JAX
+package.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -150,6 +190,32 @@ KERNEL_SOURCES = ("int8_matmul", "fused_adam", "flash_attention",
                   "comm_kernels")
 TRAIN_STEPS = 8
 LEARNING_RATE = 1e-3
+# slice 9: bf16 compute_dtype, remat, the zoo, the imperative NDArray and
+# Monitor. Remat boundaries: the reference's own example for the ResNet
+# (mxnet_tpu/executor.py:125); for AlexNet one after each LRN and one after
+# the last Dropout, so both Dropouts are recomputed in the backward.
+REMAT_PATTERN = r"unit\d+_out$"
+ALEXNET_REMAT = r"norm\d$|drop2$"
+ZOO_STEPS = 6
+# bf16 against f32 ("highest") on the same weights and batch, one training
+# forward of ResNet-50: the loss per image, relative, and the centred
+# log-probabilities, relative Frobenius. A CPU rehearsal at batch 4 read
+# 6.1e-4 and 7.8e-3; the planted bf16 softmax (its sum carried in bf16)
+# read 7.0e-2 on the loss, and BatchNorm statistics taken in bf16 1.3e-3 and
+# 1.3e-2 (within both bounds: torch's reductions carry f32 sums even for
+# bf16 inputs, so that fault only rounds the statistics).
+BF16_LOSS_BOUND = 5e-3
+BF16_LOGITS_BOUND = 3e-2
+# remat against the plain bf16 fit: the parameters' update after 8 steps,
+# relative Frobenius over all leaves, and AlexNet's gradients per leaf after
+# one step from the same generator state (cuDNN's backward is not bitwise
+# run to run; a recompute with other Dropout masks moves fc1's and fc2's
+# gradients by O(1))
+REMAT_UPDATE_BOUND = 5e-2
+ZOO_REMAT_GRAD_BOUND = 5e-2
+ND_SHAPE = (4096, 4096)
+MONITOR_PATTERN = r".*unit\d+_out_output$"
+MONITOR_STEPS = 2
 # tests/test_pallas_kernels.py:259, the JAX package's own odd leaf set
 ODD_SHAPES = {"w1": (64, 33), "b1": (33,), "w2": (7, 5), "s": ()}
 # the transformer LM: batch x sequence of the full-width runs, requests
@@ -378,8 +444,7 @@ def phase_slice(torch, mt, k8):
     from mxnet_tpu_torch.convert import random_params
     from mxnet_tpu_torch.models import resnet50
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    mt.set_matmul_precision("highest")
     net = resnet50(num_classes=1000)
     data_shape = (BATCH, 3, 224, 224)
     args, aux = random_params(net, SEED, data=data_shape)
@@ -609,51 +674,37 @@ def step_loss_metric(mt):
     return StepLoss()
 
 
-def phase_train(torch, mt, kfa):
-    """Full-width ResNet-50 trained through FeedForward.fit on the card."""
-    from mxnet_tpu_torch.convert import random_params
-    from mxnet_tpu_torch.models import resnet50
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    net = resnet50(num_classes=1000)
-    shape = (BATCH, 3, 224, 224)
-    args, aux = random_params(net, SEED, data=shape)
-    rng = np.random.default_rng(SEED + 2)
-    batch_x = rng.standard_normal(shape, np.float32)
-    batch_y = rng.integers(0, 1000, BATCH).astype(np.float32)
-    # one fixed batch every step: the run overfits it, so its loss must fall
+def fit_one_batch(torch, mt, kfa, net, args, aux, batch_x, batch_y,
+                  steps=None, **model_kw):
+    """``steps`` steps of ``FeedForward(ctx=gpu(0), optimizer="adam",
+    fused=True)`` on one fixed batch (the run overfits it), then one step
+    split into its phases on the card's clock (median of 5). Returns the
+    model and a row: fused_adam's launches in the fit, each step's loss,
+    step ms, images per second, the split and the fit's peak memory (the
+    peak above what was allocated when it started)."""
+    steps = steps or TRAIN_STEPS
+    shape = batch_x.shape
     X = np.ascontiguousarray(np.broadcast_to(
-        batch_x, (TRAIN_STEPS,) + shape).reshape((-1,) + shape[1:]))
-    Y = np.tile(batch_y, TRAIN_STEPS)
+        batch_x, (steps,) + shape).reshape((-1,) + shape[1:]))
+    Y = np.tile(batch_y, steps)
     metric, stamps = step_loss_metric(mt), []
     model = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1, optimizer="adam",
                            fused=True, learning_rate=LEARNING_RATE,
-                           arg_params=args, aux_params=aux)
+                           arg_params=args, aux_params=aux, **model_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     # the main path: the kernel's count is read around the fit
     kfa.fused_adam.launches = 0
-    model.fit(mt.io.NDArrayIter(X, Y, batch_size=BATCH), eval_metric=metric,
+    model.fit(mt.io.NDArrayIter(X, Y, batch_size=len(batch_x)),
+              eval_metric=metric,
               batch_end_callback=lambda p: stamps.append(time.perf_counter()))
     launches = {"fused_adam": kfa.fused_adam.launches}
-    table_builds = model._optimizer_obj._leaf_table.builds
-    require(launches["fused_adam"] == TRAIN_STEPS,
-            f"fused_adam launched {launches['fused_adam']} times in "
-            f"{TRAIN_STEPS} steps (one whole-tree launch per step)")
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     losses = metric.steps
-    require(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
-            f"finite loss at every step: {losses}")
-    require(losses[-1] < losses[0],
-            f"the loss of the overfit batch fell: {losses[0]} -> {losses[-1]}")
-    for k, v in model.arg_params.items():
-        v = v.numpy()
-        require(np.isfinite(v).all(), f"parameter {k} is finite")
-        require(not np.array_equal(v, args[k]), f"parameter {k} changed")
-    for k, v in model.aux_params.items():
-        require(np.isfinite(v.numpy()).all(), f"auxiliary state {k} is finite")
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     median_ms = statistics.median(step_ms)
 
-    # one step split into its phases, on the card's clock
     state = model._train_state
     arrays = {"data": torch.from_numpy(batch_x).cuda(),
               "softmax_label": torch.from_numpy(batch_y).cuda()}
@@ -670,7 +721,62 @@ def phase_train(torch, mt, kfa):
         torch.cuda.synchronize()
         for key, (a, b) in zip(split, zip(ev, ev[1:])):
             split[key].append(a.elapsed_time(b))
-    split = {k: statistics.median(v) for k, v in split.items()}
+    row = {"launches": launches, "loss_first": losses[0],
+           "loss_last": losses[-1], "losses": list(losses),
+           "step_ms": step_ms, "step_ms_median": median_ms,
+           "images_per_s": len(batch_x) * 1e3 / median_ms,
+           "split": {k: statistics.median(v) for k, v in split.items()},
+           "peak_memory_gb": peak_gb}
+    return model, row
+
+
+def require_trained(row, steps, what, halves=False):
+    """fused_adam once a step, a finite loss at every step that fell on
+    the overfit batch: the last below the first, or with ``halves`` (a net
+    with Dropout, whose loss jumps from step to step) the mean of the
+    second half below the mean of the first."""
+    require(row["launches"]["fused_adam"] == steps,
+            f"{what}: fused_adam launched {row['launches']['fused_adam']} "
+            f"times in {steps} steps (one whole-tree launch per step)")
+    losses = row["losses"]
+    require(len(losses) == steps and np.isfinite(losses).all(),
+            f"{what}: finite loss at every step: {losses}")
+    half = len(losses) // 2
+    fell = np.mean(losses[-half:]) < np.mean(losses[:half]) if halves \
+        else losses[-1] < losses[0]
+    require(fell, f"{what}: the loss of the overfit batch fell: {losses}")
+
+
+def resnet50_case():
+    """The training phases' ResNet-50, seeded weights and one batch."""
+    from mxnet_tpu_torch.convert import random_params
+    from mxnet_tpu_torch.models import resnet50
+
+    net = resnet50(num_classes=1000)
+    shape = (BATCH,) + IMAGE
+    args, aux = random_params(net, SEED, data=shape)
+    rng = np.random.default_rng(SEED + 2)
+    batch_x = rng.standard_normal(shape, np.float32)
+    batch_y = rng.integers(0, 1000, BATCH).astype(np.float32)
+    return net, args, aux, batch_x, batch_y
+
+
+def phase_train(torch, mt, kfa):
+    """Full-width ResNet-50 trained through FeedForward.fit on the card."""
+    mt.set_matmul_precision("highest")
+    net, args, aux, batch_x, batch_y = resnet50_case()
+    shape = batch_x.shape
+    model, fit_row = fit_one_batch(torch, mt, kfa, net, args, aux, batch_x,
+                                   batch_y)
+    launches = fit_row["launches"]
+    table_builds = model._optimizer_obj._leaf_table.builds
+    require_trained(fit_row, TRAIN_STEPS, "train")
+    for k, v in model.arg_params.items():
+        v = v.numpy()
+        require(np.isfinite(v).all(), f"parameter {k} is finite")
+        require(not np.array_equal(v, args[k]), f"parameter {k} changed")
+    for k, v in model.aux_params.items():
+        require(np.isfinite(v.numpy()).all(), f"auxiliary state {k} is finite")
 
     # the card against the CPU: one forward+backward at batch 4, the same
     # params and images; per-leaf relative Frobenius error of the gradients.
@@ -723,15 +829,13 @@ def phase_train(torch, mt, kfa):
         require(pick("card_vs_f64") <= factor * pick("cpu_vs_f64"),
                 f"card gradients {pick('card_vs_f64')} from f64 ({stat}) "
                 f"against the CPU's {pick('cpu_vs_f64')}")
-    emit({"phase": "train", "model": "resnet50", "batch": BATCH,
-          "image": [3, 224, 224], "classes": 1000, "steps": TRAIN_STEPS,
-          "optimizer": "adam", "fused": True, "learning_rate": LEARNING_RATE,
-          "launches": launches, "leaf_table_builds": table_builds,
-          "loss_first": losses[0],
-          "loss_last": losses[-1], "step_ms": step_ms,
-          "step_ms_median": median_ms,
-          "images_per_s": BATCH * 1e3 / median_ms, "split": split})
-    return launches
+    row = {"phase": "train", "model": "resnet50", "batch": BATCH,
+           "image": [3, 224, 224], "classes": 1000, "steps": TRAIN_STEPS,
+           "optimizer": "adam", "fused": True, "learning_rate": LEARNING_RATE,
+           "precision": "highest", "leaf_table_builds": table_builds,
+           **{k: v for k, v in fit_row.items() if k != "losses"}}
+    emit(row)
+    return launches, row
 
 
 def flash_row_bound(torch, dtype):
@@ -942,7 +1046,7 @@ def phase_lm_serve(torch, mt, tfa):
     from mxnet_tpu_torch.models import TransformerLM, transformer_lm_config
 
     # the f32 card-vs-CPU check below; the bf16 GEMMs' rounding is the model's
-    torch.backends.cuda.matmul.allow_tf32 = False
+    mt.set_matmul_precision("highest")
     cfg = transformer_lm_config()
     model = TransformerLM(cfg)
     params = model.init_params(SEED, ctx=mt.gpu(0))
@@ -1079,6 +1183,7 @@ def phase_lm_head(torch):
     the split products rounded once to bf16; and the forward and backward
     timed beside the f32 CUDA-core route they replace (upcast operands, TF32
     off)."""
+    from mxnet_tpu_torch import set_matmul_precision
     from mxnet_tpu_torch.parallel.tensor_parallel import (
         column_parallel, column_parallel_f32, split_cotangent, wide_product)
 
@@ -1120,7 +1225,7 @@ def phase_lm_head(torch):
         torch.autograd.grad(column_parallel(xf, ws.to(bf16).float()),
                             (xf, ws), g)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_matmul_precision("highest")
     times = {"f32_route_ms": time_ms(torch, old, reps=5),
              "tensor_core_ms": time_ms(torch, new, reps=5)}
     times["f32_route_again_ms"] = time_ms(torch, old, reps=5)
@@ -1433,6 +1538,18 @@ def dp_train_rank(torch, rank, world, mode):
     hosts = {"_to_host": "sync_d2h_ms", "_wire": "sync_gloo_ms",
              "_to_card": "sync_h2d_ms"}
     host_fns = {n: getattr(allreduce, n) for n in hosts}
+    # the gradients are views of one flat buffer (C.1.4): the flatten is
+    # pointing each .grad at its view before backward, the residual add is
+    # autograd's accumulation into the buffer (inside backward_ms), the
+    # unflatten the views of the exchange's result. Views launch no kernel:
+    # their host clock, without synchronizes, is their whole cost
+    views_fn = comm.flat_views
+
+    def timed_views(*a, **kw):
+        t0 = time.perf_counter()
+        result = views_fn(*a, **kw)
+        host_s["flat_views_ms"] += time.perf_counter() - t0
+        return result
 
     def timed_kernel(fn):
         # wraps copies ``launches``: the wrapper's own count takes the adds
@@ -1459,15 +1576,17 @@ def dp_train_rank(torch, rank, world, mode):
 
     split = {k: [] for k in ("forward_ms", "backward_ms", "peer_wait_ms",
                              "sync_ms", "update_ms", "sync_kernels_ms",
-                             *hosts.values())}
+                             "flat_views_ms", *hosts.values())}
     for name, fn in originals.items():
         setattr(ck, name, timed_kernel(fn))
     for name, key in hosts.items():
         setattr(allreduce, name, timed_host(host_fns[name], key))
+    comm.flat_views = timed_views
     try:
         for _ in range(3):
             kernel_events.clear()
-            host_s.update({k: 0.0 for k in hosts.values()})
+            host_s.update({k: 0.0 for k in (*hosts.values(),
+                                             "flat_views_ms")})
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
             ev[0].record()
             state.forward(arrays)
@@ -1497,24 +1616,36 @@ def dp_train_rank(torch, rank, world, mode):
             setattr(ck, name, fn)
         for name, fn in host_fns.items():
             setattr(allreduce, name, fn)
+        comm.flat_views = views_fn
     out["split"] = {k: statistics.median(v) for k, v in split.items()}
 
-    # the same exchange on CPU copies of this step's gradients and residual:
-    # the kernels' plain versions and the gloo exchange of CPU tensors
+    # the same exchange on a CPU copy of this step's flat buffer (the
+    # gradients with the residual added): the kernels' plain versions and
+    # the gloo exchange of CPU tensors
     state.forward(arrays)
     state.backward()
-    grads_cpu = {k: g.detach().cpu() for k, g in state.grads.items()}
-    resid_cpu = None if sync.residual is None else sync.residual.cpu()
+    total_cpu = sync.flat.cpu()
     state.sync()
     card = ({k: g.detach().cpu() for k, g in state.grads.items()},
-            None if sync.residual is None else sync.residual.cpu())
-    host = comm.error_feedback_allreduce(
-        grads_cpu, resid_cpu, sync.spec, axis_size=world, average=False,
-        kernels=sync.kernels)
+            sync.residual.cpu())
+    out_cpu, resid_cpu = comm.error_feedback_exchange(
+        total_cpu, sync.spec, axis_size=world, kernels=sync.kernels)
+    host = comm.flat_views(out_cpu, sync.shapes)
+    # the copies the fit path no longer makes (the tree form's flatten,
+    # residual add and unflatten), on this step's gradients, card's clock
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(3):
+        flat, meta = allreduce._flatten(state.grads)
+        total, size = allreduce._pad_flat(flat, sync.spec, world)
+        allreduce._unflatten(total.add_(sync.residual[0])[:size], meta)
+    ev[1].record()
+    torch.cuda.synchronize()
+    out["tree_copies_ms"] = ev[0].elapsed_time(ev[1]) / 3
     state.update(LEARNING_RATE)
     out["card_vs_cpu_sync_bitwise"] = (
-        all(bits_equal(torch, card[0][k], host[0][k]) for k in card[0])
-        and (card[1] is None or bits_equal(torch, card[1], host[1])))
+        all(bits_equal(torch, card[0][k], host[k]) for k in card[0])
+        and bits_equal(torch, card[1], resid_cpu))
     out["residual_abs_max"] = float(card[1].abs().max())
     del model, state, sync, arrays
     torch.cuda.empty_cache()
@@ -1538,10 +1669,11 @@ def rank_process(body, rank, world, init_method, timeout_s, queue):
     import torch.distributed as dist
 
     try:
+        from mxnet_tpu_torch import set_matmul_precision
+
         torch.cuda.set_device(0)
         torch.set_num_threads(4)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        set_matmul_precision("highest")
         dist.init_process_group(
             "gloo", init_method=init_method, rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=timeout_s))
@@ -1666,7 +1798,8 @@ def phase_dp_train(torch, comm):
               "step_ms": r0["step_ms"], "step_ms_median": median_ms,
               "global_images_per_s": DP_WORLD * BATCH * 1e3 / median_ms,
               "split_rank0": r0["split"],
-              "split_rank1": ranks[1][mode]["split"]})
+              "split_rank1": ranks[1][mode]["split"],
+              "tree_copies_ms_rank0": r0["tree_copies_ms"]})
         for name, count in r0["launches"].items():
             if name != "fused_adam" and DP_LAUNCHES[mode].get(name):
                 launches[name] = count
@@ -2461,6 +2594,477 @@ def phase_moe_mesh(torch):
     return {n: [r["launches"][n] for r in ranks] for n in r0["launches"]}
 
 
+def first_forward(torch, mt, net, args, aux, batch_x, batch_y, dtype):
+    """One training-mode forward of the seeded weights on the card, in
+    ``dtype`` (auxiliary states and labels f32), no update: the loss per
+    image and the centred log-probabilities."""
+    from mxnet_tpu_torch.executor import _build_graph_fn
+    from mxnet_tpu_torch.ops import OPS
+
+    dev = mt.gpu(0).torch_device
+    values = {k: torch.from_numpy(v).to(dev).to(dtype)
+              for k, v in args.items()}
+    values["data"] = torch.from_numpy(batch_x).to(dev).to(dtype)
+    values["softmax_label"] = torch.from_numpy(batch_y).to(dev)
+    with torch.no_grad():
+        outs, _ = _build_graph_fn(net, is_train=True)(
+            values, {k: torch.from_numpy(v).to(dev) for k, v in aux.items()})
+    p = outs[0].float()
+    loss = float(OPS.create("SoftmaxOutput").loss_value(
+        p, values["softmax_label"])) / len(batch_x)
+    return loss, centered_logits(p.cpu().numpy())
+
+
+def bf16_softmax_fault(torch):
+    """A planted fault the reference's rounding points forbid
+    (mxnet_tpu/ops/loss.py:24): the loss head's softmax taken in bf16, its
+    sum carried in bf16 across the classes."""
+    def softmax(x, axis):
+        e = torch.exp(x - x.amax(dim=axis, keepdim=True))
+        total = torch.zeros_like(e.select(axis, 0))
+        for i in range(e.shape[axis]):
+            total = total + e.select(axis, i)
+        return e / total.unsqueeze(axis)
+
+    return softmax
+
+
+def bf16_stats_fault(torch, nn):
+    """BatchNorm's batch statistics taken in bf16 (mxnet_tpu/ops/nn.py:
+    425-443 takes them in f32)."""
+    def stats(x, eps, ch):
+        axes = nn._bn_reduce_axes(x.ndim, ch)
+        n = x.numel() // x.shape[ch]
+        mean = torch.sum(x, dim=axes) / n
+        var = torch.clamp_min(torch.sum(x * x, dim=axes) / n - mean * mean,
+                              0.0)
+        return mean.float(), var.float(), torch.rsqrt(var + eps).float()
+
+    return stats
+
+
+def update_gap(torch, start, a, b):
+    """|a - b| / |a - start| over all leaves (relative Frobenius of the
+    difference of two runs' updates from the same start)."""
+    num = den = 0.0
+    for k, v0 in start.items():
+        pa, pb = a[k].double(), b[k].double()
+        num += float(((pa - pb) ** 2).sum())
+        den += float(((pa - torch.from_numpy(v0).double()) ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def set_remat(pattern):
+    import os
+
+    if pattern is None:
+        os.environ.pop("MXNET_TPU_REMAT", None)
+    else:
+        os.environ["MXNET_TPU_REMAT"] = pattern
+
+
+def phase_train_bf16(torch, mt, kfa, f32_row):
+    """ResNet-50 with bf16 compute_dtype on the card: the first forward
+    against f32, planted faults, 8 fit steps without and with remat, and
+    phase train's f32 fit under the "default" precision (TF32)."""
+    from mxnet_tpu_torch.ops import loss as tloss
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    net, args, aux, batch_x, batch_y = resnet50_case()
+    bf16 = torch.bfloat16
+    mt.set_matmul_precision("highest")
+    set_remat(None)
+    l32, lp32 = first_forward(torch, mt, net, args, aux, batch_x, batch_y,
+                              torch.float32)
+
+    def against_f32():
+        l16, lp16 = first_forward(torch, mt, net, args, aux, batch_x, batch_y,
+                                  bf16)
+        return {"loss_rel_err": abs(l16 - l32) / l32,
+                "logits_rel_err": rel_fro(lp16, lp32)}
+
+    def above(reading):
+        return reading["loss_rel_err"] > BF16_LOSS_BOUND or \
+            reading["logits_rel_err"] > BF16_LOGITS_BOUND
+
+    healthy = against_f32()
+    require(not above(healthy),
+            f"bf16 first forward against f32: {healthy} (bounds "
+            f"{BF16_LOSS_BOUND}, {BF16_LOGITS_BOUND})")
+    faults = {}
+    for name, module, attr, fault in (
+            ("softmax_bf16", tloss, "_softmax", bf16_softmax_fault(torch)),
+            ("bn_stats_bf16", tnn, "_bn_stats", bf16_stats_fault(torch, tnn))):
+        original = getattr(module, attr)
+        setattr(module, attr, fault)
+        try:
+            faults[name] = against_f32()
+        finally:
+            setattr(module, attr, original)
+    require(above(faults["softmax_bf16"]),
+            f"planted fault (softmax in bf16) reads {faults['softmax_bf16']}, "
+            "inside the bounds")
+
+    runs, params = {}, {}
+    for tag, pattern, precision, dtype in (
+            ("bf16", None, "highest", bf16),
+            ("bf16_again", None, "highest", bf16),
+            ("bf16_remat", REMAT_PATTERN, "highest", bf16),
+            ("f32_default", None, "default", None)):
+        set_remat(pattern)
+        mt.set_matmul_precision(precision)
+        model, runs[tag] = fit_one_batch(
+            torch, mt, kfa, net, args, aux, batch_x, batch_y,
+            compute_dtype=dtype)
+        require_trained(runs[tag], TRAIN_STEPS, f"train_bf16 {tag}")
+        # the host copies after the fit (not the split's further steps)
+        params[tag] = model.arg_params
+        del model  # each fit's peak counts its own tensors only
+        gc.collect()
+        for k, v in params[tag].items():
+            require(torch.isfinite(v).all(), f"{tag}: parameter {k} finite")
+            require(v.dtype == torch.float32, f"{tag}: {k} stays f32")
+    set_remat(None)
+    mt.set_matmul_precision("highest")
+    fit_loss_err = abs(runs["bf16"]["loss_first"] - f32_row["loss_first"]) \
+        / f32_row["loss_first"]
+    require(fit_loss_err < BF16_LOSS_BOUND,
+            f"bf16 fit's first loss {runs['bf16']['loss_first']} against "
+            f"f32's {f32_row['loss_first']}: {fit_loss_err}")
+    require(runs["bf16_remat"]["loss_first"] == runs["bf16"]["loss_first"],
+            "remat's first-step loss is bitwise the plain one's: "
+            f"{runs['bf16_remat']['loss_first']} vs {runs['bf16']['loss_first']}")
+    gaps = {"remat_vs_plain": update_gap(torch, args, params["bf16_remat"],
+                                         params["bf16"]),
+            "plain_vs_plain": update_gap(torch, args, params["bf16_again"],
+                                         params["bf16"])}
+    require(gaps["remat_vs_plain"] < REMAT_UPDATE_BOUND,
+            f"remat's update against the plain one's: {gaps}")
+    require(runs["bf16_remat"]["peak_memory_gb"]
+            < runs["bf16"]["peak_memory_gb"],
+            "remat keeps fewer activations: peak "
+            f"{runs['bf16_remat']['peak_memory_gb']} GB against "
+            f"{runs['bf16']['peak_memory_gb']} GB")
+    row = {"phase": "train_bf16", "model": "resnet50", "batch": BATCH,
+           "steps": TRAIN_STEPS, "optimizer": "adam", "fused": True,
+           "remat_pattern": REMAT_PATTERN,
+           "first_forward_against_f32": healthy, "planted_faults": faults,
+           "bounds": {"loss": BF16_LOSS_BOUND, "logits": BF16_LOGITS_BOUND,
+                      "remat_update": REMAT_UPDATE_BOUND},
+           "fit_first_loss_rel_err": fit_loss_err, "update_gaps": gaps,
+           "f32_highest": {k: f32_row[k] for k in (
+               "step_ms_median", "images_per_s", "split", "peak_memory_gb",
+               "loss_first", "loss_last")},
+           **{tag: {k: v for k, v in r.items() if k != "losses"}
+              for tag, r in runs.items()}}
+    emit(row)
+    return {tag: r["launches"]["fused_adam"] for tag, r in runs.items()}
+
+
+def phase_serve_bf16(torch, mt, k8):
+    """Phase slice's int8 request under both precisions, and the bf16
+    FeedForward.predict of the same weights against the f32 logits."""
+    from mxnet_tpu_torch.convert import random_params
+    from mxnet_tpu_torch.models import resnet50
+
+    net = resnet50(num_classes=1000)
+    data_shape = (BATCH,) + IMAGE
+    args, aux = random_params(net, SEED, data=data_shape)
+    image = np.random.default_rng(SEED + 1).standard_normal(data_shape,
+                                                            np.float32)
+    gpu = mt.gpu(0)
+
+    def serve(fn):
+        outs, lat = [], []
+        fn()  # warm-up: cuDNN's algorithm choice at this precision
+        torch.cuda.synchronize()
+        for _ in range(REQUESTS):
+            t0 = time.perf_counter()
+            outs.append(fn())
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return outs, lat
+
+    p8 = mt.Predictor(net, args, aux, ctx=gpu, quantize="int8")
+    row, int8_out = {"phase": "serve_bf16", "model": "resnet50",
+                     "batch": BATCH, "requests": REQUESTS}, {}
+    for precision in ("highest", "default"):
+        mt.set_matmul_precision(precision)
+        k8.int8_matmul.launches = 0
+        outs, lat = serve(lambda: p8.forward(data=image).get_output(0))
+        launches = k8.int8_matmul.launches
+        require(launches == REQUESTS + 1,
+                f"int8_matmul launched {launches} times in {REQUESTS + 1} "
+                f"int8 requests under {precision}")
+        require(all(np.isfinite(o).all() and o.shape == (BATCH, 1000)
+                    for o in outs), f"int8 outputs finite ({precision})")
+        int8_out[precision] = outs[0]
+        med = statistics.median(lat)
+        row[f"int8_{precision}"] = {
+            "request_ms": lat, "request_ms_median": med,
+            "images_per_s": BATCH * 1e3 / med, "int8_matmul_launches":
+            launches}
+    row["int8_default_vs_highest_logits_rel_err"] = rel_fro(
+        centered_logits(int8_out["default"]),
+        centered_logits(int8_out["highest"]))
+    mt.set_matmul_precision("highest")
+    ref = mt.Predictor(net, args, aux, ctx=gpu).forward(
+        data=image).get_output(0)
+    model = mt.FeedForward(net, ctx=gpu, arg_params=args, aux_params=aux,
+                           compute_dtype=torch.bfloat16)
+    outs, lat = serve(lambda: model.predict(image, batch_size=BATCH))
+    err = rel_fro(centered_logits(outs[0]), centered_logits(ref))
+    require(outs[0].dtype == np.float32 and np.isfinite(outs[0]).all(),
+            "bf16 predict returns finite f32")
+    require(err < BF16_LOGITS_BOUND,
+            f"bf16 predict against the f32 logits: {err}")
+    med = statistics.median(lat)
+    row["bf16_predict"] = {"request_ms": lat, "request_ms_median": med,
+                           "images_per_s": BATCH * 1e3 / med,
+                           "logits_rel_err_vs_f32": err,
+                           "bound": BF16_LOGITS_BOUND}
+    emit(row)
+
+
+def remat_grads(torch, mt, net, args, aux, batch_x, batch_y, pattern):
+    """One bf16 training forward and backward of ``net`` with the card's
+    generator at SEED: the f32 masters' gradients."""
+    from mxnet_tpu_torch.executor import _build_graph_fn
+
+    set_remat(pattern)
+    dev = mt.gpu(0).torch_device
+    params = {k: torch.from_numpy(v).to(dev).requires_grad_(True)
+              for k, v in args.items()}
+    values = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    values["data"] = torch.from_numpy(batch_x).to(dev).to(torch.bfloat16)
+    values["softmax_label"] = torch.from_numpy(batch_y).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    outs, _ = _build_graph_fn(net, is_train=True)(
+        values, {k: torch.from_numpy(v).to(dev) for k, v in aux.items()}, gen)
+    grads = torch.autograd.grad(outs[0].float().sum(), list(params.values()))
+    set_remat(None)
+    return {k: g.double() for k, g in zip(params, grads)}
+
+
+def checkpointed_without_restore(torch):
+    """A planted fault: remat whose recompute draws from the generator as
+    it stands, not from the state of its forward."""
+    def checkpointed(block_fn, ext_vals, aux_vals, rng, mask):
+        return torch.utils.checkpoint.checkpoint(
+            lambda *ext: block_fn(ext, aux_vals, rng, mask), *ext_vals,
+            use_reentrant=False, preserve_rng_state=False)
+
+    return checkpointed
+
+
+def phase_zoo(torch, mt, kfa):
+    """Full-width AlexNet (LRN, Dropout) and Inception-BN, bf16, fused
+    Adam, a few steps each; AlexNet again under remat."""
+    from mxnet_tpu_torch import executor as texecutor
+    from mxnet_tpu_torch.convert import random_params
+    from mxnet_tpu_torch.models import alexnet, inception_bn
+
+    mt.set_matmul_precision("highest")
+    shape = (BATCH,) + IMAGE
+    rng = np.random.default_rng(SEED + 7)
+    batch_x = rng.standard_normal(shape, np.float32)
+    batch_y = rng.integers(0, 1000, BATCH).astype(np.float32)
+    row, launches = {"phase": "zoo", "batch": BATCH, "steps": ZOO_STEPS,
+                     "compute_dtype": "bfloat16"}, {}
+    nets = {"alexnet": alexnet(num_classes=1000),
+            "inception_bn": inception_bn(num_classes=1000)}
+    for tag, name, pattern in (("alexnet", "alexnet", None),
+                               ("inception_bn", "inception_bn", None),
+                               ("alexnet_remat", "alexnet", ALEXNET_REMAT)):
+        net = nets[name]
+        args, aux = random_params(net, SEED, data=shape)
+        set_remat(pattern)
+        mt.random.seed(SEED)
+        _, r = fit_one_batch(torch, mt, kfa, net, args, aux, batch_x,
+                             batch_y, steps=ZOO_STEPS,
+                             compute_dtype=torch.bfloat16)
+        set_remat(None)
+        require_trained(r, ZOO_STEPS, f"zoo {tag}", halves=True)
+        launches[tag] = r["launches"]["fused_adam"]
+        row[tag] = {k: v for k, v in r.items() if k != "losses"}
+        row[tag]["losses"] = r["losses"]
+    require(row["alexnet_remat"]["loss_first"] == row["alexnet"]["loss_first"],
+            "AlexNet's first-step loss under remat is bitwise the plain one's "
+            "(the same Dropout masks in the forward)")
+    # the recompute's Dropout masks: one step's gradients with and without
+    # remat, from the same generator state, leaf by leaf
+    net = nets["alexnet"]
+    args, aux = random_params(net, SEED, data=shape)
+    plain = remat_grads(torch, mt, net, args, aux, batch_x, batch_y, None)
+    again = remat_grads(torch, mt, net, args, aux, batch_x, batch_y, None)
+    remat = remat_grads(torch, mt, net, args, aux, batch_x, batch_y,
+                        ALEXNET_REMAT)
+    original = texecutor._checkpointed
+    texecutor._checkpointed = checkpointed_without_restore(torch)
+    try:
+        fault = remat_grads(torch, mt, net, args, aux, batch_x, batch_y,
+                            ALEXNET_REMAT)
+    finally:
+        texecutor._checkpointed = original
+
+    def worst(got):
+        errs = {k: float((got[k] - plain[k]).norm()
+                         / max(float(plain[k].norm()), 1e-30))
+                for k in plain}
+        k = max(errs, key=errs.get)
+        return {"leaf": k, "rel_err": errs[k]}
+
+    grads = {"remat_vs_plain": worst(remat), "plain_vs_plain": worst(again),
+             "fault_vs_plain": worst(fault),
+             "bound": ZOO_REMAT_GRAD_BOUND}
+    require(grads["remat_vs_plain"]["rel_err"] < ZOO_REMAT_GRAD_BOUND,
+            f"AlexNet's remat gradients against the plain ones: {grads}")
+    require(grads["fault_vs_plain"]["rel_err"] > ZOO_REMAT_GRAD_BOUND,
+            f"planted fault (recompute with other masks) inside the bound: "
+            f"{grads}")
+    row["alexnet_remat_grads"] = grads
+    row["remat_pattern"] = ALEXNET_REMAT
+    emit(row)
+    return launches
+
+
+def phase_ndarray(torch, mt):
+    """The imperative NDArray on the card (SURVEY 3.2), against numpy on the
+    same values, and the generator's state round trip."""
+    gpu = mt.gpu(0)
+    mt.random.seed(SEED)
+    a = mt.nd.ones(ND_SHAPE, ctx=gpu)
+    b = mt.random.uniform(-1.0, 1.0, ND_SHAPE, ctx=gpu)
+    an, bn = a.asnumpy(), b.asnumpy()
+    require(a.context == gpu and b.data.is_cuda, "arrays on the card")
+    exact = {
+        "add": (a + b, an + bn), "sub": (a - b, an - bn),
+        "mul": (b * b, bn * bn), "div": (b / (a + 1.0), bn / (an + 1.0)),
+        "scalar": (b * 2.5 + 1.0, bn * np.float32(2.5) + np.float32(1.0)),
+        "rsub": (1.0 - b, np.float32(1.0) - bn), "neg": (-b, -bn),
+        "max_fn": (mt.nd.maximum(a, b), np.maximum(an, bn)),
+        "clip": (mt.nd.clip(b, -0.5, 0.5), np.clip(bn, -0.5, 0.5)),
+        "argmax_channel": (mt.nd.argmax_channel(b),
+                           bn.argmax(1).astype(np.float32)),
+        "max": (mt.nd.max(b), bn.max().reshape(1)),
+        "min": (mt.nd.min(b), bn.min().reshape(1)),
+    }
+    c = b.copy()
+    c += a
+    c *= 3.0
+    c -= b
+    c /= 2.0
+    cn = ((bn + an) * np.float32(3.0) - bn) / np.float32(2.0)
+    exact["inplace"] = (c, cn)
+    d = b.copy()
+    d[100:200] = 0.5
+    dn = bn.copy()
+    dn[100:200] = 0.5
+    exact["setitem"] = (d, dn)
+    exact["slice"] = (b[100:110, 7:9], bn[100:110, 7:9])
+    half = (ND_SHAPE[0] // 2, ND_SHAPE[1] * 2)
+    exact["reshape_T"] = (b.reshape(half).T, bn.reshape(half).T)
+    for name, (got, want) in exact.items():
+        require(got.context == gpu, f"ndarray {name} stays on the card")
+        require(np.array_equal(got.asnumpy(), want),
+                f"ndarray {name} differs from numpy")
+    require(np.array_equal(b.asnumpy(), bn) and np.array_equal(a.asnumpy(), an),
+            "operands unchanged by the writes to their copies")
+    sums = {"sum": (mt.nd.sum(b), bn.astype(np.float64).sum()),
+            "norm": (mt.nd.norm(b),
+                     np.sqrt((bn.astype(np.float64) ** 2).sum())),
+            "dot": (mt.nd.dot(b[:512], b[:, :512]),
+                    bn[:512].astype(np.float64) @ bn[:, :512])}
+    sum_errs = {}
+    for name, (got, want) in sums.items():
+        g = got.asnumpy().astype(np.float64).reshape(np.shape(want))
+        sum_errs[name] = float(np.linalg.norm(g - want)
+                               / max(np.linalg.norm(want), 1e-30))
+        # f32 sums of 16.8 M (sum, norm) or 4,096 (dot) terms of either sign
+        require(sum_errs[name] < (1e-4 if name == "sum" else 1e-5),
+                f"ndarray {name} against f64: {sum_errs[name]}")
+    # placement: the card, host memory, pinned host memory and back
+    on_cpu = b.copyto(mt.cpu())
+    pinned = b.copyto(mt.cpu_pinned())
+    back = pinned.copyto(gpu)
+    require(on_cpu.context == mt.cpu() and not on_cpu.data.is_cuda,
+            "copyto(cpu()) lands in host memory")
+    require(pinned.data.is_pinned(), "copyto(cpu_pinned()) is pinned")
+    require(back.data.is_cuda and torch.equal(back.data, b.data)
+            and np.array_equal(on_cpu.asnumpy(), bn),
+            "copies across cpu, cpu_pinned and gpu keep the values")
+    stream = torch.cuda.current_stream()
+    big = b
+    for _ in range(20):
+        big = big * 1.0001 + 0.5
+    big.wait_to_read()
+    require(stream.query(), "wait_to_read returns once the stream is done")
+    for _ in range(20):
+        big = big * 1.0001
+    mt.nd.waitall()
+    require(stream.query(), "waitall returns once the card is idle")
+    # the generator's state round trip, on the card
+    mt.random.seed(SEED + 11)
+    state = mt.random.get_state()
+    first = (mt.random.uniform(0, 1, ND_SHAPE, ctx=gpu),
+             mt.random.normal(0, 1, ND_SHAPE, ctx=gpu))
+    mt.random.uniform(0, 1, (7,), ctx=gpu)
+    mt.random.set_state(state)
+    second = (mt.random.uniform(0, 1, ND_SHAPE, ctx=gpu),
+              mt.random.normal(0, 1, ND_SHAPE, ctx=gpu))
+    require(all(torch.equal(x.data, y.data) for x, y in zip(first, second)),
+            "set_state repeats the card's uniform and normal draws bitwise")
+    times = {"add_ms": time_ms(torch, lambda: a + b),
+             "iadd_ms": time_ms(torch, lambda: c.__iadd__(a)),
+             "sum_ms": time_ms(torch, lambda: mt.nd.sum(b)),
+             "uniform_ms": time_ms(torch, lambda: mt.random.uniform(
+                 0, 1, ND_SHAPE, ctx=gpu))}
+    t0 = time.perf_counter()
+    for _ in range(5):
+        b.copyto(mt.cpu_pinned()).wait_to_read()
+    times["copyto_pinned_ms_host"] = (time.perf_counter() - t0) * 200
+    emit({"phase": "ndarray", "shape": list(ND_SHAPE), "exact": sorted(exact),
+          "f64_rel_errs": sum_errs, "set_state_bitwise": True, **times})
+
+
+def phase_monitor(torch, mt):
+    """A Monitor on a bf16 ResNet-50 executor for two training steps."""
+    import re
+
+    net, args, aux, batch_x, batch_y = resnet50_case()
+    dev = mt.gpu(0).torch_device
+    values = {k: torch.from_numpy(v).to(dev).to(torch.bfloat16)
+              for k, v in args.items()}
+    values["data"] = torch.from_numpy(batch_x).to(dev).to(torch.bfloat16)
+    values["softmax_label"] = torch.from_numpy(batch_y).to(dev)
+    ex = net.bind(mt.gpu(0), values,
+                  args_grad={k: torch.zeros_like(values[k]) for k in args},
+                  grad_req={k: "write" if k in args else "null"
+                            for k in net.list_arguments()},
+                  aux_states=aux)
+    mon = mt.Monitor(interval=1, pattern=MONITOR_PATTERN)
+    mon.install(ex)
+    names = [n for n in net.get_internals().list_outputs()
+             if re.match(MONITOR_PATTERN, n)]
+    steps, toc_ms = [], []
+    for _ in range(MONITOR_STEPS):
+        mon.tic()
+        ex.forward(is_train=True)
+        ex.backward()
+        t0 = time.perf_counter()
+        steps.append(mon.toc())
+        toc_ms.append((time.perf_counter() - t0) * 1e3)
+    for rows in steps:
+        require([r[1] for r in rows] == names and len(names) == 16,
+                f"one statistic per matched internal: {[r[1] for r in rows]}")
+        require(all(np.isfinite(float(r[2])) for r in rows),
+                "finite statistics")
+    emit({"phase": "monitor", "model": "resnet50", "compute_dtype": "bfloat16",
+          "pattern": MONITOR_PATTERN, "matched": len(names),
+          "steps": [[(r[0], r[1], float(r[2])) for r in rows[:3]]
+                    for rows in steps], "toc_ms": toc_ms})
+
+
 def main() -> int:
     import torch
 
@@ -2469,6 +3073,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import mxnet_tpu_torch as mt
+    # every phase that holds the card to a reference runs with f32
+    # contractions; the slice 9 phases time "default" (TF32) beside it
+    mt.set_matmul_precision("highest")
     from mxnet_tpu_torch import optimizer as topt
     from mxnet_tpu_torch import comm
     from mxnet_tpu_torch.kernels import _common as common
@@ -2482,7 +3089,14 @@ def main() -> int:
     rows, max_err = phase_kernels(torch, k8, registry)
     launches = phase_slice(torch, mt, k8)
     adam_row, adam_err = phase_fused_adam(torch, topt, kfa, registry)
-    launches.update(phase_train(torch, mt, kfa))
+    train_launches, f32_row = phase_train(torch, mt, kfa)
+    launches.update(train_launches)
+    bf16_launches = phase_train_bf16(torch, mt, kfa, f32_row)
+    phase_serve_bf16(torch, mt, k8)
+    zoo_launches = phase_zoo(torch, mt, kfa)
+    phase_ndarray(torch, mt)
+    phase_monitor(torch, mt)
+    torch.cuda.empty_cache()
     flash_rows, flash_errs = phase_flash(torch, tfa, registry)
     serve_launches, lm_params, lm_grad_errs = phase_lm_serve(torch, mt, tfa)
     train_launches = phase_lm_train(torch, mt, topt, tfa, kfa, lm_params,
@@ -2520,6 +3134,10 @@ def main() -> int:
         if name == "dequant_twobit":
             kernels[-1]["comm_kernels_phase_launches"] = \
                 comm_phase_launches[name]
+        if name == "fused_adam":
+            # per fit of 8 (train_bf16) and 6 (zoo) steps, one a step
+            kernels[-1]["train_bf16_launches"] = bf16_launches
+            kernels[-1]["zoo_launches"] = zoo_launches
         if name in mesh_launches:
             # per mesh, per rank: the steps of phase lm_mesh
             kernels[-1]["lm_mesh_launches"] = mesh_launches[name]

@@ -13,13 +13,17 @@ Slice 3 is the transformer LM on one card, with the flash-attention kernels
 comm_kernels=...)``), with the gradient-compression kernels
 (``csrc/comm_kernels.cu``). Slice 7 shards the transformer LM's step over a
 ``(dp, tp, sp)`` mesh of ranks (``parallel``), with ring flash attention
-over sp. Entry points run on the card (``gpu(0)``) unless the caller passes
-``ctx=cpu()``.
+over sp. Slice 9 adds bf16 ``compute_dtype`` and remat to ``FeedForward``,
+the zoo's remaining ops and models, ``Symbol.get_internals`` with
+``Monitor``, the imperative ``NDArray`` and the f32 contractions' precision
+setting (``set_matmul_precision``). Entry points run on the card
+(``gpu(0)``) unless the caller passes ``ctx=cpu()``.
 """
 
 from . import symbol, symbol as sym  # noqa: F401
-from .base import MXNetError
-from .context import Context, cpu, current_context, gpu
+from .base import MXNetError, get_matmul_precision, set_matmul_precision
+from .context import (Context, cpu, cpu_pinned, current_context, gpu,
+                      num_devices)
 from . import ndarray, ndarray as nd  # noqa: F401
 from . import random  # noqa: F401
 from .executor import Executor, simple_bind
@@ -27,10 +31,13 @@ from .predictor import Predictor
 from . import initializer, initializer as init  # noqa: F401
 from . import io, lr_scheduler, metric, optimizer, callback  # noqa: F401
 from .model import FeedForward, load_checkpoint, save_checkpoint
+from .monitor import Monitor
 from . import models  # noqa: F401
 from . import comm, kvstore, kvstore as kv, parallel  # noqa: F401
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+__all__ = ["MXNetError", "set_matmul_precision", "get_matmul_precision",
+           "Context", "cpu", "cpu_pinned", "gpu", "current_context",
+           "num_devices", "Monitor",
            "Predictor", "Executor", "simple_bind", "FeedForward",
            "save_checkpoint", "load_checkpoint", "symbol", "sym", "nd",
            "ndarray", "random", "init", "initializer", "io", "lr_scheduler",

@@ -8,8 +8,11 @@ from __future__ import annotations
 
 import os
 
+import torch
+
 __all__ = ["MXNetError", "ENV_ON_VALUES", "ENV_OFF_VALUES", "env_int",
-           "env_str", "Registry"]
+           "env_str", "Registry", "set_matmul_precision",
+           "get_matmul_precision"]
 
 
 class MXNetError(Exception):
@@ -64,3 +67,37 @@ class Registry:
 
     def create(self, name: str, *args, **kwargs):
         return self.get(name)(*args, **kwargs)
+
+
+# jax_default_matmul_precision's values, by whether f32 contractions may
+# round their operands to TF32 on the tensor cores
+_PRECISIONS = {"highest": False, "float32": False,
+               "default": True, "high": True, "tensorfloat32": True}
+_PRECISION = ["default"]
+
+
+def set_matmul_precision(precision: str):
+    """The precision of f32 GEMMs and convolutions, the counterpart of
+    ``jax_default_matmul_precision``: ``"highest"`` / ``"float32"`` keep
+    f32 (TF32 off for both ``torch.backends.cuda.matmul`` and ``cudnn``);
+    ``"default"`` / ``"high"`` / ``"tensorfloat32"`` let the card round the
+    operands to TF32 (both on). Any other value raises. The package sets
+    ``"default"`` at import, as the JAX package leaves the backend's fast
+    path; parity checks pin ``"highest"``. It moves process-wide flags, so
+    it holds for every f32 contraction after the call."""
+    key = str(precision).lower()
+    if key not in _PRECISIONS:
+        raise ValueError(
+            f"unknown matmul precision {precision!r}; expected one of "
+            f"{sorted(_PRECISIONS)}")
+    torch.backends.cuda.matmul.allow_tf32 = _PRECISIONS[key]
+    torch.backends.cudnn.allow_tf32 = _PRECISIONS[key]
+    _PRECISION[0] = key
+
+
+def get_matmul_precision() -> str:
+    """The value of the last :func:`set_matmul_precision`."""
+    return _PRECISION[0]
+
+
+set_matmul_precision(_PRECISION[0])

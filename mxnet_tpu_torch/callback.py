@@ -1,7 +1,7 @@
 """Training callbacks.
 
 Counterpart of ``mxnet_tpu/callback.py``: ``do_checkpoint``,
-``log_train_metric`` and ``Speedometer``. Epoch callbacks get
+``log_train_metric``, ``Speedometer`` and ``ProgressBar``. Epoch callbacks get
 ``(epoch, symbol, arg_params, aux_params)``; batch callbacks get a
 ``BatchEndParam``.
 """
@@ -9,10 +9,12 @@ Counterpart of ``mxnet_tpu/callback.py``: ``do_checkpoint``,
 from __future__ import annotations
 
 import logging
+import sys
 import time
 from collections import namedtuple
 
-__all__ = ["BatchEndParam", "do_checkpoint", "Speedometer", "log_train_metric"]
+__all__ = ["BatchEndParam", "do_checkpoint", "Speedometer", "ProgressBar",
+           "log_train_metric"]
 
 BatchEndParam = namedtuple("BatchEndParams", ["epoch", "nbatch", "eval_metric"])
 
@@ -71,3 +73,19 @@ class Speedometer:
         logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
                      param.epoch, count, speed)
         self.tic = time.time()
+
+
+class ProgressBar:
+    """A text progress bar of ``length`` characters over ``total`` batches,
+    rewritten on standard output at every batch."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param: BatchEndParam):
+        count = param.nbatch
+        filled_len = int(round(self.bar_len * count / float(self.total)))
+        percents = int(round(100.0 * count / float(self.total)))
+        prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
+        sys.stdout.write(f"[{prog_bar}] {percents}%\r")

@@ -21,8 +21,9 @@ the JAX package are not ported yet: their names raise
 from .compression import (CompressionSpec, decode, encode, payload_nbytes,
                           payload_bytes_of, quantization_unit)
 from .allreduce import (CommKernelConfig, compressed_allreduce,
-                        error_feedback_allreduce, init_error_feedback,
-                        flat_size, padded_flat_size)
+                        compressed_exchange, error_feedback_allreduce,
+                        error_feedback_exchange, flat_views,
+                        init_error_feedback, flat_size, padded_flat_size)
 from .stats import (CommRegistry, allreduce_plan, comm_stats,
                     fp32_allreduce_wire_bytes, registry, reset_comm_stats)
 
@@ -30,6 +31,7 @@ __all__ = [
     "CompressionSpec", "encode", "decode", "payload_nbytes",
     "payload_bytes_of", "quantization_unit",
     "CommKernelConfig", "compressed_allreduce", "error_feedback_allreduce",
+    "compressed_exchange", "error_feedback_exchange", "flat_views",
     "init_error_feedback", "flat_size", "padded_flat_size",
     "CommRegistry", "registry", "comm_stats", "reset_comm_stats",
     "allreduce_plan", "fp32_allreduce_wire_bytes",

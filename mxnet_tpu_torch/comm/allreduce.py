@@ -39,8 +39,9 @@ from ..base import ENV_OFF_VALUES, ENV_ON_VALUES, MXNetError
 from .compression import CompressionSpec, decode, encode, quantization_unit
 
 __all__ = ["CommKernelConfig", "compressed_allreduce",
-           "error_feedback_allreduce", "init_error_feedback", "flat_size",
-           "padded_flat_size", "all_reduce_sum", "broadcast_"]
+           "error_feedback_allreduce", "compressed_exchange",
+           "error_feedback_exchange", "flat_views", "init_error_feedback",
+           "flat_size", "padded_flat_size", "all_reduce_sum", "broadcast_"]
 
 
 class CommKernelConfig:
@@ -135,10 +136,11 @@ def _tree_map(fn, tree):
 
 
 def _flatten(tree):
+    """One new flat f32 vector of the leaves (never a view of a leaf, so
+    callers may write it) and what :func:`_unflatten` needs."""
     leaves, structure = _tree_flatten(tree)
     meta = [(tuple(l.shape), l.dtype) for l in leaves]
-    flat = torch.cat([l.to(torch.float32).reshape(-1) for l in leaves]) \
-        if len(leaves) > 1 else leaves[0].to(torch.float32).reshape(-1)
+    flat = torch.cat([l.to(torch.float32).reshape(-1) for l in leaves])
     return flat, (structure, meta)
 
 
@@ -347,6 +349,42 @@ def _exchange(flat, spec, group, axis_size, kernels=None, feedback=False):
     return out, rows, rows - dq1, err2
 
 
+def compressed_exchange(flat, compression, group=None, axis_size=None,
+                        kernels=None):
+    """The sum over the ranks of a flat f32 vector already padded to
+    :func:`padded_flat_size` (a new vector of the same length): one
+    ``all_reduce`` for ``compression`` None/'none', else the quantized
+    decomposition without feedback."""
+    spec = CompressionSpec.resolve(compression)
+    n = _axis_size(group, axis_size)
+    if n == 1:
+        return flat
+    if spec is None:
+        return all_reduce_sum(flat, group)
+    out, *_ = _exchange(flat, spec, group, n,
+                        kernels=CommKernelConfig.resolve(kernels))
+    return out
+
+
+def error_feedback_exchange(total, compression, group=None, axis_size=None,
+                            kernels=None):
+    """The error-feedback exchange of ``total``, this rank's padded flat
+    gradient with its residual already added (``(Lp,)`` f32). Returns
+    ``(out, new_residual)``: the reduced ``(Lp,)`` vector and this rank's
+    ``(1, Lp)`` residual row for the next step."""
+    spec = CompressionSpec.resolve(compression)
+    n = _axis_size(group, axis_size)
+    Lp = total.shape[0]
+    out, rows, new_rows, err2 = _exchange(
+        total, spec, group, n, kernels=CommKernelConfig.resolve(kernels),
+        feedback=True)
+    # stage-1 error: what OUR quantized rows dropped. Stage-2 error (the
+    # reduced-shard re-quantization) is charged once, to the shard's owner.
+    idx = dist.get_rank(group)
+    new_rows[idx] = new_rows[idx] + err2
+    return out, new_rows.reshape(1, Lp)
+
+
 def compressed_allreduce(tree, compression=None, group=None, axis_size=None,
                          average=True, kernels=None):
     """Allreduce a gradient tree over the ranks of ``group``.
@@ -372,9 +410,7 @@ def compressed_allreduce(tree, compression=None, group=None, axis_size=None,
         return tree
     flat, meta = _flatten(tree)
     flat, L = _pad_flat(flat, spec, n)
-    out, *_ = _exchange(flat, spec, group, n,
-                        kernels=CommKernelConfig.resolve(kernels))
-    out = out[:L]
+    out = compressed_exchange(flat, spec, group, n, kernels)[:L]
     if average:
         out = out / n
     return _unflatten(out, meta)
@@ -399,25 +435,35 @@ def error_feedback_allreduce(tree, residual, compression, group=None,
         # one rank: no wire, no quantization, no error to feed back
         return tree, residual
     flat, meta = _flatten(tree)
-    L = flat.shape[0]
-    Lp = padded_flat_size(L, spec, n)
-    if int(residual.shape[-1]) != Lp:
+    total, L = _pad_flat(flat, spec, n)
+    if int(residual.shape[-1]) != total.shape[0]:
         raise MXNetError(
             f"residual length {residual.shape[-1]} != padded grad length "
-            f"{Lp}; rebuild it with init_error_feedback")
-    r0 = residual[0]
-    total = torch.cat([r0[:L] + flat, r0[L:]]) if Lp > L else r0 + flat
-    out, rows, new_rows, err2 = _exchange(
-        total, spec, group, n, kernels=CommKernelConfig.resolve(kernels),
-        feedback=True)
-    # stage-1 error: what OUR quantized rows dropped. Stage-2 error (the
-    # reduced-shard re-quantization) is charged once, to the shard's owner.
-    idx = dist.get_rank(group)
-    new_rows[idx] = new_rows[idx] + err2
+            f"{total.shape[0]}; rebuild it with init_error_feedback")
+    # the residual added in place into this call's own flat vector
+    # (``flat + r`` is ``r + flat``: the same bits)
+    total.add_(residual[0])
+    out, new_residual = error_feedback_exchange(total, spec, group, n,
+                                                kernels)
     out = out[:L]
     if average:
         out = out / n
-    return _unflatten(out, meta), new_rows.reshape(1, Lp)
+    return _unflatten(out, meta), new_residual
+
+
+def flat_views(flat, shapes: dict) -> dict:
+    """Views of ``flat``'s leading elements as the tensors of ``shapes``
+    (name -> shape), laid out in the order :func:`_flatten` lays out a dict
+    of them (sorted names): the gradients of a flat buffer, no copy."""
+    out, off = {}, 0
+    for name in sorted(shapes):
+        shape = tuple(shapes[name])
+        size = 1
+        for d in shape:
+            size *= int(d)
+        out[name] = flat[off:off + size].view(shape)
+        off += size
+    return out
 
 
 def init_error_feedback(params_or_size, compression, axis_size, dtype=None,

@@ -1,26 +1,31 @@
 """Graph execution: the Symbol as a function of tensors, and the bound
 Executor.
 
-Counterpart of ``mxnet_tpu/executor.py`` without remat: ``_fusion_plan``,
-``_build_graph_fn(symbol, is_train)`` and ``Executor`` with ``bind`` and
-``simple_bind``. The Symbol is walked once into a plain function of
+Counterpart of ``mxnet_tpu/executor.py``: ``_fusion_plan``,
+``_remat_segments``, ``_build_graph_fn(symbol, is_train)`` and ``Executor``
+with ``bind``, ``simple_bind`` and ``debug_str``. The Symbol is walked once
+into a plain function of
 (arguments, auxiliary states, generator, loss mask) that runs each node's
 forward on torch tensors in topological order and returns the heads and the
 updated auxiliary states. PyTorch runs eagerly, so there is no counterpart
 of ``jit``; gradients come from autograd over that function. Remat
-(``_remat_segments``) is left to a later slice.
+(``MXNET_TPU_REMAT``) runs its segments under ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
 
+import re
+
 import torch
+import torch.utils.checkpoint
 
 from . import random as _random
-from .base import MXNetError, env_int
+from .base import MXNetError, env_int, env_str
 from .context import Context, current_context
 from .convert import to_tensor
 
-__all__ = ["Executor", "simple_bind", "_fusion_plan", "_build_graph_fn"]
+__all__ = ["Executor", "simple_bind", "_fusion_plan", "_remat_segments",
+           "_build_graph_fn"]
 
 
 def _fusion_plan(symbol):
@@ -84,59 +89,212 @@ def _fusion_plan(symbol):
         fused_add
 
 
+def _remat_segments(nodes):
+    """Partition the topological order into rematerialisation segments
+    (mxnet_tpu/executor.py:114-162).
+
+    ``MXNET_TPU_REMAT`` is a regex; every compute node whose name matches
+    closes a segment (the node is the segment's last member). Each closed
+    segment runs under activation checkpointing: its interior activations
+    are recomputed in the backward pass instead of being kept. For the
+    ResNet zoo the unit outputs are the natural boundaries:
+    ``MXNET_TPU_REMAT='unit\\d+_out$'``. The run after the last boundary
+    (the head) stays inline.
+
+    Returns None when the variable is unset or empty, else a list of
+    ``('inline', topo_idx, node) | ('blk', [(topo_idx, node), ...])``.
+    Variables never join blocks.
+    """
+    pat = env_str("MXNET_TPU_REMAT", "")
+    if not pat:
+        return None
+    rx = re.compile(pat)
+    runs, cur = [], []
+    for i, node in enumerate(nodes):
+        if node.is_variable:
+            runs.append(("inline", i, node))
+            continue
+        cur.append((i, node))
+        if rx.search(node.name):
+            runs.append(("blk", cur))
+            cur = []
+    for i, node in cur:  # tail after the last boundary: head ops, inline
+        runs.append(("inline", i, node))
+    return runs
+
+
+def _checkpointed(block_fn, ext_vals, aux_vals, rng, mask):
+    """``block_fn(ext_vals, aux_vals, rng, mask)`` under activation
+    checkpointing (``torch.utils.checkpoint``, non-reentrant: the autograd
+    graph is the plain one, only its saved tensors are recomputed).
+
+    The recompute must draw what the forward drew: Dropout and rrelu take
+    ``rng``, an explicit ``torch.Generator`` that checkpoint's own RNG
+    preservation does not cover. So each call keeps ``rng``'s state from
+    before its forward, and a recompute runs from that state and puts the
+    generator back where it was. Auxiliary states come out of the forward
+    only: a recompute's are dropped, so BatchNorm's moving statistics move
+    once a step."""
+    if not torch.is_grad_enabled():
+        return block_fn(ext_vals, aux_vals, rng, mask)
+    start = rng.get_state() if rng is not None else None
+    calls = [0]
+
+    def body(*ext):
+        calls[0] += 1
+        if start is None or calls[0] == 1:
+            return block_fn(ext, aux_vals, rng, mask)
+        now = rng.get_state()
+        rng.set_state(start)
+        try:
+            return block_fn(ext, aux_vals, rng, mask)
+        finally:
+            rng.set_state(now)
+
+    return torch.utils.checkpoint.checkpoint(
+        body, *ext_vals, use_reentrant=False, preserve_rng_state=False)
+
+
 def _build_graph_fn(symbol, is_train: bool = False):
     """Compile the symbol DAG into ``fn(arg_values, aux_values, rng=None,
     mask=None) -> (outputs, new_aux)``: a tuple with one tensor per head and
     the auxiliary states after the pass (BatchNorm's running stats move in
     training mode). ``rng`` is the ``torch.Generator`` that nodes with
     ``need_rng`` draw from; ``mask`` is an optional (batch,) row mask that
-    loss heads apply to their injected gradients (``fwd_masked``)."""
+    loss heads apply to their injected gradients (``fwd_masked``). With
+    ``MXNET_TPU_REMAT`` set, the segments of :func:`_remat_segments` run
+    checkpointed, as the JAX package runs them under ``jax.checkpoint``."""
     nodes = symbol._topo()
     fused_bn, passthrough, skip_bn, fused_add = _fusion_plan(symbol)
 
-    def aux_names(node):
+    def node_aux_names(node):
+        if id(node) in fused_add:
+            bn = fused_add[id(node)][0]
+            return [f"{bn.name}_{a}" for a in bn.op.list_auxiliary_states()]
+        if node.is_variable or id(node) in skip_bn or id(node) in passthrough:
+            return []
         return [f"{node.name}_{a}" for a in node.op.list_auxiliary_states()]
+
+    def node_input_refs(node):
+        """The env refs exec_node reads for this node (fusion-aware), the
+        one source the remat blocks' external inputs are resolved from."""
+        if node.is_variable or id(node) in skip_bn:
+            return []
+        if id(node) in passthrough:
+            src, k = node.inputs[0]
+            return [(id(src), k)]
+        if id(node) in fused_add:
+            bn, z_idx = fused_add[id(node)]
+            z_src, z_k = node.inputs[z_idx]
+            return [(id(s), k) for s, k in bn.inputs] + [(id(z_src), z_k)]
+        return [(id(s), k) for s, k in node.inputs]
 
     def exec_node(node, env, aux_values, new_aux, rng, mask):
         if id(node) in skip_bn:  # runs inside its fused add below
             return
+        ins = [env[r] for r in node_input_refs(node)]
         if id(node) in passthrough:  # relu folded into the producer
-            src, k = node.inputs[0]
-            env[(id(node), 0)] = env[(id(src), k)]
+            env[(id(node), 0)] = ins[0]
             return
-        if id(node) in fused_add:
-            bn, z_idx = fused_add[id(node)]
-            z_src, z_k = node.inputs[z_idx]
-            ins = [env[(id(s), k)] for s, k in bn.inputs] + \
-                [env[(id(z_src), z_k)]]
-            names = aux_names(bn)
-            outs, updated = bn.op.fwd_fused_add_relu(
-                ins, [aux_values[a] for a in names], is_train, None)
-            env[(id(node), 0)] = outs[0]
-            new_aux.update(zip(names, updated))
-            return
-        ins = [env[(id(s), k)] for s, k in node.inputs]
-        names = aux_names(node)
+        names = node_aux_names(node)
         aux = [aux_values[a] for a in names]
-        key = rng if node.op.need_rng else None
-        if id(node) in fused_bn:
-            outs, updated = node.op.fwd_fused_relu(ins, aux, is_train, key)
-        elif mask is not None and node.op.is_loss:
-            outs, updated = node.op.fwd_masked(ins, aux, is_train, key, mask)
+        if id(node) in fused_add:  # ins: bn.inputs..., then z
+            outs, updated = fused_add[id(node)][0].op.fwd_fused_add_relu(
+                ins, aux, is_train, None)
         else:
-            outs, updated = node.op.fwd(ins, aux, is_train, key)
+            key = rng if node.op.need_rng else None
+            if id(node) in fused_bn:
+                outs, updated = node.op.fwd_fused_relu(ins, aux, is_train, key)
+            elif mask is not None and node.op.is_loss:
+                outs, updated = node.op.fwd_masked(ins, aux, is_train, key,
+                                                   mask)
+            else:
+                outs, updated = node.op.fwd(ins, aux, is_train, key)
         for k, o in enumerate(outs):
             env[(id(node), k)] = o
         new_aux.update(zip(names, updated))
 
+    segments = _remat_segments(nodes)
+    if segments is None:
+        def fn(arg_values: dict, aux_values: dict, rng=None, mask=None):
+            env = {}
+            new_aux = dict(aux_values)
+            for node in nodes:
+                if node.is_variable:
+                    env[(id(node), 0)] = arg_values[node.name]
+                else:
+                    exec_node(node, env, aux_values, new_aux, rng, mask)
+            return tuple(env[(id(n), i)] for n, i in symbol._heads), new_aux
+
+        return fn
+
+    # -- remat: each block's external inputs, exports and aux states -------
+    blocks = []  # ('inline', idx, node) | ['blk', members, exts, outs, auxs]
+    for seg in segments:
+        if seg[0] == "inline":
+            blocks.append(seg)
+            continue
+        members = [n for _, n in seg[1]]
+        member_ids = {id(n) for n in members}
+        exts = []
+        for node in members:
+            for ref in node_input_refs(node):
+                if ref[0] not in member_ids and ref not in exts:
+                    exts.append(ref)
+        aux_names = [a for node in members for a in node_aux_names(node)]
+        blocks.append(["blk", members, exts, [], aux_names])
+    # an export is a block's output read by a later block, an inline node
+    # or a head
+    producer = {id(n): bi for bi, seg in enumerate(blocks)
+                if seg[0] == "blk" for n in seg[1]}
+
+    def note_consumption(ref, consumer_bi):
+        pbi = producer.get(ref[0])
+        if pbi is not None and pbi != consumer_bi \
+                and ref not in blocks[pbi][3]:
+            blocks[pbi][3].append(ref)
+
+    for bi, seg in enumerate(blocks):
+        members = [seg[2]] if seg[0] == "inline" else seg[1]
+        for node in members:
+            for ref in node_input_refs(node):
+                note_consumption(ref, bi)
+    for n, i in symbol._heads:
+        note_consumption((id(n), i), -1)
+
+    def make_block_fn(members, exts, out_refs, aux_names):
+        def block_fn(ext_vals, aux_vals, rng, mask):
+            env = dict(zip(exts, ext_vals))
+            aux_in = dict(zip(aux_names, aux_vals))
+            new_aux = {}
+            for node in members:
+                exec_node(node, env, aux_in, new_aux, rng, mask)
+            return (tuple(env[r] for r in out_refs),
+                    tuple(new_aux.get(a, aux_in[a]) for a in aux_names))
+
+        return block_fn
+
+    runs = [seg if seg[0] == "inline" else
+            ("blk", make_block_fn(*seg[1:]), seg[2], seg[3], seg[4])
+            for seg in blocks]
+
     def fn(arg_values: dict, aux_values: dict, rng=None, mask=None):
         env = {}
         new_aux = dict(aux_values)
-        for node in nodes:
-            if node.is_variable:
-                env[(id(node), 0)] = arg_values[node.name]
-            else:
-                exec_node(node, env, aux_values, new_aux, rng, mask)
+        for seg in runs:
+            if seg[0] == "inline":
+                node = seg[2]
+                if node.is_variable:
+                    env[(id(node), 0)] = arg_values[node.name]
+                else:
+                    exec_node(node, env, aux_values, new_aux, rng, mask)
+                continue
+            _, block_fn, exts, out_refs, aux_names = seg
+            outs, updated = _checkpointed(
+                block_fn, tuple(env[r] for r in exts),
+                tuple(aux_values[a] for a in aux_names), rng, mask)
+            env.update(zip(out_refs, outs))
+            new_aux.update(zip(aux_names, updated))
         return tuple(env[(id(n), i)] for n, i in symbol._heads), new_aux
 
     return fn
@@ -283,6 +441,27 @@ class Executor:
                     holder.add_(g.to(holder.dtype))
                 else:
                     holder.copy_(g)
+
+    def debug_str(self) -> str:
+        """The graph, one node a line (``Symbol.debug_str``), then the bytes
+        the executor holds: ``Total <MB> MB allocated`` over its bound
+        arguments, gradients, auxiliary states and last outputs (the JAX
+        package reads the compiled program's memory plan; there is no
+        compiled program here), and on a card the allocator's current and
+        peak bytes."""
+        held = {id(t): t for d in (self.arg_dict, self.grad_dict,
+                                   self.aux_dict) for t in d.values()}
+        held.update((id(t), t) for t in self._outputs or ())
+        total = sum(t.numel() * t.element_size() for t in held.values())
+        mb = 1 << 20
+        lines = [self._symbol.debug_str(),
+                 f"Total {total / mb:.4f} MB allocated"]
+        dev = self._ctx.torch_device
+        if dev.type == "cuda":
+            lines.append(
+                f"Device {torch.cuda.memory_allocated(dev) / mb:.4f} MB "
+                f"allocated, peak {torch.cuda.max_memory_allocated(dev) / mb:.4f} MB")
+        return "\n".join(lines)
 
     def copy_params_from(self, arg_params, aux_params=None):
         """Copy parameter dicts into the bound tensors (reference:

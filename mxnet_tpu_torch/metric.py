@@ -1,8 +1,8 @@
 """Evaluation metrics.
 
 Counterpart of ``mxnet_tpu/metric.py``: ``EvalMetric``, Accuracy,
-TopKAccuracy, CrossEntropy, MAE, MSE, RMSE, CustomMetric,
-CompositeEvalMetric and ``create``. ``update(labels, preds)`` takes numpy
+TopKAccuracy, CrossEntropy, Perplexity, MAE, MSE, RMSE, CustomMetric,
+CompositeEvalMetric, ``np_metric`` and ``create``. ``update(labels, preds)`` takes numpy
 arrays or tensors and sums on the host. Metrics with ``device_supported``
 also accumulate on the device: ``device_update`` folds a batch into a
 (sum, count) pair of tensors without a host sync, and
@@ -18,7 +18,8 @@ import torch
 from .base import MXNetError, Registry
 
 __all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "MAE", "MSE", "RMSE",
-           "CrossEntropy", "CustomMetric", "CompositeEvalMetric", "create"]
+           "CrossEntropy", "Perplexity", "CustomMetric",
+           "CompositeEvalMetric", "np_metric", "create"]
 
 METRICS = Registry("metric")
 
@@ -252,6 +253,56 @@ class CrossEntropy(EvalMetric):
             self.num_inst += label.shape[0]
 
 
+@METRICS.register("perplexity")
+class Perplexity(EvalMetric):
+    """``exp`` of the mean negative log-likelihood of the true class, each
+    probability floored at ``eps``; labels equal to ``ignore_label`` are
+    left out of both the sum and the count."""
+
+    device_supported = True
+
+    def __init__(self, ignore_label=None, eps=1e-10):
+        self.ignore_label = ignore_label
+        self.eps = eps
+        super().__init__("perplexity")
+
+    def get(self):
+        if self.num_inst == 0:
+            return self.name, float("nan")
+        return self.name, float(np.exp(self.sum_metric / self.num_inst))
+
+    def device_update(self, state, labels, preds):
+        s, n = state
+        for label, pred in zip(labels, preds[: len(labels)]):
+            lab = label.long().reshape(-1)
+            rows = torch.arange(lab.shape[0], device=lab.device)
+            nll = -torch.log(torch.clamp_min(pred.float()[rows, lab],
+                                             self.eps))
+            if self.ignore_label is not None:
+                keep = lab != self.ignore_label
+                s = s + torch.where(keep, nll, torch.zeros_like(nll)).sum()
+                n = n + keep.sum()
+            else:
+                s = s + nll.sum()
+                n = n + lab.shape[0]
+        return (s, n)
+
+    def update(self, labels, preds):
+        labels, preds = self._as_lists(labels, preds)
+        for label, pred in zip(labels, preds):
+            label = _to_numpy(label).astype(np.int64).ravel()
+            pred = _to_numpy(pred)
+            prob = pred[np.arange(label.shape[0]), label]
+            nll = -np.log(np.maximum(prob, self.eps))
+            if self.ignore_label is not None:
+                keep = label != self.ignore_label
+                self.sum_metric += float(nll[keep].sum())
+                self.num_inst += int(keep.sum())
+            else:
+                self.sum_metric += float(nll.sum())
+                self.num_inst += label.shape[0]
+
+
 class CustomMetric(EvalMetric):
     """Wrap ``feval(label, pred) -> float`` on numpy arrays."""
 
@@ -298,6 +349,12 @@ class CompositeEvalMetric(EvalMetric):
 
     def get_name_value(self):
         return [m.get() for m in self.metrics]
+
+
+def np_metric(numpy_feval):
+    """A metric from ``numpy_feval(label, pred) -> float`` (reference:
+    ``mx.metric.np``)."""
+    return CustomMetric(numpy_feval)
 
 
 def create(metric, **kwargs) -> EvalMetric:

@@ -184,31 +184,59 @@ class _GradSync:
     residual for a lossy ``spec``; the mean of float auxiliary states; the
     sum of device metric accumulators. Registers its wire plan with
     ``comm.comm_stats()`` once and records one step per gradient sync
-    (mxnet_tpu/model.py:962-973)."""
+    (mxnet_tpu/model.py:962-973).
+
+    The gradients are views of one padded f32 buffer, laid out as the
+    exchange flattens them (sorted names): :meth:`attach` points every
+    parameter's ``.grad`` at its view before backward, and autograd
+    accumulates each gradient into it in place. With error feedback the
+    buffer is the residual itself, so that accumulation is the residual
+    add (``r + g``, the bits of ``g + r``); else it starts at zero. The
+    exchange reads the buffer as it is, and :meth:`grads` hands back views
+    of its result: neither side copies."""
 
     LABEL = "train_step:dist_sync"
 
     def __init__(self, spec, kernels, params, num_workers, device):
         self.spec, self.kernels = spec, kernels
         self.num_workers = num_workers
+        self.shapes = {k: tuple(v.shape) for k, v in params.items()}
+        size = comm_mod.flat_size(params)
+        padded = size if spec is None else \
+            comm_mod.padded_flat_size(size, spec, num_workers)
         self.residual = comm_mod.init_error_feedback(
             params, spec, num_workers, device=device)
+        self._zeros = None if self.residual is not None else \
+            torch.zeros(padded, dtype=torch.float32, device=device)
+        self.flat = None  # the buffer backward accumulates into
         comm_mod.registry().register_plan(
-            self.LABEL, comm_mod.allreduce_plan(
-                comm_mod.flat_size(params), num_workers, spec))
+            self.LABEL, comm_mod.allreduce_plan(size, num_workers, spec))
 
-    def grads(self, grads: dict) -> dict:
+    def attach(self, params: dict):
+        """Point each parameter's ``.grad`` at its view of the buffer: the
+        residual row, or the zeroed buffer."""
         if self.residual is not None:
-            grads, self.residual = comm_mod.error_feedback_allreduce(
-                grads, self.residual, self.spec,
-                axis_size=self.num_workers, average=False,
+            self.flat = self.residual[0]
+        else:
+            self.flat = self._zeros.zero_()
+        views = comm_mod.flat_views(self.flat, self.shapes)
+        for k, p in params.items():
+            p.grad = views[k]
+
+    def grads(self) -> dict:
+        """The exchange of the buffer backward filled: the summed gradients
+        as views of the exchange's result, the new residual kept."""
+        if self.residual is not None:
+            out, self.residual = comm_mod.error_feedback_exchange(
+                self.flat, self.spec, axis_size=self.num_workers,
                 kernels=self.kernels)
         else:
-            grads = comm_mod.compressed_allreduce(
-                grads, self.spec, axis_size=self.num_workers, average=False,
+            out = comm_mod.compressed_exchange(
+                self.flat, self.spec, axis_size=self.num_workers,
                 kernels=self.kernels)
+        self.flat = None
         comm_mod.registry().record_step(self.LABEL)
-        return grads
+        return comm_mod.flat_views(out, self.shapes)
 
     def aux(self, aux: dict) -> dict:
         """Float auxiliary states averaged over the ranks (``pmean``), in
@@ -231,14 +259,32 @@ class _GradSync:
         return tuple(all_reduce_sum(t) for t in state)
 
 
+def _cast_floats(values: dict, dtype, names=None) -> dict:
+    """``values`` with each floating tensor (of ``names``, if given) cast to
+    ``dtype``; None leaves them as they are."""
+    if dtype is None:
+        return values
+    return {k: v.to(dtype) if v.is_floating_point()
+            and (names is None or k in names) else v
+            for k, v in values.items()}
+
+
 class _TrainState:
     """The device state of one ``fit``: parameters (autograd leaves),
     auxiliary states and optimizer state, and the training step in its
     phases (forward, backward, the gradient sync of data-parallel
-    training, update), so that a caller can time them apart."""
+    training, update), so that a caller can time them apart.
 
-    def __init__(self, symbol, optimizer, params, aux, device, sync=None):
+    With ``compute_dtype`` the forward runs on copies of the parameters and
+    of the ``data_names`` inputs cast to it (labels and auxiliary states
+    stay as they are, mxnet_tpu/model.py:669-674); the parameters stay f32
+    masters, and autograd takes their gradients in f32 through the cast."""
+
+    def __init__(self, symbol, optimizer, params, aux, device, sync=None,
+                 compute_dtype=None, data_names=()):
         self.graph_fn = _build_graph_fn(symbol, is_train=True)
+        self.compute_dtype = compute_dtype
+        self.data_names = frozenset(data_names)
         self.optimizer = optimizer
         self.grad_sync = sync
         self.params = {k: v.requires_grad_(True) for k, v in params.items()}
@@ -252,7 +298,9 @@ class _TrainState:
         """The training forward; keeps the sum of the heads for backward
         and moves the auxiliary states (BatchNorm's running stats)."""
         with torch.enable_grad():
-            outs, self.aux = self.graph_fn({**self.params, **batch}, self.aux,
+            params = _cast_floats(self.params, self.compute_dtype)
+            batch = _cast_floats(batch, self.compute_dtype, self.data_names)
+            outs, self.aux = self.graph_fn({**params, **batch}, self.aux,
                                            self.rng)
             heads = [o for o in outs if o.requires_grad]
             # seed-ones cotangent: loss heads inject their own gradient
@@ -260,6 +308,14 @@ class _TrainState:
         return outs
 
     def backward(self):
+        if self.grad_sync is not None:
+            # into the sync's flat buffer, through each parameter's .grad
+            self.grad_sync.attach(self.params)
+            if self._loss is not None:
+                torch.autograd.backward(self._loss,
+                                        inputs=list(self.params.values()))
+            self._loss = None
+            return
         names = list(self.params)
         grads = [None] * len(names)
         if self._loss is not None:
@@ -275,7 +331,7 @@ class _TrainState:
         the auxiliary states averaged. A no-op on one device."""
         if self.grad_sync is not None:
             with torch.no_grad():
-                self.grads = self.grad_sync.grads(self.grads)
+                self.grads = self.grad_sync.grads()
                 self.aux = self.grad_sync.aux(self.aux)
 
     def update(self, lr):
@@ -292,7 +348,11 @@ class FeedForward:
     """Model estimator over a loss-headed Symbol (reference: model.py:465).
 
     ``ctx`` defaults to ``[current_context()]``, which is ``gpu(0)`` outside
-    a ``with mt.cpu():`` block; this slice trains on one device."""
+    a ``with mt.cpu():`` block; this slice trains on one device.
+    ``compute_dtype`` (a floating torch dtype: ``torch.bfloat16``) computes
+    the forward and backward in that type with f32 master parameters, as
+    the JAX package's mixed precision does; ``predict`` and ``score`` run
+    in it too and return f32."""
 
     def __init__(self, symbol, ctx=None, num_epoch=None, optimizer="sgd",
                  initializer=None, arg_params=None, aux_params=None,
@@ -311,6 +371,9 @@ class FeedForward:
         self.aux_params = aux_params
         self.allow_extra_params = allow_extra_params
         self.begin_epoch = begin_epoch
+        if compute_dtype is not None and not compute_dtype.is_floating_point:
+            raise MXNetError(f"compute_dtype {compute_dtype} is not a "
+                             "floating type")
         self.compute_dtype = compute_dtype
         self.kwargs = dict(kwargs)
         self._opt_cache = None
@@ -407,9 +470,6 @@ class FeedForward:
                 raise NotImplementedError(
                     f"fit({name}=...) is not ported yet: ROADMAP "
                     f"{_LATER_SLICES[name]}")
-        if self.compute_dtype is not None:
-            raise NotImplementedError(
-                "FeedForward(compute_dtype=...) is not ported yet: ROADMAP A3")
         logger = logger or logging
         dev = self._device
         kv = kvs_mod.create(kvstore, ctx=self.ctx[0]) if kvstore else None
@@ -445,7 +505,8 @@ class FeedForward:
             sync = _GradSync(comm_spec, comm_kernels, params, num_workers,
                              dev)
         state = self._train_state = _TrainState(
-            self.symbol, optimizer, params, aux, dev, sync=sync)
+            self.symbol, optimizer, params, aux, dev, sync=sync,
+            compute_dtype=self.compute_dtype, data_names=data_names)
         eval_metric = metric_mod.create(eval_metric)
         device_metric = eval_metric.device_supported and \
             batch_end_callback is None
@@ -524,7 +585,8 @@ class FeedForward:
         if self.arg_params is None:
             raise MXNetError("model has no parameters; fit() or load first")
         fn = _build_graph_fn(self.symbol, is_train=False)
-        params = self._on_device(self.arg_params)
+        params = _cast_floats(self._on_device(self.arg_params),
+                              self.compute_dtype)
         aux = self._on_device(self.aux_params or {})
         dev = self._device
         first_rows = None
@@ -534,6 +596,7 @@ class FeedForward:
             rows = int(next(iter(arrays.values())).shape[0])
             first_rows = first_rows or rows
             arrays = self._fill_missing_args(params, _pad_rows(arrays, first_rows))
+            arrays = _cast_floats(arrays, self.compute_dtype)
             with torch.inference_mode():
                 outs, _ = fn({**params, **arrays}, aux)
             nv = rows - batch.pad

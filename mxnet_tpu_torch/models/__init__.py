@@ -1,10 +1,14 @@
 """Model zoo of the port: the JAX package's Symbol builders, so the same
 names and shapes, its functional transformer LM and its MoE pipeline LM."""
 
+from .alexnet import alexnet
+from .inception import inception_bn, inception_bn_cifar
+from .lenet import lenet
 from .mlp import mlp
 from .moe_transformer import MoEPipelineLM, moe_pipeline_config
 from .resnet import resnet, resnet50
 from .transformer import TransformerLM, transformer_lm_config
 
-__all__ = ["mlp", "resnet", "resnet50", "TransformerLM",
+__all__ = ["mlp", "lenet", "alexnet", "inception_bn_cifar", "inception_bn",
+           "resnet", "resnet50", "TransformerLM",
            "transformer_lm_config", "MoEPipelineLM", "moe_pipeline_config"]

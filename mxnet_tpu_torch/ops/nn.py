@@ -1,13 +1,14 @@
 """Neural-network layer operators.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` for FullyConnected (with its int8
-serving route), Convolution, Pooling, Activation, Dropout and BatchNorm,
-including BatchNorm's fused ReLU and fused add+ReLU forms that the
-executor's fusion plan selects. Parameters, shape rules and weight layouts
+serving route), Convolution, Deconvolution, Pooling, Activation,
+LeakyReLU, Dropout, BatchNorm and LRN, including BatchNorm's fused ReLU
+and fused add+ReLU forms that the executor's fusion plan selects. Parameters, shape rules and weight layouts
 (OIHW in both activation layouts) are the JAX package's, so checkpoints and
 serialised graphs map 1:1. Dense work goes to torch (cuBLAS and cuDNN on the
 card); the int8 matmul goes to this package's own kernel. FullyConnected,
-Convolution, Pooling and Activation get their gradients from autograd;
+Convolution, Deconvolution, Pooling, Activation, LeakyReLU and LRN get
+their gradients from autograd;
 BatchNorm's training forms carry the JAX package's hand-written backward.
 """
 
@@ -149,6 +150,93 @@ class ConvolutionOp(OpProp):
         return [y], []
 
 
+@register_op("Deconvolution")
+class DeconvolutionOp(OpProp):
+    """Transposed convolution. The weight is ``(channels, num_filter /
+    num_group, kh, kw)``, which is ``conv_transpose2d``'s own layout, so
+    cuDNN runs it as it is. ``adj`` (extra rows and columns at the bottom
+    and right, each below the stride) and ``target_shape`` (the output's
+    (h, w): ``pad = ceil(total / 2)``, ``adj = total % 2`` for ``total =
+    stride * (in - 1) + kernel - target``) are the reference's later
+    parameters, beyond the JAX package's; left at their defaults they are
+    not serialised, so the JAX package loads the graph."""
+
+    params = {
+        "kernel": (TupleParam(2), REQUIRED, "kernel (h, w)"),
+        "stride": (TupleParam(2), (1, 1), "stride (h, w)"),
+        "pad": (TupleParam(2), (0, 0), "padding (h, w)"),
+        "adj": (TupleParam(2), (0, 0), "extra output rows/columns (h, w)"),
+        "target_shape": (TupleParam(2), (0, 0),
+                         "output (h, w); (0, 0) = from pad and adj"),
+        "num_filter": (Range(int, lo=1), REQUIRED, "number of output channels"),
+        "num_group": (Range(int, lo=1), 1, "group count"),
+        "no_bias": (bool, True, "omit the bias term"),
+        "workspace": (int, 512, "accepted for parity"),
+        "layout": (("NCHW", "NHWC"), "NCHW", "activation layout"),
+    }
+    _EXTENSIONS = ("adj", "target_shape")
+
+    def list_arguments(self):
+        return ["data", "weight"] if self.no_bias else ["data", "weight", "bias"]
+
+    def _pad_adj(self, h, w):
+        """(pad, adj) for an input of spatial size (h, w)."""
+        if self.target_shape == (0, 0):
+            return self.pad, self.adj
+        pad, adj = [], []
+        for size, k, s, t in zip((h, w), self.kernel, self.stride,
+                                 self.target_shape):
+            total = s * (size - 1) + k - t
+            if total < 0:
+                raise MXNetError(f"Deconvolution: target_shape {t} exceeds "
+                                 f"the full output {s * (size - 1) + k}")
+            pad.append((total + 1) // 2)
+            adj.append(total % 2)
+        return tuple(pad), tuple(adj)
+
+    def infer_shape(self, in_shapes):
+        d = self._known(in_shapes, 0)
+        if len(d) != 4:
+            raise MXNetError(f"Deconvolution expects 4-D input, got {d}")
+        n, h, w, c = d if self.layout == "NHWC" else (d[0], d[2], d[3], d[1])
+        if c % self.num_group or self.num_filter % self.num_group:
+            raise MXNetError(
+                "Deconvolution: channels not divisible by num_group")
+        pad, adj = self._pad_adj(h, w)
+        if any(a >= s for a, s in zip(adj, self.stride)):
+            raise MXNetError(f"Deconvolution: adj {adj} must be below the "
+                             f"stride {self.stride}")
+        oh, ow = (s * (size - 1) + k - 2 * p + a for size, k, s, p, a in
+                  zip((h, w), self.kernel, self.stride, pad, adj))
+        wshape = (c, self.num_filter // self.num_group) + self.kernel
+        out = (n, oh, ow, self.num_filter) if self.layout == "NHWC" else \
+            (n, self.num_filter, oh, ow)
+        shapes = [d, wshape] + ([] if self.no_bias else [(self.num_filter,)])
+        return shapes, [out], []
+
+    def fwd(self, ins, aux, is_train, rng):
+        x = ins[0]
+        nhwc = self.layout == "NHWC"
+        xc = _nhwc_to_nchw(x) if nhwc else x
+        pad, adj = self._pad_adj(xc.shape[2], xc.shape[3])
+        y = F.conv_transpose2d(xc, ins[1].to(x.dtype), stride=self.stride,
+                               padding=pad, output_padding=adj,
+                               groups=self.num_group)
+        if nhwc:
+            y = _nchw_to_nhwc(y)
+        if not self.no_bias:
+            bshape = (1, 1, 1, -1) if nhwc else (1, -1, 1, 1)
+            y = y + ins[2].to(x.dtype).reshape(bshape)
+        return [y], []
+
+    def serialize_params(self) -> dict:
+        out = super().serialize_params()
+        for key in self._EXTENSIONS:
+            if self.attr[key] == (0, 0):
+                del out[key]
+        return out
+
+
 @register_op("Pooling")
 class PoolingOp(OpProp):
     """Max/avg/sum pooling, NCHW or NHWC per ``layout``, with floor output
@@ -240,6 +328,49 @@ class ActivationOp(OpProp):
         # softrelu = log(1 + exp(x)), without softplus's linear cut-over
         return [torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
                                                 device=x.device))], []
+
+
+@register_op("LeakyReLU")
+class LeakyReLUOp(OpProp):
+    """Leaky, parametric, exponential and randomized rectifiers:
+    ``where(x > 0, x, slope * x)`` (``leaky``), ``slope * (exp(x) - 1)``
+    below zero (``elu``), a learned per-channel ``gamma`` over axis 1
+    (``prelu``), and in training a slope per element drawn uniformly from
+    ``[lower_bound, upper_bound)`` out of ``rng`` (``rrelu``; its mean
+    slope at inference; torch and JAX draw different slopes)."""
+
+    params = {
+        "act_type": (("leaky", "prelu", "rrelu", "elu"), "leaky", "variant"),
+        "slope": (float, 0.25, "negative slope (leaky/elu)"),
+        "lower_bound": (float, 0.125, "rrelu slope lower bound"),
+        "upper_bound": (float, 0.334, "rrelu slope upper bound"),
+    }
+    need_rng = True
+
+    def list_arguments(self):
+        return ["data", "gamma"] if self.act_type == "prelu" else ["data"]
+
+    def infer_shape(self, in_shapes):
+        d = self._known(in_shapes, 0)
+        if self.act_type == "prelu":
+            return [d, (d[1],)], [d], []
+        return [d], [d], []
+
+    def fwd(self, ins, aux, is_train, rng):
+        x = ins[0]
+        if self.act_type == "leaky":
+            neg = self.slope * x
+        elif self.act_type == "elu":
+            neg = self.slope * (torch.exp(x) - 1.0)
+        elif self.act_type == "prelu":
+            neg = ins[1].to(x.dtype).reshape((1, -1) + (1,) * (x.ndim - 2)) * x
+        elif is_train:
+            lo, hi = self.lower_bound, self.upper_bound
+            u = torch.rand(x.shape, generator=rng, device=x.device)
+            neg = (lo + (hi - lo) * u).to(x.dtype) * x
+        else:
+            neg = (self.lower_bound + self.upper_bound) / 2.0 * x
+        return [torch.where(x > 0, x, neg)], []
 
 
 @register_op("Dropout")
@@ -438,3 +569,30 @@ class BatchNormOp(OpProp):
         if relu:
             y = torch.relu(y)
         return [y], [moving_mean, moving_var]
+
+
+@register_op("LRN")
+class LRNOp(OpProp):
+    """Local response normalisation across channels (axis 1):
+    ``y = x * (knorm + alpha / nsize * sum_window x²) ** -beta``, the window
+    sum in f32 over channels ``[c - half, c + nsize - 1 - half]`` (zero
+    outside), ``half = nsize // 2``, and the result in ``x.dtype``."""
+
+    params = {
+        "nsize": (Range(int, lo=1), REQUIRED, "normalization window (channels)"),
+        "alpha": (float, 1e-4, "scale"),
+        "beta": (float, 0.75, "exponent"),
+        "knorm": (float, 2.0, "additive constant"),
+    }
+
+    def fwd(self, ins, aux, is_train, rng):
+        x = ins[0]
+        xf = at_least_f32(x)
+        half = self.nsize // 2
+        sq = torch.square(xf)
+        # F.pad pads the last dims first: channels are axis 1 of a 4-D input
+        pads = (0, 0) * (x.ndim - 2) + (half, self.nsize - 1 - half)
+        ssum = F.pad(sq, pads).unfold(1, self.nsize, 1).sum(dim=-1)
+        y = xf * torch.pow(self.knorm + (self.alpha / self.nsize) * ssum,
+                           -self.beta)
+        return [y.to(x.dtype)], []

@@ -1,8 +1,9 @@
 """Structural and elementwise operators.
 
 Counterpart of ``mxnet_tpu/ops/tensor.py``: _Plus/_Minus/_Mul/_Div,
-ElementWiseSum, Concat, SliceChannel, Reshape, Flatten, BlockGrad and
-Transpose, with the same parameters and shape rules. Their gradients come
+ElementWiseSum, Concat, SliceChannel, Reshape, Flatten, BlockGrad,
+Transpose, the unary ops (square, sqrt, exp, log, abs, norm) and
+Embedding, with the same parameters and shape rules. Their gradients come
 from autograd; BlockGrad's output is detached, so nothing flows through it.
 """
 
@@ -241,3 +242,76 @@ class TransposeOp(OpProp):
 
     def fwd(self, ins, aux, is_train, rng):
         return [ins[0].permute(self._axes(ins[0].ndim))], []
+
+
+class _UnaryOp(OpProp):
+    """Elementwise unary math (the reference's TBlob-registry ops)."""
+
+    _fn = None
+
+    def fwd(self, ins, aux, is_train, rng):
+        return [type(self)._fn(ins[0])], []
+
+
+@register_op("square")
+class SquareOp(_UnaryOp):
+    _fn = staticmethod(torch.square)
+
+
+@register_op("sqrt")
+class SqrtOp(_UnaryOp):
+    _fn = staticmethod(torch.sqrt)
+
+
+@register_op("exp")
+class ExpOp(_UnaryOp):
+    _fn = staticmethod(torch.exp)
+
+
+@register_op("log")
+class LogOp(_UnaryOp):
+    _fn = staticmethod(torch.log)
+
+
+@register_op("abs")
+class AbsOp(_UnaryOp):
+    _fn = staticmethod(torch.abs)
+
+
+@register_op("norm")
+class NormOp(OpProp):
+    """L2 norm of the whole input, as a length-1 vector: ``sqrt(sum(x²))``
+    in the input's dtype, as the JAX package computes it."""
+
+    def infer_shape(self, in_shapes):
+        d = self._known(in_shapes, 0)
+        return [d], [(1,)], []
+
+    def fwd(self, ins, aux, is_train, rng):
+        return [torch.sqrt(torch.sum(torch.square(ins[0]))).reshape(1)], []
+
+
+@register_op("Embedding")
+class EmbeddingOp(OpProp):
+    """Token embedding lookup: rows of ``weight`` (input_dim, output_dim)
+    gathered by ``data`` taken as int32 token ids (fractional ids truncate
+    toward zero, as ``astype(int32)`` does). Repeated ids add their
+    gradients into the same row."""
+
+    params = {
+        "input_dim": (Range(int, lo=1), REQUIRED, "vocabulary size"),
+        "output_dim": (Range(int, lo=1), REQUIRED, "embedding dimension"),
+    }
+
+    def list_arguments(self):
+        return ["data", "weight"]
+
+    def infer_shape(self, in_shapes):
+        d = self._known(in_shapes, 0)
+        w = (self.input_dim, self.output_dim)
+        return [d, w], [d + (self.output_dim,)], []
+
+    def fwd(self, ins, aux, is_train, rng):
+        data, weight = ins
+        ids = data.to(torch.int32).long()
+        return [torch.nn.functional.embedding(ids, weight)], []

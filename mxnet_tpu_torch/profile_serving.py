@@ -8,7 +8,8 @@ It builds the seeded full-width ResNet-50 that ``chip_smoke.py`` serves
 and prints one JSON object:
 the card's name and power limit, the window's wall time, the device time
 summed over kernels, the device's idle share of the window, and the kernels
-with the most device time. TF32 is off, as in ``chip_smoke.py``.
+with the most device time. f32 contractions keep f32
+(``set_matmul_precision("highest")``, TF32 off), as in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from . import Predictor, gpu
+from . import Predictor, gpu, set_matmul_precision
 from .convert import random_params
 from .models import resnet50
 
@@ -38,8 +39,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     ctx = gpu(0)  # raises without CUDA
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_matmul_precision("highest")
     net = resnet50(num_classes=1000)
     shape = (BATCH, 3, 224, 224)
     arg_params, aux_params = random_params(net, SEED, data=shape)

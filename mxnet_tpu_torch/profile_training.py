@@ -1,6 +1,7 @@
 """Where a training step's device time goes, by kernel, on one CUDA card.
 
     python3 -m mxnet_tpu_torch.profile_training [--model resnet50|transformer]
+        [--precision highest|default] [--compute-dtype float32|bfloat16]
 
 ``resnet50`` trains the seeded full-width ResNet-50 of ``chip_smoke.py``
 (batch 32, seed 0, Adam with the fused step, lr 1e-3) for two steps through
@@ -10,8 +11,10 @@ full-width transformer LM of ``chip_smoke.py`` (bf16, batch 8 x 2048 tokens,
 seed 0) through two steps of ``make_train_step`` with the fused Adam step,
 then traces three more. Either prints one JSON object: the card's name and
 power limit, wall and device time per step, the device's idle share of the
-window, and the kernels with the most device time. TF32 is off, as in
-``chip_smoke.py``.
+window, and the kernels with the most device time. ``--precision`` is the
+f32 contractions' setting (``set_matmul_precision``; ``highest``, TF32
+off, by default); ``--compute-dtype bfloat16`` trains the ResNet with
+``FeedForward(compute_dtype=torch.bfloat16)`` (f32 masters).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import sys
 import numpy as np
 import torch
 
-from . import FeedForward, gpu, io
+from . import FeedForward, gpu, io, set_matmul_precision
 from . import optimizer as opt_mod
 from .convert import random_params
 from .models import TransformerLM, resnet50, transformer_lm_config
@@ -36,7 +39,7 @@ LEARNING_RATE = 1e-3
 LM_BATCH, LM_SEQ = 8, 2048   # chip_smoke.py's transformer batch
 
 
-def resnet_step(ctx):
+def resnet_step(ctx, compute_dtype=None):
     net = resnet50(num_classes=1000)
     shape = (BATCH, 3, 224, 224)
     arg_params, aux_params = random_params(net, SEED, data=shape)
@@ -45,7 +48,8 @@ def resnet_step(ctx):
     labels = rng.integers(0, 1000, BATCH).astype(np.float32)
     model = FeedForward(net, ctx=ctx, num_epoch=1, optimizer="adam",
                         fused=True, learning_rate=LEARNING_RATE,
-                        arg_params=arg_params, aux_params=aux_params)
+                        arg_params=arg_params, aux_params=aux_params,
+                        compute_dtype=compute_dtype)
     model.fit(io.NDArrayIter(np.concatenate([images, images]),
                              np.concatenate([labels, labels]),
                              batch_size=BATCH))
@@ -61,7 +65,10 @@ def resnet_step(ctx):
     return step, {"batch": BATCH}
 
 
-def transformer_step(ctx):
+def transformer_step(ctx, compute_dtype=None):
+    if compute_dtype is not None:
+        raise SystemExit("--compute-dtype is for the ResNet; the LM's "
+                         "config carries its dtype (bf16)")
     cfg = transformer_lm_config()
     model = TransformerLM(cfg)
     opt = opt_mod.create("adam", learning_rate=LEARNING_RATE, fused=True)
@@ -87,15 +94,21 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("resnet50", "transformer"),
                     default="resnet50")
+    ap.add_argument("--precision", choices=("highest", "default"),
+                    default="highest")
+    ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"),
+                    default="float32")
     args = ap.parse_args(argv)
     ctx = gpu(0)  # raises without CUDA
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_matmul_precision(args.precision)
     build = resnet_step if args.model == "resnet50" else transformer_step
-    step, shape = build(ctx)
+    compute_dtype = None if args.compute_dtype == "float32" \
+        else torch.bfloat16
+    step, shape = build(ctx, compute_dtype)
     report = device_report(step, STEPS, "step")
     print(json.dumps({"model": args.model, **shape, "optimizer": "adam",
-                      "fused": True, **report}))
+                      "fused": True, "precision": args.precision,
+                      "compute_dtype": args.compute_dtype, **report}))
     return 0
 
 

@@ -83,6 +83,18 @@ class Symbol:
             return self._heads[0][0].name
         return None
 
+    def get_internals(self):
+        """A Symbol whose outputs are every variable and every output of
+        every node, in topological order (reference:
+        Symbol::GetInternals): ``net.get_internals()["fc1_output"]``."""
+        heads = []
+        for node in self._topo():
+            if node.is_variable:
+                heads.append((node, 0))
+            else:
+                heads.extend((node, i) for i in range(node.op.num_outputs()))
+        return Symbol(heads)
+
     def __getitem__(self, index):
         if isinstance(index, str):
             names = self.list_outputs()
@@ -170,6 +182,14 @@ class Symbol:
             raise MXNetError(f"infer_shape incomplete; unknown: {missing}")
         return arg_shapes, out_shapes, aux_shapes
 
+    def infer_shape_partial(self, *args, **kwargs):
+        """:meth:`infer_shape`, or ``(None, None, None)`` where the known
+        shapes do not determine every shape (the JAX package's form)."""
+        try:
+            return self.infer_shape(*args, **kwargs)
+        except MXNetError:
+            return None, None, None
+
     def tojson(self) -> str:
         nodes = self._topo()
         nid = {id(n): i for i, n in enumerate(nodes)}
@@ -194,8 +214,26 @@ class Symbol:
         with open(fname, "w") as f:
             f.write(self.tojson())
 
+    def __getstate__(self):
+        return {"json": self.tojson()}
+
+    def __setstate__(self, state):
+        self._heads = load_json(state["json"])._heads
+
     def __repr__(self):
         return f"<Symbol {' '.join(self.list_outputs())}>"
+
+    def debug_str(self):
+        """One line per node in topological order: ``Variable:<name>`` or
+        ``Op:<op>, Name=<name>, Inputs: <src>[<k>], ...``."""
+        lines = []
+        for n in self._topo():
+            if n.is_variable:
+                lines.append(f"Variable:{n.name}")
+            else:
+                ins = ", ".join(f"{s.name}[{i}]" for s, i in n.inputs)
+                lines.append(f"Op:{n.op.name}, Name={n.name}, Inputs: {ins}")
+        return "\n".join(lines)
 
     def bind(self, ctx, args, args_grad=None, grad_req="write", aux_states=None):
         from .executor import Executor

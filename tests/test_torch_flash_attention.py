@@ -27,9 +27,12 @@ from mxnet_tpu.parallel.sequence import attention_reference as jreference
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.kernels import flash_attention as tfa
 from mxnet_tpu_torch.kernels import registry
+from mxnet_tpu_torch.base import set_matmul_precision
 from mxnet_tpu_torch.parallel import (attention_reference, ring_attention,
                                       ring_flash_attention,
                                       ring_self_attention)
+
+set_matmul_precision("highest")  # f32 contractions held to f32 references
 
 torch.set_num_threads(1)
 

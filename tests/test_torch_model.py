@@ -30,8 +30,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.convert import random_params
 
 torch.set_num_threads(1)
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+mt.set_matmul_precision("highest")
 
 NARROW = dict(units=(1, 1, 1, 1), filter_list=(16, 32, 64, 128),
               num_classes=10)

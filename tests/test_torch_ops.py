@@ -16,11 +16,11 @@ import torch
 from mxnet_tpu.ops import OPS as JOPS
 from mxnet_tpu.ops.pallas.matmul import int8_predict_scope as jax_int8_scope
 from mxnet_tpu_torch.kernels.int8_matmul import int8_predict_scope
+from mxnet_tpu_torch.base import set_matmul_precision
 from mxnet_tpu_torch.ops import OPS as TOPS
 
 torch.set_num_threads(2)
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+set_matmul_precision("highest")
 
 EXACT = dict(rtol=0, atol=0)
 CLOSE = dict(rtol=1e-5, atol=1e-6)

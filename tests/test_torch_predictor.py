@@ -25,8 +25,7 @@ from mxnet_tpu_torch.convert import params_from_numpy, random_params
 from mxnet_tpu_torch.kernels import int8_matmul as k8
 
 torch.set_num_threads(2)
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+mt.set_matmul_precision("highest")
 
 TOL = {None: dict(rtol=1e-4, atol=1e-5), "int8": dict(rtol=1e-3, atol=1e-3)}
 NARROW = dict(units=(1, 1, 1, 1), filter_list=(16, 32, 64, 128),

@@ -24,11 +24,11 @@ import torch
 
 from mxnet_tpu.ops import OPS as JOPS
 from mxnet_tpu_torch import random as trandom
+from mxnet_tpu_torch.base import set_matmul_precision
 from mxnet_tpu_torch.ops import OPS as TOPS
 
 torch.set_num_threads(1)
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+set_matmul_precision("highest")
 
 EXACT = dict(rtol=0, atol=0)
 BN_TOL = dict(rtol=1e-5, atol=1e-5)

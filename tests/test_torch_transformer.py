@@ -33,9 +33,12 @@ from mxnet_tpu_torch.convert import transformer_params_from_numpy
 from mxnet_tpu_torch.kernels import flash_attention as tfa
 from mxnet_tpu_torch.lr_scheduler import FactorScheduler
 from mxnet_tpu_torch.models import TransformerLM, transformer_lm_config
+from mxnet_tpu_torch.base import set_matmul_precision
 from mxnet_tpu_torch.parallel.tensor_parallel import (column_parallel_f32,
                                                      split_cotangent,
                                                      wide_product)
+
+set_matmul_precision("highest")  # f32 contractions held to f32 references
 
 torch.set_num_threads(1)
 
