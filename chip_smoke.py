@@ -67,6 +67,38 @@ together), and then:
 5e. monitor: a ``Monitor`` on a bf16 ResNet-50 executor for two training
    steps, one finite statistic for each of the 16 unit outputs, named as
    ``get_internals().list_outputs()`` names them;
+5f. io_feed: writes a RecordIO shard of 1,024 PNG records (smooth
+   gradients, sides drawn from 256-480, the port's own PNG encoder), reads
+   one epoch through ``ImageRecordIter`` at the JAX package's io bench
+   settings (batch 32, 3x224x224, shuffle, random crop and mirror,
+   resize 256, prefetch 8, seed 7, uint8) with one decode thread a host
+   core, checks the epoch's shapes and that 4 batches equal a second
+   iterator's with the same seed, and prints the feed-only images per
+   second;
+5g. io_fit: bf16 ResNet-50 (Xavier, SGD lr 0.01, momentum 0.9) trained
+   for one epoch (32 steps, the first a warm-up) through
+   ``FeedForward.fit`` from that iterator, with the device feed (a thread,
+   pinned buffers, its own stream and an event), again with
+   ``MXTPU_FEED_PREFETCH=0`` and on one cached batch; checks at every step
+   that the batch the step read on the card equals the host batch (an
+   exact int64 digest of both), that a planted off-by-one feed (each step
+   reads the previous step's batch) is caught at every step after the
+   first, that the loss is finite and the parameters moved; prints the
+   step time, images per second and the feed's wait a step of each run;
+5h. lstm_bucketing: ``BucketingModule.fit`` of ``lstm_unroll`` at the
+   widths of MXNet's PTB bucketing example (2 layers, 200 hidden, 200
+   embedding, vocabulary 10,000, buckets 10-60, batch 32, SGD lr 0.5) over
+   a synthetic Zipf(1.2) corpus, one epoch; checks the first step's loss
+   against the same step on the CPU within LSTM_CPU_BOUND, that every
+   bucket ran, and that after a step on bucket 10 bucket 50's executor
+   reads the updated weights bitwise, where a planted bucket that copies
+   its weights is caught; prints the step time per bucket and tokens per
+   second;
+5i. lstm_scan: ``LSTMLM`` (the time loop in torch) at the same widths,
+   sequence 64, batch 32: the forward's logits against the CPU's within
+   LSTM_SCAN_LOGIT_BOUND, 8 SGD-momentum steps with a falling loss, the
+   first against the CPU's step within LSTM_CPU_BOUND; prints forward and
+   step times and tokens per second;
 6. flash: holds the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the card, row by row, and lse at f32's
    precision, at the transformer LM's shape (q, k, v views of one packed
@@ -153,7 +185,8 @@ together), and then:
 13. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
    main path, error, times and bound (the flash kernels and fused_adam also
    their launches in lm_mesh; fused_adam its launches in train_bf16 and zoo;
-   every kernel its launches in moe_mesh, 0);
+   every kernel its launches in moe_mesh, 0, and in each of phases 5f-5i,
+   read around that phase's main path);
 14. ends with ``{"ok": true, "device": {...}}``.
 
 Every phase that holds the card to a reference runs with
@@ -318,6 +351,42 @@ DP_LAUNCHES = {
 # ResNet-50's gradient: 161 leaves, 25,557,032 elements; int8 chunk
 RESNET50_GRAD = 25_557_032
 COMM_CHUNK = 256
+
+
+# slice 10, the data path. io_feed / io_fit: a RecordIO shard of PNG
+# records (the card's machine has no PIL, so no JPEG), smooth gradients like
+# the JAX package's io bench shard (bench.py:240-262) with sides drawn from
+# 256-480 so that resize=256 resamples, read with bench.py:266-273's
+# iterator settings; io_fit trains bf16 ResNet-50 from it with bench.py's
+# SGD (run_io_bench, bench.py:339-341)
+IO_DIR = "build/chip_smoke/io"
+IO_RECORDS = 1024
+IO_SIDES = (256, 481)
+IO_ITER = dict(data_shape=(3, 224, 224), batch_size=32, shuffle=True,
+               rand_crop=True, rand_mirror=True, resize=256,
+               prefetch_buffer=8, seed=7, output_dtype="uint8")
+IO_FIT_STEPS = 16
+IO_LR, IO_MOMENTUM = 0.01, 0.9
+# lstm_bucketing / lstm_scan: the widths of MXNet's PTB bucketing example
+# (example/rnn/lstm_bucketing.py: 2 layers of 200, embedding 200, buckets
+# 10-60, batch 32, SGD lr 0.5 on the batch mean) over a synthetic corpus
+# (Zipf ids, lengths 5-60; the repository holds no PTB text), vocabulary
+# 10,000 as PTB's
+LSTM_CONFIG = dict(num_layers=2, num_hidden=200, num_embed=200, vocab=10000)
+LSTM_BUCKETS = [10, 20, 30, 40, 50, 60]
+LSTM_BATCH = 32
+LSTM_OPT = {"learning_rate": 0.5, "rescale_grad": 1 / LSTM_BATCH}
+LSTM_SENTENCES = 768
+LSTM_LENGTHS = (5, 60)
+LSTM_ZIPF = 1.2
+# the card's first-step loss (a mean NLL near log(10000)) against the same
+# step on the CPU, relative: f32 throughout, only summation orders differ
+LSTM_CPU_BOUND = 1e-5
+LSTM_SCAN_SEQ = 64
+LSTM_SCAN_STEPS = 8
+LSTM_SCAN_LR = 0.5
+# LSTMLM's logits on the card against the CPU's, max abs (logits of order 1)
+LSTM_SCAN_LOGIT_BOUND = 1e-4
 
 
 def emit(obj):
@@ -3065,6 +3134,535 @@ def phase_monitor(torch, mt):
                     for rows in steps], "toc_ms": toc_ms})
 
 
+# -- slice 10: the data path --------------------------------------------------
+
+
+def reset_launches():
+    for k in port_kernels().values():
+        k.launches = 0
+
+
+def read_launches():
+    return {n: k.launches for n, k in port_kernels().items()}
+
+
+def io_image(rng, h, w):
+    """A smooth gradient like the JAX package's io bench shard
+    (bench.py:240-262), at ``h`` x ``w``."""
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    size = max(h, w)
+    f = rng.uniform(0.5, 4.0, 3)
+    ph = rng.uniform(0, np.pi, 3)
+    return np.stack([127 + 120 * np.sin(2 * np.pi * f[c] * (yy + xx) / size
+                                        + ph[c]) for c in range(3)],
+                    axis=-1).astype(np.uint8)
+
+
+def write_io_shard(mt, path):
+    """``IO_RECORDS`` PNG records, sides drawn from ``IO_SIDES``, labels
+    ``i % 1000``; the images are made and encoded on a thread pool."""
+    import os
+
+    rng = np.random.RandomState(SEED)
+    specs = [(i, int(rng.randint(*IO_SIDES)), int(rng.randint(*IO_SIDES)),
+              int(rng.randint(2 ** 31 - 1))) for i in range(IO_RECORDS)]
+
+    def record(spec):
+        i, h, w, seed = spec
+        img = io_image(np.random.RandomState(seed), h, w)
+        return mt.recordio.pack_img(mt.recordio.IRHeader(
+            0, float(i % 1000), i, 0), img, img_fmt=".png")
+
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        payloads = list(pool.map(record, specs))
+    with mt.recordio.MXRecordIO(path, "w") as w:
+        for p in payloads:
+            w.write(p)
+    return sum(len(p) for p in payloads)
+
+
+def io_iter(mt, path, **kw):
+    return mt.io.ImageRecordIter(path_imgrec=path, **{**IO_ITER, **kw})
+
+
+def phase_io_feed(torch, mt):
+    """The RecordIO shard and the feed-only rate of ImageRecordIter."""
+    import os
+
+    os.makedirs(IO_DIR, exist_ok=True)
+    # the decode threads: one a host core (the engine's documented knob)
+    os.environ.setdefault("MXNET_CPU_WORKER_NTHREADS", str(os.cpu_count()))
+    path = os.path.join(IO_DIR, "shard.rec")
+    t0 = time.perf_counter()
+    shard_bytes = write_io_shard(mt, path)
+    write_s = time.perf_counter() - t0
+    reset_launches()
+    it = io_iter(mt, path)
+    t0 = time.perf_counter()
+    shapes, n = set(), 0
+    for b in it:
+        shapes.add((tuple(b.data[0].shape), b.data[0].dtype))
+        n += b.data[0].shape[0]
+    feed_s = time.perf_counter() - t0
+    launches = read_launches()
+    require(n == IO_RECORDS and shapes == {(
+                (IO_ITER["batch_size"],) + IO_ITER["data_shape"], torch.uint8)},
+            f"io_feed: one epoch of {IO_RECORDS} uint8 images: {n}, {shapes}")
+    again = [io_iter(mt, path), io_iter(mt, path)]
+    firsts = [[(b.data[0].clone(), b.label[0].clone())
+               for _, b in zip(range(4), a)] for a in again]
+    require(all(torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+                for x, y in zip(*firsts)) and len(firsts[0]) == 4,
+            "io_feed: 4 batches equal a second iterator's with the same seed")
+    labels = torch.cat([lab for _, lab in firsts[0]])
+    require(bool(((labels >= 0) & (labels < 1000)).all()),
+            "io_feed: labels in range")
+    emit({"phase": "io_feed", "records": IO_RECORDS, "format": "png",
+          "sides": IO_SIDES, "shard_bytes": shard_bytes,
+          "write_s": write_s, "iterator": IO_ITER, "host_cores": os.cpu_count(),
+          "decode_threads": int(os.environ["MXNET_CPU_WORKER_NTHREADS"]),
+          "feed_s": feed_s, "feed_images_per_s": n / feed_s,
+          "launches": launches})
+    return path, launches
+
+
+class DigestHook:
+    """A fit step hook that keeps, for every step, the host batch and an
+    exact int64 digest of the batch the step read on the card; the host
+    digests are taken after the fit, so the hook adds no sync."""
+
+    def __init__(self, torch, numel):
+        rng = np.random.RandomState(SEED + 10)
+        self.host_w = torch.from_numpy(
+            rng.randint(1, 1000, numel).astype(np.int64))
+        self.dev_w = self.host_w.cuda()
+        self.steps = []
+
+    def __call__(self, batch, arrays):
+        x = arrays["data"]
+        self.steps.append((batch.data[0], (x.reshape(-1).long()
+                                           * self.dev_w).sum()))
+
+    def mismatches(self):
+        return [i for i, (host, dev) in enumerate(self.steps)
+                if int((host.reshape(-1).long() * self.host_w).sum())
+                != int(dev)]
+
+
+def io_fit(torch, mt, net, args, aux, data, steps_floor, fault=False):
+    """One epoch of bf16 ResNet-50 ``FeedForward.fit`` (SGD, lr 0.01,
+    momentum 0.9) from ``data``, each step's batch digested on the card.
+    Step ms is the epoch's card-synced time after the warm-up step over the
+    steps after it."""
+    from mxnet_tpu_torch import model as model_mod
+
+    class StepLoss(mt.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("softmax_loss")
+            self.values = []
+            from mxnet_tpu_torch.ops import OPS
+
+            self.head = OPS.create("SoftmaxOutput")
+
+        def update(self, labels, preds):
+            self.values.append(self.head.loss_value(preds[0], labels[0]))
+
+    class OffByOne(model_mod._DeviceFeed):
+        """The planted fault: each step reads the previous step's batch."""
+
+        def __iter__(self):
+            prev = None
+            for batch, dev in super().__iter__():
+                yield batch, (dev if prev is None else prev)
+                prev = dev
+
+    metric, marks = StepLoss(), []
+
+    def mark(_p):
+        if not marks:
+            torch.cuda.synchronize()  # the warm-up step ends here
+            marks.append(time.perf_counter())
+
+    hook = DigestHook(torch, int(np.prod(data.provide_data[0][1])))
+    model = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1, optimizer="sgd",
+                           learning_rate=IO_LR, momentum=IO_MOMENTUM,
+                           arg_params=args, aux_params=aux,
+                           compute_dtype=torch.bfloat16)
+    model._step_hook = hook
+    real = model_mod._DeviceFeed
+    if fault:
+        model_mod._DeviceFeed = OffByOne
+    try:
+        model.fit(data, eval_metric=metric, batch_end_callback=mark)
+    finally:
+        model_mod._DeviceFeed = real
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - marks[0]
+    n = len(hook.steps)
+    require(n >= steps_floor, f"io_fit: {n} steps, at least {steps_floor}")
+    losses = [float(v) / IO_ITER["batch_size"] for v in metric.values]
+    step_ms = elapsed * 1e3 / (n - 1)
+    waits = model.feed_waits
+    return model, {
+        "steps": n, "step_ms": step_ms,
+        "images_per_s": IO_ITER["batch_size"] * 1e3 / step_ms,
+        "feed_wait_ms_median": statistics.median(waits[1:]) * 1e3,
+        "feed_wait_ms_mean": float(np.mean(waits[1:])) * 1e3,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "finite": bool(np.isfinite(losses).all()),
+        "digest_mismatches": hook.mismatches()}
+
+
+def cached_batches(mt, batch, steps):
+    """A DataIter that yields one host batch ``steps`` times."""
+
+    class Cached(mt.io.DataIter):
+        def __init__(self):
+            super().__init__()
+            self.batch_size = batch.data[0].shape[0]
+            self._i = 0
+
+        def reset(self):
+            self._i = 0
+
+        def next(self):
+            if self._i == steps:
+                raise StopIteration
+            self._i += 1
+            return mt.io.DataBatch([batch.data[0]], [batch.label[0]])
+
+        @property
+        def provide_data(self):
+            return [("data", tuple(batch.data[0].shape))]
+
+        @property
+        def provide_label(self):
+            return [("softmax_label", tuple(batch.label[0].shape))]
+
+    return Cached()
+
+
+def xavier_resnet50(torch, mt):
+    """ResNet-50 with Xavier-initialised parameters (the initializer's own
+    rule for biases, BatchNorm's gamma, beta and running statistics)."""
+    from mxnet_tpu_torch.models import resnet50
+
+    net = resnet50(num_classes=1000)
+    shape = (IO_ITER["batch_size"],) + IO_ITER["data_shape"]
+    arg_shapes, _, aux_shapes = net.infer_shape(data=shape)
+    init = mt.init.Xavier()
+    args, aux = {}, {}
+    for names, shapes, store in ((net.list_arguments(), arg_shapes, args),
+                                 (net.list_auxiliary_states(), aux_shapes,
+                                  aux)):
+        for name, s in zip(names, shapes):
+            if name in ("data", "softmax_label"):
+                continue
+            store[name] = torch.zeros(s)
+            init(name, store[name])
+    return net, args, aux
+
+
+def phase_io_fit(torch, mt, path):
+    """bf16 ResNet-50 trained from the RecordIO shard through the feed."""
+    import os
+
+    mt.set_matmul_precision("highest")
+    net, args, aux = xavier_resnet50(torch, mt)
+    steps_floor = IO_FIT_STEPS + 1
+    reset_launches()
+    model, overlap = io_fit(torch, mt, net, args, aux, io_iter(mt, path),
+                            steps_floor)
+    launches = read_launches()
+    moved = max(float((model.arg_params[k] - args[k]).abs().max())
+                for k in args)
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in model.arg_params.values())
+    os.environ["MXTPU_FEED_PREFETCH"] = "0"
+    try:
+        _, sync = io_fit(torch, mt, net, args, aux, io_iter(mt, path),
+                         steps_floor)
+    finally:
+        del os.environ["MXTPU_FEED_PREFETCH"]
+    first = next(iter(io_iter(mt, path)))
+    _, cached = io_fit(torch, mt, net, args, aux,
+                       cached_batches(mt, first, overlap["steps"]),
+                       steps_floor)
+    _, fault = io_fit(torch, mt, net, args, aux,
+                      io_iter(mt, path, num_parts=4), 4, fault=True)
+    for name, row in (("overlap", overlap), ("synchronous", sync),
+                      ("cached", cached)):
+        require(not row["digest_mismatches"],
+                f"io_fit ({name}): every step read the host batch on the "
+                f"card; steps {row['digest_mismatches']} did not")
+        require(row["finite"], f"io_fit ({name}): finite loss")
+    require(finite and moved > 0, f"io_fit: parameters finite ({finite}) "
+            f"and moved ({moved})")
+    require(fault["digest_mismatches"] == list(range(1, fault["steps"])),
+            "io_fit: the planted off-by-one feed is caught at every step "
+            f"after the first: {fault['digest_mismatches']}")
+    emit({"phase": "io_fit", "model": "resnet50", "compute_dtype": "bfloat16",
+          "optimizer": f"sgd lr {IO_LR} momentum {IO_MOMENTUM}",
+          "initializer": "Xavier", "overlap": overlap,
+          "synchronous_feed": sync, "cached_batch": cached,
+          "planted_off_by_one": {"steps": fault["steps"],
+                                 "mismatched_steps":
+                                 fault["digest_mismatches"]},
+          "max_param_move": moved, "launches": launches})
+    return launches
+
+
+def lstm_sentences():
+    """The synthetic corpus: lengths uniform over ``LSTM_LENGTHS``, ids
+    with Zipf(``LSTM_ZIPF``) frequencies over a fixed order of the
+    vocabulary (the repository holds no PTB text)."""
+    rng = np.random.default_rng(SEED + 11)
+    vocab = LSTM_CONFIG["vocab"]
+    freq = 1.0 / np.arange(1, vocab + 1) ** LSTM_ZIPF
+    order = rng.permutation(vocab)
+    lengths = rng.integers(LSTM_LENGTHS[0], LSTM_LENGTHS[1] + 1,
+                           LSTM_SENTENCES)
+    ids = order[rng.choice(vocab, size=int(lengths.sum()),
+                           p=freq / freq.sum())]
+    return np.split(ids.astype(np.int32), np.cumsum(lengths)[:-1])
+
+
+def lstm_sym_gen(mt):
+    cfg = LSTM_CONFIG
+
+    def gen(seq_len):
+        return mt.models.lstm_unroll(
+            cfg["num_layers"], seq_len, cfg["vocab"], cfg["num_hidden"],
+            cfg["num_embed"], cfg["vocab"])
+    return gen
+
+
+def lstm_states():
+    cfg = LSTM_CONFIG
+    return [(f"l{i}_init_{k}", (LSTM_BATCH, cfg["num_hidden"]))
+            for i in range(cfg["num_layers"]) for k in ("c", "h")]
+
+
+def lstm_args(mt):
+    from mxnet_tpu_torch.convert import random_params
+
+    top = LSTM_BUCKETS[-1]
+    shapes = {f"t{t}_data": (LSTM_BATCH,) for t in range(top)}
+    shapes.update(dict(lstm_states()))
+    return random_params(lstm_sym_gen(mt)(top), SEED, **shapes)[0]
+
+
+def lstm_nll(torch, labels, preds):
+    """Mean negative log-likelihood over a batch's steps and rows."""
+    nll = [-torch.log(torch.gather(p.float(), 1, lab.long().to(p.device)[
+        :, None])[:, 0] + 1e-12) for lab, p in zip(labels, preds)]
+    return torch.stack(nll).mean()
+
+
+def bucket_module(mt, ctx, args, it, fault=False):
+    """A BucketingModule over ``lstm_unroll`` bound and initialised from
+    ``args``; with ``fault``, each bucket's executor holds copies of the
+    default bucket's weights (the planted fault)."""
+    base = mt.mod.BucketingModule
+
+    class Copying(base):
+        def _executor_for(self, key, shapes):
+            ex = super()._executor_for(key, shapes)
+            for n in args:
+                ex.arg_dict[n] = ex.arg_dict[n].clone()
+            return ex
+
+    mod = (Copying if fault else base)(lstm_sym_gen(mt),
+                                       default_bucket_key=LSTM_BUCKETS[-1],
+                                       context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=args, aux_params={})
+    return mod
+
+
+def bucket_sharing(torch, mt, args, batches, fault):
+    """One step on the shortest bucket, then whether the longest bucket's
+    executor reads the updated weights bitwise."""
+    it = mt.bucketing.BucketSentenceIter([], buckets=LSTM_BUCKETS,
+                                         batch_size=LSTM_BATCH,
+                                         init_states=lstm_states())
+    mod = bucket_module(mt, mt.gpu(0), args, it, fault=fault)
+    mod.init_optimizer(optimizer_params=LSTM_OPT)
+    short, long_ = batches[LSTM_BUCKETS[0]], batches[LSTM_BUCKETS[-2]]
+    mod.forward(long_, is_train=False)  # binds the long bucket first
+    mod.forward(short, is_train=True)
+    mod.backward()
+    mod.update()
+    ex = mod._bucket_execs[LSTM_BUCKETS[-2]]
+    master = mod._default_exec.arg_dict
+    moved = not torch.equal(master["cls_weight"].cpu(),
+                            torch.from_numpy(args["cls_weight"]))
+    return moved, all(torch.equal(ex.arg_dict[n], master[n]) for n in args)
+
+
+def phase_lstm_bucketing(torch, mt):
+    """BucketingModule.fit of lstm_unroll at the PTB example's widths."""
+    mt.set_matmul_precision("highest")
+    args = lstm_args(mt)
+    sents = lstm_sentences()
+    it = mt.bucketing.BucketSentenceIter(sents, buckets=LSTM_BUCKETS,
+                                         batch_size=LSTM_BATCH,
+                                         init_states=lstm_states(), seed=SEED)
+
+    class StepNLL(mt.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("nll")
+            self.values, self.keys = [], []
+
+        def update(self, labels, preds):
+            self.keys.append(len(labels))
+            self.values.append(lstm_nll(torch, labels, preds))
+
+    metric, stamps = StepNLL(), []
+
+    def stamp(_p):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    mod = bucket_module(mt, mt.gpu(0), args, it)
+    seen_batches = []
+    forward = mod.forward
+
+    def first_forward(batch, is_train=None):
+        out = forward(batch, is_train)
+        if not seen_batches:
+            seen_batches.append((batch, [o.clone() for o in mod.get_outputs()[
+                :len(batch.label)]]))
+        return out
+
+    mod.forward = first_forward  # keeps the first batch fit trains on
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, eval_metric=metric, optimizer="sgd",
+            optimizer_params=LSTM_OPT, batch_end_callback=stamp)
+    launches = read_launches()
+    losses = [float(v) for v in metric.values]
+    step_ms = np.diff([t0] + stamps) * 1e3
+    per_bucket = {}
+    seen = set()
+    for key, ms in zip(metric.keys, step_ms):
+        if key in seen:  # the first step of a bucket binds its executor
+            per_bucket.setdefault(key, []).append(float(ms))
+        seen.add(key)
+    bucket_row = {k: {"steps": len(v) + 1, "step_ms_median":
+                      statistics.median(v),
+                      "tokens_per_s": LSTM_BATCH * k * 1e3
+                      / statistics.median(v)}
+                  for k, v in sorted(per_bucket.items())}
+    # the first step against the same step on the CPU
+    first, first_outs = seen_batches[0]
+    cpu_mod = bucket_module(mt, mt.cpu(), args, it)
+    cpu_mod.forward(first, is_train=True)
+    cpu_outs = cpu_mod.get_outputs()[:len(first.label)]
+    cpu_loss = float(lstm_nll(torch, first.label, cpu_outs))
+    first_err = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    probs_err = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(first_outs, cpu_outs))
+    require(np.isfinite(losses).all(), "lstm_bucketing: finite losses")
+    require(first_err < LSTM_CPU_BOUND,
+            f"lstm_bucketing: the first step's loss {losses[0]} against the "
+            f"CPU's {cpu_loss} ({first_err} relative, bound {LSTM_CPU_BOUND})")
+    require(set(mod._bucket_execs) == set(LSTM_BUCKETS),
+            f"lstm_bucketing: every bucket ran: {sorted(mod._bucket_execs)}")
+    batches = {}
+    for b in mt.bucketing.BucketSentenceIter(
+            sents, buckets=LSTM_BUCKETS, batch_size=LSTM_BATCH,
+            init_states=lstm_states(), shuffle=False):
+        batches.setdefault(b.bucket_key, b)
+    moved, shared = bucket_sharing(torch, mt, args, batches, fault=False)
+    f_moved, f_shared = bucket_sharing(torch, mt, args, batches, fault=True)
+    require(moved and shared, "lstm_bucketing: after a step on bucket "
+            f"{LSTM_BUCKETS[0]}, bucket {LSTM_BUCKETS[-2]}'s executor reads "
+            f"the updated weights bitwise (moved {moved}, shared {shared})")
+    require(f_moved and not f_shared, "lstm_bucketing: the planted fault "
+            "(a bucket copies its weights) is caught")
+    emit({"phase": "lstm_bucketing", "config": LSTM_CONFIG,
+          "buckets": LSTM_BUCKETS, "batch": LSTM_BATCH,
+          "optimizer": LSTM_OPT, "corpus": {
+              "sentences": LSTM_SENTENCES, "lengths": LSTM_LENGTHS,
+              "zipf": LSTM_ZIPF, "discarded": it.discarded},
+          "steps": len(losses), "loss_first": losses[0],
+          "loss_last": losses[-1], "cpu_first_loss": cpu_loss,
+          "first_loss_rel_err": first_err,
+          "first_probs_max_abs_err": probs_err, "per_bucket": bucket_row,
+          "epoch_s": float(step_ms.sum() / 1e3),
+          "planted_copy_caught": not f_shared, "launches": launches})
+    return launches
+
+
+def phase_lstm_scan(torch, mt):
+    """LSTMLM (the time loop in torch) at the same widths: forward and 8
+    SGD-momentum steps on the card, held against the CPU."""
+    from mxnet_tpu_torch.models import LSTMLM
+
+    mt.set_matmul_precision("highest")
+    cfg = LSTM_CONFIG
+    model = LSTMLM(cfg["vocab"], num_embed=cfg["num_embed"],
+                   num_hidden=cfg["num_hidden"], num_layers=cfg["num_layers"])
+    rng = np.random.default_rng(SEED + 12)
+    ids = rng.integers(0, cfg["vocab"], (LSTM_BATCH, LSTM_SCAN_SEQ + 1))
+    tokens = torch.from_numpy(ids[:, :-1].astype(np.int32))
+    targets = torch.from_numpy(ids[:, 1:].astype(np.int32))
+    params = model.init_params(SEED, ctx=mt.gpu(0))
+    cpu_params = {k: v.cpu().clone() for k, v in params.items()}
+    tok, tgt = tokens.cuda(), targets.cuda()
+    reset_launches()
+    with torch.no_grad():
+        logits, _ = model.forward(params, tok)
+        fwd_ms = []
+        for _ in range(5):  # wall time: the time loop is launch-bound
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.forward(params, tok)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        fwd_ms = statistics.median(fwd_ms)
+        cpu_logits, _ = model.forward(cpu_params, tokens)
+    logit_err = float((logits.cpu() - cpu_logits).abs().max())
+    step = model.make_train_step(lr=LSTM_SCAN_LR, momentum=0.9)
+    moms = model.init_optimizer(params)
+    cpu_moms = model.init_optimizer(cpu_params)
+    losses, marks = [], []
+    for i in range(LSTM_SCAN_STEPS):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        params, moms, loss = step(params, moms, tok, tgt)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    launches = read_launches()
+    losses = [float(v) for v in losses]
+    # one CPU step from the same start, against the card's first
+    cpu_step = model.make_train_step(lr=LSTM_SCAN_LR, momentum=0.9)
+    _, _, cpu_loss = cpu_step(cpu_params, cpu_moms, tokens, targets)
+    loss_err = abs(losses[0] - float(cpu_loss)) / float(cpu_loss)
+    step_ms = np.diff(marks)[1:] * 1e3
+    require(np.isfinite(losses).all() and losses[-1] < losses[0],
+            f"lstm_scan: finite losses that fell: {losses}")
+    require(logit_err < LSTM_SCAN_LOGIT_BOUND,
+            f"lstm_scan: logits against the CPU's, {logit_err} (bound "
+            f"{LSTM_SCAN_LOGIT_BOUND})")
+    require(loss_err < LSTM_CPU_BOUND,
+            f"lstm_scan: the first step's loss against the CPU's, "
+            f"{loss_err} relative (bound {LSTM_CPU_BOUND})")
+    tokens_n = LSTM_BATCH * LSTM_SCAN_SEQ
+    emit({"phase": "lstm_scan", "config": LSTM_CONFIG, "batch": LSTM_BATCH,
+          "seq": LSTM_SCAN_SEQ, "forward_ms": fwd_ms,
+          "forward_tokens_per_s": tokens_n * 1e3 / fwd_ms,
+          "logits_max_abs_err_vs_cpu": logit_err, "losses": losses,
+          "first_loss_rel_err_vs_cpu": loss_err,
+          "step_ms_median": float(np.median(step_ms)),
+          "train_tokens_per_s": tokens_n * 1e3 / float(np.median(step_ms)),
+          "launches": launches})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3096,6 +3694,12 @@ def main() -> int:
     zoo_launches = phase_zoo(torch, mt, kfa)
     phase_ndarray(torch, mt)
     phase_monitor(torch, mt)
+    torch.cuda.empty_cache()
+    io_path, io_feed_launches = phase_io_feed(torch, mt)
+    slice10 = {"io_feed": io_feed_launches,
+               "io_fit": phase_io_fit(torch, mt, io_path),
+               "lstm_bucketing": phase_lstm_bucketing(torch, mt),
+               "lstm_scan": phase_lstm_scan(torch, mt)}
     torch.cuda.empty_cache()
     flash_rows, flash_errs = phase_flash(torch, tfa, registry)
     serve_launches, lm_params, lm_grad_errs = phase_lm_serve(torch, mt, tfa)
@@ -3143,6 +3747,9 @@ def main() -> int:
             kernels[-1]["lm_mesh_launches"] = mesh_launches[name]
         # per rank: the steps of phase moe_mesh, which runs no kernel
         kernels[-1]["moe_mesh_launches"] = moe_launches[name]
+        # the slice 10 phases, each read around its own main path
+        kernels[-1]["slice10_launches"] = {p: got[name]
+                                           for p, got in slice10.items()}
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

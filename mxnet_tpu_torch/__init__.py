@@ -16,7 +16,12 @@ comm_kernels=...)``), with the gradient-compression kernels
 over sp. Slice 9 adds bf16 ``compute_dtype`` and remat to ``FeedForward``,
 the zoo's remaining ops and models, ``Symbol.get_internals`` with
 ``Monitor``, the imperative ``NDArray`` and the f32 contractions' precision
-setting (``set_matmul_precision``). Entry points run on the card
+setting (``set_matmul_precision``). Slice 10 adds the data path:
+``engine``, ``filesystem``, ``recordio`` and ``io``'s iterators
+(``ImageRecordIter`` with its own PNG codec and copies of PIL's resample
+and affine transforms), the device feed of ``FeedForward.fit``, ``module``
+(``Module``, ``BucketingModule``), ``bucketing`` and the LSTM LMs. Entry
+points run on the card
 (``gpu(0)``) unless the caller passes ``ctx=cpu()``.
 """
 
@@ -34,6 +39,8 @@ from .model import FeedForward, load_checkpoint, save_checkpoint
 from .monitor import Monitor
 from . import models  # noqa: F401
 from . import comm, kvstore, kvstore as kv, parallel  # noqa: F401
+from . import engine, filesystem, recordio  # noqa: F401
+from . import module, module as mod, bucketing  # noqa: F401
 
 __all__ = ["MXNetError", "set_matmul_precision", "get_matmul_precision",
            "Context", "cpu", "cpu_pinned", "gpu", "current_context",
@@ -42,4 +49,5 @@ __all__ = ["MXNetError", "set_matmul_precision", "get_matmul_precision",
            "save_checkpoint", "load_checkpoint", "symbol", "sym", "nd",
            "ndarray", "random", "init", "initializer", "io", "lr_scheduler",
            "metric", "optimizer", "callback", "models", "comm", "kvstore",
-           "kv", "parallel"]
+           "kv", "parallel", "engine", "filesystem", "recordio", "module",
+           "mod", "bucketing"]

@@ -14,6 +14,7 @@ import torch
 __all__ = ["to_tensor", "params_from_numpy", "random_params",
            "adam_state_from_numpy", "adam_state_to_numpy",
            "transformer_params_from_numpy", "moe_params_from_numpy",
+           "lstm_params_from_numpy",
            "shard_transformer_params",
            "gather_transformer_params", "shard_optimizer_state",
            "gather_optimizer_state", "residual_rows_from_numpy",
@@ -46,6 +47,15 @@ def transformer_params_from_numpy(params, device):
     SGD-momentum state has the same layout and crosses the same way."""
     device = torch.device(device)
     return {k: to_tensor(v, device).float() for k, v in params.items()}
+
+
+def lstm_params_from_numpy(params, device):
+    """``LSTMLM``'s parameters (the JAX package's ``LSTMLM.init_params``, or
+    ``lstm_unroll``'s arguments of the same names) as f32 tensors on
+    ``device``, under the same names and layouts (``l{i}_i2h_weight`` is
+    ``(4 * hidden, in)``, applied as ``x @ W.T``). Its momentum crosses the
+    same way."""
+    return transformer_params_from_numpy(params, device)
 
 
 def moe_params_from_numpy(params, device):

@@ -29,6 +29,12 @@ residual each rank keeps across steps), float auxiliary states are
 averaged over the ranks and device metrics summed. ``comm_kernels`` routes
 the quantize stages through the fused kernels.
 
+The batches reach the device through a feed thread
+(:class:`_DeviceFeed`, the counterpart of ``_AsyncDeviceFeed``): it draws
+up to two batches ahead, copies them into pinned host memory and on to the
+card on its own CUDA stream, and the step's stream waits on each batch's
+event. ``MXTPU_FEED_PREFETCH=0`` feeds synchronously.
+
 Arguments of ``fit`` that belong to later slices of the port raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
@@ -38,6 +44,8 @@ from __future__ import annotations
 import json
 import logging
 import os
+import queue
+import threading
 import time
 import zlib
 
@@ -259,14 +267,143 @@ class _GradSync:
         return tuple(all_reduce_sum(t) for t in state)
 
 
-def _cast_floats(values: dict, dtype, names=None) -> dict:
-    """``values`` with each floating tensor (of ``names``, if given) cast to
-    ``dtype``; None leaves them as they are."""
+def _cast_floats(values: dict, dtype) -> dict:
+    """``values`` with each floating tensor cast to ``dtype``; None leaves
+    them as they are."""
     if dtype is None:
         return values
-    return {k: v.to(dtype) if v.is_floating_point()
-            and (names is None or k in names) else v
+    return {k: v.to(dtype) if v.is_floating_point() else v
             for k, v in values.items()}
+
+
+def _cast_inputs(values: dict, dtype, names) -> dict:
+    """``values`` with each tensor of ``names`` cast to ``dtype``, whatever
+    its type: a uint8 image batch enters the training graph in ``dtype``
+    (mxnet_tpu/model.py:673)."""
+    if dtype is None:
+        return values
+    return {k: v.to(dtype) if k in names else v for k, v in values.items()}
+
+
+class _DeviceFeed:
+    """Feed/compute overlap for the train loop, the counterpart of the JAX
+    package's ``_AsyncDeviceFeed`` (mxnet_tpu/model.py:192-282).
+
+    A thread draws batches from the iterator, ``extract``s their host
+    tensors, copies them into pinned host memory and issues ``non_blocking``
+    copies to ``device`` on a stream of its own, then records an event.
+    The consumer's stream waits on that event before the step reads the
+    batch, and each device tensor is marked used on the consumer's stream
+    (``record_stream``), so the caching allocator does not hand its memory
+    out again while the step still reads it. ``depth`` bounds the batches
+    in flight. An iterator's exception surfaces in the consuming thread;
+    :meth:`close` stops and joins the thread. On a CPU device the thread
+    only extracts. ``waits`` holds the seconds the consumer waited for each
+    batch."""
+
+    _SENTINEL = object()
+
+    def __init__(self, data_iter, extract, device, depth=2):
+        self._q = queue.Queue(maxsize=max(1, int(depth)))
+        self._err = None
+        self._closed = False
+        self._device = device
+        self.waits = []
+        cuda = device.type == "cuda"
+        self._stream = torch.cuda.Stream(device) if cuda else None
+
+        def put(item):
+            while not self._closed:
+                try:
+                    self._q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                if cuda:
+                    torch.cuda.set_device(device)
+                for batch in data_iter:
+                    host = extract(batch)
+                    if cuda:
+                        pinned = {k: v.pin_memory() for k, v in host.items()}
+                        with torch.cuda.stream(self._stream):
+                            dev = {k: v.to(device, non_blocking=True)
+                                   for k, v in pinned.items()}
+                            event = torch.cuda.Event()
+                            event.record(self._stream)
+                    else:
+                        dev, event = host, None
+                    if not put((batch, dev, event)):
+                        return
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                self._err = e
+            finally:
+                put(self._SENTINEL)
+
+        self._thread = threading.Thread(target=worker, daemon=True,
+                                        name="mxtorch-feed")
+        self._thread.start()
+
+    def close(self):
+        """Stop the thread and join it, so the caller may reset the
+        iterator."""
+        self._closed = True
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join(timeout=10.0)
+        if self._thread.is_alive():
+            logging.warning("feed thread still running after close() (the "
+                            "data iterator is blocked in next())")
+
+    def __iter__(self):
+        while True:
+            t0 = time.perf_counter()
+            item = self._q.get()
+            self.waits.append(time.perf_counter() - t0)
+            if item is self._SENTINEL:
+                self.waits.pop()
+                if self._err is not None:
+                    raise self._err
+                return
+            batch, dev, event = item
+            if event is not None:
+                stream = torch.cuda.current_stream(self._device)
+                stream.wait_event(event)
+                for t in dev.values():
+                    t.record_stream(stream)
+            yield batch, dev
+
+
+class _SyncFeed:
+    """The feed without a thread (``MXTPU_FEED_PREFETCH=0``): each batch is
+    extracted and copied when the loop asks for it; ``waits`` holds the
+    seconds that took."""
+
+    def __init__(self, data_iter, extract, device):
+        self._iter, self._extract, self._device = data_iter, extract, device
+        self.waits = []
+
+    def close(self):
+        pass
+
+    def __iter__(self):
+        it = iter(self._iter)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            dev = {k: v.to(self._device) for k, v in
+                   self._extract(batch).items()}
+            self.waits.append(time.perf_counter() - t0)
+            yield batch, dev
 
 
 class _TrainState:
@@ -275,14 +412,20 @@ class _TrainState:
     phases (forward, backward, the gradient sync of data-parallel
     training, update), so that a caller can time them apart.
 
-    With ``compute_dtype`` the forward runs on copies of the parameters and
-    of the ``data_names`` inputs cast to it (labels and auxiliary states
-    stay as they are, mxnet_tpu/model.py:669-674); the parameters stay f32
-    masters, and autograd takes their gradients in f32 through the cast."""
+    With ``compute_dtype`` the forward runs on copies of the floating
+    parameters and of every ``data_names`` input, whatever its type, cast
+    to it (labels and auxiliary states stay as they are,
+    mxnet_tpu/model.py:669-674); the parameters stay f32 masters, and
+    autograd takes their gradients in f32 through the cast.
+
+    ``symbol_for(bucket_key)`` gives the graph of a bucket (bucketing
+    trainers); every bucket's graph reads the same parameters."""
 
     def __init__(self, symbol, optimizer, params, aux, device, sync=None,
-                 compute_dtype=None, data_names=()):
+                 compute_dtype=None, data_names=(), symbol_for=None):
         self.graph_fn = _build_graph_fn(symbol, is_train=True)
+        self._symbol_for = symbol_for
+        self._graph_fns = {}
         self.compute_dtype = compute_dtype
         self.data_names = frozenset(data_names)
         self.optimizer = optimizer
@@ -294,14 +437,22 @@ class _TrainState:
         self._loss = None
         self.grads = None
 
-    def forward(self, batch: dict):
-        """The training forward; keeps the sum of the heads for backward
-        and moves the auxiliary states (BatchNorm's running stats)."""
+    def forward(self, batch: dict, bucket_key=None, data_names=None):
+        """The training forward of ``bucket_key``'s graph (the symbol's
+        when None); keeps the sum of the heads for backward and moves the
+        auxiliary states (BatchNorm's running stats). ``data_names`` are
+        the batch's data inputs (default: the trainer's)."""
+        graph_fn = self.graph_fn
+        if bucket_key is not None:
+            if bucket_key not in self._graph_fns:
+                self._graph_fns[bucket_key] = _build_graph_fn(
+                    self._symbol_for(bucket_key), is_train=True)
+            graph_fn = self._graph_fns[bucket_key]
+        names = self.data_names if data_names is None else data_names
         with torch.enable_grad():
             params = _cast_floats(self.params, self.compute_dtype)
-            batch = _cast_floats(batch, self.compute_dtype, self.data_names)
-            outs, self.aux = self.graph_fn({**params, **batch}, self.aux,
-                                           self.rng)
+            batch = _cast_inputs(batch, self.compute_dtype, names)
+            outs, self.aux = graph_fn({**params, **batch}, self.aux, self.rng)
             heads = [o for o in outs if o.requires_grad]
             # seed-ones cotangent: loss heads inject their own gradient
             self._loss = sum(o.float().sum() for o in heads) if heads else None
@@ -378,6 +529,15 @@ class FeedForward:
         self.kwargs = dict(kwargs)
         self._opt_cache = None
         self._train_state = None
+        # called as fn(batch, device_arrays) after each training forward
+        self._step_hook = None
+        self.feed_waits = []
+
+    def _symbol_for_bucket(self, bucket_key):
+        """The graph of one bucket; one symbol here (bucketing trainers
+        make one a key)."""
+        del bucket_key
+        return self.symbol
 
     @property
     def _device(self) -> torch.device:
@@ -433,13 +593,6 @@ class FeedForward:
         in place, so the caller's arrays are never written."""
         dev = self._device
         return {k: to_tensor(v, dev).detach().clone() for k, v in values.items()}
-
-    def _batch_arrays(self, batch, data_names, label_names):
-        dev = self._device
-        arrays = {n: to_tensor(a, dev) for n, a in zip(data_names, batch.data)}
-        arrays.update({n: to_tensor(a, dev)
-                       for n, a in zip(label_names, batch.label)})
-        return arrays
 
     def fit(self, X, y=None, eval_data=None, eval_metric="accuracy",
             epoch_end_callback=None, batch_end_callback=None, kvstore="local",
@@ -506,10 +659,22 @@ class FeedForward:
                              dev)
         state = self._train_state = _TrainState(
             self.symbol, optimizer, params, aux, dev, sync=sync,
-            compute_dtype=self.compute_dtype, data_names=data_names)
+            compute_dtype=self.compute_dtype, data_names=data_names,
+            symbol_for=self._symbol_for_bucket)
         eval_metric = metric_mod.create(eval_metric)
         device_metric = eval_metric.device_supported and \
             batch_end_callback is None
+        cpu = torch.device("cpu")
+
+        def extract(batch):
+            arrays = {n: to_tensor(a, cpu) for n, a in zip(
+                getattr(batch, "data_names", data_names), batch.data)}
+            arrays.update({n: to_tensor(a, cpu) for n, a in zip(
+                getattr(batch, "label_names", label_names), batch.label)})
+            return arrays
+
+        feed_depth = int(os.environ.get("MXTPU_FEED_PREFETCH", "2"))
+        self.feed_waits = []
         num_update = 0
         for epoch in range(self.begin_epoch, self.num_epoch):
             tic = time.time()
@@ -517,27 +682,38 @@ class FeedForward:
             mstate = eval_metric.device_init(dev) if device_metric else None
             nbatch = 0
             train_data.reset()
-            for batch in train_data:
-                arrays = self._batch_arrays(batch, data_names, label_names)
-                lr = optimizer._get_lr()
-                optimizer.num_update = num_update
-                outs = state.forward(arrays)
-                state.backward()
-                state.sync()
-                state.update(lr)
-                num_update += 1
-                labels = [arrays[n] for n in label_names]
-                preds = [o.detach().float() for o in outs[:len(labels)]]
-                if device_metric:
-                    mstate = eval_metric.device_update(mstate, labels, preds)
-                else:
-                    eval_metric.update(labels, preds)
-                nbatch += 1
-                if batch_end_callback is not None:
-                    param = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                          eval_metric=eval_metric)
-                    for cb in _as_list(batch_end_callback):
-                        cb(param)
+            feed = _DeviceFeed(train_data, extract, dev, depth=feed_depth) \
+                if feed_depth > 0 else _SyncFeed(train_data, extract, dev)
+            try:
+                for batch, arrays in feed:
+                    b_lnames = getattr(batch, "label_names", label_names)
+                    lr = optimizer._get_lr()
+                    optimizer.num_update = num_update
+                    outs = state.forward(
+                        arrays, getattr(batch, "bucket_key", None),
+                        getattr(batch, "data_names", None))
+                    if self._step_hook is not None:
+                        self._step_hook(batch, arrays)
+                    state.backward()
+                    state.sync()
+                    state.update(lr)
+                    num_update += 1
+                    labels = [arrays[n] for n in b_lnames]
+                    preds = [o.detach().float() for o in outs[:len(labels)]]
+                    if device_metric:
+                        mstate = eval_metric.device_update(mstate, labels,
+                                                           preds)
+                    else:
+                        eval_metric.update(labels, preds)
+                    nbatch += 1
+                    if batch_end_callback is not None:
+                        param = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                              eval_metric=eval_metric)
+                        for cb in _as_list(batch_end_callback):
+                            cb(param)
+            finally:
+                feed.close()
+                self.feed_waits.extend(feed.waits)
             if device_metric:
                 if sync is not None:
                     mstate = sync.metric(mstate)
@@ -563,17 +739,17 @@ class FeedForward:
                     cb(epoch, self.symbol, self.arg_params, self.aux_params)
 
     # -- inference --------------------------------------------------------
-    def _fill_missing_args(self, params, arrays):
+    def _fill_missing_args(self, symbol, params, arrays):
         """Zero-fill the arguments an inference batch lacks (the loss heads'
         labels, which their forward ignores)."""
-        arg_names = self.symbol.list_arguments()
+        arg_names = symbol.list_arguments()
         missing = [n for n in arg_names if n not in params and n not in arrays]
         if not missing:
             return arrays
         known = {k: tuple(v.shape) for k, v in arrays.items()}
         known.update({k: tuple(v.shape) for k, v in params.items()
                       if k in arg_names})
-        arg_shapes, _, _ = self.symbol.infer_shape(**known)
+        arg_shapes, _, _ = symbol.infer_shape(**known)
         shape_of = dict(zip(arg_names, arg_shapes))
         dev = self._device
         return {**arrays, **{n: torch.zeros(shape_of[n], dtype=torch.float32,
@@ -581,10 +757,11 @@ class FeedForward:
 
     def _inference_batches(self, data_iter, data_names):
         """Yield (batch, outputs of its valid rows) in eval mode, padding a
-        short tail batch up to the first batch's rows."""
+        short tail batch up to the first batch's rows; each bucket runs its
+        own graph."""
         if self.arg_params is None:
             raise MXNetError("model has no parameters; fit() or load first")
-        fn = _build_graph_fn(self.symbol, is_train=False)
+        fns = {}
         params = _cast_floats(self._on_device(self.arg_params),
                               self.compute_dtype)
         aux = self._on_device(self.aux_params or {})
@@ -592,13 +769,19 @@ class FeedForward:
         first_rows = None
         data_iter.reset()
         for batch in data_iter:
-            arrays = {n: to_tensor(a, dev) for n, a in zip(data_names, batch.data)}
+            key = getattr(batch, "bucket_key", None)
+            symbol = self._symbol_for_bucket(key)
+            if key not in fns:
+                fns[key] = _build_graph_fn(symbol, is_train=False)
+            names = getattr(batch, "data_names", data_names)
+            arrays = {n: to_tensor(a, dev) for n, a in zip(names, batch.data)}
             rows = int(next(iter(arrays.values())).shape[0])
             first_rows = first_rows or rows
-            arrays = self._fill_missing_args(params, _pad_rows(arrays, first_rows))
+            arrays = self._fill_missing_args(symbol, params,
+                                             _pad_rows(arrays, first_rows))
             arrays = _cast_floats(arrays, self.compute_dtype)
             with torch.inference_mode():
-                outs, _ = fn({**params, **arrays}, aux)
+                outs, _ = fns[key]({**params, **arrays}, aux)
             nv = rows - batch.pad
             yield batch, [o[:nv].float() for o in outs]
 

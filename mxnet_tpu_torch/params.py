@@ -83,17 +83,27 @@ def coerce(typ, value):
     return typ(value)
 
 
-def apply_params(owner_name: str, spec: dict, kwargs: dict) -> dict:
+def apply_params(owner_name: str, spec: dict, kwargs: dict,
+                 tolerated=()) -> dict:
     """Validate ``kwargs`` against ``spec``; return the full normalised dict.
 
     Unknown keys, missing required keys and unparseable values raise
     :class:`MXNetError` naming the owner and the field. An explicit None means
     "use the default". The key order (given keys first, then defaults in spec
-    order) matches the JAX package, so serialised graphs are identical.
+    order) matches the JAX package, so serialised graphs are identical. Keys
+    in ``tolerated`` (reference flags with no effect here) are dropped with a
+    warning.
     """
     out = {}
     for key, value in kwargs.items():
         if key not in spec:
+            if key in tolerated:
+                import warnings
+
+                warnings.warn(
+                    f"{owner_name}: parameter {key!r} is a reference-only "
+                    f"flag with no effect here; ignored", stacklevel=3)
+                continue
             raise MXNetError(
                 f"{owner_name}: unknown parameter {key!r}; "
                 f"accepts {sorted(spec)}")
