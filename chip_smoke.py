@@ -99,6 +99,43 @@ together), and then:
    LSTM_SCAN_LOGIT_BOUND, 8 SGD-momentum steps with a falling loss, the
    first against the CPU's step within LSTM_CPU_BOUND; prints forward and
    step times and tokens per second;
+5j. graphs: captured against eager (``MXTPU_CUDA_GRAPHS=0``) in one
+   process: ResNet-50 at batch 32 in f32 ``"highest"`` with fused Adam
+   (phase train's), and bf16 with SGD momentum on one cached batch
+   (io_fit's), 8 steps each, captured, eager and eager again, the
+   captured parameters within twice the eager runs' spread (the largest
+   difference, and the difference over the eager run's movement from the
+   initial weights), two planted captured Adam steps (no update after the
+   warm-up; lr, c1 and c2 baked in at the capture) read above the second
+   bound, one capture and 7
+   replays, fused_adam counted once a step by replay, and step ms,
+   images per second, the card's device time and idle share
+   (torch.profiler), capture seconds and graph-pool bytes of each;
+   fused_adam replayed with its per-step vector refreshed (lr halved
+   every 2 steps, Adam's bias corrections moving) bitwise the eager
+   launches over 8 steps at ResNet-50's 161 leaves, and a planted graph
+   with lr, c1 and c2 baked in read above the bound; a planted stale
+   static buffer (the feed's copies go to new buffers after the capture)
+   caught at every replay after it by the in-step digest; the PTB-width
+   bucketed LSTM through ``BucketingFeedForward`` precompiled (every
+   bucket captured, none in the fit after it), captured as it goes and
+   eager, bitwise, a FactorScheduler moving lr; the int8 Predictor at
+   batch 32, replayed and eager, logits bitwise, int8_matmul counted
+   once a request, and int8_matmul alone replayed on 9 inputs bitwise its
+   plain version after a NaN-filled allocator; AlexNet's Dropout masks
+   (bf16, lr 0) bitwise the eager steps' and different between replays;
+5k. ckpt: save_sharded, load_sharded, one capture_snapshot's stall and
+   the writer's background time at ResNet-50's 161 leaves (fused Adam's
+   state); a fit with ``checkpoint_every_n_steps=2`` killed after step 5
+   (an exception from a batch callback) and resumed on the same object
+   (its captured steps reused) against the uninterrupted fit: bf16
+   ResNet-50 with fused Adam within twice the spread of two uninterrupted
+   fits (0: bitwise), fused_adam counted once a resumed step by replay
+   (the phase's launches), the bucketed LSTM bitwise; a corrupted newest
+   step skipped by latest_step; a planted resume that rebinds the
+   parameter tensors instead of copying into the captured buffers caught;
+   lm_train and dp_train report fused_adam's leaf-table builds (one a
+   run: fresh gradients upload only their pointers);
 6. flash: holds the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the card, row by row, and lse at f32's
    precision, at the transformer LM's shape (q, k, v views of one packed
@@ -185,9 +222,16 @@ together), and then:
 13. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
    main path, error, times and bound (the flash kernels and fused_adam also
    their launches in lm_mesh; fused_adam its launches in train_bf16 and zoo;
-   every kernel its launches in moe_mesh, 0, and in each of phases 5f-5i,
-   read around that phase's main path);
+   every kernel its launches in moe_mesh, 0, in each of phases 5f-5i,
+   read around that phase's main path, and in phases 5j and 5k, counted by
+   replay);
 14. ends with ``{"ok": true, "device": {...}}``.
+
+Under the port's default, every single-card ``FeedForward`` fit above
+replays captured steps (phases train, train_bf16 but its remat fit, zoo
+but AlexNet under remat, io_fit, graphs, ckpt), and launches are counted
+by replay. ``BucketingModule`` (lstm_bucketing) and the LM's
+``make_train_step`` stay eager.
 
 Every phase that holds the card to a reference runs with
 ``set_matmul_precision("highest")`` (f32 contractions, TF32 off); the
@@ -382,6 +426,7 @@ LSTM_ZIPF = 1.2
 # the card's first-step loss (a mean NLL near log(10000)) against the same
 # step on the CPU, relative: f32 throughout, only summation orders differ
 LSTM_CPU_BOUND = 1e-5
+GRAPH_STEPS = 8
 LSTM_SCAN_SEQ = 64
 LSTM_SCAN_STEPS = 8
 LSTM_SCAN_LR = 0.5
@@ -780,12 +825,13 @@ def fit_one_batch(torch, mt, kfa, net, args, aux, batch_x, batch_y,
     split = {"forward_ms": [], "backward_ms": [], "update_ms": []}
     for _ in range(5):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        state.prepare(LEARNING_RATE)
         ev[0].record()
         state.forward(arrays)
         ev[1].record()
         state.backward()
         ev[2].record()
-        state.update(LEARNING_RATE)
+        state.update()
         ev[3].record()
         torch.cuda.synchronize()
         for key, (a, b) in zip(split, zip(ev, ev[1:])):
@@ -838,7 +884,9 @@ def phase_train(torch, mt, kfa):
     model, fit_row = fit_one_batch(torch, mt, kfa, net, args, aux, batch_x,
                                    batch_y)
     launches = fit_row["launches"]
-    table_builds = model._optimizer_obj._leaf_table.builds
+    table = model._optimizer_obj._leaf_table
+    table_builds = {"builds": table.builds,
+                    "grad_uploads": table.grad_uploads}
     require_trained(fit_row, TRAIN_STEPS, "train")
     for k, v in model.arg_params.items():
         v = v.numpy()
@@ -901,7 +949,7 @@ def phase_train(torch, mt, kfa):
     row = {"phase": "train", "model": "resnet50", "batch": BATCH,
            "image": [3, 224, 224], "classes": 1000, "steps": TRAIN_STEPS,
            "optimizer": "adam", "fused": True, "learning_rate": LEARNING_RATE,
-           "precision": "highest", "leaf_table_builds": table_builds,
+           "precision": "highest", "leaf_table": table_builds,
            **{k: v for k, v in fit_row.items() if k != "losses"}}
     emit(row)
     return launches, row
@@ -1187,6 +1235,12 @@ def phase_lm_train(torch, mt, topt, tfa, kfa, params0, grad_errs):
         losses.append(float(loss))   # syncs the host with the step
         stamps.append(time.perf_counter())
     launches = {n: fn.launches for n, fn in kernels.items()}
+    # the gradients are fresh tensors each step: only their pointers go up
+    # again, the rest of fused_adam's table is built once
+    table = {"builds": opt._leaf_table.builds,
+             "grad_uploads": opt._leaf_table.grad_uploads}
+    require(table["builds"] == 1 and table["grad_uploads"] <= LM_STEPS,
+            f"lm_train: fused_adam's leaf table built once: {table}")
     per_step = {"flash_fwd": cfg["n_layers"], "flash_bwd_dq": cfg["n_layers"],
                 "flash_bwd_dkv": cfg["n_layers"], "fused_adam": 1}
     for n, k in per_step.items():
@@ -1238,7 +1292,7 @@ def phase_lm_train(torch, mt, topt, tfa, kfa, params0, grad_errs):
           "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
           "step_ms": step_ms, "step_ms_median": median_ms,
           "tokens_per_s": LM_BATCH * LM_SEQ * 1e3 / median_ms,
-          "split": split})
+          "split": split, "leaf_table": table})
     return launches
 
 
@@ -1581,6 +1635,7 @@ def dp_train_rank(torch, rank, world, mode):
               eval_metric=metric,
               batch_end_callback=lambda p: stamps.append(time.perf_counter()))
     launches = {n: fn.launches for n, fn in kernels.items()}
+    table = model._optimizer_obj._leaf_table
     allreduce._wire = wire
     by_op = {}
     for op, nbytes in sent:
@@ -1592,7 +1647,9 @@ def dp_train_rank(torch, rank, world, mode):
            "digest": digest(model.arg_params, model.aux_params),
            "finite": all(bool(torch.isfinite(v).all())
                          for v in model.arg_params.values()),
-           "comm_stats_wire_bytes": comm.comm_stats()["wire_bytes"]}
+           "comm_stats_wire_bytes": comm.comm_stats()["wire_bytes"],
+           "leaf_table": {"builds": table.builds,
+                          "grad_uploads": table.grad_uploads}}
 
     # one step split on the card's clock, in 3 more steps after the fit with
     # synchronizes added: a barrier before the sync (the wait for the peer
@@ -1657,6 +1714,7 @@ def dp_train_rank(torch, rank, world, mode):
             host_s.update({k: 0.0 for k in (*hosts.values(),
                                              "flat_views_ms")})
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            state.prepare(LEARNING_RATE)
             ev[0].record()
             state.forward(arrays)
             ev[1].record()
@@ -1669,7 +1727,7 @@ def dp_train_rank(torch, rank, world, mode):
             ev[3].record()
             state.sync()
             ev[4].record()
-            state.update(LEARNING_RATE)
+            state.update()
             ev[5].record()
             torch.cuda.synchronize()
             for key, (a, b) in (("forward_ms", ev[0:2]),
@@ -1711,7 +1769,8 @@ def dp_train_rank(torch, rank, world, mode):
     ev[1].record()
     torch.cuda.synchronize()
     out["tree_copies_ms"] = ev[0].elapsed_time(ev[1]) / 3
-    state.update(LEARNING_RATE)
+    state.prepare(LEARNING_RATE)
+    state.update()
     out["card_vs_cpu_sync_bitwise"] = (
         all(bits_equal(torch, card[0][k], host[k]) for k in card[0])
         and bits_equal(torch, card[1], resid_cpu))
@@ -1836,6 +1895,9 @@ def phase_dp_train(torch, comm):
                     f"batch fell: {losses}")
             require(got["finite"], f"dp_train {mode} rank {rank}: finite "
                     "parameters")
+            require(got["leaf_table"]["builds"] == 1,
+                    f"dp_train {mode} rank {rank}: fused_adam's leaf table "
+                    f"built once in the fit: {got['leaf_table']}")
             require(got["card_vs_cpu_sync_bitwise"],
                     f"dp_train {mode} rank {rank}: the card's sync equals "
                     "the CPU's bitwise")
@@ -1868,7 +1930,8 @@ def phase_dp_train(torch, comm):
               "global_images_per_s": DP_WORLD * BATCH * 1e3 / median_ms,
               "split_rank0": r0["split"],
               "split_rank1": ranks[1][mode]["split"],
-              "tree_copies_ms_rank0": r0["tree_copies_ms"]})
+              "tree_copies_ms_rank0": r0["tree_copies_ms"],
+              "leaf_table_rank0": r0["leaf_table"]})
         for name, count in r0["launches"].items():
             if name != "fused_adam" and DP_LAUNCHES[mode].get(name):
                 launches[name] = count
@@ -3227,33 +3290,35 @@ def phase_io_feed(torch, mt):
 
 
 class DigestHook:
-    """A fit step hook that keeps, for every step, the host batch and an
-    exact int64 digest of the batch the step read on the card; the host
-    digests are taken after the fit, so the hook adds no sync."""
+    """A step probe (``FeedForward._step_probe``): an exact int64 digest of
+    the batch each step read on the card, computed inside the step, so a
+    captured step digests its static input buffer as the graph reads it.
+    The host digests of the fit's batches are taken after the fit, so the
+    probe adds no sync."""
 
     def __init__(self, torch, numel):
         rng = np.random.RandomState(SEED + 10)
         self.host_w = torch.from_numpy(
             rng.randint(1, 1000, numel).astype(np.int64))
         self.dev_w = self.host_w.cuda()
-        self.steps = []
 
-    def __call__(self, batch, arrays):
-        x = arrays["data"]
-        self.steps.append((batch.data[0], (x.reshape(-1).long()
-                                           * self.dev_w).sum()))
+    def __call__(self, arrays):
+        return (arrays["data"].reshape(-1).long() * self.dev_w).sum()
 
-    def mismatches(self):
-        return [i for i, (host, dev) in enumerate(self.steps)
-                if int((host.reshape(-1).long() * self.host_w).sum())
+    def mismatches(self, probes):
+        return [i for i, (batch, dev) in enumerate(probes)
+                if int((batch.data[0].reshape(-1).long() * self.host_w).sum())
                 != int(dev)]
 
 
-def io_fit(torch, mt, net, args, aux, data, steps_floor, fault=False):
+def io_fit(torch, mt, net, args, aux, data, steps_floor, fault=False,
+           stale=False):
     """One epoch of bf16 ResNet-50 ``FeedForward.fit`` (SGD, lr 0.01,
-    momentum 0.9) from ``data``, each step's batch digested on the card.
-    Step ms is the epoch's card-synced time after the warm-up step over the
-    steps after it."""
+    momentum 0.9) from ``data``, each step's batch digested on the card
+    inside the step. Step ms is the epoch's card-synced time after the
+    warm-up step over the steps after it. ``fault`` plants an off-by-one
+    feed; ``stale`` a captured step whose static input buffer the feed no
+    longer writes after the capture."""
     from mxnet_tpu_torch import model as model_mod
 
     class StepLoss(mt.metric.EvalMetric):
@@ -3288,17 +3353,29 @@ def io_fit(torch, mt, net, args, aux, data, steps_floor, fault=False):
                            learning_rate=IO_LR, momentum=IO_MOMENTUM,
                            arg_params=args, aux_params=aux,
                            compute_dtype=torch.bfloat16)
-    model._step_hook = hook
-    real = model_mod._DeviceFeed
+    model._step_probe = hook
+    real, real_run = model_mod._DeviceFeed, model_mod._Program.run
+
+    def stale_run(self, arrays):
+        out = real_run(self, arrays)
+        if self.captured.captured and not hasattr(self, "planted"):
+            # the graph keeps reading the buffers it was captured on (kept
+            # alive here); the feed's copies go to new ones from here on
+            self.planted = self.static
+            self.static = {k: v.clone() for k, v in self.static.items()}
+        return out
+
     if fault:
         model_mod._DeviceFeed = OffByOne
+    if stale:
+        model_mod._Program.run = stale_run
     try:
         model.fit(data, eval_metric=metric, batch_end_callback=mark)
     finally:
-        model_mod._DeviceFeed = real
+        model_mod._DeviceFeed, model_mod._Program.run = real, real_run
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - marks[0]
-    n = len(hook.steps)
+    n = len(model.step_probes)
     require(n >= steps_floor, f"io_fit: {n} steps, at least {steps_floor}")
     losses = [float(v) / IO_ITER["batch_size"] for v in metric.values]
     step_ms = elapsed * 1e3 / (n - 1)
@@ -3310,7 +3387,7 @@ def io_fit(torch, mt, net, args, aux, data, steps_floor, fault=False):
         "feed_wait_ms_mean": float(np.mean(waits[1:])) * 1e3,
         "loss_first": losses[0], "loss_last": losses[-1],
         "finite": bool(np.isfinite(losses).all()),
-        "digest_mismatches": hook.mismatches()}
+        "digest_mismatches": hook.mismatches(model.step_probes)}
 
 
 def cached_batches(mt, batch, steps):
@@ -3663,6 +3740,746 @@ def phase_lstm_scan(torch, mt):
     return launches
 
 
+# -- slice 11: captured steps and checkpoints --------------------------------
+
+
+def set_graphs(on):
+    import os
+
+    os.environ["MXTPU_CUDA_GRAPHS"] = "1" if on else "0"
+
+
+def max_gap(torch, a, b):
+    """The largest absolute difference between two parameter dicts."""
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def moved_gap(torch, init, a, b):
+    """How far run ``a``'s parameters lie from run ``b``'s, over how far
+    ``b``'s moved from ``init``: ||a - b|| / ||b - init|| over every leaf.
+    A run whose step stops updating reads about the share of the movement
+    it missed; a run that follows ``b`` reads what rounding leaves."""
+    num = den = 0.0
+    for k in b:
+        bk = b[k].double()
+        num += float(((a[k].double() - bk) ** 2).sum())
+        den += float(((bk - torch.as_tensor(init[k]).double()) ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def planted_no_update(mt):
+    """A captured step that never updates: the optimizer's in-place update
+    is left out of every capture (the eager warm-up step still runs it)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def plant():
+        import torch
+
+        cls = mt.optimizer.Adam
+        real = cls.apply_inplace
+
+        def skip_in_capture(self, *args):
+            if not torch.cuda.is_current_stream_capturing():
+                real(self, *args)
+
+        cls.apply_inplace = skip_in_capture
+        try:
+            yield
+        finally:
+            cls.apply_inplace = real
+    return plant
+
+
+def planted_baked_values():
+    """A captured step whose per-step values stay those of the capture
+    step: the step vector is not refreshed after the second step (the
+    warm-up, then the capture), so lr, c1 and c2 are baked in."""
+    import contextlib
+
+    from mxnet_tpu_torch import model as model_mod
+
+    @contextlib.contextmanager
+    def plant():
+        real, calls = model_mod._StepScalars.load, [0]
+
+        def frozen(self, values):
+            calls[0] += 1
+            if calls[0] <= 2:
+                real(self, values)
+
+        model_mod._StepScalars.load = frozen
+        try:
+            yield
+        finally:
+            model_mod._StepScalars.load = real
+    return plant
+
+
+def graph_stats(tcm):
+    st = tcm.compile_stats()
+    return {k: st[k] for k in ("captures", "capture_seconds", "pool_bytes",
+                               "replays", "eager")}
+
+
+def step_profile(torch, model, arrays, captured):
+    """Device time and the card's idle share of 3 more steps of ``model``'s
+    training state after its fit, replayed from the graph or eager
+    (torch.profiler, as profile_training does)."""
+    from mxnet_tpu_torch.profile_serving import device_report
+
+    state = model._train_state
+    progs = [p for p in state.programs.values() if p.captured.captured]
+
+    def step():
+        state.prepare(LEARNING_RATE)
+        if captured:
+            progs[0].run(arrays)
+        else:
+            state.step(arrays)
+
+    step()
+    torch.cuda.synchronize()
+    rep = device_report(step, 3, "step")
+    return {k: rep[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                "device_idle_share")}
+
+
+def graphs_fit(torch, mt, tcm, net, args, aux, data, captured, batch,
+               steps, **model_kw):
+    """One fit of ``steps`` steps from ``data`` on the card, captured or
+    eager (``MXTPU_CUDA_GRAPHS``), each step synchronized; the step time is
+    the median of the steps after the warm-up and capture steps."""
+    set_graphs(captured)
+    tcm.reset_compile_stats()
+    reset_launches()
+    metric, stamps = step_loss_metric(mt), []
+    model = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1,
+                           arg_params=args, aux_params=aux, **model_kw)
+
+    def stamp(_p):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    model.fit(data, eval_metric=metric, batch_end_callback=stamp)
+    launches = read_launches()
+    ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+    require(len(metric.steps) == steps and np.isfinite(metric.steps).all(),
+            f"graphs: {steps} finite steps: {metric.steps}")
+    return model, {"step_ms_median": statistics.median(ms),
+                   "images_per_s": batch * 1e3 / statistics.median(ms),
+                   "loss_first": metric.steps[0],
+                   "loss_last": metric.steps[-1], **graph_stats(tcm),
+                   "launches": launches}
+
+
+def resnet_ab(torch, mt, tcm, net, args, aux, data_fn, batch_dev, steps,
+              what, plants=None, **model_kw):
+    """Captured, eager and eager again: the three rows, the gaps between
+    their parameters and the gates (captured within twice the eager runs'
+    spread, as the largest difference and as :func:`moved_gap`), and each
+    run's device time and idle share. Each of ``plants`` (name: a context
+    manager that plants a fault in the captured step) is one more
+    captured fit, whose moved gap must read above the bound."""
+    rows, params = {}, {}
+    for name, captured in (("captured", True), ("eager", False),
+                           ("eager_again", False)):
+        model, rows[name] = graphs_fit(torch, mt, tcm, net, args, aux,
+                                       data_fn(), captured, BATCH, steps,
+                                       **model_kw)
+        params[name] = dict(model.arg_params)
+        if name != "eager_again":
+            rows[name].update(step_profile(torch, model, batch_dev, captured))
+        del model
+        torch.cuda.empty_cache()
+    spread = max_gap(torch, params["eager"], params["eager_again"])
+    gap = max_gap(torch, params["captured"], params["eager"])
+    require(gap <= 2 * spread,
+            f"graphs {what}: captured vs eager after {steps} steps {gap}, "
+            f"beyond twice the eager runs' spread {spread}")
+    moved_spread = moved_gap(torch, args, params["eager_again"],
+                             params["eager"])
+    moved = moved_gap(torch, args, params["captured"], params["eager"])
+    require(moved <= 2 * moved_spread,
+            f"graphs {what}: captured vs eager after {steps} steps moved "
+            f"{moved} apart, beyond twice the eager runs' {moved_spread}")
+    planted = {}
+    for name, plant in (plants or {}).items():
+        with plant():
+            model, _ = graphs_fit(torch, mt, tcm, net, args, aux, data_fn(),
+                                  True, BATCH, steps, **model_kw)
+        planted[name] = moved_gap(torch, args, dict(model.arg_params),
+                                  params["eager"])
+        del model
+        torch.cuda.empty_cache()
+        require(planted[name] > 2 * moved_spread,
+                f"graphs {what}: the planted {name} step reads above the "
+                f"bound: {planted[name]} against {2 * moved_spread}")
+    require(rows["captured"]["captures"] == 1
+            and rows["captured"]["replays"] == steps - 1
+            and rows["eager"]["eager"] == {"MXTPU_CUDA_GRAPHS=0": 1},
+            f"graphs {what}: one capture and {steps - 1} replays, the eager "
+            f"run counted with its reason: {rows}")
+    return rows, {"captured_vs_eager": gap, "eager_vs_eager": spread,
+                  "moved_captured_vs_eager": moved,
+                  "moved_eager_vs_eager": moved_spread,
+                  "moved_bound": 2 * moved_spread,
+                  "planted_moved": planted}, params["captured"]
+
+
+def adam_replay_check(torch, kfa, tcm):
+    """fused_adam captured with its per-step vector refreshed before each
+    replay (a FactorScheduler halving lr every 2 steps, Adam's bias
+    corrections moving) against the eager wrapper on the same gradients,
+    bitwise over 8 steps at ResNet-50's 161 leaves; and a planted graph
+    that bakes the first step's lr, c1 and c2 in."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 20)
+    shapes = list(resnet50_leaf_shapes().values())
+
+    def leaves(scale=1.0):
+        return [torch.randn(s, generator=gen, device="cuda") * scale
+                for s in shapes]
+
+    w0, grads = leaves(), [leaves(2.0 * BATCH) for _ in range(8)]
+    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-8, rescale_grad=1 / BATCH,
+                 clip_gradient=None, wd_l2=1e-4, decoupled=False)
+    sched = __import__("mxnet_tpu_torch").lr_scheduler.FactorScheduler(
+        step=2, factor=0.5, base_lr=LEARNING_RATE)
+    n = len(shapes)
+    runs = {}
+    for name in ("eager", "captured", "baked"):
+        w = [t.clone() for t in w0]
+        m = [torch.zeros_like(t) for t in w0]
+        v = [torch.zeros_like(t) for t in w0]
+        g_static = [t.clone() for t in grads[0]]
+        scal = torch.zeros(kfa.HEADER + kfa.PER_LEAF * n, device="cuda")
+        table = kfa.LeafTable()
+        first = None
+
+        def step(w=w, m=m, v=v, g=g_static, scal=scal, table=table):
+            kfa.fused_adam_step(w, g, m, v, scal, table=table, **hyper)
+
+        prog = tcm.CapturedProgram(step, "cuda", f"unit:adam_{name}",
+                                   warmup=1)
+        before = kfa.fused_adam.launches
+        for t in range(1, 9):
+            lr = sched(t - 1)
+            c1 = [float(np.float32(1) - np.float32(0.9) ** np.float32(t))] * n
+            c2 = [float(np.float32(1) - np.float32(0.999) ** np.float32(t))] * n
+            values = torch.from_numpy(kfa.step_vector(lr, c1, c2, [0.0] * n))
+            first = values if first is None else first
+            if name == "eager":
+                kfa.fused_adam(w, grads[t - 1], m, v, c1, c2, [0.0] * n,
+                               lr=lr, table=table, **hyper)
+                continue
+            for dst, src in zip(g_static, grads[t - 1]):
+                dst.copy_(src)
+            scal.copy_((first if name == "baked" else values).to("cuda"))
+            prog()
+        torch.cuda.synchronize()
+        runs[name] = (w, m, v, kfa.fused_adam.launches - before)
+    eq = all(torch.equal(a, b) for i in range(3)
+             for a, b in zip(runs["eager"][i], runs["captured"][i]))
+    baked = max(float((a - b).abs().max())
+                for a, b in zip(runs["eager"][0], runs["baked"][0]))
+    require(eq, "graphs: fused_adam replayed with the per-step vector is "
+            "bitwise the eager launches (params, m, v) over 8 steps")
+    require(runs["captured"][3] == 8,
+            f"graphs: 8 fused_adam launches counted, {runs['captured'][3]}")
+    require(baked > 1e-6, "graphs: the planted graph with lr, c1 and c2 "
+            f"baked in at its capture reads above the bound: {baked}")
+    return {"leaves": n, "steps": 8, "bitwise": eq,
+            "launches_counted": runs["captured"][3],
+            "planted_baked_max_abs": baked, "bound": 0.0}
+
+
+def int8_replay_check(torch, k8, tcm):
+    """int8_matmul captured (its row pre-pass, then the GEMM behind it by
+    programmatic dependent launch) and replayed on 8 inputs, each bitwise
+    its plain version, after the allocator's free memory was filled with
+    NaN."""
+    M, K, N = MAIN_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 21)
+    w = torch.randn(N, K, generator=gen, device="cuda")
+    wq, sw = k8.quantize_channels(w)
+    x = torch.empty(M, K, device="cuda")
+    poison = torch.full((1 << 28,), float("nan"), device="cuda")
+    del poison  # its blocks return to the allocator full of NaN
+    prog = tcm.CapturedProgram(lambda: k8.int8_matmul(x, wq, w_scale=sw),
+                               "cuda", "unit:int8", warmup=1)
+    before = k8.int8_matmul.launches
+    ok = True
+    for i in range(9):
+        x.copy_(torch.randn(M, K, generator=gen, device="cuda"))
+        y = prog().clone()
+        ok = ok and torch.equal(y, k8.int8_matmul_plain(x, wq, sw))
+    torch.cuda.synchronize()
+    launches = k8.int8_matmul.launches - before
+    require(ok, "graphs: int8_matmul replayed is bitwise its plain version "
+            "on 9 inputs after a NaN-filled allocator")
+    require(launches == 9, f"graphs: 9 int8_matmul launches counted, "
+            f"{launches}")
+    return {"shape": MAIN_SHAPE, "replays": 8, "bitwise": ok,
+            "launches_counted": launches}
+
+
+def phase_graphs(torch, mt, kfa, k8, io_path):
+    """Captured against eager in one process (MXTPU_CUDA_GRAPHS), for
+    ResNet-50 f32 Adam, ResNet-50 bf16 SGD, the bucketed LSTM and the int8
+    Predictor; the per-step values, Dropout's masks, a stale static buffer
+    and precompile."""
+    from mxnet_tpu_torch.utils import compile as tcm
+
+    mt.set_matmul_precision("highest")
+    out = {"phase": "graphs", "steps": GRAPH_STEPS}
+    launches = {n: 0 for n in port_kernels()}
+
+    def add(got):
+        for n, c in got.items():
+            launches[n] += c
+
+    # 1. ResNet-50, batch 32, f32 "highest", fused Adam (phase train's)
+    net, args, aux, batch_x, batch_y = resnet50_case()
+    X = np.ascontiguousarray(np.broadcast_to(
+        batch_x, (GRAPH_STEPS,) + batch_x.shape).reshape((-1,) + IMAGE))
+    Y = np.tile(batch_y, GRAPH_STEPS)
+    dev = {"data": torch.from_numpy(batch_x).cuda(),
+           "softmax_label": torch.from_numpy(batch_y).cuda()}
+    rows, gaps, _ = resnet_ab(
+        torch, mt, tcm, net, args, aux,
+        lambda: mt.io.NDArrayIter(X, Y, batch_size=BATCH), dev, GRAPH_STEPS,
+        "resnet50 f32 adam", plants={"no_update": planted_no_update(mt),
+                                     "baked_values": planted_baked_values()},
+        optimizer="adam", fused=True, learning_rate=LEARNING_RATE)
+    require(rows["captured"]["launches"]["fused_adam"] == GRAPH_STEPS,
+            "graphs: fused_adam once a step, counted by replay: "
+            f"{rows['captured']['launches']}")
+    add(rows["captured"]["launches"])
+    out["resnet50_f32_adam"] = {**rows, **gaps}
+    emit({"phase": "graphs", "resnet50_f32_adam": out["resnet50_f32_adam"]})
+    out["fused_adam_replay"] = adam_replay_check(torch, kfa, tcm)
+
+    # 2. ResNet-50 bf16, SGD momentum, one cached batch (io_fit's)
+    net, args, aux = xavier_resnet50(torch, mt)
+    first = next(iter(io_iter(mt, io_path)))
+    dev = {"data": first.data[0].cuda(), "softmax_label": first.label[0].cuda()}
+    rows, gaps, _ = resnet_ab(
+        torch, mt, tcm, net, args, aux,
+        lambda: cached_batches(mt, first, GRAPH_STEPS), dev, GRAPH_STEPS,
+        "resnet50 bf16 sgd", optimizer="sgd", learning_rate=IO_LR,
+        momentum=IO_MOMENTUM, compute_dtype=torch.bfloat16)
+    add(rows["captured"]["launches"])
+    out["resnet50_bf16_sgd"] = {**rows, **gaps}
+    emit({"phase": "graphs", "resnet50_bf16_sgd": out["resnet50_bf16_sgd"]})
+
+    # a stale static buffer: caught at every replay after the capture
+    set_graphs(True)
+    _, stale = io_fit(torch, mt, net, args, aux,
+                      io_iter(mt, io_path, num_parts=4), 4, stale=True)
+    require(stale["digest_mismatches"] == list(range(2, stale["steps"])),
+            "graphs: the planted stale static buffer is caught at every "
+            f"replay after the capture: {stale['digest_mismatches']}")
+    out["planted_stale_buffer"] = {"steps": stale["steps"],
+                                   "mismatched_steps":
+                                   stale["digest_mismatches"]}
+
+    # 3. the PTB-width bucketed LSTM through BucketingFeedForward
+    out["lstm_bucketing"] = graphs_lstm(torch, mt, tcm, add)
+
+    # 4. the int8 Predictor, batch 32
+    out["int8_predictor"] = graphs_predictor(torch, mt, tcm, k8, add)
+    out["int8_matmul_replay"] = int8_replay_check(torch, k8, tcm)
+
+    # 5. Dropout's masks (AlexNet, bf16, lr 0: the outputs move with the
+    # masks only)
+    out["dropout"] = graphs_dropout(torch, mt)
+    set_graphs(True)
+    emit({**out, "launches": launches})
+    return launches
+
+
+def lstm_model(mt, captured, **kw):
+    set_graphs(captured)
+    return mt.bucketing.BucketingFeedForward(
+        lstm_sym_gen(mt), default_bucket_key=LSTM_BUCKETS[-1],
+        ctx=mt.gpu(0), num_epoch=1, optimizer="sgd",
+        arg_params=lstm_args(mt), **kw)
+
+
+def lstm_iter(mt):
+    return mt.bucketing.BucketSentenceIter(
+        lstm_sentences(), buckets=LSTM_BUCKETS, batch_size=LSTM_BATCH,
+        init_states=lstm_states(), seed=SEED)
+
+
+def graphs_lstm(torch, mt, tcm, add):
+    """The bucketed LSTM: precompiled then fit, fit capturing as it goes,
+    and eager, bitwise; a FactorScheduler moves lr mid-epoch. The
+    precompiled and eager models then train one more epoch under the
+    profiler for the card's idle share."""
+    from mxnet_tpu_torch.profile_serving import device_report
+
+    params, rows = {}, {}
+    for name, captured, pre in (("precompiled", True, True),
+                                ("captured", True, False),
+                                ("eager", False, False)):
+        sched = mt.lr_scheduler.FactorScheduler(step=8, factor=0.5,
+                                                base_lr=LSTM_OPT[
+                                                    "learning_rate"])
+        model = lstm_model(mt, captured, lr_scheduler=sched)
+        pre_row = {}
+        if pre:
+            tcm.reset_compile_stats()
+            t0 = time.perf_counter()
+            got = model.precompile(data=lstm_iter(mt))
+            pre_row = {"programs": got["programs"],
+                       "precompile_s": time.perf_counter() - t0,
+                       **graph_stats(tcm)}
+        tcm.reset_compile_stats()
+        reset_launches()
+        it = lstm_iter(mt)
+        stamps = []
+
+        def stamp(_p):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        tokens = LSTM_BATCH * sum(b for b, _ in it._plan)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(it, batch_end_callback=stamp)
+        total = stamps[-1] - t0
+        n = len(stamps)
+        if captured:
+            add(read_launches())
+        rows[name] = {"steps": n, "epoch_s": total,
+                      "step_ms_mean": total * 1e3 / n,
+                      "tokens_per_s": tokens / total,
+                      "precompile": pre_row, **graph_stats(tcm)}
+        params[name] = dict(model.arg_params)
+        if name != "captured":
+            # one more epoch under the profiler: the card's idle share
+            rep = device_report(lambda: model.fit(lstm_iter(mt)), 1,
+                                "epoch")
+            rows[name].update({k: rep[k] for k in (
+                "wall_ms_per_epoch", "device_ms_per_epoch",
+                "device_idle_share")})
+        del model
+        torch.cuda.empty_cache()
+    same = all(torch.equal(params["precompiled"][k], params[o][k])
+               for o in ("captured", "eager") for k in params["eager"])
+    require(same, "graphs lstm: precompiled, captured and eager fits end "
+            "bitwise equal (lr halved every 8 steps)")
+    require(rows["precompiled"]["captures"] == 0
+            and rows["precompiled"]["precompile"]["captures"]
+            == rows["precompiled"]["precompile"]["programs"]
+            == len(LSTM_BUCKETS),
+            f"graphs lstm: precompile captured every bucket and the fit "
+            f"after it none: {rows['precompiled']}")
+    return {**rows, "bitwise": same}
+
+
+def graphs_predictor(torch, mt, tcm, k8, add):
+    """Request latency of the int8 Predictor, replayed and eager, and the
+    card's idle share over 4 more requests; the logits bitwise and
+    int8_matmul counted once a request."""
+    from mxnet_tpu_torch.profile_serving import device_report
+
+    from mxnet_tpu_torch.convert import random_params
+    from mxnet_tpu_torch.models import resnet50
+
+    net = resnet50(num_classes=1000)
+    shape = (BATCH,) + IMAGE
+    args, aux = random_params(net, SEED, data=shape)
+    image = np.random.default_rng(SEED + 1).standard_normal(shape, np.float32)
+    rows, logits = {}, {}
+    for name, captured in (("captured", True), ("eager", False)):
+        set_graphs(captured)
+        tcm.reset_compile_stats()
+        pred = mt.Predictor(net, args, aux, ctx=mt.gpu(0), quantize="int8")
+        before = k8.int8_matmul.launches
+        got, ms = [], []
+        for _ in range(REQUESTS):
+            t0 = time.perf_counter()
+            got.append(pred.forward(data=image).get_output(0))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        n = k8.int8_matmul.launches - before
+        if captured:
+            add({"int8_matmul": n})
+        rep = device_report(lambda: pred.forward(data=image).get_output(0),
+                            4, "request")
+        rows[name] = {**{k: rep[k] for k in ("wall_ms_per_request",
+                                             "device_ms_per_request",
+                                             "device_idle_share")},
+                      "requests": REQUESTS,
+                      "latency_ms_median": statistics.median(ms[2:]),
+                      "images_per_s": BATCH * 1e3 / statistics.median(ms[2:]),
+                      "int8_matmul_launches": n, **graph_stats(tcm)}
+        logits[name] = got
+        require(n == REQUESTS, f"graphs predictor ({name}): int8_matmul "
+                f"once a request: {n} in {REQUESTS}")
+        del pred
+        torch.cuda.empty_cache()
+    same = all(np.array_equal(a, b)
+               for a, b in zip(logits["captured"], logits["eager"]))
+    require(same, "graphs predictor: replayed logits bitwise the eager ones")
+    return {**rows, "bitwise": same}
+
+
+def graphs_dropout(torch, mt):
+    """AlexNet (zoo) with Dropout, bf16, 4 steps at lr 0: each step's
+    outputs captured and eager bitwise, and two replays' differ."""
+    from mxnet_tpu_torch.convert import random_params
+    from mxnet_tpu_torch.models import alexnet
+
+    net = alexnet(num_classes=1000)
+    shape = (BATCH,) + IMAGE
+    args, aux = random_params(net, SEED, data=shape)
+    rng = np.random.default_rng(SEED + 7)
+    x = rng.standard_normal(shape, np.float32)
+    y = rng.integers(0, 1000, BATCH).astype(np.float32)
+    steps = 4
+    outs = {}
+    for name, captured in (("captured", True), ("eager", False)):
+        set_graphs(captured)
+        mt.random.seed(SEED)
+        seen = []
+
+        class Keep(mt.metric.EvalMetric):
+            def update(self, labels, preds):
+                seen.append(preds[0].float().cpu())
+
+        model = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1,
+                               optimizer="sgd", learning_rate=0.0,
+                               arg_params=args, aux_params=aux,
+                               compute_dtype=torch.bfloat16)
+        model.fit(mt.io.NDArrayIter(np.concatenate([x] * steps),
+                                    np.tile(y, steps), batch_size=BATCH),
+                  eval_metric=Keep("keep"))
+        outs[name] = seen
+        del model
+        torch.cuda.empty_cache()
+    same = all(torch.equal(a, b)
+               for a, b in zip(outs["captured"], outs["eager"]))
+    differ = not torch.equal(outs["captured"][2], outs["captured"][3])
+    require(same, "graphs dropout: the replayed steps' outputs (masks) are "
+            "bitwise the eager steps'")
+    require(differ, "graphs dropout: two replays draw different masks")
+    return {"steps": steps, "bitwise_eager": same,
+            "replays_differ": differ}
+
+
+class Killed(Exception):
+    pass
+
+
+def killer(after):
+    """A batch callback that raises after ``after`` steps."""
+    seen = [0]
+
+    def cb(_p):
+        seen[0] += 1
+        if seen[0] == after:
+            raise Killed()
+    return cb
+
+
+def phase_ckpt(torch, mt, kfa, io_path):
+    """Sharded checkpoints at ResNet-50's 161 leaves: save, load, snapshot
+    and writer times on phase train's fused-Adam state; a fit killed after
+    step 5 and resumed against the uninterrupted fit (ResNet-50 bf16 with
+    fused Adam on one cached batch, within twice the spread of two
+    uninterrupted fits, and the LSTM, bitwise); a corrupted newest step
+    skipped; a planted resume that rebinds the parameters instead of
+    copying into the captured buffers. The launches are those of the
+    resumed fit: fused_adam once for each step after the resumed one."""
+    import os
+    import shutil
+
+    from mxnet_tpu_torch import model as model_mod
+    from mxnet_tpu_torch.resilience import ckpt_async
+    from mxnet_tpu_torch.utils import checkpoint as tck
+    from mxnet_tpu_torch.utils import compile as tcm
+
+    mt.set_matmul_precision("highest")
+    set_graphs(True)
+    root = os.path.join(IO_DIR, "..", "ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    net, args, aux, batch_x, batch_y = resnet50_case()
+    steps = GRAPH_STEPS
+    X = np.ascontiguousarray(np.broadcast_to(
+        batch_x, (steps,) + batch_x.shape).reshape((-1,) + IMAGE))
+    Y = np.tile(batch_y, steps)
+    kw = dict(ctx=mt.gpu(0), num_epoch=1, optimizer="adam", fused=True,
+              learning_rate=LEARNING_RATE, arg_params=args, aux_params=aux)
+
+    def fit(model, d, kill=None):
+        try:
+            model.fit(mt.io.NDArrayIter(X, Y, batch_size=BATCH),
+                      sharded_checkpoint_dir=d, checkpoint_every_n_steps=2,
+                      batch_end_callback=kill)
+        except Killed:
+            return False
+        return True
+
+    whole = mt.FeedForward(net, **kw)
+    fit(whole, os.path.join(root, "whole"))
+    # the times, on the uninterrupted run's state (161 leaves)
+    state = whole._train_state
+    leaves = model_mod.opt_leaves(state.opt_state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tck.save_sharded(os.path.join(root, "timed"), 1, state.params,
+                     aux=state.aux, opt_state=leaves, symbol=net)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    tck.load_sharded(os.path.join(root, "timed"), 1)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    snap = ckpt_async.capture_snapshot(2, state.params, aux=state.aux,
+                                       opt_state=leaves)
+    stall_ms = (time.perf_counter() - t0) * 1e3
+    writer = ckpt_async.AsyncCheckpointWriter(os.path.join(root, "timed"),
+                                              keep_last_k=0)
+    writer.submit(snap)
+    writer.close()
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                 os.walk(os.path.join(root, "timed", "2")) for f in fs)
+    del whole, state, leaves, snap
+    torch.cuda.empty_cache()
+    for name in ("whole", "timed"):
+        shutil.rmtree(os.path.join(root, name))
+
+    # the resume gates: io_fit's bf16 step on one cached batch (whose
+    # cuDNN kernels ran bitwise from run to run in phase graphs) with
+    # fused Adam, so the resume restores the moments the kernel reads
+    net, args, aux = xavier_resnet50(torch, mt)
+    first = next(iter(io_iter(mt, io_path)))
+    kw = dict(ctx=mt.gpu(0), num_epoch=1, optimizer="adam", fused=True,
+              learning_rate=LEARNING_RATE, arg_params=args, aux_params=aux,
+              compute_dtype=torch.bfloat16)
+
+    def fit(model, d, kill=None):
+        try:
+            model.fit(cached_batches(mt, first, steps),
+                      sharded_checkpoint_dir=d, checkpoint_every_n_steps=2,
+                      batch_end_callback=kill)
+        except Killed:
+            return False
+        return True
+
+    wholes = []
+    for name in ("whole", "whole_again"):
+        whole = mt.FeedForward(net, **kw)
+        fit(whole, os.path.join(root, name))
+        wholes.append(dict(whole.arg_params))
+        del whole
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(root, name))
+    ref = wholes[0]
+    spread = max_gap(torch, wholes[1], ref)
+    bound = 2 * spread
+
+    # killed after step 5 (snapshots at 2 and 4 durable), resumed
+    d = os.path.join(root, "killed")
+    victim = mt.FeedForward(net, **kw)
+    require(not fit(victim, d, killer(5)), "ckpt: the fit was killed")
+    require(tck.latest_step(d) == 4, f"ckpt: newest step {tck.latest_step(d)}")
+    tcm.reset_compile_stats()
+    # the main path: every count is read around the resumed fit
+    reset_launches()
+    require(fit(victim, d), "ckpt: the resumed fit ran to its end")
+    launches = read_launches()
+    resumed = graph_stats(tcm)
+    gap = max_gap(torch, victim.arg_params, ref)
+    require(victim.begin_epoch == 0 and resumed["captures"] == 0,
+            f"ckpt: resumed into the same captured steps: {resumed}")
+    require(launches["fused_adam"] == steps - 4,
+            f"ckpt: fused_adam once a resumed step, counted by replay: "
+            f"{launches}")
+    require(gap <= bound, f"ckpt: resumed ResNet-50 {gap} from the "
+            f"uninterrupted fit, beyond twice the spread of two "
+            f"uninterrupted fits {spread}")
+    # the newest step corrupted: skipped
+    newest = tck.latest_step(d)
+    shard = sorted(os.path.join(dp, f) for dp, _, fs in
+                   os.walk(os.path.join(d, str(newest), "state"))
+                   for f in fs)[0]
+    with open(shard, "r+b") as f:
+        f.seek(os.path.getsize(shard) // 2)
+        f.write(b"\xde\xad\xbe\xef")
+    skipped_to = tck.latest_step(d)
+    require(skipped_to is not None and skipped_to < newest,
+            f"ckpt: corrupted newest step {newest} skipped: {skipped_to}")
+    del victim
+    torch.cuda.empty_cache()
+    shutil.rmtree(d)
+
+    # the planted fault: a resume that rebinds the parameter tensors
+    d = os.path.join(root, "rebind")
+    victim = mt.FeedForward(net, **kw)
+    fit(victim, d, killer(5))
+    real = model_mod._TrainState.load
+
+    def rebinding(self, params, aux, opt_leaves_=None):
+        real(self, params, aux, opt_leaves_)
+        self.params = {k: v.detach().clone().requires_grad_(True)
+                       for k, v in self.params.items()}
+
+    model_mod._TrainState.load = rebinding
+    try:
+        fit(victim, d)
+    finally:
+        model_mod._TrainState.load = real
+    planted = max_gap(torch, victim.arg_params, ref)
+    require(planted > bound, "ckpt: the planted rebinding resume is "
+            f"caught: {planted} against {bound}")
+    del victim
+    torch.cuda.empty_cache()
+
+    # the LSTM, killed and resumed, bitwise
+    lstm = {}
+    for name, kill in (("whole", None), ("killed", 5)):
+        model = lstm_model(mt, True, learning_rate=LSTM_OPT["learning_rate"])
+        dl = os.path.join(root, f"lstm_{name}")
+
+        def go(cb=None):
+            try:
+                model.fit(lstm_iter(mt), sharded_checkpoint_dir=dl,
+                          checkpoint_every_n_steps=2, batch_end_callback=cb)
+            except Killed:
+                return False
+            return True
+
+        if kill:
+            require(not go(killer(kill)), "ckpt lstm: killed")
+        require(go(), "ckpt lstm: ran to its end")
+        lstm[name] = dict(model.arg_params)
+        del model
+        torch.cuda.empty_cache()
+    lstm_same = all(torch.equal(lstm["whole"][k], lstm["killed"][k])
+                    for k in lstm["whole"])
+    require(lstm_same, "ckpt lstm: the resumed fit is bitwise the "
+            "uninterrupted one")
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "ckpt", "leaves": len(args), "state_bytes": nbytes,
+          "save_sharded_ms": save_ms, "load_sharded_ms": load_ms,
+          "capture_snapshot_stall_ms": stall_ms,
+          "writer_background_ms": writer.write_seconds * 1e3,
+          "resnet50_resume": {"optimizer": "adam", "fused": True,
+                              "compute_dtype": "bfloat16", "every": 2,
+                              "killed_after": 5, "resumed_from": 4,
+                              "max_abs_vs_whole": gap,
+                              "whole_vs_whole": spread, "bound": bound,
+                              **resumed},
+          "corrupted_newest": {"step": newest, "latest_step": skipped_to},
+          "planted_rebinding_max_abs": planted,
+          "lstm_resume_bitwise": lstm_same, "launches": launches})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3700,6 +4517,10 @@ def main() -> int:
                "io_fit": phase_io_fit(torch, mt, io_path),
                "lstm_bucketing": phase_lstm_bucketing(torch, mt),
                "lstm_scan": phase_lstm_scan(torch, mt)}
+    torch.cuda.empty_cache()
+    graphs_launches = phase_graphs(torch, mt, kfa, k8, io_path)
+    torch.cuda.empty_cache()
+    ckpt_launches = phase_ckpt(torch, mt, kfa, io_path)
     torch.cuda.empty_cache()
     flash_rows, flash_errs = phase_flash(torch, tfa, registry)
     serve_launches, lm_params, lm_grad_errs = phase_lm_serve(torch, mt, tfa)
@@ -3750,6 +4571,9 @@ def main() -> int:
         # the slice 10 phases, each read around its own main path
         kernels[-1]["slice10_launches"] = {p: got[name]
                                            for p, got in slice10.items()}
+        # the slice 11 phases, counted by replay
+        kernels[-1]["graphs_launches"] = graphs_launches[name]
+        kernels[-1]["ckpt_launches"] = ckpt_launches[name]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

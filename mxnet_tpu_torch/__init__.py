@@ -20,7 +20,11 @@ setting (``set_matmul_precision``). Slice 10 adds the data path:
 ``engine``, ``filesystem``, ``recordio`` and ``io``'s iterators
 (``ImageRecordIter`` with its own PNG codec and copies of PIL's resample
 and affine transforms), the device feed of ``FeedForward.fit``, ``module``
-(``Module``, ``BucketingModule``), ``bucketing`` and the LSTM LMs. Entry
+(``Module``, ``BucketingModule``), ``bucketing`` and the LSTM LMs. Slice 11
+adds sharded checkpoints with step-granular asynchronous resume
+(``utils.checkpoint``, ``resilience.ckpt_async``), ``NumpyOp`` and
+``visualization``, and ``utils.compile``: a training, eval or serving step
+captured into a CUDA graph once per program key and replayed. Entry
 points run on the card
 (``gpu(0)``) unless the caller passes ``ctx=cpu()``.
 """
@@ -41,6 +45,10 @@ from . import models  # noqa: F401
 from . import comm, kvstore, kvstore as kv, parallel  # noqa: F401
 from . import engine, filesystem, recordio  # noqa: F401
 from . import module, module as mod, bucketing  # noqa: F401
+from . import operator, resilience, utils, visualization  # noqa: F401
+from . import visualization as viz  # noqa: F401
+from .operator import NumpyOp
+from .utils import checkpoint as _checkpoint, compile as _compile  # noqa: F401
 
 __all__ = ["MXNetError", "set_matmul_precision", "get_matmul_precision",
            "Context", "cpu", "cpu_pinned", "gpu", "current_context",
@@ -50,4 +58,5 @@ __all__ = ["MXNetError", "set_matmul_precision", "get_matmul_precision",
            "ndarray", "random", "init", "initializer", "io", "lr_scheduler",
            "metric", "optimizer", "callback", "models", "comm", "kvstore",
            "kv", "parallel", "engine", "filesystem", "recordio", "module",
-           "mod", "bucketing"]
+           "mod", "bucketing", "operator", "NumpyOp", "resilience", "utils",
+           "visualization", "viz"]

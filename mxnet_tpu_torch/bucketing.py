@@ -12,10 +12,13 @@ executor per sequence length):
   ``sym_gen(bucket_key)``, one a bucket, all reading the parameters
   initialised from the default (largest) bucket.
 
-``PadPolicy`` keeps the JAX package's two modes (``mxnet_tpu/utils/
-compile.py:624-697``) for the bucket assignment: ``"bucket"`` (the
-smallest bucket that fits) and ``"pow2"`` (the next power of two, which
-bounds the number of buckets at log2 of the longest sentence).
+``PadPolicy`` (``utils/compile.py``) assigns the buckets: ``"bucket"``
+(the smallest bucket that fits) or ``"pow2"`` (the next power of two,
+which bounds the number of buckets at log2 of the longest sentence).
+``BucketSentenceIter.bucket_shapes`` lists the programs a fit over the
+iterator needs, which ``BucketingFeedForward.precompile(data=it)``
+captures: one CUDA graph a bucket, every graph reading the one set of
+parameter buffers, each with a memory pool of its own.
 """
 
 from __future__ import annotations
@@ -23,49 +26,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import MXNetError
 from .io import DataBatch, DataIter
 from .model import FeedForward
+from .utils.compile import PadPolicy
 
 __all__ = ["BucketSentenceIter", "BucketingFeedForward", "PadPolicy"]
-
-
-def _next_pow2(n: int) -> int:
-    return 1 if n <= 1 else 1 << (int(n - 1).bit_length())
-
-
-class PadPolicy:
-    """Bucket assignment by sequence length, ``"bucket"`` or ``"pow2"``."""
-
-    MODES = ("bucket", "pow2")
-
-    def __init__(self, mode="bucket"):
-        if mode not in self.MODES:
-            raise MXNetError(
-                f"PadPolicy mode must be one of {self.MODES}, got {mode!r}")
-        self.mode = mode
-
-    def __repr__(self):
-        return f"PadPolicy(mode={self.mode!r})"
-
-    def round_length(self, length: int, buckets=None):
-        """The bucket of a sequence of ``length``: the smallest configured
-        bucket that fits (bucket mode), or the next power of two (pow2
-        mode, moved up into ``buckets`` when given); None when none fits."""
-        if self.mode == "pow2":
-            target = _next_pow2(length)
-            if not buckets:
-                return target
-            for b in buckets:
-                if target <= b:
-                    return b
-            return None
-        if not buckets:
-            raise MXNetError("PadPolicy('bucket').round_length needs buckets")
-        for b in buckets:
-            if length <= b:
-                return b
-        return None
 
 
 class BucketSentenceIter(DataIter):
@@ -124,6 +89,21 @@ class BucketSentenceIter(DataIter):
             if length <= b:
                 return b
         return None
+
+    def bucket_shapes(self):
+        """``(bucket_key, data_shapes, label_shapes)`` of every non-empty
+        bucket: the programs a fit over this iterator captures (token ids as
+        int32, the initial states as float32 shapes)."""
+        out = []
+        for b in sorted(self._data):
+            data = {f"t{i}_data": ((self.batch_size,), np.int32)
+                    for i in range(b)}
+            data.update({name: tuple(shape)
+                         for name, shape in self.init_states})
+            label = {f"t{i}_label": ((self.batch_size,), np.int32)
+                     for i in range(b)}
+            out.append((b, data, label))
+        return out
 
     @property
     def provide_data(self):

@@ -15,6 +15,7 @@ of ``jit``; gradients come from autograd over that function. Remat
 from __future__ import annotations
 
 import re
+import time
 
 import torch
 import torch.utils.checkpoint
@@ -23,9 +24,17 @@ from . import random as _random
 from .base import MXNetError, env_int, env_str
 from .context import Context, current_context
 from .convert import to_tensor
+from .utils import compile as compile_mod
 
 __all__ = ["Executor", "simple_bind", "_fusion_plan", "_remat_segments",
-           "_build_graph_fn"]
+           "_build_graph_fn", "has_native"]
+
+
+def has_native(symbol) -> bool:
+    """Does the graph hold a ``_Native`` node (user numpy on the host)?
+    Such a graph cannot be captured into a CUDA graph."""
+    return any(not n.is_variable and n.op.name == "_Native"
+               for n in symbol._topo())
 
 
 def _fusion_plan(symbol):
@@ -351,6 +360,9 @@ class Executor:
         for n in arg_names:
             self.grad_req.setdefault(n, "null")
         self._fwd_fns = {}  # is_train -> graph function
+        self._eval_program = None  # the captured eval forward (precompile)
+        self._eval_label = None
+        self._seen = set()  # program keys counted in utils.compile
         self._outputs = None
         self._graph = None  # (heads, leaves) of the last training forward
         self._needs_rng = any(not n.is_variable and n.op.need_rng
@@ -393,6 +405,11 @@ class Executor:
         is_train = bool(is_train)
         diff_names = self._diff_names()
         self._graph = None
+        if not is_train:
+            compile_mod.registry().see(*self._eval_key(), self._seen)
+        if not is_train and self._eval_program is not None:
+            self._outputs = [o.clone() for o in self._eval_program()]
+            return self._outputs
         if is_train and diff_names:
             leaves = {n: self.arg_dict[n].detach().requires_grad_(True)
                       for n in diff_names}
@@ -441,6 +458,52 @@ class Executor:
                     holder.add_(g.to(holder.dtype))
                 else:
                     holder.copy_(g)
+
+    def _eval_key(self):
+        """(label, program key) of the eval forward: the bound shapes'."""
+        if self._eval_label is None:
+            fp = compile_mod.graph_fingerprint(self._symbol)
+            arrays = {**self.arg_dict, **self.aux_dict}
+            self._eval_label = (
+                f"fwd_eval:{fp}",
+                compile_mod.program_key(fp, None, arrays, None, None, False))
+        return self._eval_label
+
+    def precompile(self, is_train=False):
+        """Capture the eval forward of the bound shapes into a CUDA graph
+        (on a card, unless ``MXTPU_CUDA_GRAPHS=0`` or the graph holds a
+        ``_Native`` node): one eager warm-up, then the capture. Later
+        ``forward(is_train=False)`` calls replay it, reading the bound
+        argument and auxiliary tensors (``forward``'s keyword inputs are
+        copied into them). Training through an Executor stays eager (ROADMAP
+        A6). Returns the seconds spent (0.0 where nothing is captured: the
+        CPU, or either case above; the program is counted and the reason
+        goes to ``compile_stats()["eager"]``)."""
+        if is_train:
+            raise NotImplementedError(
+                "Executor.precompile(is_train=True) is not ported yet: "
+                "ROADMAP A6 (a captured forward and backward pair)")
+        label, key = self._eval_key()
+        compile_mod.registry().see(label, key, self._seen, precompile=True)
+        dev = self._ctx.torch_device
+        reason = compile_mod.eager_reason(dev, has_native(self._symbol))
+        if reason is not None:
+            compile_mod.note_eager(reason)
+        if reason is not None or self._eval_program is not None:
+            return 0.0
+        t0 = time.perf_counter()
+        fn = self._fn(False)
+        rng = _random.generator(dev) if self._needs_rng else None
+
+        def run():
+            with torch.no_grad():
+                return fn(self.arg_dict, self.aux_dict, rng)[0]
+
+        program = compile_mod.CapturedProgram(run, dev, label, warmup=1)
+        program()  # the warm-up
+        program.capture()
+        self._eval_program = program
+        return time.perf_counter() - t0
 
     def debug_str(self) -> str:
         """The graph, one node a line (``Symbol.debug_str``), then the bytes

@@ -1,6 +1,12 @@
 """What every kernel module of the port shares: the route between a kernel and
 its plain version, and the build of the CUDA sources.
 
+Each wrapper counts its launches with :func:`count_launch`: one added to
+its ``launches`` where it launches its kernel. Under a CUDA-graph capture
+(:func:`capture_launches`, which ``utils.compile.CapturedProgram`` opens) a
+launch executes nothing, so it goes into the capture's record instead, and
+the program adds the record to the counters at every replay.
+
 The route is chosen by the tensors' device and nothing else. CPU tensors take
 the plain PyTorch version; CUDA tensors launch the kernel, or the call raises.
 No environment variable sends a CUDA tensor to the plain version, unlike the
@@ -18,13 +24,17 @@ import ctypes
 import hashlib
 import os
 import shutil
+import contextlib
 import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 from ..base import MXNetError
 
-__all__ = ["use_kernel", "load_library", "NVCC_FLAGS"]
+__all__ = ["use_kernel", "load_library", "NVCC_FLAGS", "count_launch",
+           "capture_launches"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mxnet_tpu_torch"
@@ -52,6 +62,32 @@ def use_kernel(*tensors) -> bool:
     if device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {device}")
+
+
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """The launch record of a capture on this thread: ``{wrapper: n}``."""
+    prev = getattr(_CAPTURE, "counts", None)
+    counts = _CAPTURE.counts = {}
+    try:
+        yield counts
+    finally:
+        _CAPTURE.counts = prev
+
+
+def count_launch(wrapper, n=1):
+    """Count ``n`` launches of ``wrapper``'s kernel: on its counter when
+    they run now, in the open capture's record when the current stream is
+    capturing (a replay adds them)."""
+    if torch.cuda.is_current_stream_capturing():
+        counts = getattr(_CAPTURE, "counts", None)
+        if counts is not None:
+            counts[wrapper] = counts.get(wrapper, 0) + n
+        return
+    wrapper.launches += n
 
 
 def _nvcc() -> str:

@@ -31,7 +31,7 @@ from ..base import MXNetError
 from ..comm.allreduce import _row_sum
 from ..comm.compression import (CompressionSpec, decode, encode, int8_codes,
                                 int8_quotients)
-from ._common import load_library, use_kernel
+from ._common import count_launch, load_library, use_kernel
 from .registry import KernelCost, register_kernel
 
 __all__ = ["fused_quantize", "fused_dequant_sum", "fused_dequant",
@@ -230,7 +230,7 @@ def quant_int8(rows: torch.Tensor, chunk: int, want_dq: bool = False,
              scale.data_ptr(), dq.data_ptr() if want_dq else None,
              e.data_ptr() if err else None, int(err == "fma"), n_chunks,
              chunk, _grid(32 * n_chunks, rows.device))
-        quant_int8.launches += 1
+        count_launch(quant_int8)
     return q, scale, dq, e
 
 
@@ -249,7 +249,7 @@ def quant_twobit(rows: torch.Tensor, threshold: float, want_dq: bool = False):
         _run("quant_twobit", rows.device, rows.data_ptr(), q.data_ptr(),
              dq.data_ptr() if want_dq else None, n_bytes, threshold,
              _grid(n_bytes, rows.device))
-        quant_twobit.launches += 1
+        count_launch(quant_twobit)
     return q, dq
 
 
@@ -270,7 +270,7 @@ def dequant_sum_int8(q: torch.Tensor, scale: torch.Tensor,
     if L:
         _run("dequant_sum_int8", q.device, q.data_ptr(), scale.data_ptr(),
              out.data_ptr(), R, L, chunk, dequant_sum_int8_load_bytes(q))
-        dequant_sum_int8.launches += 1
+        count_launch(dequant_sum_int8)
     return out
 
 
@@ -295,7 +295,7 @@ def dequant_sum_twobit(q: torch.Tensor, threshold: float) -> torch.Tensor:
     if B:
         _run("dequant_sum_twobit", q.device, q.data_ptr(), out.data_ptr(), R,
              B, threshold, _grid(B, q.device))
-        dequant_sum_twobit.launches += 1
+        count_launch(dequant_sum_twobit)
     return out
 
 
@@ -315,7 +315,7 @@ def dequant_int8(q: torch.Tensor, scale: torch.Tensor,
     if R * L:
         _run("dequant_int8", q.device, q.data_ptr(), scale.data_ptr(),
              out.data_ptr(), R * L, chunk, _grid(R * L, q.device))
-        dequant_int8.launches += 1
+        count_launch(dequant_int8)
     return out
 
 
@@ -330,7 +330,7 @@ def dequant_twobit(q: torch.Tensor, threshold: float) -> torch.Tensor:
     if R * B:
         _run("dequant_twobit", q.device, q.data_ptr(), out.data_ptr(), R * B,
              threshold, _grid(R * B, q.device))
-        dequant_twobit.launches += 1
+        count_launch(dequant_twobit)
     return out
 
 

@@ -38,7 +38,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ._common import load_library, use_kernel
+from ._common import count_launch, load_library, use_kernel
 from .registry import KernelCost, register_kernel
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_block_grads",
@@ -279,7 +279,7 @@ def flash_fwd(q, k, v, causal=False, block_k=None):
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     ops = (q, k, v, o)
     _call("flash_fwd", _library().mxtt_flash_fwd, ops, (*ops, lse), causal, d)
-    flash_fwd.launches += 1
+    count_launch(flash_fwd)
     return o, lse
 
 
@@ -312,7 +312,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, block_k=None):
     _call("flash_bwd_dq", _library().mxtt_flash_bwd_dq, ops,
           (q, k, v, do, lse.contiguous(), delta.contiguous(), dq), causal,
           q.shape[3])
-    flash_bwd_dq.launches += 1
+    count_launch(flash_bwd_dq)
     return dq
 
 
@@ -329,7 +329,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, block_k=None):
     _call("flash_bwd_dkv", _library().mxtt_flash_bwd_dkv, ops,
           (q, k, v, do, lse.contiguous(), delta.contiguous(), dk, dv),
           causal, q.shape[3])
-    flash_bwd_dkv.launches += 1
+    count_launch(flash_bwd_dkv)
     return dk, dv
 
 

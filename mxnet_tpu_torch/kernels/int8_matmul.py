@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from ._common import load_library, use_kernel
+from ._common import count_launch, load_library, use_kernel
 from .registry import KernelCost, register_kernel
 
 __all__ = ["int8_matmul", "int8_matmul_plain", "quantize_channels",
@@ -151,7 +151,7 @@ def _launch(x, wq, sw):
     if err != 0:
         raise RuntimeError("int8_matmul: kernel launch failed: "
                            + lib.mxtt_cuda_error_string(err).decode())
-    int8_matmul.launches += 1
+    count_launch(int8_matmul)
     return y
 
 

@@ -35,6 +35,22 @@ up to two batches ahead, copies them into pinned host memory and on to the
 card on its own CUDA stream, and the step's stream waits on each batch's
 event. ``MXTPU_FEED_PREFETCH=0`` feeds synchronously.
 
+On a card each step replays a CUDA graph captured once per program key
+(``utils/compile.py``: the graph's fingerprint, the bucket key, the input
+shapes and dtypes, ``compute_dtype``, the pad policy, train or eval). The
+step reads and writes only buffers that stay where they are (parameters,
+moments, auxiliary states, one flat gradient buffer, static inputs the
+feed's batch is copied into, and the optimizer's per-step values, copied
+to the card before each step), so a replay is the eager step; the first
+step of a key runs eager on a side stream and the second is captured.
+``_eager_reason`` lists when a fit stays eager. ``precompile`` captures
+ahead of ``fit``; ``predict`` and ``score`` replay one eval graph a key.
+
+``fit(sharded_checkpoint_dir=, checkpoint_every_n_steps=)`` resumes from
+and writes the sharded checkpoints of ``utils/checkpoint.py`` through
+``resilience/ckpt_async.py``, with the JAX package's step-granular resume
+(``mxnet_tpu/model.py:1180-1244``).
+
 Arguments of ``fit`` that belong to later slices of the port raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
@@ -47,7 +63,6 @@ import os
 import queue
 import threading
 import time
-import zlib
 
 import numpy as np
 import torch
@@ -66,19 +81,21 @@ from .callback import BatchEndParam
 from .comm.allreduce import all_reduce_sum, broadcast_
 from .context import Context, current_context
 from .convert import to_tensor
-from .executor import _build_graph_fn
+from .executor import _build_graph_fn, has_native
+from .resilience import ckpt_async as ckpt_plane
+from .utils import checkpoint as ckpt_mod
+from .utils import compile as compile_mod
+from .utils.checkpoint import atomic_write, check_sidecar
 
-__all__ = ["FeedForward", "save_checkpoint", "load_checkpoint"]
+__all__ = ["FeedForward", "save_checkpoint", "load_checkpoint",
+           "opt_leaves"]
 
 # fit() arguments of later slices -> the ROADMAP item that brings them
 _LATER_SLICES = {
-    "sharded_checkpoint_dir": "A3 (utils/checkpoint.py)",
-    "checkpoint_every_n_steps": "A3 (utils/checkpoint.py)",
     "overlap": "A4 (left from slice 4: comm/overlap.py)",
     "guards": "A6 (resilience/)",
     "elastic": "A6 (resilience/)",
     "controller": "A6 (resilience/)",
-    "pad_policy": "A6 (utils/compile.py)",
     "telemetry": "A6 (telemetry/)",
     "health": "A6 (telemetry/)",
     "profile": "A6 (telemetry/)",
@@ -86,57 +103,13 @@ _LATER_SLICES = {
 }
 
 
-def _file_crc32(path, chunk=1 << 20):
-    crc = 0
-    with open(path, "rb") as f:
-        while True:
-            block = f.read(chunk)
-            if not block:
-                return crc
-            crc = zlib.crc32(block, crc)
-
-
-def _atomic_write(path, writer):
-    """Write ``path`` through ``writer(tmp_path)`` at a hidden temporary
-    name, record a ``<path>.crc32`` sidecar ({"size", "crc32"}) and commit
-    both with ``os.replace``, file first (mxnet_tpu/utils/checkpoint.py:404),
-    so a killed save never leaves a torn file that loads."""
-    path = os.path.abspath(os.fspath(path))
-    tmp = os.path.join(os.path.dirname(path), f".tmp.{os.path.basename(path)}")
-    writer(tmp)
-    info = {"size": os.path.getsize(tmp), "crc32": _file_crc32(tmp)}
-    side_tmp = tmp + ".crc32"
-    with open(side_tmp, "w") as f:
-        json.dump(info, f)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-    os.replace(side_tmp, path + ".crc32")
-
-
-def _check_sidecar(path):
-    """True when ``path`` matches its CRC sidecar, False when it does not
-    (torn or corrupt), None when there is no sidecar (accepted as is)."""
-    path = os.path.abspath(os.fspath(path))
-    side = path + ".crc32"
-    if not os.path.exists(side):
-        return None
-    try:
-        with open(side) as f:
-            info = json.load(f)
-        return (os.path.getsize(path) == int(info["size"])
-                and _file_crc32(path) == int(info["crc32"]))
-    except (OSError, ValueError, KeyError, TypeError):
-        return False
-
-
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
     """Write ``prefix-symbol.json`` and ``prefix-%04d.params`` (names
     ``arg:<name>`` and ``aux:<name>``), each atomically with a sidecar."""
-    _atomic_write(f"{prefix}-symbol.json", lambda tmp: symbol.save(tmp))
+    atomic_write(f"{prefix}-symbol.json", lambda tmp: symbol.save(tmp))
     save_dict = {f"arg:{k}": v for k, v in arg_params.items()}
     save_dict.update({f"aux:{k}": v for k, v in aux_params.items()})
-    _atomic_write(f"{prefix}-{epoch:04d}.params",
+    atomic_write(f"{prefix}-{epoch:04d}.params",
                   lambda tmp: nd.save(tmp, save_dict))
     logging.info("Saved checkpoint to \"%s-%04d.params\"", prefix, epoch)
 
@@ -146,7 +119,7 @@ def load_checkpoint(prefix, epoch):
     ``(symbol, arg_params, aux_params)`` with CPU tensors. A params file
     that fails its sidecar raises."""
     params_path = f"{prefix}-{epoch:04d}.params"
-    if _check_sidecar(params_path) is False:
+    if check_sidecar(params_path) is False:
         raise MXNetError(
             f"checkpoint {params_path} fails its CRC sidecar "
             "(torn or corrupt write) — refusing to load")
@@ -406,11 +379,64 @@ class _SyncFeed:
             yield batch, dev
 
 
+def opt_leaves(opt_state: dict) -> list:
+    """The optimizer state's leaves in the JAX package's flattening order
+    (names sorted, each state's tuple in order, None dropped): the
+    ``state/opt`` list of a sharded checkpoint."""
+    out = []
+    for k in sorted(opt_state):
+        v = opt_state[k]
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, (tuple, list)):
+            out.extend(t for t in v if t is not None)
+    return out
+
+
+def _assign(dst: torch.Tensor, value):
+    """Copy ``value`` (a tensor or an array) into ``dst`` in place."""
+    with torch.no_grad():
+        dst.copy_(to_tensor(value, dst.device).to(dst.dtype).reshape(
+            dst.shape))
+
+
+class _StepScalars:
+    """The per-step values of the in-place optimizer step
+    (``Optimizer.step_vector``) on the device. ``dev`` stays where it is for
+    the life of the trainer, so a captured step reads it at every replay;
+    ``load`` fills it on the current stream before each step, on a card
+    through a pinned copy of the values and a ``non_blocking`` copy (torch's
+    caching host allocator keeps the pinned block until that copy ran)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.dev = None
+
+    def load(self, values: np.ndarray):
+        host = torch.from_numpy(np.ascontiguousarray(values, np.float32))
+        if self.dev is None or self.dev.numel() != host.numel():
+            self.dev = torch.empty(host.numel(), dtype=torch.float32,
+                                   device=self.device)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        self.dev.copy_(host, non_blocking=True)
+
+
 class _TrainState:
-    """The device state of one ``fit``: parameters (autograd leaves),
-    auxiliary states and optimizer state, and the training step in its
-    phases (forward, backward, the gradient sync of data-parallel
-    training, update), so that a caller can time them apart.
+    """The device state of a trainer: parameters (autograd leaves),
+    auxiliary states, optimizer state and the gradients, each in a buffer
+    that stays where it is, and the training step in its phases (forward,
+    backward, the gradient sync of data-parallel training, update), so
+    that a caller can time them apart and a CUDA graph can capture them.
+
+    A step reads and writes only those buffers: the forward copies the new
+    auxiliary states (BatchNorm's running stats) into them, backward
+    accumulates into views of one gradient buffer (``.grad``), and the
+    update (``Optimizer.apply_inplace``) writes parameters and moments in
+    place, reading lr and the per-leaf values from ``scalars.dev``, which
+    :meth:`prepare` fills on the host's behalf before each step. A new
+    value reaches the trainer only through :meth:`load` and
+    :meth:`restore`, which copy into the buffers.
 
     With ``compute_dtype`` the forward runs on copies of the floating
     parameters and of every ``data_names`` input, whatever its type, cast
@@ -419,10 +445,12 @@ class _TrainState:
     autograd takes their gradients in f32 through the cast.
 
     ``symbol_for(bucket_key)`` gives the graph of a bucket (bucketing
-    trainers); every bucket's graph reads the same parameters."""
+    trainers); every bucket's graph reads the same parameters.
+    ``programs`` holds the captured steps, one a program key."""
 
     def __init__(self, symbol, optimizer, params, aux, device, sync=None,
                  compute_dtype=None, data_names=(), symbol_for=None):
+        self.device = device
         self.graph_fn = _build_graph_fn(symbol, is_train=True)
         self._symbol_for = symbol_for
         self._graph_fns = {}
@@ -431,51 +459,125 @@ class _TrainState:
         self.optimizer = optimizer
         self.grad_sync = sync
         self.params = {k: v.requires_grad_(True) for k, v in params.items()}
+        self.names = list(self.params)
         self.aux = aux
         self.opt_state = optimizer.init_state_tree(self.params)
         self.rng = random_mod.generator(device)
+        self.scalars = _StepScalars(device)
+        self.programs = {}
         self._loss = None
         self.grads = None
+        self._grad_views = None
+        if sync is None:
+            sizes = [v.numel() for v in self.params.values()]
+            flat = torch.zeros(sum(sizes), dtype=torch.float32, device=device)
+            self._flat_grad = flat
+            self._grad_views = {
+                k: flat[o:o + n].view(v.shape) for (k, v), o, n in zip(
+                    self.params.items(), np.cumsum([0] + sizes[:-1]), sizes)}
 
-    def forward(self, batch: dict, bucket_key=None, data_names=None):
+    def matches(self, optimizer, params: dict, aux: dict, device, sync,
+                compute_dtype) -> bool:
+        """Can this state train ``params`` and ``aux`` with ``optimizer``
+        (same names, shapes, device and settings)? Then a new ``fit``
+        reuses it, captured steps included."""
+        def sig(d):
+            return [(k, tuple(v.shape)) for k, v in d.items()]
+
+        return (sync is None and self.grad_sync is None
+                and optimizer is self.optimizer and device == self.device
+                and compute_dtype == self.compute_dtype
+                and sig(params) == sig(self.params)
+                and sig(aux) == sig(self.aux))
+
+    def load(self, params: dict, aux: dict, opt_leaves_=None):
+        """Copy parameter and auxiliary values into the buffers, and reset
+        the optimizer state (or set it from a checkpoint's leaves), in
+        place: a captured step reads these same tensors."""
+        for k, v in params.items():
+            _assign(self.params[k], v)
+        for k, v in aux.items():
+            _assign(self.aux[k], v)
+        fresh = self.optimizer.init_state_tree(
+            {k: v.detach() for k, v in self.params.items()})
+        if opt_leaves_ is None:
+            opt_leaves_ = opt_leaves(fresh)
+        self.restore_opt(opt_leaves_)
+
+    def restore_opt(self, leaves):
+        """Set the optimizer state from its flat leaves, each copied into
+        its tensor (Adam's host step counters included)."""
+        mine = opt_leaves(self.opt_state)
+        if len(mine) != len(leaves):
+            raise MXNetError(f"optimizer state has {len(mine)} leaves, the "
+                             f"checkpoint {len(leaves)}")
+        for dst, v in zip(mine, leaves):
+            _assign(dst, v)
+
+    def snapshot(self) -> dict:
+        """Device copies of everything a step moves, for :meth:`restore`."""
+        with torch.no_grad():
+            return {"params": {k: v.detach().clone()
+                               for k, v in self.params.items()},
+                    "aux": {k: v.clone() for k, v in self.aux.items()},
+                    "opt": [t.clone() for t in opt_leaves(self.opt_state)],
+                    "rng": random_mod.get_state()}
+
+    def restore(self, snap: dict):
+        self.load(snap["params"], snap["aux"], snap["opt"])
+        random_mod.set_state(snap["rng"])
+
+    def graph_fn_for(self, bucket_key):
+        if bucket_key is None:
+            return self.graph_fn
+        if bucket_key not in self._graph_fns:
+            self._graph_fns[bucket_key] = _build_graph_fn(
+                self._symbol_for(bucket_key), is_train=True)
+        return self._graph_fns[bucket_key]
+
+    def prepare(self, lr):
+        """The host part of a step: the optimizer's per-step values (lr,
+        Adam's bias corrections) onto the device."""
+        self.scalars.load(self.optimizer.step_vector(
+            self.names, self.opt_state, lr))
+
+    def forward(self, batch: dict, bucket_key=None, data_names=None,
+                mask=None):
         """The training forward of ``bucket_key``'s graph (the symbol's
-        when None); keeps the sum of the heads for backward and moves the
-        auxiliary states (BatchNorm's running stats). ``data_names`` are
-        the batch's data inputs (default: the trainer's)."""
-        graph_fn = self.graph_fn
-        if bucket_key is not None:
-            if bucket_key not in self._graph_fns:
-                self._graph_fns[bucket_key] = _build_graph_fn(
-                    self._symbol_for(bucket_key), is_train=True)
-            graph_fn = self._graph_fns[bucket_key]
+        when None); keeps the sum of the heads for backward and copies the
+        moved auxiliary states into their buffers. ``data_names`` are the
+        batch's data inputs (default: the trainer's); ``mask`` is the
+        (batch,) row mask of a padded batch."""
+        graph_fn = self.graph_fn_for(bucket_key)
         names = self.data_names if data_names is None else data_names
         with torch.enable_grad():
             params = _cast_floats(self.params, self.compute_dtype)
             batch = _cast_inputs(batch, self.compute_dtype, names)
-            outs, self.aux = graph_fn({**params, **batch}, self.aux, self.rng)
+            outs, new_aux = graph_fn({**params, **batch}, self.aux, self.rng,
+                                     mask)
             heads = [o for o in outs if o.requires_grad]
             # seed-ones cotangent: loss heads inject their own gradient
             self._loss = sum(o.float().sum() for o in heads) if heads else None
+        with torch.no_grad():
+            for k, v in new_aux.items():
+                if v is not self.aux[k]:
+                    self.aux[k].copy_(v)
         return outs
 
     def backward(self):
         if self.grad_sync is not None:
             # into the sync's flat buffer, through each parameter's .grad
             self.grad_sync.attach(self.params)
-            if self._loss is not None:
-                torch.autograd.backward(self._loss,
-                                        inputs=list(self.params.values()))
-            self._loss = None
-            return
-        names = list(self.params)
-        grads = [None] * len(names)
+        else:
+            self._flat_grad.zero_()
+            for k, p in self.params.items():
+                p.grad = self._grad_views[k]
+            self.grads = self._grad_views
         if self._loss is not None:
-            grads = torch.autograd.grad(
-                self._loss, [self.params[k] for k in names], allow_unused=True)
+            # a parameter no head depends on (fix_gamma's gamma) keeps 0
+            torch.autograd.backward(self._loss,
+                                    inputs=list(self.params.values()))
         self._loss = None
-        # a parameter no head depends on (fix_gamma's gamma) gets zeros
-        self.grads = {k: torch.zeros_like(self.params[k]) if g is None else g
-                      for k, g in zip(names, grads)}
 
     def sync(self):
         """Data-parallel training: the gradients summed over the ranks and
@@ -483,16 +585,58 @@ class _TrainState:
         if self.grad_sync is not None:
             with torch.no_grad():
                 self.grads = self.grad_sync.grads()
-                self.aux = self.grad_sync.aux(self.aux)
+                for k, v in self.grad_sync.aux(self.aux).items():
+                    if v is not self.aux[k]:
+                        self.aux[k].copy_(v)
 
-    def update(self, lr):
+    def update(self):
+        """The optimizer step, in place, from the values :meth:`prepare`
+        put on the device."""
         with torch.no_grad():
-            params, self.opt_state = self.optimizer.apply(
-                self.params, self.grads, self.opt_state, lr)
-        self.grads = None
-        # the per-leaf paths return new tensors; the fused one, the same
-        self.params = {k: v if v.requires_grad else v.requires_grad_(True)
-                       for k, v in params.items()}
+            self.optimizer.apply_inplace(self.params, self.grads,
+                                         self.opt_state, self.scalars.dev)
+
+    def step(self, batch: dict, bucket_key=None, data_names=None,
+             probe=None):
+        """One whole training step on the device: forward, backward, sync
+        and update. A ``__num_valid__`` entry of ``batch`` (a padded batch)
+        masks the rows after it out of the loss. Returns the detached
+        outputs and ``probe(batch)`` (None without a probe)."""
+        batch = dict(batch)
+        mask = None
+        num_valid = batch.pop("__num_valid__", None)
+        if num_valid is not None:
+            rows = next(iter(batch.values())).shape[0]
+            mask = (torch.arange(rows, device=num_valid.device)
+                    < num_valid).float()
+        outs = self.forward(batch, bucket_key, data_names, mask)
+        self.backward()
+        self.sync()
+        self.update()
+        seen = None if probe is None else probe(batch)
+        return [o.detach() for o in outs], seen
+
+
+class _Program:
+    """One program key's captured training step: static input buffers that
+    the feed's batch is copied into, and the :class:`CapturedProgram` of
+    the step over them (warm-up steps eager on a side stream, then one
+    capture, then replays)."""
+
+    def __init__(self, state, label, arrays, bucket_key, data_names, probe):
+        self.static = {k: torch.empty_like(v) for k, v in arrays.items()}
+        self.captured = compile_mod.CapturedProgram(
+            lambda: state.step(self.static, bucket_key, data_names, probe),
+            state.device, label, warmup=1, generators=[state.rng])
+
+    def copy_in(self, arrays):
+        for k, v in arrays.items():
+            self.static[k].copy_(v, non_blocking=True)
+
+    def run(self, arrays):
+        self.copy_in(arrays)
+        outs, seen = self.captured()
+        return list(outs), seen
 
 
 class FeedForward:
@@ -529,9 +673,19 @@ class FeedForward:
         self.kwargs = dict(kwargs)
         self._opt_cache = None
         self._train_state = None
-        # called as fn(batch, device_arrays) after each training forward
+        self._fps = {}
+        self._seen = set()  # the program keys this trainer has seen
+        # the eval programs: device parameters they read, programs by key
+        self._eval_state = None
+        self._eval_progs = {}
+        # called as fn(batch, device_arrays) after each training step
         self._step_hook = None
+        # called as fn(batch_arrays) inside each training step, on the
+        # tensors the step reads (the static inputs of a captured one); its
+        # value lands in step_probes as (batch, value)
+        self._step_probe = None
         self.feed_waits = []
+        self.step_probes = []
 
     def _symbol_for_bucket(self, bucket_key):
         """The graph of one bucket; one symbol here (bucketing trainers
@@ -594,6 +748,94 @@ class FeedForward:
         dev = self._device
         return {k: to_tensor(v, dev).detach().clone() for k, v in values.items()}
 
+    def _fingerprint(self, bucket_key):
+        if bucket_key not in self._fps:
+            self._fps[bucket_key] = compile_mod.graph_fingerprint(
+                self._symbol_for_bucket(bucket_key))
+        return self._fps[bucket_key]
+
+    def _label(self, kind, bucket_key):
+        return (f"{kind}:{self._fingerprint(bucket_key)}"
+                + (f":bucket={bucket_key}" if bucket_key is not None else ""))
+
+    def _eager_reason(self, dist_sync=False):
+        """Why this trainer's steps run eager, or None when they are
+        captured: the only cases, in the order they are checked (a CPU
+        device, multi-worker dist_sync, a ``_Native`` node,
+        ``MXTPU_CUDA_GRAPHS=0``, remat)."""
+        dev = self._device
+        if dev.type == "cuda" and dist_sync:
+            return ("kvstore dist_sync over more than one worker (gloo "
+                    "stages through host buffers)")
+        reason = compile_mod.eager_reason(dev, has_native(self.symbol))
+        if reason is None and os.environ.get("MXNET_TPU_REMAT", ""):
+            return ("MXNET_TPU_REMAT (the recompute replays its generator "
+                    "state on the host)")
+        return reason
+
+    def _state_for(self, optimizer, params, aux, sync, data_names):
+        """The trainer's state: the last one when it can train these
+        parameters (its captured steps with it), loaded in place, else a
+        new one."""
+        state = self._train_state
+        dev = self._device
+        if state is not None and state.matches(optimizer, params, aux, dev,
+                                               sync, self.compute_dtype):
+            state.load(params, aux)
+            state.data_names = frozenset(data_names)
+            return state
+        state = self._train_state = None
+        state = _TrainState(
+            self.symbol, optimizer, self._on_device(params),
+            self._on_device(aux), dev, sync=sync,
+            compute_dtype=self.compute_dtype, data_names=data_names,
+            symbol_for=self._symbol_for_bucket)
+        self._train_state = state
+        return state
+
+    def _program_key(self, arrays, bucket_key, pad_policy, train=True):
+        return compile_mod.program_key(
+            self._fingerprint(bucket_key), bucket_key, arrays,
+            self.compute_dtype, pad_policy, train)
+
+    def _run_step(self, state, arrays, bucket_key, data_names, pad_policy,
+                  lr, captured, precompile=False):
+        """One training step of the program ``arrays`` select: counted in
+        the program registry (a first sight is a compile), the optimizer's
+        values put on the device, then the step, replayed from its graph
+        when ``captured``. Returns the outputs and the probe's value."""
+        key = self._program_key(arrays, bucket_key, pad_policy)
+        compile_mod.registry().see(self._label("train_step", bucket_key),
+                                   key, self._seen, precompile=precompile)
+        state.prepare(lr)
+        if not captured:
+            return state.step(arrays, bucket_key, data_names,
+                              self._step_probe)
+        prog = state.programs.get(key)
+        if prog is None:
+            prog = state.programs[key] = _Program(
+                state, self._label("train_step", bucket_key), arrays,
+                bucket_key, data_names, self._step_probe)
+        return prog.run(arrays)
+
+    def _resume(self, directory, logger):
+        """Load the newest valid checkpoint under ``directory`` into the
+        trainer's host parameters; returns ``(num_update, batches_done,
+        opt_leaves)`` (zeros and None when there is none)."""
+        last = ckpt_mod.latest_step(directory)
+        if last is None:
+            return 0, 0, None
+        params, aux, _, meta, leaves = ckpt_mod.load_sharded(directory, last)
+        self.arg_params = {k: torch.from_numpy(v) for k, v in params.items()}
+        self.aux_params = {k: torch.from_numpy(v) for k, v in aux.items()}
+        self.begin_epoch = int(meta.get("epoch", last))
+        batches_done = int(meta.get("batches_done", 0))
+        if meta.get("rng_state") is not None:
+            random_mod.set_state(meta["rng_state"])
+        logger.info("resumed sharded checkpoint step %d (epoch %d, "
+                    "batches_done %d)", last, self.begin_epoch, batches_done)
+        return int(meta.get("num_update", 0)), batches_done, leaves
+
     def fit(self, X, y=None, eval_data=None, eval_metric="accuracy",
             epoch_end_callback=None, batch_end_callback=None, kvstore="local",
             logger=None, work_load_list=None, batch_size=128,
@@ -610,24 +852,45 @@ class FeedForward:
         ``comm.CompressionSpec``) picks what crosses the wire and
         ``comm_kernels`` (``comm.CommKernelConfig.resolve``) whether the
         quantize stages run as the fused kernels. On one rank compression
-        is ignored, as in the JAX package."""
+        is ignored, as in the JAX package.
+
+        ``pad_policy`` (``utils.compile.PadPolicy.resolve``) pads a short
+        batch to the policy's rows and masks the padded rows out of the
+        loss and the metric, so a tail batch needs no program of its own.
+
+        ``sharded_checkpoint_dir`` resumes from the newest valid checkpoint
+        there (epoch, ``num_update``, the batches already trained in that
+        epoch, the random state and the optimizer state) and saves one at
+        each epoch's end; ``checkpoint_every_n_steps`` (or
+        ``MXNET_TPU_CKPT_STEPS``) also snapshots the state every N steps,
+        written by a background thread (``resilience.ckpt_async``).
+
+        On a card each step replays a CUDA graph captured once per program
+        key, unless one of the cases of ``_eager_reason`` holds; the reason
+        is counted in ``utils.compile.compile_stats()["eager"]``."""
         del work_load_list
-        given = dict(sharded_checkpoint_dir=sharded_checkpoint_dir,
-                     guards=guards, pad_policy=pad_policy,
-                     overlap=overlap, telemetry=telemetry,
+        given = dict(guards=guards, overlap=overlap, telemetry=telemetry,
                      elastic=elastic, controller=controller, health=health,
-                     profile=profile, shard_audit=shard_audit,
-                     checkpoint_every_n_steps=checkpoint_every_n_steps)
+                     profile=profile, shard_audit=shard_audit)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
                     f"fit({name}=...) is not ported yet: ROADMAP "
                     f"{_LATER_SLICES[name]}")
         logger = logger or logging
+        pad_policy = compile_mod.PadPolicy.resolve(pad_policy)
+        ckpt_every = ckpt_plane.resolve_every(checkpoint_every_n_steps)
         dev = self._device
         kv = kvs_mod.create(kvstore, ctx=self.ctx[0]) if kvstore else None
         num_workers = kv.num_workers if kv is not None else 1
         dist_sync = kv is not None and "dist" in kv.type and num_workers > 1
+        if sharded_checkpoint_dir is not None and num_workers > 1:
+            raise MXNetError(
+                "sharded_checkpoint_dir is not supported with multi-worker "
+                f"kvstore='{kv.type}': workers hold diverged replicas and "
+                "would race on one checkpoint directory; use "
+                "epoch_end_callback=mx.callback.do_checkpoint(prefix) with "
+                "a per-worker prefix instead")
         comm_spec = comm_mod.CompressionSpec.resolve(compression)
         comm_kernels = comm_mod.CommKernelConfig.resolve(comm_kernels)
         if comm_spec is not None and not dist_sync:
@@ -635,6 +898,10 @@ class FeedForward:
                         "moves no gradient bytes over a wire",
                         comm_spec.mode)
             comm_spec = None
+        num_update, skip_batches, resume_leaves = 0, 0, None
+        if sharded_checkpoint_dir is not None:
+            num_update, skip_batches, resume_leaves = self._resume(
+                sharded_checkpoint_dir, logger)
         train_data = _init_iter(X, y, batch_size, shuffle=True)
         batch_size = train_data.batch_size or batch_size
         data_shapes = dict(train_data.provide_data)
@@ -645,10 +912,11 @@ class FeedForward:
         optimizer = self._resolve_optimizer(param_names, batch_size,
                                             num_workers)
         self._optimizer_obj = optimizer
-        params = self._on_device({k: self.arg_params[k] for k in param_names})
-        aux = self._on_device({k: self.aux_params[k] for k in aux_names})
+        params = {k: self.arg_params[k] for k in param_names}
+        aux = {k: self.aux_params[k] for k in aux_names}
         sync = None
         if dist_sync:
+            params, aux = self._on_device(params), self._on_device(aux)
             # rank 0's initialization wins, like kvstore.init from rank 0
             # (mxnet_tpu/model.py:1273-1287)
             for k in sorted(params):
@@ -657,10 +925,12 @@ class FeedForward:
                 broadcast_(aux[k])
             sync = _GradSync(comm_spec, comm_kernels, params, num_workers,
                              dev)
-        state = self._train_state = _TrainState(
-            self.symbol, optimizer, params, aux, dev, sync=sync,
-            compute_dtype=self.compute_dtype, data_names=data_names,
-            symbol_for=self._symbol_for_bucket)
+        state = self._state_for(optimizer, params, aux, sync, data_names)
+        if resume_leaves is not None:
+            state.restore_opt(resume_leaves)
+        reason = self._eager_reason(dist_sync)
+        if reason is not None:
+            compile_mod.note_eager(reason, logger)
         eval_metric = metric_mod.create(eval_metric)
         device_metric = eval_metric.device_supported and \
             batch_end_callback is None
@@ -671,72 +941,241 @@ class FeedForward:
                 getattr(batch, "data_names", data_names), batch.data)}
             arrays.update({n: to_tensor(a, cpu) for n, a in zip(
                 getattr(batch, "label_names", label_names), batch.label)})
+            if pad_policy is not None:
+                # on the feed thread, before the copy to the device: the
+                # rows after num_valid are masked out of the loss
+                rows = int(next(iter(arrays.values())).shape[0])
+                arrays, num_valid = pad_policy.pad_arrays(
+                    arrays, pad_policy.round_rows(rows, batch_size),
+                    pad=getattr(batch, "pad", 0) or 0)
+                arrays["__num_valid__"] = torch.tensor(num_valid,
+                                                       dtype=torch.int32)
             return arrays
 
+        writer = None
+        if sharded_checkpoint_dir is not None and ckpt_every is not None:
+            writer = ckpt_plane.AsyncCheckpointWriter(sharded_checkpoint_dir,
+                                                      logger=logger)
+            # the peer tier of one process (the JAX package's handle)
+            self.ckpt_replicas = ckpt_plane.ReplicaStore(1)
+
+        def state_meta(epoch_, batches_done):
+            meta = {"epoch": epoch_, "num_update": num_update}
+            if ckpt_every is not None:
+                meta.update(batches_done=int(batches_done),
+                            rng_state=random_mod.get_state())
+            return meta
+
         feed_depth = int(os.environ.get("MXTPU_FEED_PREFETCH", "2"))
-        self.feed_waits = []
-        num_update = 0
-        for epoch in range(self.begin_epoch, self.num_epoch):
-            tic = time.time()
-            eval_metric.reset()
-            mstate = eval_metric.device_init(dev) if device_metric else None
-            nbatch = 0
-            train_data.reset()
-            feed = _DeviceFeed(train_data, extract, dev, depth=feed_depth) \
-                if feed_depth > 0 else _SyncFeed(train_data, extract, dev)
-            try:
-                for batch, arrays in feed:
-                    b_lnames = getattr(batch, "label_names", label_names)
-                    lr = optimizer._get_lr()
-                    optimizer.num_update = num_update
-                    outs = state.forward(
-                        arrays, getattr(batch, "bucket_key", None),
-                        getattr(batch, "data_names", None))
-                    if self._step_hook is not None:
-                        self._step_hook(batch, arrays)
-                    state.backward()
-                    state.sync()
-                    state.update(lr)
-                    num_update += 1
-                    labels = [arrays[n] for n in b_lnames]
-                    preds = [o.detach().float() for o in outs[:len(labels)]]
-                    if device_metric:
-                        mstate = eval_metric.device_update(mstate, labels,
-                                                           preds)
-                    else:
-                        eval_metric.update(labels, preds)
-                    nbatch += 1
-                    if batch_end_callback is not None:
-                        param = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                              eval_metric=eval_metric)
-                        for cb in _as_list(batch_end_callback):
-                            cb(param)
-            finally:
-                feed.close()
-                self.feed_waits.extend(feed.waits)
-            if device_metric:
-                if sync is not None:
-                    mstate = sync.metric(mstate)
-                eval_metric.absorb_device_state(mstate)
-            name, value = eval_metric.get()
-            logger.info("Epoch[%d] Train-%s=%f", epoch, name, value)
-            logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
-            # write back, so callbacks and checkpoints see this epoch's state
-            self.arg_params = {k: v.detach().to("cpu", copy=True)
-                               for k, v in state.params.items()}
-            self.aux_params = {k: v.detach().to("cpu", copy=True)
-                               for k, v in state.aux.items()}
-            if eval_data is not None:
+        self.feed_waits, self.step_probes = [], []
+        last_snapshot = -1
+        try:
+            for epoch in range(self.begin_epoch, self.num_epoch):
+                tic = time.time()
                 eval_metric.reset()
-                eval_iter = _init_iter(eval_data[0], eval_data[1], batch_size,
-                                       is_train=False) \
-                    if isinstance(eval_data, tuple) else eval_data
-                self._eval(eval_iter, eval_metric, data_names, label_names)
+                mstate = eval_metric.device_init(dev) if device_metric \
+                    else None
+                nbatch = 0
+                train_data.reset()
+                feed = _DeviceFeed(train_data, extract, dev,
+                                   depth=feed_depth) \
+                    if feed_depth > 0 else _SyncFeed(train_data, extract, dev)
+                try:
+                    for batch, arrays in feed:
+                        if skip_batches > 0:
+                            # a resumed epoch: past the batches it trained
+                            skip_batches -= 1
+                            nbatch += 1
+                            continue
+                        b_lnames = getattr(batch, "label_names", label_names)
+                        lr = optimizer._get_lr()
+                        optimizer.num_update = num_update
+                        outs, seen = self._run_step(
+                            state, arrays, getattr(batch, "bucket_key", None),
+                            getattr(batch, "data_names", None), pad_policy,
+                            lr, reason is None)
+                        if seen is not None:
+                            self.step_probes.append((batch, seen.clone()))
+                        if self._step_hook is not None:
+                            self._step_hook(batch, arrays)
+                        num_update += 1
+                        labels = [arrays[n] for n in b_lnames]
+                        preds = [o.float() for o in outs[:len(labels)]]
+                        if pad_policy is not None:
+                            nv = int(batch.data[0].shape[0]) - int(
+                                getattr(batch, "pad", 0) or 0)
+                            labels = [t[:nv] for t in labels]
+                            preds = [t[:nv] for t in preds]
+                        if device_metric:
+                            mstate = eval_metric.device_update(mstate, labels,
+                                                               preds)
+                        else:
+                            eval_metric.update(labels, preds)
+                        nbatch += 1
+                        if writer is not None and \
+                                num_update % ckpt_every == 0 and \
+                                num_update != last_snapshot:
+                            last_snapshot = num_update
+                            snap = ckpt_plane.capture_snapshot(
+                                num_update, state.params, aux=state.aux,
+                                opt_state=opt_leaves(state.opt_state),
+                                meta=state_meta(epoch, nbatch),
+                                symbol=self.symbol)
+                            writer.submit(snap)
+                            self.ckpt_replicas.replicate(0, snap)
+                        if batch_end_callback is not None:
+                            param = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                                  eval_metric=eval_metric)
+                            for cb in _as_list(batch_end_callback):
+                                cb(param)
+                finally:
+                    feed.close()
+                    self.feed_waits.extend(feed.waits)
+                if device_metric:
+                    if sync is not None:
+                        mstate = sync.metric(mstate)
+                    eval_metric.absorb_device_state(mstate)
                 name, value = eval_metric.get()
-                logger.info("Epoch[%d] Validation-%s=%f", epoch, name, value)
-            if epoch_end_callback is not None:
-                for cb in _as_list(epoch_end_callback):
-                    cb(epoch, self.symbol, self.arg_params, self.aux_params)
+                logger.info("Epoch[%d] Train-%s=%f", epoch, name, value)
+                logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                            time.time() - tic)
+                if sharded_checkpoint_dir is not None:
+                    if writer is not None:
+                        # a queued snapshot may share this step id
+                        writer.flush()
+                    # the next epoch from its top; one step-id namespace
+                    # (num_update) when snapshots are armed, else epochs
+                    ckpt_plane.save_now(
+                        sharded_checkpoint_dir,
+                        num_update if ckpt_every is not None else epoch + 1,
+                        state.params, aux=state.aux, symbol=self.symbol,
+                        opt_state=opt_leaves(state.opt_state),
+                        extra_meta=state_meta(epoch + 1, 0),
+                        keep=writer.keep_last_k if writer is not None
+                        else None)
+                # write back, so callbacks and checkpoints see this epoch's
+                # state
+                self.arg_params = {k: v.detach().to("cpu", copy=True)
+                                   for k, v in state.params.items()}
+                self.aux_params = {k: v.detach().to("cpu", copy=True)
+                                   for k, v in state.aux.items()}
+                if eval_data is not None:
+                    eval_metric.reset()
+                    eval_iter = _init_iter(eval_data[0], eval_data[1],
+                                           batch_size, is_train=False) \
+                        if isinstance(eval_data, tuple) else eval_data
+                    self._eval(eval_iter, eval_metric, data_names,
+                               label_names)
+                    name, value = eval_metric.get()
+                    logger.info("Epoch[%d] Validation-%s=%f", epoch, name,
+                                value)
+                if epoch_end_callback is not None:
+                    for cb in _as_list(epoch_end_callback):
+                        cb(epoch, self.symbol, self.arg_params,
+                           self.aux_params)
+        finally:
+            if writer is not None:
+                writer.close()
+
+    def precompile(self, data_shapes=None, label_shapes=None, *, data=None,
+                   eval_metric="accuracy", kvstore="local", guards=None,
+                   pad_policy=None, compression=None, overlap=None,
+                   comm_kernels=None, batch_end_callback=None, health=None,
+                   parallel=True, shard_audit=None):
+        """Capture every training program ``fit`` would need before
+        training, without moving any parameter, moment, running statistic,
+        random state or step count: each program's warm-up step runs on
+        zero inputs and its graph is captured, then the state is put back.
+        A ``fit`` with the same shapes then captures nothing.
+
+        Shapes: ``data_shapes``/``label_shapes`` (input name -> full batch
+        shape, or ``(shape, dtype)``), or ``data=`` a DataIter (its
+        ``provide_data``/``provide_label``; a ``BucketSentenceIter`` gives
+        one program per non-empty bucket through ``bucket_shapes``).
+        ``eval_metric``, ``kvstore``, ``compression``, ``comm_kernels``,
+        ``batch_end_callback`` and ``parallel`` are taken as the JAX
+        package takes them and change no program here (a device metric
+        and a host one run outside the captured step). Returns
+        ``{"programs", "wall_seconds", "labels"}``."""
+        del eval_metric, compression, comm_kernels, batch_end_callback, \
+            parallel
+        for name, value in dict(guards=guards, overlap=overlap,
+                                health=health,
+                                shard_audit=shard_audit).items():
+            if value is not None:
+                raise NotImplementedError(
+                    f"precompile({name}=...) is not ported yet: ROADMAP "
+                    f"{_LATER_SLICES[name]}")
+        if isinstance(kvstore, str) and "dist" in kvstore:
+            raise MXNetError(
+                "precompile: multi-process kvstore strategies must warm up "
+                "inside the launched job (the mesh spans processes); call "
+                "precompile there, or rely on the persistent cache")
+        t0 = time.perf_counter()
+        if data is not None:
+            if hasattr(data, "bucket_shapes"):
+                programs = [(bk, dict(d), dict(lab))
+                            for bk, d, lab in data.bucket_shapes()]
+            else:
+                programs = [(None, dict(data.provide_data),
+                             dict(data.provide_label))]
+            base = {**dict(data.provide_data), **dict(data.provide_label)}
+        elif data_shapes:
+            programs = [(None, dict(data_shapes), dict(label_shapes or {}))]
+            base = {**programs[0][1], **programs[0][2]}
+        else:
+            raise MXNetError("precompile: pass data_shapes (+label_shapes) "
+                             "or data=<DataIter>")
+
+        def split(spec):
+            if isinstance(spec, tuple) and len(spec) == 2 and \
+                    isinstance(spec[0], (tuple, list)):
+                return tuple(spec[0]), np.dtype(spec[1])
+            return tuple(spec), np.dtype(np.float32)
+
+        pad_policy = compile_mod.PadPolicy.resolve(pad_policy)
+        base = {k: split(v)[0] for k, v in base.items()}
+        param_names, aux_names = self._init_params(base)
+        # fit's batch size: the rows of its batches
+        optimizer = self._resolve_optimizer(param_names,
+                                            next(iter(base.values()))[0])
+        self._optimizer_obj = optimizer
+        state = self._state_for(
+            optimizer, {k: self.arg_params[k] for k in param_names},
+            {k: self.aux_params[k] for k in aux_names}, None,
+            [k for k in programs[0][1]])
+        dev = self._device
+        captured = self._eager_reason() is None
+        snap = state.snapshot() if captured else None
+        labels = []
+        for bucket_key, dshapes, lshapes in programs:
+            arrays = {}
+            for name, spec in {**dshapes, **lshapes}.items():
+                shape, dtype = split(spec)
+                arrays[name] = torch.zeros(shape, device=dev,
+                                           dtype=getattr(torch, dtype.name))
+            if pad_policy is not None:
+                arrays["__num_valid__"] = torch.tensor(
+                    next(iter(arrays.values())).shape[0], dtype=torch.int32,
+                    device=dev)
+            labels.append(self._label("train_step", bucket_key))
+            key = self._program_key(arrays, bucket_key, pad_policy)
+            if not captured:
+                compile_mod.registry().see(labels[-1], key, self._seen,
+                                           precompile=True)
+                continue
+            if key in state.programs:
+                continue
+            # the warm-up step (eager, on zeros), then the capture
+            self._run_step(state, arrays, bucket_key, list(dshapes),
+                           pad_policy, optimizer._get_lr(), True,
+                           precompile=True)
+            state.programs[key].captured.capture()
+        if captured:
+            torch.cuda.synchronize(dev)
+            state.restore(snap)
+        return {"programs": len(programs),
+                "wall_seconds": time.perf_counter() - t0, "labels": labels}
 
     # -- inference --------------------------------------------------------
     def _fill_missing_args(self, symbol, params, arrays):
@@ -755,17 +1194,66 @@ class FeedForward:
         return {**arrays, **{n: torch.zeros(shape_of[n], dtype=torch.float32,
                                             device=dev) for n in missing}}
 
+    def _inference_state(self):
+        """The parameters (cast to ``compute_dtype``) and auxiliary states
+        the eval programs read, on the device: made once, then refreshed in
+        place from ``arg_params``/``aux_params`` at each call, so captured
+        eval programs keep reading the same tensors."""
+        src_p, src_a = self.arg_params, self.aux_params or {}
+        held = self._eval_state
+
+        def same(dst, src):
+            return dst.keys() == src.keys() and all(
+                tuple(dst[k].shape) == tuple(src[k].shape) for k in src)
+
+        if held is None or not (same(held[0], src_p) and same(held[1], src_a)):
+            self._eval_state = (_cast_floats(self._on_device(src_p),
+                                             self.compute_dtype),
+                                self._on_device(src_a))
+            self._eval_progs = {}
+            return self._eval_state
+        for dst, src in zip(held, (src_p, src_a)):
+            for k, v in src.items():
+                _assign(dst[k], v)
+        return held
+
+    def _eval_forward(self, fn, key, label, params, aux, arrays, captured):
+        """One eval forward of program ``key``: replayed from its graph
+        (inputs copied into its static buffers) when ``captured``, else
+        eager. Returns the outputs; a replay's are copies."""
+        compile_mod.registry().see(label, key, self._seen)
+        if not captured:
+            with torch.inference_mode():
+                outs, _ = fn({**params, **arrays}, aux)
+            return outs
+        prog = self._eval_progs.get(key)
+        if prog is None:
+            static = {k: torch.empty_like(v) for k, v in arrays.items()}
+
+            def run():
+                with torch.no_grad():
+                    return fn({**params, **static}, aux)[0]
+
+            prog = self._eval_progs[key] = (static, compile_mod.CapturedProgram(
+                run, self._device, label, warmup=1))
+        static, program = prog
+        for k, v in arrays.items():
+            static[k].copy_(v, non_blocking=True)
+        return [o.clone() for o in program()]
+
     def _inference_batches(self, data_iter, data_names):
         """Yield (batch, outputs of its valid rows) in eval mode, padding a
         short tail batch up to the first batch's rows; each bucket runs its
-        own graph."""
+        own graph, captured once per program key on a card."""
         if self.arg_params is None:
             raise MXNetError("model has no parameters; fit() or load first")
         fns = {}
-        params = _cast_floats(self._on_device(self.arg_params),
-                              self.compute_dtype)
-        aux = self._on_device(self.aux_params or {})
+        params, aux = self._inference_state()
         dev = self._device
+        reason = self._eager_reason()
+        if reason is not None:
+            compile_mod.note_eager(reason)
+        captured = reason is None
         first_rows = None
         data_iter.reset()
         for batch in data_iter:
@@ -780,8 +1268,9 @@ class FeedForward:
             arrays = self._fill_missing_args(symbol, params,
                                              _pad_rows(arrays, first_rows))
             arrays = _cast_floats(arrays, self.compute_dtype)
-            with torch.inference_mode():
-                outs, _ = fns[key]({**params, **arrays}, aux)
+            outs = self._eval_forward(
+                fns[key], self._program_key(arrays, key, None, train=False),
+                self._label("eval_step", key), params, aux, arrays, captured)
             nv = rows - batch.pad
             yield batch, [o[:nv].float() for o in outs]
 

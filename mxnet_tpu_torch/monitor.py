@@ -9,9 +9,13 @@ output and argument whose name ``pattern`` matches (``re.match``), on the
 host. Every node is a head of that graph, so the fusion plan leaves each
 output as its op computed it (a BatchNorm before its ReLU, say).
 
-The compile and communication rows (``track_compiles``, ``track_comm``,
-``collect_compiles``, ``collect_comm``) read the compile counter and the
-communication registry of a later item: they raise naming it.
+``track_compiles`` adds the program registry's rows
+(``utils.compile``) to each ``toc``, and ``collect_compiles`` returns them:
+``compile/count``, ``compile/seconds`` (capture seconds on a card),
+``compile/jit_misses`` and ``compile/<label>`` for each program first seen
+since the last collection, with a ``RecompileTracker``'s ``recompile/<label>``
+rows. The communication rows (``track_comm``, ``collect_comm``) read a
+registry of a later item: they raise naming it.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from .executor import _build_graph_fn
 
 __all__ = ["Monitor", "nonfinite_count"]
 
-_A6 = "ROADMAP A6 (utils/compile.py's compile counter and comm/stats)"
+_A6 = "ROADMAP A6 (comm/stats)"
 
 
 def nonfinite_count(x) -> int:
@@ -60,9 +64,12 @@ class Monitor:
     def __init__(self, interval, stat_func=None, pattern=".*",
                  track_nonfinite=False, track_compiles=False,
                  track_comm=False):
-        if track_compiles or track_comm:
+        if track_comm:
             raise NotImplementedError(
-                f"Monitor(track_compiles/track_comm) is not ported yet: {_A6}")
+                f"Monitor(track_comm) is not ported yet: {_A6}")
+        self.track_compiles = track_compiles
+        self._compile_snap = None
+        self._recompile_events = []
         self.interval = interval
         self.stat_func = stat_func or (lambda x: np.abs(x).mean())
         self.pattern = re.compile(pattern)
@@ -113,6 +120,10 @@ class Monitor:
         for name, arr in exe.arg_dict.items():
             if self.pattern.match(name):
                 res.extend(self._rows(name, arr))
+        if self.track_compiles:
+            res.extend(self.collect_compiles())
+        else:
+            res.extend(self._drain_recompiles())
         self.queue = res
         return res
 
@@ -124,6 +135,30 @@ class Monitor:
         raise NotImplementedError(
             f"Monitor.collect_comm is not ported yet: {_A6}")
 
+    def _drain_recompiles(self):
+        events, self._recompile_events = self._recompile_events, []
+        return events
+
     def collect_compiles(self):
-        raise NotImplementedError(
-            f"Monitor.collect_compiles is not ported yet: {_A6}")
+        """The program registry's deltas since the last collection, as
+        rows (mxnet_tpu/monitor.py:214-240)."""
+        from .utils import compile as compile_mod
+
+        stats = compile_mod.compile_stats()
+        prev = self._compile_snap or {"compiles": 0, "compile_seconds": 0.0,
+                                      "misses": 0, "per_function": {}}
+        res = [
+            (self.step, "compile/count", stats["compiles"] - prev["compiles"]),
+            (self.step, "compile/seconds",
+             stats["compile_seconds"] - prev["compile_seconds"]),
+            (self.step, "compile/jit_misses",
+             stats["misses"] - prev["misses"]),
+        ]
+        for label, c in stats["per_function"].items():
+            before = prev["per_function"].get(label, {}).get("compiles", 0)
+            if c["compiles"] > before:
+                res.append((self.step, f"compile/{label}",
+                            c["compiles"] - before))
+        res.extend(self._drain_recompiles())
+        self._compile_snap = stats
+        return res

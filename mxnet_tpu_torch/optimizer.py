@@ -15,6 +15,15 @@ Test, Adam, AdamW (decoupled decay with a name filter), RMSProp and AdaGrad,
   - the imperative ``update(index, weight, grad, state)`` of the updater
     contract (``get_updater``), which writes into ``weight`` and the state.
 
+``FeedForward``'s training step takes a third, in place and in two parts,
+so that it can be captured into a CUDA graph: ``step_vector(names, states,
+lr)`` runs on the host before each step (it advances the host's counters,
+Adam's ``t``, and returns the step's values as f32: lr, then the
+optimizer's per-leaf values), and ``apply_inplace(params,
+grads, states, scal)`` runs on the device, reading those values from the
+device copy ``scal`` of that vector and writing the parameters and the
+state tensors in place. It computes what ``apply`` computes, bit for bit.
+
 Every step rounds like the JAX package's f32 expressions, one operation at a
 time: Python-float hyperparameters are rounded to f32 where they meet a
 tensor. Adam's step counter ``t`` is a 0-d f32 tensor on the CPU, so the
@@ -27,7 +36,10 @@ import numpy as np
 import torch
 
 from .base import MXNetError, Registry
-from .kernels.fused_adam import LeafTable, fused_adam, fused_resolve, sqrt_rn
+from .kernels import fused_adam as kfa
+from .kernels.fused_adam import (LeafTable, fused_adam, fused_adam_step,
+                                 fused_adam_step_plain, fused_resolve,
+                                 sqrt_rn)
 
 __all__ = ["Optimizer", "SGD", "Test", "Adam", "AdamW", "RMSProp", "AdaGrad",
            "create", "get_updater"]
@@ -45,6 +57,22 @@ def _bias_correction(beta, t: torch.Tensor) -> float:
     ``pow`` and an f32 subtract, as the JAX package computes it (its bits
     agree with XLA's on the CPU; tests/test_torch_fused_adam.py)."""
     return float(np.float32(1) - np.float32(beta) ** np.float32(t.item()))
+
+
+def _lr(lr):
+    """lr as the step uses it: a 0-d f32 device tensor as it is, a Python
+    number rounded to f32 (where it meets a tensor, the same value)."""
+    return lr if isinstance(lr, torch.Tensor) else _f32(lr)
+
+
+def _write_tree(old, new):
+    """Copy a new optimizer state into the old one's tensors."""
+    if isinstance(old, torch.Tensor):
+        old.copy_(new)
+    elif isinstance(old, tuple):
+        for o, n in zip(old, new):
+            if isinstance(o, torch.Tensor) and o.dim():
+                o.copy_(n)
 
 
 def _scalar(value, like: torch.Tensor) -> torch.Tensor:
@@ -121,6 +149,23 @@ class Optimizer:
         for k, w in params.items():
             new_p[k], new_s[k] = self._apply_one(w, grads[k], states[k], lr)
         return new_p, new_s
+
+    # -- in-place path (the training step, eager or captured) ------------
+    def step_vector(self, names, states, lr) -> np.ndarray:
+        """The host part of one in-place step: the values the device part
+        reads, ``[lr]`` here; subclasses append per-leaf values and advance
+        their host counters in ``states``."""
+        del names, states
+        return np.array([lr], np.float32)
+
+    def apply_inplace(self, params: dict, grads: dict, states: dict, scal):
+        """The device part of one step: the per-leaf update with lr read
+        from ``scal[0]``, written into the parameters and state tensors."""
+        lr = scal[0]
+        for k, w in params.items():
+            new_w, new_s = self._apply_one(w, grads[k], states[k], lr)
+            w.copy_(new_w)
+            _write_tree(states[k], new_s)
 
     def _preprocess(self, w, g):
         g = g.float() * self.rescale_grad
@@ -221,6 +266,27 @@ class Adam(Optimizer):
         return dict(params), {k: (states[k][0], states[k][1], t_new[k])
                               for k in names}
 
+    def step_vector(self, names, states, lr):
+        """lr, then c1, c2 and wd per leaf (the fused kernel's layout);
+        each leaf's ``t`` advances here, on the host."""
+        t_new, (c1, c2, wd), _ = self._fused_args(names, states)
+        for k in names:
+            states[k] = (states[k][0], states[k][1], t_new[k])
+        return kfa.step_vector(lr, c1, c2, wd)
+
+    def apply_inplace(self, params, grads, states, scal):
+        """The whole-tree step over ``scal``: the kernel when fused, else
+        its plain version (one torch operation per arithmetic operation)."""
+        names = list(params)
+        _, _, hyper = self._fused_args([], states)
+        tensors = ([params[k] for k in names], [grads[k] for k in names],
+                   [states[k][0] for k in names],
+                   [states[k][1] for k in names], scal)
+        if self._fused_active():
+            fused_adam_step(*tensors, table=self._leaf_table, **hyper)
+        else:
+            fused_adam_step_plain(*tensors, **hyper)
+
     def create_state(self, index, weight):
         # per-parameter step counter (a shared one would corrupt the bias
         # correction of every parameter after the first)
@@ -246,7 +312,7 @@ class Adam(Optimizer):
     def _step_update(self, w32, mhat, vhat, lr):
         """The weight-update rule given bias-corrected moments (AdamW adds
         its decoupled decay)."""
-        return w32 - (_f32(lr) * mhat) / (sqrt_rn(vhat) + self.epsilon)
+        return w32 - (_lr(lr) * mhat) / (sqrt_rn(vhat) + self.epsilon)
 
     def _apply_one(self, w, g, state, lr):
         g = self._preprocess(w, g)
@@ -310,7 +376,8 @@ class AdamW(Adam):
 
     def _step_update(self, w32, mhat, vhat, lr):
         # (lr * wd) in f32, then times w, as the JAX package rounds it
-        lr_wd = _f32(np.float32(_f32(lr)) * np.float32(_f32(self.weight_decay)))
+        lr_wd = lr * _f32(self.weight_decay) if isinstance(lr, torch.Tensor) \
+            else _f32(np.float32(_f32(lr)) * np.float32(_f32(self.weight_decay)))
         return super()._step_update(w32, mhat, vhat, lr) - lr_wd * w32
 
 
@@ -329,7 +396,7 @@ class RMSProp(Optimizer):
     def _apply_one(self, w, g, state, lr):
         g = self._preprocess(w, g)
         acc = self.gamma * state + (1 - self.gamma) * (g * g)
-        new_w = w.float() - (_f32(lr) * g) / (torch.sqrt(acc) + self.epsilon)
+        new_w = w.float() - (_lr(lr) * g) / (torch.sqrt(acc) + self.epsilon)
         return new_w.to(w.dtype), acc
 
 
@@ -348,7 +415,7 @@ class AdaGrad(Optimizer):
     def _apply_one(self, w, g, state, lr):
         g = self._preprocess(w, g)
         acc = state + g * g
-        new_w = w.float() - (_f32(lr) * g) / (torch.sqrt(acc) + self.epsilon)
+        new_w = w.float() - (_lr(lr) * g) / (torch.sqrt(acc) + self.epsilon)
         return new_w.to(w.dtype), acc
 
 

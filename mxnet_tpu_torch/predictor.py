@@ -11,6 +11,13 @@ Differences from the JAX package: the default context is
 where there is no CUDA (pass ``ctx=cpu()`` to run on the CPU); and
 ``quantize="int8"`` quantizes each FullyConnected weight once, here, rather
 than at every call.
+
+On a card each input shape's forward is captured into a CUDA graph at its
+second request (the first runs eager on a side stream) and replayed after
+that: a request copies its inputs into the graph's static buffers, replays
+and copies the outputs out. ``MXTPU_CUDA_GRAPHS=0`` and a ``_Native`` node
+keep it eager (as does the CPU), and each program's first request counts
+that reason in ``utils.compile.compile_stats()["eager"]``.
 """
 
 from __future__ import annotations
@@ -26,8 +33,9 @@ from . import symbol as sym_mod
 from .base import MXNetError
 from .context import current_context
 from .convert import to_tensor
-from .executor import _build_graph_fn
+from .executor import _build_graph_fn, has_native
 from .kernels.int8_matmul import int8_predict_scope, quantize_channels
+from .utils import compile as compile_mod
 
 __all__ = ["Predictor"]
 
@@ -60,6 +68,9 @@ class Predictor:
         self._inputs = {}
         self._outputs = None
         self._label_cache = {}
+        self._programs = {}  # input signature -> (static inputs, program)
+        self._seen = set()  # program keys counted in utils.compile
+        self._fp = compile_mod.graph_fingerprint(symbol)
         self._graph_fn = _build_graph_fn(symbol)
         self._run_params = {k: self._cast(v) for k, v in self._params.items()}
         if self.quantize == "int8":
@@ -103,13 +114,40 @@ class Predictor:
     def forward(self, **inputs):
         for k, v in inputs.items():
             self.set_input(k, v)
-        args = dict(self._run_params)
-        args.update({k: self._cast(v) for k, v in self._inputs.items()})
-        args.update(self._fill_labels())
-        with torch.inference_mode(), \
-                int8_predict_scope(self.quantize == "int8"):
-            outs, _ = self._graph_fn(args, self._aux)
-            self._outputs = tuple(o.float() for o in outs)
+        inputs = {k: self._cast(v) for k, v in self._inputs.items()}
+        inputs.update(self._fill_labels())
+        key = compile_mod.program_key(self._fp, None, inputs,
+                                      self.compute_dtype, None, False)
+        label = f"predict:{self._fp}" + (":int8" if self.quantize else "")
+        first = compile_mod.registry().see(label, key, self._seen)
+        dev = self.ctx.torch_device
+        reason = compile_mod.eager_reason(dev, has_native(self.symbol))
+        if reason is not None:
+            if first:
+                compile_mod.note_eager(reason)
+            with torch.inference_mode(), \
+                    int8_predict_scope(self.quantize == "int8"):
+                outs, _ = self._graph_fn({**self._run_params, **inputs},
+                                         self._aux)
+                self._outputs = tuple(o.float() for o in outs)
+            return self
+        held = self._programs.get(key)
+        if held is None:
+            static = {k: torch.empty_like(v) for k, v in inputs.items()}
+
+            def run():
+                with torch.no_grad(), \
+                        int8_predict_scope(self.quantize == "int8"):
+                    outs, _ = self._graph_fn({**self._run_params, **static},
+                                             self._aux)
+                    return tuple(o.float() for o in outs)
+
+            held = self._programs[key] = (static, compile_mod.CapturedProgram(
+                run, dev, label, warmup=1))
+        static, program = held
+        for k, v in inputs.items():
+            static[k].copy_(v, non_blocking=True)
+        self._outputs = tuple(o.clone() for o in program())
         return self
 
     def _fill_labels(self):

@@ -276,9 +276,8 @@ def test_save_load_predict_score(tmp_path):
         mt.load_checkpoint(prefix, 3)
 
 
-LATER = ["sharded_checkpoint_dir", "checkpoint_every_n_steps", "overlap",
-         "guards", "elastic", "controller", "pad_policy", "telemetry",
-         "health", "profile", "shard_audit"]
+LATER = ["overlap", "guards", "elastic", "controller", "telemetry", "health",
+         "profile", "shard_audit"]
 
 
 @pytest.mark.parametrize("arg", LATER + ["kvstore"])
