@@ -39,25 +39,36 @@ together), and then:
    log-probabilities within BF16_LOGITS_BOUND) and two planted faults (the
    loss head's softmax summed in bf16, gated above the bounds; BatchNorm
    statistics in bf16, reported), then 8 fit steps plain, plain again and
-   under ``MXNET_TPU_REMAT='unit\\d+_out$'``, and phase train's f32 fit under
+   under ``MXNET_TPU_REMAT='unit\\d+_out$'`` captured and eager
+   (``MXTPU_CUDA_GRAPHS=0``), and phase train's f32 fit under
    ``set_matmul_precision("default")`` (TF32); checks fused_adam once a
    step, the loss falling, the bf16 fit's first loss against f32's, remat's
    first loss bitwise the plain one's, its update within REMAT_UPDATE_BOUND
    of the plain one's (the plain run repeated shows cuDNN's run-to-run
-   spread) and its peak memory below the plain run's; prints step time,
-   images per second, the forward / backward / update split and peak
-   memory of each run;
+   spread) and its peak memory below the plain run's, the remat fit
+   captured (one capture, no eager reason) with its update within the same
+   bound of the eager remat fit's; prints step time, images per second, the
+   forward / backward / update split, peak memory and captures of each
+   run;
 5b. serve_bf16: phase slice's int8 request under ``"highest"`` and
    ``"default"`` (int8_matmul launched on every request), and the bf16
    ``FeedForward.predict`` of the same weights against the f32 logits;
 5c. zoo: full-width AlexNet (LRN, Dropout) and Inception-BN at 3x224x224,
    batch 32, bf16, fused Adam, 6 steps each (the mean loss of the last
    three steps below the first three's: Dropout moves each), AlexNet again
-   under remat with a boundary after each LRN and after its last Dropout:
-   the first loss bitwise the plain one's, and one step's gradients with
+   under remat with a boundary after each LRN and after its last Dropout,
+   captured, eager and captured with a planted recompute that draws other
+   Dropout masks: the first loss bitwise the plain one's, the captured
+   remat fit (one capture, no eager reason) within REMAT_UPDATE_BOUND of
+   the eager remat fit's update and the planted one above it, 4 steps at lr
+   0 captured and eager bitwise (the masks), and one step's gradients with
    and without remat from the same generator state within
-   ZOO_REMAT_GRAD_BOUND, where a recompute that draws other Dropout masks
-   (a planted fault) lands above it;
+   ZOO_REMAT_GRAD_BOUND, where the planted recompute lands above it; then
+   one training step of an MLP at width 2048, batch 8192, with a Dropout
+   after each of its 8 layers, plain and under remat (a boundary after
+   each Dropout): the remat tape holds one byte a Dropout element (the
+   bool masks; a planted tape of f32 uniforms reads four) and remat's
+   peak memory is below the plain step's;
 5d. ndarray: the imperative NDArray on the card at 4096 x 4096: arithmetic,
    in-place operators, slices, writes, reductions and ``dot`` against numpy
    on the same values (bitwise, or against f64 within 1e-4 / 1e-5), copies
@@ -84,7 +95,8 @@ together), and then:
    exact int64 digest of both), that a planted off-by-one feed (each step
    reads the previous step's batch) is caught at every step after the
    first, that the loss is finite and the parameters moved; prints the
-   step time, images per second and the feed's wait a step of each run;
+   step time, images per second and the feed's wait a step of each run,
+   and over steps 21-32 (the steady state) the card's idle share;
 5h. lstm_bucketing: ``BucketingModule.fit`` of ``lstm_unroll`` at the
    widths of MXNet's PTB bucketing example (2 layers, 200 hidden, 200
    embedding, vocabulary 10,000, buckets 10-60, batch 32, SGD lr 0.5) over
@@ -99,6 +111,21 @@ together), and then:
    LSTM_SCAN_LOGIT_BOUND, 8 SGD-momentum steps with a falling loss, the
    first against the CPU's step within LSTM_CPU_BOUND; prints forward and
    step times and tokens per second;
+5l. io_native: the PNG shard's images re-encoded as JPEG (the native
+   codec, quality 95) through ``ImageRecordIter``'s native route, which it
+   must take; on sampled records PIL's encode gives the native encoder's
+   bytes and PIL's decode the native decoder's pixels exactly, and they
+   decode near their source pixels; a deterministic iterator (no shuffle or random augmentation,
+   centre crops, batch 30) bitwise between 1 and 8 pipeline threads and
+   against each record's own native decode, labels in order, the last
+   batch padded as round_batch pads; feed-only images per second at 1, 2,
+   4 and 8 threads; bf16 ResNet-50 through ``fit`` from the JPEG shard (the
+   main path; every step's batch digested) against phase io_fit's PNG
+   and cached-batch fits, and the decode-thread sweep on the PNG and the
+   JPEG shard: 1, 2 and 4 threads on half the shard with as many
+   prefetched batches as threads, and the host's cores from the whole-epoch fits: steady ms a
+   step, the feed's wait and the card's device time and idle share
+   (torch.profiler) of each;
 5j. graphs: captured against eager (``MXTPU_CUDA_GRAPHS=0``) in one
    process: ResNet-50 at batch 32 in f32 ``"highest"`` with fused Adam
    (phase train's), and bf16 with SGD momentum on one cached batch
@@ -224,13 +251,14 @@ together), and then:
    their launches in lm_mesh; fused_adam its launches in train_bf16 and zoo;
    every kernel its launches in moe_mesh, 0, in each of phases 5f-5i,
    read around that phase's main path, and in phases 5j and 5k, counted by
-   replay);
+   replay; ``slice12_launches``: the captured remat fits of 5a and 5c, by
+   replay, and 5l's fit from the JPEG shard);
 14. ends with ``{"ok": true, "device": {...}}``.
 
 Under the port's default, every single-card ``FeedForward`` fit above
-replays captured steps (phases train, train_bf16 but its remat fit, zoo
-but AlexNet under remat, io_fit, graphs, ckpt), and launches are counted
-by replay. ``BucketingModule`` (lstm_bucketing) and the LM's
+replays captured steps (phases train, train_bf16, zoo, io_fit, io_native,
+graphs, ckpt; remat fits too since slice 12), and launches are counted by
+replay. ``BucketingModule`` (lstm_bucketing) and the LM's
 ``make_train_step`` stay eager.
 
 Every phase that holds the card to a reference runs with
@@ -290,6 +318,11 @@ BF16_LOGITS_BOUND = 3e-2
 # gradients by O(1))
 REMAT_UPDATE_BOUND = 5e-2
 ZOO_REMAT_GRAD_BOUND = 5e-2
+# remat's tape on the card (zoo): an MLP with a Dropout after each layer
+# and a remat boundary after each Dropout, one training forward and
+# backward in f32; 64 MiB an activation, small weights (made on the host)
+REMAT_MLP = dict(batch=8192, hidden=2048, layers=8)
+REMAT_MLP_PATTERN = r"drop\d+$"
 ND_SHAPE = (4096, 4096)
 MONITOR_PATTERN = r".*unit\d+_out_output$"
 MONITOR_STEPS = 2
@@ -398,7 +431,8 @@ COMM_CHUNK = 256
 
 
 # slice 10, the data path. io_feed / io_fit: a RecordIO shard of PNG
-# records (the card's machine has no PIL, so no JPEG), smooth gradients like
+# records (the port's own PNG codec; phase io_native re-encodes the same
+# images as JPEG), smooth gradients like
 # the JAX package's io bench shard (bench.py:240-262) with sides drawn from
 # 256-480 so that resize=256 resamples, read with bench.py:266-273's
 # iterator settings; io_fit trains bf16 ResNet-50 from it with bench.py's
@@ -411,6 +445,36 @@ IO_ITER = dict(data_shape=(3, 224, 224), batch_size=32, shuffle=True,
                prefetch_buffer=8, seed=7, output_dtype="uint8")
 IO_FIT_STEPS = 16
 IO_LR, IO_MOMENTUM = 0.01, 0.9
+# slice 12, io_native: the same images as JPEG records (the port's codec at
+# pack_img's quality 95, 4:2:0, which writes PIL's bytes) through the
+# native pipeline. The fits of a whole epoch at IO_ITER's settings (io_fit's
+# from the PNG shard, io_native's from the JPEG shard and the cached
+# batch) read steps 21-32, by which the 8 prefetched batches and those
+# decoded during the warm-up and capture steps are spent, so that they read
+# the steady state, the decode threads busy; they are the thread sweep's
+# row at the host's cores (8 on the card's machine). The sweep's rows
+# below the cores train half the shard (num_parts 2, 16 steps) with as
+# many prefetched batches as threads, spent by step 8, and read steps
+# 9-16: both routes decode a batch a task (an engine task, a ticket) and
+# start no more than the prefetch depth, so a shallower one idles
+# threads. Feed-only rates are read at IO_THREADS
+IO_THREADS = (1, 2, 4, 8)
+IO_STEADY_WINDOW = (20, 32)
+IO_SWEEP_THREADS = (1, 2, 4)
+IO_SWEEP_PARTS = 2
+IO_SWEEP_WINDOW = (8, 16)
+# the profiler reads this many steps of a window: its trace of a
+# captured ResNet-50 step holds hundreds of kernels, and turning a longer
+# one into per-kernel sums costs seconds on the host
+IO_PROFILE_STEPS = 4
+IO_JPEG_QUALITY = 95
+# the native codec against PIL (which the card's machine has) on sampled
+# records: PIL's encode gives the same bytes and PIL's decode the same
+# pixels, exactly (the JAX package's own test bound is 1,
+# tests/test_native.py:66). Against the source pixels JPEG's loss at
+# quality 95 reads up to about 16, 0.6-0.9 on average: a mean bound that a
+# wrong decode (shifted blocks, swapped planes) lands far above
+IO_SOURCE_MEAN_BOUND = 2.0
 # lstm_bucketing / lstm_scan: the widths of MXNet's PTB bucketing example
 # (example/rnn/lstm_bucketing.py: 2 layers of 200, embedding 200, buckets
 # 10-60, batch 32, SGD lr 0.5 on the batch mean) over a synthetic corpus
@@ -434,7 +498,14 @@ LSTM_SCAN_LR = 0.5
 LSTM_SCAN_LOGIT_BOUND = 1e-4
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's row also carries the seconds since the
+    script started (``at_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -490,9 +561,18 @@ def phase_card(torch, common):
         common.load_library(stem)
         return time.perf_counter() - t0
 
-    # nvcc on a fresh checkout: one compiler per source, all at once
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    def build_native():
+        from mxnet_tpu_torch import native
+
+        native.require_lib()
+        return time.perf_counter() - t0
+
+    # nvcc on a fresh checkout: one compiler per source, all at once, and
+    # the host compiler for the native data pipeline beside them
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+        native_s = pool.submit(build_native)
         library_s = dict(zip(KERNEL_SOURCES, pool.map(build, KERNEL_SOURCES)))
+        library_s["mxtpu_native (g++)"] = native_s.result()
     build_s = time.perf_counter() - t0
     emit({"phase": "card", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
@@ -788,7 +868,7 @@ def step_loss_metric(mt):
     return StepLoss()
 
 
-def fit_one_batch(torch, mt, kfa, net, args, aux, batch_x, batch_y,
+def fit_one_batch(torch, mt, net, args, aux, batch_x, batch_y,
                   steps=None, **model_kw):
     """``steps`` steps of ``FeedForward(ctx=gpu(0), optimizer="adam",
     fused=True)`` on one fixed batch (the run overfits it), then one step
@@ -808,12 +888,12 @@ def fit_one_batch(torch, mt, kfa, net, args, aux, batch_x, batch_y,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    # the main path: the kernel's count is read around the fit
-    kfa.fused_adam.launches = 0
+    # the main path: every kernel's count is read around the fit
+    reset_launches()
     model.fit(mt.io.NDArrayIter(X, Y, batch_size=len(batch_x)),
               eval_metric=metric,
               batch_end_callback=lambda p: stamps.append(time.perf_counter()))
-    launches = {"fused_adam": kfa.fused_adam.launches}
+    launches = read_launches()
     peak_gb = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     losses = metric.steps
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
@@ -876,14 +956,14 @@ def resnet50_case():
     return net, args, aux, batch_x, batch_y
 
 
-def phase_train(torch, mt, kfa):
+def phase_train(torch, mt):
     """Full-width ResNet-50 trained through FeedForward.fit on the card."""
     mt.set_matmul_precision("highest")
     net, args, aux, batch_x, batch_y = resnet50_case()
     shape = batch_x.shape
-    model, fit_row = fit_one_batch(torch, mt, kfa, net, args, aux, batch_x,
+    model, fit_row = fit_one_batch(torch, mt, net, args, aux, batch_x,
                                    batch_y)
-    launches = fit_row["launches"]
+    launches = {"fused_adam": fit_row["launches"]["fused_adam"]}
     table = model._optimizer_obj._leaf_table
     table_builds = {"builds": table.builds,
                     "grad_uploads": table.grad_uploads}
@@ -2795,12 +2875,14 @@ def set_remat(pattern):
         os.environ["MXNET_TPU_REMAT"] = pattern
 
 
-def phase_train_bf16(torch, mt, kfa, f32_row):
+def phase_train_bf16(torch, mt, f32_row):
     """ResNet-50 with bf16 compute_dtype on the card: the first forward
-    against f32, planted faults, 8 fit steps without and with remat, and
-    phase train's f32 fit under the "default" precision (TF32)."""
+    against f32, planted faults, 8 fit steps without and with remat (the
+    remat fit captured and eager), and phase train's f32 fit under the
+    "default" precision (TF32)."""
     from mxnet_tpu_torch.ops import loss as tloss
     from mxnet_tpu_torch.ops import nn as tnn
+    from mxnet_tpu_torch.utils import compile as tcm
 
     net, args, aux, batch_x, batch_y = resnet50_case()
     bf16 = torch.bfloat16
@@ -2838,16 +2920,20 @@ def phase_train_bf16(torch, mt, kfa, f32_row):
             "inside the bounds")
 
     runs, params = {}, {}
-    for tag, pattern, precision, dtype in (
-            ("bf16", None, "highest", bf16),
-            ("bf16_again", None, "highest", bf16),
-            ("bf16_remat", REMAT_PATTERN, "highest", bf16),
-            ("f32_default", None, "default", None)):
+    for tag, pattern, precision, dtype, captured in (
+            ("bf16", None, "highest", bf16, True),
+            ("bf16_again", None, "highest", bf16, True),
+            ("bf16_remat", REMAT_PATTERN, "highest", bf16, True),
+            ("bf16_remat_eager", REMAT_PATTERN, "highest", bf16, False),
+            ("f32_default", None, "default", None, True)):
         set_remat(pattern)
+        set_graphs(captured)
         mt.set_matmul_precision(precision)
+        tcm.reset_compile_stats()
         model, runs[tag] = fit_one_batch(
-            torch, mt, kfa, net, args, aux, batch_x, batch_y,
+            torch, mt, net, args, aux, batch_x, batch_y,
             compute_dtype=dtype)
+        runs[tag]["graphs"] = graph_stats(tcm)
         require_trained(runs[tag], TRAIN_STEPS, f"train_bf16 {tag}")
         # the host copies after the fit (not the split's further steps)
         params[tag] = model.arg_params
@@ -2857,7 +2943,14 @@ def phase_train_bf16(torch, mt, kfa, f32_row):
             require(torch.isfinite(v).all(), f"{tag}: parameter {k} finite")
             require(v.dtype == torch.float32, f"{tag}: {k} stays f32")
     set_remat(None)
+    set_graphs(True)
     mt.set_matmul_precision("highest")
+    # C.1.6: the remat fit replays captured steps, with no eager reason
+    remat_graphs = runs["bf16_remat"]["graphs"]
+    require(remat_graphs["captures"] == 1
+            and remat_graphs["replays"] == TRAIN_STEPS - 1
+            and not remat_graphs["eager"],
+            f"train_bf16: the remat fit is captured: {remat_graphs}")
     fit_loss_err = abs(runs["bf16"]["loss_first"] - f32_row["loss_first"]) \
         / f32_row["loss_first"]
     require(fit_loss_err < BF16_LOSS_BOUND,
@@ -2869,9 +2962,17 @@ def phase_train_bf16(torch, mt, kfa, f32_row):
     gaps = {"remat_vs_plain": update_gap(torch, args, params["bf16_remat"],
                                          params["bf16"]),
             "plain_vs_plain": update_gap(torch, args, params["bf16_again"],
-                                         params["bf16"])}
+                                         params["bf16"]),
+            "remat_captured_vs_eager": update_gap(
+                torch, args, params["bf16_remat"],
+                params["bf16_remat_eager"])}
     require(gaps["remat_vs_plain"] < REMAT_UPDATE_BOUND,
             f"remat's update against the plain one's: {gaps}")
+    require(gaps["remat_captured_vs_eager"] < REMAT_UPDATE_BOUND,
+            f"the captured remat fit's update against the eager one's: {gaps}")
+    require(runs["bf16_remat_eager"]["loss_first"]
+            == runs["bf16_remat"]["loss_first"],
+            "the captured remat fit's first loss is bitwise the eager one's")
     require(runs["bf16_remat"]["peak_memory_gb"]
             < runs["bf16"]["peak_memory_gb"],
             "remat keeps fewer activations: peak "
@@ -2890,7 +2991,7 @@ def phase_train_bf16(torch, mt, kfa, f32_row):
            **{tag: {k: v for k, v in r.items() if k != "losses"}
               for tag, r in runs.items()}}
     emit(row)
-    return {tag: r["launches"]["fused_adam"] for tag, r in runs.items()}
+    return {tag: r["launches"] for tag, r in runs.items()}
 
 
 def phase_serve_bf16(torch, mt, k8):
@@ -2980,7 +3081,7 @@ def remat_grads(torch, mt, net, args, aux, batch_x, batch_y, pattern):
 
 def checkpointed_without_restore(torch):
     """A planted fault: remat whose recompute draws from the generator as
-    it stands, not from the state of its forward."""
+    it stands, not the forward's draws back from its tape."""
     def checkpointed(block_fn, ext_vals, aux_vals, rng, mask):
         return torch.utils.checkpoint.checkpoint(
             lambda *ext: block_fn(ext, aux_vals, rng, mask), *ext_vals,
@@ -2989,12 +3090,102 @@ def checkpointed_without_restore(torch):
     return checkpointed
 
 
-def phase_zoo(torch, mt, kfa):
+def remat_dropout_memory(torch, mt):
+    """The remat tape's memory on the card: one training forward and
+    backward of the REMAT_MLP net, plain, under remat, under remat with
+    Dropout's p at 0 (no draw, no tape) and under remat with a planted tape
+    that keeps the f32 uniforms, as the first tape did. Reads the memory
+    held from the forward to the backward and the peak over both, above
+    what the parameters and the batch hold. The tape (remat's held memory
+    less p 0's) must be Dropout's bool masks, one byte an element, what the
+    plain step's autograd keeps for them, where the planted tape reads four;
+    and remat's peak below the plain step's."""
+    from mxnet_tpu_torch.convert import random_params
+    from mxnet_tpu_torch.executor import _build_graph_fn
+    from mxnet_tpu_torch.ops import registry
+
+    batch, hidden, layers = (REMAT_MLP[k] for k in ("batch", "hidden",
+                                                     "layers"))
+    s = mt.sym
+
+    def mlp(p):
+        net = s.Variable("data")
+        for i in range(1, layers + 1):
+            net = s.FullyConnected(data=net, name=f"fc{i}", num_hidden=hidden)
+            net = s.Activation(data=net, name=f"relu{i}", act_type="relu")
+            net = s.Dropout(data=net, name=f"drop{i}", p=p)
+        return s.SoftmaxOutput(data=s.FullyConnected(
+            data=net, name="head", num_hidden=1000), name="softmax")
+
+    dev = mt.gpu(0).torch_device
+    args, _ = random_params(mlp(0.5), SEED, data=(batch, hidden))
+    params = {k: torch.from_numpy(v).to(dev).requires_grad_(True)
+              for k, v in args.items()}
+    rng = np.random.default_rng(SEED + 12)
+    x = torch.from_numpy(rng.standard_normal((batch, hidden),
+                                             np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 1000, batch).astype(
+        np.float32)).to(dev)
+
+    def step(p, pattern):
+        set_remat(pattern)
+        try:
+            fn = _build_graph_fn(mlp(p), is_train=True)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            outs, _ = fn({**params, "data": x, "softmax_label": y}, {}, gen)
+            held = torch.cuda.memory_allocated() - base
+            grads = torch.autograd.grad(outs[0].sum(), list(params.values()))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            del outs, grads
+        finally:
+            set_remat(None)
+        return {"held_mib": held / 2 ** 20, "peak_mib": peak / 2 ** 20}
+
+    def raw_uniforms(self, shape, rng, device, derive):
+        if self._replay_at is None:
+            u = torch.rand(shape, generator=rng, device=device)
+            self.kept.append(u)
+            return derive(u)
+        self._replay_at += 1
+        return derive(self.kept[self._replay_at - 1])
+
+    runs = {"plain": step(0.5, None),
+            "remat": step(0.5, REMAT_MLP_PATTERN),
+            "remat_p0": step(0.0, REMAT_MLP_PATTERN)}
+    real = registry.DrawTape.draw
+    registry.DrawTape.draw = raw_uniforms
+    try:
+        runs["remat_fault"] = step(0.5, REMAT_MLP_PATTERN)
+    finally:
+        registry.DrawTape.draw = real
+    masks_mib = layers * batch * hidden / 2 ** 20
+    tape = {k: runs[k]["held_mib"] - runs["remat_p0"]["held_mib"]
+            for k in ("remat", "remat_fault")}
+    out = {"net": REMAT_MLP, "pattern": REMAT_MLP_PATTERN, "runs": runs,
+           "masks_mib": masks_mib, "tape_mib": tape["remat"],
+           "planted_f32_tape_mib": tape["remat_fault"]}
+    require(abs(tape["remat"] - masks_mib) <= 0.01 * masks_mib,
+            f"zoo: the remat tape holds Dropout's bool masks: {out}")
+    require(tape["remat_fault"] > 2 * masks_mib,
+            f"zoo: a planted tape of f32 uniforms reads above the masks: {out}")
+    require(runs["remat"]["peak_mib"] < runs["plain"]["peak_mib"],
+            f"zoo: remat's peak below the plain step's with Dropout: {out}")
+    return out
+
+
+def phase_zoo(torch, mt):
     """Full-width AlexNet (LRN, Dropout) and Inception-BN, bf16, fused
-    Adam, a few steps each; AlexNet again under remat."""
+    Adam, a few steps each; AlexNet again under remat, captured and eager,
+    and captured with a planted recompute that draws other masks."""
     from mxnet_tpu_torch import executor as texecutor
     from mxnet_tpu_torch.convert import random_params
     from mxnet_tpu_torch.models import alexnet, inception_bn
+    from mxnet_tpu_torch.utils import compile as tcm
 
     mt.set_matmul_precision("highest")
     shape = (BATCH,) + IMAGE
@@ -3005,24 +3196,67 @@ def phase_zoo(torch, mt, kfa):
                      "compute_dtype": "bfloat16"}, {}
     nets = {"alexnet": alexnet(num_classes=1000),
             "inception_bn": inception_bn(num_classes=1000)}
-    for tag, name, pattern in (("alexnet", "alexnet", None),
-                               ("inception_bn", "inception_bn", None),
-                               ("alexnet_remat", "alexnet", ALEXNET_REMAT)):
+    params = {}
+    original = texecutor._checkpointed
+    for tag, name, pattern, captured in (
+            ("alexnet", "alexnet", None, True),
+            ("inception_bn", "inception_bn", None, True),
+            ("alexnet_remat", "alexnet", ALEXNET_REMAT, True),
+            ("alexnet_remat_eager", "alexnet", ALEXNET_REMAT, False),
+            ("alexnet_remat_fault", "alexnet", ALEXNET_REMAT, True)):
         net = nets[name]
         args, aux = random_params(net, SEED, data=shape)
         set_remat(pattern)
+        set_graphs(captured)
+        if tag.endswith("fault"):
+            texecutor._checkpointed = checkpointed_without_restore(torch)
         mt.random.seed(SEED)
-        _, r = fit_one_batch(torch, mt, kfa, net, args, aux, batch_x,
-                             batch_y, steps=ZOO_STEPS,
-                             compute_dtype=torch.bfloat16)
-        set_remat(None)
+        tcm.reset_compile_stats()
+        try:
+            model, r = fit_one_batch(torch, mt, net, args, aux, batch_x,
+                                     batch_y, steps=ZOO_STEPS,
+                                     compute_dtype=torch.bfloat16)
+        finally:
+            texecutor._checkpointed = original
+            set_remat(None)
+            set_graphs(True)
+        r["graphs"] = graph_stats(tcm)
+        params[tag] = model.arg_params
+        del model
         require_trained(r, ZOO_STEPS, f"zoo {tag}", halves=True)
-        launches[tag] = r["launches"]["fused_adam"]
+        launches[tag] = r["launches"]
         row[tag] = {k: v for k, v in r.items() if k != "losses"}
         row[tag]["losses"] = r["losses"]
     require(row["alexnet_remat"]["loss_first"] == row["alexnet"]["loss_first"],
             "AlexNet's first-step loss under remat is bitwise the plain one's "
             "(the same Dropout masks in the forward)")
+    # C.1.6: the remat fit captured, held to the eager remat fit; a
+    # captured recompute that draws other masks reads above the bound
+    remat_graphs = row["alexnet_remat"]["graphs"]
+    require(remat_graphs["captures"] == 1
+            and remat_graphs["replays"] == ZOO_STEPS - 1
+            and not remat_graphs["eager"],
+            f"zoo: AlexNet's remat fit is captured: {remat_graphs}")
+    capture_gaps = {
+        "remat_captured_vs_eager": update_gap(
+            torch, args, params["alexnet_remat"],
+            params["alexnet_remat_eager"]),
+        "plain_captured_vs_remat_eager": update_gap(
+            torch, args, params["alexnet"], params["alexnet_remat_eager"]),
+        "fault_captured_vs_eager": update_gap(
+            torch, args, params["alexnet_remat_fault"],
+            params["alexnet_remat_eager"]),
+        "bound": REMAT_UPDATE_BOUND}
+    require(capture_gaps["remat_captured_vs_eager"] < REMAT_UPDATE_BOUND,
+            f"zoo: AlexNet's captured remat update against the eager one's: "
+            f"{capture_gaps}")
+    require(capture_gaps["fault_captured_vs_eager"] > REMAT_UPDATE_BOUND,
+            "zoo: a captured recompute with other masks reads inside the "
+            f"bound: {capture_gaps}")
+    row["alexnet_remat_capture_gaps"] = capture_gaps
+    del params
+    row["alexnet_remat_masks"] = graphs_dropout(torch, mt,
+                                                remat=ALEXNET_REMAT)
     # the recompute's Dropout masks: one step's gradients with and without
     # remat, from the same generator state, leaf by leaf
     net = nets["alexnet"]
@@ -3031,7 +3265,6 @@ def phase_zoo(torch, mt, kfa):
     again = remat_grads(torch, mt, net, args, aux, batch_x, batch_y, None)
     remat = remat_grads(torch, mt, net, args, aux, batch_x, batch_y,
                         ALEXNET_REMAT)
-    original = texecutor._checkpointed
     texecutor._checkpointed = checkpointed_without_restore(torch)
     try:
         fault = remat_grads(torch, mt, net, args, aux, batch_x, batch_y,
@@ -3056,6 +3289,7 @@ def phase_zoo(torch, mt, kfa):
             f"{grads}")
     row["alexnet_remat_grads"] = grads
     row["remat_pattern"] = ALEXNET_REMAT
+    row["remat_dropout_memory"] = remat_dropout_memory(torch, mt)
     emit(row)
     return launches
 
@@ -3254,7 +3488,7 @@ def phase_io_feed(torch, mt):
 
     os.makedirs(IO_DIR, exist_ok=True)
     # the decode threads: one a host core (the engine's documented knob)
-    os.environ.setdefault("MXNET_CPU_WORKER_NTHREADS", str(os.cpu_count()))
+    set_decode_threads(mt, os.cpu_count())
     path = os.path.join(IO_DIR, "shard.rec")
     t0 = time.perf_counter()
     shard_bytes = write_io_shard(mt, path)
@@ -3312,13 +3546,19 @@ class DigestHook:
 
 
 def io_fit(torch, mt, net, args, aux, data, steps_floor, fault=False,
-           stale=False):
+           stale=False, window=None):
     """One epoch of bf16 ResNet-50 ``FeedForward.fit`` (SGD, lr 0.01,
     momentum 0.9) from ``data``, each step's batch digested on the card
     inside the step. Step ms is the epoch's card-synced time after the
     warm-up step over the steps after it. ``fault`` plants an off-by-one
     feed; ``stale`` a captured step whose static input buffer the feed no
-    longer writes after the capture."""
+    longer writes after the capture. ``window = (start, stop)`` (``start``
+    at least 2: the warm-up and the capture steps) also reads steps
+    ``start + 1`` to ``stop``, between syncs after steps ``start`` and
+    ``stop``: their ms a step, and under ``torch.profiler`` (the card's
+    activity only) the card's device time and idle share over the last
+    IO_PROFILE_STEPS of them, between syncs too; the profiler stops after
+    the window, since stopping it holds the host."""
     from mxnet_tpu_torch import model as model_mod
 
     class StepLoss(mt.metric.EvalMetric):
@@ -3341,12 +3581,25 @@ def io_fit(torch, mt, net, args, aux, data, steps_floor, fault=False,
                 yield batch, (dev if prev is None else prev)
                 prev = dev
 
-    metric, marks = StepLoss(), []
+    metric, marks, steps_done, at = StepLoss(), [], [0], {}
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) if window else None
+    start, stop = window or (0, 0)
+    profile_start = stop - IO_PROFILE_STEPS
 
     def mark(_p):
+        steps_done[0] += 1
+        k = steps_done[0]
         if not marks:
             torch.cuda.synchronize()  # the warm-up step ends here
             marks.append(time.perf_counter())
+        if window and k in (start, profile_start, stop):
+            torch.cuda.synchronize()
+            at[k] = time.perf_counter()
+            if k == profile_start:
+                prof.start()
+            if k == stop:
+                prof.stop()
 
     hook = DigestHook(torch, int(np.prod(data.provide_data[0][1])))
     model = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1, optimizer="sgd",
@@ -3374,13 +3627,34 @@ def io_fit(torch, mt, net, args, aux, data, steps_floor, fault=False,
     finally:
         model_mod._DeviceFeed, model_mod._Program.run = real, real_run
     torch.cuda.synchronize()
-    elapsed = time.perf_counter() - marks[0]
+    end = time.perf_counter()
+    elapsed = end - marks[0]
     n = len(model.step_probes)
     require(n >= steps_floor, f"io_fit: {n} steps, at least {steps_floor}")
     losses = [float(v) / IO_ITER["batch_size"] for v in metric.values]
     step_ms = elapsed * 1e3 / (n - 1)
     waits = model.feed_waits
-    return model, {
+    measured = {}
+    if window:
+        require(stop in at and profile_start >= start,
+                f"io_fit: the window {window} and its {IO_PROFILE_STEPS} "
+                f"profiled steps lie in the {n} steps")
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        require(events, "io_fit: the profiler recorded the card's activity")
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        wall_ms = (at[stop] - at[start]) * 1e3
+        k = stop - start
+        measured = {"window": [start + 1, stop],
+                    "window_step_ms": wall_ms / k,
+                    "window_images_per_s":
+                        IO_ITER["batch_size"] * k * 1e3 / wall_ms,
+                    "device_ms_per_step": device_ms / IO_PROFILE_STEPS,
+                    "device_idle_share": 1.0 - device_ms / (
+                        (at[stop] - at[profile_start]) * 1e3),
+                    "window_feed_wait_ms_median":
+                        statistics.median(waits[start:stop]) * 1e3}
+    return model, {**measured,
         "steps": n, "step_ms": step_ms,
         "images_per_s": IO_ITER["batch_size"] * 1e3 / step_ms,
         "feed_wait_ms_median": statistics.median(waits[1:]) * 1e3,
@@ -3449,7 +3723,7 @@ def phase_io_fit(torch, mt, path):
     steps_floor = IO_FIT_STEPS + 1
     reset_launches()
     model, overlap = io_fit(torch, mt, net, args, aux, io_iter(mt, path),
-                            steps_floor)
+                            steps_floor, window=IO_STEADY_WINDOW)
     launches = read_launches()
     moved = max(float((model.arg_params[k] - args[k]).abs().max())
                 for k in args)
@@ -3464,7 +3738,7 @@ def phase_io_fit(torch, mt, path):
     first = next(iter(io_iter(mt, path)))
     _, cached = io_fit(torch, mt, net, args, aux,
                        cached_batches(mt, first, overlap["steps"]),
-                       steps_floor)
+                       steps_floor, window=IO_STEADY_WINDOW)
     _, fault = io_fit(torch, mt, net, args, aux,
                       io_iter(mt, path, num_parts=4), 4, fault=True)
     for name, row in (("overlap", overlap), ("synchronous", sync),
@@ -3486,6 +3760,212 @@ def phase_io_fit(torch, mt, path):
                                  "mismatched_steps":
                                  fault["digest_mismatches"]},
           "max_param_move": moved, "launches": launches})
+    return launches, {"png": overlap, "cached": cached}
+
+
+def set_decode_threads(mt, n):
+    """``n`` decode threads: the host engine's (the Python path's; the
+    engine is made anew so that it takes them) and the native route's
+    default (``MXNET_CPU_WORKER_NTHREADS``)."""
+    import os
+
+    os.environ["MXNET_CPU_WORKER_NTHREADS"] = str(n)
+    mt.engine.set_engine_type("ThreadedEnginePerDevice")
+
+
+def write_jpeg_shard(mt, png_path, path):
+    """The PNG shard's records, in order, re-encoded as JPEG by the native
+    codec (PIL's bytes at quality IO_JPEG_QUALITY): the same images,
+    labels, count and sides. Returns the shard's size and every 64th
+    record's (index, source image, JPEG bytes)."""
+    import os
+
+    from mxnet_tpu_torch import native
+
+    rio = mt.recordio
+    with rio.MXRecordIO(png_path, "r") as reader:
+        raws = []
+        while (raw := reader.read()) is not None:
+            raws.append(raw)
+
+    def convert(item):
+        i, raw = item
+        header, img = rio.unpack_img(raw)
+        jpg = native.encode_jpeg(img, IO_JPEG_QUALITY)
+        return rio.pack(header, jpg), (img if i % 64 == 0 else None), jpg
+
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        out = list(pool.map(convert, enumerate(raws)))
+    with rio.MXRecordIO(path, "w") as w:
+        for rec, _, _ in out:
+            w.write(rec)
+    sample = [(i, img, jpg) for i, (_, img, jpg) in enumerate(out)
+              if img is not None]
+    return sum(len(rec) for rec, _, _ in out), [jpg for _, _, jpg in out], \
+        sample
+
+
+def io_codec_check(sample):
+    """The native decode of sampled records against PIL's decode of the
+    same bytes (exact) and against the source pixels, and the native
+    encode against PIL's bytes (equal)."""
+    import io as _pyio
+
+    import PIL
+    from PIL import Image
+
+    from mxnet_tpu_torch import native
+
+    rows = []
+    for i, src, jpg in sample:
+        got = native.decode_jpeg(jpg).astype(np.int32)
+        err = np.abs(got - src.astype(np.int32))
+        pil = np.asarray(Image.open(_pyio.BytesIO(jpg)).convert("RGB"))
+        buf = _pyio.BytesIO()
+        Image.fromarray(src).save(buf, format="JPEG", quality=IO_JPEG_QUALITY)
+        row = {"record": i, "source_max_err": int(err.max()),
+               "source_mean_err": float(err.mean()),
+               "pil_max_err": int(np.abs(got - pil).max()),
+               "pil_bytes_equal": buf.getvalue() == jpg}
+        rows.append(row)
+        require(row["source_mean_err"] < IO_SOURCE_MEAN_BOUND,
+                f"io_native: record {i} decodes to its image: {row}")
+        require(row["pil_max_err"] == 0 and row["pil_bytes_equal"],
+                f"io_native: record {i}'s bytes and pixels are PIL's: {row}")
+    return {"pil": PIL.__version__, "records": rows}
+
+
+def io_native_deterministic(torch, mt, path, jpegs):
+    """No random augmentation, no shuffle, centre crops with no resize
+    (every side exceeds the crop's), batch 30 (the last batch padded from the epoch's start): every batch
+    bitwise between 1 and 8 pipeline threads, and against the native
+    decode of each record alone (a thread pool of ``decode_jpeg`` calls,
+    no pipeline), cropped here; labels in order and the pads."""
+    import os
+
+    from mxnet_tpu_torch import native
+
+    _, ch, cw = IO_ITER["data_shape"]  # below every side: no resize
+    kw = dict(path_imgrec=path, data_shape=IO_ITER["data_shape"],
+              batch_size=30, output_dtype="uint8", prefetch_buffer=8)
+    one = mt.io.ImageRecordIter(preprocess_threads=1, **kw)
+    eight = mt.io.ImageRecordIter(preprocess_threads=8, **kw)
+    require(one._native is not None and eight._native is not None,
+            "io_native: the deterministic iterators take the native route")
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        decoded = list(pool.map(native.decode_jpeg, jpegs))
+    n, batches, pads, mismatches = len(jpegs), 0, [], []
+    for b, (x, y) in enumerate(zip(one, eight)):
+        require(torch.equal(x.data[0], y.data[0])
+                and torch.equal(x.label[0], y.label[0]) and x.pad == y.pad,
+                f"io_native: batch {b} bitwise between 1 and 8 threads")
+        for r in range(30):
+            idx = (b * 30 + r) % n
+            img = decoded[idx]
+            h, w = img.shape[:2]
+            top, left = (h - ch) // 2, (w - cw) // 2
+            want = torch.from_numpy(np.ascontiguousarray(
+                img[top:top + ch, left:left + cw].transpose(2, 0, 1)))
+            if not (torch.equal(x.data[0][r], want)
+                    and float(x.label[0][r]) == float(idx % 1000)):
+                mismatches.append((b, r))
+        pads.append(x.pad)
+        batches += 1
+    want_batches = -(-n // 30)
+    want_pads = [0] * (want_batches - 1) + [want_batches * 30 - n]
+    require(batches == want_batches and pads == want_pads,
+            f"io_native: {batches} batches with pads {pads}, the reference's "
+            f"round_batch gives {want_batches} with {want_pads}")
+    require(not mismatches, "io_native: every image and label is the "
+            f"record's own decode and label in order: {mismatches[:5]}")
+    return {"batches": batches, "last_pad": pads[-1],
+            "bitwise_1_vs_8_threads": True,
+            "bitwise_vs_decode_alone": True}
+
+
+def phase_io_native(torch, mt, png_path, io_fit_rows):
+    """The JPEG shard through the native pipeline: the codec, the route,
+    determinism, feed-only images/s, io_fit against the PNG shard and the
+    cached batch (``io_fit_rows``, phase io_fit's), and the decode-thread
+    sweep on both shards."""
+    import os
+
+    path = os.path.join(IO_DIR, "shard_jpeg.rec")
+    t0 = time.perf_counter()
+    shard_bytes, jpegs, sample = write_jpeg_shard(mt, png_path, path)
+    write_s = time.perf_counter() - t0
+    codec = io_codec_check(sample)
+    require(io_iter(mt, path)._native is not None,
+            "io_native: ImageRecordIter takes the native route on the JPEG "
+            "shard (no Python fallback)")
+    feed = {}
+    for t in IO_THREADS:
+        it = io_iter(mt, path, preprocess_threads=t)
+        require(it._native is not None and it._native.num_threads == t,
+                f"io_native: the native route with {t} threads")
+        t0 = time.perf_counter()
+        n = sum(b.data[0].shape[0] for b in it)
+        dt = time.perf_counter() - t0
+        require(n == IO_RECORDS, f"io_native: one epoch, {n} images")
+        feed[t] = {"feed_s": dt, "images_per_s": n / dt}
+    determinism = io_native_deterministic(torch, mt, path, jpegs)
+    del jpegs
+
+    mt.set_matmul_precision("highest")
+    net, args, aux = xavier_resnet50(torch, mt)
+    set_decode_threads(mt, os.cpu_count())
+    reset_launches()
+    # the main path: bf16 ResNet-50 trained from the JPEG shard
+    data = io_iter(mt, path)
+    require(data._native is not None, "io_native: the fit's iterator takes "
+            "the native route")
+    model, jpeg_fit = io_fit(torch, mt, net, args, aux, data,
+                             IO_FIT_STEPS + 1, window=IO_STEADY_WINDOW)
+    launches = read_launches()
+    moved = max(float((model.arg_params[k] - args[k]).abs().max())
+                for k in args)
+    del model
+    keys = ("window", "window_step_ms", "window_images_per_s",
+            "device_ms_per_step", "device_idle_share",
+            "window_feed_wait_ms_median", "step_ms", "feed_wait_ms_median")
+    cores = os.cpu_count()
+    # the sweep's row at the host's cores: the whole-epoch fits above
+    sweep = {"png": {cores: {k: io_fit_rows["png"][k] for k in keys}},
+             "jpeg": {cores: {k: jpeg_fit[k] for k in keys}}}
+    for t in (t for t in IO_SWEEP_THREADS if t < cores):
+        set_decode_threads(mt, t)
+        for fmt, p in (("png", png_path), ("jpeg", path)):
+            it = io_iter(mt, p, num_parts=IO_SWEEP_PARTS, prefetch_buffer=t)
+            require((it._native is not None) == (fmt == "jpeg"),
+                    f"io_native sweep: the {fmt} shard's route")
+            _, r = io_fit(torch, mt, net, args, aux, it, IO_SWEEP_WINDOW[1],
+                          window=IO_SWEEP_WINDOW)
+            require(not r["digest_mismatches"] and r["finite"],
+                    f"io_native sweep ({fmt}, {t} threads): {r}")
+            sweep[fmt][t] = {k: r[k] for k in keys}
+    set_decode_threads(mt, cores)
+    require(not jpeg_fit["digest_mismatches"],
+            "io_native: every step read the host batch on the card; steps "
+            f"{jpeg_fit['digest_mismatches']} did not")
+    require(jpeg_fit["finite"], "io_native: finite loss")
+    require(moved > 0, f"io_native: the parameters moved ({moved})")
+    emit({"phase": "io_native", "records": IO_RECORDS, "format": "jpeg",
+          "quality": IO_JPEG_QUALITY, "shard_bytes": shard_bytes,
+          "write_s": write_s, "codec": codec,
+          "bounds": {"pil": "bytes and pixels equal",
+                     "source_mean": IO_SOURCE_MEAN_BOUND},
+          "feed_only": feed, "deterministic": determinism,
+          "io_fit_jpeg": {k: v for k, v in jpeg_fit.items()
+                          if k != "digest_mismatches"},
+          "cached_batch": {k: io_fit_rows["cached"][k] for k in keys},
+          "thread_sweep": sweep, "host_cores": cores,
+          "sweep_settings": {"below_cores": {"num_parts": IO_SWEEP_PARTS,
+                                             "prefetch_buffer": "threads",
+                                             "window": IO_SWEEP_WINDOW},
+                             "cores": {"prefetch_buffer":
+                                       IO_ITER["prefetch_buffer"],
+                                       "window": IO_STEADY_WINDOW}},
+          "launches": launches})
     return launches
 
 
@@ -4228,9 +4708,10 @@ def graphs_predictor(torch, mt, tcm, k8, add):
     return {**rows, "bitwise": same}
 
 
-def graphs_dropout(torch, mt):
-    """AlexNet (zoo) with Dropout, bf16, 4 steps at lr 0: each step's
-    outputs captured and eager bitwise, and two replays' differ."""
+def graphs_dropout(torch, mt, remat=None):
+    """AlexNet (zoo) with Dropout, bf16, 4 steps at lr 0 (under the remat
+    pattern ``remat`` when given): each step's outputs captured and eager
+    bitwise, and two replays' differ."""
     from mxnet_tpu_torch.convert import random_params
     from mxnet_tpu_torch.models import alexnet
 
@@ -4242,6 +4723,7 @@ def graphs_dropout(torch, mt):
     y = rng.integers(0, 1000, BATCH).astype(np.float32)
     steps = 4
     outs = {}
+    set_remat(remat)
     for name, captured in (("captured", True), ("eager", False)):
         set_graphs(captured)
         mt.random.seed(SEED)
@@ -4261,6 +4743,8 @@ def graphs_dropout(torch, mt):
         outs[name] = seen
         del model
         torch.cuda.empty_cache()
+    set_remat(None)
+    set_graphs(True)
     same = all(torch.equal(a, b)
                for a, b in zip(outs["captured"], outs["eager"]))
     differ = not torch.equal(outs["captured"][2], outs["captured"][3])
@@ -4504,19 +4988,25 @@ def main() -> int:
     rows, max_err = phase_kernels(torch, k8, registry)
     launches = phase_slice(torch, mt, k8)
     adam_row, adam_err = phase_fused_adam(torch, topt, kfa, registry)
-    train_launches, f32_row = phase_train(torch, mt, kfa)
+    train_launches, f32_row = phase_train(torch, mt)
     launches.update(train_launches)
-    bf16_launches = phase_train_bf16(torch, mt, kfa, f32_row)
+    bf16_launches = phase_train_bf16(torch, mt, f32_row)
     phase_serve_bf16(torch, mt, k8)
-    zoo_launches = phase_zoo(torch, mt, kfa)
+    zoo_launches = phase_zoo(torch, mt)
     phase_ndarray(torch, mt)
     phase_monitor(torch, mt)
     torch.cuda.empty_cache()
     io_path, io_feed_launches = phase_io_feed(torch, mt)
+    io_fit_launches, io_fit_rows = phase_io_fit(torch, mt, io_path)
     slice10 = {"io_feed": io_feed_launches,
-               "io_fit": phase_io_fit(torch, mt, io_path),
+               "io_fit": io_fit_launches,
                "lstm_bucketing": phase_lstm_bucketing(torch, mt),
                "lstm_scan": phase_lstm_scan(torch, mt)}
+    torch.cuda.empty_cache()
+    slice12 = {"train_bf16_remat": bf16_launches["bf16_remat"],
+               "zoo_alexnet_remat": zoo_launches["alexnet_remat"],
+               "io_native": phase_io_native(torch, mt, io_path,
+                                            io_fit_rows)}
     torch.cuda.empty_cache()
     graphs_launches = phase_graphs(torch, mt, kfa, k8, io_path)
     torch.cuda.empty_cache()
@@ -4561,8 +5051,10 @@ def main() -> int:
                 comm_phase_launches[name]
         if name == "fused_adam":
             # per fit of 8 (train_bf16) and 6 (zoo) steps, one a step
-            kernels[-1]["train_bf16_launches"] = bf16_launches
-            kernels[-1]["zoo_launches"] = zoo_launches
+            kernels[-1]["train_bf16_launches"] = {
+                tag: got[name] for tag, got in bf16_launches.items()}
+            kernels[-1]["zoo_launches"] = {
+                tag: got[name] for tag, got in zoo_launches.items()}
         if name in mesh_launches:
             # per mesh, per rank: the steps of phase lm_mesh
             kernels[-1]["lm_mesh_launches"] = mesh_launches[name]
@@ -4574,6 +5066,10 @@ def main() -> int:
         # the slice 11 phases, counted by replay
         kernels[-1]["graphs_launches"] = graphs_launches[name]
         kernels[-1]["ckpt_launches"] = ckpt_launches[name]
+        # the slice 12 paths: the captured remat fits (counted by replay)
+        # and io_native's fit from the JPEG shard, each read around itself
+        kernels[-1]["slice12_launches"] = {p: got[name]
+                                           for p, got in slice12.items()}
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -24,8 +24,10 @@ and affine transforms), the device feed of ``FeedForward.fit``, ``module``
 adds sharded checkpoints with step-granular asynchronous resume
 (``utils.checkpoint``, ``resilience.ckpt_async``), ``NumpyOp`` and
 ``visualization``, and ``utils.compile``: a training, eval or serving step
-captured into a CUDA graph once per program key and replayed. Entry
-points run on the card
+captured into a CUDA graph once per program key and replayed. Slice 12
+captures remat steps too, and adds ``native``: the C++ data pipeline that
+``ImageRecordIter`` takes for JPEG records, with a baseline JPEG codec of
+its own (libjpeg's pixels and bytes). Entry points run on the card
 (``gpu(0)``) unless the caller passes ``ctx=cpu()``.
 """
 

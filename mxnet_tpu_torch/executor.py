@@ -24,6 +24,7 @@ from . import random as _random
 from .base import MXNetError, env_int, env_str
 from .context import Context, current_context
 from .convert import to_tensor
+from .ops.registry import DrawTape
 from .utils import compile as compile_mod
 
 __all__ = ["Executor", "simple_bind", "_fusion_plan", "_remat_segments",
@@ -137,28 +138,23 @@ def _checkpointed(block_fn, ext_vals, aux_vals, rng, mask):
     checkpointing (``torch.utils.checkpoint``, non-reentrant: the autograd
     graph is the plain one, only its saved tensors are recomputed).
 
-    The recompute must draw what the forward drew: Dropout and rrelu take
-    ``rng``, an explicit ``torch.Generator`` that checkpoint's own RNG
-    preservation does not cover. So each call keeps ``rng``'s state from
-    before its forward, and a recompute runs from that state and puts the
-    generator back where it was. Auxiliary states come out of the forward
-    only: a recompute's are dropped, so BatchNorm's moving statistics move
-    once a step."""
+    The recompute must see what the forward drew: Dropout and rrelu draw
+    from ``rng``, an explicit ``torch.Generator`` that checkpoint's own RNG
+    preservation does not cover. Their draws go through a
+    :class:`~.ops.registry.DrawTape`: the forward keeps them and the
+    recompute reads them back, so the step draws what the plain step draws
+    and touches no generator state on the host (a CUDA graph captures it
+    whole). Auxiliary states come out of the forward only: a recompute's
+    are dropped, so BatchNorm's moving statistics move once a step."""
     if not torch.is_grad_enabled():
         return block_fn(ext_vals, aux_vals, rng, mask)
-    start = rng.get_state() if rng is not None else None
+    tape = DrawTape()
     calls = [0]
 
     def body(*ext):
         calls[0] += 1
-        if start is None or calls[0] == 1:
+        with tape.active(replay=calls[0] > 1):
             return block_fn(ext, aux_vals, rng, mask)
-        now = rng.get_state()
-        rng.set_state(start)
-        try:
-            return block_fn(ext, aux_vals, rng, mask)
-        finally:
-            rng.set_state(now)
 
     return torch.utils.checkpoint.checkpoint(
         body, *ext_vals, use_reentrant=False, preserve_rng_state=False)

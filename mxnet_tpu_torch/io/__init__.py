@@ -9,13 +9,16 @@ Counterpart of ``mxnet_tpu/io/__init__.py``:
   ``num_parts`` / ``part_index``;
 - ``CSVIter``: rows of a CSV file;
 - ``ImageRecordIter``: RecordIO shards -> decode -> augment -> normalise ->
-  batch, each batch decoded by a task on the host engine (``engine.py``)
-  with its own ``RandomState``, seeded on the main thread, and
-  ``prefetch_buffer`` batches in flight. It is the JAX package's Python
-  path (``io/__init__.py:260-970``), with PIL's calls replaced by the
-  port's own copies (``_imaging.py``): for PNG records both packages give
-  the same batches bit for bit. JPEG records decode through PIL where it
-  can be imported. The JAX package's native C++ pipeline is not ported;
+  batch. JPEG records take the native C++ pipeline (``native``: record
+  reads, decode, augmentation and batch assembly in C++ threads) under
+  the JAX package's conditions (``MXNET_TPU_NATIVE_IO``, default on; an
+  RGB mean; no Python-only augmenter; a local file), and its batches equal
+  the JAX package's native pipeline's bit for bit. Otherwise each batch is
+  decoded by a task on the host engine (``engine.py``) with its own
+  ``RandomState``, seeded on the main thread, and ``prefetch_buffer``
+  batches in flight: the JAX package's Python path
+  (``io/__init__.py:260-970``), with PIL's calls replaced by the port's
+  own copies (``_imaging.py``), the same batches bit for bit;
 - ``PrefetchingIter``: runs a wrapped iterator ahead on the host engine.
 
 Batches hold CPU tensors; the trainer moves them to its device.
@@ -35,7 +38,7 @@ import torch
 
 from ..base import MXNetError, env_int
 from ..engine import engine
-from ..filesystem import open_uri
+from ..filesystem import is_remote_uri, open_uri
 from ..params import REQUIRED, Range, TupleParam, apply_params, autodoc
 from . import _imaging
 
@@ -295,10 +298,17 @@ class ImageRecordIter(DataIter):
     Per image: record read -> decode -> [resize the shorter side] ->
     [random scale / size clamps] -> [rotation, shear] -> [random or centre
     crop to ``data_shape``] -> [mirror] -> [HSL jitter] -> mean / contrast /
-    illumination / scale -> CHW or HWC, float32 or raw uint8. Each batch is
-    one task on the host engine with its own ``RandomState``, seeded from
-    the iterator's on the main thread, so the batches do not depend on the
-    threads' order."""
+    illumination / scale -> CHW or HWC, float32 or raw uint8.
+
+    JPEG records take the native pipeline (``native.NativePipeline``,
+    ``preprocess_threads`` C++ threads; its batches are pinned on a host
+    with a card) when ``MXNET_TPU_NATIVE_IO`` is on (the default), the mean
+    is per channel, no Python-only augmenter (rotation, shear, aspect, HSL,
+    random-sized crop) is set and the file is local. Its random draws are
+    the JAX native pipeline's: deterministic for a seed with one thread, or
+    with no random augmentation. Otherwise each batch is one task on the
+    host engine with its own ``RandomState``, seeded from the iterator's on
+    the main thread, so the batches do not depend on the threads' order."""
 
     params = {
         "path_imgrec": (str, REQUIRED, "RecordIO shard path"),
@@ -353,9 +363,12 @@ class ImageRecordIter(DataIter):
         "part_index": (Range(int, lo=0), 0, "this worker's shard index"),
         "round_batch": (bool, True, "wrap the last batch around the epoch"),
         "seed": (int, 0, "augmentation/shuffle RNG seed"),
-        "preprocess_threads": (int, None, "accepted for parity (the host "
-                                          "engine's MXNET_CPU_WORKER_NTHREADS "
-                                          "sets the decode threads)"),
+        "preprocess_threads": (int, None, "decode worker threads of the "
+                                          "native route (default: "
+                                          "MXNET_CPU_WORKER_NTHREADS when "
+                                          "set, else one less than the "
+                                          "host's cores); the Python path "
+                                          "decodes on the host engine"),
         "prefetch_buffer": (Range(int, lo=1), 4, "prefetched batches"),
         "path_imglist": (str, None, "accepted for parity (unused: labels "
                                     "ride in the RecordIO headers)"),
@@ -445,7 +458,80 @@ class ImageRecordIter(DataIter):
                 self._mean = self._wait_for_mean(
                     compute_mean, fallback=lambda: self._compute_and_cache_mean(
                         compute_mean, offsets))
+        # JPEG records take the native pipeline under the JAX package's
+        # conditions; it probes one batch and falls back to the Python path
+        # when it cannot take the records
+        self._native = None
+        self._native_first = None
+        if (env_int("MXNET_TPU_NATIVE_IO", 1) and self._mean_is_rgb()
+                and not self._needs_py_augment()
+                and not is_remote_uri(path_imgrec)
+                and self._records_look_jpeg()):
+            self._native = self._open_native(cfg)
         self.reset()
+
+    def _open_native(self, cfg):
+        from .. import native
+
+        threads = cfg["preprocess_threads"] or (
+            env_int("MXNET_CPU_WORKER_NTHREADS", 0) or None)
+        try:
+            pipe = native.NativePipeline(
+                self._path, self._offsets, self.batch_size, self.data_shape,
+                label_width=self.label_width, rand_crop=self.rand_crop,
+                rand_mirror=self.rand_mirror, resize=self.resize,
+                mean=(self._mean.ravel() if self._mean is not None
+                      else None),
+                scale=self.scale, shuffle=self.shuffle, seed=cfg["seed"],
+                num_threads=threads, prefetch=self._prefetch_depth,
+                round_batch=self.round_batch,
+                nhwc=(self.layout == "NHWC"),
+                out_u8=(self.output_dtype == "uint8"),
+                min_random_scale=self.min_random_scale,
+                max_random_scale=self.max_random_scale,
+                min_img_size=self.min_img_size,
+                max_img_size=self.max_img_size,
+                max_random_contrast=self.max_random_contrast,
+                max_random_illumination=self.max_random_illumination,
+                mirror=self.mirror)
+            self._native_first = pipe.next()  # the probe batch
+        except (MXNetError, StopIteration) as e:
+            logging.warning("ImageRecordIter: the native pipeline cannot "
+                            "take %r (%s); decoding in Python", self._path, e)
+            self._native_first = None
+            return None
+        return pipe
+
+    def _mean_is_rgb(self):
+        return self._mean is None or self._mean.size == 3
+
+    def _needs_py_augment(self):
+        """Rotation, shear, aspect jitter, HSL jitter and random-sized crops
+        exist in the Python path only."""
+        return bool(self.max_rotate_angle or self.rotate > 0
+                    or self.rotate_list or self.max_aspect_ratio
+                    or self.max_shear_ratio or self.random_h or self.random_s
+                    or self.random_l or self.min_crop_size > 0)
+
+    def _records_look_jpeg(self, sample=16):
+        """The image magic of up to ``sample`` evenly spaced records is
+        JPEG's, so that a file that mixes formats stays on the Python
+        path."""
+        n = len(self._offsets)
+        idxs = range(n) if n <= sample else \
+            [int(i * (n - 1) / (sample - 1)) for i in range(sample)]
+        try:
+            with open_uri(self._path, "rb") as f:
+                for i in idxs:
+                    f.seek(self._offsets[i] + 16)  # past the record header
+                    flag = struct.unpack("<I", f.read(4))[0]
+                    # the rest of the 24-byte image header, then any labels
+                    f.seek(20 + (flag * 4 if flag > 0 else 0), 1)
+                    if f.read(2) != b"\xff\xd8":
+                        return False
+        except (OSError, struct.error):
+            return False
+        return True
 
     @staticmethod
     def _load_mean(path):
@@ -566,6 +652,11 @@ class ImageRecordIter(DataIter):
         return self._load_mean(path)
 
     def reset(self):
+        self._pad = 0
+        if self._native is not None:
+            if self._native_first is None:  # keep the probe batch at first
+                self._native.reset()
+            return
         self._order = np.arange(len(self._offsets))
         if self.shuffle:
             self._rng.shuffle(self._order)
@@ -745,6 +836,14 @@ class ImageRecordIter(DataIter):
         self._pending.append(engine().push(produce))
 
     def next(self):
+        if self._native is not None:
+            if self._native_first is not None:
+                data, labels, pad = self._native_first
+                self._native_first = None
+            else:
+                data, labels, pad = self._native.next()
+            self._pad = pad
+            return DataBatch([data], [labels], pad=pad)
         if not self._pending:
             raise StopIteration
         data, labels, pad = self._pending.popleft().result()

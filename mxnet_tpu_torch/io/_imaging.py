@@ -16,8 +16,9 @@ PIL, and each copy gives PIL's pixels bit for bit:
   ``affine`` (``Image.transform(size, AFFINE, data, BILINEAR,
   fillcolor=...)``): Pillow's generic transform with its bilinear filter.
 
-JPEG is not decoded here: :func:`decode` hands a JPEG to PIL where PIL can
-be imported and raises an ``MXNetError`` that names PIL otherwise.
+JPEG goes through PIL where PIL can be imported, and otherwise through the
+port's own baseline codec in the native library (``native/mxtpu_native.cc``),
+which decodes to libjpeg's pixels and encodes libjpeg's bytes, bit for bit.
 """
 
 from __future__ import annotations
@@ -167,35 +168,40 @@ def _to_rgb(img: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(img[:, :, :3])
 
 
+def _pil_image():
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    return Image
+
+
 def decode(buf: bytes) -> np.ndarray:
     """An encoded image as HWC uint8 RGB, as ``np.asarray(Image.open(buf)
-    .convert("RGB"))``: PNG here, JPEG through PIL (an ``MXNetError`` that
-    names PIL when it cannot be imported)."""
+    .convert("RGB"))``: PNG here, JPEG through PIL, or through the native
+    codec where PIL cannot be imported."""
     if buf[:8] == _PNG_SIGNATURE:
         return _to_rgb(png_decode(buf))
     if buf[:2] == _JPEG_SOI:
-        try:
-            from PIL import Image
-        except ImportError as e:
-            raise MXNetError(
-                "decoding a JPEG record needs PIL (Pillow), which cannot be "
-                "imported here; the port decodes PNG records itself (pack "
-                "them with img_fmt='.png')") from e
+        Image = _pil_image()
+        if Image is None:
+            from .. import native
+
+            return native.decode_jpeg(buf)
         return np.asarray(Image.open(_pyio.BytesIO(buf)).convert("RGB"))
     raise MXNetError("image record is neither PNG nor JPEG")
 
 
 def encode(img: np.ndarray, img_fmt: str = ".png", quality: int = 95) -> bytes:
-    """An HWC uint8 image as PNG (the port's encoder) or JPEG (PIL's, an
-    ``MXNetError`` that names PIL when it cannot be imported)."""
+    """An HWC uint8 image as PNG (the port's encoder) or JPEG: PIL's, or
+    the native codec's (the same bytes) where PIL cannot be imported."""
     if img_fmt.lower() not in (".jpg", ".jpeg"):
         return png_encode(img)
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise MXNetError(
-            "encoding a JPEG record needs PIL (Pillow), which cannot be "
-            "imported here; pack PNG records (img_fmt='.png')") from e
+    Image = _pil_image()
+    if Image is None:
+        from .. import native
+
+        return native.encode_jpeg(img, quality)
     buf = _pyio.BytesIO()
     Image.fromarray(np.asarray(img, np.uint8)).save(buf, format="JPEG",
                                                     quality=quality)

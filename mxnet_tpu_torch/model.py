@@ -762,16 +762,13 @@ class FeedForward:
         """Why this trainer's steps run eager, or None when they are
         captured: the only cases, in the order they are checked (a CPU
         device, multi-worker dist_sync, a ``_Native`` node,
-        ``MXTPU_CUDA_GRAPHS=0``, remat)."""
+        ``MXTPU_CUDA_GRAPHS=0``). Remat steps are captured too: a recompute
+        reads its forward's draws back (``ops.registry.DrawTape``)."""
         dev = self._device
         if dev.type == "cuda" and dist_sync:
             return ("kvstore dist_sync over more than one worker (gloo "
                     "stages through host buffers)")
-        reason = compile_mod.eager_reason(dev, has_native(self.symbol))
-        if reason is None and os.environ.get("MXNET_TPU_REMAT", ""):
-            return ("MXNET_TPU_REMAT (the recompute replays its generator "
-                    "state on the host)")
-        return reason
+        return compile_mod.eager_reason(dev, has_native(self.symbol))
 
     def _state_for(self, optimizer, params, aux, sync, data_names):
         """The trainer's state: the last one when it can train these

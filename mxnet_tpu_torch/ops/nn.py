@@ -20,7 +20,8 @@ import torch.nn.functional as F
 from ..base import MXNetError
 from ..kernels.int8_matmul import (QuantizedWeight, int8_matmul,
                                    int8_predict_active)
-from .registry import OpProp, Range, REQUIRED, TupleParam, register_op
+from .registry import (OpProp, Range, REQUIRED, TupleParam, draw,
+                       register_op)
 
 
 @register_op("FullyConnected")
@@ -366,8 +367,9 @@ class LeakyReLUOp(OpProp):
             neg = ins[1].to(x.dtype).reshape((1, -1) + (1,) * (x.ndim - 2)) * x
         elif is_train:
             lo, hi = self.lower_bound, self.upper_bound
-            u = torch.rand(x.shape, generator=rng, device=x.device)
-            neg = (lo + (hi - lo) * u).to(x.dtype) * x
+            slope = draw(x.shape, rng, x.device,
+                         lambda u: (lo + (hi - lo) * u).to(x.dtype))
+            neg = slope * x
         else:
             neg = (self.lower_bound + self.upper_bound) / 2.0 * x
         return [torch.where(x > 0, x, neg)], []
@@ -389,7 +391,7 @@ class DropoutOp(OpProp):
         if not is_train or self.p <= 0.0:
             return [x], []
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        mask = draw(x.shape, rng, x.device, lambda u: u < keep)
         return [torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))], []
 

@@ -12,12 +12,68 @@ on the tensors' device, or None where no node draws.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
+import torch
+
 from ..base import MXNetError, Registry
 from ..params import REQUIRED, Range, TupleParam, apply_params, autodoc
 
-__all__ = ["OpProp", "OPS", "register_op", "REQUIRED", "Range", "TupleParam"]
+__all__ = ["OpProp", "OPS", "register_op", "REQUIRED", "Range", "TupleParam",
+           "draw", "DrawTape"]
 
 OPS = Registry("operator")
+
+_TAPE = threading.local()
+
+
+def draw(shape, rng, device, derive) -> torch.Tensor:
+    """``derive(torch.rand(shape, generator=rng, device=device))``: every
+    draw a graph node makes, turned at once into what the node keeps
+    (Dropout's bool mask, rrelu's slopes in the input's dtype). While a
+    :class:`DrawTape` is active on this thread, the draw goes through it."""
+    tape = getattr(_TAPE, "tape", None)
+    if tape is None:
+        return derive(torch.rand(shape, generator=rng, device=device))
+    return tape.draw(shape, rng, device, derive)
+
+
+class DrawTape:
+    """The draws of one rematerialised block: its forward draws from the
+    generator and keeps what each node derived from its draw, no more than
+    the plain step's autograd keeps (a bool mask, not the f32 uniforms);
+    its recompute gets them back in order instead of drawing again. The
+    recompute so repeats the forward's bits without reading or restoring
+    the generator's state, which a CUDA graph could not hold (the JAX
+    package re-derives them from the key)."""
+
+    def __init__(self):
+        self.kept = []
+        self._replay_at = None  # None: the forward, recording
+
+    @contextlib.contextmanager
+    def active(self, replay: bool):
+        prev = getattr(_TAPE, "tape", None)
+        _TAPE.tape = self
+        self._replay_at = 0 if replay else None
+        try:
+            yield
+        finally:
+            _TAPE.tape = prev
+
+    def draw(self, shape, rng, device, derive):
+        if self._replay_at is None:
+            t = derive(torch.rand(shape, generator=rng, device=device))
+            self.kept.append(t)
+            return t
+        i = self._replay_at
+        kept = tuple(self.kept[i].shape) if i < len(self.kept) else None
+        if kept != tuple(shape):
+            raise MXNetError(f"a recompute drew {tuple(shape)} where its "
+                             f"forward's draw {i} was {kept}")
+        self._replay_at = i + 1
+        return self.kept[i]
 
 
 class OpProp:

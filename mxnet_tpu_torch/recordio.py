@@ -191,7 +191,8 @@ def unpack(s: bytes):
 def pack_img(header: IRHeader, img: np.ndarray, quality=95,
              img_fmt=".jpg") -> bytes:
     """Encode an HWC uint8 image and pack it: PNG by the port's codec, JPEG
-    through PIL."""
+    through PIL, or where PIL cannot be imported through the native
+    library's encoder, which writes PIL's bytes."""
     from .io import _imaging
 
     return pack(header, _imaging.encode(img, img_fmt, quality))

@@ -435,6 +435,92 @@ def test_eager_reasons_in_order(monkeypatch):
     assert model._eager_reason(dist_sync=True).startswith("kvstore")
 
 
+def test_remat_steps_are_captured(monkeypatch):
+    """A fit under ``MXNET_TPU_REMAT`` has no eager reason of its own on a
+    card device (nothing touches it): its steps are captured."""
+    card = torch.device("cuda", 0)
+    monkeypatch.setenv("MXTPU_CUDA_GRAPHS", "1")
+    monkeypatch.setenv("MXNET_TPU_REMAT", r"fc1$")
+    model = mt.FeedForward(_mlp(mt), ctx=mt.cpu())
+    monkeypatch.setattr(mt.FeedForward, "_device",
+                        property(lambda self: card))
+    assert model._eager_reason() is None
+
+
+def _dropout_step(monkeypatch, remat):
+    """Gradients of one training step of a net with two Dropouts, and the
+    draws the step made."""
+    if remat:
+        monkeypatch.setenv("MXNET_TPU_REMAT", r"drop\d$")
+    else:
+        monkeypatch.delenv("MXNET_TPU_REMAT", raising=False)
+    s = mt.sym
+    net = s.Variable("data")
+    for i in (1, 2):
+        net = s.FullyConnected(data=net, name=f"fc{i}", num_hidden=16)
+        net = s.Dropout(data=net, name=f"drop{i}", p=0.5)
+    net = s.SoftmaxOutput(data=s.FullyConnected(data=net, name="fc3",
+                                                num_hidden=3), name="softmax")
+    exe = net.simple_bind(mt.cpu(), data=(4, 10), softmax_label=(4,))
+    rng = np.random.RandomState(0)
+    for name, arr in sorted(exe.arg_dict.items()):
+        arr.copy_(torch.from_numpy(
+            rng.standard_normal(tuple(arr.shape)).astype(np.float32)))
+    exe.arg_dict["softmax_label"].copy_(torch.tensor([0.0, 1.0, 2.0, 1.0]))
+    mt.random.seed(3)
+    draws, real = [], torch.rand
+    monkeypatch.setattr(torch, "rand",
+                        lambda *a, **k: draws.append(a) or real(*a, **k))
+    exe.forward(is_train=True)
+    exe.backward()
+    monkeypatch.setattr(torch, "rand", real)
+    return {k: v.detach().clone() for k, v in exe.grad_dict.items()
+            if v is not None}, draws
+
+
+def test_remat_recompute_reads_back_the_forwards_draws(monkeypatch):
+    """Each Dropout draws once a remat step (its recompute reads the
+    forward's draws back from the tape: no generator state is read or
+    restored, which a CUDA graph could not hold), and the gradients are
+    bitwise the plain step's."""
+    plain, plain_draws = _dropout_step(monkeypatch, remat=False)
+    remat, remat_draws = _dropout_step(monkeypatch, remat=True)
+    assert len(plain_draws) == len(remat_draws) == 2
+    assert sorted(remat) == sorted(plain) and "fc1_weight" in plain
+    for k in plain:
+        assert torch.equal(remat[k], plain[k]), k
+
+
+def test_remat_tape_keeps_what_the_plain_step_keeps(monkeypatch):
+    """A remat block's tape holds what each node keeps from its draw, as
+    the plain step's autograd does: Dropout's bool mask (1 byte an
+    element, not the f32 uniforms) and rrelu's slopes in the input's
+    dtype; the recompute reads them back bitwise."""
+    from mxnet_tpu_torch.ops import OPS
+    from mxnet_tpu_torch.ops.registry import DrawTape
+
+    tapes, real_init = [], DrawTape.__init__
+    monkeypatch.setattr(DrawTape, "__init__",
+                        lambda self: tapes.append(self) or real_init(self))
+    _dropout_step(monkeypatch, remat=True)
+    kept = [t for tape in tapes for t in tape.kept]
+    assert [(t.dtype, tuple(t.shape)) for t in kept] == \
+        [(torch.bool, (4, 16))] * 2
+    rrelu = OPS.create("LeakyReLU", act_type="rrelu")
+    x = torch.from_numpy(np.random.RandomState(1).standard_normal(
+        (3, 5)).astype(np.float32)).to(torch.bfloat16)
+    gen = torch.Generator().manual_seed(2)
+    plain = rrelu.fwd([x], [], True, gen)[0][0]
+    tape = DrawTape()
+    gen.manual_seed(2)
+    with tape.active(replay=False):
+        fwd = rrelu.fwd([x], [], True, gen)[0][0]
+    with tape.active(replay=True):
+        again = rrelu.fwd([x], [], True, gen)[0][0]
+    assert [t.dtype for t in tape.kept] == [torch.bfloat16]
+    assert torch.equal(fwd, plain) and torch.equal(again, plain)
+
+
 def test_eager_entry_points_count_their_reason(monkeypatch):
     """predict and score count one eager run a call, a Predictor one a
     program (at its first request), Executor.precompile one a call; on

@@ -186,6 +186,38 @@ def test_dropout_masks_follow_the_eager_sequence(cuda_device, monkeypatch):
     assert not np.array_equal(outs[True][2], outs[True][3])
 
 
+def test_remat_fit_captures_bitwise_the_eager_remat_fit(cuda_device,
+                                                       monkeypatch):
+    """A fit under ``MXNET_TPU_REMAT`` captures (no remat reason among the
+    eager ones: the recompute reads its forward's draws back) and gives
+    the eager remat fit's Dropout outputs and parameters bit for bit."""
+    monkeypatch.setenv("MXNET_TPU_REMAT", r"drop1$")
+    X, y = _data()
+    net = _mlp(dropout=True)
+    outs = {}
+    for graphs in (True, False):
+        monkeypatch.setenv("MXTPU_CUDA_GRAPHS", "1" if graphs else "0")
+        tcm.reset_compile_stats()
+        mt.random.seed(0)
+        model = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1,
+                               optimizer="sgd", learning_rate=0.1,
+                               initializer=mt.init.Xavier())
+        seen = []
+        metric = mt.metric.CustomMetric(
+            lambda lab, pred: seen.append(pred.copy()) or 0.0)
+        model.fit(mt.io.NDArrayIter(X, y, batch_size=32, shuffle=False),
+                  eval_metric=metric)
+        outs[graphs] = (seen, model.arg_params, tcm.compile_stats())
+    (cap, cap_args, stats), (eager, eager_args, _) = outs[True], outs[False]
+    assert stats["captures"] == 1 and stats["replays"] == 7
+    assert stats["eager"] == {}
+    for a, b in zip(cap, eager):
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(cap[2], cap[3])
+    for k, v in cap_args.items():
+        assert torch.equal(v, eager_args[k]), k
+
+
 def test_precompile_then_fit_captures_nothing(cuda_device, monkeypatch):
     monkeypatch.setenv("MXTPU_CUDA_GRAPHS", "1")
     X, y = _data()
