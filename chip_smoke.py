@@ -126,6 +126,13 @@ together), and then:
    prefetched batches as threads, and the host's cores from the whole-epoch fits: steady ms a
    step, the feed's wait and the card's device time and idle share
    (torch.profiler) of each;
+5m. native_progressive: 16 records of the PNG shard re-encoded by PIL as
+   progressive JPEG (qualities 95/75/50, subsamplings 4:4:4/4:2:2/4:2:0)
+   decode through the native codec to PIL's pixels exactly; a shard of the
+   first 256 records, baseline up to record 64 and every other record
+   progressive after it, keeps ``ImageRecordIter``'s native route for a
+   whole epoch (the main path, no kernel), each image bitwise its record
+   decoded alone; decode ms per image, progressive and baseline;
 5j. graphs: captured against eager (``MXTPU_CUDA_GRAPHS=0``) in one
    process: ResNet-50 at batch 32 in f32 ``"highest"`` with fused Adam
    (phase train's), and bf16 with SGD momentum on one cached batch
@@ -213,6 +220,27 @@ together), and then:
    update split and the sync's kernel, host-transfer and gloo time and the
    time of the gradient buffer's views (the gradients are views of one
    flat buffer that backward accumulates into, the residual add included);
+10a. dp_overlap: dp_train's two ranks, model and batch, 6 steps of
+   ``fit(..., overlap=4 MB)``: the gradient exchanged bucket by bucket on a
+   side stream as soon as backward has filled each bucket; checks the
+   comm kernels' launches per step (DP_LAUNCHES x the buckets, fused_adam
+   once), the wire bytes against ``comm.stats.overlap_plan``, each bucket's
+   synced gradients and residual on the card bitwise the CPU exchange of
+   the same bucket, both ranks' parameters bitwise equal and the loss
+   falling; prints the step against dp_train's fused step and
+   ``overlap_efficiency`` from the step, its compute alone and its
+   exchange alone (the ranks share the card: overlap's gain cannot show);
+   the comm kernels are also timed at one bucket's shape (1,048,576
+   elements over 2 ranks) after phase comm_kernels;
+10b. dp_async: ResNet-50 (batch 32, f32, SGD) through
+   ``fit(kvstore="dist_async")``: one worker, whose final weights must be
+   bitwise the host's updates replayed over the gradients it pushed; the
+   same in stale sync (``overlap=True``), each step getting the previous
+   round's weights and ``flush_stale`` the last; two workers sharing the
+   card with int8 pushes (the host applied 2 x 4 pushes, the codecs' sent
+   bytes are its received bytes); the loss falling; prints the step, its
+   device time and the round trip's copy to the host, push_pull and copy
+   back;
 11. lm_mesh: two rank processes (spawn, gloo through pinned host buffers)
    share the card and train the full-width transformer LM (global batch 8
    x 2048 tokens, bf16) for 4 steps each through ``make_train_step(mesh,
@@ -252,7 +280,10 @@ together), and then:
    every kernel its launches in moe_mesh, 0, in each of phases 5f-5i,
    read around that phase's main path, and in phases 5j and 5k, counted by
    replay; ``slice12_launches``: the captured remat fits of 5a and 5c, by
-   replay, and 5l's fit from the JPEG shard);
+   replay, and 5l's fit from the JPEG shard; ``slice13_launches``: 5m's
+   epoch, 10a's fits and 10b's one-worker fit; rows 3-7 also their times,
+   bound and library time at one bucket's shape and their launches on the
+   overlap path, ``bucket_shape``);
 14. ends with ``{"ok": true, "device": {...}}``.
 
 Under the port's default, every single-card ``FeedForward`` fit above
@@ -428,6 +459,25 @@ DP_LAUNCHES = {
 # ResNet-50's gradient: 161 leaves, 25,557,032 elements; int8 chunk
 RESNET50_GRAD = 25_557_032
 COMM_CHUNK = 256
+# slice 13. dp_overlap: dp_train's ranks, model and batch with the gradient
+# exchanged bucket by bucket while backward runs (4 MB buckets); the comm
+# kernels timed at one bucket's shape too
+DP_OVERLAP_STEPS = 6
+DP_OVERLAP_BUCKET_BYTES = 4 << 20
+BUCKET_ELEMS = DP_OVERLAP_BUCKET_BYTES // 4
+# dp_async: ResNet-50 at batch 32, f32, through fit(kvstore="dist_async"):
+# one worker (SGD; its weights replayed on the host), two workers sharing
+# the card (int8 pushes), one worker in stale sync (overlap=True)
+DP_ASYNC_STEPS = 4
+DP_ASYNC_WORLD = 2
+DP_ASYNC_OPT = dict(optimizer="sgd", learning_rate=0.01, momentum=0.9)
+DP_ASYNC_TIMEOUT_S = 600
+# native_progressive: records of the PNG shard re-encoded by PIL as
+# progressive JPEG; a shard of the first PROGRESSIVE_RECORDS records,
+# baseline up to PROGRESSIVE_FIRST and every other one progressive after
+PROGRESSIVE_SAMPLE = 16
+PROGRESSIVE_RECORDS = 256
+PROGRESSIVE_FIRST = 64
 
 
 # slice 10, the data path. io_feed / io_fit: a RecordIO shard of PNG
@@ -1482,11 +1532,73 @@ def comm_padded(comm, mode, world):
                                  world)
 
 
+def comm_timed(torch, ck, comm, spec, x):
+    """The comm kernels of ``spec``'s mode on the two-rank rows ``x`` (the
+    stage-1 quantize, the reduce-scatter's decode and sum, the gather's
+    decode), each as ``(kernel, plain, codec, inputs, outputs)`` to time,
+    with the payload, its decode round trip, the summed shard and the
+    decoded payload."""
+    from mxnet_tpu_torch.comm.allreduce import _row_sum
+
+    payload, dq = ck.fused_quantize(spec, x, want_dequant=True)
+    shard = ck.fused_dequant_sum(spec, payload)
+    decoded = ck.fused_dequant(spec, payload)
+    if spec.mode == "int8":
+        q, scale = payload["q"], payload["scale"]
+        timed = {
+            "quant_int8": (
+                lambda: ck.quant_int8(x, COMM_CHUNK, True),
+                lambda: ck.quant_int8_plain(x, COMM_CHUNK, True),
+                lambda: comm.decode(spec, comm.encode(spec, x)),
+                [x], [q, scale, dq]),
+            "dequant_sum_int8": (
+                lambda: ck.dequant_sum_int8(q, scale, COMM_CHUNK),
+                lambda: ck.dequant_sum_int8_plain(q, scale, COMM_CHUNK),
+                lambda: _row_sum(comm.decode(spec, payload)),
+                [q, scale], [shard]),
+            "dequant_int8": (
+                lambda: ck.dequant_int8(q, scale, COMM_CHUNK),
+                lambda: ck.dequant_int8_plain(q, scale, COMM_CHUNK),
+                lambda: comm.decode(spec, payload),
+                [q, scale], [decoded]),
+        }
+    else:
+        q, t = payload["q"], spec.threshold
+        timed = {
+            "quant_twobit": (
+                lambda: ck.quant_twobit(x, t, True),
+                lambda: ck.quant_twobit_plain(x, t, True),
+                lambda: comm.decode(spec, comm.encode(spec, x)),
+                [x], [q, dq]),
+            "dequant_sum_twobit": (
+                lambda: ck.dequant_sum_twobit(q, t),
+                lambda: ck.dequant_sum_twobit_plain(q, t),
+                lambda: _row_sum(comm.decode(spec, payload)),
+                [q], [shard]),
+            "dequant_twobit": (
+                lambda: ck.dequant_twobit(q, t),
+                lambda: ck.dequant_twobit_plain(q, t),
+                lambda: comm.decode(spec, payload),
+                [q], [decoded]),
+        }
+    return timed, payload, dq, shard, decoded
+
+
+def time_kernel_row(torch, registry, name, kernel, plain, codec, ins, outs,
+                    plain_reps=5):
+    """A kernel's row: its time, its plain version's, the codec path's
+    (the library column) and its bound from the registry's cost."""
+    cost = registry.get_kernel(name).cost(ins, outs)
+    bound_s, bound_by = cost.bound()
+    return {"ms": time_ms(torch, kernel),
+            "plain_ms": time_ms(torch, plain, reps=plain_reps),
+            "library_ms": time_ms(torch, codec),
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by}, cost
+
+
 def phase_comm_kernels(torch, ck, comm, registry):
     """The six comm kernels against their plain versions on the card,
     bitwise; then their times at ResNet-50's two-rank exchange."""
-    from mxnet_tpu_torch.comm.allreduce import _row_sum
-
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for k in ck.KERNELS:
         k.launches = 0
@@ -1578,54 +1690,11 @@ def phase_comm_kernels(torch, ck, comm, registry):
         spec = comm.CompressionSpec(mode)
         x = comm_rows(torch, gen, (2, comm_padded(comm, mode, 2) // 2),
                       COMM_CHUNK)
-        payload, dq = ck.fused_quantize(spec, x, want_dequant=True)
-        shard = ck.fused_dequant_sum(spec, payload)
-        decoded = ck.fused_dequant(spec, payload)
-        if mode == "int8":
-            q, scale = payload["q"], payload["scale"]
-            timed = {
-                "quant_int8": (
-                    lambda: ck.quant_int8(x, COMM_CHUNK, True),
-                    lambda: ck.quant_int8_plain(x, COMM_CHUNK, True),
-                    lambda: comm.decode(spec, comm.encode(spec, x)),
-                    [x], [q, scale, dq]),
-                "dequant_sum_int8": (
-                    lambda: ck.dequant_sum_int8(q, scale, COMM_CHUNK),
-                    lambda: ck.dequant_sum_int8_plain(q, scale, COMM_CHUNK),
-                    lambda: _row_sum(comm.decode(spec, payload)),
-                    [q, scale], [shard]),
-                "dequant_int8": (
-                    lambda: ck.dequant_int8(q, scale, COMM_CHUNK),
-                    lambda: ck.dequant_int8_plain(q, scale, COMM_CHUNK),
-                    lambda: comm.decode(spec, payload),
-                    [q, scale], [decoded]),
-            }
-        else:
-            q, t = payload["q"], spec.threshold
-            timed = {
-                "quant_twobit": (
-                    lambda: ck.quant_twobit(x, t, True),
-                    lambda: ck.quant_twobit_plain(x, t, True),
-                    lambda: comm.decode(spec, comm.encode(spec, x)),
-                    [x], [q, dq]),
-                "dequant_sum_twobit": (
-                    lambda: ck.dequant_sum_twobit(q, t),
-                    lambda: ck.dequant_sum_twobit_plain(q, t),
-                    lambda: _row_sum(comm.decode(spec, payload)),
-                    [q], [shard]),
-                "dequant_twobit": (
-                    lambda: ck.dequant_twobit(q, t),
-                    lambda: ck.dequant_twobit_plain(q, t),
-                    lambda: comm.decode(spec, payload),
-                    [q], [decoded]),
-            }
+        timed, payload, dq, shard, decoded = comm_timed(torch, ck, comm,
+                                                        spec, x)
         for name, (kernel, plain, codec, ins, outs) in timed.items():
-            cost = registry.get_kernel(name).cost(ins, outs)
-            bound_s, bound_by = cost.bound()
-            rows[name] = {"ms": time_ms(torch, kernel),
-                          "plain_ms": time_ms(torch, plain, reps=5),
-                          "library_ms": time_ms(torch, codec),
-                          "bound_ms": bound_s * 1e3, "bound_by": bound_by}
+            rows[name], cost = time_kernel_row(torch, registry, name, kernel,
+                                               plain, codec, ins, outs)
             emit({"phase": "kernel", "name": name,
                   "shapes": [list(t.shape) for t in ins],
                   "bytes": cost.bytes, "ops": cost.flops, **rows[name],
@@ -1653,13 +1722,48 @@ def phase_comm_kernels(torch, ck, comm, registry):
     return rows, phase_launches
 
 
+def comm_bucket_rows(torch, ck, comm, registry):
+    """Rows 3-7 (the kernels of the overlapped exchange) at one 4 MB
+    bucket's two-rank shapes: 1,048,576 f32 elements, two rows of
+    524,288; timed as phase comm_kernels times them."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rows = {}
+    for mode in ("int8", "twobit"):
+        spec = comm.CompressionSpec(mode)
+        x = comm_rows(torch, gen, (2, BUCKET_ELEMS // 2), COMM_CHUNK)
+        timed = comm_timed(torch, ck, comm, spec, x)[0]
+        for name, (kernel, plain, codec, ins, outs) in timed.items():
+            if name == "dequant_twobit":  # not on the overlap path either
+                continue
+            rows[name], cost = time_kernel_row(torch, registry, name, kernel,
+                                               plain, codec, ins, outs)
+            emit({"phase": "kernel", "name": name, "form": "4 MB bucket",
+                  "shapes": [list(t.shape) for t in ins],
+                  "bytes": cost.bytes, "ops": cost.flops, **rows[name],
+                  "library": "the codec path's torch composition"})
+        del x, timed
+    return rows
+
+
+def digest_arrays(torch, *dicts):
+    """sha256 of the values of name-keyed dicts of tensors or arrays, names
+    sorted."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for d in dicts:
+        for k in sorted(d, key=str):
+            v = d[k]
+            v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+            h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
 def dp_train_rank(torch, rank, world, mode):
     """One rank's dp_train run in ``mode``: ResNet-50 through
     ``fit(kvstore="dist_sync", compression=mode, comm_kernels=True)``, then
     one step split on the card's clock and one exchange run again on CPU
     copies. Returns numpy and Python values only."""
-    import hashlib
-
     import torch.distributed as dist
 
     import mxnet_tpu_torch as mt
@@ -1684,13 +1788,7 @@ def dp_train_rank(torch, rank, world, mode):
     Ys = np.tile(Y, DP_STEPS)
 
     def digest(*dicts):
-        h = hashlib.sha256()
-        for d in dicts:
-            for k in sorted(d):
-                v = d[k]
-                v = v.numpy() if isinstance(v, torch.Tensor) else v
-                h.update(np.ascontiguousarray(v).tobytes())
-        return h.hexdigest()
+        return digest_arrays(torch, *dicts)
 
     sent, wire = [], allreduce._wire
 
@@ -1944,9 +2042,10 @@ def run_ranks(torch, body, world, timeout_s, what):
 
 def phase_dp_train(torch, comm):
     """ResNet-50 trained data-parallel on two ranks that share the card,
-    int8 and twobit, through the comm kernels; checks and the time split."""
+    int8 and twobit, through the comm kernels; checks and the time split.
+    Returns the kernels' launches and each mode's median step ms."""
     ranks = run_ranks(torch, dp_body, DP_WORLD, DP_TIMEOUT_S, "dp_train")
-    launches = {}
+    launches, medians = {}, {}
     for mode in DP_MODES:
         per_step = DP_LAUNCHES[mode]
         plan = comm.allreduce_plan(RESNET50_GRAD, DP_WORLD, mode)
@@ -2015,7 +2114,484 @@ def phase_dp_train(torch, comm):
         for name, count in r0["launches"].items():
             if name != "fused_adam" and DP_LAUNCHES[mode].get(name):
                 launches[name] = count
+        medians[mode] = median_ms
+    return launches, medians
+
+
+def dp_rank_data(rank, world):
+    """dp_train's ResNet-50, this rank's own initial weights (rank 0's
+    must reach every rank) and its rows of one fixed batch, repeated for
+    ``steps``."""
+    from mxnet_tpu_torch.convert import random_params
+    from mxnet_tpu_torch.models import resnet50
+
+    net = resnet50(num_classes=1000)
+    shape = (BATCH,) + IMAGE
+    args, aux = random_params(net, SEED + rank, data=shape)
+    rng = np.random.default_rng(SEED + 6)
+    X = rng.standard_normal((world * BATCH,) + shape[1:], np.float32)
+    Y = rng.integers(0, 1000, world * BATCH).astype(np.float32)
+    return net, args, aux, X[rank * BATCH:(rank + 1) * BATCH], \
+        Y[rank * BATCH:(rank + 1) * BATCH]
+
+
+def repeat_batch(X, Y, steps):
+    shape = X.shape
+    return (np.ascontiguousarray(np.broadcast_to(
+        X, (steps,) + shape).reshape((-1,) + shape[1:])), np.tile(Y, steps))
+
+
+def dp_overlap_rank(torch, rank, world, mode):
+    """One rank's dp_overlap run in ``mode``: dp_train's fit with
+    ``overlap=`` 4 MB buckets (the main path, counted), then the step, its
+    compute alone (forward and backward of a one-device state on the same
+    weights) and its exchange alone (every bucket of a filled buffer, one
+    after another, on this thread), each on the host clock around a
+    synchronized card; then one step whose buckets' inputs are kept, each
+    exchanged again on a CPU copy. Returns numpy and Python values only."""
+    import torch.distributed as dist
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import comm
+    from mxnet_tpu_torch.comm import allreduce
+    from mxnet_tpu_torch.kernels import comm_kernels as ck
+    from mxnet_tpu_torch.kernels import fused_adam as kfa
+    from mxnet_tpu_torch.model import _TrainState
+
+    net, args, aux, X, Y = dp_rank_data(rank, world)
+    Xs, Ys = repeat_batch(X, Y, DP_OVERLAP_STEPS)
+    sent, wire = [], allreduce._wire
+
+    def counting_wire(op, out, inp, group):
+        sent.append((op, inp.numel() * inp.element_size()))
+        return wire(op, out, inp, group)
+
+    kernels = {k.__name__: k for k in ck.KERNELS}
+    kernels["fused_adam"] = kfa.fused_adam
+    metric, stamps = step_loss_metric(mt), []
+    comm.reset_comm_stats()
+    model = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1, optimizer="adam",
+                           fused=True, learning_rate=LEARNING_RATE,
+                           arg_params=args, aux_params=aux)
+    torch.cuda.synchronize()
+    allreduce._wire = counting_wire
+    # the main path: every count is read around the fit
+    for fn in kernels.values():
+        fn.launches = 0
+    try:
+        model.fit(mt.io.NDArrayIter(Xs, Ys, batch_size=BATCH),
+                  kvstore="dist_sync", compression=mode, comm_kernels=True,
+                  overlap=DP_OVERLAP_BUCKET_BYTES, eval_metric=metric,
+                  batch_end_callback=lambda p: stamps.append(
+                      time.perf_counter()))
+    finally:
+        allreduce._wire = wire
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    by_op = {}
+    for op, nbytes in sent:
+        by_op[op] = by_op.get(op, 0) + nbytes
+    state = model._train_state
+    sync = state.grad_sync
+    plan = sync.plan
+    out = {"launches": launches, "losses": list(metric.steps),
+           "step_ms": [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])],
+           "wire_bytes_by_op": by_op, "num_buckets": plan.num_buckets,
+           "layout_key": plan.layout_key(),
+           "bucket_elems": plan.bucket_elems(),
+           "init_digest": digest_arrays(torch, args, aux),
+           "digest": digest_arrays(torch, model.arg_params, model.aux_params),
+           "finite": all(bool(torch.isfinite(v).all())
+                         for v in model.arg_params.values()),
+           "comm_stats_wire_bytes": comm.comm_stats()["wire_bytes"],
+           "leaf_table_builds": model._optimizer_obj._leaf_table.builds}
+
+    # the step, its compute alone and its exchange alone, 3 times each
+    arrays = {"data": torch.from_numpy(X).cuda(),
+              "softmax_label": torch.from_numpy(Y).cuda()}
+    # the schedule is rebuilt below, after fit closed it
+    sync.schedule = comm.OverlapSchedule(plan, state.device,
+                                         kernels=sync.kernels)
+    sched = sync.schedule
+    solo = _TrainState(net, model._optimizer_obj,
+                       {k: v.detach().clone() for k, v in state.params.items()},
+                       {k: v.clone() for k, v in state.aux.items()},
+                       state.device, apply_update=False)
+    timing = {"step_ms": [], "compute_ms": [], "comm_ms": []}
+
+    def clocked(key, fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        timing[key].append((time.perf_counter() - t0) * 1e3)
+
+    def whole_step():
+        state.prepare(LEARNING_RATE)
+        state.forward(arrays)
+        state.backward()
+        state.sync()
+        state.update()
+
+    def compute():
+        solo.forward(arrays)
+        solo.backward()
+
+    def exchange_alone():
+        buf = sched.flat.clone()
+        for i, b in enumerate(plan.buckets):
+            off = sched.offsets[i]
+            comm.error_feedback_exchange(buf[off:off + b["padded"]],
+                                         plan.spec, None, world,
+                                         sync.kernels)
+
+    for _ in range(3):
+        clocked("step_ms", whole_step)
+        clocked("compute_ms", compute)
+        clocked("comm_ms", exchange_alone)
+    del solo
+    split = {k: statistics.median(v) for k, v in timing.items()}
+    split["overlap_efficiency"] = comm.overlap_efficiency(
+        split["step_ms"], split["compute_ms"], split["comm_ms"])
+    out["split"], out["split_runs"] = split, timing
+
+    # one more step, each bucket's input (its gradients with the residual
+    # added, read on the side stream after its event) kept; then the same
+    # exchange of a CPU copy of each: the kernels' plain versions, gloo on
+    # CPU tensors
+    inputs, run_exchange = {}, sched._run_exchange
+
+    def keep_input(flat, n):
+        inputs[len(inputs)] = flat.clone()
+        return run_exchange(flat, n)
+
+    sched._run_exchange = keep_input
+    state.prepare(LEARNING_RATE)
+    state.forward(arrays)
+    state.backward()
+    grads = sched.wait()
+    torch.cuda.synchronize()
+    sched._run_exchange = run_exchange
+    bitwise, checked = True, 0
+    for i, b in enumerate(plan.buckets):
+        cpu_out, cpu_res = comm.error_feedback_exchange(
+            inputs[i].cpu(), plan.spec, None, world, sync.kernels)
+        want = comm.flat_views(cpu_out, sched.shapes[i])
+        bitwise &= all(bits_equal(torch, grads[k].cpu(), want[k])
+                       for k in b["keys"])
+        bitwise &= bits_equal(torch, sched.bucket_slice(i).cpu(),
+                              cpu_res[0])
+        checked += 1
+    sched.close()
+    out["card_vs_cpu_buckets_bitwise"] = bitwise
+    out["buckets_checked"] = checked
+    out["residual_abs_max"] = float(sched.flat.abs().max())
+    del model, state, sync, sched, arrays, grads, inputs
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_overlap_body(torch, rank, world):
+    return {mode: dp_overlap_rank(torch, rank, world, mode)
+            for mode in DP_MODES}
+
+
+def phase_dp_overlap(torch, comm, dp_medians, bucket_rows):
+    """dp_train's run with the gradient exchanged bucket by bucket while
+    backward runs; checks and the step against dp_train's fused step.
+    ``bucket_rows``: the comm kernels' times at one bucket's shape."""
+    ranks = run_ranks(torch, dp_overlap_body, DP_WORLD, DP_TIMEOUT_S,
+                      "dp_overlap")
+    # rank 0's counts, both modes' runs together
+    launches = {n: 0 for n in port_kernels()}
+    for mode in DP_MODES:
+        r0 = ranks[0][mode]
+        plan = comm.overlap_plan(r0["bucket_elems"], DP_WORLD, mode)
+        rows = {r["op"]: r for r in plan["collectives"]}
+        buckets = r0["num_buckets"]
+        for rank, res in enumerate(ranks):
+            got = res[mode]
+            require(got["layout_key"] == r0["layout_key"],
+                    f"dp_overlap {mode}: the ranks planned alike")
+            for name, count in got["launches"].items():
+                per = DP_LAUNCHES[mode].get(name, 0)
+                want = DP_OVERLAP_STEPS * (per if name == "fused_adam"
+                                           else per * buckets)
+                require(count == want,
+                        f"dp_overlap {mode} rank {rank}: {name} launched "
+                        f"{count} times in {DP_OVERLAP_STEPS} steps of "
+                        f"{buckets} buckets, expected {want}")
+            by_op = got["wire_bytes_by_op"]
+            require(by_op.get("all_to_all", 0) == DP_OVERLAP_STEPS
+                    * rows["all-to-all"]["payload_bytes"]
+                    and by_op.get("all_gather", 0) * DP_WORLD
+                    == DP_OVERLAP_STEPS * rows["all-gather"]["payload_bytes"],
+                    f"dp_overlap {mode} rank {rank}: wire bytes {by_op} "
+                    f"against overlap_plan {rows}")
+            require(got["comm_stats_wire_bytes"] ==
+                    DP_OVERLAP_STEPS * plan["wire_bytes"],
+                    f"dp_overlap {mode}: comm_stats against overlap_plan")
+            losses = got["losses"]
+            require(len(losses) == DP_OVERLAP_STEPS
+                    and np.isfinite(losses).all() and losses[-1] < losses[0],
+                    f"dp_overlap {mode} rank {rank}: the loss of its fixed "
+                    f"batch fell: {losses}")
+            require(got["finite"], f"dp_overlap {mode} rank {rank}: finite "
+                    "parameters")
+            require(got["leaf_table_builds"] == 1,
+                    f"dp_overlap {mode} rank {rank}: fused_adam's leaf table "
+                    "built once in the fit")
+            require(got["card_vs_cpu_buckets_bitwise"]
+                    and got["buckets_checked"] == buckets,
+                    f"dp_overlap {mode} rank {rank}: each bucket's synced "
+                    "gradients and residual on the card equal the CPU "
+                    "exchange of the same bucket, bitwise")
+        require(len({r[mode]["digest"] for r in ranks}) == 1,
+                f"dp_overlap {mode}: both ranks' parameters are bitwise "
+                "equal")
+        median_ms = statistics.median(r0["step_ms"])
+        emit({"phase": "dp_overlap", "mode": mode, "model": "resnet50",
+              "world": DP_WORLD, "batch_per_rank": BATCH,
+              "steps": DP_OVERLAP_STEPS, "optimizer": "adam", "fused": True,
+              "comm_kernels": True,
+              "bucket_bytes": DP_OVERLAP_BUCKET_BYTES, "buckets": buckets,
+              "bucket_elems": r0["bucket_elems"],
+              "transport": "gloo through pinned host buffers, both ranks "
+                           "on one card",
+              "limit": "both ranks share one card and gloo copies through "
+                       "host memory, so the exchange and backward compete "
+                       "for one card and its host: overlap's gain cannot "
+                       "show here (C.1.5)",
+              "launches": r0["launches"],
+              "launches_per_step_per_bucket": DP_LAUNCHES[mode],
+              "plan_wire_bytes_per_step": plan["wire_bytes"],
+              "plan_matches_fused": plan["matches_fused"],
+              "padded_elements": plan["padded_elements"],
+              "params_bitwise_equal_across_ranks": True,
+              "card_vs_cpu_buckets_bitwise": True,
+              "residual_abs_max": r0["residual_abs_max"],
+              "losses_rank0": r0["losses"],
+              "losses_rank1": ranks[1][mode]["losses"],
+              "step_ms": r0["step_ms"], "step_ms_median": median_ms,
+              "dp_train_fused_step_ms_median": dp_medians[mode],
+              "global_images_per_s": DP_WORLD * BATCH * 1e3 / median_ms,
+              "split_rank0": r0["split"], "split_rank1": ranks[1][mode]["split"],
+              "split_runs_rank0": r0["split_runs"]})
+        for name, count in r0["launches"].items():
+            launches[name] += count
+            if name in bucket_rows and DP_LAUNCHES[mode].get(name):
+                bucket_rows[name]["launches_overlap"] = count
     return launches
+
+
+def record_async(kvs_mod, records):
+    """Wrap the dist_async store's round trips to keep, in ``records``,
+    the optimizer blob sent to the host, each ``push_pull``'s gradients
+    and the digest of its returned weights, each ``push_pull_stale``'s and
+    ``flush_stale``'s returned weights' digests, and the store itself.
+    Returns the originals, for :func:`unrecord_async`."""
+    import pickle
+
+    import torch
+
+    cls = kvs_mod.AsyncKVStore
+    orig = {n: getattr(cls, n) for n in ("__init__", "set_optimizer",
+                                         "push_pull", "push_pull_stale",
+                                         "flush_stale")}
+
+    def init(self):
+        orig["__init__"](self)
+        records["store"] = self
+
+    def set_optimizer(self, optimizer):
+        records["optimizer"] = pickle.dumps(optimizer)
+        return orig["set_optimizer"](self, optimizer)
+
+    def push_pull(self, kvs, priority=0):
+        if records.get("keep_grads"):
+            records["grads"].append({k: np.array(v, copy=True)
+                                     for k, v in kvs.items()})
+        out = orig["push_pull"](self, kvs, priority)
+        records["push_pull"].append(digest_arrays(torch, out))
+        return out
+
+    def push_pull_stale(self, kvs):
+        out = orig["push_pull_stale"](self, kvs)
+        records["stale"].append(digest_arrays(torch, out))
+        return out
+
+    def flush_stale(self, keys):
+        out = orig["flush_stale"](self, keys)
+        records["flush"].append(digest_arrays(torch, out))
+        return out
+
+    for n, fn in (("__init__", init), ("set_optimizer", set_optimizer),
+                  ("push_pull", push_pull),
+                  ("push_pull_stale", push_pull_stale),
+                  ("flush_stale", flush_stale)):
+        setattr(cls, n, fn)
+    records.update(grads=[], push_pull=[], stale=[], flush=[])
+    return orig
+
+
+def unrecord_async(kvs_mod, orig):
+    for n, fn in orig.items():
+        setattr(kvs_mod.AsyncKVStore, n, fn)
+
+
+def dp_async_fit(torch, mt, net, args, aux, X, Y, records, **fit_kw):
+    """``fit(kvstore="dist_async")`` of DP_ASYNC_STEPS steps on one fixed
+    batch, round trips recorded; then the forward and backward alone on the
+    card's clock (median of 3). Returns the model and its row."""
+    from mxnet_tpu_torch import kvstore_async
+
+    Xs, Ys = repeat_batch(X, Y, DP_ASYNC_STEPS)
+    metric, stamps = step_loss_metric(mt), []
+    model = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1,
+                           arg_params=args, aux_params=aux, **DP_ASYNC_OPT)
+    orig = record_async(kvstore_async, records)
+    try:
+        model.fit(mt.io.NDArrayIter(Xs, Ys, batch_size=BATCH),
+                  kvstore="dist_async", eval_metric=metric,
+                  batch_end_callback=lambda p: stamps.append(
+                      time.perf_counter()), **fit_kw)
+    finally:
+        unrecord_async(kvstore_async, orig)
+    state = model._train_state
+    arrays = {"data": torch.from_numpy(X).cuda(),
+              "softmax_label": torch.from_numpy(Y).cuda()}
+    device_ms = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state.forward(arrays)
+        state.backward()
+        ev[1].record()
+        torch.cuda.synchronize()
+        device_ms.append(ev[0].elapsed_time(ev[1]))
+    rounds = model.async_rounds
+    row = {"losses": list(metric.steps),
+           "step_ms": [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])],
+           "device_ms_median": statistics.median(device_ms),
+           "round_trip_ms": {k[:-2] + "_ms": statistics.median(
+               r[k] * 1e3 for r in rounds[1:]) for k in rounds[0]},
+           "update_on_host": model._train_state.apply_update is False,
+           "finite": all(bool(torch.isfinite(v).all())
+                         for v in model.arg_params.values())}
+    row["step_ms_median"] = statistics.median(row["step_ms"])
+    return model, row
+
+
+def dp_async_rank(torch, rank, world, *, port):
+    """One of two dist_async workers sharing the card: int8 pushes to rank
+    0's host. Each waits for the other after its fit; rank 0 then reads the
+    host's counters."""
+    import os
+
+    import mxnet_tpu_torch as mt
+
+    os.environ.update(MXTPU_WORKER_RANK=str(rank),
+                      MXTPU_NUM_WORKERS=str(world),
+                      MXTPU_COORDINATOR=f"127.0.0.1:{port}",
+                      MXTPU_ASYNC_PORT=str(port))
+    net, args, aux, X, Y = dp_rank_data(rank, world)
+    records = {}
+    _, row = dp_async_fit(torch, mt, net, args, aux, X, Y, records,
+                          compression="int8")
+    kv = records["store"]
+    kv.barrier()  # every push has landed
+    row["compression"] = kv.compression_stats()
+    row["host"] = kv.stats() if rank == 0 else None
+    kv.barrier()  # rank 0 read the host before anyone leaves
+    kv.close()
+    return row
+
+
+def phase_dp_async(torch, mt):
+    """ResNet-50 at batch 32, f32, through ``fit(kvstore="dist_async")``:
+    the host's replay, two workers with int8 pushes, stale sync."""
+    import pickle
+    import socket
+
+    from mxnet_tpu_torch import kvstore as tkv
+    from mxnet_tpu_torch import optimizer as topt
+
+    net, args, aux, batch_x, batch_y = resnet50_case()
+    reset_launches()
+    # the main path: one worker, SGD on the host
+    records = {"keep_grads": True}
+    model, one = dp_async_fit(torch, mt, net, args, aux, batch_x, batch_y,
+                              records)
+    launches = read_launches()
+    eager = mt._compile.compile_stats()["eager"]
+    # the host's own replay: its optimizer, unpickled as the host did, over
+    # the recorded gradients, from the initial weights
+    update = tkv.wrap_np_updater(topt.get_updater(
+        pickle.loads(records["optimizer"])))
+    store = {k: np.array(v, np.float32) for k, v in args.items()}
+    for grads in records["grads"]:
+        for k, g in grads.items():
+            update(k, g, store[k])
+    replay = all(bits_equal(torch, model.arg_params[k].cpu(),
+                            torch.from_numpy(store[k])) for k in store)
+    require(len(records["grads"]) == DP_ASYNC_STEPS,
+            f"dp_async: {DP_ASYNC_STEPS} pushes, {len(records['grads'])}")
+    require(replay, "dp_async: the worker's final weights are bitwise the "
+            "host's updates replayed over the gradients it pushed")
+    require(one["finite"] and one["losses"][-1] < one["losses"][0],
+            f"dp_async: the loss of the fixed batch fell: {one['losses']}")
+    require(one["update_on_host"] and any("dist_async" in r for r in eager),
+            f"dp_async: the step only takes the gradients, eager by name: "
+            f"{eager}")
+    del model, records, store
+
+    # stale sync: each step gets the weights one round behind
+    records = {}
+    model, stale = dp_async_fit(torch, mt, net, args, aux, batch_x, batch_y,
+                                records, overlap=True)
+    pp, st, fl = records["push_pull"], records["stale"], records["flush"]
+    require(len(st) == DP_ASYNC_STEPS and len(pp) == DP_ASYNC_STEPS
+            and st[0] == digest_arrays(torch, args)
+            and st[1:] == pp[:-1] and fl == [pp[-1]],
+            "dp_async stale: step k got round k-1's weights (step 0 the "
+            "initial ones) and flush_stale drained the last round")
+    require(stale["finite"] and stale["losses"][-1] < stale["losses"][0],
+            f"dp_async stale: the loss fell: {stale['losses']}")
+    del model, records
+
+    # two workers sharing the card, int8 pushes
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ranks = run_ranks(torch, functools.partial(dp_async_rank, port=port),
+                      DP_ASYNC_WORLD, DP_ASYNC_TIMEOUT_S, "dp_async")
+    host = ranks[0]["host"]
+    sent = sum(r["compression"]["bytes_encoded"] for r in ranks)
+    raw = sum(r["compression"]["bytes_raw"] for r in ranks)
+    require(host["update_count"] == DP_ASYNC_WORLD * DP_ASYNC_STEPS,
+            f"dp_async: the host applied {host['update_count']} pushes, "
+            f"{DP_ASYNC_WORLD} x {DP_ASYNC_STEPS} expected")
+    require(host["wire_bytes_received"] == sent > 0
+            and host["raw_bytes_received"] == raw,
+            f"dp_async: HostCodec's sent bytes {sent} (raw {raw}) are the "
+            f"host's received {host}")
+    require(all(r["finite"] for r in ranks), "dp_async: finite weights")
+    emit({"phase": "dp_async", "model": "resnet50", "batch": BATCH,
+          "dtype": "float32", "steps": DP_ASYNC_STEPS, **DP_ASYNC_OPT,
+          "one_worker": one, "host_replay_bitwise": True,
+          "stale_sync": {**stale, "one_round_behind": True,
+                         "flush_drains": True},
+          "two_workers": {"int8": True, "host": host,
+                          "sent_bytes": sent, "raw_bytes": raw,
+                          "rank0": {k: ranks[0][k] for k in
+                                    ("losses", "step_ms_median",
+                                     "device_ms_median", "round_trip_ms")},
+                          "rank1": {k: ranks[1][k] for k in
+                                    ("losses", "step_ms_median",
+                                     "device_ms_median", "round_trip_ms")}},
+          "launches": launches})
+    return launches
+
 
 
 def lm_mesh_tokens(vocab):
@@ -3969,6 +4545,121 @@ def phase_io_native(torch, mt, png_path, io_fit_rows):
     return launches
 
 
+def pil_progressive(img, quality, subsampling):
+    import io as _pyio
+
+    from PIL import Image
+
+    buf = _pyio.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", quality=quality,
+                              subsampling=subsampling, progressive=True)
+    return buf.getvalue()
+
+
+def phase_native_progressive(torch, mt, png_path):
+    """The native codec on progressive JPEG: records of the PNG shard
+    re-encoded by PIL as progressive decode to PIL's pixels exactly; a
+    shard mixing baseline and progressive records (progressive ones from
+    the third batch on) keeps ``ImageRecordIter`` on the native route for a
+    whole epoch, its batches bitwise each record decoded alone. No kernel
+    runs on this path."""
+    import io as _pyio
+    import os
+
+    import PIL
+    from PIL import Image
+
+    from mxnet_tpu_torch import native
+
+    rio = mt.recordio
+    with rio.MXRecordIO(png_path, "r") as reader:
+        raws = []
+        while len(raws) < PROGRESSIVE_RECORDS and \
+                (raw := reader.read()) is not None:
+            raws.append(raw)
+    images = [rio.unpack_img(r) for r in raws]
+    step = len(images) // PROGRESSIVE_SAMPLE
+    checked, decode_s = [], {"progressive": 0.0, "baseline": 0.0}
+    for j in range(PROGRESSIVE_SAMPLE):
+        img = images[j * step][1]
+        quality, sub = (95, 75, 50)[j % 3], (0, 1, 2)[j % 3]
+        data = pil_progressive(img, quality, sub)
+        want = np.asarray(Image.open(_pyio.BytesIO(data)).convert("RGB"))
+        t0 = time.perf_counter()
+        got = native.decode_jpeg(data)
+        decode_s["progressive"] += time.perf_counter() - t0
+        base = native.encode_jpeg(img, quality)
+        t0 = time.perf_counter()
+        native.decode_jpeg(base)
+        decode_s["baseline"] += time.perf_counter() - t0
+        err = int(np.abs(got.astype(np.int32) - want).max())
+        require(err == 0, f"native_progressive: record {j * step} "
+                f"(quality {quality}, subsampling {sub}) decodes to PIL's "
+                f"pixels exactly: {err}")
+        checked.append({"record": j * step, "quality": quality,
+                        "subsampling": sub, "bytes": len(data),
+                        "pil_max_err": err})
+
+    # the mixed shard
+    path = os.path.join(IO_DIR, "shard_mixed.rec")
+
+    def convert(item):
+        i, (header, img) = item
+        jpg = pil_progressive(img, IO_JPEG_QUALITY, 2) \
+            if i >= PROGRESSIVE_FIRST and i % 2 == 0 \
+            else native.encode_jpeg(img, IO_JPEG_QUALITY)
+        return rio.pack(header, jpg), jpg
+
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        out = list(pool.map(convert, enumerate(images)))
+    with rio.MXRecordIO(path, "w") as w:
+        for rec, _ in out:
+            w.write(rec)
+    jpegs = [jpg for _, jpg in out]
+    progressive = sum(b"\xff\xc2" in j[:2048] for j in jpegs)
+    kw = dict(path_imgrec=path, data_shape=IO_ITER["data_shape"],
+              batch_size=BATCH, output_dtype="uint8", preprocess_threads=4,
+              prefetch_buffer=4)
+    it = mt.io.ImageRecordIter(**kw)
+    require(it._native is not None,
+            "native_progressive: the mixed shard takes the native route")
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        decoded = list(pool.map(native.decode_jpeg, jpegs))
+    _, ch, cw = IO_ITER["data_shape"]
+    batches, mismatches = 0, []
+    reset_launches()
+    # the main path: an epoch of the mixed shard through the native route
+    t0 = time.perf_counter()
+    for b, batch in enumerate(it):
+        for r in range(BATCH - batch.pad):
+            img = decoded[b * BATCH + r]
+            h, w = img.shape[:2]
+            top, left = (h - ch) // 2, (w - cw) // 2
+            want = torch.from_numpy(np.ascontiguousarray(
+                img[top:top + ch, left:left + cw].transpose(2, 0, 1)))
+            if not torch.equal(batch.data[0][r], want):
+                mismatches.append((b, r))
+        batches += 1
+    epoch_s = time.perf_counter() - t0
+    launches = read_launches()
+    require(it._native is not None and batches == len(jpegs) // BATCH,
+            f"native_progressive: one epoch of {batches} batches on the "
+            "native route")
+    require(not mismatches, "native_progressive: every image of the mixed "
+            f"shard is its record's own decode: {mismatches[:5]}")
+    emit({"phase": "native_progressive", "pil": PIL.__version__,
+          "sample": checked, "pil_pixels_exact": True,
+          "decode_ms_per_image": {k: v * 1e3 / PROGRESSIVE_SAMPLE
+                                  for k, v in decode_s.items()},
+          "mixed_shard": {"records": len(jpegs),
+                          "progressive_records": progressive,
+                          "first_progressive": PROGRESSIVE_FIRST,
+                          "batches": batches, "native_route": True,
+                          "bitwise_vs_decode_alone": True,
+                          "epoch_s": epoch_s}, "launches": launches})
+    return launches
+
+
 def lstm_sentences():
     """The synthetic corpus: lengths uniform over ``LSTM_LENGTHS``, ids
     with Zipf(``LSTM_ZIPF``) frequencies over a fixed order of the
@@ -5007,6 +5698,8 @@ def main() -> int:
                "zoo_alexnet_remat": zoo_launches["alexnet_remat"],
                "io_native": phase_io_native(torch, mt, io_path,
                                             io_fit_rows)}
+    slice13 = {"native_progressive": phase_native_progressive(torch, mt,
+                                                              io_path)}
     torch.cuda.empty_cache()
     graphs_launches = phase_graphs(torch, mt, kfa, k8, io_path)
     torch.cuda.empty_cache()
@@ -5021,7 +5714,12 @@ def main() -> int:
     launches.update({n: train_launches[n] for n in flash_rows})
     comm_rows_, comm_phase_launches = phase_comm_kernels(torch, ck, comm,
                                                          registry)
-    launches.update(phase_dp_train(torch, comm))
+    bucket_rows = comm_bucket_rows(torch, ck, comm, registry)
+    dp_launches, dp_medians = phase_dp_train(torch, comm)
+    launches.update(dp_launches)
+    slice13["dp_overlap"] = phase_dp_overlap(torch, comm, dp_medians,
+                                             bucket_rows)
+    slice13["dp_async"] = phase_dp_async(torch, mt)
     mesh_launches = phase_lm_mesh(torch, mt, lm_params)
     del lm_params
     moe_launches = phase_moe_mesh(torch)
@@ -5070,6 +5768,14 @@ def main() -> int:
         # and io_native's fit from the JPEG shard, each read around itself
         kernels[-1]["slice12_launches"] = {p: got[name]
                                            for p, got in slice12.items()}
+        # the slice 13 paths, each read around itself: the mixed JPEG
+        # shard's epoch, the overlapped fits (rank 0, int8 and twobit
+        # together) and the dist_async fit (the host updates: no kernel)
+        kernels[-1]["slice13_launches"] = {p: got[name]
+                                           for p, got in slice13.items()}
+        if name in bucket_rows:
+            # one 4 MB bucket's shapes; launches on the overlap path
+            kernels[-1]["bucket_shape"] = bucket_rows[name]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

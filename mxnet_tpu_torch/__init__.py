@@ -27,8 +27,13 @@ adds sharded checkpoints with step-granular asynchronous resume
 captured into a CUDA graph once per program key and replayed. Slice 12
 captures remat steps too, and adds ``native``: the C++ data pipeline that
 ``ImageRecordIter`` takes for JPEG records, with a baseline JPEG codec of
-its own (libjpeg's pixels and bytes). Entry points run on the card
-(``gpu(0)``) unless the caller passes ``ctx=cpu()``.
+its own (libjpeg's pixels and bytes). Slice 13 teaches that codec
+progressive JPEG, and adds the overlapped per-bucket gradient exchange
+(``comm.bucketing``, ``comm.overlap``, ``fit(overlap=...)``),
+``KVStore.push_bucketed``, the ``dist_async`` parameter host
+(``kvstore_async``), ``kvstore.create_group`` and ``kvstore_server``.
+Entry points run on the card (``gpu(0)``) unless the caller passes
+``ctx=cpu()``.
 """
 
 from . import symbol, symbol as sym  # noqa: F401
@@ -51,6 +56,9 @@ from . import operator, resilience, utils, visualization  # noqa: F401
 from . import visualization as viz  # noqa: F401
 from .operator import NumpyOp
 from .utils import checkpoint as _checkpoint, compile as _compile  # noqa: F401
+# a launcher's server-role process (DMLC_ROLE=server) exits here, as the
+# reference's does inside `import mxnet` (kvstore_server.py)
+from . import kvstore_server  # noqa: F401,E402
 
 __all__ = ["MXNetError", "set_matmul_precision", "get_matmul_precision",
            "Context", "cpu", "cpu_pinned", "gpu", "current_context",

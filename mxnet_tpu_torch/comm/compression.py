@@ -215,7 +215,9 @@ def payload_nbytes(spec: CompressionSpec, num_elements: int) -> int:
 
 
 def payload_bytes_of(payload: dict) -> int:
-    """Actual byte count of an encoded payload dict. Bookkeeping entries
-    (underscore-prefixed) don't cross the wire and are excluded."""
-    return sum(v.numel() * v.element_size() for k, v in payload.items()
-               if not k.startswith("_"))
+    """Actual byte count of an encoded payload dict of tensors or numpy
+    arrays (the host codec's). Bookkeeping entries (underscore-prefixed)
+    don't cross the wire and are excluded."""
+    return sum(int(v.nbytes) if not isinstance(v, torch.Tensor)
+               else v.numel() * v.element_size()
+               for k, v in payload.items() if not k.startswith("_"))

@@ -27,7 +27,10 @@ gradients are summed over the ranks (``comm.compressed_allreduce``, or
 ``comm.error_feedback_allreduce`` with a lossy ``compression``, whose
 residual each rank keeps across steps), float auxiliary states are
 averaged over the ranks and device metrics summed. ``comm_kernels`` routes
-the quantize stages through the fused kernels.
+the quantize stages through the fused kernels; ``overlap`` exchanges the
+gradients bucket by bucket while backward runs (``comm.OverlapSchedule``).
+``kvstore="dist_async"`` trains against the update-on-arrival parameter
+host instead (mxnet_tpu/model.py:1258-1360).
 
 The batches reach the device through a feed thread
 (:class:`_DeviceFeed`, the counterpart of ``_AsyncDeviceFeed``): it draws
@@ -92,7 +95,6 @@ __all__ = ["FeedForward", "save_checkpoint", "load_checkpoint",
 
 # fit() arguments of later slices -> the ROADMAP item that brings them
 _LATER_SLICES = {
-    "overlap": "A4 (left from slice 4: comm/overlap.py)",
     "guards": "A6 (resilience/)",
     "elastic": "A6 (resilience/)",
     "controller": "A6 (resilience/)",
@@ -174,14 +176,31 @@ class _GradSync:
     buffer is the residual itself, so that accumulation is the residual
     add (``r + g``, the bits of ``g + r``); else it starts at zero. The
     exchange reads the buffer as it is, and :meth:`grads` hands back views
-    of its result: neither side copies."""
+    of its result: neither side copies.
+
+    Under an overlap ``plan`` (``comm.plan_overlap``) the buffer is laid
+    out bucket by bucket in schedule order, each bucket padded as
+    ``plan.padded_sizes()`` says, and each bucket's exchange starts on a
+    side stream as soon as backward has filled it
+    (``comm.OverlapSchedule``); with error feedback each bucket's slice is
+    its residual. The wire plan registered is then the per-bucket one."""
 
     LABEL = "train_step:dist_sync"
 
-    def __init__(self, spec, kernels, params, num_workers, device):
+    def __init__(self, spec, kernels, params, num_workers, device,
+                 plan=None):
         self.spec, self.kernels = spec, kernels
         self.num_workers = num_workers
         self.shapes = {k: tuple(v.shape) for k, v in params.items()}
+        self.plan = plan
+        self.schedule = None
+        self.flat = None  # the buffer backward accumulates into
+        if plan is not None:
+            self.schedule = comm_mod.OverlapSchedule(plan, device,
+                                                     kernels=kernels)
+            self.residual = None
+            comm_mod.registry().register_plan(self.LABEL, plan.wire_plan())
+            return
         size = comm_mod.flat_size(params)
         padded = size if spec is None else \
             comm_mod.padded_flat_size(size, spec, num_workers)
@@ -189,13 +208,22 @@ class _GradSync:
             params, spec, num_workers, device=device)
         self._zeros = None if self.residual is not None else \
             torch.zeros(padded, dtype=torch.float32, device=device)
-        self.flat = None  # the buffer backward accumulates into
         comm_mod.registry().register_plan(
             self.LABEL, comm_mod.allreduce_plan(size, num_workers, spec))
+
+    def residuals(self):
+        """Under a plan: ``{bucket_name: (1, Lp_b)}`` views of the buffer,
+        the per-bucket residual rows (None without feedback)."""
+        return self.schedule.residuals() if self.schedule is not None \
+            else None
 
     def attach(self, params: dict):
         """Point each parameter's ``.grad`` at its view of the buffer: the
         residual row, or the zeroed buffer."""
+        if self.schedule is not None:
+            self.schedule.attach(params)
+            self.flat = self.schedule.flat
+            return
         if self.residual is not None:
             self.flat = self.residual[0]
         else:
@@ -204,9 +232,24 @@ class _GradSync:
         for k, p in params.items():
             p.grad = views[k]
 
+    def finish_backward(self):
+        """After backward: under a plan, start the buckets backward left
+        unready."""
+        if self.schedule is not None:
+            self.schedule.finish_backward()
+
+    def close(self):
+        if self.schedule is not None:
+            self.schedule.close()
+
     def grads(self) -> dict:
         """The exchange of the buffer backward filled: the summed gradients
         as views of the exchange's result, the new residual kept."""
+        if self.schedule is not None:
+            out = self.schedule.wait()
+            self.flat = None
+            comm_mod.registry().record_step(self.LABEL)
+            return out
         if self.residual is not None:
             out, self.residual = comm_mod.error_feedback_exchange(
                 self.flat, self.spec, axis_size=self.num_workers,
@@ -449,8 +492,12 @@ class _TrainState:
     ``programs`` holds the captured steps, one a program key."""
 
     def __init__(self, symbol, optimizer, params, aux, device, sync=None,
-                 compute_dtype=None, data_names=(), symbol_for=None):
+                 compute_dtype=None, data_names=(), symbol_for=None,
+                 apply_update=True):
         self.device = device
+        # False under dist_async: the parameter host applies the optimizer,
+        # the step only takes the gradients (no optimizer state here)
+        self.apply_update = apply_update
         self.graph_fn = _build_graph_fn(symbol, is_train=True)
         self._symbol_for = symbol_for
         self._graph_fns = {}
@@ -461,7 +508,8 @@ class _TrainState:
         self.params = {k: v.requires_grad_(True) for k, v in params.items()}
         self.names = list(self.params)
         self.aux = aux
-        self.opt_state = optimizer.init_state_tree(self.params)
+        self.opt_state = optimizer.init_state_tree(self.params) \
+            if apply_update else {}
         self.rng = random_mod.generator(device)
         self.scalars = _StepScalars(device)
         self.programs = {}
@@ -477,7 +525,7 @@ class _TrainState:
                     self.params.items(), np.cumsum([0] + sizes[:-1]), sizes)}
 
     def matches(self, optimizer, params: dict, aux: dict, device, sync,
-                compute_dtype) -> bool:
+                compute_dtype, apply_update=True) -> bool:
         """Can this state train ``params`` and ``aux`` with ``optimizer``
         (same names, shapes, device and settings)? Then a new ``fit``
         reuses it, captured steps included."""
@@ -485,6 +533,7 @@ class _TrainState:
             return [(k, tuple(v.shape)) for k, v in d.items()]
 
         return (sync is None and self.grad_sync is None
+                and apply_update == self.apply_update
                 and optimizer is self.optimizer and device == self.device
                 and compute_dtype == self.compute_dtype
                 and sig(params) == sig(self.params)
@@ -498,6 +547,8 @@ class _TrainState:
             _assign(self.params[k], v)
         for k, v in aux.items():
             _assign(self.aux[k], v)
+        if not self.apply_update:
+            return
         fresh = self.optimizer.init_state_tree(
             {k: v.detach() for k, v in self.params.items()})
         if opt_leaves_ is None:
@@ -538,6 +589,8 @@ class _TrainState:
     def prepare(self, lr):
         """The host part of a step: the optimizer's per-step values (lr,
         Adam's bias corrections) onto the device."""
+        if not self.apply_update:
+            return
         self.scalars.load(self.optimizer.step_vector(
             self.names, self.opt_state, lr))
 
@@ -578,6 +631,8 @@ class _TrainState:
             torch.autograd.backward(self._loss,
                                     inputs=list(self.params.values()))
         self._loss = None
+        if self.grad_sync is not None:
+            self.grad_sync.finish_backward()
 
     def sync(self):
         """Data-parallel training: the gradients summed over the ranks and
@@ -612,7 +667,8 @@ class _TrainState:
         outs = self.forward(batch, bucket_key, data_names, mask)
         self.backward()
         self.sync()
-        self.update()
+        if self.apply_update:
+            self.update()
         seen = None if probe is None else probe(batch)
         return [o.detach() for o in outs], seen
 
@@ -686,6 +742,7 @@ class FeedForward:
         self._step_probe = None
         self.feed_waits = []
         self.step_probes = []
+        self.async_rounds = []
 
     def _symbol_for_bucket(self, bucket_key):
         """The graph of one bucket; one symbol here (bucketing trainers
@@ -758,26 +815,32 @@ class FeedForward:
         return (f"{kind}:{self._fingerprint(bucket_key)}"
                 + (f":bucket={bucket_key}" if bucket_key is not None else ""))
 
-    def _eager_reason(self, dist_sync=False):
+    def _eager_reason(self, dist_sync=False, dist_async=False):
         """Why this trainer's steps run eager, or None when they are
         captured: the only cases, in the order they are checked (a CPU
-        device, multi-worker dist_sync, a ``_Native`` node,
-        ``MXTPU_CUDA_GRAPHS=0``). Remat steps are captured too: a recompute
-        reads its forward's draws back (``ops.registry.DrawTape``)."""
+        device, multi-worker dist_sync, overlapped or not, dist_async, a
+        ``_Native`` node, ``MXTPU_CUDA_GRAPHS=0``). Remat steps are
+        captured too: a recompute reads its forward's draws back
+        (``ops.registry.DrawTape``)."""
         dev = self._device
         if dev.type == "cuda" and dist_sync:
             return ("kvstore dist_sync over more than one worker (gloo "
                     "stages through host buffers)")
+        if dev.type == "cuda" and dist_async:
+            return ("kvstore dist_async (the round trip to the parameter "
+                    "host is on the host)")
         return compile_mod.eager_reason(dev, has_native(self.symbol))
 
-    def _state_for(self, optimizer, params, aux, sync, data_names):
+    def _state_for(self, optimizer, params, aux, sync, data_names,
+                   apply_update=True):
         """The trainer's state: the last one when it can train these
         parameters (its captured steps with it), loaded in place, else a
         new one."""
         state = self._train_state
         dev = self._device
         if state is not None and state.matches(optimizer, params, aux, dev,
-                                               sync, self.compute_dtype):
+                                               sync, self.compute_dtype,
+                                               apply_update):
             state.load(params, aux)
             state.data_names = frozenset(data_names)
             return state
@@ -786,7 +849,7 @@ class FeedForward:
             self.symbol, optimizer, self._on_device(params),
             self._on_device(aux), dev, sync=sync,
             compute_dtype=self.compute_dtype, data_names=data_names,
-            symbol_for=self._symbol_for_bucket)
+            symbol_for=self._symbol_for_bucket, apply_update=apply_update)
         self._train_state = state
         return state
 
@@ -849,7 +912,18 @@ class FeedForward:
         ``comm.CompressionSpec``) picks what crosses the wire and
         ``comm_kernels`` (``comm.CommKernelConfig.resolve``) whether the
         quantize stages run as the fused kernels. On one rank compression
-        is ignored, as in the JAX package.
+        is ignored, as in the JAX package. ``overlap`` (True, a bucket byte
+        cap or a ``comm.OverlapConfig``; with compression) splits the sync
+        into ~4 MB buckets in reverse-topological order, each exchanged on
+        a side stream as soon as backward has filled it.
+
+        ``kvstore="dist_async"`` trains against the parameter host
+        (``kvstore_async.py``): the step takes the gradients, the host
+        applies the optimizer on arrival, and one ``push_pull`` a step
+        brings the weights back (``async_rounds`` holds each round trip's
+        host-clock split). ``compression`` there quantizes the pushes,
+        and ``overlap`` arms stale sync: the weights come back one round
+        stale while the next step computes, drained at each epoch's end.
 
         ``pad_policy`` (``utils.compile.PadPolicy.resolve``) pads a short
         batch to the policy's rows and masks the padded rows out of the
@@ -866,7 +940,7 @@ class FeedForward:
         key, unless one of the cases of ``_eager_reason`` holds; the reason
         is counted in ``utils.compile.compile_stats()["eager"]``."""
         del work_load_list
-        given = dict(guards=guards, overlap=overlap, telemetry=telemetry,
+        given = dict(guards=guards, telemetry=telemetry,
                      elastic=elastic, controller=controller, health=health,
                      profile=profile, shard_audit=shard_audit)
         for name, value in given.items():
@@ -880,7 +954,9 @@ class FeedForward:
         dev = self._device
         kv = kvs_mod.create(kvstore, ctx=self.ctx[0]) if kvstore else None
         num_workers = kv.num_workers if kv is not None else 1
-        dist_sync = kv is not None and "dist" in kv.type and num_workers > 1
+        async_kv = kv is not None and kv.type == "dist_async"
+        dist_sync = kv is not None and "dist" in kv.type and \
+            not async_kv and num_workers > 1
         if sharded_checkpoint_dir is not None and num_workers > 1:
             raise MXNetError(
                 "sharded_checkpoint_dir is not supported with multi-worker "
@@ -889,12 +965,35 @@ class FeedForward:
                 "epoch_end_callback=mx.callback.do_checkpoint(prefix) with "
                 "a per-worker prefix instead")
         comm_spec = comm_mod.CompressionSpec.resolve(compression)
+        overlap_cfg = comm_mod.OverlapConfig.resolve(overlap)
         comm_kernels = comm_mod.CommKernelConfig.resolve(comm_kernels)
-        if comm_spec is not None and not dist_sync:
+        async_comm_spec = None
+        if comm_spec is not None and async_kv:
+            # gradients cross the parameter host's socket quantized and
+            # bucketed (kvstore_async.py); no collective exchange
+            kv.set_gradient_compression(comm_spec)
+            async_comm_spec, comm_spec = comm_spec, None
+        elif comm_spec is not None and not dist_sync:
             logger.info("compression=%s ignored: single-device training "
                         "moves no gradient bytes over a wire",
                         comm_spec.mode)
             comm_spec = None
+        # overlap= by path (mxnet_tpu/model.py:1309-1336): dist_async ->
+        # stale sync, dist_sync with compression -> the per-bucket
+        # schedule, anything else has no wire to hide
+        stale_sync = False
+        if overlap_cfg is not None and async_kv:
+            stale_sync = True
+            logger.info("overlap: stale-sync armed — bucket pushes lag "
+                        "one step behind compute (weights one round "
+                        "stale; ps-lite async heritage)")
+            overlap_cfg = None
+        elif overlap_cfg is not None and comm_spec is None:
+            if dist_sync:
+                logger.info("overlap= ignored: the overlapped schedule "
+                            "pipelines the quantized per-bucket sync — set "
+                            "compression= to arm it")
+            overlap_cfg = None
         num_update, skip_batches, resume_leaves = 0, 0, None
         if sharded_checkpoint_dir is not None:
             num_update, skip_batches, resume_leaves = self._resume(
@@ -909,6 +1008,26 @@ class FeedForward:
         optimizer = self._resolve_optimizer(param_names, batch_size,
                                             num_workers)
         self._optimizer_obj = optimizer
+        plan = None
+        if overlap_cfg is not None:
+            plan = comm_mod.plan_overlap(
+                {k: tuple(self.arg_params[k].shape) for k in param_names},
+                comm_spec, num_workers, max_bytes=overlap_cfg.bucket_bytes,
+                symbol=self.symbol)
+            logger.info(
+                "overlap: %d bucket(s) scheduled reverse-topologically "
+                "(cap %d bytes; per-bucket reduce-scatter/all-gather "
+                "rides under backward)", plan.num_buckets,
+                overlap_cfg.bucket_bytes)
+        if async_kv:
+            # update on the kvstore: the optimizer runs on the parameter
+            # host at every push; rank 0's weights initialize the store and
+            # every worker starts from the pulled copy
+            kv.set_optimizer(optimizer)
+            kv.init(param_names, [self.arg_params[k] for k in param_names])
+            pulled = kv.pull_many(param_names)
+            self.arg_params.update({k: torch.from_numpy(np.array(pulled[k]))
+                                    for k in param_names})
         params = {k: self.arg_params[k] for k in param_names}
         aux = {k: self.aux_params[k] for k in aux_names}
         sync = None
@@ -921,11 +1040,12 @@ class FeedForward:
             for k in sorted(aux):
                 broadcast_(aux[k])
             sync = _GradSync(comm_spec, comm_kernels, params, num_workers,
-                             dev)
-        state = self._state_for(optimizer, params, aux, sync, data_names)
+                             dev, plan=plan)
+        state = self._state_for(optimizer, params, aux, sync, data_names,
+                                apply_update=not async_kv)
         if resume_leaves is not None:
             state.restore_opt(resume_leaves)
-        reason = self._eager_reason(dist_sync)
+        reason = self._eager_reason(dist_sync, async_kv)
         if reason is not None:
             compile_mod.note_eager(reason, logger)
         eval_metric = metric_mod.create(eval_metric)
@@ -965,10 +1085,14 @@ class FeedForward:
 
         feed_depth = int(os.environ.get("MXTPU_FEED_PREFETCH", "2"))
         self.feed_waits, self.step_probes = [], []
+        # dist_async: the host-clock seconds of each step's round trip
+        self.async_rounds = []
         last_snapshot = -1
         try:
             for epoch in range(self.begin_epoch, self.num_epoch):
                 tic = time.time()
+                if async_comm_spec is not None:
+                    host_snap = kv.compression_stats()
                 eval_metric.reset()
                 mstate = eval_metric.device_init(dev) if device_metric \
                     else None
@@ -991,6 +1115,9 @@ class FeedForward:
                             state, arrays, getattr(batch, "bucket_key", None),
                             getattr(batch, "data_names", None), pad_policy,
                             lr, reason is None)
+                        if async_kv:
+                            self.async_rounds.append(self._async_round(
+                                kv, state, param_names, stale_sync))
                         if seen is not None:
                             self.step_probes.append((batch, seen.clone()))
                         if self._step_hook is not None:
@@ -1028,6 +1155,20 @@ class FeedForward:
                 finally:
                     feed.close()
                     self.feed_waits.extend(feed.waits)
+                if stale_sync:
+                    # the last step's push must land before callbacks and
+                    # checkpoints read the weights
+                    self._load_pulled(state, kv.flush_stale(param_names))
+                if async_comm_spec is not None:
+                    hs = kv.compression_stats()
+                    sent = hs["bytes_encoded"] - host_snap["bytes_encoded"]
+                    raw = hs["bytes_raw"] - host_snap["bytes_raw"]
+                    if sent:
+                        logger.info(
+                            "Epoch[%d] Comm: %.2f MB pushed to the parameter "
+                            "host (%s; fp32 would be %.2f MB, %.1fx)", epoch,
+                            sent / 1e6, async_comm_spec.mode, raw / 1e6,
+                            raw / sent)
                 if device_metric:
                     if sync is not None:
                         mstate = sync.metric(mstate)
@@ -1073,6 +1214,39 @@ class FeedForward:
         finally:
             if writer is not None:
                 writer.close()
+            if sync is not None:
+                sync.close()
+
+    @staticmethod
+    def _load_pulled(state, pulled: dict):
+        """Copy weights pulled from the parameter host into the trainer's
+        parameters, in place."""
+        for k, v in pulled.items():
+            _assign(state.params[k], v)
+
+    def _async_round(self, kv, state, names, stale):
+        """One step's round trip with the dist_async parameter host: the
+        gradients to the host (one copy of the flat buffer), ``push_pull``
+        (or ``push_pull_stale``: the weights one round stale), the
+        returned weights into the parameters. Returns the host-clock
+        seconds of each part."""
+        t0 = time.perf_counter()
+        flat = state._flat_grad.detach().to("cpu").numpy()
+        grads, off = {}, 0
+        for k in state.names:
+            n = state.params[k].numel()
+            grads[k] = flat[off:off + n].reshape(state.params[k].shape)
+            off += n
+        t1 = time.perf_counter()
+        grads = {k: grads[k] for k in names}
+        pulled = kv.push_pull_stale(grads) if stale else kv.push_pull(grads)
+        t2 = time.perf_counter()
+        self._load_pulled(state, pulled)
+        if state.device.type == "cuda":
+            torch.cuda.synchronize(state.device)
+        t3 = time.perf_counter()
+        return {"to_host_s": t1 - t0, "push_pull_s": t2 - t1,
+                "to_card_s": t3 - t2}
 
     def precompile(self, data_shapes=None, label_shapes=None, *, data=None,
                    eval_metric="accuracy", kvstore="local", guards=None,
@@ -1089,15 +1263,15 @@ class FeedForward:
         shape, or ``(shape, dtype)``), or ``data=`` a DataIter (its
         ``provide_data``/``provide_label``; a ``BucketSentenceIter`` gives
         one program per non-empty bucket through ``bucket_shapes``).
-        ``eval_metric``, ``kvstore``, ``compression``, ``comm_kernels``,
-        ``batch_end_callback`` and ``parallel`` are taken as the JAX
-        package takes them and change no program here (a device metric
-        and a host one run outside the captured step). Returns
+        ``eval_metric``, ``kvstore``, ``compression``, ``overlap``,
+        ``comm_kernels``, ``batch_end_callback`` and ``parallel`` are taken
+        as the JAX package takes them and change no program here (a device
+        metric and a host one run outside the captured step; an overlapped
+        exchange runs only in a multi-worker fit, which is eager). Returns
         ``{"programs", "wall_seconds", "labels"}``."""
         del eval_metric, compression, comm_kernels, batch_end_callback, \
-            parallel
-        for name, value in dict(guards=guards, overlap=overlap,
-                                health=health,
+            parallel, overlap
+        for name, value in dict(guards=guards, health=health,
                                 shard_audit=shard_audit).items():
             if value is not None:
                 raise NotImplementedError(

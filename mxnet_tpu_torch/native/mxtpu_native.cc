@@ -10,12 +10,13 @@
 // the same tickets, the same per-worker mt19937 streams, the same
 // fixed-point resize and float normalisation.
 //
-// The codec (namespace jpeg) decodes baseline and extended-sequential
-// Huffman JPEG as libjpeg(-turbo) does with its defaults (islow IDCT, fancy
-// upsampling, its YCbCr tables), bit for bit, and encodes baseline JPEG as
-// libjpeg's jpeg_set_defaults + jpeg_set_quality(q, TRUE) do (islow DCT,
-// standard Huffman tables, 4:2:0 for colour). Progressive and arithmetic
-// coded files, 12-bit samples and CMYK are refused (the caller falls back).
+// The codec (namespace jpeg) decodes baseline, extended-sequential and
+// progressive Huffman JPEG as libjpeg(-turbo) does with its defaults (islow
+// IDCT, fancy upsampling, its YCbCr tables), bit for bit, and encodes
+// baseline JPEG as libjpeg's jpeg_set_defaults + jpeg_set_quality(q, TRUE)
+// do (islow DCT, standard Huffman tables, 4:2:0 for colour). Arithmetic
+// coded, lossless and hierarchical files, 12-bit samples and CMYK are
+// refused (the caller falls back).
 //
 // File format (mxnet_tpu_torch/recordio.py is the Python writer):
 //   per record: u32 magic 'CREC' (0x54524543 LE), u32 crc32(payload),
@@ -343,17 +344,20 @@ struct BitReader {
   const uint8_t* end;
   uint64_t acc = 0;
   int bits = 0;
+  int fake = 0;  // bits of acc fed after a marker or the end of the data
   bool marker = false;
 
   void Fill() {
     while (bits <= 56) {
       uint32_t byte = 0;
+      bool real = false;
       if (!marker && p < end) {
         if (*p == 0xFF) {
           const uint8_t* q = p + 1;
           while (q < end && *q == 0xFF) ++q;  // fill bytes
           if (q < end && *q == 0x00) {
             byte = 0xFF;
+            real = true;
             p = q + 1;
           } else {
             marker = true;
@@ -361,8 +365,10 @@ struct BitReader {
           }
         } else {
           byte = *p++;
+          real = true;
         }
       }
+      if (!real) fake += 8;
       acc |= uint64_t(byte) << (56 - bits);
       bits += 8;
     }
@@ -378,6 +384,7 @@ struct BitReader {
   bool Restart(int expect) {
     acc = 0;
     bits = 0;
+    fake = 0;
     if (!marker) {
       while (p + 1 < end && !(p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF))
         ++p;
@@ -387,6 +394,9 @@ struct BitReader {
     p += 2;
     return true;
   }
+  // Were bits past a marker consumed (the zeros Fill feeds after it)?
+  // A complete scan never needs them: libjpeg's "premature end of data".
+  bool Overran() const { return fake > bits; }
   inline int Decode(const HuffTable& t) {
     if (bits < 16) Fill();
     uint16_t e = t.lookup[acc >> 55];
@@ -420,6 +430,15 @@ struct Component {
   std::vector<uint8_t> plane;
   int dc_table = 0, ac_table = 0;
   int pred = 0;
+  // progressive files: the whole image's coefficients (jdcoefct.c's
+  // whole-image buffer, MCU-padded, `stride / 8` blocks a row, 64 a block,
+  // natural order), the quantiser latched at the component's first scan
+  // (jdinput.c latch_quant_tables) and each coefficient's known low bit
+  // (cinfo->coef_bits: -1 until a scan carried it)
+  std::vector<int16_t> coef;
+  bool latched = false;
+  uint16_t qt[64] = {};
+  int coef_bits[64];
 };
 
 struct Decoder {
@@ -434,7 +453,8 @@ struct Decoder {
   int restart_interval = 0;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
-  bool frame = false;
+  bool frame = false, progressive = false, eoi = false;
+  int eobrun = 0;  // progressive AC scans: blocks left in the band's EOB run
   std::vector<Component> comps;
 
   bool U16(uint32_t* v) {
@@ -522,8 +542,194 @@ struct Decoder {
       k.stride = mcux * k.h * 8;
       k.rows = mcuy * k.v * 8;
       k.plane.assign(size_t(k.stride) * k.rows, 0);
+      if (progressive) {
+        k.coef.assign(size_t(k.stride / 8) * (k.rows / 8) * 64, 0);
+        std::fill(k.coef_bits, k.coef_bits + 64, -1);
+      }
     }
     frame = true;
+    return true;
+  }
+
+  // ----------------------------------------- progressive (jdphuff.c)
+  int16_t* Block(Component& k, int by, int bx) {
+    return k.coef.data() + (size_t(by) * (k.stride / 8) + bx) * 64;
+  }
+
+  bool DcFirst(BitReader& br, Component& k, int16_t* blk, int al) {
+    int s = br.Decode(dc[k.dc_table]);
+    if (s < 0 || s > 15) return false;
+    if (s) k.pred += Extend(br.Get(s), s);
+    blk[0] = int16_t(uint32_t(k.pred) << al);  // LEFT_SHIFT, then JCOEF
+    return true;
+  }
+
+  bool AcFirst(BitReader& br, const Component& k, int16_t* blk, int ss,
+               int se, int al) {
+    if (eobrun > 0) {  // a block of the band's run of zero blocks
+      --eobrun;
+      return true;
+    }
+    const HuffTable& t = ac[k.ac_table];
+    for (int i = ss; i <= se; ++i) {
+      int rs = br.Decode(t);
+      if (rs < 0) return false;
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        i += r;
+        // jpeg_natural_order's 16 extra entries are all 63
+        blk[kNatural[std::min(i, 63)]] =
+            int16_t(uint32_t(Extend(br.Get(s), s)) << al);
+      } else if (r == 15) {
+        i += 15;  // ZRL
+      } else {  // EOBr: this block ends the band, 2^r + bits blocks in all
+        eobrun = 1 << r;
+        if (r) eobrun += int(br.Get(r));
+        --eobrun;
+        break;
+      }
+    }
+    return true;
+  }
+
+  bool AcRefine(BitReader& br, const Component& k, int16_t* blk, int ss,
+                int se, int al) {
+    const int p1 = 1 << al, m1 = -p1;
+    // a correction bit for a coefficient already nonzero
+    auto refine = [&](int16_t* c) {
+      if (br.Get(1) && (*c & p1) == 0) *c = int16_t(*c + (*c >= 0 ? p1 : m1));
+    };
+    int i = ss;
+    if (eobrun == 0) {
+      const HuffTable& t = ac[k.ac_table];
+      for (; i <= se; ++i) {
+        int rs = br.Decode(t);
+        if (rs < 0) return false;
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          // s != 1 is libjpeg's JWRN_HUFF_BAD_CODE warning: it decodes on
+          s = br.Get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += int(br.Get(r));
+          break;  // the rest of the band: the EOB run below
+        }
+        // past the nonzero coefficients (a correction bit each) and r
+        // zero ones, to where the new coefficient goes
+        do {
+          int16_t* c = blk + kNatural[std::min(i, 63)];
+          if (*c != 0) {
+            refine(c);
+          } else if (--r < 0) {
+            break;
+          }
+          ++i;
+        } while (i <= se);
+        if (s) blk[kNatural[std::min(i, 63)]] = int16_t(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; i <= se; ++i) {
+        int16_t* c = blk + kNatural[i];
+        if (*c != 0) refine(c);
+      }
+      --eobrun;
+    }
+    return true;
+  }
+
+  bool ReadProgressiveScan(const std::vector<Component*>& sc, const uint8_t* s,
+                           int ns) {
+    const int ss = s[1 + 2 * ns], se = s[2 + 2 * ns];
+    const int ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
+    // jdphuff.c start_pass_phuff_decoder's checks: an error there
+    if (ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1)) return false;
+    if ((ah != 0 && al != ah - 1) || al > 13) return false;
+    for (Component* k : sc) {
+      if (ss == 0 && ah == 0 && !dc[k->dc_table].present) return false;
+      if (ss != 0 && !ac[k->ac_table].present) return false;
+      if (!k->latched) {  // latch_quant_tables: a later DQT does not apply
+        if (!has_quant[k->tq]) return false;
+        std::memcpy(k->qt, quant[k->tq], sizeof(k->qt));
+        k->latched = true;
+      }
+      // libjpeg warns (JWRN_BOGUS_PROGRESSION) and decodes on; refused
+      // here, as the pixels would then hang on its block smoothing
+      if (ss != 0 && k->coef_bits[0] < 0) return false;
+      for (int i = ss; i <= se; ++i) {
+        if (ah != std::max(k->coef_bits[i], 0)) return false;
+        k->coef_bits[i] = al;
+      }
+      k->pred = 0;
+    }
+    eobrun = 0;
+    BitReader br{buf + pos, buf + len};
+    int mcux, mcuy;
+    if (ns == 1) {
+      mcux = sc[0]->wb;
+      mcuy = sc[0]->hb;
+    } else {
+      mcux = (width + 8 * hmax - 1) / (8 * hmax);
+      mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    }
+    auto block = [&](Component& k, int by, int bx) {
+      int16_t* b = Block(k, by, bx);
+      if (ss == 0) {
+        if (ah == 0) return DcFirst(br, k, b, al);
+        if (br.Get(1)) b[0] = int16_t(b[0] | (1 << al));  // DC refine
+        return true;
+      }
+      return ah == 0 ? AcFirst(br, k, b, ss, se, al)
+                     : AcRefine(br, k, b, ss, se, al);
+    };
+    int64_t total = int64_t(mcux) * mcuy, left = restart_interval;
+    int next_rst = 0;
+    for (int64_t m = 0; m < total; ++m) {
+      if (restart_interval) {
+        if (left == 0) {
+          if (br.Overran() || !br.Restart(next_rst)) return false;
+          next_rst = (next_rst + 1) & 7;
+          for (Component* k : sc) k->pred = 0;
+          eobrun = 0;
+          left = restart_interval;
+        }
+        --left;
+      }
+      int my = int(m / mcux), mx = int(m % mcux);
+      if (ns == 1) {
+        if (!block(*sc[0], my, mx)) return false;
+      } else {
+        for (int i = 0; i < ns; ++i) {
+          Component& k = *sc[i];
+          for (int by = 0; by < k.v; ++by)
+            for (int bx = 0; bx < k.h; ++bx)
+              if (!block(k, my * k.v + by, mx * k.h + bx)) return false;
+        }
+      }
+    }
+    if (br.Overran()) return false;
+    pos = size_t(br.p - buf);
+    return true;
+  }
+
+  // After EOI: dequantise and inverse-transform every block of each
+  // component, as jdcoefct.c decompress_data does (width_in_blocks x
+  // height_in_blocks; the MCU padding is never read). Its block smoothing
+  // (jdcoefct.c decompress_smooth_data) runs only while smoothing_ok finds
+  // a component whose DC or first AC coefficients still lack bits; in a
+  // complete file every coefficient ends at 0 unknown bits and it is off.
+  // It is not ported: a file that would take it is refused instead.
+  bool FinishProgressive() {
+    if (!eoi) return false;  // truncated: libjpeg would smooth what is left
+    for (Component& k : comps) {
+      for (int i = 0; i < 10; ++i)  // SAVED_COEFS: 6, or 10 since turbo 2.1
+        if (k.coef_bits[i] != 0) return false;
+      for (int by = 0; by < k.hb; ++by)
+        for (int bx = 0; bx < k.wb; ++bx)
+          IdctIslow(Block(k, by, bx), k.qt,
+                    k.plane.data() + size_t(by) * 8 * k.stride + bx * 8,
+                    size_t(k.stride));
+    }
     return true;
   }
 
@@ -564,12 +770,15 @@ struct Decoder {
       if (!k) return false;
       k->dc_table = s[2 + 2 * i] >> 4;
       k->ac_table = s[2 + 2 * i] & 15;
-      if (k->dc_table > 3 || k->ac_table > 3 || !dc[k->dc_table].present ||
-          !ac[k->ac_table].present || !has_quant[k->tq])
+      if (k->dc_table > 3 || k->ac_table > 3) return false;
+      // a progressive scan needs only the tables its kind reads
+      if (!progressive && (!dc[k->dc_table].present ||
+                           !ac[k->ac_table].present || !has_quant[k->tq]))
         return false;
       k->pred = 0;
       sc.push_back(k);
     }
+    if (progressive) return ReadProgressiveScan(sc, s, ns);
     uint16_t q[4][64];
     for (int i = 0; i < ns; ++i)
       std::memcpy(q[i], quant[sc[i]->tq], sizeof(q[i]));
@@ -633,7 +842,10 @@ struct Decoder {
       if (pos + 1 >= len) return scanned;  // truncated after the scans
       int m = buf[pos + 1];
       pos += 2;
-      if (m == 0xD9) return scanned;
+      if (m == 0xD9) {
+        eoi = true;
+        return scanned;
+      }
       if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
       const uint8_t* s;
       size_t n;
@@ -641,6 +853,8 @@ struct Decoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:  // progressive, Huffman
+          progressive = m == 0xC2;
           if (!ReadSOF(s, n)) return false;
           break;
         case 0xC4:
@@ -667,7 +881,7 @@ struct Decoder {
           }
           break;
         default:
-          // progressive, lossless, arithmetic coding, hierarchical: refused
+          // lossless, arithmetic coding, hierarchical: refused
           if ((m >= 0xC2 && m <= 0xCF && m != 0xC4 && m != 0xC8 &&
                m != 0xCC) || m == 0xDC)
             return false;
@@ -749,6 +963,7 @@ struct Decoder {
 
   bool Run(std::vector<uint8_t>* out, int* h, int* w) {
     if (!Parse() || !frame) return false;
+    if (progressive && !FinishProgressive()) return false;
     *h = height;
     *w = width;
     out->resize(size_t(height) * width * 3);

@@ -20,8 +20,6 @@ from .mesh import P, Sharding, replicated
 __all__ = ["shard_batch", "replicate_params", "allreduce_grads",
            "grad_accum", "make_data_parallel_step"]
 
-_LATER = "ROADMAP A4 (left from slice 4: comm/overlap.py, comm/bucketing.py)"
-
 
 def shard_batch(batch, mesh, axis="dp"):
     """This rank's rows of a tree of host arrays (or tensors), split over
@@ -96,15 +94,24 @@ def make_data_parallel_step(loss_fn, update_fn, group=None, n_micro=1,
     comm_state) -> (params, opt_state, loss, comm_state)``, seeded with
     ``comm.init_error_feedback(params, spec, world_size)``. The quantize
     stages take the fused kernels when ``MXNET_TPU_COMM_KERNELS`` says so.
+
+    ``overlap`` (True, a bucket byte cap or a ``comm.OverlapConfig``; with
+    ``compression``) syncs the gradients bucket by bucket
+    (``comm.overlap_allreduce``), and the comm state is then the
+    per-bucket residual rows: seed it with ``comm.init_overlap_residuals(
+    comm.plan_overlap({k: v.shape ...}, spec, world_size,
+    max_bytes=...))``. Without a Symbol the plan orders the parameters by
+    sorted name, reversed, which this step and the seeding call rebuild
+    alike. ``params`` must then be a flat ``{name: tensor}`` dict.
     """
-    from ..comm import (CompressionSpec, compressed_allreduce,
-                        error_feedback_allreduce)
+    from ..comm import (CompressionSpec, OverlapConfig, compressed_allreduce,
+                        error_feedback_allreduce, overlap_allreduce,
+                        plan_overlap)
     from ..comm.allreduce import all_reduce_sum
 
-    if overlap is not None:
-        raise NotImplementedError(
-            f"make_data_parallel_step(overlap=...) is not ported yet: {_LATER}")
     spec = CompressionSpec.resolve(compression)
+    overlap_cfg = OverlapConfig.resolve(overlap) if spec is not None \
+        else None
     has_ef = spec is not None and spec.error_feedback
     if not dist.is_initialized():
         raise MXNetError("make_data_parallel_step needs a process group: "
@@ -119,24 +126,38 @@ def make_data_parallel_step(loss_fn, update_fn, group=None, n_micro=1,
     def mean_loss(loss):
         return all_reduce_sum(loss.float(), group) / ndev
 
-    if has_ef:
-        def step(params, opt_state, batch, comm_state):
-            loss, grads = local(params, batch)
-            grads, comm_state = error_feedback_allreduce(
-                grads, comm_state, spec, group=group, axis_size=ndev,
-                average=True)
-            with torch.no_grad():
-                params, opt_state = update_fn(params, opt_state, grads)
-            return params, opt_state, mean_loss(loss), comm_state
+    if overlap_cfg is not None:
+        def reduce(grads, comm_state):
+            if not isinstance(grads, dict):
+                raise MXNetError(
+                    "overlap= needs a flat {name: tensor} params dict (the "
+                    "bucket schedule is keyed by parameter name)")
+            plan = plan_overlap({k: tuple(g.shape) for k, g in grads.items()},
+                                spec, ndev,
+                                max_bytes=overlap_cfg.bucket_bytes)
+            return overlap_allreduce(grads, comm_state, plan, group=group,
+                                     average=True)
+    elif has_ef:
+        def reduce(grads, comm_state):
+            return error_feedback_allreduce(grads, comm_state, spec,
+                                            group=group, axis_size=ndev,
+                                            average=True)
+    else:
+        def reduce(grads, comm_state):
+            return compressed_allreduce(grads, spec, group=group,
+                                        axis_size=ndev, average=True), None
 
-        return step
-
-    def step(params, opt_state, batch):
+    def step_with_state(params, opt_state, batch, comm_state):
         loss, grads = local(params, batch)
-        grads = compressed_allreduce(grads, spec, group=group,
-                                     axis_size=ndev, average=True)
+        grads, comm_state = reduce(grads, comm_state)
         with torch.no_grad():
             params, opt_state = update_fn(params, opt_state, grads)
-        return params, opt_state, mean_loss(loss)
+        return params, opt_state, mean_loss(loss), comm_state
+
+    if has_ef:
+        return step_with_state
+
+    def step(params, opt_state, batch):
+        return step_with_state(params, opt_state, batch, None)[:3]
 
     return step

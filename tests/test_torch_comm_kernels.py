@@ -496,8 +496,9 @@ def test_registry_entries_match_jax(name):
 # on the card: each kernel against its plain version, bitwise
 # --------------------------------------------------------------------------
 
-CARD_CASES = [((2, 1 << 20), 256), ((4, 1 << 16), 256), ((8, 2048), 256),
-              ((3, 1200), 12), ((64,), 4)]
+# (2, 1 << 19): one 4 MB bucket of the overlapped exchange over two ranks
+CARD_CASES = [((2, 1 << 20), 256), ((2, 1 << 19), 256), ((4, 1 << 16), 256),
+              ((8, 2048), 256), ((3, 1200), 12), ((64,), 4)]
 
 
 @pytest.mark.cuda

@@ -73,11 +73,20 @@ def test_kvstore_local_and_later_types():
     with pytest.raises(MXNetError, match="bf16"):
         one.set_gradient_compression("int8")
     assert one.set_gradient_compression({"type": "bf16"}).mode == "bf16"
-    for call in (lambda: mt.kv.create("dist_async"),
-                 lambda: mt.kv.create_group(2),
-                 lambda: kv.push_bucketed({3: torch.ones(2, 2)})):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            call()
+    # the three calls A4 brought: each works now
+    one.init(4, torch.zeros(3))
+    one.push_bucketed({4: torch.tensor([1.0, 2.0, 1.0 + 2 ** -10])})
+    got = torch.empty(3)
+    one.pull(4, out=got)  # bf16 on the wire: 1 + 2^-10 rounds to 1
+    assert torch.equal(got, torch.tensor([1.0, 2.0, 1.0]))
+    group = mt.kv.create_group(2)
+    assert [w.rank for w in group] == [0, 1] and \
+        group[0].num_workers == 2
+    async_kv = mt.kv.create("dist_async")
+    try:
+        assert async_kv.type == "dist_async" and async_kv.num_workers == 1
+    finally:
+        async_kv.close()
 
 
 def test_kvstore_join_failure_raises(monkeypatch, tmp_path):
@@ -115,19 +124,22 @@ def _full_batch_sgd(w0, X, Y, steps):
     return out, {"w": w, "b": b}
 
 
-@pytest.mark.parametrize("compression,n_micro", [
-    (None, 1), (None, 2), ("bf16", 1), ("int8", 1),
-    ({"type": "2bit", "threshold": 0.05}, 1)], ids=[
-    "none", "none-micro2", "bf16", "int8", "twobit"])
-def test_make_data_parallel_step(tmp_path, compression, n_micro):
+@pytest.mark.parametrize("compression,n_micro,overlap", [
+    (None, 1, None), (None, 2, None), ("bf16", 1, None), ("int8", 1, None),
+    ({"type": "2bit", "threshold": 0.05}, 1, None), ("int8", 1, 8),
+    ("bf16", 2, 8)], ids=[
+    "none", "none-micro2", "bf16", "int8", "twobit", "int8-overlap",
+    "bf16-micro2-overlap"])
+def test_make_data_parallel_step(tmp_path, compression, n_micro, overlap):
     """Two ranks with half the rows each train like one process with all of
     them: up to f32 rounding without compression, within the codec's error
-    with bf16 and int8 (error feedback carries what it drops). twobit moves
-    each weight by ±0.05 steps, which is no SGD: its ranks agree and its
-    loss falls."""
+    with bf16 and int8 (error feedback carries what it drops), bucket by
+    bucket with ``overlap`` (a cap of 8 bytes: w and b apart, each with its
+    own residual). twobit moves each weight by ±0.05 steps, which is no
+    SGD: its ranks agree and its loss falls."""
     w0, X, Y = _lsq()
     results = run_ranks(data_parallel_steps, WORLD, tmp_path, w0, X, Y,
-                        compression, 4, n_micro)
+                        compression, 4, n_micro, overlap)
     losses, final = _full_batch_sgd(w0, X, Y, 4)
     for res in results[1:]:
         for a, b in zip(res["params"], results[0]["params"]):
@@ -161,8 +173,13 @@ def test_grad_accum_is_the_mean_over_microbatches():
 
 
 def test_make_data_parallel_step_needs_a_group_and_no_overlap():
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        mt.parallel.make_data_parallel_step(None, None, overlap=True)
+    """A process group is needed, with or without ``overlap`` (which is
+    now ported: it no longer raises NotImplementedError)."""
+    for overlap in (None, True):
+        with pytest.raises(MXNetError, match="process group"):
+            mt.parallel.make_data_parallel_step(None, None,
+                                                compression="int8",
+                                                overlap=overlap)
     with pytest.raises(MXNetError, match="process group"):
         mt.parallel.make_data_parallel_step(None, None)
 

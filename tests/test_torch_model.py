@@ -276,17 +276,16 @@ def test_save_load_predict_score(tmp_path):
         mt.load_checkpoint(prefix, 3)
 
 
-LATER = ["overlap", "guards", "elastic", "controller", "telemetry", "health",
+LATER = ["guards", "elastic", "controller", "telemetry", "health",
          "profile", "shard_audit"]
 
 
-@pytest.mark.parametrize("arg", LATER + ["kvstore"])
+@pytest.mark.parametrize("arg", LATER)
 def test_later_slice_fit_arguments_raise(arg):
     model = mt.FeedForward(tmodels.mlp(), ctx=mt.cpu(), num_epoch=1)
     X = np.zeros((8, 64), np.float32)
-    value = "dist_async" if arg == "kvstore" else True
     with pytest.raises(NotImplementedError, match="ROADMAP A[0-9]"):
-        model.fit(X, np.zeros(8, np.float32), batch_size=8, **{arg: value})
+        model.fit(X, np.zeros(8, np.float32), batch_size=8, **{arg: True})
     assert model.arg_params is None  # raised before any work
 
 

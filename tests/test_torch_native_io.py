@@ -334,10 +334,74 @@ def test_codec_encodes_pil_bytes(quality):
         tnative.encode_jpeg(np.zeros((4, 4, 4), np.uint8))
 
 
+@pytest.mark.parametrize("subsampling", [-1, 0, 1, 2])
+@pytest.mark.parametrize("quality", [95, 75, 20])
+@pytest.mark.parametrize("extra", [{}, {"optimize": True},
+                                   {"restart_marker_blocks": 1},
+                                   {"restart_marker_rows": 1}])
+def test_codec_decodes_progressive_like_libjpeg(subsampling, quality, extra):
+    """Progressive files (libjpeg's simple progression: DC first and
+    refine, AC first with EOB runs and AC refine with correction bits,
+    interleaved DC scans, restart intervals) give libjpeg's pixels, PIL's
+    ``convert("RGB")``, bit for bit: odd sides, 1-2 pixel edges, noise and
+    gradients, colour and gray."""
+    rng = np.random.RandomState(quality + subsampling + 7)
+    for h, w in ((1, 1), (2, 9), (17, 3), (33, 47), (64, 80), (9, 130)):
+        for kind in ("noise", "smooth"):
+            img = _image(rng, h, w, kind)
+            for im in (img, img[:, :, 1]):
+                data = _pil_jpeg(im, quality=quality, progressive=True,
+                                 subsampling=subsampling, **extra)
+                assert b"\xff\xc2" in data
+                want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+                np.testing.assert_array_equal(tnative.decode_jpeg(data), want)
+
+
+def _segments_end(data, marker):
+    """Offset just past the entropy data of the first scan that follows
+    the first ``marker`` segment (the next marker's 0xFF)."""
+    i = data.index(marker)
+    i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
+    while not (data[i] == 0xFF and data[i + 1] not in (0x00, 0xFF)
+               and not 0xD0 <= data[i + 1] <= 0xD7):
+        i += 1
+    return i
+
+
+def test_codec_latches_quantisers_at_first_scan():
+    """A DQT between the scans of a progressive file redefines a table
+    that the components already latched at their first scan: libjpeg
+    (jdinput.c latch_quant_tables) keeps the latched one, and so does the
+    port's codec; the pixels equal those of the file without it."""
+    img = _image(np.random.RandomState(5), 40, 56, "smooth")
+    for im in (img, img[:, :, 0]):
+        data = _pil_jpeg(im, quality=80, progressive=True)
+        cut = _segments_end(data, b"\xff\xda")
+        dqt = b"\xff\xdb\x00\x43\x00" + bytes([1] * 64)
+        later = data[:cut] + dqt + data[cut:]
+        want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(io.BytesIO(later)).convert("RGB")), want)
+        np.testing.assert_array_equal(tnative.decode_jpeg(later), want)
+
+
 def test_codec_refuses_what_it_does_not_take():
+    """Refused: a truncated progressive file (libjpeg would smooth the
+    blocks whose bits are missing), an empty one, a baseline file cut in
+    its headers, CMYK (libjpeg does not convert it to RGB either), and
+    lossless and 12-bit frames (the 8-bit libjpeg refuses them too)."""
     img = _image(np.random.RandomState(0), 20, 20, "smooth")
-    for data in (_pil_jpeg(img, progressive=True), b"\xff\xd8\xff\xd9",
-                 _pil_jpeg(img)[:40]):
+    progressive = _pil_jpeg(img, progressive=True)
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 4), np.uint8), "CMYK").save(buf, "JPEG")
+    baseline = bytearray(_pil_jpeg(img))
+    sof = baseline.index(b"\xff\xc0")
+    lossless, twelve = bytearray(baseline), bytearray(baseline)
+    lossless[sof + 1] = 0xC3
+    twelve[sof + 4] = 12
+    for data in (progressive[:len(progressive) // 2], progressive[:-2],
+                 b"\xff\xd8\xff\xd9", bytes(baseline[:40]), buf.getvalue(),
+                 bytes(lossless), bytes(twelve)):
         with pytest.raises(MXNetError, match="does not take"):
             tnative.decode_jpeg(data)
 
@@ -410,3 +474,51 @@ def test_native_and_python_routes_agree_but_for_the_resize(tmp_path,
         gaps[kw.get("resize", -1)] = np.abs(batches["1"] - batches["0"])
     assert gaps[-1].max() == 0
     assert gaps[34].max() > 1
+
+
+def _mixed_shard(path, n=14, first_progressive=6):
+    """JPEG records written by the JAX package (PIL), baseline up to
+    ``first_progressive`` and then every other record progressive: a
+    progressive record past the first batches."""
+    rng = np.random.RandomState(9)
+    with jrio.MXRecordIO(path, "w") as w:
+        for i in range(n):
+            img = _image(rng, rng.randint(26, 61), rng.randint(26, 61),
+                         "noise" if i % 3 == 0 else "smooth")
+            prog = i >= first_progressive and i % 2 == 0
+            data = _pil_jpeg(img, quality=90, progressive=prog,
+                             subsampling=i % 3)
+            w.write(jrio.pack(jrio.IRHeader(0, float(i), i, 0), data))
+    return path
+
+
+def test_image_record_iter_keeps_native_route_over_progressive(
+        reference_lib, tmp_path, monkeypatch):
+    """A shard that mixes baseline and progressive records, progressive
+    ones after the first batch: the port's ``ImageRecordIter`` stays on the
+    native route through two epochs (no fallback, no error mid-epoch) and
+    its batches equal the JAX package's libjpeg route's and the records
+    decoded one at a time, bitwise."""
+    monkeypatch.setenv("MXNET_TPU_NATIVE_IO", "1")
+    path = _mixed_shard(str(tmp_path / "mixed.rec"))
+    args = dict(path_imgrec=path, data_shape=(3, 24, 24), batch_size=4,
+                output_dtype="uint8")
+    ref, got = jio.ImageRecordIter(**args), tio.ImageRecordIter(**args)
+    assert ref._native is not None and got._native is not None
+    records = []
+    with trio.MXRecordIO(path, "r") as r:
+        while (item := r.read()) is not None:
+            records.append(trio.unpack(item)[1])
+    for _ in range(2):
+        rb, gb = list(ref), list(got)
+        assert len(rb) == len(gb) == 4 and got._native is not None
+        for i, (r, g) in enumerate(zip(rb, gb)):
+            np.testing.assert_array_equal(r.data[0].asnumpy(),
+                                          g.data[0].numpy())
+            for j in range(4 - g.pad):
+                img = tnative.decode_jpeg(records[4 * i + j])
+                h, w = img.shape[:2]
+                y, x = (h - 24) // 2, (w - 24) // 2
+                np.testing.assert_array_equal(
+                    g.data[0][j].numpy(),
+                    img[y:y + 24, x:x + 24].transpose(2, 0, 1))

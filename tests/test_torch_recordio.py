@@ -162,8 +162,9 @@ def test_pack_img_crosses_both_ways(writer):
 def test_jpeg_goes_through_pil_and_raises_without_it(monkeypatch):
     """A JPEG record decodes through PIL as the JAX package's does; with
     PIL hidden (where the port used to raise) the native codec decodes it
-    to the same pixels and encodes PIL's bytes, and a file the codec does
-    not take (progressive) raises an MXNetError."""
+    to the same pixels and encodes PIL's bytes, a progressive file decodes
+    to PIL's pixels too, and a file the codec does not take (a truncated
+    progressive one) raises an MXNetError."""
     img = _images(30, n=1)[0]
     s = jrio.pack_img(jrio.IRHeader(0, 1.0, 0, 0), img, quality=90,
                       img_fmt=".jpg")
@@ -174,14 +175,19 @@ def test_jpeg_goes_through_pil_and_raises_without_it(monkeypatch):
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, format="JPEG", progressive=True)
     progressive = trio.pack(trio.IRHeader(0, 1.0, 0, 0), buf.getvalue())
+    want_progressive = np.asarray(Image.open(buf).convert("RGB"))
+    truncated = trio.pack(trio.IRHeader(0, 1.0, 0, 0),
+                          buf.getvalue()[:len(buf.getvalue()) // 2])
     import sys
 
     monkeypatch.setitem(sys.modules, "PIL", None)
     np.testing.assert_array_equal(trio.unpack_img(s)[1], want)
     assert trio.pack_img(trio.IRHeader(0, 1.0, 0, 0), img, quality=90,
                          img_fmt=".jpg") == s
+    np.testing.assert_array_equal(trio.unpack_img(progressive)[1],
+                                  want_progressive)
     with pytest.raises(MXNetError, match="does not take"):
-        trio.unpack_img(progressive)
+        trio.unpack_img(truncated)
     np.testing.assert_array_equal(  # PNG needs no PIL
         trio.unpack_img(trio.pack_img(trio.IRHeader(0, 1.0, 0, 0), img,
                                       img_fmt=".png"))[1], img)

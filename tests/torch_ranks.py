@@ -164,9 +164,11 @@ def kvstore_closed_form(rank, world):
             "keys": [o.numpy() for o in outs], "big": big.numpy()}
 
 
-def data_parallel_steps(rank, world, w0, X, Y, compression, steps, n_micro):
+def data_parallel_steps(rank, world, w0, X, Y, compression, steps, n_micro,
+                        overlap=None):
     """``steps`` steps of ``make_data_parallel_step`` on a linear
-    least-squares model with SGD, this rank on its share of the rows."""
+    least-squares model with SGD, this rank on its share of the rows
+    (bucket by bucket with ``overlap``)."""
     import torch
 
     from mxnet_tpu_torch import comm
@@ -180,13 +182,17 @@ def data_parallel_steps(rank, world, w0, X, Y, compression, steps, n_micro):
         return {k: p[k] - 0.1 * grads[k] for k in p}, state
 
     step = make_data_parallel_step(loss_fn, update_fn, n_micro=n_micro,
-                                   compression=compression)
+                                   compression=compression, overlap=overlap)
     params = {k: torch.from_numpy(v.copy()) for k, v in w0.items()}
     per = X.shape[0] // world
     batch = {"x": torch.from_numpy(X[rank * per:(rank + 1) * per].copy()),
              "y": torch.from_numpy(Y[rank * per:(rank + 1) * per].copy())}
     spec = comm.CompressionSpec.resolve(compression)
     cstate = comm.init_error_feedback(params, spec, world)
+    if overlap is not None:
+        cstate = comm.init_overlap_residuals(comm.plan_overlap(
+            {k: tuple(v.shape) for k, v in params.items()}, spec, world,
+            max_bytes=overlap))
     losses, history = [], []
     for _ in range(steps):
         if cstate is not None:
@@ -236,10 +242,148 @@ def fit_dist_sync(rank, world, args, aux, X, Y, epochs, fit_kw, model_kw):
               batch_end_callback=lambda p: sums.append(
                   p.eval_metric.sum_metric), **fit_kw)
     sync = model._train_state.grad_sync
+    plan = sync.plan
     return {"epochs": epochs_seen, "ce_sums": sums,
             "stats": mt.comm.comm_stats(),
             "residual": _numpy(sync.residual),
+            "residuals": _numpy(sync.residuals()),
+            "plan": None if plan is None else {
+                "layout_key": plan.layout_key(), "buckets": plan.buckets},
             "rescale_grad": model._optimizer_obj.rescale_grad}
+
+
+def overlap_cases(rank, world, cases, device="cpu"):
+    """Each case through ``overlap_allreduce`` after backward and through
+    the hook schedule (``OverlapSchedule``) during it, on the same
+    gradients: ``{"mode", "kernels", "cap", "grads": {name: (world, ...)},
+    "resid": {bucket: (world, Lp_b)} or None, "unused": name or None}``.
+    The schedule's backward is of ``sum(p * g)``, so each parameter's
+    gradient is its row of ``grads`` added into the residual; ``unused``
+    names a parameter the loss leaves out (its bucket starts after
+    backward). With ``device="cuda"`` the schedule runs on the card (side
+    stream, events) and ``overlap_allreduce`` on CPU copies."""
+    import torch
+
+    from mxnet_tpu_torch import comm
+
+    dev = torch.device(device)
+    out = []
+    for case in cases:
+        spec = comm.CompressionSpec(case["mode"], chunk=case["chunk"])
+        grads = {k: torch.from_numpy(v[rank].copy())
+                 for k, v in case["grads"].items()}
+        plan = comm.plan_overlap({k: tuple(v.shape) for k, v in grads.items()},
+                                 spec, world, max_bytes=case["cap"])
+        resid = None if case["resid"] is None else {
+            b: torch.from_numpy(v[rank:rank + 1].copy())
+            for b, v in case["resid"].items()}
+        fed = dict(grads)
+        if case["unused"] is not None:  # no gradient reaches it
+            fed[case["unused"]] = torch.zeros_like(grads[case["unused"]])
+        after, new = comm.overlap_allreduce(fed, resid, plan,
+                                            kernels=case["kernels"])
+        sched = comm.OverlapSchedule(plan, dev, kernels=case["kernels"])
+        if resid is not None:
+            for i, b in enumerate(plan.buckets):
+                sched.bucket_slice(i).copy_(resid[b["name"]][0])
+        params = {k: torch.zeros(v.shape, device=dev, requires_grad=True)
+                  for k, v in grads.items()}
+        sched.attach(params)
+        loss = sum((params[k] * grads[k].to(dev)).sum() for k in sorted(params)
+                   if k != case["unused"])
+        torch.autograd.backward(loss, inputs=list(params.values()))
+        sched.finish_backward()
+        during = sched.wait()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        sched.close()
+        # the unused parameter's gradient is zero (or its residual only)
+        out.append({"after": _numpy(after), "during": _numpy(during),
+                    "resid_after": _numpy(new),
+                    "resid_during": _numpy(sched.residuals()),
+                    "plan": plan.layout_key()})
+    return out
+
+
+def dist_async_semantics(rank, world, port):
+    """examples/distributed/dist_async_kvstore.py through the port: rank 0
+    pushes three times and pulls while the others wait at a barrier (BSP
+    would deadlock), then every worker pushes once."""
+    import os
+
+    import torch
+
+    import mxnet_tpu_torch as mt
+
+    os.environ["MXTPU_ASYNC_PORT"] = str(port)
+    kv = mt.kv.create("dist_async")
+    assert kv.type == "dist_async"
+    rank, nworker = kv.rank, kv.num_workers
+    shape, key = (4,), 11
+    kv.init(key, torch.zeros(shape))
+    kv.set_optimizer(mt.optimizer.create("test"))  # w += g on the host
+    seen = []
+    out = torch.empty(shape)
+    if rank == 0:
+        for _ in range(3):
+            kv.push(key, [torch.ones(shape)])
+        kv.pull(key, out=out)
+        seen.append(out.numpy().copy())
+    kv.barrier()
+    kv.pull(key, out=out)
+    seen.append(out.numpy().copy())
+    kv.barrier()
+    kv.push(key, [torch.ones(shape)])
+    kv.barrier()
+    kv.pull(key, out=out)
+    seen.append(out.numpy().copy())
+    kv.barrier()
+    stats = kv.stats()
+    kv.barrier()
+    kv.close()
+    return {"rank": rank, "num_workers": nworker, "seen": seen,
+            "stats": stats}
+
+
+def dist_async_staleness(rank, world, port, batches, skew):
+    """examples/distributed/dist_async_staleness.py through the port:
+    logistic regression, each worker ``rank * skew`` seconds slower a
+    batch; the host applies every push on arrival."""
+    import os
+    import time
+
+    import torch
+
+    import mxnet_tpu_torch as mt
+
+    os.environ["MXTPU_ASYNC_PORT"] = str(port)
+    kv = mt.kv.create("dist_async")
+    rng = np.random.RandomState(7)
+    w_true = rng.randn(8).astype(np.float32)
+    X = rng.randn(1024, 8).astype(np.float32)
+    y = (X @ w_true > 0).astype(np.float32)
+    kv.set_optimizer(mt.optimizer.create("sgd", learning_rate=0.5))
+    kv.init(0, torch.zeros(8))
+    rng = np.random.RandomState(100 + rank)
+    done = 0
+    for _ in range(batches):
+        idx = rng.randint(0, len(X), size=64)
+        xb, yb = X[idx], y[idx]
+        w = kv.pull_many([0])[0]
+        p = 1.0 / (1.0 + np.exp(-(xb @ w)))
+        kv.push_pull({0: (xb.T @ (p - yb) / 64).astype(np.float32)})
+        done += 1
+        time.sleep(rank * skew)
+    kv.barrier()
+    out = {"done": done}
+    if rank == 0:
+        out["stats"] = kv.stats()
+        w = kv.pull_many([0])[0]
+        p = 1.0 / (1.0 + np.exp(-(X @ w)))
+        out["acc"] = float(np.mean((p > 0.5) == (y > 0.5)))
+    kv.barrier()
+    kv.close()
+    return out
 
 
 def parallel_cases(rank, world, data):
@@ -469,3 +613,23 @@ def pipeline_moe(rank, world, data):
                  "batch": _numpy(batch.gather(tokens))}
     return out
 
+
+
+def kvstore_bucketed(rank, world, values, bf16):
+    """``push_bucketed`` of ``values[rank]`` (``{key: array}``) on a
+    dist_sync store joined from the MXTPU_* variables, with a bf16 wire
+    when ``bf16``; returns what each key pulls."""
+    import torch
+
+    import mxnet_tpu_torch as mt
+
+    kv = mt.kv.create("dist_sync", ctx=mt.cpu())
+    if bf16:
+        kv.set_gradient_compression("bf16")
+    mine = values[rank]
+    kv.init(list(mine), [torch.zeros(v.shape) for v in mine.values()])
+    kv.push_bucketed({k: torch.from_numpy(v.copy()) for k, v in mine.items()})
+    out = {k: torch.empty(v.shape) for k, v in mine.items()}
+    kv.pull(list(out), out=list(out.values()))
+    kv.barrier()
+    return {k: v.numpy() for k, v in out.items()}
