@@ -133,6 +133,15 @@ together), and then:
    progressive after it, keeps ``ImageRecordIter``'s native route for a
    whole epoch (the main path, no kernel), each image bitwise its record
    decoded alone; decode ms per image, progressive and baseline;
+5n. native_arith: the arithmetic-coded JPEG files that
+   ``tests/torch_arith_jpeg.py`` carries (SOF9 and SOF10, 4:2:0 and gray,
+   restarts, non-default DAC conditioning) decode through the native codec
+   to this machine's PIL pixels exactly where its PIL reads them, else to
+   the carried digests of the pixels PIL gave where they were written (the
+   row says which); a shard of Huffman records with arithmetic ones from
+   the second batch on keeps ``ImageRecordIter``'s native route for a
+   whole epoch (the main path, no kernel), each image bitwise its record
+   decoded alone;
 5j. graphs: captured against eager (``MXTPU_CUDA_GRAPHS=0``) in one
    process: ResNet-50 at batch 32 in f32 ``"highest"`` with fused Adam
    (phase train's), and bf16 with SGD momentum on one cached batch
@@ -204,7 +213,10 @@ together), and then:
    and ``block_elems`` 512 and at a 1-D (64,) with chunk 4 (these two with a
    NaN, an inf and a zero chunk), ``dequant_sum_int8`` also on its char4
    and byte loads (rows of 4100, codes 4 and 1 bytes off a 16-byte
-   boundary), checks that two launches agree bitwise,
+   boundary), ``quant_int8``'s two forms (every chunk of its first form at
+   one 4 MB bucket's shape, rows cut to a multiple of the chunk; the bucket
+   4 bytes off 16-byte alignment and chunk 12 in its general form) and ``dequant_int8``'s three load widths,
+   checks that two launches agree bitwise,
    and times each at the two-rank exchange's shapes beside its bound, its
    plain version and the codec path's torch composition;
 10. dp_train: two rank processes (spawn, gloo through pinned host buffers)
@@ -231,7 +243,8 @@ together), and then:
    ``overlap_efficiency`` from the step, its compute alone and its
    exchange alone (the ranks share the card: overlap's gain cannot show);
    the comm kernels are also timed at one bucket's shape (1,048,576
-   elements over 2 ranks) after phase comm_kernels;
+   elements over 2 ranks) after phase comm_kernels, beside an empty
+   launch (``torch.cuda._sleep(0)``) timed alike, the launch floor;
 10b. dp_async: ResNet-50 (batch 32, f32, SGD) through
    ``fit(kvstore="dist_async")``: one worker, whose final weights must be
    bitwise the host's updates replayed over the gradients it pushed; the
@@ -281,9 +294,10 @@ together), and then:
    read around that phase's main path, and in phases 5j and 5k, counted by
    replay; ``slice12_launches``: the captured remat fits of 5a and 5c, by
    replay, and 5l's fit from the JPEG shard; ``slice13_launches``: 5m's
-   epoch, 10a's fits and 10b's one-worker fit; rows 3-7 also their times,
-   bound and library time at one bucket's shape and their launches on the
-   overlap path, ``bucket_shape``);
+   epoch, 10a's fits and 10b's one-worker fit; ``slice14_launches``: 5n's
+   epoch; rows 3-7 also their times, bound, library time and the launch
+   floor at one bucket's shape and their launches on the overlap path,
+   ``bucket_shape``);
 14. ends with ``{"ok": true, "device": {...}}``.
 
 Under the port's default, every single-card ``FeedForward`` fit above
@@ -465,6 +479,12 @@ COMM_CHUNK = 256
 DP_OVERLAP_STEPS = 6
 DP_OVERLAP_BUCKET_BYTES = 4 << 20
 BUCKET_ELEMS = DP_OVERLAP_BUCKET_BYTES // 4
+# slice 14: quant_int8's forms and dequant_int8's load widths on the card,
+# (shape, chunk, offset of the rows in floats past a 16-byte boundary)
+INT8_FORM_CASES = (
+    [((2, BUCKET_ELEMS // 2 // c * c), c, 0) for c in range(128, 1025, 128)]
+    + [((2, BUCKET_ELEMS // 2), COMM_CHUNK, 1), ((3, 1212), 12, 0),
+       ((3, 1212), 12, 3)])
 # dp_async: ResNet-50 at batch 32, f32, through fit(kvstore="dist_async"):
 # one worker (SGD; its weights replayed on the host), two workers sharing
 # the card (int8 pushes), one worker in stale sync (overlap=True)
@@ -1682,6 +1702,49 @@ def phase_comm_kernels(torch, ck, comm, registry):
         emit({"phase": "comm_parity", "name": "dequant_sum_int8",
               "shape": [rows, length], "chunk": chunk,
               "load_bytes": load_bytes, "bitwise_equal_plain": True})
+    # quant_int8's two forms, dequant_int8's three load widths: rows
+    # `offset` floats past a 16-byte boundary (a bucket is a view into the
+    # flat gradient buffer), codes 0, 4 and 1 bytes past one
+    for shape, chunk, offset in INT8_FORM_CASES:
+        n = shape[0] * shape[1]
+        buf = torch.empty(n + 8, device="cuda")
+        start = (-buf.data_ptr() // 4) % 4 + offset
+        rows = buf[start:start + n].view(shape)
+        rows.copy_(comm_rows(torch, gen, shape, chunk, specials=True))
+        form = ck.quant_int8_form(rows, chunk)
+        require(form == ("chunked" if offset == 0 and chunk % 128 == 0
+                         else "general"),
+                f"quant_int8 {list(shape)} chunk {chunk} offset {offset}: "
+                f"form {form}")
+        for want_dq, rounding in ((True, "sub"), (False, "fma")):
+            got = ck.quant_int8(rows, chunk, want_dq, rounding)
+            plain = ck.quant_int8_plain(rows, chunk, want_dq, rounding)
+            torch.cuda.synchronize()
+            require(all(bits_equal(torch, a, b)
+                        for a, b in zip(got, plain) if a is not None),
+                    f"quant_int8 ({form}) {list(shape)} chunk {chunk} "
+                    f"offset {offset} {rounding}: kernel differs from its "
+                    "plain version")
+        q, scale = got[0], got[1]
+        loads = []
+        for qoff in (0, 4, 1):
+            qbuf = torch.empty(n + 48, dtype=torch.int8, device="cuda")
+            qs = (-qbuf.data_ptr()) % 16 + qoff
+            qv = qbuf[qs:qs + n].view(shape)
+            qv.copy_(q)
+            decoded = (ck.dequant_int8(qv, scale, chunk),
+                       ck.dequant_int8_plain(qv, scale, chunk))
+            torch.cuda.synchronize()
+            loads.append(ck.dequant_int8_load_bytes(qv))
+            require(bits_equal(torch, *decoded),
+                    f"dequant_int8 ({loads[-1]}-byte loads) {list(shape)} "
+                    f"chunk {chunk}: kernel differs from its plain version")
+        emit({"phase": "comm_parity", "name": "quant_int8, dequant_int8",
+              "shape": list(shape), "chunk": chunk, "offset_bytes":
+              4 * offset, "quant_int8_form": form,
+              "dequant_int8_load_bytes": loads, "nan_inf_chunks": True,
+              "bitwise_equal_plain": True})
+        del buf, rows, got, plain, q, scale, qbuf, qv, decoded
     phase_launches = {k.__name__: k.launches for k in ck.KERNELS}
 
     # times at the main path's shapes: ResNet-50's padded gradient, two ranks
@@ -1727,6 +1790,11 @@ def comm_bucket_rows(torch, ck, comm, registry):
     bucket's two-rank shapes: 1,048,576 f32 elements, two rows of
     524,288; timed as phase comm_kernels times them."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    # the launch floor: an empty kernel timed as time_ms times a kernel
+    floor_ms = time_ms(torch, lambda: torch.cuda._sleep(0))
+    emit({"phase": "kernel", "name": "launch floor",
+          "form": "torch.cuda._sleep(0), timed as the kernels are",
+          "ms": floor_ms})
     rows = {}
     for mode in ("int8", "twobit"):
         spec = comm.CompressionSpec(mode)
@@ -1737,6 +1805,11 @@ def comm_bucket_rows(torch, ck, comm, registry):
                 continue
             rows[name], cost = time_kernel_row(torch, registry, name, kernel,
                                                plain, codec, ins, outs)
+            rows[name]["launch_floor_ms"] = floor_ms
+            if name == "quant_int8":
+                rows[name]["kernel_form"] = ck.quant_int8_form(x, COMM_CHUNK)
+            if name == "dequant_int8":
+                rows[name]["load_bytes"] = ck.dequant_int8_load_bytes(ins[0])
             emit({"phase": "kernel", "name": name, "form": "4 MB bucket",
                   "shapes": [list(t.shape) for t in ins],
                   "bytes": cost.bytes, "ops": cost.flops, **rows[name],
@@ -2260,9 +2333,12 @@ def dp_overlap_rank(torch, rank, world, mode):
     # exchange of a CPU copy of each: the kernels' plain versions, gloo on
     # CPU tensors
     inputs, run_exchange = {}, sched._run_exchange
+    forms = set()
 
     def keep_input(flat, n):
         inputs[len(inputs)] = flat.clone()
+        if mode == "int8":  # the form stage 1 takes on this bucket's view
+            forms.add(ck.quant_int8_form(flat.reshape(n, -1), COMM_CHUNK))
         return run_exchange(flat, n)
 
     sched._run_exchange = keep_input
@@ -2285,6 +2361,7 @@ def dp_overlap_rank(torch, rank, world, mode):
     sched.close()
     out["card_vs_cpu_buckets_bitwise"] = bitwise
     out["buckets_checked"] = checked
+    out["stage1_quant_int8_forms"] = sorted(forms)
     out["residual_abs_max"] = float(sched.flat.abs().max())
     del model, state, sync, sched, arrays, grads, inputs
     torch.cuda.empty_cache()
@@ -2346,6 +2423,13 @@ def phase_dp_overlap(torch, comm, dp_medians, bucket_rows):
                     f"dp_overlap {mode} rank {rank}: each bucket's synced "
                     "gradients and residual on the card equal the CPU "
                     "exchange of the same bucket, bitwise")
+            # the buckets are padded to the chunk times the ranks, so
+            # every bucket view starts 16-byte aligned
+            require(mode != "int8"
+                    or got["stage1_quant_int8_forms"] == ["chunked"],
+                    f"dp_overlap int8 rank {rank}: stage 1 takes "
+                    "quant_int8's chunked form on every bucket: "
+                    f"{got['stage1_quant_int8_forms']}")
         require(len({r[mode]["digest"] for r in ranks}) == 1,
                 f"dp_overlap {mode}: both ranks' parameters are bitwise "
                 "equal")
@@ -2369,6 +2453,7 @@ def phase_dp_overlap(torch, comm, dp_medians, bucket_rows):
               "padded_elements": plan["padded_elements"],
               "params_bitwise_equal_across_ranks": True,
               "card_vs_cpu_buckets_bitwise": True,
+              "stage1_quant_int8_forms": r0["stage1_quant_int8_forms"],
               "residual_abs_max": r0["residual_abs_max"],
               "losses_rank0": r0["losses"],
               "losses_rank1": ranks[1][mode]["losses"],
@@ -4660,6 +4745,102 @@ def phase_native_progressive(torch, mt, png_path):
     return launches
 
 
+def phase_native_arith(torch, mt, png_path):
+    """The native codec on arithmetic-coded JPEG: the carried files decode
+    to PIL's pixels where this machine's PIL reads arithmetic coding, else
+    to the carried digests of PIL's pixels where they were written; a shard
+    of the PNG shard's images as Huffman records, with the carried files
+    as every other record from the second batch on, keeps
+    ``ImageRecordIter`` on the native route for a whole epoch, its batches
+    bitwise each record decoded alone. No kernel runs on this path."""
+    import hashlib
+    import importlib.util
+    import io as _pyio
+    import os
+
+    from pathlib import Path
+
+    import PIL
+    from PIL import Image
+
+    from mxnet_tpu_torch import native
+
+    path = Path(__file__).resolve().parent / "tests" / "torch_arith_jpeg.py"
+    spec = importlib.util.spec_from_file_location("torch_arith_jpeg", path)
+    carried = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(carried)
+    files = carried.arith_jpegs()
+    checked = {}
+    for name, data in sorted(files.items()):
+        got = native.decode_jpeg(data)
+        digest = hashlib.sha256(got.tobytes()).hexdigest()
+        try:
+            want = np.asarray(Image.open(_pyio.BytesIO(data)).convert("RGB"))
+            against = f"PIL {PIL.__version__}"
+            same = got.shape == want.shape and bool((got == want).all())
+        except OSError as e:  # a PIL without arithmetic decoding
+            against = f"the carried digest (PIL {PIL.__version__}: {e})"
+            same = digest == carried.PIXEL_SHA256[name]
+        require(same and digest == carried.PIXEL_SHA256[name],
+                f"native_arith: {name} decodes to {against}'s pixels exactly")
+        checked[name] = {"bytes": len(data), "against": against,
+                         "pixels_exact": True}
+
+    # the mixed shard: Huffman records (the port's encoder) with the
+    # carried arithmetic files as every other record from the second batch
+    rio = mt.recordio
+    ordered = [files[k] for k in sorted(files)]
+    n = 4 * BATCH
+    with rio.MXRecordIO(png_path, "r") as reader:
+        images = [rio.unpack_img(reader.read())[1] for _ in range(n)]
+    jpegs = [ordered[(i // 2) % len(ordered)]
+             if i >= BATCH and i % 2 == 0
+             else native.encode_jpeg(images[i], IO_JPEG_QUALITY)
+             for i in range(n)]
+    shard = os.path.join(IO_DIR, "shard_arith.rec")
+    with rio.MXRecordIO(shard, "w") as w:
+        for i, jpg in enumerate(jpegs):
+            w.write(rio.pack(rio.IRHeader(0, float(i), i, 0), jpg))
+    # the carried images are 67 x 45: crop what every record holds
+    shape = (3, 40, 40)
+    it = mt.io.ImageRecordIter(path_imgrec=shard, data_shape=shape,
+                               batch_size=BATCH, output_dtype="uint8",
+                               preprocess_threads=4, prefetch_buffer=4)
+    require(it._native is not None,
+            "native_arith: the mixed shard takes the native route")
+    decoded = [native.decode_jpeg(j) for j in jpegs]
+    _, ch, cw = shape
+    batches, mismatches = 0, []
+    reset_launches()
+    # the main path: an epoch of the mixed shard through the native route
+    t0 = time.perf_counter()
+    for b, batch in enumerate(it):
+        for r in range(BATCH - batch.pad):
+            img = decoded[b * BATCH + r]
+            h, w = img.shape[:2]
+            top, left = (h - ch) // 2, (w - cw) // 2
+            want = torch.from_numpy(np.ascontiguousarray(
+                img[top:top + ch, left:left + cw].transpose(2, 0, 1)))
+            if not torch.equal(batch.data[0][r], want):
+                mismatches.append((b, r))
+        batches += 1
+    epoch_s = time.perf_counter() - t0
+    launches = read_launches()
+    require(it._native is not None and batches == n // BATCH,
+            f"native_arith: one epoch of {batches} batches on the native "
+            "route")
+    require(not mismatches, "native_arith: every image of the mixed shard "
+            f"is its record's own decode: {mismatches[:5]}")
+    arith_records = sum(j[:2048].find(b"\xff\xc9") >= 0
+                        or j[:2048].find(b"\xff\xca") >= 0 for j in jpegs)
+    emit({"phase": "native_arith", "pil": PIL.__version__, "files": checked,
+          "mixed_shard": {"records": n, "arithmetic_records": arith_records,
+                          "batches": batches, "native_route": True,
+                          "bitwise_vs_decode_alone": True,
+                          "epoch_s": epoch_s}, "launches": launches})
+    return launches
+
+
 def lstm_sentences():
     """The synthetic corpus: lengths uniform over ``LSTM_LENGTHS``, ids
     with Zipf(``LSTM_ZIPF``) frequencies over a fixed order of the
@@ -5700,6 +5881,7 @@ def main() -> int:
                                             io_fit_rows)}
     slice13 = {"native_progressive": phase_native_progressive(torch, mt,
                                                               io_path)}
+    slice14 = {"native_arith": phase_native_arith(torch, mt, io_path)}
     torch.cuda.empty_cache()
     graphs_launches = phase_graphs(torch, mt, kfa, k8, io_path)
     torch.cuda.empty_cache()
@@ -5773,6 +5955,9 @@ def main() -> int:
         # together) and the dist_async fit (the host updates: no kernel)
         kernels[-1]["slice13_launches"] = {p: got[name]
                                            for p, got in slice13.items()}
+        # the slice 14 path: the arithmetic-coded shard's epoch
+        kernels[-1]["slice14_launches"] = {p: got[name]
+                                           for p, got in slice14.items()}
         if name in bucket_rows:
             # one 4 MB bucket's shapes; launches on the overlap path
             kernels[-1]["bucket_shape"] = bucket_rows[name]

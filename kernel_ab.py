@@ -4,21 +4,34 @@ sources, in turns, on one CUDA card.
 
     mkdir -p build/ab
     git archive <commit> mxnet_tpu_torch/csrc | tar -x -C build/ab
-    python3 kernel_ab.py build/ab/mxnet_tpu_torch/csrc
+    python3 kernel_ab.py build/ab/mxnet_tpu_torch/csrc [stem ...]
 
-Each of ``int8_matmul.cu`` and ``flash_attention.cu`` in the given directory
-is built into a library of its own with the port's nvcc flags: an earlier
-flash_attention.cu with the current C interface, and the int8_matmul.cu of
-before split-K, whose entry point takes no ``per`` (the slabs a block
-sums). Then ``int8_matmul`` at chip_smoke's ``KERNEL_SHAPES`` and
-``flash_bwd_dq`` at the LM's attention run through their wrappers on the
-earlier library and on the current one in turns (earlier, current,
-current, earlier), each timed as ``chip_smoke.py`` times a kernel (CUDA
-events, L2 flushed, median of 25). Both builds are held to
-the plain version first: bitwise for int8_matmul, chip_smoke's row bound
-for dq. Prints the card's name and power limit, then one JSON line per
-case with both builds' times (the mean of each build's two turns, and
-every turn).
+Each named source (``int8_matmul``, ``flash_attention``, ``comm_kernels``;
+by default the first two) in the given directory is built into a library of
+its own with the port's nvcc flags, and its kernels run through the
+current wrappers on the earlier library and on the current one in turns
+(earlier, current, current, earlier), each timed as ``chip_smoke.py``
+times a kernel (CUDA events, L2 flushed, median of 25), after both builds
+are held to the plain version:
+
+* int8_matmul: the int8_matmul.cu of before split-K, whose entry point
+  takes no ``per`` (the slabs a block sums), at chip_smoke's
+  ``KERNEL_SHAPES``; bitwise.
+* flash_attention: an earlier flash_attention.cu with the current C
+  interface, ``flash_bwd_dq`` at the LM's attention; chip_smoke's row
+  bound.
+* comm_kernels: a comm_kernels.cu from before ``quant_int8``'s chunked
+  form and ``dequant_int8``'s redesign, behind the current interface (the
+  chunked entry point runs the earlier general kernel on the grid its
+  wrapper gave it; ``dequant_int8`` gets that grid in place of the load
+  width); ``quant_int8`` (with its round trip, and as stage 2's one row
+  and its error) and ``dequant_int8`` at one 4 MB bucket's two-rank shape
+  and at ResNet-50's padded gradient over two ranks; bitwise, NaN and inf
+  chunks included. The launch floor (``torch.cuda._sleep(0)``) is timed
+  beside them.
+
+Prints the card's name and power limit, then one JSON line per case with
+both builds' times (the mean of each build's two turns, and every turn).
 """
 
 from __future__ import annotations
@@ -59,6 +72,43 @@ def without_per(lib: ctypes.CDLL):
         mxtt_cuda_error_string=lib.mxtt_cuda_error_string)
 
 
+def earlier_comm(lib: ctypes.CDLL, ck):
+    """A comm_kernels library behind the current interface. One without
+    ``mxtt_quant_int8_chunked`` is from before it: that entry point then
+    runs the general kernel on the grid the wrapper then gave it, and
+    ``dequant_int8`` takes that grid in place of the load width."""
+    try:
+        lib.mxtt_quant_int8_chunked
+        return lib
+    except AttributeError:
+        pass
+    names = dict(ck._ARGTYPES)
+    for name, argtypes in names.items():
+        if name != "mxtt_quant_int8_chunked":
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+    import torch
+
+    def grid(threads):
+        return ck._grid(threads, torch.cuda.current_device())
+
+    def mxtt_quant_int8_chunked(x, q, scale, dq, err, err_fma, n_chunks,
+                                chunk, stream):
+        return lib.mxtt_quant_int8(x, q, scale, dq, err, err_fma, n_chunks,
+                                   chunk, grid(32 * n_chunks), stream)
+
+    def mxtt_dequant_int8(q, scale, out, n, chunk, load_bytes, stream):
+        return lib.mxtt_dequant_int8(q, scale, out, n, chunk, grid(n),
+                                     stream)
+
+    adapted = {name: getattr(lib, name) for name in names
+               if name != "mxtt_quant_int8_chunked"}
+    adapted.update(mxtt_quant_int8_chunked=mxtt_quant_int8_chunked,
+                   mxtt_dequant_int8=mxtt_dequant_int8,
+                   mxtt_comm_error_string=lib.mxtt_comm_error_string)
+    return types.SimpleNamespace(**adapted)
+
+
 def in_turns(torch, common, stem, libs, fn):
     """``fn`` timed on the earlier and the current library in turns."""
     turns = {"earlier": [], "current": []}
@@ -70,26 +120,10 @@ def in_turns(torch, common, stem, libs, fn):
             "current_ms": sum(turns["current"]) / 2, "turns_ms": turns}
 
 
-def main(argv) -> int:
-    import numpy as np
-    import torch
-
-    if len(argv) != 1 or not torch.cuda.is_available():
-        print(__doc__, file=sys.stderr)
-        return 2
-    from mxnet_tpu_torch.kernels import _common as common
-    from mxnet_tpu_torch.kernels import flash_attention as tfa
+def ab_int8_matmul(torch, np, common, libs):
     from mxnet_tpu_torch.kernels import int8_matmul as k8
 
-    earlier_dir = Path(argv[0])
-    print(cs.nvidia_smi("name,power.limit"), flush=True)
-    libs = {stem: {"current": common.load_library(stem),
-                   "earlier": build_earlier(earlier_dir / f"{stem}.cu",
-                                            common)}
-            for stem in ("int8_matmul", "flash_attention")}
-    int8_libs = libs["int8_matmul"]
-    int8_libs["earlier"] = without_per(int8_libs["earlier"])
-
+    libs["earlier"] = without_per(libs["earlier"])
     rng = np.random.default_rng(cs.SEED)
     for M, K, N in cs.KERNEL_SHAPES:
         x = torch.from_numpy(rng.standard_normal((M, K), np.float32)).cuda()
@@ -97,13 +131,17 @@ def main(argv) -> int:
         wq, sw = k8.quantize_channels(w)
         plain = k8.int8_matmul_plain(x, wq, sw)
         for which in ("earlier", "current"):
-            common._LIBS["int8_matmul"] = libs["int8_matmul"][which]
+            common._LIBS["int8_matmul"] = libs[which]
             cs.require(torch.equal(k8.int8_matmul(x, wq, w_scale=sw), plain),
                        f"int8_matmul ({which}) {M}x{K}x{N} is bitwise plain")
         cs.emit({"kernel": "int8_matmul", "M": M, "K": K, "N": N,
                  "split": k8._k_split(M, N, K),
-                 **in_turns(torch, common, "int8_matmul", libs["int8_matmul"],
+                 **in_turns(torch, common, "int8_matmul", libs,
                             lambda: k8.int8_matmul(x, wq, w_scale=sw))})
+
+
+def ab_flash_attention(torch, np, common, libs):
+    from mxnet_tpu_torch.kernels import flash_attention as tfa
 
     shape, dtype_name, causal, _ = cs.FLASH_CASES[0]
     dtype = getattr(torch, dtype_name)
@@ -114,7 +152,7 @@ def main(argv) -> int:
     pdq = tfa.flash_bwd_plain(q, k, v, do, lse, delta, causal)[0]
     worst = {}
     for which in ("earlier", "current"):
-        common._LIBS["flash_attention"] = libs["flash_attention"][which]
+        common._LIBS["flash_attention"] = libs[which]
         dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
         share, _ = cs.row_errors(torch, dq, pdq, cs.flash_row_bound(torch,
                                                                     dtype))
@@ -124,10 +162,74 @@ def main(argv) -> int:
     cs.emit({"kernel": "flash_bwd_dq", "shape": list(shape),
              "dtype": dtype_name, "causal": causal,
              "share_of_row_bound": worst,
-             **in_turns(torch, common, "flash_attention",
-                        libs["flash_attention"],
+             **in_turns(torch, common, "flash_attention", libs,
                         lambda: tfa.flash_bwd_dq(q, k, v, do, lse, delta,
                                                  causal))})
+
+
+def ab_comm_kernels(torch, np, common, libs):
+    from mxnet_tpu_torch import comm
+    from mxnet_tpu_torch.kernels import comm_kernels as ck
+
+    libs["earlier"] = earlier_comm(libs["earlier"], ck)
+    cs.emit({"kernel": "launch floor", "ms": cs.time_ms(
+        torch, lambda: torch.cuda._sleep(0))})
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 14)
+    chunk = cs.COMM_CHUNK
+    full = cs.comm_padded(comm, "int8", 2) // 2
+    for label, length in (("4 MB bucket", cs.BUCKET_ELEMS // 2),
+                          ("ResNet-50 gradient", full)):
+        x = cs.comm_rows(torch, gen, (2, length), chunk, specials=True)
+        row = x[:1]
+        q, scale, _, _ = ck.quant_int8_plain(x, chunk, False)
+        cases = {
+            "quant_int8": (lambda: ck.quant_int8(x, chunk, True),
+                           ck.quant_int8_plain(x, chunk, True), x),
+            "quant_int8 stage 2": (
+                lambda: ck.quant_int8(row, chunk, err="sub"),
+                ck.quant_int8_plain(row, chunk, False, "sub"), row),
+            "dequant_int8": (lambda: (ck.dequant_int8(q, scale, chunk),),
+                             (ck.dequant_int8_plain(q, scale, chunk),), q),
+        }
+        for name, (fn, plain, operand) in cases.items():
+            for which in ("earlier", "current"):
+                common._LIBS["comm_kernels"] = libs[which]
+                got = fn()
+                torch.cuda.synchronize()
+                cs.require(all(cs.bits_equal(torch, a, b)
+                               for a, b in zip(got, plain) if a is not None),
+                           f"{name} ({which}) {label} is bitwise plain")
+            cs.emit({"kernel": name, "shape": list(operand.shape),
+                     "at": label, "chunk": chunk,
+                     "form": ck.quant_int8_form(operand, chunk)
+                     if operand.dtype == torch.float32
+                     else ck.dequant_int8_load_bytes(operand),
+                     **in_turns(torch, common, "comm_kernels", libs, fn)})
+        del x, row, q, scale, cases
+
+
+AB = {"int8_matmul": ab_int8_matmul, "flash_attention": ab_flash_attention,
+      "comm_kernels": ab_comm_kernels}
+
+
+def main(argv) -> int:
+    import numpy as np
+    import torch
+
+    stems = argv[1:] or ["int8_matmul", "flash_attention"]
+    if not argv or any(s not in AB for s in stems) or \
+            not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    from mxnet_tpu_torch.kernels import _common as common
+
+    earlier_dir = Path(argv[0])
+    print(cs.nvidia_smi("name,power.limit"), flush=True)
+    for stem in stems:
+        libs = {"current": common.load_library(stem),
+                "earlier": build_earlier(earlier_dir / f"{stem}.cu", common)}
+        AB[stem](torch, np, common, libs)
+        common._LIBS[stem] = libs["current"]
     return 0
 
 

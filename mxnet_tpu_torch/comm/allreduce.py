@@ -306,15 +306,26 @@ def _exchange(flat, spec, group, axis_size, kernels=None, feedback=False):
     per = Lp // axis_size
     rows = flat.reshape(axis_size, per)
     use_k = kernels is not None and spec.mode in ("int8", "twobit")
+    err1 = None
     if use_k:
         from ..kernels import comm_kernels as pk
 
-        payload, dq1 = pk.fused_quantize(spec, rows, want_dequant=feedback,
-                                         block_elems=kernels.block_elems)
+        if feedback and spec.mode == "int8":
+            # the kernel writes the stage-1 error itself, rounded as the
+            # subtraction ``rows - dq1`` rounds it
+            payload, _, err1 = pk.fused_quantize(
+                spec, rows, want_error=True, error_rounding="sub",
+                block_elems=kernels.block_elems)
+        else:
+            payload, dq1 = pk.fused_quantize(spec, rows,
+                                             want_dequant=feedback,
+                                             block_elems=kernels.block_elems)
+            err1 = rows - dq1 if feedback else None
     else:
         payload = encode(spec, rows)
-        # decode of OUR OWN payload: exactly what peers reconstruct
-        dq1 = decode(spec, payload) if feedback else None
+        if feedback:
+            # decode of OUR OWN payload: exactly what peers reconstruct
+            err1 = rows - decode(spec, payload)
     recv = {k: _all_to_all(v, group) for k, v in payload.items()}
     if use_k:
         shard = pk.fused_dequant_sum(spec, recv,
@@ -344,9 +355,7 @@ def _exchange(flat, spec, group, axis_size, kernels=None, feedback=False):
                                block_elems=kernels.block_elems).reshape(Lp)
     else:
         out = decode(gspec, gathered).reshape(Lp)
-    if not feedback:
-        return out, rows, None, None
-    return out, rows, rows - dq1, err2
+    return out, rows, err1, err2
 
 
 def compressed_exchange(flat, compression, group=None, axis_size=None,

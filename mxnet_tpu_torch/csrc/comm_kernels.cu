@@ -40,11 +40,34 @@
 // next. Here blocks run in parallel in no order, so the row sum is a loop
 // inside one thread: a thread owns one column (int8) or one byte of columns
 // (twobit) and walks the rows in order, which keeps the reference's order of
-// the sum. The quantize gives one warp a chunk: the lanes read it
-// coalesced, reduce |x| with shuffles, and read it again (from L1/L2) to
-// emit codes and round trip. Any chunk that is a multiple of 4 works; the
-// block size of the TPU kernels (`block_elems`) changes nothing here. Grids
-// stride over the work. Loads are scalar, except in dequant_sum_int8.
+// the sum. The block size of the TPU kernels (`block_elems`) changes nothing
+// here. Grids stride over the work. Loads are scalar in the twobit kernels.
+//
+// quant_int8 gives one warp a chunk. Its first form (chunk a multiple of
+// 128 up to 1024, rows 16-byte aligned; the chunk a template parameter)
+// issues every load of the chunk before it uses one: lane l holds float4s
+// l, l + 32, ... of the chunk in registers (chunk / 128 of them), so each
+// load instruction reads 512 contiguous bytes and a whole 4 MB bucket
+// (4,096 chunks of 256: 4,096 warps against 132 SMs x 64) is in flight in
+// one wave. The max is taken by shuffles and the codes come from the
+// registers, with no second read; the codes go out as one char4 a float4
+// (128 contiguous bytes a warp store), dq and err as float4s. Its general
+// form (any chunk that is a multiple of 4, any 4-byte aligned rows) walks
+// the chunk with scalar loads, reduces, and reads it again (from L1/L2).
+// A bucket is a view into one flat gradient buffer, so its base need not
+// be 16-byte aligned: the wrapper picks the form from the chunk and the
+// pointer. The grid of the first form is the resident grid (below).
+//
+// dequant_int8 writes R x L floats from R x L codes: at the 4 MB bucket
+// (1 M codes) 1 MB in and 4 MB out, 1.57 us at 3.35 TB/s. It flattens the
+// rows (L is a multiple of the chunk, so the scale of flat element i is
+// scale[i / chunk]) and runs dequant_sum_int8's shape with one row: a
+// thread owns 16 consecutive codes (one 16-byte load), finds their scale
+// with one division a thread and steps it (one scale load where chunk % 16
+// == 0), and its warp stages the products in shared memory so that each
+// store instruction writes 512 contiguous bytes; indices are 32-bit where
+// the size allows. Elsewhere (R * L % 16 != 0, or codes not 16-byte
+// aligned) a thread owns 4 codes, read as one char4 or as 4 bytes.
 //
 // dequant_sum_int8 reads R rows of codes and writes one f32 row: at the
 // two-rank exchange (R = 2, L = 12.78 M) 25.6 MB in and 51 MB out, 0.023 ms
@@ -89,6 +112,25 @@ __device__ __forceinline__ float twobit_value(unsigned code, float t) {
   return code == 1u ? t : (code == 2u ? -t : 0.0f);
 }
 
+// An element's code, round trip and error from x and its chunk's scale s,
+// as both forms of quant_int8 round them.
+struct Int8Code {
+  float v;  // the clipped quotient (NaN passes)
+  __device__ __forceinline__ Int8Code(float xi, float s) {
+    v = rintf(__fdiv_rn(xi, s));
+    v = v < -127.0f ? -127.0f : v;
+    v = v > 127.0f ? 127.0f : v;
+  }
+  __device__ __forceinline__ signed char code() const {
+    return isnan(v) ? static_cast<signed char>(0)
+                    : static_cast<signed char>(static_cast<int>(v));
+  }
+  __device__ __forceinline__ float dq(float s) const { return __fmul_rn(v, s); }
+  __device__ __forceinline__ float err(float xi, float s, int err_fma) const {
+    return err_fma ? fmaf(-v, s, xi) : __fsub_rn(xi, __fmul_rn(v, s));
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
 quant_int8_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
                   float* __restrict__ scale, float* __restrict__ dq,
@@ -108,13 +150,57 @@ quant_int8_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
     if (lane == 0) scale[c] = s;
     for (int i = lane; i < chunk; i += 32) {
       const float xi = x[base + i];
-      float v = rintf(__fdiv_rn(xi, s));
-      v = v < -127.0f ? -127.0f : v;  // clip; a NaN passes both
-      v = v > 127.0f ? 127.0f : v;
-      q[base + i] = isnan(v) ? int8_t(0) : static_cast<int8_t>(static_cast<int>(v));
-      if (dq != nullptr) dq[base + i] = __fmul_rn(v, s);
+      const Int8Code k(xi, s);
+      q[base + i] = k.code();
+      if (dq != nullptr) dq[base + i] = k.dq(s);
+      if (err != nullptr) err[base + i] = k.err(xi, s, err_fma);
+    }
+  }
+}
+
+// quant_int8's first form: kChunk / 128 float4s a lane, all loaded before
+// the first is used (see the design notes above).
+template <int kChunk>
+__global__ void __launch_bounds__(kThreads)
+quant_int8_chunk_kernel(const float4* __restrict__ x, char4* __restrict__ q,
+                        float* __restrict__ scale, float4* __restrict__ dq,
+                        float4* __restrict__ err, int err_fma, int n_chunks) {
+  static_assert(kChunk % 128 == 0 && kChunk <= 1024, "chunk 128 .. 1024");
+  constexpr int kVecs = kChunk / 128;
+  const int lane = threadIdx.x & 31;
+  const int n_warps = (gridDim.x * kThreads) >> 5;
+  for (int c = (blockIdx.x * kThreads + threadIdx.x) >> 5; c < n_chunks;
+       c += n_warps) {
+    const long long base = static_cast<long long>(c) * (kChunk / 4) + lane;
+    float4 v[kVecs];
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) v[j] = __ldg(x + base + 32 * j);
+    float m = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      m = nan_max(m, fabsf(v[j].x));
+      m = nan_max(m, fabsf(v[j].y));
+      m = nan_max(m, fabsf(v[j].z));
+      m = nan_max(m, fabsf(v[j].w));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float s = __fmul_rn(m, kInv127);
+    s = (s > kMinScale || isnan(s)) ? s : kMinScale;
+    if (lane == 0) scale[c] = s;
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const long long at = base + 32 * j;
+      const Int8Code a(v[j].x, s), b(v[j].y, s), cc(v[j].z, s), d(v[j].w, s);
+      q[at] = make_char4(a.code(), b.code(), cc.code(), d.code());
+      if (dq != nullptr)
+        dq[at] = make_float4(a.dq(s), b.dq(s), cc.dq(s), d.dq(s));
       if (err != nullptr)
-        err[base + i] = err_fma ? fmaf(-v, s, xi) : __fsub_rn(xi, __fmul_rn(v, s));
+        err[at] = make_float4(a.err(v[j].x, s, err_fma),
+                              b.err(v[j].y, s, err_fma),
+                              cc.err(v[j].z, s, err_fma),
+                              d.err(v[j].w, s, err_fma));
     }
   }
 }
@@ -246,12 +332,67 @@ dequant_sum_twobit_kernel(const uint8_t* __restrict__ q,
   }
 }
 
+// out[i] = q[i] * scale[i / chunk] over n flat codes, kCols codes a
+// thread: 16 (one int4 load) or 4 (one char4 load when kVector, else four
+// byte loads); Index is int where n allows. As in dequant_sum_int8, the
+// loop runs whole warps and each warp's products leave through shared
+// memory, so that each store instruction writes contiguous float4s.
+template <int kCols, bool kVector, typename Index>
 __global__ void __launch_bounds__(kThreads)
 dequant_int8_kernel(const int8_t* __restrict__ q,
                     const float* __restrict__ scale, float* __restrict__ out,
-                    long long n, int chunk) {
-  for (long long i = global_index(); i < n; i += global_stride())
-    out[i] = __fmul_rn(static_cast<float>(q[i]), scale[i / chunk]);
+                    Index n, int chunk) {
+  static_assert(kCols == 16 || kCols == 4, "16 or 4 codes a thread");
+  constexpr int kQuads = kCols / 4;
+  __shared__ float4 stage[kThreads / 32][32 * kQuads];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Index groups = n / kCols;
+  const Index stride = static_cast<Index>(gridDim.x) * kThreads;
+  for (Index gb = static_cast<Index>(blockIdx.x) * kThreads + warp * 32;
+       gb < groups; gb += stride) {
+    const Index g = gb + lane;
+    if (g < groups) {
+      const Index j0 = g * kCols;
+      const int8_t* src = q + j0;
+      alignas(16) int8_t b[kCols];
+      if constexpr (kCols == 16) {
+        *reinterpret_cast<int4*>(b) = __ldg(reinterpret_cast<const int4*>(src));
+      } else if constexpr (kVector) {
+        const char4 v = __ldg(reinterpret_cast<const char4*>(src));
+        b[0] = v.x; b[1] = v.y; b[2] = v.z; b[3] = v.w;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) b[c] = __ldg(src + c);
+      }
+      // the scale of each quad: one division, then stepped (chunk % 4 == 0,
+      // so no quad straddles two chunks); loaded again only where it moves
+      Index si = j0 / chunk;
+      int off = static_cast<int>(j0 - si * chunk);
+      float sc = __ldg(scale + si);
+#pragma unroll
+      for (int k = 0; k < kQuads; ++k) {
+        if (k > 0 && off == 0) sc = __ldg(scale + si);
+        stage[warp][lane * kQuads + k] = make_float4(
+            __fmul_rn(static_cast<float>(b[4 * k]), sc),
+            __fmul_rn(static_cast<float>(b[4 * k + 1]), sc),
+            __fmul_rn(static_cast<float>(b[4 * k + 2]), sc),
+            __fmul_rn(static_cast<float>(b[4 * k + 3]), sc));
+        off += 4;
+        if (off == chunk) {
+          off = 0;
+          ++si;
+        }
+      }
+    }
+    __syncwarp();
+    // the warp's float4s in order: store s writes 32 of them side by side
+    float4* dst = reinterpret_cast<float4*>(out) + gb * kQuads;
+    const Index left = (groups - gb) * kQuads;
+#pragma unroll
+    for (int s = 0; s < kQuads; ++s)
+      if (s * 32 + lane < left) dst[s * 32 + lane] = stage[warp][s * 32 + lane];
+    __syncwarp();
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -282,6 +423,34 @@ int mxtt_quant_int8(const void* x, void* q, void* scale, void* dq, void* err,
       static_cast<float*>(scale), static_cast<float*>(dq),
       static_cast<float*>(err), err_fma, n_chunks, chunk);
   return static_cast<int>(cudaGetLastError());
+}
+
+// quant_int8's first form: chunk a multiple of 128 up to 1024, x 16-byte
+// aligned; the grid is sized here, to the card. Another chunk, or more
+// than 2^31 - 1 chunks, is refused (cudaErrorInvalidValue).
+int mxtt_quant_int8_chunked(const void* x, void* q, void* scale, void* dq,
+                            void* err, int err_fma, long long n_chunks,
+                            int chunk, void* stream) {
+  if (n_chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto kernel) {
+    kernel<<<resident_grid(kernel, 32 * n_chunks), kThreads, 0, st>>>(
+        static_cast<const float4*>(x), static_cast<char4*>(q),
+        static_cast<float*>(scale), static_cast<float4*>(dq),
+        static_cast<float4*>(err), err_fma, static_cast<int>(n_chunks));
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (chunk) {
+    case 128: return launch(quant_int8_chunk_kernel<128>);
+    case 256: return launch(quant_int8_chunk_kernel<256>);
+    case 384: return launch(quant_int8_chunk_kernel<384>);
+    case 512: return launch(quant_int8_chunk_kernel<512>);
+    case 640: return launch(quant_int8_chunk_kernel<640>);
+    case 768: return launch(quant_int8_chunk_kernel<768>);
+    case 896: return launch(quant_int8_chunk_kernel<896>);
+    case 1024: return launch(quant_int8_chunk_kernel<1024>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int mxtt_quant_twobit(const void* x, void* q, void* dq, long long n_bytes,
@@ -327,12 +496,31 @@ int mxtt_dequant_sum_twobit(const void* q, void* out, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// n flat codes; load_bytes: 16 (n % 16 == 0, q 16-byte aligned), 4 (q
+// 4-byte aligned) or 1; the grid is sized here, to the card
 int mxtt_dequant_int8(const void* q, const void* scale, void* out,
-                      long long n, int chunk, int grid, void* stream) {
-  dequant_int8_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(scale),
-      static_cast<float*>(out), n, chunk);
-  return static_cast<int>(cudaGetLastError());
+                      long long n, int chunk, int load_bytes, void* stream) {
+  const auto* qp = static_cast<const int8_t*>(q);
+  const auto* sp = static_cast<const float*>(scale);
+  auto* op = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto kernel, auto count, int cols) {
+    kernel<<<resident_grid(kernel, n / cols), kThreads, 0, st>>>(
+        qp, sp, op, count, chunk);
+    return static_cast<int>(cudaGetLastError());
+  };
+  // 32-bit indices while every index the loop forms stays below 2^31
+  if (n < (1LL << 30)) {
+    const int m = static_cast<int>(n);
+    if (load_bytes == 16) return launch(dequant_int8_kernel<16, true, int>, m, 16);
+    if (load_bytes == 4) return launch(dequant_int8_kernel<4, true, int>, m, 4);
+    return launch(dequant_int8_kernel<4, false, int>, m, 4);
+  }
+  if (load_bytes == 16)
+    return launch(dequant_int8_kernel<16, true, long long>, n, 16);
+  if (load_bytes == 4)
+    return launch(dequant_int8_kernel<4, true, long long>, n, 4);
+  return launch(dequant_int8_kernel<4, false, long long>, n, 4);
 }
 
 int mxtt_dequant_twobit(const void* q, void* out, long long n_bytes,

@@ -17,8 +17,8 @@ PIL, and each copy gives PIL's pixels bit for bit:
   fillcolor=...)``): Pillow's generic transform with its bilinear filter.
 
 JPEG goes through PIL where PIL can be imported, and otherwise through the
-port's own baseline codec in the native library (``native/mxtpu_native.cc``),
-which decodes to libjpeg's pixels and encodes libjpeg's bytes, bit for bit.
+port's own codec in the native library (``native/mxtpu_native.cc``), which
+decodes to libjpeg's pixels and encodes libjpeg's bytes, bit for bit.
 """
 
 from __future__ import annotations

@@ -19,6 +19,10 @@ the same name with ``_plain``. The payload is bit-identical to the codecs of
 ``comm/compression.py`` on every device, as in the JAX package; the sums
 follow the JAX kernels' order: rows 0..R-1, int8 products fused into the
 accumulation (``fma``), as XLA compiles the Pallas kernel on the CPU.
+``quant_int8`` launches one of two forms of its kernel, picked by
+:func:`quant_int8_form`, and ``dequant_sum_int8`` and ``dequant_int8`` one
+of three load widths each; every form gives the same bits and counts as a
+launch of its wrapper.
 """
 
 from __future__ import annotations
@@ -39,10 +43,13 @@ __all__ = ["fused_quantize", "fused_dequant_sum", "fused_dequant",
            "dequant_sum_twobit", "dequant_int8", "dequant_twobit",
            "quant_int8_plain", "quant_twobit_plain", "dequant_sum_int8_plain",
            "dequant_sum_twobit_plain", "dequant_int8_plain",
-           "dequant_twobit_plain", "dequant_sum_int8_load_bytes", "fma_f32",
+           "dequant_twobit_plain", "dequant_sum_int8_load_bytes",
+           "dequant_int8_load_bytes", "quant_int8_form", "fma_f32",
            "KERNELS"]
 
 DEFAULT_BLOCK_ELEMS = 65536
+# the chunks quant_int8's first form is built for (csrc/comm_kernels.cu)
+QUANT_INT8_CHUNKS = tuple(range(128, 1025, 128))
 # csrc/comm_kernels.cu's kThreads
 THREADS = 256
 SOURCE = "mxnet_tpu_torch/csrc/comm_kernels.cu"
@@ -152,12 +159,15 @@ _P = ctypes.c_void_p
 _ARGTYPES = {
     "mxtt_quant_int8": [_P, _P, _P, _P, _P, ctypes.c_int, _I64, ctypes.c_int,
                         ctypes.c_int, _P],
+    "mxtt_quant_int8_chunked": [_P, _P, _P, _P, _P, ctypes.c_int, _I64,
+                                ctypes.c_int, _P],  # sizes its own grid
     "mxtt_quant_twobit": [_P, _P, _P, _I64, ctypes.c_float, ctypes.c_int, _P],
     "mxtt_dequant_sum_int8": [_P, _P, _P, ctypes.c_int, _I64, ctypes.c_int,
                               ctypes.c_int, _P],  # load_bytes, not a grid
     "mxtt_dequant_sum_twobit": [_P, _P, ctypes.c_int, _I64, ctypes.c_float,
                                 ctypes.c_int, _P],
-    "mxtt_dequant_int8": [_P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P],
+    "mxtt_dequant_int8": [_P, _P, _P, _I64, ctypes.c_int, ctypes.c_int,
+                          _P],  # load_bytes, not a grid
     "mxtt_dequant_twobit": [_P, _P, _I64, ctypes.c_float, ctypes.c_int, _P],
 }
 
@@ -226,12 +236,28 @@ def quant_int8(rows: torch.Tensor, chunk: int, want_dq: bool = False,
     e = torch.empty_like(rows) if err else None
     n_chunks = R * (L // chunk)
     if n_chunks:
-        _run("quant_int8", rows.device, rows.data_ptr(), q.data_ptr(),
-             scale.data_ptr(), dq.data_ptr() if want_dq else None,
-             e.data_ptr() if err else None, int(err == "fma"), n_chunks,
-             chunk, _grid(32 * n_chunks, rows.device))
+        args = (rows.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                dq.data_ptr() if want_dq else None,
+                e.data_ptr() if err else None, int(err == "fma"), n_chunks,
+                chunk)
+        if quant_int8_form(rows, chunk) == "chunked":
+            _run("quant_int8_chunked", rows.device, *args)
+        else:
+            _run("quant_int8", rows.device, *args,
+                 _grid(32 * n_chunks, rows.device))
         count_launch(quant_int8)
     return q, scale, dq, e
+
+
+def quant_int8_form(rows: torch.Tensor, chunk: int) -> str:
+    """The form of the ``quant_int8`` kernel that takes ``rows``:
+    ``"chunked"`` (the chunk a template parameter, 16-byte loads) where the
+    chunk is one of ``QUANT_INT8_CHUNKS`` and the rows start 16-byte
+    aligned, else ``"general"`` (any chunk that is a multiple of 4, scalar
+    loads). Rows that are a view into a flat buffer may start anywhere."""
+    if chunk in QUANT_INT8_CHUNKS and rows.data_ptr() % 16 == 0:
+        return "chunked"
+    return "general"
 
 
 def quant_twobit(rows: torch.Tensor, threshold: float, want_dq: bool = False):
@@ -314,9 +340,19 @@ def dequant_int8(q: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((R, L), dtype=torch.float32, device=q.device)
     if R * L:
         _run("dequant_int8", q.device, q.data_ptr(), scale.data_ptr(),
-             out.data_ptr(), R * L, chunk, _grid(R * L, q.device))
+             out.data_ptr(), R * L, chunk, dequant_int8_load_bytes(q))
         count_launch(dequant_int8)
     return out
+
+
+def dequant_int8_load_bytes(q: torch.Tensor) -> int:
+    """The bytes of codes one thread of the ``dequant_int8`` kernel loads:
+    16 where the codes, taken flat, split into 16-byte aligned groups of 16
+    (their count a multiple of 16 and q aligned), else 4, as one char4
+    where q is 4-byte aligned and as four bytes where it is not."""
+    if q.numel() % 16 == 0 and q.data_ptr() % 16 == 0:
+        return 16
+    return 4 if q.data_ptr() % 4 == 0 else 1
 
 
 def dequant_twobit(q: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -345,7 +381,7 @@ for _k in KERNELS:
 # --------------------------------------------------------------------------
 
 def fused_quantize(spec, rows, *, want_dequant=False, want_error=False,
-                   block_elems=None):
+                   block_elems=None, error_rounding=None):
     """Quantize ``rows`` ((R, L) f32, or (L,), L a multiple of the mode's
     unit) into the wire payload dict and, with ``want_dequant``, the decode
     round trip the error-feedback residual is built from. Returns
@@ -356,7 +392,9 @@ def fused_quantize(spec, rows, *, want_dequant=False, want_error=False,
     kernel path's ``shard - dq2`` compiles on the CPU: when the Pallas
     kernel's grid is one step (one row in one block), XLA contracts its
     product into the subtraction (one rounding); over more steps the
-    product is rounded first."""
+    product is rounded first. ``error_rounding`` ("fma" or "sub") sets
+    that rounding instead, as for the stage-1 error ``rows - dq1``, which
+    is always the rounded product subtracted."""
     rows = rows.to(torch.float32).contiguous()
     squeeze = rows.dim() == 1
     if squeeze:
@@ -365,8 +403,10 @@ def fused_quantize(spec, rows, *, want_dequant=False, want_error=False,
     err = None
     if spec.mode == "int8":
         block = pick_block(L, spec.chunk, block_elems)
-        mode = ("fma" if R == 1 and block == L else "sub") if want_error \
-            else None
+        mode = None
+        if want_error:
+            mode = error_rounding or ("fma" if R == 1 and block == L
+                                      else "sub")
         q, scale, dq, err = quant_int8(rows, spec.chunk, want_dequant, mode)
         payload = {"q": q, "scale": scale}
     elif spec.mode == "twobit":

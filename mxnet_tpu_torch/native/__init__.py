@@ -2,9 +2,10 @@
 
 Counterpart of ``mxnet_tpu/native/__init__.py``. RecordIO scanning, JPEG
 decoding, augmentation and batch assembly run in C++ threads
-(``mxtpu_native.cc``, the JAX package's pipeline with a baseline and
-progressive JPEG codec of its own in place of libjpeg, which the card's
-machine lacks); Python only hands over buffers.
+(``mxtpu_native.cc``, the JAX package's pipeline with a JPEG codec of its
+own in place of libjpeg, which the card's machine lacks: it decodes
+baseline, progressive and arithmetic-coded files and encodes baseline
+ones); Python only hands over buffers.
 
 The library is built with the host's C++ compiler (``CXX``, else ``g++``)
 at its first use, never at import, into ``build/mxnet_tpu_torch/`` at the
@@ -145,16 +146,16 @@ def scan_offsets(path: str):
 def decode_jpeg(buf: bytes) -> np.ndarray:
     """JPEG bytes as an HWC uint8 RGB array, the pixels libjpeg gives with
     its defaults (what PIL's ``convert("RGB")`` gives); raises
-    ``MXNetError`` for a file the codec does not take (arithmetic coded,
-    lossless, 12-bit, CMYK, truncated or corrupt; baseline and progressive
-    Huffman files decode)."""
+    ``MXNetError`` for a file the codec does not take (lossless,
+    hierarchical, 12-bit, CMYK, truncated or corrupt; baseline and
+    progressive files decode, Huffman or arithmetic coded)."""
     lib = require_lib()
     out = ctypes.POINTER(ctypes.c_uint8)()
     h, w = ctypes.c_int(), ctypes.c_int()
     if lib.mxtpu_jpeg_decode(bytes(buf), len(buf), ctypes.byref(out),
                              ctypes.byref(h), ctypes.byref(w)) != 0:
-        raise MXNetError("JPEG the native codec does not take (arithmetic "
-                         "coded, lossless, 12-bit, CMYK, truncated or "
+        raise MXNetError("JPEG the native codec does not take (lossless, "
+                         "hierarchical, 12-bit, CMYK, truncated or "
                          "corrupt)")
     try:
         return np.ctypeslib.as_array(out, (h.value, w.value, 3)).copy()

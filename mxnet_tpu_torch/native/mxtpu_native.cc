@@ -11,12 +11,13 @@
 // fixed-point resize and float normalisation.
 //
 // The codec (namespace jpeg) decodes baseline, extended-sequential and
-// progressive Huffman JPEG as libjpeg(-turbo) does with its defaults (islow
-// IDCT, fancy upsampling, its YCbCr tables), bit for bit, and encodes
-// baseline JPEG as libjpeg's jpeg_set_defaults + jpeg_set_quality(q, TRUE)
-// do (islow DCT, standard Huffman tables, 4:2:0 for colour). Arithmetic
-// coded, lossless and hierarchical files, 12-bit samples and CMYK are
-// refused (the caller falls back).
+// progressive JPEG, Huffman or arithmetic coded (SOF0-2, SOF9-10), as
+// libjpeg(-turbo) does with its defaults (islow IDCT, fancy upsampling, its
+// YCbCr tables), bit for bit, and encodes baseline JPEG as libjpeg's
+// jpeg_set_defaults + jpeg_set_quality(q, TRUE) do (islow DCT, standard
+// Huffman tables, 4:2:0 for colour). Lossless and hierarchical files and
+// 12-bit samples are refused, as the 8-bit libjpeg refuses them, and so is
+// CMYK, which libjpeg does not convert to RGB (the caller falls back).
 //
 // File format (mxnet_tpu_torch/recordio.py is the Python writer):
 //   per record: u32 magic 'CREC' (0x54524543 LE), u32 crc32(payload),
@@ -422,6 +423,144 @@ inline int Extend(uint32_t v, int s) {
   return v < (1u << (s - 1)) ? int(v) - (1 << s) + 1 : int(v);
 }
 
+// ------------------------------------- arithmetic decoding (jdarith.c)
+// libjpeg's jaricom.c: the QM coder's probability estimation states of the
+// JPEG standard's Table D.2, packed as Qe << 16 | next state after an MPS
+// << 8 | switch of the MPS on an LPS << 7 | next state after an LPS, and a
+// 114th state of fixed probability 0.5 (ITU-T T.851) that the signs of AC
+// coefficients and the DC refinement bits use.
+constexpr int32_t Qm(int32_t qe, int nl, int nm, int sw) {
+  return (qe << 16) | (nm << 8) | (sw << 7) | nl;
+}
+constexpr int32_t kQmStates[114] = {
+    Qm(0x5a1d, 1, 1, 1),     Qm(0x2586, 14, 2, 0),    Qm(0x1114, 16, 3, 0),
+    Qm(0x080b, 18, 4, 0),    Qm(0x03d8, 20, 5, 0),    Qm(0x01da, 23, 6, 0),
+    Qm(0x00e5, 25, 7, 0),    Qm(0x006f, 28, 8, 0),    Qm(0x0036, 30, 9, 0),
+    Qm(0x001a, 33, 10, 0),   Qm(0x000d, 35, 11, 0),   Qm(0x0006, 9, 12, 0),
+    Qm(0x0003, 10, 13, 0),   Qm(0x0001, 12, 13, 0),   Qm(0x5a7f, 15, 15, 1),
+    Qm(0x3f25, 36, 16, 0),   Qm(0x2cf2, 38, 17, 0),   Qm(0x207c, 39, 18, 0),
+    Qm(0x17b9, 40, 19, 0),   Qm(0x1182, 42, 20, 0),   Qm(0x0cef, 43, 21, 0),
+    Qm(0x09a1, 45, 22, 0),   Qm(0x072f, 46, 23, 0),   Qm(0x055c, 48, 24, 0),
+    Qm(0x0406, 49, 25, 0),   Qm(0x0303, 51, 26, 0),   Qm(0x0240, 52, 27, 0),
+    Qm(0x01b1, 54, 28, 0),   Qm(0x0144, 56, 29, 0),   Qm(0x00f5, 57, 30, 0),
+    Qm(0x00b7, 59, 31, 0),   Qm(0x008a, 60, 32, 0),   Qm(0x0068, 62, 33, 0),
+    Qm(0x004e, 63, 34, 0),   Qm(0x003b, 32, 35, 0),   Qm(0x002c, 33, 9, 0),
+    Qm(0x5ae1, 37, 37, 1),   Qm(0x484c, 64, 38, 0),   Qm(0x3a0d, 65, 39, 0),
+    Qm(0x2ef1, 67, 40, 0),   Qm(0x261f, 68, 41, 0),   Qm(0x1f33, 69, 42, 0),
+    Qm(0x19a8, 70, 43, 0),   Qm(0x1518, 72, 44, 0),   Qm(0x1177, 73, 45, 0),
+    Qm(0x0e74, 74, 46, 0),   Qm(0x0bfb, 75, 47, 0),   Qm(0x09f8, 77, 48, 0),
+    Qm(0x0861, 78, 49, 0),   Qm(0x0706, 79, 50, 0),   Qm(0x05cd, 48, 51, 0),
+    Qm(0x04de, 50, 52, 0),   Qm(0x040f, 50, 53, 0),   Qm(0x0363, 51, 54, 0),
+    Qm(0x02d4, 52, 55, 0),   Qm(0x025c, 53, 56, 0),   Qm(0x01f8, 54, 57, 0),
+    Qm(0x01a4, 55, 58, 0),   Qm(0x0160, 56, 59, 0),   Qm(0x0125, 57, 60, 0),
+    Qm(0x00f6, 58, 61, 0),   Qm(0x00cb, 59, 62, 0),   Qm(0x00ab, 61, 63, 0),
+    Qm(0x008f, 61, 32, 0),   Qm(0x5b12, 65, 65, 1),   Qm(0x4d04, 80, 66, 0),
+    Qm(0x412c, 81, 67, 0),   Qm(0x37d8, 82, 68, 0),   Qm(0x2fe8, 83, 69, 0),
+    Qm(0x293c, 84, 70, 0),   Qm(0x2379, 86, 71, 0),   Qm(0x1edf, 87, 72, 0),
+    Qm(0x1aa9, 87, 73, 0),   Qm(0x174e, 72, 74, 0),   Qm(0x1424, 72, 75, 0),
+    Qm(0x119c, 74, 76, 0),   Qm(0x0f6b, 74, 77, 0),   Qm(0x0d51, 75, 78, 0),
+    Qm(0x0bb6, 77, 79, 0),   Qm(0x0a40, 77, 48, 0),   Qm(0x5832, 80, 81, 1),
+    Qm(0x4d1c, 88, 82, 0),   Qm(0x438e, 89, 83, 0),   Qm(0x3bdd, 90, 84, 0),
+    Qm(0x34ee, 91, 85, 0),   Qm(0x2eae, 92, 86, 0),   Qm(0x299a, 93, 87, 0),
+    Qm(0x2516, 86, 71, 0),   Qm(0x5570, 88, 89, 1),   Qm(0x4ca9, 95, 90, 0),
+    Qm(0x44d9, 96, 91, 0),   Qm(0x3e22, 97, 92, 0),   Qm(0x3824, 99, 93, 0),
+    Qm(0x32b4, 99, 94, 0),   Qm(0x2e17, 93, 86, 0),   Qm(0x56a8, 95, 96, 1),
+    Qm(0x4f46, 101, 97, 0),  Qm(0x47e5, 102, 98, 0),  Qm(0x41cf, 103, 99, 0),
+    Qm(0x3c3d, 104, 100, 0), Qm(0x375e, 99, 93, 0),   Qm(0x5231, 105, 102, 0),
+    Qm(0x4c0f, 106, 103, 0), Qm(0x4639, 107, 104, 0), Qm(0x415e, 103, 99, 0),
+    Qm(0x5627, 105, 106, 1), Qm(0x50e7, 108, 107, 0), Qm(0x4b85, 109, 103, 0),
+    Qm(0x5597, 110, 109, 0), Qm(0x504f, 111, 107, 0), Qm(0x5a10, 110, 111, 1),
+    Qm(0x5522, 112, 109, 0), Qm(0x59eb, 112, 111, 1), Qm(0x5a1d, 113, 113, 0)};
+constexpr uint8_t kFixedBin = 113;
+
+// The QM decoder's registers as jdarith.c keeps them: C holds the base of
+// the coding interval and the input bits not yet used, their cut floating
+// with CT. A marker met in the data is legal here (unlike Huffman data):
+// libjpeg then feeds zeros until the scan ends, and so does this reader,
+// with `p` left on the marker's 0xFF. The end of the data counts as a
+// marker (libjpeg's source inserts an EOI there).
+struct ArithReader {
+  const uint8_t* p;
+  const uint8_t* end;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: the two bytes that first fill C are still to come
+  bool marker = false;
+
+  int Byte() {
+    if (marker) return 0;
+    if (p >= end) {
+      marker = true;
+      return 0;
+    }
+    if (*p != 0xFF) return *p++;
+    const uint8_t* q = p + 1;
+    while (q < end && *q == 0xFF) ++q;  // fill bytes
+    if (q < end && *q == 0x00) {        // a stuffed zero
+      p = q + 1;
+      return 0xFF;
+    }
+    marker = true;
+    p = q - 1;
+    return 0;
+  }
+
+  // arith_decode: one binary decision with the adaptive state *st (its
+  // top bit the MPS), the state updated (sections D.2.4-D.2.6)
+  int Decode(uint8_t* st) {
+    while (a < 0x8000) {  // renormalise, reading bytes as CT runs out
+      if (--ct < 0) {
+        c = (c << 8) | Byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // C now holds 2 bytes
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int32_t qe = kQmStates[sv & 0x7F];
+    const int nl = qe & 0xFF;
+    qe >>= 8;
+    const int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional exchange: the MPS after all
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {  // conditional exchange: an LPS
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // process_restart: step over the next RSTn marker (libjpeg's
+  // read_restart_marker skips what the decoder left before it) and start
+  // the decoder afresh; the caller resets the statistics.
+  bool Restart(int expect) {
+    if (!marker) {
+      while (p + 1 < end && !(p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF))
+        ++p;
+    }
+    marker = false;
+    c = a = 0;
+    ct = -16;
+    if (p + 1 >= end || p[1] != 0xD0 + expect) return false;
+    p += 2;
+    return true;
+  }
+};
+
 struct Component {
   int id, h, v, tq;
   int dw, dh;          // downsampled width and height
@@ -430,6 +569,7 @@ struct Component {
   std::vector<uint8_t> plane;
   int dc_table = 0, ac_table = 0;
   int pred = 0;
+  int dc_context = 0;  // arithmetic DC: the statistics bin of the last diff
   // progressive files: the whole image's coefficients (jdcoefct.c's
   // whole-image buffer, MCU-padded, `stride / 8` blocks a row, 64 a block,
   // natural order), the quantiser latched at the component's first scan
@@ -442,7 +582,11 @@ struct Component {
 };
 
 struct Decoder {
-  Decoder(const uint8_t* b, size_t n) : buf(b), len(n) {}
+  Decoder(const uint8_t* b, size_t n) : buf(b), len(n) {
+    std::fill(arith_dc_l, arith_dc_l + 16, 0);
+    std::fill(arith_dc_u, arith_dc_u + 16, 1);
+    std::fill(arith_ac_k, arith_ac_k + 16, 5);
+  }
   const uint8_t* buf;
   size_t len;
   size_t pos = 0;
@@ -453,9 +597,14 @@ struct Decoder {
   int restart_interval = 0;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
-  bool frame = false, progressive = false, eoi = false;
+  bool frame = false, progressive = false, arith = false, eoi = false;
   int eobrun = 0;  // progressive AC scans: blocks left in the band's EOB run
   std::vector<Component> comps;
+  // arithmetic coding: each table's conditioning from DAC (libjpeg's
+  // defaults at SOI: L = 0, U = 1, Kx = 5) and jdarith.c's statistics bins
+  uint8_t arith_dc_l[16], arith_dc_u[16], arith_ac_k[16];
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed_bin = kFixedBin;
 
   bool U16(uint32_t* v) {
     if (pos + 2 > len) return false;
@@ -507,6 +656,23 @@ struct Decoder {
       std::memcpy(t.symbols, s + i, total);
       i += total;
       if (!t.Build()) return false;
+    }
+    return true;
+  }
+
+  // jdmarker.c get_dac: (Tc << 4 | Tb, value) pairs
+  bool ReadDAC(const uint8_t* s, size_t n) {
+    if (n % 2) return false;
+    for (size_t i = 0; i < n; i += 2) {
+      const int index = s[i], val = s[i + 1];
+      if (index >= 32) return false;
+      if (index >= 16) {
+        arith_ac_k[index - 16] = uint8_t(val);
+      } else {
+        arith_dc_l[index] = uint8_t(val & 15);
+        arith_dc_u[index] = uint8_t(val >> 4);
+        if (arith_dc_l[index] > arith_dc_u[index]) return false;
+      }
     }
     return true;
   }
@@ -638,16 +804,64 @@ struct Decoder {
     return true;
   }
 
-  bool ReadProgressiveScan(const std::vector<Component*>& sc, const uint8_t* s,
-                           int ns) {
-    const int ss = s[1 + 2 * ns], se = s[2 + 2 * ns];
-    const int ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
-    // jdphuff.c start_pass_phuff_decoder's checks: an error there
-    if (ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1)) return false;
+  // The scan's MCUs in order (one block each when the scan holds one
+  // component, else each component's h x v blocks), with a restart every
+  // `restart_interval` MCUs: restart(n) steps over RSTn and resets the
+  // entropy decoder's state, block(k, by, bx) decodes block (by, bx) of
+  // component k.
+  template <class Restart, class Blk>
+  bool WalkScan(const std::vector<Component*>& sc, Restart restart,
+                Blk block) {
+    const int ns = int(sc.size());
+    int mcux, mcuy;
+    if (ns == 1) {
+      mcux = sc[0]->wb;
+      mcuy = sc[0]->hb;
+    } else {
+      mcux = (width + 8 * hmax - 1) / (8 * hmax);
+      mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    }
+    int64_t total = int64_t(mcux) * mcuy, left = restart_interval;
+    int next_rst = 0;
+    for (int64_t m = 0; m < total; ++m) {
+      if (restart_interval) {
+        if (left == 0) {
+          if (!restart(next_rst)) return false;
+          next_rst = (next_rst + 1) & 7;
+          left = restart_interval;
+        }
+        --left;
+      }
+      int my = int(m / mcux), mx = int(m % mcux);
+      if (ns == 1) {
+        if (!block(*sc[0], my, mx)) return false;
+      } else {
+        for (Component* k : sc)
+          for (int by = 0; by < k->v; ++by)
+            for (int bx = 0; bx < k->h; ++bx)
+              if (!block(*k, my * k->v + by, mx * k->h + bx)) return false;
+      }
+    }
+    return true;
+  }
+
+  uint8_t* PlaneBlock(Component& k, int by, int bx) {
+    return k.plane.data() + size_t(by) * 8 * k.stride + bx * 8;
+  }
+
+  // A progressive scan's header, checked as jdphuff.c's and jdarith.c's
+  // start_pass check it (an error there), the quantisers latched and the
+  // components' known coefficient bits advanced.
+  bool StartProgressiveScan(const std::vector<Component*>& sc, int ss, int se,
+                            int ah, int al) {
+    if (ss == 0 ? se != 0 : (ss > se || se > 63 || sc.size() != 1))
+      return false;
     if ((ah != 0 && al != ah - 1) || al > 13) return false;
     for (Component* k : sc) {
-      if (ss == 0 && ah == 0 && !dc[k->dc_table].present) return false;
-      if (ss != 0 && !ac[k->ac_table].present) return false;
+      if (!arith) {  // a Huffman scan needs the tables its kind reads
+        if (ss == 0 && ah == 0 && !dc[k->dc_table].present) return false;
+        if (ss != 0 && !ac[k->ac_table].present) return false;
+      }
       if (!k->latched) {  // latch_quant_tables: a later DQT does not apply
         if (!has_quant[k->tq]) return false;
         std::memcpy(k->qt, quant[k->tq], sizeof(k->qt));
@@ -660,18 +874,20 @@ struct Decoder {
         if (ah != std::max(k->coef_bits[i], 0)) return false;
         k->coef_bits[i] = al;
       }
-      k->pred = 0;
     }
+    return true;
+  }
+
+  bool ReadProgressiveScan(const std::vector<Component*>& sc, int ss, int se,
+                           int ah, int al) {
     eobrun = 0;
     BitReader br{buf + pos, buf + len};
-    int mcux, mcuy;
-    if (ns == 1) {
-      mcux = sc[0]->wb;
-      mcuy = sc[0]->hb;
-    } else {
-      mcux = (width + 8 * hmax - 1) / (8 * hmax);
-      mcuy = (height + 8 * vmax - 1) / (8 * vmax);
-    }
+    auto restart = [&](int n) {
+      if (br.Overran() || !br.Restart(n)) return false;
+      for (Component* k : sc) k->pred = 0;
+      eobrun = 0;
+      return true;
+    };
     auto block = [&](Component& k, int by, int bx) {
       int16_t* b = Block(k, by, bx);
       if (ss == 0) {
@@ -682,32 +898,7 @@ struct Decoder {
       return ah == 0 ? AcFirst(br, k, b, ss, se, al)
                      : AcRefine(br, k, b, ss, se, al);
     };
-    int64_t total = int64_t(mcux) * mcuy, left = restart_interval;
-    int next_rst = 0;
-    for (int64_t m = 0; m < total; ++m) {
-      if (restart_interval) {
-        if (left == 0) {
-          if (br.Overran() || !br.Restart(next_rst)) return false;
-          next_rst = (next_rst + 1) & 7;
-          for (Component* k : sc) k->pred = 0;
-          eobrun = 0;
-          left = restart_interval;
-        }
-        --left;
-      }
-      int my = int(m / mcux), mx = int(m % mcux);
-      if (ns == 1) {
-        if (!block(*sc[0], my, mx)) return false;
-      } else {
-        for (int i = 0; i < ns; ++i) {
-          Component& k = *sc[i];
-          for (int by = 0; by < k.v; ++by)
-            for (int bx = 0; bx < k.h; ++bx)
-              if (!block(k, my * k.v + by, mx * k.h + bx)) return false;
-        }
-      }
-    }
-    if (br.Overran()) return false;
+    if (!WalkScan(sc, restart, block) || br.Overran()) return false;
     pos = size_t(br.p - buf);
     return true;
   }
@@ -733,8 +924,7 @@ struct Decoder {
     return true;
   }
 
-  bool DecodeBlock(BitReader& br, Component& k, const uint16_t* q,
-                   uint8_t* out) {
+  bool DecodeBlock(BitReader& br, Component& k, uint8_t* out) {
     int16_t coef[64] = {};
     int s = br.Decode(dc[k.dc_table]);
     if (s < 0 || s > 15) return false;
@@ -753,7 +943,154 @@ struct Decoder {
         i += 15;
       }
     }
-    IdctIslow(coef, q, out, size_t(k.stride));
+    IdctIslow(coef, k.qt, out, size_t(k.stride));
+    return true;
+  }
+
+  // ------------------------------------------ arithmetic scans (jdarith.c)
+  // A DC difference (figures F.19-F.24), its bins chosen by the component's
+  // context, which the difference's magnitude category then sets against
+  // the table's L and U; the prediction is kept modulo 2^16, as libjpeg
+  // keeps it, and stored shifted by `al`.
+  bool ArithDc(ArithReader& ar, Component& k, int16_t* blk, int al) {
+    const int tbl = k.dc_table;
+    uint8_t* st = dc_stats[tbl] + k.dc_context;
+    if (ar.Decode(st) == 0) {
+      k.dc_context = 0;
+    } else {
+      const int sign = ar.Decode(st + 1);
+      st += 2 + sign;
+      int m = ar.Decode(st);
+      if (m) {
+        st = dc_stats[tbl] + 20;
+        while (ar.Decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;  // magnitude overflow
+          ++st;
+        }
+      }
+      if (m < (1 << arith_dc_l[tbl]) >> 1)
+        k.dc_context = 0;
+      else if (m > (1 << arith_dc_u[tbl]) >> 1)
+        k.dc_context = 12 + sign * 4;
+      else
+        k.dc_context = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.Decode(st)) v |= m;
+      v += 1;
+      k.pred = (k.pred + (sign ? -v : v)) & 0xFFFF;
+    }
+    blk[0] = int16_t(uint32_t(k.pred) << al);
+    return true;
+  }
+
+  // Coefficients ss..se of a block (figure F.20): an end-of-band decision
+  // before each run of zeros, the sign at the fixed bin, the magnitude
+  // category's bins chosen by the position against the table's Kx.
+  bool ArithAcFirst(ArithReader& ar, const Component& k, int16_t* blk, int ss,
+                    int se, int al) {
+    const int tbl = k.ac_table;
+    for (int i = ss; i <= se; ++i) {
+      uint8_t* st = ac_stats[tbl] + 3 * (i - 1);
+      if (ar.Decode(st)) break;  // end of band
+      while (ar.Decode(st + 1) == 0) {
+        st += 3;
+        if (++i > se) return false;  // spectral overflow
+      }
+      const int sign = ar.Decode(&fixed_bin);
+      st += 2;
+      int m = ar.Decode(st);
+      if (m && ar.Decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (i <= arith_ac_k[tbl] ? 189 : 217);
+        while (ar.Decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;  // magnitude overflow
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.Decode(st)) v |= m;
+      v += 1;
+      blk[kNatural[i]] = int16_t(uint32_t(sign ? -v : v) << al);
+    }
+    return true;
+  }
+
+  // A refinement of coefficients ss..se: no end-of-band decision up to the
+  // last coefficient an earlier scan made nonzero; a correction bit for
+  // each nonzero one, a newly nonzero one at +-2^al.
+  bool ArithAcRefine(ArithReader& ar, const Component& k, int16_t* blk,
+                     int ss, int se, int al) {
+    const int tbl = k.ac_table;
+    const int p1 = 1 << al, m1 = -p1;
+    int kex = se;
+    while (kex > 0 && blk[kNatural[kex]] == 0) --kex;
+    for (int i = ss; i <= se; ++i) {
+      uint8_t* st = ac_stats[tbl] + 3 * (i - 1);
+      if (i > kex && ar.Decode(st)) break;  // end of band
+      for (;;) {
+        int16_t* c = blk + kNatural[i];
+        if (*c) {
+          if (ar.Decode(st + 2)) *c = int16_t(*c + (*c < 0 ? m1 : p1));
+          break;
+        }
+        if (ar.Decode(st + 1)) {
+          *c = int16_t(ar.Decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++i > se) return false;  // spectral overflow
+      }
+    }
+    return true;
+  }
+
+  // One arithmetic-coded scan, sequential (each block whole, then its
+  // IDCT) or progressive (into the coefficient buffer). The statistics of
+  // the tables the scan reads start at zero, and again at each restart.
+  bool ReadArithScan(const std::vector<Component*>& sc, int ss, int se,
+                     int ah, int al) {
+    const bool dc_bins = !progressive || (ss == 0 && ah == 0);
+    const bool ac_bins = !progressive || ss != 0;
+    auto reset = [&] {
+      for (Component* k : sc) {
+        if (dc_bins) {
+          std::memset(dc_stats[k->dc_table], 0, sizeof(dc_stats[0]));
+          k->pred = 0;
+          k->dc_context = 0;
+        }
+        if (ac_bins) std::memset(ac_stats[k->ac_table], 0, sizeof(ac_stats[0]));
+      }
+    };
+    reset();
+    ArithReader ar{buf + pos, buf + len};
+    auto restart = [&](int n) {
+      if (!ar.Restart(n)) return false;
+      reset();
+      return true;
+    };
+    auto block = [&](Component& k, int by, int bx) {
+      if (!progressive) {
+        int16_t coef[64] = {};
+        if (!ArithDc(ar, k, coef, 0) || !ArithAcFirst(ar, k, coef, 1, 63, 0))
+          return false;
+        IdctIslow(coef, k.qt, PlaneBlock(k, by, bx), size_t(k.stride));
+        return true;
+      }
+      int16_t* b = Block(k, by, bx);
+      if (ss == 0) {
+        if (ah == 0) return ArithDc(ar, k, b, al);
+        if (ar.Decode(&fixed_bin)) b[0] = int16_t(b[0] | (1 << al));
+        return true;
+      }
+      return ah == 0 ? ArithAcFirst(ar, k, b, ss, se, al)
+                     : ArithAcRefine(ar, k, b, ss, se, al);
+    };
+    if (!WalkScan(sc, restart, block)) return false;
+    pos = size_t(ar.p - buf);
     return true;
   }
 
@@ -770,57 +1107,33 @@ struct Decoder {
       if (!k) return false;
       k->dc_table = s[2 + 2 * i] >> 4;
       k->ac_table = s[2 + 2 * i] & 15;
-      if (k->dc_table > 3 || k->ac_table > 3) return false;
-      // a progressive scan needs only the tables its kind reads
-      if (!progressive && (!dc[k->dc_table].present ||
-                           !ac[k->ac_table].present || !has_quant[k->tq]))
-        return false;
+      // Huffman tables 0-3 (jdhuff.c); arithmetic ones 0-15 (jdarith.c)
+      if (!arith && (k->dc_table > 3 || k->ac_table > 3)) return false;
+      if (!progressive) {
+        if (!has_quant[k->tq]) return false;
+        if (!arith &&
+            (!dc[k->dc_table].present || !ac[k->ac_table].present))
+          return false;
+        std::memcpy(k->qt, quant[k->tq], sizeof(k->qt));
+      }
       k->pred = 0;
       sc.push_back(k);
     }
-    if (progressive) return ReadProgressiveScan(sc, s, ns);
-    uint16_t q[4][64];
-    for (int i = 0; i < ns; ++i)
-      std::memcpy(q[i], quant[sc[i]->tq], sizeof(q[i]));
+    const int ss = s[1 + 2 * ns], se = s[2 + 2 * ns];
+    const int ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
+    if (progressive && !StartProgressiveScan(sc, ss, se, ah, al)) return false;
+    if (arith) return ReadArithScan(sc, ss, se, ah, al);
+    if (progressive) return ReadProgressiveScan(sc, ss, se, ah, al);
     BitReader br{buf + pos, buf + len};
-    int mcux, mcuy;
-    if (ns == 1) {
-      mcux = sc[0]->wb;
-      mcuy = sc[0]->hb;
-    } else {
-      mcux = (width + 8 * hmax - 1) / (8 * hmax);
-      mcuy = (height + 8 * vmax - 1) / (8 * vmax);
-    }
-    int64_t total = int64_t(mcux) * mcuy, left = restart_interval;
-    int next_rst = 0;
-    for (int64_t m = 0; m < total; ++m) {
-      if (restart_interval) {
-        if (left == 0) {
-          if (!br.Restart(next_rst)) return false;
-          next_rst = (next_rst + 1) & 7;
-          for (Component* k : sc) k->pred = 0;
-          left = restart_interval;
-        }
-        --left;
-      }
-      int my = int(m / mcux), mx = int(m % mcux);
-      if (ns == 1) {
-        Component& k = *sc[0];
-        uint8_t* out = k.plane.data() + size_t(my) * 8 * k.stride + mx * 8;
-        if (!DecodeBlock(br, k, q[0], out)) return false;
-      } else {
-        for (int i = 0; i < ns; ++i) {
-          Component& k = *sc[i];
-          for (int by = 0; by < k.v; ++by)
-            for (int bx = 0; bx < k.h; ++bx) {
-              uint8_t* out = k.plane.data() +
-                             size_t(my * k.v + by) * 8 * k.stride +
-                             (mx * k.h + bx) * 8;
-              if (!DecodeBlock(br, k, q[i], out)) return false;
-            }
-        }
-      }
-    }
+    auto restart = [&](int m) {
+      if (!br.Restart(m)) return false;
+      for (Component* k : sc) k->pred = 0;
+      return true;
+    };
+    auto block = [&](Component& k, int by, int bx) {
+      return DecodeBlock(br, k, PlaneBlock(k, by, bx));
+    };
+    if (!WalkScan(sc, restart, block)) return false;
     pos = size_t(br.p - buf);
     return true;
   }
@@ -854,8 +1167,14 @@ struct Decoder {
         case 0xC0:
         case 0xC1:
         case 0xC2:  // progressive, Huffman
-          progressive = m == 0xC2;
+        case 0xC9:  // sequential, arithmetic
+        case 0xCA:  // progressive, arithmetic
+          progressive = m == 0xC2 || m == 0xCA;
+          arith = m == 0xC9 || m == 0xCA;
           if (!ReadSOF(s, n)) return false;
+          break;
+        case 0xCC:
+          if (!ReadDAC(s, n)) return false;
           break;
         case 0xC4:
           if (!ReadDHT(s, n)) return false;
@@ -881,9 +1200,10 @@ struct Decoder {
           }
           break;
         default:
-          // lossless, arithmetic coding, hierarchical: refused
-          if ((m >= 0xC2 && m <= 0xCF && m != 0xC4 && m != 0xC8 &&
-               m != 0xCC) || m == 0xDC)
+          // lossless (SOF3, SOF11) and hierarchical (SOF5-7, SOF13-15)
+          // frames and JPG, which libjpeg refuses, and DNL: refused
+          if ((m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xCC) ||
+              m == 0xDC)
             return false;
           break;
       }

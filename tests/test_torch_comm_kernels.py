@@ -602,3 +602,176 @@ def test_dequant_sum_int8_paths_match_plain_on_card(cuda_device, rows, length,
                                       chunk)
     _same(got.cpu(), want.numpy(), f"path {tck.dequant_sum_int8_load_bytes(qc)}")
     _same(got, again, "repeat")
+
+
+# --------------------------------------------------------------------------
+# quant_int8's two forms and dequant_int8's load paths
+# --------------------------------------------------------------------------
+
+def _offset_rows(x, offset_elems, device="cpu"):
+    """``x`` copied into a view of a fresh flat f32 buffer that starts
+    ``offset_elems`` floats past a 16-byte boundary, as a bucket view into
+    the flat gradient buffer may start."""
+    x = torch.as_tensor(x)
+    buf = torch.empty(x.numel() + 8, dtype=torch.float32, device=device)
+    start = (-buf.data_ptr() // 4) % 4 + offset_elems
+    view = buf[start:start + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+# (shape, chunk, offset in floats): one 4 MB bucket of the overlapped
+# exchange over two ranks, the same bucket 4 bytes off 16-byte alignment,
+# the odd chunk 12 off alignment, and the largest chunk of the first form
+INT8_FORM_CASES = [((2, 1 << 19), 256, 0), ((2, 1 << 19), 256, 1),
+                   ((3, 1200), 12, 1), ((2, 4096), 1024, 0)]
+
+
+@pytest.mark.parametrize("shape,chunk,offset", INT8_FORM_CASES)
+def test_plain_int8_matches_jax_kernel_at_bucket_and_views(shape, chunk,
+                                                           offset):
+    """The plain ``quant_int8`` (codes, scales, round trip and both errors)
+    and ``dequant_int8`` against the JAX package's Pallas kernels in
+    interpret mode, jitted, on the same rows, NaN and inf chunks included,
+    with the port's rows at the view the bucket would be."""
+    js, ts = _specs("int8", chunk)
+    x = _rows(shape, chunk, seed=shape[-1] + chunk + offset)
+
+    @jax.jit
+    def ref(v):
+        p, dq = jck.fused_quantize(js, v, want_dequant=True)
+        return p, dq, v - dq, jck.fused_dequant(js, p)
+
+    # more than one grid step: JAX's error is the rounded product
+    # subtracted, the port's "sub"
+    jp, jdq, jerr, jdec = ref(x)
+    rows = _offset_rows(x, offset)
+    assert rows.data_ptr() % 16 == 4 * offset
+    assert tck.quant_int8_form(rows, chunk) == \
+        ("chunked" if offset == 0 and chunk % 128 == 0 else "general")
+    q, scale, dq, _ = tck.quant_int8(rows, chunk, want_dq=True)
+    _same(q, jp["q"], "q")
+    _same(scale, jp["scale"], "scale")
+    _same(dq, jdq, "dq")
+    _same(tck.quant_int8(rows, chunk, err="sub")[3], jerr, "err sub")
+    _same(tck.quant_int8(rows, chunk, err="fma")[3],
+          tck.quant_int8_plain(torch.from_numpy(x.reshape(-1, shape[-1])),
+                               chunk, False, "fma")[3].numpy(), "err fma")
+    codes = torch.from_numpy(np.array(jp["q"]))
+    qview = _offset_codes(*shape, 4 * offset, seed=0)
+    qview.copy_(codes)
+    _same(tck.dequant_int8(qview, scale, chunk), jdec, "dequant_int8")
+
+
+@pytest.mark.parametrize("chunk,offset,want", [
+    (256, 0, "chunked"), (128, 0, "chunked"), (1024, 0, "chunked"),
+    (640, 0, "chunked"), (256, 1, "general"), (256, 2, "general"),
+    (64, 0, "general"), (12, 0, "general"), (1152, 0, "general")])
+def test_quant_int8_picks_its_form(chunk, offset, want):
+    rows = _offset_rows(torch.zeros(2, 2304), offset)
+    assert tck.quant_int8_form(rows, chunk) == want
+
+
+@pytest.mark.parametrize("shape,offset,want", [
+    ((2, 4096), 0, 16), ((2, 4096), 16, 16), ((3, 1200), 0, 16),
+    ((1, 20), 0, 4), ((2, 4096), 4, 4), ((2, 4096), 1, 1), ((5, 12), 3, 1)])
+def test_dequant_int8_picks_its_load_path(shape, offset, want):
+    """16 bytes where the flat codes are a multiple of 16 and aligned (a
+    row length that is not a multiple of 16 is fine: the kernel runs over
+    the flat codes), else a char4 or single bytes."""
+    q = _offset_codes(*shape, offset, seed=0)
+    assert tck.dequant_int8_load_bytes(q) == want
+
+
+def test_fused_quantize_error_rounding_overrides_the_grid_rule():
+    """``error_rounding`` sets the error's rounding whatever the rows: the
+    stage-1 error of the exchange is ``rows - dq1`` also for one row in one
+    block, where the default takes the contracted form."""
+    _, ts = _specs("int8", 4)
+    x = torch.from_numpy(_rows((1, 64), 4, seed=9, specials=False))
+    p, dq = tck.fused_quantize(ts, x, want_dequant=True)
+    for rounding, want in (("sub", x - dq), ("fma", None)):
+        _, none, err = tck.fused_quantize(ts, x, want_error=True,
+                                          error_rounding=rounding)
+        assert none is None
+        if want is None:
+            want = tck.quant_int8_plain(x, 4, False, "fma")[3]
+            _same(err, tck.fused_quantize(ts, x, want_error=True)[2].numpy(),
+                  "the one-block default")
+        _same(err, want.numpy(), rounding)
+
+
+# the card: every form of both kernels, bitwise their plain versions
+QUANT_FORM_CARD_CASES = (
+    [((2, (1 << 19) // c * c), c, 0)
+     for c in (128, 256, 384, 512, 640, 768, 896, 1024)]
+    + [((2, 1 << 19), 256, 1), ((2, 1 << 19), 1024, 3), ((3, 1200), 12, 0),
+       ((3, 1200), 12, 1), ((4, 2048), 64, 0), ((1, 256), 256, 0)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk,offset", QUANT_FORM_CARD_CASES)
+def test_quant_int8_forms_match_plain_on_card(cuda_device, shape, chunk,
+                                              offset):
+    x = _rows(shape, chunk, seed=chunk + offset)
+    rows = _offset_rows(x, offset, device=cuda_device)
+    form = tck.quant_int8_form(rows, chunk)
+    assert form == ("chunked" if offset == 0 and chunk % 128 == 0
+                    else "general")
+    before = tck.quant_int8.launches
+    for want_dq, rounding in ((True, None), (False, "sub"), (True, "fma")):
+        got = tck.quant_int8(rows, chunk, want_dq, rounding)
+        want = tck.quant_int8_plain(rows.cpu(), chunk, want_dq, rounding)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("q", "scale", "dq", "err"), got, want):
+            assert (g is None) == (w is None), name
+            if g is not None:
+                _same(g.cpu(), w.numpy(), f"{form} {name} {rounding}")
+    assert tck.quant_int8.launches == before + 3
+
+
+DEQUANT_FORM_CARD_CASES = [((2, 1 << 19), 256, 0), ((2, 1 << 19), 256, 4),
+                           ((2, 1 << 19), 256, 1), ((3, 1200), 12, 0),
+                           ((1, 20), 4, 0), ((5, 12), 4, 3), ((2, 4096), 1024, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk,offset", DEQUANT_FORM_CARD_CASES)
+def test_dequant_int8_paths_match_plain_on_card(cuda_device, shape, chunk,
+                                                offset):
+    """Codes 0, 4 or 1 bytes past a 16-byte boundary (16-byte, char4 and
+    byte loads), flat counts that are and are not multiples of 16, scales
+    with a NaN, an inf and a zero chunk."""
+    qc = _offset_codes(*shape, offset, seed=offset + chunk,
+                       device=cuda_device)
+    rng = np.random.RandomState(chunk)
+    scale = np.exp(rng.uniform(-6, 6, (shape[0], shape[1] // chunk))).astype(
+        np.float32)
+    scale.flat[0] = np.nan
+    scale.flat[-1] = np.inf
+    scale.flat[len(scale.flat) // 2] = 0.0
+    sc = torch.from_numpy(scale).to(cuda_device)
+    before = tck.dequant_int8.launches
+    got = tck.dequant_int8(qc, sc, chunk)
+    again = tck.dequant_int8(qc, sc, chunk)
+    torch.cuda.synchronize()
+    assert tck.dequant_int8.launches == before + 2
+    want = tck.dequant_int8_plain(qc.cpu(), torch.from_numpy(scale), chunk)
+    _same(got.cpu(), want.numpy(),
+          f"load bytes {tck.dequant_int8_load_bytes(qc)}")
+    _same(got, again, "repeat")
+
+
+@pytest.mark.cuda
+def test_dequant_int8_64bit_indices_on_card(cuda_device):
+    """Past 2^30 codes the kernel takes 64-bit indices: 2^30 + 4096 codes
+    of chunk 256, against the plain version on the card."""
+    n = (1 << 30) + 4096
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randint(-127, 128, (1, n), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    scale = torch.rand((1, n // 256), generator=gen, device=cuda_device)
+    got = tck.dequant_int8(q, scale, 256)
+    want = tck.dequant_int8_plain(q, scale, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

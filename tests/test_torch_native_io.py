@@ -9,7 +9,8 @@ mirror, scale, size, contrast and illumination, shuffle, pads, label
 vectors), ``ImageRecordIter``'s native route against the JAX package's
 ``MXNET_TPU_NATIVE_IO=1`` route, and the codec itself against PIL (which
 links libjpeg-turbo) over subsamplings, qualities, restart intervals,
-optimised Huffman tables and gray images. Randomness is on only with one
+optimised Huffman tables and gray images, progressive files, and the
+arithmetic-coded files that ``torch_arith_jpeg.py`` carries. Randomness is on only with one
 worker thread: with more, which worker's stream serves which batch is a
 race, in both packages alike.
 """
@@ -18,6 +19,8 @@ import io
 import os
 import subprocess
 import sys
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -31,6 +34,7 @@ from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch import io as tio
 from mxnet_tpu_torch import native as tnative
 from mxnet_tpu_torch import recordio as trio
+import torch_arith_jpeg as arith
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -399,9 +403,16 @@ def test_codec_refuses_what_it_does_not_take():
     lossless, twelve = bytearray(baseline), bytearray(baseline)
     lossless[sof + 1] = 0xC3
     twelve[sof + 4] = 12
+    # and their arithmetic-coded kin: lossless (SOF11), hierarchical
+    # (SOF13) and 12-bit SOF9 frames
+    sof9 = arith.arith_jpegs()["sof9_420"]
+    at = sof9.index(b"\xff\xc9")
+    arith_bad = [sof9[:at + 1] + bytes([m]) + sof9[at + 2:]
+                 for m in (0xCB, 0xCD)]
+    arith_bad.append(sof9[:at + 4] + bytes([12]) + sof9[at + 5:])
     for data in (progressive[:len(progressive) // 2], progressive[:-2],
                  b"\xff\xd8\xff\xd9", bytes(baseline[:40]), buf.getvalue(),
-                 bytes(lossless), bytes(twelve)):
+                 bytes(lossless), bytes(twelve), *arith_bad):
         with pytest.raises(MXNetError, match="does not take"):
             tnative.decode_jpeg(data)
 
@@ -522,3 +533,94 @@ def test_image_record_iter_keeps_native_route_over_progressive(
                 np.testing.assert_array_equal(
                     g.data[0][j].numpy(),
                     img[y:y + 24, x:x + 24].transpose(2, 0, 1))
+
+
+# --------------------------------------------------------------------------
+# arithmetic-coded JPEG (SOF9, SOF10): files carried in torch_arith_jpeg.py
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(arith.SOURCES))
+def test_codec_decodes_arithmetic_like_libjpeg(name):
+    """Each carried file (sequential and progressive, 4:2:0 and gray, with
+    restarts, with non-default DAC conditioning) decodes to libjpeg's
+    pixels, PIL's ``convert("RGB")``, bit for bit; the pixels are also
+    those whose digest the module carries."""
+    data = arith.arith_jpegs()[name]
+    assert (b"\xff\xc9" if name.startswith("sof9_") else b"\xff\xca") \
+        in data
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    got = tnative.decode_jpeg(data)
+    assert got.shape == arith.SHAPE
+    np.testing.assert_array_equal(got, want)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == \
+        arith.PIXEL_SHA256[name]
+
+
+@pytest.mark.parametrize("name", ["sof9_420", "sof9_gray", "sof9_420_dac"])
+def test_codec_takes_libjpeg_defaults_without_dac(name):
+    """Without its DAC segment a file is decoded with libjpeg's defaults
+    (L = 0, U = 1, Kx = 5), as libjpeg decodes it: the same pixels where
+    the file was written with those values, and other pixels, alike in
+    both, where it was written with L = 2, U = 6, Kx = 12."""
+    data = arith.arith_jpegs()[name]
+    stripped = arith.strip_dac(data)
+    assert b"\xff\xcc" in data and b"\xff\xcc" not in stripped
+    want = np.asarray(Image.open(io.BytesIO(stripped)).convert("RGB"))
+    got = tnative.decode_jpeg(stripped)
+    np.testing.assert_array_equal(got, want)
+    same = np.array_equal(got, tnative.decode_jpeg(data))
+    assert same == (name != "sof9_420_dac")
+
+
+def test_codec_meets_markers_in_arithmetic_data():
+    """libjpeg's encoder drops the trailing zero bytes of an arithmetic
+    scan, so the decoder reads into the next marker and feeds zeros, as
+    libjpeg does: a file padded with fill bytes (0xFF) before its markers
+    and one with an extra APP segment between its scans decode alike."""
+    data = arith.arith_jpegs()["sof10_420"]
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    cut = _segments_end(data, b"\xff\xda")
+    app = b"\xff\xe5\x00\x06note"
+    for variant in (data[:cut] + b"\xff\xff\xff" + data[cut:],
+                    data[:cut] + app + data[cut:]):
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(io.BytesIO(variant)).convert("RGB")), want)
+        np.testing.assert_array_equal(tnative.decode_jpeg(variant), want)
+
+
+def test_image_record_iter_keeps_native_route_over_arithmetic(
+        reference_lib, tmp_path, monkeypatch):
+    """A shard that mixes Huffman records (baseline and progressive, PIL's)
+    with the carried arithmetic ones, from the second batch on: the port's
+    ``ImageRecordIter`` stays on the native route through two epochs, and
+    its batches equal the JAX package's libjpeg route's bitwise, also with
+    a resize, a mean and a scale."""
+    monkeypatch.setenv("MXNET_TPU_NATIVE_IO", "1")
+    rng = np.random.RandomState(21)
+    arith_files = [v for _, v in sorted(arith.arith_jpegs().items())]
+    path = str(tmp_path / "arith.rec")
+    with jrio.MXRecordIO(path, "w") as w:
+        for i in range(14):
+            if i >= 4 and i % 2 == 0:
+                data = arith_files[(i // 2 - 2) % len(arith_files)]
+            else:
+                img = _image(rng, rng.randint(30, 61), rng.randint(30, 61),
+                             "smooth")
+                data = _pil_jpeg(img, quality=90, progressive=i % 3 == 0)
+            w.write(jrio.pack(jrio.IRHeader(0, float(i), i, 0), data))
+    for kw in (dict(output_dtype="uint8"),
+               dict(resize=32, mean_r=120.5, mean_g=110.0, mean_b=99.25,
+                    scale=1 / 64)):
+        args = dict(path_imgrec=path, data_shape=(3, 24, 24), batch_size=4,
+                    **kw)
+        ref, got = jio.ImageRecordIter(**args), tio.ImageRecordIter(**args)
+        assert ref._native is not None and got._native is not None
+        for _ in range(2):
+            rb, gb = list(ref), list(got)
+            assert len(rb) == len(gb) == 4 and got._native is not None
+            for r, g in zip(rb, gb):
+                assert r.pad == g.pad
+                np.testing.assert_array_equal(r.data[0].asnumpy(),
+                                              g.data[0].numpy())
+                np.testing.assert_array_equal(r.label[0].asnumpy(),
+                                              g.label[0].numpy())
