@@ -216,9 +216,15 @@ together), and then:
    boundary), ``quant_int8``'s two forms (every chunk of its first form at
    one 4 MB bucket's shape, rows cut to a multiple of the chunk; the bucket
    4 bytes off 16-byte alignment and chunk 12 in its general form) and ``dequant_int8``'s three load widths,
-   checks that two launches agree bitwise,
+   the forms ``quant_twobit`` (q, dq and the stage-1 error) and
+   ``dequant_sum_twobit`` pick (TWOBIT_FORM_CASES: a 4 MB bucket,
+   ResNet-50's gradient with its odd row of code bytes, dp_overlap's
+   odd-B bucket, rows 0, 8 and 1 floats off a 16-byte boundary, codes 0,
+   8, 1 and 3 bytes off, tails; every output poisoned first), checks that
+   two launches agree bitwise,
    and times each at the two-rank exchange's shapes beside its bound, its
-   plain version and the codec path's torch composition;
+   plain version and the codec path's torch composition (``quant_twobit``
+   with its error, as the exchange runs it);
 10. dp_train: two rank processes (spawn, gloo through pinned host buffers)
    share the card and train the full-width ResNet-50 (batch 32 a rank) for
    8 steps through ``FeedForward(ctx=gpu(0), optimizer="adam",
@@ -244,7 +250,11 @@ together), and then:
    exchange alone (the ranks share the card: overlap's gain cannot show);
    the comm kernels are also timed at one bucket's shape (1,048,576
    elements over 2 ranks) after phase comm_kernels, beside an empty
-   launch (``torch.cuda._sleep(0)``) timed alike, the launch floor;
+   launch (``torch.cuda._sleep(0)``) timed alike, the launch floor; the
+   twobit kernels in the forms their wrappers pick at TWOBIT_SHAPES; and
+   the stage-1 ``quant_twobit`` of all 31 buckets back to back between
+   one event pair, beside 31 empty launches timed alike and each bucket
+   alone;
 10b. dp_async: ResNet-50 (batch 32, f32, SGD) through
    ``fit(kvstore="dist_async")``: one worker, whose final weights must be
    bitwise the host's updates replayed over the gradients it pushed; the
@@ -485,6 +495,23 @@ INT8_FORM_CASES = (
     [((2, BUCKET_ELEMS // 2 // c * c), c, 0) for c in range(128, 1025, 128)]
     + [((2, BUCKET_ELEMS // 2), COMM_CHUNK, 1), ((3, 1212), 12, 0),
        ((3, 1212), 12, 3)])
+# quant_twobit's two forms and dequant_sum_twobit's two load widths. The
+# three shapes they are timed at: one 4 MB bucket,
+# ResNet-50's gradient over two ranks (25,557,032 is a multiple of the
+# twobit unit times the ranks: a row of 3,194,629 code bytes, odd) and
+# dp_overlap's one bucket with an odd B (5,096 elements: B = 637)
+TWOBIT_SHAPES = {"4 MB bucket": (2, BUCKET_ELEMS // 2),
+                 "ResNet-50 gradient": (2, RESNET50_GRAD // 2),
+                 "odd-B bucket": (2, 2548)}
+# parity: those shapes with rows 0, 8 and 1 floats past a 16-byte boundary
+# (a bucket view starts at a multiple of 8), and tails of 4, 8 and 12
+# elements past a multiple of 16
+TWOBIT_FORM_CASES = (
+    [(shape, off) for shape in TWOBIT_SHAPES.values() for off in (0, 8, 1)]
+    + [((1, 16 * k + t), 0) for k in (0, 33) for t in (4, 8, 12)])
+# the stream's hold before a timed series of 31 launches: long enough for
+# the host to queue them all
+SERIES_SPIN = 40_000_000
 # dp_async: ResNet-50 at batch 32, f32, through fit(kvstore="dist_async"):
 # one worker (SGD; its weights replayed on the host), two workers sharing
 # the card (int8 pushes), one worker in stale sync (overlap=True)
@@ -1557,7 +1584,8 @@ def comm_timed(torch, ck, comm, spec, x):
     stage-1 quantize, the reduce-scatter's decode and sum, the gather's
     decode), each as ``(kernel, plain, codec, inputs, outputs)`` to time,
     with the payload, its decode round trip, the summed shard and the
-    decoded payload."""
+    decoded payload. twobit's quantize writes its error, as the exchange
+    runs it."""
     from mxnet_tpu_torch.comm.allreduce import _row_sum
 
     payload, dq = ck.fused_quantize(spec, x, want_dequant=True)
@@ -1584,12 +1612,13 @@ def comm_timed(torch, ck, comm, spec, x):
         }
     else:
         q, t = payload["q"], spec.threshold
+        err = ck.quant_twobit(x, t, want_err=True)[2]
         timed = {
             "quant_twobit": (
-                lambda: ck.quant_twobit(x, t, True),
-                lambda: ck.quant_twobit_plain(x, t, True),
-                lambda: comm.decode(spec, comm.encode(spec, x)),
-                [x], [q, dq]),
+                lambda: ck.quant_twobit(x, t, want_err=True),
+                lambda: ck.quant_twobit_plain(x, t, False, True),
+                lambda: x - comm.decode(spec, comm.encode(spec, x)),
+                [x], [q, err]),
             "dequant_sum_twobit": (
                 lambda: ck.dequant_sum_twobit(q, t),
                 lambda: ck.dequant_sum_twobit_plain(q, t),
@@ -1602,6 +1631,88 @@ def comm_timed(torch, ck, comm, spec, x):
                 [q], [decoded]),
         }
     return timed, payload, dq, shard, decoded
+
+
+def kernel_form(ck, name, operand):
+    """The form a comm kernel's wrapper picks for ``operand``."""
+    if name == "quant_int8":
+        return {"kernel_form": ck.quant_int8_form(operand, COMM_CHUNK)}
+    if name == "quant_twobit":
+        return {"kernel_form": ck.quant_twobit_form(operand),
+                "outputs": "q, err"}
+    if name == "dequant_int8":
+        return {"load_bytes": ck.dequant_int8_load_bytes(operand)}
+    if name == "dequant_sum_int8":
+        return {"load_bytes": ck.dequant_sum_int8_load_bytes(operand)}
+    if name == "dequant_sum_twobit":
+        return {"load_bytes": ck.dequant_sum_twobit_load_bytes(operand)}
+    return {}
+
+
+def poison(torch, *specs):
+    """Fill, then free, blocks of the caching allocator of the sizes and
+    types of the outputs to come, so that their tensors start as 0xff
+    bytes: a store a kernel misses then reads code 3 or a NaN."""
+    held = [torch.empty(shape, dtype=dtype, device="cuda").view(torch.uint8)
+            .fill_(255) for shape, dtype in specs]
+    torch.cuda.synchronize()
+    del held
+
+
+def twobit_form_parity(torch, ck, gen):
+    """quant_twobit (q, dq and err) and dequant_sum_twobit, in the forms
+    their wrappers pick, bitwise their plain versions at TWOBIT_FORM_CASES:
+    rows 0, 8 or 1 floats past a 16-byte boundary, and the codes 0, 8, 1
+    and 3 bytes past one; every output poisoned first."""
+    t = 0.5
+    for shape, offset in TWOBIT_FORM_CASES:
+        n = shape[0] * shape[1]
+        buf = torch.empty(n + 8, device="cuda")
+        start = (-buf.data_ptr() // 4) % 4 + offset
+        rows = buf[start:start + n].view(shape)
+        rows.copy_(comm_rows(torch, gen, shape, COMM_CHUNK,
+                             specials=n >= 5 * COMM_CHUNK))
+        form = ck.quant_twobit_form(rows)
+        require(form == ("vector" if offset % 4 == 0
+                         and n >= ck.QUANT_TWOBIT_VECTOR_MIN else "scalar"),
+                f"quant_twobit {list(shape)} offset {offset}: form {form}")
+        plain = ck.quant_twobit_plain(rows, t, True, True)
+        poison(torch, ((n // 4,), torch.uint8), ((n,), torch.float32),
+               ((n,), torch.float32))
+        got = ck.quant_twobit(rows, t, True, True)
+        torch.cuda.synchronize()
+        require(all(bits_equal(torch, a, b) for a, b in zip(got, plain)),
+                f"quant_twobit ({form}) {list(shape)} offset {offset}: "
+                "kernel differs from its plain version")
+        q = plain[0]
+        loads = []
+        for qoff in (0, 8, 1, 3):
+            qbuf = torch.empty(q.numel() + 48, dtype=torch.uint8,
+                               device="cuda")
+            qs = (-qbuf.data_ptr()) % 16 + qoff
+            qv = qbuf[qs:qs + q.numel()].view(q.shape)
+            qv.copy_(q)
+            want = ck.dequant_sum_twobit_plain(qv, t)
+            load = ck.dequant_sum_twobit_load_bytes(qv)
+            require(load == (4 if q.shape[1] >= ck.DQSUM_TWOBIT_FOUR_MIN
+                             else 1),
+                    f"dequant_sum_twobit {list(q.shape)}: {load} bytes")
+            poison(torch, ((4 * q.shape[1],), torch.float32))
+            got = ck.dequant_sum_twobit(qv, t)
+            torch.cuda.synchronize()
+            require(bits_equal(torch, got, want),
+                    f"dequant_sum_twobit ({load} bytes) {list(q.shape)} "
+                    f"codes {qoff} bytes off: kernel differs from its plain "
+                    "version")
+            loads.append(load)
+        emit({"phase": "comm_parity",
+              "name": "quant_twobit, dequant_sum_twobit",
+              "shape": list(shape), "offset_bytes": 4 * offset,
+              "quant_twobit_form": form, "outputs": "q, dq, err",
+              "dequant_sum_twobit_code_offsets": [0, 8, 1, 3],
+              "dequant_sum_twobit_load_bytes": loads,
+              "bitwise_equal_plain": True})
+        del buf, rows, plain, got, q, qbuf, qv, want
 
 
 def time_kernel_row(torch, registry, name, kernel, plain, codec, ins, outs,
@@ -1650,8 +1761,12 @@ def phase_comm_kernels(torch, ck, comm, registry):
                            ck.dequant_int8_plain(kp["q"], kp["scale"], chunk))
                 names = ("quant_int8", "dequant_sum_int8", "dequant_int8")
             else:
-                plain = ck.quant_twobit_plain(rows, spec.threshold, True)
-                got = (kp["q"], dq.reshape(rows.shape))
+                plain = ck.quant_twobit_plain(rows, spec.threshold, True,
+                                              True)
+                # the stage-1 error the exchange takes from the kernel
+                got = (kp["q"], dq.reshape(rows.shape),
+                       ck.quant_twobit(rows, spec.threshold,
+                                       want_err=True)[2])
                 summed = (ck.dequant_sum_twobit(kp["q"], spec.threshold),
                           ck.dequant_sum_twobit_plain(kp["q"], spec.threshold))
                 decoded = (ck.dequant_twobit(kp["q"], spec.threshold),
@@ -1745,6 +1860,7 @@ def phase_comm_kernels(torch, ck, comm, registry):
               "dequant_int8_load_bytes": loads, "nan_inf_chunks": True,
               "bitwise_equal_plain": True})
         del buf, rows, got, plain, q, scale, qbuf, qv, decoded
+    twobit_form_parity(torch, ck, gen)
     phase_launches = {k.__name__: k.launches for k in ck.KERNELS}
 
     # times at the main path's shapes: ResNet-50's padded gradient, two ranks
@@ -1758,6 +1874,7 @@ def phase_comm_kernels(torch, ck, comm, registry):
         for name, (kernel, plain, codec, ins, outs) in timed.items():
             rows[name], cost = time_kernel_row(torch, registry, name, kernel,
                                                plain, codec, ins, outs)
+            rows[name].update(kernel_form(ck, name, ins[0]))
             emit({"phase": "kernel", "name": name,
                   "shapes": [list(t.shape) for t in ins],
                   "bytes": cost.bytes, "ops": cost.flops, **rows[name],
@@ -1788,7 +1905,9 @@ def phase_comm_kernels(torch, ck, comm, registry):
 def comm_bucket_rows(torch, ck, comm, registry):
     """Rows 3-7 (the kernels of the overlapped exchange) at one 4 MB
     bucket's two-rank shapes: 1,048,576 f32 elements, two rows of
-    524,288; timed as phase comm_kernels times them."""
+    524,288; timed as phase comm_kernels times them. Then the twobit
+    kernels in each of their forms at TWOBIT_SHAPES, and the 31 stage-1
+    quantizes of dp_overlap's buckets as one series."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     # the launch floor: an empty kernel timed as time_ms times a kernel
     floor_ms = time_ms(torch, lambda: torch.cuda._sleep(0))
@@ -1806,16 +1925,117 @@ def comm_bucket_rows(torch, ck, comm, registry):
             rows[name], cost = time_kernel_row(torch, registry, name, kernel,
                                                plain, codec, ins, outs)
             rows[name]["launch_floor_ms"] = floor_ms
-            if name == "quant_int8":
-                rows[name]["kernel_form"] = ck.quant_int8_form(x, COMM_CHUNK)
-            if name == "dequant_int8":
-                rows[name]["load_bytes"] = ck.dequant_int8_load_bytes(ins[0])
+            rows[name].update(kernel_form(ck, name, ins[0]))
             emit({"phase": "kernel", "name": name, "form": "4 MB bucket",
                   "shapes": [list(t.shape) for t in ins],
                   "bytes": cost.bytes, "ops": cost.flops, **rows[name],
                   "library": "the codec path's torch composition"})
         del x, timed
+    forms = twobit_form_rows(torch, ck, comm, registry, floor_ms)
+    for name in ("quant_twobit", "dequant_sum_twobit"):
+        rows[name]["forms_by_shape"] = [r for r in forms if r["name"] == name]
+    rows["quant_twobit"]["bucket_series"] = twobit_series(torch, ck, comm,
+                                                          registry, floor_ms)
     return rows
+
+
+def twobit_form_rows(torch, ck, comm, registry, floor_ms):
+    """quant_twobit, with its error (as the exchange runs it) and with dq,
+    and dequant_sum_twobit, in the forms their wrappers pick, at the three
+    TWOBIT_SHAPES, each beside its plain version and the codec path."""
+    from mxnet_tpu_torch.comm.allreduce import _row_sum
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    spec = comm.CompressionSpec("twobit")
+    t = spec.threshold
+    out = []
+    for label, shape in TWOBIT_SHAPES.items():
+        x = comm_rows(torch, gen, shape, COMM_CHUNK)
+        q, dq, err = ck.quant_twobit(x, t, True, True)
+        shard = ck.dequant_sum_twobit(q, t)
+        cases = (
+            ("quant_twobit", "q, err",
+             lambda: ck.quant_twobit(x, t, want_err=True),
+             lambda: ck.quant_twobit_plain(x, t, False, True),
+             lambda: x - comm.decode(spec, comm.encode(spec, x)),
+             [x], [q, err]),
+            ("quant_twobit", "q, dq",
+             lambda: ck.quant_twobit(x, t, True),
+             lambda: ck.quant_twobit_plain(x, t, True),
+             lambda: comm.decode(spec, comm.encode(spec, x)), [x], [q, dq]),
+            ("dequant_sum_twobit", "shard",
+             lambda: ck.dequant_sum_twobit(q, t),
+             lambda: ck.dequant_sum_twobit_plain(q, t),
+             lambda: _row_sum(comm.decode(spec, {"q": q})), [q], [shard]))
+        for name, outputs, kernel, plain, codec, ins, outs in cases:
+            r, _ = time_kernel_row(torch, registry, name, kernel, plain,
+                                   codec, ins, outs)
+            r = {"name": name, "at": label,
+                 "shapes": [list(v.shape) for v in ins],
+                 **kernel_form(ck, name, ins[0]), "outputs": outputs, **r,
+                 "of_bound": r["bound_ms"] / r["ms"],
+                 "launch_floor_ms": floor_ms,
+                 "above_floor_ms": r["ms"] - floor_ms}
+            out.append(r)
+            emit({"phase": "kernel", **r})
+        del x, q, dq, err, shard
+    return out
+
+
+def twobit_series(torch, ck, comm, registry, floor_ms):
+    """The stage-1 quant_twobit (with its error) of each of dp_overlap's
+    buckets, views of one flat buffer as the exchange takes them: all 31
+    back to back between one event pair, then 31 empty launches
+    (``torch.cuda._sleep(0)``) timed alike (whether the launch floor
+    belongs to the event pair or to each launch); then each bucket
+    alone."""
+    from mxnet_tpu_torch.models import resnet50
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    t = comm.CompressionSpec("twobit").threshold
+    net = resnet50(num_classes=1000)
+    plan = comm.plan_overlap(resnet50_leaf_shapes(), "twobit", DP_WORLD,
+                             max_bytes=DP_OVERLAP_BUCKET_BYTES, symbol=net)
+    padded = [b["padded"] for b in plan.buckets]
+    flat = comm_rows(torch, gen, (sum(padded),), COMM_CHUNK)
+    views, off = [], 0
+    for n in padded:
+        views.append(flat[off:off + n].view(DP_WORLD, -1))
+        off += n
+    require(all(v.data_ptr() % 16 == 0 for v in views),
+            "every bucket view starts 16-byte aligned")
+
+    def series():
+        for v in views:
+            ck.quant_twobit(v, t, want_err=True)
+
+    def sleeps():
+        for _ in views:
+            torch.cuda._sleep(0)
+
+    series_ms = time_ms(torch, series, spin=SERIES_SPIN)
+    sleeps_ms = time_ms(torch, sleeps, spin=SERIES_SPIN)
+    alone, bounds, forms = [], [], []
+    for v in views:
+        alone.append(time_ms(torch, lambda: ck.quant_twobit(
+            v, t, want_err=True)))
+        q, _, err = ck.quant_twobit(v, t, want_err=True)
+        bounds.append(registry.get_kernel("quant_twobit").cost(
+            [v], [q, err]).bound()[0] * 1e3)
+        forms.append(ck.quant_twobit_form(v))
+    n = len(views)
+    r = {"launches": n, "bucket_elems": padded, "series_ms": series_ms,
+         "series_ms_per_launch": series_ms / n,
+         "sleep_series_ms": sleeps_ms, "sleep_ms_per_launch": sleeps_ms / n,
+         "launch_floor_ms": floor_ms, "alone_ms": alone,
+         "alone_ms_sum": sum(alone), "bound_ms_sum": sum(bounds),
+         "series_above_sleeps_ms": series_ms - sleeps_ms,
+         "kernel_forms": forms}
+    emit({"phase": "kernel", "name": "quant_twobit",
+          "form": f"series: stage 1 of dp_overlap's {n} buckets back to "
+                  "back between one event pair, with its error", **r})
+    del flat, views
+    return r
 
 
 def digest_arrays(torch, *dicts):
@@ -2333,12 +2553,15 @@ def dp_overlap_rank(torch, rank, world, mode):
     # exchange of a CPU copy of each: the kernels' plain versions, gloo on
     # CPU tensors
     inputs, run_exchange = {}, sched._run_exchange
-    forms = set()
+    forms, aligned = set(), []
 
     def keep_input(flat, n):
         inputs[len(inputs)] = flat.clone()
-        if mode == "int8":  # the form stage 1 takes on this bucket's view
-            forms.add(ck.quant_int8_form(flat.reshape(n, -1), COMM_CHUNK))
+        # the form stage 1 takes on this bucket's view, and its alignment
+        rows = flat.reshape(n, -1)
+        forms.add(ck.quant_int8_form(rows, COMM_CHUNK) if mode == "int8"
+                  else ck.quant_twobit_form(rows))
+        aligned.append(rows.data_ptr() % 16 == 0)
         return run_exchange(flat, n)
 
     sched._run_exchange = keep_input
@@ -2361,7 +2584,8 @@ def dp_overlap_rank(torch, rank, world, mode):
     sched.close()
     out["card_vs_cpu_buckets_bitwise"] = bitwise
     out["buckets_checked"] = checked
-    out["stage1_quant_int8_forms"] = sorted(forms)
+    out["stage1_quant_forms"] = sorted(forms)
+    out["stage1_views_aligned"] = all(aligned)
     out["residual_abs_max"] = float(sched.flat.abs().max())
     del model, state, sync, sched, arrays, grads, inputs
     torch.cuda.empty_cache()
@@ -2377,6 +2601,8 @@ def phase_dp_overlap(torch, comm, dp_medians, bucket_rows):
     """dp_train's run with the gradient exchanged bucket by bucket while
     backward runs; checks and the step against dp_train's fused step.
     ``bucket_rows``: the comm kernels' times at one bucket's shape."""
+    from mxnet_tpu_torch.kernels import comm_kernels as ck
+
     ranks = run_ranks(torch, dp_overlap_body, DP_WORLD, DP_TIMEOUT_S,
                       "dp_overlap")
     # rank 0's counts, both modes' runs together
@@ -2386,6 +2612,9 @@ def phase_dp_overlap(torch, comm, dp_medians, bucket_rows):
         plan = comm.overlap_plan(r0["bucket_elems"], DP_WORLD, mode)
         rows = {r["op"]: r for r in plan["collectives"]}
         buckets = r0["num_buckets"]
+        plan_padded = [comm.padded_flat_size(num, comm.CompressionSpec(mode),
+                                             DP_WORLD)
+                       for _, num in r0["bucket_elems"]]
         for rank, res in enumerate(ranks):
             got = res[mode]
             require(got["layout_key"] == r0["layout_key"],
@@ -2423,13 +2652,18 @@ def phase_dp_overlap(torch, comm, dp_medians, bucket_rows):
                     f"dp_overlap {mode} rank {rank}: each bucket's synced "
                     "gradients and residual on the card equal the CPU "
                     "exchange of the same bucket, bitwise")
-            # the buckets are padded to the chunk times the ranks, so
-            # every bucket view starts 16-byte aligned
-            require(mode != "int8"
-                    or got["stage1_quant_int8_forms"] == ["chunked"],
-                    f"dp_overlap int8 rank {rank}: stage 1 takes "
-                    "quant_int8's chunked form on every bucket: "
-                    f"{got['stage1_quant_int8_forms']}")
+            # the buckets are padded to the quantization unit times the
+            # ranks, so every bucket view starts 16-byte aligned: int8
+            # takes its chunked form on every bucket, twobit its vector
+            # form on every bucket of QUANT_TWOBIT_VECTOR_MIN elements
+            want_forms = ["chunked"] if mode == "int8" else sorted(
+                {"vector" if b >= ck.QUANT_TWOBIT_VECTOR_MIN else "scalar"
+                 for b in plan_padded})
+            require(got["stage1_views_aligned"]
+                    and got["stage1_quant_forms"] == want_forms,
+                    f"dp_overlap {mode} rank {rank}: stage 1's forms "
+                    f"{got['stage1_quant_forms']} on aligned views "
+                    f"({got['stage1_views_aligned']}), expected {want_forms}")
         require(len({r[mode]["digest"] for r in ranks}) == 1,
                 f"dp_overlap {mode}: both ranks' parameters are bitwise "
                 "equal")
@@ -2453,7 +2687,7 @@ def phase_dp_overlap(torch, comm, dp_medians, bucket_rows):
               "padded_elements": plan["padded_elements"],
               "params_bitwise_equal_across_ranks": True,
               "card_vs_cpu_buckets_bitwise": True,
-              "stage1_quant_int8_forms": r0["stage1_quant_int8_forms"],
+              "stage1_quant_forms": r0["stage1_quant_forms"],
               "residual_abs_max": r0["residual_abs_max"],
               "losses_rank0": r0["losses"],
               "losses_rank1": ranks[1][mode]["losses"],

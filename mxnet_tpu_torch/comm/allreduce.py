@@ -310,17 +310,16 @@ def _exchange(flat, spec, group, axis_size, kernels=None, feedback=False):
     if use_k:
         from ..kernels import comm_kernels as pk
 
-        if feedback and spec.mode == "int8":
+        if feedback:
             # the kernel writes the stage-1 error itself, rounded as the
-            # subtraction ``rows - dq1`` rounds it
+            # subtraction ``rows - dq1`` rounds it (twobit's has one rounding)
             payload, _, err1 = pk.fused_quantize(
-                spec, rows, want_error=True, error_rounding="sub",
+                spec, rows, want_error=True,
+                error_rounding="sub" if spec.mode == "int8" else None,
                 block_elems=kernels.block_elems)
         else:
-            payload, dq1 = pk.fused_quantize(spec, rows,
-                                             want_dequant=feedback,
-                                             block_elems=kernels.block_elems)
-            err1 = rows - dq1 if feedback else None
+            payload, _ = pk.fused_quantize(spec, rows,
+                                           block_elems=kernels.block_elems)
     else:
         payload = encode(spec, rows)
         if feedback:

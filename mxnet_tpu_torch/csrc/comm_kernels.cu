@@ -24,11 +24,15 @@
 //             (a one-step grid), else x - (q * scale), two roundings
 //   twobit: code = (x >= t) + 2 (x <= -t), four codes a byte,
 //     c0 | c1 << 2 | c2 << 4 | c3 << 6; value(code) = t, -t, 0 for 1, 2, else
+//     dq    = value(code)
+//     err   = x - value(code), the error feedback's stage-1 error: one
+//             rounding (__fsub_rn), as the JAX package's rows - dq1 (dq1
+//             is a select, with no product for XLA to contract)
 //   dequant_sum_int8:   acc = fma(q[r], scale[r], acc) for r = 0 .. R-1
 //   dequant_sum_twobit: acc = acc + value(code[r])  for r = 0 .. R-1
 // The rounding of each step is spelled out with intrinsics (__fmul_rn,
-// __fdiv_rn, fmaf, __fadd_rn) so that nvcc neither contracts nor reorders
-// it, and the max is written out because fmaxf drops a NaN.
+// __fdiv_rn, fmaf, __fadd_rn, __fsub_rn) so that nvcc neither contracts
+// nor reorders it, and the max is written out because fmaxf drops a NaN.
 //
 // What bounds them. Each is one pass over its operands with a handful of
 // f32 operations per element: memory bytes. At ResNet-50's padded gradient
@@ -38,10 +42,58 @@
 // Design. The TPU kernels stream (1, B) blocks of a row through VMEM on a
 // sequential grid and carry the row sum in scratch from one grid step to the
 // next. Here blocks run in parallel in no order, so the row sum is a loop
-// inside one thread: a thread owns one column (int8) or one byte of columns
-// (twobit) and walks the rows in order, which keeps the reference's order of
-// the sum. The block size of the TPU kernels (`block_elems`) changes nothing
-// here. Grids stride over the work. Loads are scalar in the twobit kernels.
+// inside one thread: a thread owns columns of a row and walks the rows in
+// order, which keeps the reference's order of the sum. The block size of
+// the TPU kernels (`block_elems`) changes nothing here. Grids stride over
+// the work. Loads are scalar only in dequant_twobit and in quant_twobit's
+// scalar form.
+//
+// quant_twobit reads R x L floats and writes R x L / 4 code bytes, and dq
+// or err (or both) as R x L floats: at the 4 MB bucket with its error, 4 MB
+// in, 4.25 MB out, 2.58 us at 3.35 TB/s. L % 4 == 0, so no code byte
+// straddles two rows: the (R, L / 4) codes are the codes of the R * L
+// elements taken flat, and the vector form needs only a 16-byte aligned x.
+// A warp takes 512 consecutive elements: lane l loads float4s l, l + 32,
+// l + 64 and l + 96 of them, all four before it uses one, so each load
+// instruction reads 512 contiguous bytes; dq and err leave from the same
+// positions, 512 contiguous bytes a store, with no staging. Float4 j of the
+// 512 makes code byte j: each lane packs its four bytes into one word, and
+// four shuffles give lane l the word of bytes 4l .. 4l + 3, which leaves as
+// one 4-byte store (128 contiguous bytes a warp). The last 512 are masked
+// by float4, so the tail (R * L mod 512 elements) runs in the same launch;
+// its last code word, if partial, goes out byte by byte. Resident grid,
+// 32-bit indices where the size allows. The first design, one code byte a
+// thread from four scalar loads, stays as the scalar form: rows that are
+// not 16-byte aligned take it, and so do inputs of fewer than 3 x 2^19
+// elements in all, where the vector form measured no faster (the wrapper
+// picks).
+//
+// dequant_sum_twobit reads R rows of B code bytes and writes 4B floats: at
+// the bucket (R = 2, B = 131,072) 256 KB in and 2 MB out, 0.70 us. Row r
+// starts at byte r * B, and B is odd at ResNet-50's two-rank gradient, so
+// both forms read rows at any byte alignment.
+// Its four-byte form gives a thread 4 consecutive code bytes of a row (16
+// columns, in registers): the lanes of a warp load consecutive aligned
+// words; where a row starts a bytes past a word, a lane's bytes are the
+// last 4 - a of its own word and the first a of its neighbour's, which
+// comes over with __shfl_down_sync (lane 31 loads the word past its own,
+// before its first word is used) and is joined with __funnelshift_r. The
+// results leave through shared memory, each store 512 contiguous bytes,
+// the staged float4s swizzled so that the writes of a quarter warp hit
+// eight bank groups. Its one-byte form gives a thread one code byte, read
+// with one byte load (a warp's 32 loads fall in one 32-byte sector, the
+// sector that four lanes sharing an aligned word would read; the word and
+// its shift measured slower), and stores its four columns as one float4,
+// so that a warp store writes 512 contiguous bytes with no staging.
+// Sixteen bytes a thread was measured
+// too and was the slowest at every bucket size; rows of B >= 3 x 2^16
+// take the four-byte form, shorter rows the one-byte form, which ties or
+// beats it there (the wrapper picks). In the four-byte form every aligned
+// word that holds a code byte lies inside the codes except at their two
+// ends, where a word reaches before the first code byte or past the last:
+// such a word reads the bytes it holds of the tensor one by one, the
+// form's only byte loads. Each form has its block fixed (128 threads for
+// four bytes, 256 for one), the grid is the resident grid.
 //
 // quant_int8 gives one warp a chunk. Its first form (chunk a multiple of
 // 128 up to 1024, rows 16-byte aligned; the chunk a template parameter)
@@ -110,6 +162,11 @@ __device__ __forceinline__ long long global_stride() {
 // value of one twobit code: where(c == 1, t, 0) + where(c == 2, -t, 0)
 __device__ __forceinline__ float twobit_value(unsigned code, float t) {
   return code == 1u ? t : (code == 2u ? -t : 0.0f);
+}
+
+// code of one element: inclusive at +-t, NaN -> 0
+__device__ __forceinline__ unsigned twobit_code(float v, float t) {
+  return (v >= t ? 1u : 0u) + (v <= -t ? 2u : 0u);
 }
 
 // An element's code, round trip and error from x and its chunk's scale s,
@@ -205,19 +262,79 @@ quant_int8_chunk_kernel(const float4* __restrict__ x, char4* __restrict__ q,
   }
 }
 
+// quant_twobit's scalar form, its first design: one code byte a thread,
+// from four scalar loads
 __global__ void __launch_bounds__(kThreads)
 quant_twobit_kernel(const float* __restrict__ x, uint8_t* __restrict__ q,
-                    float* __restrict__ dq, long long n_bytes, float t) {
+                    float* __restrict__ dq, float* __restrict__ err,
+                    long long n_bytes, float t) {
   for (long long b = global_index(); b < n_bytes; b += global_stride()) {
     unsigned packed = 0u;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const float v = x[4 * b + k];
-      const unsigned code = (v >= t ? 1u : 0u) + (v <= -t ? 2u : 0u);
+      const unsigned code = twobit_code(v, t);
       packed |= code << (2 * k);
       if (dq != nullptr) dq[4 * b + k] = twobit_value(code, t);
+      if (err != nullptr) err[4 * b + k] = __fsub_rn(v, twobit_value(code, t));
     }
     q[b] = static_cast<uint8_t>(packed);
+  }
+}
+
+// quant_twobit's vector form (see the design notes above): a warp takes
+// 128 float4s, lane l the float4s l + 32 j; n4 float4s in all (= the code
+// bytes). The loop runs whole warps, so that the shuffles see every lane.
+template <typename Index>
+__global__ void __launch_bounds__(kThreads)
+quant_twobit_vec_kernel(const float4* __restrict__ x, uint8_t* __restrict__ q,
+                        float4* __restrict__ dq, float4* __restrict__ err,
+                        Index n4, float t) {
+  constexpr int kVecs = 4;  // a lane's float4s: one code word
+  const int lane = threadIdx.x & 31;
+  const Index slabs = (n4 + 32 * kVecs - 1) / (32 * kVecs);
+  const Index n_warps = static_cast<Index>(gridDim.x) * (kThreads / 32);
+  for (Index s = (static_cast<Index>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+       s < slabs; s += n_warps) {
+    const Index base = s * (32 * kVecs);
+    float4 v[kVecs];
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const Index i = base + 32 * j + lane;
+      v[j] = i < n4 ? __ldg(x + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    unsigned word = 0u;  // byte j: the codes of float4 j
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const unsigned c0 = twobit_code(v[j].x, t), c1 = twobit_code(v[j].y, t),
+                     c2 = twobit_code(v[j].z, t), c3 = twobit_code(v[j].w, t);
+      word |= (c0 | c1 << 2 | c2 << 4 | c3 << 6) << (8 * j);
+      const Index i = base + 32 * j + lane;
+      if (i < n4) {
+        const float4 d = make_float4(twobit_value(c0, t), twobit_value(c1, t),
+                                     twobit_value(c2, t), twobit_value(c3, t));
+        if (dq != nullptr) dq[i] = d;
+        if (err != nullptr)
+          err[i] = make_float4(__fsub_rn(v[j].x, d.x), __fsub_rn(v[j].y, d.y),
+                               __fsub_rn(v[j].z, d.z), __fsub_rn(v[j].w, d.w));
+      }
+    }
+    // code byte b of the 128 is byte b / 32 of lane b % 32's word; lane l
+    // stores bytes 4l .. 4l + 3, all in byte l / 8 of their lanes' words
+    unsigned out = 0u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned w = __shfl_sync(0xffffffffu, word, (4 * lane + k) & 31);
+      out |= ((w >> (8 * (lane >> 3))) & 0xffu) << (8 * k);
+    }
+    const Index b0 = base + 4 * lane;
+    if (b0 + 4 <= n4) {
+      reinterpret_cast<unsigned*>(q)[b0 >> 2] = out;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (b0 + k < n4) q[b0 + k] = static_cast<uint8_t>(out >> (8 * k));
+    }
   }
 }
 
@@ -302,33 +419,119 @@ dequant_sum_int8_kernel(const int8_t* __restrict__ q,
   }
 }
 
-// blocks for `groups` threads: at most the SMs times the blocks of the
-// kernel that fit on one SM at once
+// blocks of `threads` for `groups` threads: at most the SMs times the
+// blocks of the kernel that fit on one SM at once
 template <typename Kernel>
-int resident_grid(Kernel kernel, long long groups) {
+int resident_grid(Kernel kernel, long long groups, int threads = kThreads) {
   int device = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  const long long need = (groups + kThreads - 1) / kThreads;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  const long long need = (groups + threads - 1) / threads;
   const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   return static_cast<int>(need < cap ? (need > 0 ? need : 1) : cap);
 }
 
+// the aligned word at `at`: one 4-byte load where its bytes all lie in
+// [beg, end), else the bytes that do, one by one, and zeros
+__device__ __forceinline__ unsigned load_word(uintptr_t at, uintptr_t beg,
+                                              uintptr_t end) {
+  if (at >= beg && at + 4 <= end)
+    return __ldg(reinterpret_cast<const unsigned*>(at));
+  unsigned w = 0u;
+  for (int i = 0; i < 4; ++i)
+    if (at + i >= beg && at + i < end)
+      w |= static_cast<unsigned>(
+          __ldg(reinterpret_cast<const uint8_t*>(at + i))) << (8 * i);
+  return w;
+}
+
+// dequant_sum_twobit's one-byte form (see the design notes above)
+template <typename Index>
 __global__ void __launch_bounds__(kThreads)
-dequant_sum_twobit_kernel(const uint8_t* __restrict__ q,
-                          float* __restrict__ out, int rows,
-                          long long row_bytes, float t) {
-  for (long long b = global_index(); b < row_bytes; b += global_stride()) {
+dequant_sum_twobit_byte_kernel(const uint8_t* __restrict__ q,
+                               float* __restrict__ out, int rows,
+                               Index row_bytes, float t) {
+  const Index stride = static_cast<Index>(gridDim.x) * kThreads;
+  for (Index g = static_cast<Index>(blockIdx.x) * kThreads + threadIdx.x;
+       g < row_bytes; g += stride) {
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     for (int r = 0; r < rows; ++r) {
-      const unsigned packed = q[r * row_bytes + b];
+      const unsigned byte = __ldg(q + static_cast<Index>(r) * row_bytes + g);
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        acc[k] = __fadd_rn(acc[k], twobit_value((packed >> (2 * k)) & 3u, t));
+        acc[k] = __fadd_rn(acc[k], twobit_value((byte >> (2 * k)) & 3u, t));
+    }
+    reinterpret_cast<float4*>(out)[g] =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
+}
+
+// dequant_sum_twobit's four-byte form (see the design notes above): four
+// code bytes of a row a thread, rows walked in order; each warp stages its
+// 128 float4s in shared memory. The loop runs whole warps (gb is the warp's
+// first group), so that the shuffles and __syncwarp see every lane.
+constexpr int kFourThreads = 128;  // its block, measured (PERF.md)
+
+template <typename Index>
+__global__ void __launch_bounds__(kFourThreads)
+dequant_sum_twobit_kernel(const uint8_t* __restrict__ q,
+                          float* __restrict__ out, int rows, Index row_bytes,
+                          float t) {
+  __shared__ float4 stage_all[kFourThreads / 32][128];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4* stage = stage_all[warp];
+  // lane l's float4 i goes to slot 4 l + (i ^ ((l >> 1) & 3)): the eight
+  // lanes of a quarter warp, writing the same i, hit eight bank groups
+  auto slot = [](int l, int i) { return 4 * l + (i ^ ((l >> 1) & 3)); };
+  const uintptr_t beg = reinterpret_cast<uintptr_t>(q);
+  const uintptr_t end = beg + static_cast<uintptr_t>(rows) * row_bytes;
+  const Index groups = (row_bytes + 3) / 4;
+  const Index stride = static_cast<Index>(gridDim.x) * kFourThreads;
+  for (Index gb = static_cast<Index>(blockIdx.x) * kFourThreads + warp * 32;
+       gb < groups; gb += stride) {
+    const Index g = gb + lane;
+    float acc[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[c] = 0.0f;
+#pragma unroll 2
+    for (int r = 0; r < rows; ++r) {
+      const uintptr_t start = beg + static_cast<uintptr_t>(r) * row_bytes;
+      const int a = static_cast<int>(start & 3);
+      const uintptr_t own = start - a + static_cast<uintptr_t>(g) * 4;
+      unsigned w = load_word(own, beg, end);
+      // lane 31's word past its own, issued before the first is used
+      unsigned next = 0u;
+      if (a != 0 && lane == 31) next = load_word(own + 4, beg, end);
+      if (a != 0) {  // the row starts off a 4-byte boundary
+        const unsigned from = __shfl_down_sync(0xffffffffu, w, 1);
+        if (lane != 31) next = from;
+        w = __funnelshift_r(w, next, 8 * a);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned byte = (w >> (8 * i)) & 0xffu;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          acc[4 * i + k] = __fadd_rn(acc[4 * i + k],
+                                     twobit_value((byte >> (2 * k)) & 3u, t));
+      }
     }
 #pragma unroll
-    for (int k = 0; k < 4; ++k) out[4 * b + k] = acc[k];
+    for (int i = 0; i < 4; ++i)
+      stage[slot(lane, i)] = make_float4(acc[4 * i], acc[4 * i + 1],
+                                         acc[4 * i + 2], acc[4 * i + 3]);
+    __syncwarp();
+    // the warp's float4s in order (one per code byte): store s writes 32
+    // of them side by side
+    float4* dst = reinterpret_cast<float4*>(out) + gb * 4;
+    const Index left = row_bytes - gb * 4;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int f = s * 32 + lane;
+      if (f < left) dst[f] = stage[slot(f >> 2, f & 3)];
+    }
+    __syncwarp();
   }
 }
 
@@ -453,12 +656,33 @@ int mxtt_quant_int8_chunked(const void* x, void* q, void* scale, void* dq,
   }
 }
 
-int mxtt_quant_twobit(const void* x, void* q, void* dq, long long n_bytes,
-                      float threshold, int grid, void* stream) {
-  quant_twobit_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<uint8_t*>(q),
-      static_cast<float*>(dq), n_bytes, threshold);
-  return static_cast<int>(cudaGetLastError());
+// n_bytes code bytes (4 n_bytes floats); vector: the vector form, x
+// 16-byte aligned, else the scalar one; null dq or err skips it. The grid
+// is sized here, to the card.
+int mxtt_quant_twobit(const void* x, void* q, void* dq, void* err,
+                      long long n_bytes, float threshold, int vector,
+                      void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (!vector) {
+    auto kernel = quant_twobit_kernel;
+    kernel<<<resident_grid(kernel, n_bytes), kThreads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<uint8_t*>(q),
+        static_cast<float*>(dq), static_cast<float*>(err), n_bytes,
+        threshold);
+    return static_cast<int>(cudaGetLastError());
+  }
+  auto launch = [&](auto kernel, auto n4) {
+    // a warp for each 128 float4s
+    kernel<<<resident_grid(kernel, 32 * ((n_bytes + 127) / 128)), kThreads, 0,
+             st>>>(static_cast<const float4*>(x), static_cast<uint8_t*>(q),
+                   static_cast<float4*>(dq), static_cast<float4*>(err), n4,
+                   threshold);
+    return static_cast<int>(cudaGetLastError());
+  };
+  // 32-bit indices while every index the loop forms stays below 2^31
+  if (n_bytes < (1LL << 30))
+    return launch(quant_twobit_vec_kernel<int>, static_cast<int>(n_bytes));
+  return launch(quant_twobit_vec_kernel<long long>, n_bytes);
 }
 
 // load_bytes: 16 (L % 16 == 0, q 16-byte aligned), 4 (q 4-byte aligned)
@@ -486,14 +710,33 @@ int mxtt_dequant_sum_int8(const void* q, const void* scale, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// load_bytes: the code bytes of a row a thread, 1 (blocks of kThreads)
+// or 4 (blocks of kFourThreads); another width is refused
+// (cudaErrorInvalidValue). The grid is sized here.
 int mxtt_dequant_sum_twobit(const void* q, void* out, int rows,
-                            long long row_bytes, float threshold, int grid,
-                            void* stream) {
-  dequant_sum_twobit_kernel<<<grid, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(q), static_cast<float*>(out), rows,
-      row_bytes, threshold);
-  return static_cast<int>(cudaGetLastError());
+                            long long row_bytes, float threshold,
+                            int load_bytes, void* stream) {
+  if (load_bytes != 1 && load_bytes != 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = load_bytes == 1 ? kThreads : kFourThreads;
+  const auto* qp = static_cast<const uint8_t*>(q);
+  auto* op = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const long long groups = (row_bytes + load_bytes - 1) / load_bytes;
+  auto launch = [&](auto kernel, auto count) {
+    kernel<<<resident_grid(kernel, groups, threads), threads, 0, st>>>(
+        qp, op, rows, count, threshold);
+    return static_cast<int>(cudaGetLastError());
+  };
+  // 32-bit indices while every index the loop forms stays below 2^31
+  if (static_cast<long long>(rows) * row_bytes < (1LL << 30)) {
+    const int m = static_cast<int>(row_bytes);
+    if (load_bytes == 1) return launch(dequant_sum_twobit_byte_kernel<int>, m);
+    return launch(dequant_sum_twobit_kernel<int>, m);
+  }
+  if (load_bytes == 1)
+    return launch(dequant_sum_twobit_byte_kernel<long long>, row_bytes);
+  return launch(dequant_sum_twobit_kernel<long long>, row_bytes);
 }
 
 // n flat codes; load_bytes: 16 (n % 16 == 0, q 16-byte aligned), 4 (q

@@ -19,10 +19,11 @@ the same name with ``_plain``. The payload is bit-identical to the codecs of
 ``comm/compression.py`` on every device, as in the JAX package; the sums
 follow the JAX kernels' order: rows 0..R-1, int8 products fused into the
 accumulation (``fma``), as XLA compiles the Pallas kernel on the CPU.
-``quant_int8`` launches one of two forms of its kernel, picked by
-:func:`quant_int8_form`, and ``dequant_sum_int8`` and ``dequant_int8`` one
-of three load widths each; every form gives the same bits and counts as a
-launch of its wrapper.
+``quant_int8`` and ``quant_twobit`` launch one of two forms of their
+kernels, picked by :func:`quant_int8_form` and :func:`quant_twobit_form`;
+``dequant_sum_int8`` and ``dequant_int8`` one of three load widths each,
+and ``dequant_sum_twobit`` one of two (:func:`dequant_sum_twobit_load_bytes`).
+Every form gives the same bits and counts as a launch of its wrapper.
 """
 
 from __future__ import annotations
@@ -44,14 +45,24 @@ __all__ = ["fused_quantize", "fused_dequant_sum", "fused_dequant",
            "quant_int8_plain", "quant_twobit_plain", "dequant_sum_int8_plain",
            "dequant_sum_twobit_plain", "dequant_int8_plain",
            "dequant_twobit_plain", "dequant_sum_int8_load_bytes",
-           "dequant_int8_load_bytes", "quant_int8_form", "fma_f32",
-           "KERNELS"]
+           "dequant_int8_load_bytes", "quant_int8_form", "quant_twobit_form",
+           "dequant_sum_twobit_load_bytes", "fma_f32", "KERNELS"]
 
 DEFAULT_BLOCK_ELEMS = 65536
 # the chunks quant_int8's first form is built for (csrc/comm_kernels.cu)
 QUANT_INT8_CHUNKS = tuple(range(128, 1025, 128))
 # csrc/comm_kernels.cu's kThreads
 THREADS = 256
+# The new forms of the twobit kernels are taken only where they measured
+# faster than the other form beyond the spread of their turns
+# (kernel_ab.py's sweep, PERF.md §6); each threshold lies between the
+# largest size where the two forms tied and the smallest where the new one
+# won. quant_twobit's vector form: from this many elements (R x L) on
+# (tied at 1,048,576, won at 2,048,000; the scalar form won at 137,920)
+QUANT_TWOBIT_VECTOR_MIN = 3 << 19
+# dequant_sum_twobit's four-byte form: from rows of this many code bytes on
+# (tied at 131,072, won at 256,000; the one-byte form won at 98,752)
+DQSUM_TWOBIT_FOUR_MIN = 3 << 16
 SOURCE = "mxnet_tpu_torch/csrc/comm_kernels.cu"
 _REPLACED = "mxnet_tpu/ops/pallas/comm_kernels.py"
 
@@ -117,11 +128,16 @@ def quant_int8_plain(rows: torch.Tensor, chunk: int, want_dq: bool,
     return int8_codes(q).reshape(R, L), scale, dq if want_dq else None, e
 
 
-def quant_twobit_plain(rows: torch.Tensor, threshold: float, want_dq: bool):
-    """``(q uint8 (R, L/4), dq (R, L) or None)``."""
+def quant_twobit_plain(rows: torch.Tensor, threshold: float, want_dq: bool,
+                       want_err: bool = False):
+    """``(q uint8 (R, L/4), dq (R, L) or None, err (R, L) or None)``:
+    the codec's payload, its decode, and ``rows - dq`` (one rounding: dq
+    is t, -t or 0, with no product to round)."""
     payload = encode(_twobit_spec(threshold), rows)
-    dq = decode(_twobit_spec(threshold), payload) if want_dq else None
-    return payload["q"], dq
+    dq = decode(_twobit_spec(threshold), payload) \
+        if want_dq or want_err else None
+    err = rows - dq if want_err else None
+    return payload["q"], dq if want_dq else None, err
 
 
 def dequant_sum_int8_plain(q: torch.Tensor, scale: torch.Tensor,
@@ -161,11 +177,12 @@ _ARGTYPES = {
                         ctypes.c_int, _P],
     "mxtt_quant_int8_chunked": [_P, _P, _P, _P, _P, ctypes.c_int, _I64,
                                 ctypes.c_int, _P],  # sizes its own grid
-    "mxtt_quant_twobit": [_P, _P, _P, _I64, ctypes.c_float, ctypes.c_int, _P],
+    "mxtt_quant_twobit": [_P, _P, _P, _P, _I64, ctypes.c_float,
+                          ctypes.c_int, _P],  # the form, not a grid
     "mxtt_dequant_sum_int8": [_P, _P, _P, ctypes.c_int, _I64, ctypes.c_int,
                               ctypes.c_int, _P],  # load_bytes, not a grid
     "mxtt_dequant_sum_twobit": [_P, _P, ctypes.c_int, _I64, ctypes.c_float,
-                                ctypes.c_int, _P],
+                                ctypes.c_int, _P],  # load_bytes, not a grid
     "mxtt_dequant_int8": [_P, _P, _P, _I64, ctypes.c_int, ctypes.c_int,
                           _P],  # load_bytes, not a grid
     "mxtt_dequant_twobit": [_P, _P, _I64, ctypes.c_float, ctypes.c_int, _P],
@@ -260,23 +277,41 @@ def quant_int8_form(rows: torch.Tensor, chunk: int) -> str:
     return "general"
 
 
-def quant_twobit(rows: torch.Tensor, threshold: float, want_dq: bool = False):
-    """Kernel ``quant_twobit``: ``(q uint8 (R, L/4), dq or None)``."""
+def quant_twobit(rows: torch.Tensor, threshold: float, want_dq: bool = False,
+                 want_err: bool = False):
+    """Kernel ``quant_twobit``: ``(q uint8 (R, L/4), dq or None, err or
+    None)`` of (R, L) f32 rows, in the form :func:`quant_twobit_form`
+    picks; ``err`` is ``rows - dq`` (see ``quant_twobit_plain``)."""
     _check("quant_twobit: rows", rows, torch.float32)
     R, L = rows.shape
     if L % 4:
         raise ValueError(f"quant_twobit: row length {L} not a multiple of 4")
     if not use_kernel(rows):
-        return quant_twobit_plain(rows, threshold, want_dq)
+        return quant_twobit_plain(rows, threshold, want_dq, want_err)
+    form = quant_twobit_form(rows)
     q = torch.empty((R, L // 4), dtype=torch.uint8, device=rows.device)
     dq = torch.empty_like(rows) if want_dq else None
+    err = torch.empty_like(rows) if want_err else None
     n_bytes = R * (L // 4)
     if n_bytes:
         _run("quant_twobit", rows.device, rows.data_ptr(), q.data_ptr(),
-             dq.data_ptr() if want_dq else None, n_bytes, threshold,
-             _grid(n_bytes, rows.device))
+             dq.data_ptr() if want_dq else None,
+             err.data_ptr() if want_err else None, n_bytes, threshold,
+             int(form == "vector"))
         count_launch(quant_twobit)
-    return q, dq
+    return q, dq, err
+
+
+def quant_twobit_form(rows: torch.Tensor) -> str:
+    """The form of the ``quant_twobit`` kernel that takes ``rows``:
+    ``"vector"`` (16-byte loads, the rows taken flat) where they start
+    16-byte aligned and hold at least ``QUANT_TWOBIT_VECTOR_MIN``
+    elements, else ``"scalar"`` (one code byte a thread from four scalar
+    loads). A bucket view into the flat gradient buffer starts at a
+    multiple of 8 elements, which is aligned."""
+    if rows.data_ptr() % 16 == 0 and rows.numel() >= QUANT_TWOBIT_VECTOR_MIN:
+        return "vector"
+    return "scalar"
 
 
 def dequant_sum_int8(q: torch.Tensor, scale: torch.Tensor,
@@ -312,7 +347,8 @@ def dequant_sum_int8_load_bytes(q: torch.Tensor) -> int:
 
 def dequant_sum_twobit(q: torch.Tensor, threshold: float) -> torch.Tensor:
     """Kernel ``dequant_sum_twobit``: (4B,) f32 column sums of the decoded
-    (R, B) packed rows, in row order."""
+    (R, B) packed rows, in row order, in the form
+    :func:`dequant_sum_twobit_load_bytes` picks."""
     _check("dequant_sum_twobit: q", q, torch.uint8)
     R, B = q.shape
     if not use_kernel(q):
@@ -320,9 +356,19 @@ def dequant_sum_twobit(q: torch.Tensor, threshold: float) -> torch.Tensor:
     out = torch.empty(4 * B, dtype=torch.float32, device=q.device)
     if B:
         _run("dequant_sum_twobit", q.device, q.data_ptr(), out.data_ptr(), R,
-             B, threshold, _grid(B, q.device))
+             B, threshold, dequant_sum_twobit_load_bytes(q))
         count_launch(dequant_sum_twobit)
     return out
+
+
+def dequant_sum_twobit_load_bytes(q: torch.Tensor) -> int:
+    """The code bytes of a row that one thread of the
+    ``dequant_sum_twobit`` kernel sums: 4 (its aligned word, joined with
+    its neighbour's where the row is misaligned; blocks of 128) for rows
+    of at least ``DQSUM_TWOBIT_FOUR_MIN`` bytes, else 1 (one byte load;
+    blocks of 256). Both read rows at any byte alignment, so the pointer
+    does not change the choice."""
+    return 4 if q.shape[1] >= DQSUM_TWOBIT_FOUR_MIN else 1
 
 
 def dequant_int8(q: torch.Tensor, scale: torch.Tensor,
@@ -388,13 +434,15 @@ def fused_quantize(spec, rows, *, want_dequant=False, want_error=False,
     ``(payload, dq)`` with ``dq=None`` unless requested; payload shapes
     match ``compression.encode``.
 
-    ``want_error`` (int8) adds a third item, ``rows - dq`` as the JAX
-    kernel path's ``shard - dq2`` compiles on the CPU: when the Pallas
-    kernel's grid is one step (one row in one block), XLA contracts its
-    product into the subtraction (one rounding); over more steps the
-    product is rounded first. ``error_rounding`` ("fma" or "sub") sets
-    that rounding instead, as for the stage-1 error ``rows - dq1``, which
-    is always the rounded product subtracted."""
+    ``want_error`` adds a third item, ``rows - dq``. For int8 it is
+    rounded as the JAX kernel path's ``shard - dq2`` compiles on the CPU:
+    when the Pallas kernel's grid is one step (one row in one block), XLA
+    contracts its product into the subtraction (one rounding); over more
+    steps the product is rounded first. ``error_rounding`` ("fma" or
+    "sub") sets that rounding instead, as for the stage-1 error ``rows -
+    dq1``, which is always the rounded product subtracted. For twobit dq is
+    t, -t or 0, so the error has one rounding and ``error_rounding`` other
+    than None raises."""
     rows = rows.to(torch.float32).contiguous()
     squeeze = rows.dim() == 1
     if squeeze:
@@ -410,10 +458,13 @@ def fused_quantize(spec, rows, *, want_dequant=False, want_error=False,
         q, scale, dq, err = quant_int8(rows, spec.chunk, want_dequant, mode)
         payload = {"q": q, "scale": scale}
     elif spec.mode == "twobit":
-        if want_error:
-            raise MXNetError("fused_quantize: want_error is int8's")
+        if error_rounding is not None:
+            raise MXNetError("fused_quantize: twobit's error has one "
+                             "rounding; error_rounding must be None, got "
+                             f"{error_rounding!r}")
         pick_block(L, 4, block_elems)
-        q, dq = quant_twobit(rows, spec.threshold, want_dequant)
+        q, dq, err = quant_twobit(rows, spec.threshold, want_dequant,
+                                  want_error)
         payload = {"q": q}
     else:
         raise MXNetError(f"fused_quantize: no kernel for mode {spec.mode!r} "

@@ -296,17 +296,73 @@ def test_plain_error_matches_jax_compiled(shape, chunk, block, rounding):
         .mean() > 0.1
 
 
-def test_want_error_is_int8s():
-    _, ts = _specs("twobit")
-    with pytest.raises(MXNetError, match="want_error"):
-        tck.fused_quantize(ts, torch.zeros(2, 8), want_error=True)
-    _, ts = _specs("int8", 4)
-    x = torch.from_numpy(_rows((2, 16), 4, seed=3, specials=False))
+@pytest.mark.parametrize("mode", ["int8", "twobit"])
+def test_want_error_is_int8s(mode):
+    """``want_error`` of each codec (the name is from when it was int8's
+    alone): the error beside the round trip is ``x - dq``; an unknown int8
+    rounding raises, and twobit, whose error has one rounding, refuses any
+    ``error_rounding``."""
+    chunk = 4
+    _, ts = _specs(mode, chunk)
+    x = torch.from_numpy(_rows((2, 16), chunk, seed=3, specials=False))
     p, dq, err = tck.fused_quantize(ts, x, want_dequant=True, want_error=True)
     assert err.shape == dq.shape == x.shape
     _same(err, (x - dq).numpy(), "two rows: the rounded product")
-    with pytest.raises(ValueError, match="err must be"):
-        tck.quant_int8(x, 4, err="exact")
+    if mode == "int8":
+        with pytest.raises(ValueError, match="err must be"):
+            tck.quant_int8(x, chunk, err="exact")
+    else:
+        for rounding in ("sub", "fma"):
+            with pytest.raises(MXNetError, match="error_rounding"):
+                tck.fused_quantize(ts, x, want_error=True,
+                                   error_rounding=rounding)
+        # the error alone, without the round trip
+        _, none, alone = tck.fused_quantize(ts, x, want_error=True)
+        assert none is None
+        _same(alone, err.numpy(), "without want_dequant")
+
+
+def _twobit_rows(shape, seed, threshold):
+    """Gaussian rows of scale ``threshold`` with, from element 0 on, NaN,
+    +-inf, +-0, exactly +-t, and the floats just inside and outside +-t."""
+    rng = np.random.RandomState(seed)
+    n = int(np.prod(shape))
+    x = (rng.randn(n) * threshold).astype(np.float32)
+    t = np.float32(threshold)
+    specials = [np.nan, np.inf, -np.inf, 0.0, -0.0, t, -t,
+                np.nextafter(t, np.float32(0)), np.nextafter(t, np.float32(9)),
+                np.nextafter(-t, np.float32(0)),
+                np.nextafter(-t, np.float32(-9))]
+    for i, v in enumerate(specials[:n]):
+        x[(5 * i) % n] = v
+    return x.reshape(shape)
+
+
+@pytest.mark.parametrize("shape", [(2, 4096), (8, 2048), (64,), (5, 36)])
+def test_plain_twobit_error_matches_jax(shape):
+    """The twobit stage-1 error (``want_error``, and ``quant_twobit_plain``)
+    is bitwise the JAX package's jitted ``rows - dq1``, with ``dq1`` from
+    its Pallas kernel in interpret mode, at exactly +-t, +-0, NaN and
+    +-inf too."""
+    js, ts = _specs("twobit", threshold=0.75)
+    x = _twobit_rows(shape, seed=shape[-1], threshold=0.75)
+
+    @jax.jit
+    def ref(v):
+        p, dq1 = jck.fused_quantize(js, v, want_dequant=True)
+        return p, v - dq1
+
+    jp, jerr = ref(x)
+    tp, tdq, terr = tck.fused_quantize(ts, torch.from_numpy(x),
+                                       want_error=True)
+    assert tdq is None
+    _same(tp["q"], jp["q"], "q")
+    _same(terr, jerr, "error")
+    rows = torch.from_numpy(x.reshape(-1, shape[-1]))
+    q, dq, err = tck.quant_twobit_plain(rows, 0.75, True, True)
+    _same(err, np.asarray(jerr).reshape(rows.shape), "plain error")
+    assert np.isnan(err.numpy().reshape(-1)[0])
+    assert np.isinf(err.numpy().reshape(-1)[5])
 
 
 @pytest.mark.parametrize("rows", [1, 2, 4, 8])
@@ -515,6 +571,13 @@ def test_kernels_match_plain_on_card(cuda_device, shape, chunk):
         for k in pp:
             _same(kp[k].cpu(), pp[k].numpy(), f"{mode} {k}")
         _same(kdq.cpu(), pdq.numpy(), f"{mode} dq")
+        if mode == "twobit":
+            # the stage-1 error the exchange takes from the kernel
+            rows = x if x.dim() == 2 else x[None]
+            kerr = tck.quant_twobit(rows, ts.threshold, want_err=True)[2]
+            perr = tck.quant_twobit(rows.cpu(), ts.threshold,
+                                    want_err=True)[2]
+            _same(kerr.cpu(), perr.numpy(), "twobit err")
         if mode == "int8":
             # the error in both roundings
             rows = x if x.dim() == 2 else x[None]
@@ -775,3 +838,201 @@ def test_dequant_int8_64bit_indices_on_card(cuda_device):
     want = tck.dequant_int8_plain(q, scale, 256)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# --------------------------------------------------------------------------
+# quant_twobit's two forms and dequant_sum_twobit's load widths
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,offset,want", [
+    ((2, 3 << 19), 0, "vector"), ((2, 3 << 19), 8, "vector"),
+    ((1, 3 << 19), 0, "vector"), ((4, 3 << 17), 8, "vector"),
+    ((2, 1_024_000), 0, "vector"), ((2, 12_778_516), 8, "vector"),
+    ((1, (3 << 19) - 4), 0, "scalar"), ((2, 1 << 19), 0, "scalar"),
+    ((2, 2548), 8, "scalar"), ((2, 3 << 19), 1, "scalar"),
+    ((2, 36), 2, "scalar"), ((1, 12), 3, "scalar")])
+def test_quant_twobit_picks_its_form(shape, offset, want):
+    """The vector form where the rows start 16-byte aligned (a bucket view
+    8 elements, 32 bytes, into the flat buffer does; a view 1-3 elements
+    off does not) and hold at least 3 x 2^19 elements in all, whatever
+    their split into rows (the rows are taken flat): the 4 MB bucket (2 x
+    2^19) and smaller take the scalar form, which measured as fast or
+    faster there."""
+    rows = _offset_rows(torch.zeros(shape), offset)
+    assert rows.data_ptr() % 16 == (4 * offset) % 16
+    assert tck.quant_twobit_form(rows) == want
+
+
+@pytest.mark.parametrize("shape,offset,want", [
+    ((2, 3 << 16), 0, 4), ((2, 3 << 16), 8, 4), ((2, 256000), 1, 4),
+    ((2, 3194629), 0, 4), ((2, 3194629), 3, 4), ((1, (3 << 16) - 1), 0, 1),
+    ((2, 131072), 0, 1), ((2, 131072), 1, 1), ((2, 128240), 0, 1),
+    ((2, 637), 0, 1), ((2, 4096), 8, 1), ((2, 4096), 1, 1),
+    ((4, 48), 3, 1)])
+def test_dequant_sum_twobit_picks_its_load_bytes(shape, offset, want):
+    """4 code bytes a thread for rows of at least 3 x 2^16 bytes, else 1
+    (the 4 MB bucket's 131,072 too), as measured on the card. Both read rows at any byte alignment with
+    aligned words, so neither an odd B (ResNet-50's two-rank row,
+    3,194,629 bytes; the odd-B bucket's 637) nor codes 8, 1 or 3 bytes
+    past a 16-byte boundary change the pick."""
+    buf = torch.zeros(shape[0] * shape[1] + 48, dtype=torch.uint8)
+    start = (-buf.data_ptr()) % 16 + offset
+    q = buf[start:start + shape[0] * shape[1]].view(shape)
+    assert q.is_contiguous() and q.data_ptr() % 16 == offset % 16
+    assert tck.dequant_sum_twobit_load_bytes(q) == want
+
+
+def test_twobit_wrappers_check_their_operands():
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tck.quant_twobit(torch.zeros(2, 6), 0.5)
+    with pytest.raises(ValueError, match="float32"):
+        tck.quant_twobit(torch.zeros(2, 8, dtype=torch.float64), 0.5)
+    with pytest.raises(ValueError, match="uint8"):
+        tck.dequant_sum_twobit(torch.zeros(2, 8, dtype=torch.int8), 0.5)
+    # the CPU takes the plain version, whatever the form its rows would pick
+    rows = torch.ones(2, 3 << 18)
+    assert tck.quant_twobit_form(rows) == "vector"
+    q, dq, err = tck.quant_twobit(rows, 0.5, want_err=True)
+    assert dq is None and q.shape == (2, 3 << 16)
+    assert torch.equal(err, torch.full_like(rows, 0.5))
+
+
+# the card: each form of both kernels bitwise its plain version at shapes
+# where its wrapper picks it, every output poisoned first, so that a store
+# the kernel misses reads 0xff (code 3, or a NaN) and differs
+
+def _poison(device, *specs):
+    """Fill, then free, blocks of the caching allocator of the sizes and
+    types of the outputs to come, so that their tensors start as 0xff."""
+    held = [torch.empty(shape, dtype=dtype, device=device).view(torch.uint8)
+            .fill_(255) for shape, dtype in specs]
+    torch.cuda.synchronize()
+    del held
+
+
+def _twobit_outputs(shape):
+    R, L = shape
+    return ((R, L // 4), torch.uint8), ((R, L), torch.float32), \
+        ((R, L), torch.float32)
+
+
+_VEC = tck.QUANT_TWOBIT_VECTOR_MIN
+# (shape, offset in floats): the bucket (scalar) and 3 x 2^20 elements
+# (vector), each with R = 1, 2, 4 and 8, ResNet-50's two-rank gradient
+# (12,778,516 a row: 3,194,629 code bytes), views 8 elements and 1 or 3
+# elements off a 16-byte boundary, tails of 4, 8 and 12 elements past a
+# multiple of 16 (R x L is a multiple of 4), and small rows, which take
+# the scalar form wherever they start
+QUANT_TWOBIT_CARD_CASES = (
+    [((2, 1 << 19), 0), ((2, 1 << 19), 8), ((2, 1 << 19), 1),
+     ((2, 12_778_516), 0), ((2, 12_778_516), 8), ((2, 12_778_516), 3)]
+    + [((r, n // r), 0) for r in (1, 2, 4, 8) for n in (1 << 20, 3 << 20)]
+    + [((1, _VEC + 16 * k + t), off) for k in (0, 40) for t in (4, 8, 12)
+       for off in (0, 8, 1)]
+    + [((r, 4096 + 36), 0) for r in (1, 2, 4, 8)]
+    + [((1, 16 * k + t), off) for k in (0, 1, 40) for t in (4, 8, 12)
+       for off in (0, 8, 1)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", QUANT_TWOBIT_CARD_CASES)
+def test_quant_twobit_forms_match_plain_on_card(cuda_device, shape, offset):
+    x = _twobit_rows(shape, seed=shape[1] + offset, threshold=0.5)
+    rows = _offset_rows(x, offset, device=cuda_device)
+    form = tck.quant_twobit_form(rows)
+    assert form == ("vector" if offset % 4 == 0 and rows.numel() >= _VEC
+                    else "scalar")
+    cpu = rows.cpu()
+    before = tck.quant_twobit.launches
+    for want_dq, want_err in ((True, False), (False, True), (True, True)):
+        _poison(cuda_device, *_twobit_outputs(shape))
+        got = tck.quant_twobit(rows, 0.5, want_dq, want_err)
+        want = tck.quant_twobit_plain(cpu, 0.5, want_dq, want_err)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("q", "dq", "err"), got, want):
+            assert (g is None) == (w is None), name
+            if g is not None:
+                _same(g.cpu(), w.numpy(), f"{form} {name}")
+    assert tck.quant_twobit.launches == before + 3
+
+
+_FOUR = tck.DQSUM_TWOBIT_FOUR_MIN
+# (rows, B, offset in bytes): the bucket and ResNet-50's odd B, R = 1, 2,
+# 4 and 8, and B = 16k + 1 .. 15, codes 0, 8, 1 and 3 bytes past a
+# 16-byte boundary, in rows of each load width
+DQSUM_TWOBIT_CARD_CASES = (
+    [(2, 131072, off) for off in (0, 8, 1)]
+    + [(2, 3_194_629, off) for off in (0, 3)]
+    + [(r, _FOUR + 13, off) for r in (1, 2, 4, 8) for off in (0, 1)]
+    + [(r, 4096 + 13, off) for r in (1, 2, 4, 8) for off in (0, 1)]
+    + [(2, base + 16 * k + t, off) for base in (0, _FOUR) for k in (0, 3)
+       for t in range(1, 16) for off in (0, 8, 1, 3)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,B,offset", DQSUM_TWOBIT_CARD_CASES)
+def test_dequant_sum_twobit_forms_match_plain_on_card(cuda_device, rows, B,
+                                                      offset):
+    rng = np.random.RandomState(B + offset)
+    codes = torch.from_numpy(rng.randint(0, 256, (rows, B)).astype(np.uint8))
+    buf = torch.full((rows * B + 64,), 0xAA, dtype=torch.uint8,
+                     device=cuda_device)
+    start = (-buf.data_ptr()) % 16 + offset
+    q = buf[start:start + rows * B].view(rows, B)
+    q.copy_(codes)
+    load = tck.dequant_sum_twobit_load_bytes(q)
+    assert load == (4 if B >= _FOUR else 1)
+    want = tck.dequant_sum_twobit_plain(codes, 0.5)
+    before = tck.dequant_sum_twobit.launches
+    _poison(cuda_device, ((4 * B,), torch.float32))
+    got = tck.dequant_sum_twobit(q, 0.5)
+    torch.cuda.synchronize()
+    _same(got.cpu(), want.numpy(), f"{load} bytes")
+    assert tck.dequant_sum_twobit.launches == before + 1
+    # the launcher refuses another load width
+    out = torch.empty(4 * B, device=cuda_device)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        tck._run("dequant_sum_twobit", q.device, q.data_ptr(),
+                 out.data_ptr(), rows, B, 0.5, 2)
+
+
+@pytest.mark.cuda
+def test_quant_twobit_64bit_indices_on_card(cuda_device):
+    """From 2^30 code bytes on the vector form takes 64-bit indices: 2^32
+    + 12 elements (16 GiB; with its 16 GiB error and 1 GiB of codes it
+    fits the card), against the plain version on the card, 2^28 elements
+    at a time."""
+    n = (1 << 32) + 12
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.empty((1, n), device=cuda_device).normal_(generator=gen)
+    assert tck.quant_twobit_form(x) == "vector"
+    q, _, err = tck.quant_twobit(x, 0.5, want_err=True)
+    step = 1 << 28
+    for a in range(0, n, step):
+        b = min(a + step, n)
+        wq, _, werr = tck.quant_twobit_plain(x[:, a:b], 0.5, False, True)
+        assert torch.equal(q[:, a // 4:b // 4], wq), a
+        assert torch.equal(err[:, a:b].view(torch.int32),
+                           werr.view(torch.int32)), a
+    del x, q, err, wq, werr
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("load", [1, 4])
+@pytest.mark.cuda
+def test_dequant_sum_twobit_64bit_indices_on_card(cuda_device, load):
+    """From 2^30 code bytes (R x B) on both load widths take 64-bit
+    indices: just over 2^30 bytes in rows of an odd B that picks each
+    width, against the plain version on the card."""
+    B = 2 * _FOUR + 1 if load == 4 else _FOUR - 1
+    R = (1 << 30) // B + 1
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q = torch.randint(0, 256, (R, B), generator=gen, device=cuda_device,
+                      dtype=torch.uint8)
+    assert R * B >= 1 << 30 and tck.dequant_sum_twobit_load_bytes(q) == load
+    got = tck.dequant_sum_twobit(q, 0.5)
+    want = tck.dequant_sum_twobit_plain(q, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    del q, got, want
+    torch.cuda.empty_cache()
