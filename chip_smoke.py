@@ -100,7 +100,9 @@ together), and then:
 5h. lstm_bucketing: ``BucketingModule.fit`` of ``lstm_unroll`` at the
    widths of MXNet's PTB bucketing example (2 layers, 200 hidden, 200
    embedding, vocabulary 10,000, buckets 10-60, batch 32, SGD lr 0.5) over
-   a synthetic Zipf(1.2) corpus, one epoch; checks the first step's loss
+   a synthetic Zipf(1.2) corpus, one epoch (each bucket's executor
+   captures its training forward and backward as a pair of CUDA graphs
+   before its first step, then replays it); checks the first step's loss
    against the same step on the CPU within LSTM_CPU_BOUND, that every
    bucket ran, and that after a step on bucket 10 bucket 50's executor
    reads the updated weights bitwise, where a planted bucket that copies
@@ -167,6 +169,13 @@ together), and then:
    once a request, and int8_matmul alone replayed on 9 inputs bitwise its
    plain version after a NaN-filled allocator; AlexNet's Dropout masks
    (bf16, lr 0) bitwise the eager steps' and different between replays;
+   a ResNet-50 Executor (batch 32, f32) after ``precompile(is_train=True)``
+   (its forward and backward captured as a pair of graphs), 3 replayed
+   ``forward(is_train=True)``/``backward()`` steps on new data against
+   eager and eager again, the gradients, running statistics and outputs
+   within twice the eager runs' spread (bitwise where that is 0), two
+   captures and 6 replays; ``Module.fit`` of an MLP (batch 64, SGD
+   momentum, 8 steps) captured against eager by the same rule;
 5k. ckpt: save_sharded, load_sharded, one capture_snapshot's stall and
    the writer's background time at ResNet-50's 161 leaves (fused Adam's
    state); a fit with ``checkpoint_every_n_steps=2`` killed after step 5
@@ -197,11 +206,22 @@ together), and then:
    card against the CPU on 1 x 256 tokens in f32, and prints latency and
    tokens per second;
 8. lm_train: trains that LM for 8 steps through ``make_train_step`` with
-   ``Adam(fused=True)`` on one fixed batch of 8 x 2048 tokens, checks the
-   launches per step (4 of each flash kernel, 1 ``fused_adam``), that the
+   ``Adam(fused=True)`` on one fixed batch of 8 x 2048 tokens (the step
+   captured since slice 16: the first eager, then one capture and
+   replays), checks the launches per step (4 of each flash kernel, 1
+   ``fused_adam``, counted by replay), the captured program's fused_adam
+   table built once, that the
    loss fell and the parameters are finite and moved, and the card's
    gradients at 1 x 256 tokens in f32 against the CPU's, and prints the
    step time, tokens per second and the forward / backward / update split;
+   lm_graphs: 8 steps of that LM's ``make_train_step`` captured, eager
+   (``MXTPU_CUDA_GRAPHS=0``) and eager again, from the same parameters,
+   over two alternating batches: losses and parameters within twice the
+   eager runs' spread (bitwise where that is 0), one capture and 7
+   replays, 4 of each flash kernel and one ``fused_adam`` a step counted
+   by replay, a planted stale token buffer (the program's buffer rebound
+   after its capture) reading above the bound; step ms, tokens per
+   second, device time and idle share of the captured and eager steps;
    lm_head: the LM's logits GEMM and its two gradients alone at the full
    shape (bf16 operands, f32 sums on the tensor cores, the cotangent split
    in two bf16 parts), each product within 2^-16 of sum |a||b| of the f64
@@ -264,6 +284,17 @@ together), and then:
    bytes are its received bytes); the loss falling; prints the step, its
    device time and the round trip's copy to the host, push_pull and copy
    back;
+10c. ctx_list: a list of devices in one process: the replicas' exchange
+   (``comm.ReplicaGroup``, one member a replica, all on the card) of 2
+   and of 4 replicas' rows at ResNet-50's gradient and at one 4 MB bucket,
+   int8 and twobit, with error feedback: the comm kernels' launches of
+   each exchange (DP_LAUNCHES x the replicas), each replica's result and
+   residual bitwise the same exchange through the kernels' plain versions
+   on the card, and for 2 replicas bitwise the two gloo ranks' exchange of
+   the same rows (two rank processes sharing the card); the in-process
+   and the gloo exchange's ms; ``FeedForward(ctx=[gpu(0), gpu(1)])`` on
+   the one card: one replica after aliases are removed, captured, its fit
+   bitwise the ``ctx=gpu(0)`` fit;
 11. lm_mesh: two rank processes (spawn, gloo through pinned host buffers)
    share the card and train the full-width transformer LM (global batch 8
    x 2048 tokens, bf16) for 4 steps each through ``make_train_step(mesh,
@@ -305,16 +336,19 @@ together), and then:
    replay; ``slice12_launches``: the captured remat fits of 5a and 5c, by
    replay, and 5l's fit from the JPEG shard; ``slice13_launches``: 5m's
    epoch, 10a's fits and 10b's one-worker fit; ``slice14_launches``: 5n's
-   epoch; rows 3-7 also their times, bound, library time and the launch
-   floor at one bucket's shape and their launches on the overlap path,
-   ``bucket_shape``);
+   epoch; ``slice16_launches``: lm_graphs' captured run, by replay, and
+   ctx_list's exchanges; rows 3-7 also their times, bound, library time
+   and the launch floor at one bucket's shape and their launches on the
+   overlap path, ``bucket_shape``);
 14. ends with ``{"ok": true, "device": {...}}``.
 
 Under the port's default, every single-card ``FeedForward`` fit above
 replays captured steps (phases train, train_bf16, zoo, io_fit, io_native,
 graphs, ckpt; remat fits too since slice 12), and launches are counted by
-replay. ``BucketingModule`` (lstm_bucketing) and the LM's
-``make_train_step`` stay eager.
+replay. Since slice 16 so do ``Module.fit`` and ``BucketingModule.fit``
+(lstm_bucketing: one pair of graphs a bucket) and the LM's
+``make_train_step`` without a mesh (lm_train, lm_graphs); mesh steps
+(lm_mesh, moe_mesh) stay eager.
 
 Every phase that holds the card to a reference runs with
 ``set_matmul_precision("highest")`` (f32 contractions, TF32 off); the
@@ -326,6 +360,7 @@ package.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -489,6 +524,20 @@ COMM_CHUNK = 256
 DP_OVERLAP_STEPS = 6
 DP_OVERLAP_BUCKET_BYTES = 4 << 20
 BUCKET_ELEMS = DP_OVERLAP_BUCKET_BYTES // 4
+# slice 16. ctx_list: the in-process exchange of a ctx list's replicas, at
+# ResNet-50's gradient and one 4 MB bucket, against the plain versions and
+# against the two gloo ranks; a ctx list of two cards aliased on one card
+CTX_REPLICAS = (2, 4)
+CTX_SIZES = {"resnet50_grad": RESNET50_GRAD, "bucket": BUCKET_ELEMS}
+CTX_REPS = 5
+CTX_TIMEOUT_S = 300
+CTX_FIT_STEPS = 4
+CTX_FIT_BATCH = 64
+# lm_graphs: the full-width LM's step captured against eager; the executor
+# pair of graphs; Module.fit captured
+LM_GRAPH_STEPS = 8
+EXE_STEPS = 3
+MODULE_STEPS = 8
 # slice 14: quant_int8's forms and dequant_int8's load widths on the card,
 # (shape, chunk, offset of the rows in floats past a 16-byte boundary)
 INT8_FORM_CASES = (
@@ -1412,10 +1461,13 @@ def phase_lm_train(torch, mt, topt, tfa, kfa, params0, grad_errs):
         losses.append(float(loss))   # syncs the host with the step
         stamps.append(time.perf_counter())
     launches = {n: fn.launches for n, fn in kernels.items()}
-    # the gradients are fresh tensors each step: only their pointers go up
-    # again, the rest of fused_adam's table is built once
-    table = {"builds": opt._leaf_table.builds,
-             "grad_uploads": opt._leaf_table.grad_uploads}
+    # the step is captured (slice 16): its program keeps its gradients in
+    # buffers of its own and its own fused_adam table, built and uploaded
+    # once at the warm-up step, never inside the capture
+    require(len(step.programs) == 1, "lm_train: one captured program")
+    prog_table = next(iter(step.programs.values()))["table"]
+    table = {"builds": prog_table.builds,
+             "grad_uploads": prog_table.grad_uploads}
     require(table["builds"] == 1 and table["grad_uploads"] <= LM_STEPS,
             f"lm_train: fused_adam's leaf table built once: {table}")
     per_step = {"flash_fwd": cfg["n_layers"], "flash_bwd_dq": cfg["n_layers"],
@@ -2555,14 +2607,15 @@ def dp_overlap_rank(torch, rank, world, mode):
     inputs, run_exchange = {}, sched._run_exchange
     forms, aligned = set(), []
 
-    def keep_input(flat, n):
+    def keep_input(flats, n):
+        (flat,) = flats  # this rank's bucket
         inputs[len(inputs)] = flat.clone()
         # the form stage 1 takes on this bucket's view, and its alignment
         rows = flat.reshape(n, -1)
         forms.add(ck.quant_int8_form(rows, COMM_CHUNK) if mode == "int8"
                   else ck.quant_twobit_form(rows))
         aligned.append(rows.data_ptr() % 16 == 0)
-        return run_exchange(flat, n)
+        return run_exchange(flats, n)
 
     sched._run_exchange = keep_input
     state.prepare(LEARNING_RATE)
@@ -3739,7 +3792,8 @@ def bf16_softmax_fault(torch):
 def bf16_stats_fault(torch, nn):
     """BatchNorm's batch statistics taken in bf16 (mxnet_tpu/ops/nn.py:
     425-443 takes them in f32)."""
-    def stats(x, eps, ch):
+    def stats(x, eps, ch, group=None):
+        del group  # one device: no rank's rows to add
         axes = nn._bn_reduce_axes(x.ndim, ch)
         n = x.numel() // x.shape[ch]
         mean = torch.sum(x, dim=axes) / n
@@ -5365,9 +5419,9 @@ def planted_no_update(mt):
         cls = mt.optimizer.Adam
         real = cls.apply_inplace
 
-        def skip_in_capture(self, *args):
+        def skip_in_capture(self, *args, **kwargs):
             if not torch.cuda.is_current_stream_capturing():
-                real(self, *args)
+                real(self, *args, **kwargs)
 
         cls.apply_inplace = skip_in_capture
         try:
@@ -5681,6 +5735,11 @@ def phase_graphs(torch, mt, kfa, k8, io_path):
     # 5. Dropout's masks (AlexNet, bf16, lr 0: the outputs move with the
     # masks only)
     out["dropout"] = graphs_dropout(torch, mt)
+
+    # 6. training captured through an Executor's pair and Module.fit
+    out["executor_pair"] = graphs_executor(torch, mt, tcm)
+    emit({"phase": "graphs", "executor_pair": out["executor_pair"]})
+    out["module_fit"] = graphs_module(torch, mt, tcm)
     set_graphs(True)
     emit({**out, "launches": launches})
     return launches
@@ -6070,6 +6129,402 @@ def phase_ckpt(torch, mt, kfa, io_path):
     return launches
 
 
+# -- slice 16 -----------------------------------------------------------------
+
+def ctx_rows(torch, comm, size, mode, world):
+    """The ``(world, Lp)`` f32 rows of one in-process exchange case, on the
+    host: each replica's padded flat gradient with its residual added,
+    seeded by the case so that every process draws the same rows."""
+    spec = comm.CompressionSpec(mode)
+    lp = comm.padded_flat_size(size, spec, world)
+    gen = torch.Generator().manual_seed(SEED + 30 + world + size % 997
+                                        + (7 if mode == "twobit" else 0))
+    return spec, torch.randn((world, lp), generator=gen) * 1e-3
+
+
+def wall_ms(torch, fn, reps, barrier=None):
+    """Median wall-clock ms of ``fn`` (the host's part and the card's),
+    synchronized before and after each call; the first call is a warm-up."""
+    times = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        if barrier is not None:
+            barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def ctx_gloo_body(torch, rank, world):
+    """The two-rank gloo exchange of the rows the in-process exchange takes
+    (each rank its own row, staged through pinned host buffers): digests of
+    each case's reduced vector and residual, and its time."""
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch import comm
+
+    kernels = comm.CommKernelConfig()
+    out = {}
+    for name, size in CTX_SIZES.items():
+        for mode in DP_MODES:
+            spec, rows = ctx_rows(torch, comm, size, mode, world)
+            flat = rows[rank].cuda()
+            res = comm.error_feedback_exchange(flat, spec, axis_size=world,
+                                               kernels=kernels)
+            torch.cuda.synchronize()
+            out[f"{name}/{mode}"] = {
+                "digest": digest_arrays(torch, {"out": res[0],
+                                                "resid": res[1]}),
+                "ms": wall_ms(torch, lambda: comm.error_feedback_exchange(
+                    flat, spec, axis_size=world, kernels=kernels),
+                    CTX_REPS, dist.barrier)}
+    return out
+
+
+@contextlib.contextmanager
+def plain_on_card(ck):
+    """The comm kernels' plain versions on CUDA tensors (the reference the
+    in-process exchange is held to), for the duration of a ``with``."""
+    real = ck.use_kernel
+    ck.use_kernel = lambda *tensors: False
+    try:
+        yield
+    finally:
+        ck.use_kernel = real
+
+
+def ctx_alias_fit(torch, mt, tcm):
+    """``FeedForward(ctx=[gpu(0), gpu(1)])`` on the one card: one replica
+    after aliases are removed, captured, and its fit bitwise the
+    ``ctx=gpu(0)`` fit."""
+    from mxnet_tpu_torch.convert import random_params
+
+    net = mt.models.mlp()
+    args = random_params(net, SEED + 31, data=(CTX_FIT_BATCH, 784))[0]
+    rng = np.random.default_rng(SEED + 32)
+    X = rng.standard_normal((CTX_FIT_STEPS * CTX_FIT_BATCH, 784), np.float32)
+    Y = rng.integers(0, 10, len(X)).astype(np.float32)
+    set_graphs(True)
+    fits = {}
+    for name, ctx in (("list", [mt.gpu(0), mt.gpu(1)]), ("one", mt.gpu(0))):
+        tcm.reset_compile_stats()
+        reset_launches()
+        model = mt.FeedForward(net, ctx=ctx, num_epoch=1, optimizer="adam",
+                               fused=True, learning_rate=LEARNING_RATE,
+                               arg_params=dict(args))
+        model.fit(mt.io.NDArrayIter(X, Y, batch_size=CTX_FIT_BATCH,
+                                    shuffle=False))
+        fits[name] = (model, graph_stats(tcm), read_launches())
+    model, stats, launches = fits["list"]
+    one = fits["one"][0]
+    single = torch.cuda.device_count() == 1
+    require(not single or len(model._replicas) == 1,
+            f"ctx_list: [gpu(0), gpu(1)] is one device on one card: "
+            f"{model._replicas}")
+    require(mt.gpu(1).torch_device == torch.device(
+        "cuda", 1 % torch.cuda.device_count()), "ctx_list: gpu(1) is card "
+        "1 % the cards")
+    require(stats["captures"] == 1 and stats["replays"] == CTX_FIT_STEPS - 1
+            and not stats["eager"], f"ctx_list: the aliased fit is captured "
+            f"(one capture, {CTX_FIT_STEPS - 1} replays): {stats}")
+    require(launches["fused_adam"] == CTX_FIT_STEPS,
+            f"ctx_list: fused_adam once a step by replay: {launches}")
+    bitwise = all(torch.equal(model.arg_params[k], one.arg_params[k])
+                  for k in args)
+    require(bitwise, "ctx_list: the [gpu(0), gpu(1)] fit is bitwise the "
+            "gpu(0) fit")
+    return {"replicas": len(model._replicas), "steps": CTX_FIT_STEPS,
+            "batch": CTX_FIT_BATCH, "bitwise_vs_gpu0": bitwise, **stats,
+            "launches": launches}
+
+
+def phase_ctx_list(torch, mt, comm, ck):
+    """A ctx list in one process on the card: the replicas' exchange
+    (2 and 4 replicas, ResNet-50's gradient and one 4 MB bucket, int8 and
+    twobit, error feedback) against the plain versions and the two gloo
+    ranks, and an aliased ctx list's fit. Returns the kernels' launches on
+    the exchange path."""
+    from mxnet_tpu_torch.utils import compile as tcm
+
+    gloo = run_ranks(torch, ctx_gloo_body, 2, CTX_TIMEOUT_S, "ctx_list")
+    kernels = comm.CommKernelConfig()
+    card = torch.device("cuda", 0)
+    launches = {n: 0 for n in port_kernels()}
+    cases = []
+    for world in CTX_REPLICAS:
+        group = comm.ReplicaGroup([card] * world)
+        for name, size in CTX_SIZES.items():
+            for mode in DP_MODES:
+                spec, host = ctx_rows(torch, comm, size, mode, world)
+                flats = [host[r].to(card) for r in range(world)]
+                del host
+                torch.cuda.synchronize()
+                # the main path: each count set to 0 just before the
+                # exchange and read just after it
+                reset_launches()
+                outs, resid = comm.error_feedback_exchange(
+                    flats, spec, group=group, kernels=kernels)
+                got = read_launches()
+                torch.cuda.synchronize()
+                want = {k: v * world for k, v in DP_LAUNCHES[mode].items()
+                        if k != "fused_adam"}
+                require({k: c for k, c in got.items() if c} == want,
+                        f"ctx_list {world} x {name} {mode}: launches {got}, "
+                        f"expected {want}")
+                for k, c in got.items():
+                    launches[k] += c
+                digests = [digest_arrays(torch, {"out": o, "resid": r})
+                           for o, r in zip(outs, resid)]
+                del outs, resid
+                with plain_on_card(ck):
+                    p_outs, p_resid = comm.error_feedback_exchange(
+                        flats, spec, group=group, kernels=kernels)
+                plain = [digest_arrays(torch, {"out": o, "resid": r})
+                         for o, r in zip(p_outs, p_resid)]
+                del p_outs, p_resid
+                require(digests == plain,
+                        f"ctx_list {world} x {name} {mode}: the kernels' "
+                        "exchange is bitwise its plain versions'")
+                row = {"replicas": world, "case": name, "elements": size,
+                       "mode": mode, "launches": got,
+                       "bitwise_plain": True,
+                       "in_process_ms": wall_ms(
+                           torch, lambda: comm.error_feedback_exchange(
+                               flats, spec, group=group, kernels=kernels),
+                           CTX_REPS)}
+                if world == 2:
+                    ranks = [g[f"{name}/{mode}"] for g in gloo]
+                    require(digests == [r["digest"] for r in ranks],
+                            f"ctx_list 2 x {name} {mode}: the replicas' "
+                            "results and residuals are bitwise the two gloo "
+                            "ranks'")
+                    row.update(bitwise_gloo=True,
+                               gloo_ms=[r["ms"] for r in ranks])
+                cases.append(row)
+                emit({"phase": "ctx_list", **row})
+                del flats
+                torch.cuda.empty_cache()
+    alias = ctx_alias_fit(torch, mt, tcm)
+    emit({"phase": "ctx_list", "aliased_fit": alias})
+    return launches
+
+
+def lm_profile(torch, step_fn):
+    """Device time and idle share of 3 more steps (torch.profiler)."""
+    from mxnet_tpu_torch.profile_serving import device_report
+
+    step_fn()
+    torch.cuda.synchronize()
+    rep = device_report(step_fn, 3, "step")
+    return {k: rep[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                "device_idle_share")}
+
+
+def lm_graph_run(torch, mt, topt, tcm, model, params0, batches, captured,
+                 plant=None):
+    """LM_GRAPH_STEPS steps of ``make_train_step`` from ``params0`` over
+    the alternating ``batches``, captured or eager (``MXTPU_CUDA_GRAPHS``);
+    ``plant="stale_tokens"`` rebinds the captured program's token buffer
+    after its capture (the graph goes on reading the old one). Returns the
+    parameters, losses, step ms, launches, graph counters and a profile."""
+    set_graphs(captured)
+    opt = topt.create("adam", learning_rate=LEARNING_RATE, fused=True)
+    params = {k: v.clone() for k, v in params0.items()}
+    state = opt.init_state_tree(params)
+    step = model.make_train_step(None, optimizer=opt)
+    tcm.reset_compile_stats()
+    torch.cuda.synchronize()
+    # the main path: each count set to 0 just before and read just after
+    reset_launches()
+    losses, ms = [], []
+    for i in range(LM_GRAPH_STEPS):
+        if plant == "stale_tokens" and i == 2:
+            prog = next(iter(step.programs.values()))
+            prog["held_tokens"] = prog["tokens"]
+            prog["tokens"] = torch.empty_like(prog["tokens"])
+        tok, tgt = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, tok, tgt)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = read_launches()
+    stats = graph_stats(tcm)
+    row = {"losses": losses, "step_ms": ms,
+           "step_ms_median": statistics.median(ms[2:]),
+           "launches": launches, **stats}
+    if plant is None:
+        carry = [params, state]
+
+        def again():
+            carry[0], carry[1], _ = step(*carry, *batches[0])
+
+        row.update(lm_profile(torch, again))
+    return params, row
+
+
+def phase_lm_graphs(torch, mt, topt, params0):
+    """The full-width LM's make_train_step captured against eager in one
+    process, with a planted stale token buffer. Returns the launches of
+    the captured run (counted by replay)."""
+    from mxnet_tpu_torch.models import TransformerLM, transformer_lm_config
+    from mxnet_tpu_torch.utils import compile as tcm
+
+    cfg = transformer_lm_config()
+    model = TransformerLM(cfg)
+    rng = np.random.default_rng(SEED + 40)
+    batches = [tuple(torch.from_numpy(t).cuda() for t in lm_tokens(
+        rng, LM_BATCH, LM_SEQ, cfg["vocab_size"])) for _ in range(2)]
+    runs, params = {}, {}
+    for name, captured, plant in (("captured", True, None),
+                                  ("eager", False, None),
+                                  ("eager_again", False, None),
+                                  ("planted_stale_tokens", True,
+                                   "stale_tokens")):
+        params[name], runs[name] = lm_graph_run(
+            torch, mt, topt, tcm, model, params0, batches, captured, plant)
+        torch.cuda.empty_cache()
+    set_graphs(True)
+    spread = max_gap(torch, params["eager"], params["eager_again"])
+    gap = max_gap(torch, params["captured"], params["eager"])
+    loss_spread = max(abs(a - b) for a, b in zip(
+        runs["eager"]["losses"], runs["eager_again"]["losses"]))
+    loss_gap = max(abs(a - b) for a, b in zip(
+        runs["captured"]["losses"], runs["eager"]["losses"]))
+    planted = max(abs(a - b) for a, b in zip(
+        runs["planted_stale_tokens"]["losses"], runs["eager"]["losses"]))
+    bitwise = spread == 0.0 and loss_spread == 0.0
+    require(gap <= 2 * spread and loss_gap <= 2 * loss_spread,
+            f"lm_graphs: captured vs eager parameters {gap} and losses "
+            f"{loss_gap}, against twice the eager runs' spread {spread}, "
+            f"{loss_spread}" + (" (bitwise)" if bitwise else ""))
+    require(planted > 2 * loss_spread,
+            f"lm_graphs: the planted stale token buffer reads above the "
+            f"bound: {planted} against {2 * loss_spread}")
+    per_step = {"flash_fwd": cfg["n_layers"], "flash_bwd_dq": cfg["n_layers"],
+                "flash_bwd_dkv": cfg["n_layers"], "fused_adam": 1}
+    cap = runs["captured"]
+    for n, k in per_step.items():
+        require(cap["launches"][n] == k * LM_GRAPH_STEPS,
+                f"lm_graphs: {n} launched {cap['launches'][n]} times in "
+                f"{LM_GRAPH_STEPS} captured steps, expected {k} a step")
+    require(cap["captures"] == 1 and cap["replays"] == LM_GRAPH_STEPS - 1
+            and not cap["eager"], f"lm_graphs: one capture and "
+            f"{LM_GRAPH_STEPS - 1} replays: {cap}")
+    require(runs["eager"]["eager"] == {"MXTPU_CUDA_GRAPHS=0": 1},
+            f"lm_graphs: the eager run counts its reason: {runs['eager']}")
+    require(all(np.isfinite(r["losses"]).all() for r in runs.values()),
+            "lm_graphs: finite losses")
+    emit({"phase": "lm_graphs", "batch": LM_BATCH, "seq": LM_SEQ,
+          "steps": LM_GRAPH_STEPS, "optimizer": "adam", "fused": True,
+          "batches": len(batches), "captured": cap, "eager": runs["eager"],
+          "eager_again": runs["eager_again"],
+          "captured_vs_eager_params": gap, "eager_vs_eager_params": spread,
+          "captured_vs_eager_loss": loss_gap,
+          "eager_vs_eager_loss": loss_spread, "bitwise": bitwise,
+          "planted_stale_tokens_loss_gap": planted,
+          "tokens_per_s_captured": LM_BATCH * LM_SEQ * 1e3
+          / cap["step_ms_median"],
+          "tokens_per_s_eager": LM_BATCH * LM_SEQ * 1e3
+          / runs["eager"]["step_ms_median"]})
+    return cap["launches"]
+
+
+def spread_gate(torch, what, runs):
+    """Captured within twice the eager runs' spread (bitwise where the
+    eager run repeats itself bitwise), over each run's dict of tensors."""
+    spread = max_gap(torch, runs["eager"], runs["eager_again"])
+    gap = max_gap(torch, runs["captured"], runs["eager"])
+    require(gap <= 2 * spread, f"graphs {what}: captured vs eager {gap}, "
+            f"beyond twice the eager runs' spread {spread}")
+    return {"captured_vs_eager": gap, "eager_vs_eager": spread,
+            "bitwise": gap == 0.0}
+
+
+def graphs_executor(torch, mt, tcm):
+    """A ResNet-50 Executor's training pair: ``precompile(is_train=True)``
+    then 3 replayed forward/backward steps on new data, against eager."""
+    net, args, aux, batch_x, batch_y = resnet50_case()
+    xs = [batch_x * np.float32(1 + 0.25 * i) for i in range(EXE_STEPS)]
+    runs, rows = {}, {}
+    for name, captured in (("captured", True), ("eager", False),
+                           ("eager_again", False)):
+        set_graphs(captured)
+        tcm.reset_compile_stats()
+        exe = net.simple_bind(mt.gpu(0), grad_req={k: "write" for k in args},
+                              data=(BATCH,) + IMAGE, softmax_label=(BATCH,))
+        exe.copy_params_from({k: torch.from_numpy(v) for k, v in args.items()},
+                             {k: torch.from_numpy(v) for k, v in aux.items()})
+        seconds = exe.precompile(is_train=True)
+        ms = []
+        for x in xs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = exe.forward(is_train=True, data=x, softmax_label=batch_y)
+            exe.backward()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[name] = {**{f"grad:{k}": v.clone() for k, v in
+                         exe.grad_dict.items()},
+                      **{f"aux:{k}": v.clone() for k, v in
+                         exe.aux_dict.items()}, "out": outs[0].clone()}
+        rows[name] = {"precompile_s": seconds, "step_ms": ms,
+                      **graph_stats(tcm)}
+        del exe
+        torch.cuda.empty_cache()
+    set_graphs(True)
+    gate = spread_gate(torch, "executor pair", runs)
+    cap = rows["captured"]
+    require(cap["captures"] == 2 and cap["replays"] == 2 * EXE_STEPS
+            and cap["precompile_s"] > 0.0, "graphs: the executor's pair "
+            f"captured once (two graphs) and replayed each step: {cap}")
+    require(rows["eager"]["precompile_s"] == 0.0
+            and rows["eager"]["eager"] == {"MXTPU_CUDA_GRAPHS=0": 1},
+            f"graphs: the eager executor counts its reason: {rows['eager']}")
+    return {**rows, **gate, "steps": EXE_STEPS}
+
+
+def graphs_module(torch, mt, tcm):
+    """``Module.fit`` of an MLP (batch 64, SGD momentum) captured against
+    eager: the pair captured before the first step, every step a replay."""
+    from mxnet_tpu_torch.convert import random_params
+
+    net = mt.models.mlp()
+    args = random_params(net, SEED + 33, data=(CTX_FIT_BATCH, 784))[0]
+    rng = np.random.default_rng(SEED + 34)
+    X = rng.standard_normal((MODULE_STEPS * CTX_FIT_BATCH, 784), np.float32)
+    Y = rng.integers(0, 10, len(X)).astype(np.float32)
+    runs, rows = {}, {}
+    for name, captured in (("captured", True), ("eager", False),
+                           ("eager_again", False)):
+        set_graphs(captured)
+        tcm.reset_compile_stats()
+        mod = mt.mod.Module(net, context=mt.gpu(0))
+        mod.bind([("data", (CTX_FIT_BATCH, 784))],
+                 [("softmax_label", (CTX_FIT_BATCH,))])
+        mod.init_params(arg_params={k: torch.from_numpy(v)
+                                    for k, v in args.items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.fit(mt.io.NDArrayIter(X, Y, batch_size=CTX_FIT_BATCH,
+                                  shuffle=False), num_epoch=1,
+                optimizer="sgd", optimizer_params={"learning_rate": 0.05,
+                                                   "momentum": 0.9})
+        torch.cuda.synchronize()
+        runs[name] = dict(mod.get_params()[0])
+        rows[name] = {"fit_s": time.perf_counter() - t0, **graph_stats(tcm)}
+    set_graphs(True)
+    gate = spread_gate(torch, "Module.fit", runs)
+    cap = rows["captured"]
+    require(cap["captures"] == 2 and cap["replays"] == 2 * MODULE_STEPS,
+            f"graphs: Module.fit replays its pair every step: {cap}")
+    return {**rows, **gate, "steps": MODULE_STEPS}
+
+
 def main() -> int:
     import torch
 
@@ -6125,6 +6580,7 @@ def main() -> int:
     serve_launches, lm_params, lm_grad_errs = phase_lm_serve(torch, mt, tfa)
     train_launches = phase_lm_train(torch, mt, topt, tfa, kfa, lm_params,
                                     lm_grad_errs)
+    slice16 = {"lm_graphs": phase_lm_graphs(torch, mt, topt, lm_params)}
     require(serve_launches["flash_fwd"] > 0, "the LM forward ran flash_fwd")
     phase_lm_head(torch)
     launches.update({n: train_launches[n] for n in flash_rows})
@@ -6136,6 +6592,12 @@ def main() -> int:
     slice13["dp_overlap"] = phase_dp_overlap(torch, comm, dp_medians,
                                              bucket_rows)
     slice13["dp_async"] = phase_dp_async(torch, mt)
+    slice16["ctx_list"] = phase_ctx_list(torch, mt, comm, ck)
+    for name in ("fused_adam", "quant_int8", "quant_twobit",
+                 "dequant_sum_int8", "dequant_sum_twobit", "dequant_int8",
+                 *FLASH_NAMES):
+        require(sum(got[name] for got in slice16.values()) > 0,
+                f"slice 16's paths launched {name}")
     mesh_launches = phase_lm_mesh(torch, mt, lm_params)
     del lm_params
     moe_launches = phase_moe_mesh(torch)
@@ -6192,6 +6654,10 @@ def main() -> int:
         # the slice 14 path: the arithmetic-coded shard's epoch
         kernels[-1]["slice14_launches"] = {p: got[name]
                                            for p, got in slice14.items()}
+        # the slice 16 paths, each read around itself: the captured LM
+        # steps (by replay) and the replicas' in-process exchanges
+        kernels[-1]["slice16_launches"] = {p: got[name]
+                                           for p, got in slice16.items()}
         if name in bucket_rows:
             # one 4 MB bucket's shapes; launches on the overlap path
             kernels[-1]["bucket_shape"] = bucket_rows[name]

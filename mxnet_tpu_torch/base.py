@@ -8,15 +8,21 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
-__all__ = ["MXNetError", "ENV_ON_VALUES", "ENV_OFF_VALUES", "env_int",
-           "env_str", "Registry", "set_matmul_precision",
+__all__ = ["MXNetError", "MXNetTPUError", "ENV_ON_VALUES", "ENV_OFF_VALUES",
+           "env_int", "env_bool", "env_str", "Registry", "dtype_code",
+           "dtype_from_code", "set_matmul_precision",
            "get_matmul_precision"]
 
 
 class MXNetError(Exception):
     """Framework error type (name kept for reference-API parity)."""
+
+
+# the JAX package's alias
+MXNetTPUError = MXNetError
 
 
 ENV_ON_VALUES = ("1", "on", "true", "yes")
@@ -26,6 +32,15 @@ ENV_OFF_VALUES = ("0", "off", "false", "no", "none")
 def env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     return int(v) if v not in (None, "") else default
+
+
+def env_bool(name: str, default: bool) -> bool:
+    """``name`` as a switch: ``default`` when unset or empty, else False
+    for 0/false/off/no (any case) and True for anything else."""
+    v = os.environ.get(name)
+    if v in (None, ""):
+        return default
+    return v.lower() not in ("0", "false", "off", "no")
 
 
 def env_str(name: str, default: str) -> str:
@@ -67,6 +82,38 @@ class Registry:
 
     def create(self, name: str, *args, **kwargs):
         return self.get(name)(*args, **kwargs)
+
+    def names(self):
+        """The registered names, sorted."""
+        return sorted(self._entries)
+
+
+# the save/load format's dtype codes, the JAX package's (mxnet_tpu/base.py:98-129)
+DTYPE_CODES = {
+    torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.uint8: 3,
+    torch.int32: 4, torch.int8: 5, torch.int64: 6, torch.bool: 7,
+    torch.bfloat16: 8,
+}
+_CODE_DTYPES = {v: k for k, v in DTYPE_CODES.items()}
+
+
+def dtype_code(dt) -> int:
+    """The file format's code of a dtype: a torch dtype, or anything
+    ``numpy.dtype`` takes (``"bfloat16"`` too)."""
+    if not isinstance(dt, torch.dtype):
+        name = dt if isinstance(dt, str) else np.dtype(dt).name
+        dt = getattr(torch, str(name), None)
+    if dt not in DTYPE_CODES:
+        raise MXNetError(f"unsupported dtype {dt}")
+    return DTYPE_CODES[dt]
+
+
+def dtype_from_code(code: int) -> torch.dtype:
+    """The torch dtype of a file format code (the JAX package returns the
+    numpy dtype of the same name)."""
+    if code not in _CODE_DTYPES:
+        raise MXNetError(f"unknown dtype code {code}")
+    return _CODE_DTYPES[code]
 
 
 # jax_default_matmul_precision's values, by whether f32 contractions may

@@ -6,7 +6,8 @@ Counterpart of ``mxnet_tpu/comm/``:
   compression.py  CompressionSpec (none|bf16|int8|twobit) and the codecs
   allreduce.py    the compressed allreduce (quantize -> reduce-scatter ->
                   dequantize-accumulate -> all-gather) with error-feedback
-                  residuals, over a process group
+                  residuals, over a process group or the replicas of
+                  one process (ReplicaGroup)
   stats.py        exact wire-byte plans (fused and per-bucket) and the
                   process CommRegistry behind ``comm_stats()``
   bucketing.py    GradBucketer (size-capped fused slabs) and HostCodec
@@ -25,7 +26,7 @@ JAX package's HLO parsers raise ``NotImplementedError`` naming ROADMAP A6.
 
 from .compression import (CompressionSpec, decode, encode, payload_nbytes,
                           payload_bytes_of, quantization_unit)
-from .allreduce import (CommKernelConfig, compressed_allreduce,
+from .allreduce import (CommKernelConfig, ReplicaGroup, compressed_allreduce,
                         compressed_exchange, error_feedback_allreduce,
                         error_feedback_exchange, flat_views,
                         init_error_feedback, flat_size, padded_flat_size)
@@ -42,7 +43,8 @@ from .stats import (CommRegistry, allreduce_plan, comm_stats,
 __all__ = [
     "CompressionSpec", "encode", "decode", "payload_nbytes",
     "payload_bytes_of", "quantization_unit",
-    "CommKernelConfig", "compressed_allreduce", "error_feedback_allreduce",
+    "CommKernelConfig", "ReplicaGroup", "compressed_allreduce",
+    "error_feedback_allreduce",
     "compressed_exchange", "error_feedback_exchange", "flat_views",
     "init_error_feedback", "flat_size", "padded_flat_size",
     "GradBucketer", "HostCodec", "decode_payload", "DEFAULT_BUCKET_BYTES",

@@ -1,4 +1,5 @@
-"""Compressed gradient allreduce across ``torch.distributed`` ranks.
+"""Compressed gradient allreduce across ``torch.distributed`` ranks, or
+across the replicas of one process.
 
 Counterpart of ``mxnet_tpu/comm/allreduce.py``. Each rank calls these with
 its own gradients, as each device runs the JAX package's functions inside
@@ -26,6 +27,18 @@ int8, uint8, bf16 and f32 payloads travel alike. With the gloo backend a
 CUDA payload goes through pinned host buffers, copied by this module; with
 nccl the CUDA tensors go as they are. The backend decides, never a caught
 error.
+
+A :class:`ReplicaGroup` is the data axis of one process that holds several
+replicas (``FeedForward(ctx=[...])``), the JAX package's single-process
+``dp`` mesh. Its members are the replicas, in ctx order, and every
+function here then takes and returns one value a member (a list) where a
+rank passes its own: ``all_to_all`` regroups the members' rows,
+``all_gather`` stacks their payloads, ``all_reduce`` sums in member order
+and ``broadcast`` copies member 0's. The quantize and dequantize stages
+run once a member, on the member's own rows, exactly as each rank runs
+them, so the same rows give the same bits either way. Members on one
+device exchange by copies on that device; on several, by device-to-device
+copies. Nothing goes through the host.
 """
 
 from __future__ import annotations
@@ -38,10 +51,56 @@ import torch.distributed as dist
 from ..base import ENV_OFF_VALUES, ENV_ON_VALUES, MXNetError
 from .compression import CompressionSpec, decode, encode, quantization_unit
 
-__all__ = ["CommKernelConfig", "compressed_allreduce",
+__all__ = ["CommKernelConfig", "ReplicaGroup", "compressed_allreduce",
            "error_feedback_allreduce", "compressed_exchange",
            "error_feedback_exchange", "flat_views", "init_error_feedback",
            "flat_size", "padded_flat_size", "all_reduce_sum", "broadcast_"]
+
+
+class ReplicaGroup:
+    """The replicas of one process as a data axis: one ``torch.device`` a
+    member, in member order (several members may share a device). The
+    module's functions take one tensor (or tree) a member in a list and
+    return a list, in member order."""
+
+    def __init__(self, devices):
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise MXNetError("ReplicaGroup needs at least one device")
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def __repr__(self):
+        return f"ReplicaGroup({[str(d) for d in self.devices]})"
+
+
+def _replicas(group) -> bool:
+    return isinstance(group, ReplicaGroup)
+
+
+def _members(value, group) -> list:
+    """The per-member values of a call: the list a ReplicaGroup's caller
+    passes, or this rank's one value."""
+    if not _replicas(group):
+        return [value]
+    value = list(value)
+    if len(value) != group.size:
+        raise MXNetError(f"{len(value)} values for a group of {group.size} "
+                         "replicas: pass one a replica")
+    return value
+
+
+def _returned(values: list, group):
+    """What a call returns: the list for a ReplicaGroup, else the one
+    value."""
+    return values if _replicas(group) else values[0]
+
+
+def _member_rank(group, m: int) -> int:
+    """Member ``m``'s index on the data axis."""
+    return m if _replicas(group) else dist.get_rank(group)
 
 
 class CommKernelConfig:
@@ -59,6 +118,12 @@ class CommKernelConfig:
 
     def __repr__(self):
         return f"CommKernelConfig(block_elems={self.block_elems})"
+
+    def key(self):
+        """Hashable identity (a component of a program's cache key), in the
+        JAX package's form; its last slot, the Pallas interpret override,
+        is None here: a CUDA kernel has no interpret mode."""
+        return ("comm_kernels", self.block_elems, None)
 
     @classmethod
     def resolve(cls, value):
@@ -252,8 +317,39 @@ def _all_gather(t: torch.Tensor, group, n: int) -> torch.Tensor:
     return dst.view(t.dtype).reshape((n,) + tuple(t.shape))
 
 
-def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
-    """A new tensor holding the sum of ``t`` over the ranks of ``group``."""
+def _all_to_all_members(ts: list, group) -> list:
+    """:func:`_all_to_all` of each member's ``(n, ...)`` rows: member j
+    receives row j of every member, in member order."""
+    if not _replicas(group):
+        return [_all_to_all(ts[0], group)]
+    return [torch.stack([t[j].to(dev) for t in ts])
+            for j, dev in enumerate(group.devices)]
+
+
+def _all_gather_members(ts: list, group, n: int) -> list:
+    """:func:`_all_gather` of each member's tensor: every member receives
+    all of them stacked, in member order (one stack a device, shared by
+    the members on it)."""
+    if not _replicas(group):
+        return [_all_gather(ts[0], group, n)]
+    stacks = {}
+    for dev in group.devices:
+        if dev not in stacks:
+            stacks[dev] = torch.stack([t.to(dev) for t in ts])
+    return [stacks[dev] for dev in group.devices]
+
+
+def all_reduce_sum(t, group=None):
+    """A new tensor holding the sum of ``t`` over the ranks of ``group``;
+    over a :class:`ReplicaGroup`, ``t`` is one tensor a replica and each
+    gets the sum, taken in replica order, on its device."""
+    if _replicas(group):
+        ts = _members(t, group)
+        acc = ts[0].detach().clone(memory_format=torch.contiguous_format)
+        for other in ts[1:]:
+            acc = acc + other.detach().to(acc.device)
+        return [acc if dev == acc.device and m == 0 else acc.to(dev, copy=True)
+                for m, dev in enumerate(group.devices)]
     staged = _staged(t, group)
     buf = _to_host(t.detach()) if staged \
         else t.detach().clone(memory_format=torch.contiguous_format)
@@ -261,8 +357,15 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     return _to_card(buf, t.device) if staged else buf
 
 
-def broadcast_(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Overwrite ``t`` with the first rank's ``t``, in place."""
+def broadcast_(t, group=None):
+    """Overwrite ``t`` with the first rank's ``t`` (the first replica's,
+    over a :class:`ReplicaGroup`), in place."""
+    if _replicas(group):
+        ts = _members(t, group)
+        with torch.no_grad():
+            for other in ts[1:]:
+                other.copy_(ts[0])
+        return ts
     staged = _staged(t, group)
     buf = _to_host(t.detach()) if staged else t.detach().contiguous()
     _wire("broadcast", buf, buf, group)
@@ -273,6 +376,11 @@ def broadcast_(t: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def _axis_size(group, axis_size) -> int:
+    if _replicas(group):
+        if axis_size is not None and int(axis_size) != group.size:
+            raise MXNetError(f"axis_size={axis_size} but the replica group "
+                             f"has {group.size} members")
+        return group.size
     if axis_size is not None:
         axis_size = int(axis_size)
         if dist.is_initialized() and axis_size != dist.get_world_size(group):
@@ -294,67 +402,86 @@ def _row_sum(rows: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _exchange(flat, spec, group, axis_size, kernels=None, feedback=False):
-    """The quantized allreduce over a padded flat vector.
+def _regroup(payloads: list, wire) -> list:
+    """Each member's payload dict through ``wire`` (a function of the
+    members' tensors of one key), back as one dict a member."""
+    moved = {k: wire([p[k] for p in payloads]) for k in payloads[0]}
+    return [{k: moved[k][m] for k in moved} for m in range(len(payloads))]
 
-    Returns ``(out, rows, err1, err2)``: the reduced vector and, with
-    ``feedback``, what error feedback needs: this rank's rows, the stage-1
-    error of each row (``rows - dq1``) and the stage-2 error of the shard it
-    owns. With ``kernels`` (a CommKernelConfig) the quantize/dequantize
-    stages run as the fused kernels; else as the codecs."""
-    Lp = flat.shape[0]
+
+def _exchange(flats, spec, group, axis_size, kernels=None, feedback=False):
+    """The quantized allreduce over padded flat vectors, one a member of
+    ``group`` this process holds (this rank's, or every replica's).
+
+    Returns four lists, one entry a member: the reduced vector and, with
+    ``feedback``, what error feedback needs: the member's rows, the
+    stage-1 error of each row (``rows - dq1``) and the stage-2 error of
+    the shard it owns. With ``kernels`` (a CommKernelConfig) the
+    quantize/dequantize stages run as the fused kernels; else as the
+    codecs. Each stage runs once a member on that member's tensors."""
+    Lp = flats[0].shape[0]
     per = Lp // axis_size
-    rows = flat.reshape(axis_size, per)
+    rows = [f.reshape(axis_size, per) for f in flats]
     use_k = kernels is not None and spec.mode in ("int8", "twobit")
-    err1 = None
     if use_k:
         from ..kernels import comm_kernels as pk
 
-        if feedback:
-            # the kernel writes the stage-1 error itself, rounded as the
-            # subtraction ``rows - dq1`` rounds it (twobit's has one rounding)
-            payload, _, err1 = pk.fused_quantize(
-                spec, rows, want_error=True,
-                error_rounding="sub" if spec.mode == "int8" else None,
-                block_elems=kernels.block_elems)
-        else:
-            payload, _ = pk.fused_quantize(spec, rows,
-                                           block_elems=kernels.block_elems)
-    else:
-        payload = encode(spec, rows)
-        if feedback:
-            # decode of OUR OWN payload: exactly what peers reconstruct
-            err1 = rows - decode(spec, payload)
-    recv = {k: _all_to_all(v, group) for k, v in payload.items()}
+    def stage1(r):
+        if use_k:
+            if feedback:
+                # the kernel writes the stage-1 error itself, rounded as the
+                # subtraction ``rows - dq1`` rounds it (twobit's has one
+                # rounding)
+                payload, _, err1 = pk.fused_quantize(
+                    spec, r, want_error=True,
+                    error_rounding="sub" if spec.mode == "int8" else None,
+                    block_elems=kernels.block_elems)
+                return payload, err1
+            return pk.fused_quantize(spec, r,
+                                     block_elems=kernels.block_elems)[0], None
+        payload = encode(spec, r)
+        # decode of OUR OWN payload: exactly what peers reconstruct
+        return payload, (r - decode(spec, payload)) if feedback else None
+
+    first = [stage1(r) for r in rows]
+    recv = _regroup([p for p, _ in first], lambda ts: _all_to_all_members(
+        ts, group))
     if use_k:
-        shard = pk.fused_dequant_sum(spec, recv,
-                                     block_elems=kernels.block_elems)
+        shards = [pk.fused_dequant_sum(spec, rv,
+                                       block_elems=kernels.block_elems)
+                  for rv in recv]
     else:
-        shard = _row_sum(decode(spec, recv))
+        shards = [_row_sum(decode(spec, rv)) for rv in recv]
     gspec = _gather_spec(spec)
     fused2 = use_k and gspec.mode == spec.mode
-    if fused2:
-        # int8: the kernel writes the stage-2 error ``shard - dq2`` rounded
-        # once, as XLA contracts the product into the subtraction (on the
-        # CPU, where the Pallas kernel is interpreted inline)
-        if feedback:
-            payload2, _, err2 = pk.fused_quantize(
-                spec, shard, want_error=True, block_elems=kernels.block_elems)
-        else:
-            payload2, err2 = pk.fused_quantize(
-                spec, shard, block_elems=kernels.block_elems)
-    else:
+
+    def stage2(shard):
+        if fused2:
+            # int8: the kernel writes the stage-2 error ``shard - dq2``
+            # rounded once, as XLA contracts the product into the
+            # subtraction (on the CPU, where the Pallas kernel is
+            # interpreted inline)
+            if feedback:
+                payload2, _, err2 = pk.fused_quantize(
+                    spec, shard, want_error=True,
+                    block_elems=kernels.block_elems)
+                return payload2, err2
+            return pk.fused_quantize(spec, shard,
+                                     block_elems=kernels.block_elems)
         # twobit gathers in bf16: a plain dtype convert, no kernel
         payload2 = encode(gspec, shard)
-        err2 = shard - decode(gspec, payload2) if feedback else None
-    gathered = {k: _all_gather(v, group, axis_size)
-                for k, v in payload2.items()}
+        return payload2, (shard - decode(gspec, payload2)) if feedback \
+            else None
+
+    second = [stage2(sh) for sh in shards]
+    gathered = _regroup([p for p, _ in second],
+                        lambda ts: _all_gather_members(ts, group, axis_size))
     if fused2:
-        out = pk.fused_dequant(spec, gathered,
-                               block_elems=kernels.block_elems).reshape(Lp)
+        outs = [pk.fused_dequant(spec, g, block_elems=kernels.block_elems)
+                .reshape(Lp) for g in gathered]
     else:
-        out = decode(gspec, gathered).reshape(Lp)
-    return out, rows, err1, err2
+        outs = [decode(gspec, g).reshape(Lp) for g in gathered]
+    return (outs, rows, [e for _, e in first], [e for _, e in second])
 
 
 def compressed_exchange(flat, compression, group=None, axis_size=None,
@@ -362,16 +489,17 @@ def compressed_exchange(flat, compression, group=None, axis_size=None,
     """The sum over the ranks of a flat f32 vector already padded to
     :func:`padded_flat_size` (a new vector of the same length): one
     ``all_reduce`` for ``compression`` None/'none', else the quantized
-    decomposition without feedback."""
+    decomposition without feedback. Over a :class:`ReplicaGroup`,
+    ``flat`` is a list of one vector a replica, and so is the result."""
     spec = CompressionSpec.resolve(compression)
     n = _axis_size(group, axis_size)
     if n == 1:
         return flat
     if spec is None:
         return all_reduce_sum(flat, group)
-    out, *_ = _exchange(flat, spec, group, n,
-                        kernels=CommKernelConfig.resolve(kernels))
-    return out
+    outs, *_ = _exchange(_members(flat, group), spec, group, n,
+                         kernels=CommKernelConfig.resolve(kernels))
+    return _returned(outs, group)
 
 
 def error_feedback_exchange(total, compression, group=None, axis_size=None,
@@ -379,18 +507,25 @@ def error_feedback_exchange(total, compression, group=None, axis_size=None,
     """The error-feedback exchange of ``total``, this rank's padded flat
     gradient with its residual already added (``(Lp,)`` f32). Returns
     ``(out, new_residual)``: the reduced ``(Lp,)`` vector and this rank's
-    ``(1, Lp)`` residual row for the next step."""
+    ``(1, Lp)`` residual row for the next step. Over a
+    :class:`ReplicaGroup`, ``total`` is a list of one vector a replica,
+    and ``out`` and ``new_residual`` are lists of one a replica (the rows
+    of the JAX package's ``(axis_size, Lp)`` state)."""
     spec = CompressionSpec.resolve(compression)
     n = _axis_size(group, axis_size)
-    Lp = total.shape[0]
-    out, rows, new_rows, err2 = _exchange(
-        total, spec, group, n, kernels=CommKernelConfig.resolve(kernels),
+    totals = _members(total, group)
+    Lp = totals[0].shape[0]
+    outs, _, new_rows, err2s = _exchange(
+        totals, spec, group, n, kernels=CommKernelConfig.resolve(kernels),
         feedback=True)
     # stage-1 error: what OUR quantized rows dropped. Stage-2 error (the
     # reduced-shard re-quantization) is charged once, to the shard's owner.
-    idx = dist.get_rank(group)
-    new_rows[idx] = new_rows[idx] + err2
-    return out, new_rows.reshape(1, Lp)
+    residuals = []
+    for m, (rows, err2) in enumerate(zip(new_rows, err2s)):
+        idx = _member_rank(group, m)
+        rows[idx] = rows[idx] + err2
+        residuals.append(rows.reshape(1, Lp))
+    return _returned(outs, group), _returned(residuals, group)
 
 
 def compressed_allreduce(tree, compression=None, group=None, axis_size=None,
@@ -402,26 +537,34 @@ def compressed_allreduce(tree, compression=None, group=None, axis_size=None,
     quantized decomposition. ``axis_size`` defaults to the group's size;
     1 (one rank) is a no-op. ``kernels`` (a :class:`CommKernelConfig`, or
     anything its ``resolve`` accepts) routes the quantize stages through
-    the fused kernels."""
+    the fused kernels. Over a :class:`ReplicaGroup`, ``tree`` is a list
+    of one tree a replica, and so is the result."""
     spec = CompressionSpec.resolve(compression)
     n = _axis_size(group, axis_size)
-    if spec is None:
-        if n == 1:
-            return tree
-        summed = _tree_map(lambda g: all_reduce_sum(g, group), tree)
-        if average:
-            return _tree_map(lambda g: g / n, summed)
-        return summed
     if n == 1:
         # one rank: the sum is its own gradient; quantizing would only
         # inject error (allreduce.py:244-250)
         return tree
-    flat, meta = _flatten(tree)
-    flat, L = _pad_flat(flat, spec, n)
-    out = compressed_exchange(flat, spec, group, n, kernels)[:L]
-    if average:
-        out = out / n
-    return _unflatten(out, meta)
+    trees = _members(tree, group)
+    if spec is None:
+        structure = _tree_flatten(trees[0])[1]
+        # per leaf, one sum a member
+        summed = [_members(all_reduce_sum(_returned(list(ls), group), group),
+                           group)
+                  for ls in zip(*(_tree_flatten(t)[0] for t in trees))]
+        return _returned([_tree_unflatten(structure, [
+            s[m] / n if average else s[m] for s in summed])
+            for m in range(len(trees))], group)
+    flats, meta = [], None
+    for t in trees:
+        flat, meta = _flatten(t)
+        flats.append(_pad_flat(flat, spec, n))
+    L = flats[0][1]
+    outs = compressed_exchange(_returned([f for f, _ in flats], group), spec,
+                               group, n, kernels)
+    outs = [o[:L] for o in _members(outs, group)]
+    return _returned([_unflatten(o / n if average else o, meta)
+                      for o in outs], group)
 
 
 def error_feedback_allreduce(tree, residual, compression, group=None,
@@ -431,7 +574,9 @@ def error_feedback_allreduce(tree, residual, compression, group=None,
     ``residual`` is this rank's ``(1, Lp)`` row of the JAX package's
     ``(axis_size, Lp)`` state (:func:`init_error_feedback`), or None for
     modes that need no feedback. Returns ``(reduced_tree, new_residual)``
-    with ``new_residual`` shaped like ``residual``."""
+    with ``new_residual`` shaped like ``residual``. Over a
+    :class:`ReplicaGroup`, ``tree`` and ``residual`` are lists of one a
+    replica, and so are both results."""
     spec = CompressionSpec.resolve(compression)
     if spec is None or not spec.error_feedback or residual is None:
         out = compressed_allreduce(tree, spec, group=group,
@@ -442,21 +587,22 @@ def error_feedback_allreduce(tree, residual, compression, group=None,
     if n == 1:
         # one rank: no wire, no quantization, no error to feed back
         return tree, residual
-    flat, meta = _flatten(tree)
-    total, L = _pad_flat(flat, spec, n)
-    if int(residual.shape[-1]) != total.shape[0]:
-        raise MXNetError(
-            f"residual length {residual.shape[-1]} != padded grad length "
-            f"{total.shape[0]}; rebuild it with init_error_feedback")
-    # the residual added in place into this call's own flat vector
-    # (``flat + r`` is ``r + flat``: the same bits)
-    total.add_(residual[0])
-    out, new_residual = error_feedback_exchange(total, spec, group, n,
-                                                kernels)
-    out = out[:L]
-    if average:
-        out = out / n
-    return _unflatten(out, meta), new_residual
+    totals, meta, L = [], None, None
+    for t, r in zip(_members(tree, group), _members(residual, group)):
+        flat, meta = _flatten(t)
+        total, L = _pad_flat(flat, spec, n)
+        if int(r.shape[-1]) != total.shape[0]:
+            raise MXNetError(
+                f"residual length {r.shape[-1]} != padded grad length "
+                f"{total.shape[0]}; rebuild it with init_error_feedback")
+        # the residual added in place into this call's own flat vector
+        # (``flat + r`` is ``r + flat``: the same bits)
+        totals.append(total.add_(r[0]))
+    outs, new_residuals = error_feedback_exchange(
+        _returned(totals, group), spec, group, n, kernels)
+    out = [_unflatten(o[:L] / n if average else o[:L], meta)
+           for o in _members(outs, group)]
+    return _returned(out, group), new_residuals
 
 
 def flat_views(flat, shapes: dict) -> dict:

@@ -278,15 +278,17 @@ def fused_layout_key(num_elements, spec, axis_size) -> str:
 
 
 class OverlapSchedule:
-    """The overlapped exchange of one rank's gradients over a plan.
+    """The overlapped exchange of one rank's gradients over a plan, or of
+    every replica's over a :class:`~.allreduce.ReplicaGroup`.
 
-    One padded f32 buffer holds the gradients bucket by bucket in plan
-    order, each bucket ``padded`` long, its parameters in sorted-name order
-    (the layout the bucket's exchange flattens to), so every parameter's
-    ``.grad`` is a view into its bucket and autograd accumulates in place.
-    With error feedback a bucket's slice is its residual row: backward
-    adds into it, and its exchange writes the new residual back; else the
-    buffer is zeroed before each backward.
+    One padded f32 buffer a member holds the gradients bucket by bucket in
+    plan order, each bucket ``padded`` long, its parameters in sorted-name
+    order (the layout the bucket's exchange flattens to), so every
+    parameter's ``.grad`` is a view into its bucket and autograd
+    accumulates in place. With error feedback a bucket's slice is its
+    residual row: backward adds into it, and its exchange writes the new
+    residual back; else the buffer is zeroed before each backward. A
+    bucket is ready when every member's parameters of it have landed.
 
     Per step: :meth:`attach` (before backward), :meth:`finish_backward`
     (after it), :meth:`wait` (the synced gradients, with the current
@@ -299,16 +301,27 @@ class OverlapSchedule:
     ``comm/allreduce.py`` does: gloo reads a buffer only after its copy
     from the card returned, and torch's caching host allocator reuses a
     pinned buffer only after the copy of the result back to the card has
-    run."""
+    run. Replicas on several cards exchange a bucket once every card has
+    finished the work queued before it (a device-wide synchronization),
+    and the update runs after the exchange's copies have finished."""
 
     def __init__(self, plan, device, group=None, kernels=None):
+        from .allreduce import ReplicaGroup
+
         self.plan = plan
         self.spec = plan.spec
         self.group = group
         self.kernels = CommKernelConfig.resolve(kernels)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        devices = group.devices if isinstance(group, ReplicaGroup) \
+            else [device]
+        self.replicas = isinstance(group, ReplicaGroup)
+        self.devices = []
+        for d in devices:
+            d = torch.device(d)
+            if d.type == "cuda" and d.index is None:
+                d = torch.device("cuda", torch.cuda.current_device())
+            self.devices.append(d)
+        self.device = self.devices[0]
         self.feedback = plan.spec.error_feedback
         self.offsets, off = [], 0
         self.bucket_of, self.shapes = {}, []
@@ -318,14 +331,19 @@ class OverlapSchedule:
             self.shapes.append(dict(zip(b["keys"], b["shapes"])))
             for k in b["keys"]:
                 self.bucket_of[k] = i
-        self.flat = torch.zeros(off, dtype=torch.float32, device=self.device)
-        self._counts = [len(b["keys"]) for b in plan.buckets]
-        cuda = self.device.type == "cuda"
-        self._stream = torch.cuda.Stream(self.device) if cuda else None
+        self.flats = [torch.zeros(off, dtype=torch.float32, device=d)
+                      for d in self.devices]
+        members = len(self.devices)
+        self._counts = [len(b["keys"]) * members for b in plan.buckets]
+        cuda = {d for d in self.devices if d.type == "cuda"}
+        # replicas on several cards: exchange after a device-wide sync
+        self._sync_all = len(cuda) > 1
+        self._stream = torch.cuda.Stream(self.device) \
+            if cuda and not self._sync_all else None
         self._cv = threading.Condition()
         self._left = None       # per bucket: parameters still to land
         self._ready = None      # per bucket: None, or (event or True)
-        self._results = None    # per bucket: (out, done event)
+        self._results = None    # per bucket: (outs, done event)
         self._error = None
         self._done = True
         self._hooks = []
@@ -336,46 +354,73 @@ class OverlapSchedule:
         self._closed = False
         self._thread.start()
 
-    # -- layout ----------------------------------------------------------------
-    def bucket_slice(self, i) -> torch.Tensor:
-        off = self.offsets[i]
-        return self.flat[off:off + self.plan.buckets[i]["padded"]]
+    @property
+    def flat(self) -> torch.Tensor:
+        """The first member's buffer (a rank's only one)."""
+        return self.flats[0]
 
-    def views(self) -> dict:
-        """Each parameter's view of the buffer (its ``.grad``)."""
+    # -- layout ----------------------------------------------------------------
+    def bucket_slice(self, i, member=0) -> torch.Tensor:
+        off = self.offsets[i]
+        return self.flats[member][off:off + self.plan.buckets[i]["padded"]]
+
+    def views(self, member=0) -> dict:
+        """Each parameter's view of a member's buffer (its ``.grad``)."""
         out = {}
         for i in range(self.plan.num_buckets):
-            out.update(flat_views(self.bucket_slice(i), self.shapes[i]))
+            out.update(flat_views(self.bucket_slice(i, member),
+                                  self.shapes[i]))
         return out
 
     def residuals(self) -> dict:
-        """``{bucket_name: (1, Lp_b)}`` views of the buffer: the residual
-        rows between steps (None without feedback)."""
+        """``{bucket_name: (members, Lp_b)}``: the residual rows between
+        steps, views of the buffer for one member, a stacked copy (on the
+        first member's device) for several; None without feedback."""
         if not self.feedback:
             return None
-        return {b["name"]: self.bucket_slice(i)[None]
-                for i, b in enumerate(self.plan.buckets)}
+        if len(self.flats) == 1:
+            return {b["name"]: self.bucket_slice(i)[None]
+                    for i, b in enumerate(self.plan.buckets)}
+        return {b["name"]: torch.stack([
+            self.bucket_slice(i, m).to(self.device)
+            for m in range(len(self.flats))])
+            for i, b in enumerate(self.plan.buckets)}
+
+    def load_residuals(self, rows: dict):
+        """Copy saved ``{bucket_name: (members, Lp_b)}`` rows into the
+        buffers (a resumed fit's ledgers)."""
+        for i, b in enumerate(self.plan.buckets):
+            saved = rows[b["name"]]
+            for m in range(len(self.flats)):
+                self.bucket_slice(i, m).copy_(
+                    torch.as_tensor(saved[m]).to(self.devices[m]))
 
     # -- the step --------------------------------------------------------------
-    def attach(self, params: dict):
+    def attach(self, params):
         """Before backward: point every ``.grad`` at its view, zero the
-        buffer without feedback, and arm the counts."""
-        _check_keys(params, self.plan)
+        buffers without feedback, and arm the counts. ``params`` is one
+        dict, or one a member for a replica group."""
+        members = list(params) if self.replicas else [params]
+        for p in members:
+            _check_keys(p, self.plan)
         if not self._done:
             raise MXNetError("OverlapSchedule.attach: the last step's "
                              "exchange was not waited for")
         if not self.feedback:
-            self.flat.zero_()
-        views = self.views()
-        for k, p in params.items():
-            p.grad = views[k]
-        if self._hooked is None or any(
-                self._hooked.get(k) is not p for k, p in params.items()):
+            for flat in self.flats:
+                flat.zero_()
+        for m, p in enumerate(members):
+            views = self.views(m)
+            for k, t in p.items():
+                t.grad = views[k]
+        pairs = [(k, t) for p in members for k, t in p.items()]
+        if self._hooked is None or len(self._hooked) != len(pairs) or any(
+                h is not t for h, (_, t) in zip(self._hooked, pairs)):
             for h in self._hooks:
                 h.remove()
-            self._hooks = [p.register_post_accumulate_grad_hook(
-                self._hook_for(k)) for k, p in params.items()]
-            self._hooked = dict(params)
+            self._hooks = [t.register_post_accumulate_grad_hook(
+                self._hook_for(k)) for k, t in pairs]
+            self._hooked = [t for _, t in pairs]
         with self._cv:
             self._left = list(self._counts)
             self._ready = [None] * self.plan.num_buckets
@@ -401,7 +446,11 @@ class OverlapSchedule:
     def _marker(self):
         """What a bucket's exchange waits on: an event on the stream where
         its last gradient landed (autograd's device thread), or True on
-        the CPU."""
+        the CPU and, after a device-wide sync, across several cards."""
+        if self._sync_all:
+            for d in set(self.devices):
+                torch.cuda.synchronize(d)
+            return True
         if self._stream is None:
             return True
         ev = torch.cuda.Event()
@@ -443,43 +492,54 @@ class OverlapSchedule:
 
     def _exchange(self, i, marker):
         n = self.plan.axis_size
-        flat = self.bucket_slice(i)
+        flats = [self.bucket_slice(i, m) for m in range(len(self.flats))]
         if self._stream is None:
-            return self._run_exchange(flat, n), None
+            outs = self._run_exchange(flats, n)
+            if self._sync_all:
+                for d in set(self.devices):
+                    torch.cuda.synchronize(d)
+            return outs, None
         with torch.cuda.stream(self._stream):
             self._stream.wait_event(marker)
-            out = self._run_exchange(flat, n)
+            outs = self._run_exchange(flats, n)
             done = torch.cuda.Event()
             done.record(self._stream)
-        return out, done
+        return outs, done
 
-    def _run_exchange(self, flat, n):
+    def _run_exchange(self, flats, n):
+        arg = flats if self.replicas else flats[0]
         if self.feedback:
-            out, resid = error_feedback_exchange(
-                flat, self.spec, self.group, n, self.kernels)
-            flat.copy_(resid[0])
-            return out
-        return compressed_exchange(flat, self.spec, self.group, n,
+            outs, resid = error_feedback_exchange(
+                arg, self.spec, self.group, n, self.kernels)
+            outs = outs if self.replicas else [outs]
+            resid = resid if self.replicas else [resid]
+            for flat, r in zip(flats, resid):
+                flat.copy_(r[0])
+            return outs
+        outs = compressed_exchange(arg, self.spec, self.group, n,
                                    self.kernels)
+        return outs if self.replicas else [outs]
 
-    def wait(self) -> dict:
+    def wait(self):
         """The synced gradients (sum over the ranks) as views of each
-        bucket's result; the current stream waits on every bucket."""
+        bucket's result; the current stream waits on every bucket. One
+        dict, or one a member for a replica group."""
         with self._cv:
             self._cv.wait_for(lambda: self._done)
         if self._error is not None:
             err, self._error = self._error, None
             raise err
-        grads = {}
+        grads = [{} for _ in self.flats]
         current = torch.cuda.current_stream(self.device) \
             if self._stream is not None else None
-        for i, (out, done) in enumerate(self._results):
-            if done is not None:
-                current.wait_event(done)
-                out.record_stream(current)
-            grads.update(flat_views(out, self.shapes[i]))
+        for i, (outs, done) in enumerate(self._results):
+            for m, out in enumerate(outs):
+                if done is not None:
+                    current.wait_event(done)
+                    out.record_stream(current)
+                grads[m].update(flat_views(out, self.shapes[i]))
         self._results = None
-        return grads
+        return grads if self.replicas else grads[0]
 
     def close(self):
         """Stop the comm thread and remove the hooks."""

@@ -189,16 +189,33 @@ def residual_rows_from_numpy(state, rank, device="cpu"):
     """Rank ``rank``'s ``(1, Lp)`` float32 error-feedback row from the JAX
     package's ``(axis_size, Lp)`` state (``comm.init_error_feedback``,
     sharded ``P("dp")`` so device ``rank`` holds row ``rank``), for
-    ``comm.error_feedback_allreduce`` on that rank."""
+    ``comm.error_feedback_allreduce`` on that rank; ``rank=None`` gives
+    every row, ``(axis_size, Lp)``, the state of the replicas of one
+    process (``FeedForward(ctx=[...])``, whose residual ledgers a sharded
+    checkpoint saves in this layout). A dict of such states (the
+    per-bucket ledgers) maps name by name."""
+    if isinstance(state, dict):
+        return {k: residual_rows_from_numpy(v, rank, device)
+                for k, v in state.items()}
     rows = np.asarray(state, np.float32)
-    if rows.ndim != 2 or not 0 <= rank < rows.shape[0]:
+    if rows.ndim != 2 or not (rank is None or 0 <= rank < rows.shape[0]):
         raise ValueError(f"residual state of shape {rows.shape} has no row "
                          f"{rank}")
+    if rank is None:
+        return torch.from_numpy(rows.copy()).to(device)
     return torch.from_numpy(rows[rank:rank + 1].copy()).to(device)
 
 
 def residual_rows_to_numpy(rows):
     """The JAX package's ``(axis_size, Lp)`` float32 state from every
-    rank's ``(1, Lp)`` row, given in rank order."""
-    return np.concatenate([np.asarray(r.detach().cpu().numpy(), np.float32)
-                           .reshape(1, -1) for r in rows])
+    rank's ``(1, Lp)`` row given in rank order, or from ``(R, Lp)`` blocks
+    of rows (a replica group's); a dict of per-bucket ledgers maps name by
+    name."""
+    if isinstance(rows, dict):
+        return {k: residual_rows_to_numpy(v) for k, v in rows.items()}
+    if isinstance(rows, (torch.Tensor, np.ndarray)):
+        rows = [rows]
+    return np.concatenate([
+        np.asarray(r.detach().cpu().numpy() if isinstance(r, torch.Tensor)
+                   else r, np.float32).reshape(-1, r.shape[-1])
+        for r in rows])

@@ -7,9 +7,12 @@ with ``bind``, ``simple_bind`` and ``debug_str``. The Symbol is walked once
 into a plain function of
 (arguments, auxiliary states, generator, loss mask) that runs each node's
 forward on torch tensors in topological order and returns the heads and the
-updated auxiliary states. PyTorch runs eagerly, so there is no counterpart
-of ``jit``; gradients come from autograd over that function. Remat
-(``MXNET_TPU_REMAT``) runs its segments under ``torch.utils.checkpoint``.
+updated auxiliary states. Gradients come from autograd over that function.
+Remat (``MXNET_TPU_REMAT``) runs its segments under
+``torch.utils.checkpoint``. The counterpart of ``jit`` is a CUDA graph: an
+Executor's ``precompile`` captures its eval forward, or its training
+forward and backward as a pair (``utils.compile.CapturedPair``, the JAX
+package's ``fwd_res`` and ``bwd`` programs), and the calls after it replay.
 """
 
 from __future__ import annotations
@@ -160,6 +163,143 @@ def _checkpointed(block_fn, ext_vals, aux_vals, rng, mask):
         body, *ext_vals, use_reentrant=False, preserve_rng_state=False)
 
 
+class _NodeRunner:
+    """How the graph functions run one node: the fusion plan's rewrites
+    (:func:`_fusion_plan`), each node's input refs and auxiliary state
+    names, and ``exec_node``."""
+
+    def __init__(self, symbol, is_train):
+        self.nodes = symbol._topo()
+        self.is_train = is_train
+        (self.fused_bn, self.passthrough, self.skip_bn,
+         self.fused_add) = _fusion_plan(symbol)
+
+    def batch_coupled(self, node) -> bool:
+        """Does a training pass of ``node`` reduce over the batch's rows
+        (BatchNorm's statistics, fused or not)?"""
+        if not self.is_train or node.is_variable or \
+                id(node) in self.skip_bn:
+            return False
+        if id(node) in self.fused_add:
+            return True
+        return id(node) not in self.passthrough and \
+            node.op.name == "BatchNorm"
+
+    def batch_inputs(self, node) -> list:
+        """The positions of :meth:`node_input_refs` that hold rows of the
+        batch for a :meth:`batch_coupled` node: BatchNorm's data, and the
+        shortcut operand of a fused add."""
+        if id(node) in self.fused_add:
+            return [0, 3]
+        return [0]
+
+    def node_aux_names(self, node):
+        if id(node) in self.fused_add:
+            bn = self.fused_add[id(node)][0]
+            return [f"{bn.name}_{a}" for a in bn.op.list_auxiliary_states()]
+        if node.is_variable or id(node) in self.skip_bn or \
+                id(node) in self.passthrough:
+            return []
+        return [f"{node.name}_{a}" for a in node.op.list_auxiliary_states()]
+
+    def node_input_refs(self, node):
+        """The env refs exec_node reads for this node (fusion-aware), the
+        one source the remat blocks' external inputs are resolved from."""
+        if node.is_variable or id(node) in self.skip_bn:
+            return []
+        if id(node) in self.passthrough:
+            src, k = node.inputs[0]
+            return [(id(src), k)]
+        if id(node) in self.fused_add:
+            bn, z_idx = self.fused_add[id(node)]
+            z_src, z_k = node.inputs[z_idx]
+            return [(id(s), k) for s, k in bn.inputs] + [(id(z_src), z_k)]
+        return [(id(s), k) for s, k in node.inputs]
+
+    def run(self, node, ins, aux, rng, mask):
+        """``node``'s forward on its inputs and auxiliary states: ``(outs,
+        updated aux)``."""
+        is_train = self.is_train
+        if id(node) in self.passthrough:  # relu folded into the producer
+            return [ins[0]], []
+        if id(node) in self.fused_add:  # ins: bn.inputs..., then z
+            return self.fused_add[id(node)][0].op.fwd_fused_add_relu(
+                ins, aux, is_train, None)
+        key = rng if node.op.need_rng else None
+        if id(node) in self.fused_bn:
+            return node.op.fwd_fused_relu(ins, aux, is_train, key)
+        if mask is not None and node.op.is_loss:
+            return node.op.fwd_masked(ins, aux, is_train, key, mask)
+        return node.op.fwd(ins, aux, is_train, key)
+
+    def exec_node(self, node, env, aux_values, new_aux, rng, mask):
+        if id(node) in self.skip_bn:  # runs inside its fused add below
+            return
+        ins = [env[r] for r in self.node_input_refs(node)]
+        names = self.node_aux_names(node)
+        outs, updated = self.run(node, ins, [aux_values[a] for a in names],
+                                 rng, mask)
+        for k, o in enumerate(outs):
+            env[(id(node), k)] = o
+        new_aux.update(zip(names, updated))
+
+
+def _build_replica_graph_fn(symbol, is_train: bool = True):
+    """The graph over the row blocks of several replicas in one pass:
+    ``fn(arg_values, aux_values, rngs, masks) -> (outputs, new_aux)``, each
+    argument and result a list with one entry a replica. Nodes run in
+    lockstep, one node for every replica before the next; a node that
+    reduces over the batch (:meth:`_NodeRunner.batch_coupled`: training
+    BatchNorm) runs once on the replicas' rows joined on the first
+    replica's device, with the first replica's parameters, and its outputs
+    go back to each replica's rows, so its statistics are the global
+    batch's and every replica gets the same auxiliary states. This is the
+    single-device graph on the global batch, as the JAX package's
+    partitioned step computes it (mxnet_tpu/model.py:879-903); the joined
+    node's gradients flow back to every replica's rows through autograd,
+    its parameters' to the first replica's. ``MXNET_TPU_REMAT`` is not
+    applied here (it changes memory, not results)."""
+    runner = _NodeRunner(symbol, is_train)
+
+    def fn(arg_values, aux_values, rngs, masks):
+        n = len(arg_values)
+        envs = [{} for _ in range(n)]
+        new_aux = [dict(a) for a in aux_values]
+        for node in runner.nodes:
+            if node.is_variable:
+                for env, args in zip(envs, arg_values):
+                    env[(id(node), 0)] = args[node.name]
+                continue
+            if not runner.batch_coupled(node):
+                for r in range(n):
+                    runner.exec_node(node, envs[r], aux_values[r],
+                                     new_aux[r], rngs[r], masks[r])
+                continue
+            refs = runner.node_input_refs(node)
+            joined = set(runner.batch_inputs(node))
+            dev = envs[0][refs[0]].device
+            rows = [env[refs[0]].shape[0] for env in envs]
+            ins = [torch.cat([env[r].to(dev) for env in envs])
+                   if i in joined else envs[0][r]
+                   for i, r in enumerate(refs)]
+            names = runner.node_aux_names(node)
+            outs, updated = runner.run(
+                node, ins, [aux_values[0][a] for a in names], None, None)
+            for k, o in enumerate(outs):
+                for env, part in zip(envs, torch.split(o, rows)):
+                    dst = env[refs[0]].device
+                    env[(id(node), k)] = part.to(dst) if dst != dev else part
+            for r in range(n):
+                dst = envs[r][refs[0]].device
+                new_aux[r].update((a, u.to(dst) if u.device != dst else u)
+                                  for a, u in zip(names, updated))
+        heads = [tuple(env[(id(h), i)] for h, i in symbol._heads)
+                 for env in envs]
+        return heads, new_aux
+
+    return fn
+
+
 def _build_graph_fn(symbol, is_train: bool = False):
     """Compile the symbol DAG into ``fn(arg_values, aux_values, rng=None,
     mask=None) -> (outputs, new_aux)``: a tuple with one tensor per head and
@@ -169,55 +309,11 @@ def _build_graph_fn(symbol, is_train: bool = False):
     loss heads apply to their injected gradients (``fwd_masked``). With
     ``MXNET_TPU_REMAT`` set, the segments of :func:`_remat_segments` run
     checkpointed, as the JAX package runs them under ``jax.checkpoint``."""
-    nodes = symbol._topo()
-    fused_bn, passthrough, skip_bn, fused_add = _fusion_plan(symbol)
-
-    def node_aux_names(node):
-        if id(node) in fused_add:
-            bn = fused_add[id(node)][0]
-            return [f"{bn.name}_{a}" for a in bn.op.list_auxiliary_states()]
-        if node.is_variable or id(node) in skip_bn or id(node) in passthrough:
-            return []
-        return [f"{node.name}_{a}" for a in node.op.list_auxiliary_states()]
-
-    def node_input_refs(node):
-        """The env refs exec_node reads for this node (fusion-aware), the
-        one source the remat blocks' external inputs are resolved from."""
-        if node.is_variable or id(node) in skip_bn:
-            return []
-        if id(node) in passthrough:
-            src, k = node.inputs[0]
-            return [(id(src), k)]
-        if id(node) in fused_add:
-            bn, z_idx = fused_add[id(node)]
-            z_src, z_k = node.inputs[z_idx]
-            return [(id(s), k) for s, k in bn.inputs] + [(id(z_src), z_k)]
-        return [(id(s), k) for s, k in node.inputs]
-
-    def exec_node(node, env, aux_values, new_aux, rng, mask):
-        if id(node) in skip_bn:  # runs inside its fused add below
-            return
-        ins = [env[r] for r in node_input_refs(node)]
-        if id(node) in passthrough:  # relu folded into the producer
-            env[(id(node), 0)] = ins[0]
-            return
-        names = node_aux_names(node)
-        aux = [aux_values[a] for a in names]
-        if id(node) in fused_add:  # ins: bn.inputs..., then z
-            outs, updated = fused_add[id(node)][0].op.fwd_fused_add_relu(
-                ins, aux, is_train, None)
-        else:
-            key = rng if node.op.need_rng else None
-            if id(node) in fused_bn:
-                outs, updated = node.op.fwd_fused_relu(ins, aux, is_train, key)
-            elif mask is not None and node.op.is_loss:
-                outs, updated = node.op.fwd_masked(ins, aux, is_train, key,
-                                                   mask)
-            else:
-                outs, updated = node.op.fwd(ins, aux, is_train, key)
-        for k, o in enumerate(outs):
-            env[(id(node), k)] = o
-        new_aux.update(zip(names, updated))
+    runner = _NodeRunner(symbol, is_train)
+    nodes = runner.nodes
+    node_aux_names = runner.node_aux_names
+    node_input_refs = runner.node_input_refs
+    exec_node = runner.exec_node
 
     segments = _remat_segments(nodes)
     if segments is None:
@@ -358,6 +454,12 @@ class Executor:
         self._fwd_fns = {}  # is_train -> graph function
         self._eval_program = None  # the captured eval forward (precompile)
         self._eval_label = None
+        self._train_labels = None
+        # the captured training pair (precompile(is_train=True)): the
+        # CapturedPair, its leaves and its head-gradient buffers
+        self._pair = None
+        self._pair_leaves = None
+        self._cots = None
         self._seen = set()  # program keys counted in utils.compile
         self._outputs = None
         self._graph = None  # (heads, leaves) of the last training forward
@@ -403,8 +505,15 @@ class Executor:
         self._graph = None
         if not is_train:
             compile_mod.registry().see(*self._eval_key(), self._seen)
+        else:
+            label, key = self._train_keys()[0]
+            compile_mod.registry().see(label, key, self._seen)
         if not is_train and self._eval_program is not None:
             self._outputs = [o.clone() for o in self._eval_program()]
+            return self._outputs
+        if is_train and self._pair is not None:
+            self._outputs = [o.clone() for o in self._pair.run_forward()]
+            self._graph = self._pair
             return self._outputs
         if is_train and diff_names:
             leaves = {n: self.arg_dict[n].detach().requires_grad_(True)
@@ -424,25 +533,9 @@ class Executor:
         self._outputs = [o.detach() for o in outs]
         return self._outputs
 
-    def backward(self, out_grads=None):
-        """Compute gradients into the bound grad tensors (reference:
-        GraphExecutor::Backward)."""
-        if self._graph is None:
-            raise MXNetError("backward() requires a prior forward(is_train=True)")
-        outs, leaves = self._graph
-        if out_grads is None:
-            cots = [torch.ones_like(o) for o in outs]
-        else:
-            if isinstance(out_grads, torch.Tensor):
-                out_grads = [out_grads]
-            cots = [to_tensor(g, o.device) for g, o in zip(out_grads, outs)]
-        pairs = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
-        names = list(leaves)
-        grads = [None] * len(names)
-        if pairs:
-            grads = torch.autograd.grad(
-                [o for o, _ in pairs], [leaves[n] for n in names],
-                [c for _, c in pairs], retain_graph=True, allow_unused=True)
+    def _write_grads(self, names, grads):
+        """Each gradient into its bound tensor (``write`` copies, ``add``
+        adds); a parameter no head reaches gets zero."""
         with torch.no_grad():
             for n, g in zip(names, grads):
                 holder = self.grad_dict.get(n)
@@ -455,6 +548,48 @@ class Executor:
                 else:
                     holder.copy_(g)
 
+    @staticmethod
+    def _head_grads(outs, cots):
+        """autograd's (outputs, grad_outputs) over the heads that carry a
+        graph (loss heads inject their own gradient)."""
+        pairs = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+        return [o for o, _ in pairs], [c for _, c in pairs]
+
+    def backward(self, out_grads=None):
+        """Compute gradients into the bound grad tensors (reference:
+        GraphExecutor::Backward). After ``precompile(is_train=True)`` on a
+        card, the head gradients are copied into the pair's buffers and the
+        backward graph replays."""
+        if self._graph is None:
+            raise MXNetError("backward() requires a prior forward(is_train=True)")
+        label, key = self._train_keys()[1]
+        compile_mod.registry().see(label, key, self._seen)
+        if self._graph is self._pair:
+            for i, buf in enumerate(self._cots):
+                if out_grads is None:
+                    buf.fill_(1.0)
+                else:
+                    grads = [out_grads] if isinstance(
+                        out_grads, torch.Tensor) else out_grads
+                    buf.copy_(to_tensor(grads[i], buf.device))
+            self._pair.run_backward()
+            return
+        outs, leaves = self._graph
+        if out_grads is None:
+            cots = [torch.ones_like(o) for o in outs]
+        else:
+            if isinstance(out_grads, torch.Tensor):
+                out_grads = [out_grads]
+            cots = [to_tensor(g, o.device) for g, o in zip(out_grads, outs)]
+        heads, seeds = self._head_grads(outs, cots)
+        names = list(leaves)
+        grads = [None] * len(names)
+        if heads:
+            grads = torch.autograd.grad(
+                heads, [leaves[n] for n in names], seeds, retain_graph=True,
+                allow_unused=True)
+        self._write_grads(names, grads)
+
     def _eval_key(self):
         """(label, program key) of the eval forward: the bound shapes'."""
         if self._eval_label is None:
@@ -465,28 +600,111 @@ class Executor:
                 compile_mod.program_key(fp, None, arrays, None, None, False))
         return self._eval_label
 
-    def precompile(self, is_train=False):
-        """Capture the eval forward of the bound shapes into a CUDA graph
-        (on a card, unless ``MXTPU_CUDA_GRAPHS=0`` or the graph holds a
-        ``_Native`` node): one eager warm-up, then the capture. Later
-        ``forward(is_train=False)`` calls replay it, reading the bound
-        argument and auxiliary tensors (``forward``'s keyword inputs are
-        copied into them). Training through an Executor stays eager (ROADMAP
-        A6). Returns the seconds spent (0.0 where nothing is captured: the
-        CPU, or either case above; the program is counted and the reason
-        goes to ``compile_stats()["eager"]``)."""
-        if is_train:
-            raise NotImplementedError(
-                "Executor.precompile(is_train=True) is not ported yet: "
-                "ROADMAP A6 (a captured forward and backward pair)")
-        label, key = self._eval_key()
-        compile_mod.registry().see(label, key, self._seen, precompile=True)
+    def _train_keys(self):
+        """((label, key) of the training forward, (label, key) of the
+        backward), named as the JAX package names its programs
+        (``fwd_train_res`` with gradients to take, else ``fwd_train``;
+        ``bwd_apply``)."""
+        if self._train_labels is None:
+            fp = compile_mod.graph_fingerprint(self._symbol)
+            arrays = {**self.arg_dict, **self.aux_dict}
+            key = compile_mod.program_key(fp, None, arrays, None, None, True)
+            kind = "fwd_train_res" if self._diff_names() else "fwd_train"
+            self._train_labels = ((f"{kind}:{fp}", key),
+                                  (f"bwd_apply:{fp}", key))
+        return self._train_labels
+
+    def _capture_train(self):
+        """Capture the training pair over the bound tensors: one eager
+        forward and backward (on a side stream), then the two graphs,
+        after which every auxiliary state, gradient and generator is put
+        back as it was. Returns the seconds spent."""
         dev = self._ctx.torch_device
-        reason = compile_mod.eager_reason(dev, has_native(self._symbol))
+        t0 = time.perf_counter()
+        fn = self._fn(True)
+        rng = _random.generator(dev) if self._needs_rng else None
+        names = self._diff_names()
+        leaves = self._pair_leaves = {
+            n: self.arg_dict[n].detach().requires_grad_(True) for n in names}
+
+        def forward():
+            with torch.enable_grad():
+                outs, new_aux = fn({**self.arg_dict, **leaves},
+                                   self.aux_dict, rng)
+            with torch.no_grad():
+                for n, a in self.aux_dict.items():
+                    a.copy_(new_aux[n])
+            return list(outs)
+
+        def backward(outs):
+            heads, seeds = self._head_grads(outs, self._cots)
+            grads = [None] * len(names)
+            if heads:
+                grads = torch.autograd.grad(
+                    heads, [leaves[n] for n in names], seeds,
+                    retain_graph=True, allow_unused=True)
+            self._write_grads(names, grads)
+
+        labels = [label for label, _ in self._train_keys()]
+        saved = {"aux": {k: v.clone() for k, v in self.aux_dict.items()},
+                 "grad": {k: v.clone() for k, v in self.grad_dict.items()},
+                 "rng": _random.get_state()}
+        pair = compile_mod.CapturedPair(
+            forward, backward, dev, labels, warmup=1,
+            generators=[rng] if rng is not None else [])
+        outs = pair.run_forward()  # the warm-up pair, eager
+        self._cots = [torch.ones_like(o) for o in outs]
+        pair.run_backward()
+        pair.capture()
+        torch.cuda.synchronize(dev)
+        with torch.no_grad():
+            for group in ("aux", "grad"):
+                held = self.aux_dict if group == "aux" else self.grad_dict
+                for k, v in saved[group].items():
+                    held[k].copy_(v)
+        _random.set_state(saved["rng"])
+        self._pair = pair
+        return time.perf_counter() - t0
+
+    def train_reason(self):
+        """Why this executor's training runs eager, or None when
+        ``precompile(is_train=True)`` captures it: the cases of
+        ``utils.compile.eager_reason``, or no gradient to take."""
+        reason = compile_mod.eager_reason(self._ctx.torch_device,
+                                          has_native(self._symbol))
+        if reason is None and not self._diff_names():
+            reason = "no gradient to take (grad_req null)"
+        return reason
+
+    def precompile(self, is_train=False):
+        """Capture the program ``forward(is_train=...)`` runs into CUDA
+        graphs (on a card, unless ``MXTPU_CUDA_GRAPHS=0`` or the graph
+        holds a ``_Native`` node). Eval: one eager warm-up, then the
+        capture; later ``forward(is_train=False)`` calls replay it, reading
+        the bound argument and auxiliary tensors (``forward``'s keyword
+        inputs are copied into them). Training: the forward and backward
+        pair (``utils.compile.CapturedPair``), warmed up and captured with
+        every auxiliary state, gradient and generator put back; later
+        ``forward(is_train=True)`` and ``backward(out_grads)`` replay it.
+        The program is counted as a precompile under the JAX package's
+        label (``fwd_eval``, ``fwd_train_res``). Returns the seconds spent
+        (0.0 where nothing is captured: the CPU, either case above, or a
+        training program with no gradient; the reason goes to
+        ``compile_stats()["eager"]``)."""
+        is_train = bool(is_train)
+        label, key = self._train_keys()[0] if is_train else self._eval_key()
+        compile_mod.registry().see(label, key, self._seen, precompile=True)
+        reason = self.train_reason() if is_train else \
+            compile_mod.eager_reason(self._ctx.torch_device,
+                                     has_native(self._symbol))
         if reason is not None:
             compile_mod.note_eager(reason)
-        if reason is not None or self._eval_program is not None:
             return 0.0
+        if is_train:
+            return 0.0 if self._pair is not None else self._capture_train()
+        if self._eval_program is not None:
+            return 0.0
+        dev = self._ctx.torch_device
         t0 = time.perf_counter()
         fn = self._fn(False)
         rng = _random.generator(dev) if self._needs_rng else None

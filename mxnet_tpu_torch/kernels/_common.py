@@ -64,18 +64,23 @@ def use_kernel(*tensors) -> bool:
     raise ValueError(f"no kernel or plain version for device {device}")
 
 
-_CAPTURE = threading.local()
+# the launch record of the capture open in this process: autograd runs a
+# captured backward's kernels on a thread of its own, so the record is the
+# process's, not the capturing thread's (one capture at a time)
+_CAPTURE = {"counts": None}
+_CAPTURE_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
 def capture_launches():
-    """The launch record of a capture on this thread: ``{wrapper: n}``."""
-    prev = getattr(_CAPTURE, "counts", None)
-    counts = _CAPTURE.counts = {}
+    """The launch record of a capture: ``{wrapper: n}``, every launch made
+    while the capture is open, from whichever thread."""
+    prev = _CAPTURE["counts"]
+    counts = _CAPTURE["counts"] = {}
     try:
         yield counts
     finally:
-        _CAPTURE.counts = prev
+        _CAPTURE["counts"] = prev
 
 
 def count_launch(wrapper, n=1):
@@ -83,9 +88,10 @@ def count_launch(wrapper, n=1):
     they run now, in the open capture's record when the current stream is
     capturing (a replay adds them)."""
     if torch.cuda.is_current_stream_capturing():
-        counts = getattr(_CAPTURE, "counts", None)
-        if counts is not None:
-            counts[wrapper] = counts.get(wrapper, 0) + n
+        with _CAPTURE_LOCK:
+            counts = _CAPTURE["counts"]
+            if counts is not None:
+                counts[wrapper] = counts.get(wrapper, 0) + n
         return
     wrapper.launches += n
 

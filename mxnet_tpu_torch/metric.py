@@ -50,6 +50,14 @@ class EvalMetric:
         state. No host sync."""
         raise NotImplementedError
 
+    def device_key(self):
+        """Identity of the ``device_update`` computation: the metric's type
+        and hyperparameters (mxnet_tpu/metric.py:62-69)."""
+        hyper = tuple(sorted(
+            (k, repr(v)) for k, v in self.__dict__.items()
+            if k not in ("name", "num_inst", "sum_metric")))
+        return (type(self).__name__, hyper)
+
     def absorb_device_state(self, state):
         """Add a device accumulator into the host sums (one pull)."""
         s, n = state

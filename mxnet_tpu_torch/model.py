@@ -19,6 +19,16 @@ package's order (``model.py:2159-2161``), and ``rescale_grad`` is
 ``1/batch_size``. Metrics accumulate on the device and are pulled once per
 epoch, unless a ``batch_end_callback`` needs them after every batch.
 
+A ctx list of several devices trains them as replicas of one process, the
+JAX package's single-process ``dp`` mesh (``_ReplicaState``): each replica
+steps on its equal block of each batch's rows with its own parameters,
+auxiliary and optimizer state, and the replicas' gradients are summed by
+the in-process exchange (``comm.ReplicaGroup``), quantized with each
+replica's error-feedback residual under ``compression``. Without
+compression BatchNorm normalises over the global batch, as the JAX
+package's partitioned step does; with it, over each replica's rows, with
+the running statistics averaged. These steps run eager.
+
 Data-parallel training (``kvstore="dist_sync"``) runs one process per
 rank, as the JAX package's multi-process form does: every rank calls
 ``fit`` on its own rows, rank 0's initial parameters are broadcast, and
@@ -26,7 +36,10 @@ rank, as the JAX package's multi-process form does: every rank calls
 gradients are summed over the ranks (``comm.compressed_allreduce``, or
 ``comm.error_feedback_allreduce`` with a lossy ``compression``, whose
 residual each rank keeps across steps), float auxiliary states are
-averaged over the ranks and device metrics summed. ``comm_kernels`` routes
+averaged over the ranks and device metrics summed. Without compression
+the step is the JAX package's partitioned one: BatchNorm normalises over
+every rank's rows (``ops.nn.batch_statistics_over``), so the running
+statistics come out equal and are not averaged. ``comm_kernels`` routes
 the quantize stages through the fused kernels; ``overlap`` exchanges the
 gradients bucket by bucket while backward runs (``comm.OverlapSchedule``).
 ``kvstore="dist_async"`` trains against the update-on-arrival parameter
@@ -60,6 +73,7 @@ Arguments of ``fit`` that belong to later slices of the port raise
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -82,9 +96,10 @@ from . import symbol as sym_mod
 from .base import MXNetError
 from .callback import BatchEndParam
 from .comm.allreduce import all_reduce_sum, broadcast_
-from .context import Context, current_context
+from .context import Context, current_context, distinct_contexts
 from .convert import to_tensor
-from .executor import _build_graph_fn, has_native
+from .executor import _build_graph_fn, _build_replica_graph_fn, has_native
+from .ops.nn import batch_statistics_over
 from .resilience import ckpt_async as ckpt_plane
 from .utils import checkpoint as ckpt_mod
 from .utils import compile as compile_mod
@@ -92,6 +107,9 @@ from .utils.checkpoint import atomic_write, check_sidecar
 
 __all__ = ["FeedForward", "save_checkpoint", "load_checkpoint",
            "opt_leaves"]
+
+# the base class of FeedForward (mxnet_tpu/model.py:66)
+BASE_ESTIMATOR = object
 
 # fit() arguments of later slices -> the ROADMAP item that brings them
 _LATER_SLICES = {
@@ -136,6 +154,23 @@ def load_checkpoint(prefix, epoch):
     return symbol, arg_params, aux_params
 
 
+def _create_kvstore(kvstore, num_device, ctx):
+    """The kvstore of a fit (mxnet_tpu/model.py:338-350): None for None,
+    and for a local strategy over one device (a single device trains
+    without a store); a store object as it is; else the named store (a
+    ``local`` or ``device`` store aggregates the pushes of several
+    devices)."""
+    if kvstore is None:
+        return None
+    if isinstance(kvstore, kvs_mod.KVStore):
+        return kvstore
+    if isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            return None
+        return kvs_mod.create(kvstore, ctx=ctx)
+    raise TypeError("kvstore must be KVStore, str or None")
+
+
 def _init_iter(X, y, batch_size, shuffle=False, is_train=True):
     """An iterator over X: a DataIter as it is, arrays through NDArrayIter
     (batch size clamped to the dataset size)."""
@@ -161,16 +196,17 @@ def _pad_rows(arrays: dict, target: int) -> dict:
 
 
 class _GradSync:
-    """The data-parallel part of a step, on one rank of ``num_workers``:
-    the gradient sum over the ranks (sum semantics; the optimizer's
-    ``rescale_grad`` makes it the mean), with this rank's error-feedback
-    residual for a lossy ``spec``; the mean of float auxiliary states; the
-    sum of device metric accumulators. Registers its wire plan with
-    ``comm.comm_stats()`` once and records one step per gradient sync
-    (mxnet_tpu/model.py:962-973).
+    """The data-parallel part of a step, on one rank of ``num_workers``, or
+    on every replica of a ``comm.ReplicaGroup`` (``group``; then each
+    method takes and returns one value a replica, in a list): the gradient
+    sum over the ranks (sum semantics; the optimizer's ``rescale_grad``
+    makes it the mean), with each member's error-feedback residual for a
+    lossy ``spec``; the mean of float auxiliary states; the sum of device
+    metric accumulators. Registers its wire plan with ``comm.comm_stats()``
+    once and records one step per gradient sync (mxnet_tpu/model.py:962-973).
 
-    The gradients are views of one padded f32 buffer, laid out as the
-    exchange flattens them (sorted names): :meth:`attach` points every
+    A member's gradients are views of one padded f32 buffer, laid out as
+    the exchange flattens them (sorted names): :meth:`attach` points every
     parameter's ``.grad`` at its view before backward, and autograd
     accumulates each gradient into it in place. With error feedback the
     buffer is the residual itself, so that accumulation is the residual
@@ -188,49 +224,121 @@ class _GradSync:
     LABEL = "train_step:dist_sync"
 
     def __init__(self, spec, kernels, params, num_workers, device,
-                 plan=None):
+                 plan=None, group=None):
         self.spec, self.kernels = spec, kernels
         self.num_workers = num_workers
+        self.group = group
+        self.replicas = group is not None
+        devices = group.devices if self.replicas else [device]
         self.shapes = {k: tuple(v.shape) for k, v in params.items()}
+        self.size = comm_mod.flat_size(params)
         self.plan = plan
         self.schedule = None
-        self.flat = None  # the buffer backward accumulates into
+        self.flats = None  # the buffers backward accumulates into
+        self._rows = None
         if plan is not None:
-            self.schedule = comm_mod.OverlapSchedule(plan, device,
-                                                     kernels=kernels)
-            self.residual = None
+            self.schedule = comm_mod.OverlapSchedule(
+                plan, device, group=group, kernels=kernels)
             comm_mod.registry().register_plan(self.LABEL, plan.wire_plan())
             return
-        size = comm_mod.flat_size(params)
+        size = self.size
         padded = size if spec is None else \
             comm_mod.padded_flat_size(size, spec, num_workers)
-        self.residual = comm_mod.init_error_feedback(
-            params, spec, num_workers, device=device)
-        self._zeros = None if self.residual is not None else \
-            torch.zeros(padded, dtype=torch.float32, device=device)
+        if spec is not None and spec.error_feedback:
+            self._rows = [comm_mod.init_error_feedback(
+                params, spec, num_workers, device=d) for d in devices]
+        self._zeros = None if self._rows is not None else [
+            torch.zeros(padded, dtype=torch.float32, device=d)
+            for d in devices]
         comm_mod.registry().register_plan(
             self.LABEL, comm_mod.allreduce_plan(size, num_workers, spec))
 
+    def _one(self, values):
+        """A rank's one value, or every replica's list."""
+        return values if self.replicas else values[0]
+
+    @property
+    def residual(self):
+        """A rank's ``(1, Lp)`` residual row (None without feedback or
+        under a plan)."""
+        return None if self._rows is None else self._rows[0]
+
+    @property
+    def flat(self):
+        """The buffer the last backward filled (the first member's)."""
+        return None if self.flats is None else self.flats[0]
+
     def residuals(self):
-        """Under a plan: ``{bucket_name: (1, Lp_b)}`` views of the buffer,
-        the per-bucket residual rows (None without feedback)."""
+        """Under a plan: ``{bucket_name: (members, Lp_b)}``, the
+        per-bucket residual rows (None without feedback)."""
         return self.schedule.residuals() if self.schedule is not None \
             else None
 
-    def attach(self, params: dict):
-        """Point each parameter's ``.grad`` at its view of the buffer: the
-        residual row, or the zeroed buffer."""
+    def comm_state(self):
+        """``(state, layout_key)`` for a sharded checkpoint: the residual
+        rows, ``(members, Lp)`` each, per bucket or under ``__fused__``,
+        and the layout a resumed fit checks them against; ``(None, None)``
+        without feedback (mxnet_tpu/model.py:1720-1728)."""
+        if self.schedule is not None:
+            state = self.residuals()
+            return (None, None) if state is None else \
+                (state, self.plan.layout_key())
+        if self._rows is None:
+            return None, None
+        first = self._rows[0].device
+        return ({"__fused__": torch.cat([r.to(first) for r in self._rows])},
+                comm_mod.fused_layout_key(self.size, self.spec,
+                                          self.num_workers))
+
+    def load_comm_state(self, saved, layout, logger):
+        """Adopt a checkpoint's residual rows when their layout still
+        describes this exchange, else drop them, logging which, as the
+        JAX package's resume does (mxnet_tpu/model.py:1466-1500)."""
+        if saved is None:
+            return
+        state, key = self.comm_state()
+        if state is None:
+            return
+        if self.schedule is not None:
+            if layout == key and comm_mod.residuals_match_plan(
+                    {k: v[:1] for k, v in saved.items()}, self.plan) and \
+                    all(v.shape[0] == len(self.schedule.flats)
+                        for v in saved.values()):
+                self.schedule.load_residuals(saved)
+                logger.info("resumed %d per-bucket EF residual ledger(s)",
+                            len(saved))
+            else:
+                logger.info("EF residuals dropped on resume: bucket plan "
+                            "changed (%s -> %s); starting a fresh ledger",
+                            layout, key)
+            return
+        rows = saved.get("__fused__")
+        if layout == key and rows is not None and \
+                tuple(rows.shape) == tuple(state["__fused__"].shape):
+            for m, r in enumerate(self._rows):
+                r.copy_(torch.as_tensor(rows[m:m + 1]).to(r.device))
+            logger.info("resumed fused EF residual")
+        else:
+            logger.info("EF residual dropped on resume: layout changed "
+                        "(%s -> %s)", layout, key)
+
+    def attach(self, params):
+        """Point each parameter's ``.grad`` at its view of its member's
+        buffer: the residual row, or the zeroed buffer. ``params`` is a
+        rank's dict, or one dict a replica."""
+        members = params if self.replicas else [params]
         if self.schedule is not None:
             self.schedule.attach(params)
-            self.flat = self.schedule.flat
+            self.flats = list(self.schedule.flats)
             return
-        if self.residual is not None:
-            self.flat = self.residual[0]
+        if self._rows is not None:
+            self.flats = [r[0] for r in self._rows]
         else:
-            self.flat = self._zeros.zero_()
-        views = comm_mod.flat_views(self.flat, self.shapes)
-        for k, p in params.items():
-            p.grad = views[k]
+            self.flats = [z.zero_() for z in self._zeros]
+        for flat, p in zip(self.flats, members):
+            views = comm_mod.flat_views(flat, self.shapes)
+            for k, t in p.items():
+                t.grad = views[k]
 
     def finish_backward(self):
         """After backward: under a plan, start the buckets backward left
@@ -242,40 +350,51 @@ class _GradSync:
         if self.schedule is not None:
             self.schedule.close()
 
-    def grads(self) -> dict:
-        """The exchange of the buffer backward filled: the summed gradients
-        as views of the exchange's result, the new residual kept."""
+    def grads(self):
+        """The exchange of the buffers backward filled: the summed
+        gradients as views of the exchange's result, the new residual
+        kept (a rank's dict, or one dict a replica)."""
         if self.schedule is not None:
             out = self.schedule.wait()
-            self.flat = None
+            self.flats = None
             comm_mod.registry().record_step(self.LABEL)
             return out
-        if self.residual is not None:
-            out, self.residual = comm_mod.error_feedback_exchange(
-                self.flat, self.spec, axis_size=self.num_workers,
-                kernels=self.kernels)
+        flats = self._one(self.flats)
+        if self._rows is not None:
+            outs, rows = comm_mod.error_feedback_exchange(
+                flats, self.spec, group=self.group,
+                axis_size=self.num_workers, kernels=self.kernels)
+            self._rows = rows if self.replicas else [rows]
         else:
-            out = comm_mod.compressed_exchange(
-                self.flat, self.spec, axis_size=self.num_workers,
-                kernels=self.kernels)
-        self.flat = None
+            outs = comm_mod.compressed_exchange(
+                flats, self.spec, group=self.group,
+                axis_size=self.num_workers, kernels=self.kernels)
+        self.flats = None
         comm_mod.registry().record_step(self.LABEL)
-        return comm_mod.flat_views(out, self.shapes)
+        outs = outs if self.replicas else [outs]
+        return self._one([comm_mod.flat_views(o, self.shapes) for o in outs])
 
-    def aux(self, aux: dict) -> dict:
-        """Float auxiliary states averaged over the ranks (``pmean``), in
-        one collective."""
-        names = [k for k in sorted(aux) if aux[k].is_floating_point()]
+    def aux(self, aux):
+        """Float auxiliary states averaged over the members (``pmean``), in
+        one collective (a rank's dict, or one dict a replica)."""
+        members = aux if self.replicas else [aux]
+        names = [k for k in sorted(members[0])
+                 if members[0][k].is_floating_point()]
         if not names:
             return aux
-        flat = torch.cat([aux[k].reshape(-1).float() for k in names])
-        flat = all_reduce_sum(flat) / self.num_workers
-        out, off = dict(aux), 0
-        for k in names:
-            n = aux[k].numel()
-            out[k] = flat[off:off + n].reshape(aux[k].shape).to(aux[k].dtype)
-            off += n
-        return out
+        flats = [torch.cat([a[k].reshape(-1).float() for k in names])
+                 for a in members]
+        summed = all_reduce_sum(self._one(flats), self.group)
+        out = []
+        for a, flat in zip(members, summed if self.replicas else [summed]):
+            flat = flat / self.num_workers
+            new, off = dict(a), 0
+            for k in names:
+                n = a[k].numel()
+                new[k] = flat[off:off + n].reshape(a[k].shape).to(a[k].dtype)
+                off += n
+            out.append(new)
+        return self._one(out)
 
     @staticmethod
     def metric(state):
@@ -498,6 +617,7 @@ class _TrainState:
         # False under dist_async: the parameter host applies the optimizer,
         # the step only takes the gradients (no optimizer state here)
         self.apply_update = apply_update
+        self.symbol = symbol
         self.graph_fn = _build_graph_fn(symbol, is_train=True)
         self._symbol_for = symbol_for
         self._graph_fns = {}
@@ -505,6 +625,10 @@ class _TrainState:
         self.data_names = frozenset(data_names)
         self.optimizer = optimizer
         self.grad_sync = sync
+        # ranks exchanging uncompressed gradients compute the JAX package's
+        # partitioned step: BatchNorm over every rank's rows
+        self._rank_stats = sync is not None and not sync.replicas and \
+            sync.spec is None
         self.params = {k: v.requires_grad_(True) for k, v in params.items()}
         self.names = list(self.params)
         self.aux = aux
@@ -603,7 +727,7 @@ class _TrainState:
         (batch,) row mask of a padded batch."""
         graph_fn = self.graph_fn_for(bucket_key)
         names = self.data_names if data_names is None else data_names
-        with torch.enable_grad():
+        with torch.enable_grad(), self._statistics():
             params = _cast_floats(self.params, self.compute_dtype)
             batch = _cast_inputs(batch, self.compute_dtype, names)
             outs, new_aux = graph_fn({**params, **batch}, self.aux, self.rng,
@@ -617,6 +741,12 @@ class _TrainState:
                     self.aux[k].copy_(v)
         return outs
 
+    def _statistics(self):
+        """BatchNorm over every rank's rows for uncompressed multi-rank
+        training (``ops.nn.batch_statistics_over``), else nothing."""
+        return batch_statistics_over(None) if self._rank_stats \
+            else contextlib.nullcontext()
+
     def backward(self):
         if self.grad_sync is not None:
             # into the sync's flat buffer, through each parameter's .grad
@@ -628,18 +758,23 @@ class _TrainState:
             self.grads = self._grad_views
         if self._loss is not None:
             # a parameter no head depends on (fix_gamma's gamma) keeps 0
-            torch.autograd.backward(self._loss,
-                                    inputs=list(self.params.values()))
+            with self._statistics():
+                torch.autograd.backward(self._loss,
+                                        inputs=list(self.params.values()))
         self._loss = None
         if self.grad_sync is not None:
             self.grad_sync.finish_backward()
 
     def sync(self):
         """Data-parallel training: the gradients summed over the ranks and
-        the auxiliary states averaged. A no-op on one device."""
+        the auxiliary states averaged (already equal, and left as they are,
+        where BatchNorm took every rank's rows). A no-op on one device."""
         if self.grad_sync is not None:
             with torch.no_grad():
                 self.grads = self.grad_sync.grads()
+                if self._rank_stats:
+                    # every rank's statistics were the global batch's
+                    return
                 for k, v in self.grad_sync.aux(self.aux).items():
                     if v is not self.aux[k]:
                         self.aux[k].copy_(v)
@@ -695,11 +830,184 @@ class _Program:
         return list(outs), seen
 
 
-class FeedForward:
+def _split_rows(value, parts: int):
+    """``value``'s rows cut into ``parts`` equal blocks: a device's
+    ``P("dp")`` share. A batch the blocks cannot split raises what the JAX
+    package's placement raises."""
+    rows = int(value.shape[0])
+    if rows % parts:
+        raise ValueError(
+            f"One of the batch's arrays was given a dp axis of {parts} "
+            f"devices, which implies that the global size of its dimension "
+            f"0 should be divisible by {parts}, but it is equal to {rows} "
+            f"(full shape: {tuple(value.shape)})")
+    return torch.split(value, rows // parts)
+
+
+class _ReplicaState:
+    """A trainer over the replicas of one process (a ctx list of distinct
+    devices; the JAX package's single-process ``dp`` mesh): one
+    :class:`_TrainState` a replica, each with its own parameters,
+    auxiliary states, optimizer state and generator on its device, and a
+    :class:`_GradSync` over a ``comm.ReplicaGroup``.
+
+    A step cuts the batch's rows into one equal block a replica (its
+    ``P("dp")`` rows), runs each replica's forward on its block, one
+    backward through all of them, the exchange of the replicas' gradients
+    (their sum, or ``compression``'s quantized exchange with each
+    replica's error-feedback residual) and each replica's update, which
+    leaves the replicas bitwise equal. ``global_stats`` (no compression)
+    computes the JAX package's partitioned step, the single-device graph
+    on the global batch: a training BatchNorm normalises over every
+    replica's rows (:func:`~.executor._build_replica_graph_fn`) and the
+    replicas' auxiliary states come out equal. With compression each
+    replica normalises its own rows and the float auxiliary states are
+    averaged over the replicas, as the JAX package's ``shard_map`` step
+    does (mxnet_tpu/model.py:715-719). The outputs are the replicas'
+    joined in row order on the first replica's device, so a metric reads
+    the global batch. Steps run eager."""
+
+    def __init__(self, symbol, optimizer, params, aux, devices, sync,
+                 compute_dtype=None, data_names=(), symbol_for=None):
+        self.devices = list(devices)
+        self.device = self.devices[0]
+        self.grad_sync = sync
+        self.global_stats = sync.spec is None
+        self.members = [
+            _TrainState(symbol, optimizer,
+                        {k: to_tensor(v, d).detach().clone()
+                         for k, v in params.items()},
+                        {k: to_tensor(v, d).detach().clone()
+                         for k, v in aux.items()}, d,
+                        sync=sync, compute_dtype=compute_dtype,
+                        data_names=data_names, symbol_for=symbol_for)
+            for d in self.devices]
+        self.programs = {}  # never captured
+        self._lockstep = {}
+
+    # the first replica's state stands for all of them (they stay equal)
+    params = property(lambda self: self.members[0].params)
+    aux = property(lambda self: self.members[0].aux)
+    opt_state = property(lambda self: self.members[0].opt_state)
+    names = property(lambda self: self.members[0].names)
+    optimizer = property(lambda self: self.members[0].optimizer)
+    apply_update = property(lambda self: self.members[0].apply_update)
+
+    @property
+    def data_names(self):
+        return self.members[0].data_names
+
+    @data_names.setter
+    def data_names(self, names):
+        for m in self.members:
+            m.data_names = names
+
+    def load(self, params, aux, opt_leaves_=None):
+        for m in self.members:
+            m.load(params, aux, opt_leaves_)
+
+    def restore_opt(self, leaves):
+        for m in self.members:
+            m.restore_opt(leaves)
+
+    def prepare(self, lr):
+        for m in self.members:
+            m.prepare(lr)
+
+    def _lockstep_fn(self, bucket_key):
+        """The joined-statistics graph of ``bucket_key`` when it holds a
+        BatchNorm, else None (the replicas' graphs are independent)."""
+        if bucket_key not in self._lockstep:
+            member = self.members[0]
+            symbol = member._symbol_for(bucket_key) \
+                if bucket_key is not None else member.symbol
+            coupled = any(not n.is_variable and n.op.name == "BatchNorm"
+                          for n in symbol._topo())
+            self._lockstep[bucket_key] = _build_replica_graph_fn(
+                symbol, is_train=True) if coupled else None
+        return self._lockstep[bucket_key]
+
+    def _forward_joined(self, fn, blocks, data_names, masks):
+        names = self.members[0].data_names if data_names is None \
+            else data_names
+        dtype = self.members[0].compute_dtype
+        with torch.enable_grad():
+            args = [{**_cast_floats(m.params, dtype),
+                     **_cast_inputs(b, dtype, names)}
+                    for m, b in zip(self.members, blocks)]
+            outs, new_aux = fn(args, [m.aux for m in self.members],
+                               [m.rng for m in self.members], masks)
+            for m, o in zip(self.members, outs):
+                heads = [t for t in o if t.requires_grad]
+                m._loss = sum(t.float().sum() for t in heads) \
+                    if heads else None
+        with torch.no_grad():
+            for m, updated in zip(self.members, new_aux):
+                for k, v in updated.items():
+                    if v is not m.aux[k]:
+                        m.aux[k].copy_(v)
+        return outs
+
+    def step(self, batch: dict, bucket_key=None, data_names=None,
+             probe=None):
+        """One training step over the replicas; returns the joined
+        detached outputs and ``probe(batch)``."""
+        batch = dict(batch)
+        num_valid = batch.pop("__num_valid__", None)
+        n = len(self.members)
+        cut = {k: _split_rows(v, n) for k, v in batch.items()}
+        blocks = [{k: parts[r].to(d) for k, parts in cut.items()}
+                  for r, d in enumerate(self.devices)]
+        masks = [None] * n
+        if num_valid is not None:
+            rows = next(iter(batch.values())).shape[0]
+            mask = (torch.arange(rows, device=num_valid.device)
+                    < num_valid).float()
+            masks = [part.to(d) for part, d in
+                     zip(_split_rows(mask, n), self.devices)]
+        fn = self._lockstep_fn(bucket_key) if self.global_stats else None
+        if fn is not None:
+            outs = self._forward_joined(fn, blocks, data_names, masks)
+        else:
+            outs = [m.forward(b, bucket_key, data_names, mask)
+                    for m, b, mask in zip(self.members, blocks, masks)]
+        sync = self.grad_sync
+        sync.attach([m.params for m in self.members])
+        losses = [m._loss.to(self.device) for m in self.members
+                  if m._loss is not None]
+        if losses:
+            torch.autograd.backward(
+                sum(losses), inputs=[p for m in self.members
+                                     for p in m.params.values()])
+        for m in self.members:
+            m._loss = None
+        sync.finish_backward()
+        with torch.no_grad():
+            grads = sync.grads()
+            if not self.global_stats:
+                for m, new in zip(self.members,
+                                  sync.aux([m.aux for m in self.members])):
+                    for k, v in new.items():
+                        if v is not m.aux[k]:
+                            m.aux[k].copy_(v)
+        for m, g in zip(self.members, grads):
+            m.grads = g
+            if m.apply_update:
+                m.update()
+        joined = [torch.cat([o[i].detach().to(self.device) for o in outs])
+                  for i in range(len(outs[0]))]
+        seen = None if probe is None else probe(batch)
+        return joined, seen
+
+
+class FeedForward(BASE_ESTIMATOR):
     """Model estimator over a loss-headed Symbol (reference: model.py:465).
 
     ``ctx`` defaults to ``[current_context()]``, which is ``gpu(0)`` outside
-    a ``with mt.cpu():`` block; this slice trains on one device.
+    a ``with mt.cpu():`` block. A list of several distinct devices (aliases
+    of one device removed, ``context.distinct_contexts``) trains them as
+    replicas of one process (:class:`_ReplicaState`), the JAX package's
+    single-process ``dp`` mesh; ``predict`` and ``score`` run on the first.
     ``compute_dtype`` (a floating torch dtype: ``torch.bfloat16``) computes
     the forward and backward in that type with f32 master parameters, as
     the JAX package's mixed precision does; ``predict`` and ``score`` run
@@ -751,14 +1059,16 @@ class FeedForward:
         return self.symbol
 
     @property
+    def _replicas(self) -> list:
+        """The ctx list's distinct devices, aliases removed, in list order
+        (mxnet_tpu/model.py:449-460): one replica each."""
+        return distinct_contexts(self.ctx)
+
+    @property
     def _device(self) -> torch.device:
-        if len(self.ctx) != 1:
-            raise NotImplementedError(
-                f"FeedForward over {len(self.ctx)} devices in one process is "
-                "not ported yet: ROADMAP A4 (left from slice 4: the "
-                "single-process multi-device ctx); run one process per "
-                "device with kvstore='dist_sync'")
-        return self.ctx[0].torch_device
+        """The first replica's device: the only one on one device, and
+        where ``predict``, ``score`` and the metrics run on several."""
+        return self._replicas[0].torch_device
 
     def _init_params(self, input_shapes, overwrite=False):
         """Infer shapes and run the initializer on the CPU for every
@@ -818,11 +1128,15 @@ class FeedForward:
     def _eager_reason(self, dist_sync=False, dist_async=False):
         """Why this trainer's steps run eager, or None when they are
         captured: the only cases, in the order they are checked (a CPU
-        device, multi-worker dist_sync, overlapped or not, dist_async, a
-        ``_Native`` node, ``MXTPU_CUDA_GRAPHS=0``). Remat steps are
-        captured too: a recompute reads its forward's draws back
-        (``ops.registry.DrawTape``)."""
+        device, a ctx list of several devices, multi-worker dist_sync,
+        overlapped or not, dist_async, a ``_Native`` node,
+        ``MXTPU_CUDA_GRAPHS=0``). Remat steps are captured too: a recompute
+        reads its forward's draws back (``ops.registry.DrawTape``)."""
         dev = self._device
+        replicas = len(self._replicas)
+        if dev.type == "cuda" and replicas > 1:
+            return (f"a ctx list of {replicas} devices in one process (the "
+                    "replicas' exchange runs between their steps)")
         if dev.type == "cuda" and dist_sync:
             return ("kvstore dist_sync over more than one worker (gloo "
                     "stages through host buffers)")
@@ -835,9 +1149,17 @@ class FeedForward:
                    apply_update=True):
         """The trainer's state: the last one when it can train these
         parameters (its captured steps with it), loaded in place, else a
-        new one."""
+        new one; over several replicas a new :class:`_ReplicaState`."""
         state = self._train_state
         dev = self._device
+        if sync is not None and sync.replicas:
+            self._train_state = None
+            self._train_state = _ReplicaState(
+                self.symbol, optimizer, params, aux,
+                [c.torch_device for c in self._replicas], sync,
+                compute_dtype=self.compute_dtype, data_names=data_names,
+                symbol_for=self._symbol_for_bucket)
+            return self._train_state
         if state is not None and state.matches(optimizer, params, aux, dev,
                                                sync, self.compute_dtype,
                                                apply_update):
@@ -881,11 +1203,13 @@ class FeedForward:
     def _resume(self, directory, logger):
         """Load the newest valid checkpoint under ``directory`` into the
         trainer's host parameters; returns ``(num_update, batches_done,
-        opt_leaves)`` (zeros and None when there is none)."""
+        opt_leaves, (comm_state, comm_layout))`` (zeros and Nones when
+        there is none)."""
         last = ckpt_mod.latest_step(directory)
         if last is None:
-            return 0, 0, None
-        params, aux, _, meta, leaves = ckpt_mod.load_sharded(directory, last)
+            return 0, 0, None, (None, None)
+        params, aux, _, meta, leaves, comm_state = ckpt_mod.load_sharded(
+            directory, last, with_comm=True)
         self.arg_params = {k: torch.from_numpy(v) for k, v in params.items()}
         self.aux_params = {k: torch.from_numpy(v) for k, v in aux.items()}
         self.begin_epoch = int(meta.get("epoch", last))
@@ -894,7 +1218,8 @@ class FeedForward:
             random_mod.set_state(meta["rng_state"])
         logger.info("resumed sharded checkpoint step %d (epoch %d, "
                     "batches_done %d)", last, self.begin_epoch, batches_done)
-        return int(meta.get("num_update", 0)), batches_done, leaves
+        return (int(meta.get("num_update", 0)), batches_done, leaves,
+                (comm_state, meta.get("comm_layout")))
 
     def fit(self, X, y=None, eval_data=None, eval_metric="accuracy",
             epoch_end_callback=None, batch_end_callback=None, kvstore="local",
@@ -952,11 +1277,21 @@ class FeedForward:
         pad_policy = compile_mod.PadPolicy.resolve(pad_policy)
         ckpt_every = ckpt_plane.resolve_every(checkpoint_every_n_steps)
         dev = self._device
-        kv = kvs_mod.create(kvstore, ctx=self.ctx[0]) if kvstore else None
+        replicas = self._replicas
+        kv = _create_kvstore(kvstore, len(self.ctx), replicas[0])
         num_workers = kv.num_workers if kv is not None else 1
         async_kv = kv is not None and kv.type == "dist_async"
         dist_sync = kv is not None and "dist" in kv.type and \
             not async_kv and num_workers > 1
+        # several devices in one process: the replicas' exchange (the JAX
+        # package's single-process dp mesh)
+        multi = len(replicas) > 1
+        if multi and (dist_sync or async_kv):
+            raise MXNetError(
+                f"a ctx list of {len(replicas)} devices trains them as "
+                "replicas of one process; with kvstore='dist_sync' or "
+                "'dist_async' across workers, run one process a device "
+                "(ctx=one device each)")
         if sharded_checkpoint_dir is not None and num_workers > 1:
             raise MXNetError(
                 "sharded_checkpoint_dir is not supported with multi-worker "
@@ -973,7 +1308,7 @@ class FeedForward:
             # bucketed (kvstore_async.py); no collective exchange
             kv.set_gradient_compression(comm_spec)
             async_comm_spec, comm_spec = comm_spec, None
-        elif comm_spec is not None and not dist_sync:
+        elif comm_spec is not None and not dist_sync and not multi:
             logger.info("compression=%s ignored: single-device training "
                         "moves no gradient bytes over a wire",
                         comm_spec.mode)
@@ -989,15 +1324,16 @@ class FeedForward:
                         "stale; ps-lite async heritage)")
             overlap_cfg = None
         elif overlap_cfg is not None and comm_spec is None:
-            if dist_sync:
+            if dist_sync or multi:
                 logger.info("overlap= ignored: the overlapped schedule "
                             "pipelines the quantized per-bucket sync — set "
                             "compression= to arm it")
             overlap_cfg = None
         num_update, skip_batches, resume_leaves = 0, 0, None
+        resume_comm = (None, None)
         if sharded_checkpoint_dir is not None:
-            num_update, skip_batches, resume_leaves = self._resume(
-                sharded_checkpoint_dir, logger)
+            num_update, skip_batches, resume_leaves, resume_comm = \
+                self._resume(sharded_checkpoint_dir, logger)
         train_data = _init_iter(X, y, batch_size, shuffle=True)
         batch_size = train_data.batch_size or batch_size
         data_shapes = dict(train_data.provide_data)
@@ -1008,11 +1344,12 @@ class FeedForward:
         optimizer = self._resolve_optimizer(param_names, batch_size,
                                             num_workers)
         self._optimizer_obj = optimizer
+        axis = len(replicas) if multi else num_workers
         plan = None
         if overlap_cfg is not None:
             plan = comm_mod.plan_overlap(
                 {k: tuple(self.arg_params[k].shape) for k in param_names},
-                comm_spec, num_workers, max_bytes=overlap_cfg.bucket_bytes,
+                comm_spec, axis, max_bytes=overlap_cfg.bucket_bytes,
                 symbol=self.symbol)
             logger.info(
                 "overlap: %d bucket(s) scheduled reverse-topologically "
@@ -1041,10 +1378,19 @@ class FeedForward:
                 broadcast_(aux[k])
             sync = _GradSync(comm_spec, comm_kernels, params, num_workers,
                              dev, plan=plan)
+        elif multi:
+            # every replica starts from the same host arrays
+            sync = _GradSync(comm_spec, comm_kernels, params, axis, dev,
+                             plan=plan, group=comm_mod.ReplicaGroup(
+                                 [c.torch_device for c in replicas]))
         state = self._state_for(optimizer, params, aux, sync, data_names,
                                 apply_update=not async_kv)
         if resume_leaves is not None:
             state.restore_opt(resume_leaves)
+        if sync is not None and sync.replicas:
+            # the residual ledgers are saved only under one process's
+            # replicas, as in the JAX package
+            sync.load_comm_state(*resume_comm, logger)
         reason = self._eager_reason(dist_sync, async_kv)
         if reason is not None:
             compile_mod.note_eager(reason, logger)
@@ -1075,6 +1421,13 @@ class FeedForward:
                                                       logger=logger)
             # the peer tier of one process (the JAX package's handle)
             self.ckpt_replicas = ckpt_plane.ReplicaStore(1)
+
+        def comm_ckpt():
+            """The replicas' residual ledgers and their layout key."""
+            if sync is None or not sync.replicas:
+                return None, {}
+            rows, layout = sync.comm_state()
+            return rows, ({} if layout is None else {"comm_layout": layout})
 
         def state_meta(epoch_, batches_done):
             meta = {"epoch": epoch_, "num_update": num_update}
@@ -1140,10 +1493,13 @@ class FeedForward:
                                 num_update % ckpt_every == 0 and \
                                 num_update != last_snapshot:
                             last_snapshot = num_update
+                            rows, comm_meta = comm_ckpt()
                             snap = ckpt_plane.capture_snapshot(
                                 num_update, state.params, aux=state.aux,
                                 opt_state=opt_leaves(state.opt_state),
-                                meta=state_meta(epoch, nbatch),
+                                comm_state=rows,
+                                meta={**state_meta(epoch, nbatch),
+                                      **comm_meta},
                                 symbol=self.symbol)
                             writer.submit(snap)
                             self.ckpt_replicas.replicate(0, snap)
@@ -1170,7 +1526,7 @@ class FeedForward:
                             sent / 1e6, async_comm_spec.mode, raw / 1e6,
                             raw / sent)
                 if device_metric:
-                    if sync is not None:
+                    if dist_sync:
                         mstate = sync.metric(mstate)
                     eval_metric.absorb_device_state(mstate)
                 name, value = eval_metric.get()
@@ -1183,12 +1539,15 @@ class FeedForward:
                         writer.flush()
                     # the next epoch from its top; one step-id namespace
                     # (num_update) when snapshots are armed, else epochs
+                    rows, comm_meta = comm_ckpt()
                     ckpt_plane.save_now(
                         sharded_checkpoint_dir,
                         num_update if ckpt_every is not None else epoch + 1,
                         state.params, aux=state.aux, symbol=self.symbol,
                         opt_state=opt_leaves(state.opt_state),
-                        extra_meta=state_meta(epoch + 1, 0),
+                        comm_state=rows,
+                        extra_meta={**state_meta(epoch + 1, 0),
+                                    **comm_meta},
                         keep=writer.keep_last_k if writer is not None
                         else None)
                 # write back, so callbacks and checkpoints see this epoch's
@@ -1311,13 +1670,16 @@ class FeedForward:
         optimizer = self._resolve_optimizer(param_names,
                                             next(iter(base.values()))[0])
         self._optimizer_obj = optimizer
-        state = self._state_for(
-            optimizer, {k: self.arg_params[k] for k in param_names},
-            {k: self.aux_params[k] for k in aux_names}, None,
-            [k for k in programs[0][1]])
         dev = self._device
         captured = self._eager_reason() is None
-        snap = state.snapshot() if captured else None
+        state = snap = None
+        if len(self._replicas) == 1:
+            # a ctx list's replicas are built by fit (their steps are eager)
+            state = self._state_for(
+                optimizer, {k: self.arg_params[k] for k in param_names},
+                {k: self.aux_params[k] for k in aux_names}, None,
+                [k for k in programs[0][1]])
+            snap = state.snapshot() if captured else None
         labels = []
         for bucket_key, dshapes, lshapes in programs:
             arrays = {}

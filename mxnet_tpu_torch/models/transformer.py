@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -42,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from ..base import MXNetError
 from ..context import cpu, current_context
 from ..kernels.flash_attention import flash_attention
+from ..kernels.fused_adam import LeafTable
 from ..parallel.mesh import (Mesh, P, Sharding, all_reduce_max, local_mesh,
                              sum_gradients)
 from ..parallel.sequence import attention_reference, ring_self_attention
@@ -288,16 +290,32 @@ class TransformerLM:
         that hold the same block (dp x sp) before the update, and the loss
         is the global mean on every rank.
 
-        Where JAX donates params and state to its step, this step may update
-        them in place: the built-in rule and the fused Adam write into the
-        given tensors, so keep copies of anything needed afterwards.
-        ``lr=None`` takes the optimizer's lr (1e-3 for the built-in).
-        lr_schedulers are rejected, as the step carries no step counter.
+        Where JAX donates params and state to its step (``jax.jit(step,
+        donate_argnums=(0, 1))``), this step updates them in place: the
+        built-in rule and the optimizer write into the given tensors, so
+        keep copies of anything needed afterwards. ``lr=None`` takes the
+        optimizer's lr (1e-3 for the built-in). lr_schedulers are
+        rejected, as the step carries no step counter.
+
+        On a card without a mesh the step is captured, the counterpart of
+        that ``jit``: a CUDA graph a set of parameter and state tensors (by
+        identity; a call with other tensors captures anew and counts a
+        compile under ``lm_train_step`` in ``utils.compile``), whose first
+        call runs eager. Each call copies ``tokens`` and ``targets`` into
+        the graph's buffers, puts the optimizer's per-step values on the
+        card (``Optimizer.step_vector``; the update is ``apply_inplace``,
+        the same bits as ``apply``) and replays; it returns the updated
+        ``params`` and ``moms`` themselves and a copy of the loss. The
+        eager cases count their reason once a step function: the CPU, a
+        mesh (its gradient sums are collectives), ``mark=`` and
+        ``MXTPU_CUDA_GRAPHS=0``.
 
         ``step(..., mark=fn)`` calls ``fn(phase)`` as each phase of the step
         ends, in order ``"forward"``, ``"backward"``, ``"grad_sum"``,
         ``"update"``: a caller times the split of a step by recording a
-        CUDA event in ``fn``."""
+        CUDA event in ``fn``; such a step runs eager."""
+        from ..utils import compile as compile_mod
+
         if mesh is not None:
             self._mesh(mesh, None)
         if optimizer is not None and optimizer.lr_scheduler is not None:
@@ -307,8 +325,10 @@ class TransformerLM:
                 "or use FeedForward")
         if lr is None:
             lr = optimizer.lr if optimizer is not None else 1e-3
+        label = "lm_train_step"
+        programs, seen, noted = {}, set(), set()
 
-        def step(params, moms, tokens, targets, mark=None):
+        def eager(params, moms, tokens, targets, mark=None):
             mark = mark or (lambda phase: None)
             names = list(params)
             leaves = {k: params[k].detach().requires_grad_(True)
@@ -332,6 +352,87 @@ class TransformerLM:
             mark("update")
             return new_params, new_moms, loss.detach()
 
+        def program(params, moms, tokens, targets):
+            """The captured step over these tensors: static token, target,
+            gradient and step-value buffers, and the update through
+            ``apply_inplace`` with a leaf table of its own (the gradients'
+            buffers stay where they are, so the table never changes)."""
+            names = list(params)
+            dev = params[names[0]].device
+            static = {"tokens": torch.empty_like(tokens),
+                      "targets": torch.empty_like(targets),
+                      "grads": {k: torch.empty_like(params[k])
+                                for k in names},
+                      "scal": None}
+            table = LeafTable()
+
+            def body():
+                leaves = {k: params[k].detach().requires_grad_(True)
+                          for k in names}
+                loss = self.loss(leaves, static["tokens"], static["targets"],
+                                 self._mesh(None, params))
+                grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+                with torch.no_grad():
+                    for k, g in zip(names, grads):
+                        static["grads"][k].copy_(g)
+                    if optimizer is None:
+                        for k in names:
+                            moms[k].mul_(0.9).add_(static["grads"][k])
+                            params[k].sub_(lr * moms[k])
+                    else:
+                        optimizer.apply_inplace(params, static["grads"], moms,
+                                                static["scal"], table=table)
+                return loss.detach()
+
+            static["table"] = table
+            # body's closure holds the tensors the graph reads
+            static["captured"] = compile_mod.CapturedProgram(
+                body, dev, label, warmup=1)
+            return static
+
+        def captured(params, moms, tokens, targets):
+            names = list(params)
+            held = [params[k] for k in names] + [
+                t for t in compile_mod._flat_tensors(moms)
+                if t.device == params[names[0]].device]
+            key = (tuple(id(t) for t in held), tuple(tokens.shape),
+                   str(tokens.dtype), tuple(targets.shape),
+                   str(targets.dtype))
+            compile_mod.registry().see(label, key, seen)
+            prog = programs.get(key)
+            if prog is None:
+                prog = programs[key] = program(params, moms, tokens, targets)
+            prog["tokens"].copy_(tokens, non_blocking=True)
+            prog["targets"].copy_(targets, non_blocking=True)
+            if optimizer is not None:
+                # the host part of the step (Adam's counters advance here)
+                vec = torch.from_numpy(np.ascontiguousarray(
+                    optimizer.step_vector(names, moms, lr), np.float32))
+                if prog["scal"] is None:
+                    prog["scal"] = torch.empty(vec.numel(),
+                                               dtype=torch.float32,
+                                               device=tokens.device)
+                prog["scal"].copy_(vec.pin_memory(), non_blocking=True)
+            loss = prog["captured"]()
+            return params, moms, loss.clone()
+
+        def step(params, moms, tokens, targets, mark=None):
+            device = params[next(iter(params))].device
+            if mesh is not None:
+                reason = ("a mesh step (its gradient sums are collectives "
+                          "across ranks)")
+            elif mark is not None:
+                reason = "mark= (the phases are timed on the host)"
+            else:
+                reason = compile_mod.eager_reason(device)
+            if reason is None:
+                return captured(params, moms, tokens, targets)
+            if reason not in noted:
+                noted.add(reason)
+                compile_mod.note_eager(reason)
+            return eager(params, moms, tokens, targets, mark)
+
+        step.programs = programs
         return step
 
     def init_sharded(self, mesh=None, seed=0, optimizer=None, ctx=None):

@@ -13,6 +13,10 @@ the port's ``Executor`` and the optimizer's updater contract::
 ``BucketingModule`` keeps one executor a bucket key; every bucket's
 executor holds the default bucket's parameter and gradient tensors
 themselves, so the updater's in-place write is seen by every bucket.
+On a card ``fit`` captures each executor's training forward and backward
+as a pair of CUDA graphs before its first step (one pair a bucket), and
+every step replays it; the updater writes the parameters in place, where
+the graphs read them.
 ``context`` defaults to ``current_context()``: the card, unless the caller
 passes ``mt.cpu()``.
 """
@@ -33,6 +37,7 @@ from .callback import BatchEndParam
 from .context import current_context
 from .convert import to_tensor
 from .executor import Executor
+from .utils import compile as compile_mod
 from .model import _as_list, load_checkpoint, save_checkpoint
 
 __all__ = ["Module", "BucketingModule"]
@@ -50,6 +55,7 @@ class Module:
         self._context = context if context is not None else current_context()
         self._logger = logger or logging
         self._exec = None
+        self._capturing = False  # fit captures each executor's pair
         self._updater = None
         self._optimizer = None
         self._monitor = None
@@ -159,8 +165,16 @@ class Module:
             data_batch, getattr(data_batch, "data_names", self._data_names),
             getattr(data_batch, "label_names", self._label_names),
             self._shapes)
+        self._capture_pair(is_train)
         self._exec.forward(is_train=is_train, **feed)
         return self
+
+    def _capture_pair(self, is_train):
+        """Inside ``fit`` on a card: capture the executor's forward and
+        backward pair before its first training forward, so every step
+        replays it (``Executor._capture_train``)."""
+        if is_train and self._capturing and self._exec._pair is None:
+            self._exec._capture_train()
 
     def backward(self):
         self._exec.backward()
@@ -269,6 +283,12 @@ class Module:
                     broadcast_(self._exec.arg_dict[name])
             self._kv_ready = True
         eval_metric = metric_mod.create(eval_metric)
+        # on a card each executor's forward and backward replay a captured
+        # pair (one a bucket); the eager cases count their reason
+        reason = self._exec.train_reason()
+        if reason is not None:
+            compile_mod.note_eager(reason, self._logger)
+        self._capturing = reason is None
         for epoch in range(num_epoch):
             tic = time.time()
             eval_metric.reset()
@@ -404,6 +424,7 @@ class BucketingModule(Module):
             is_train = self.for_training
         feed = self._feed(data_batch, data_batch.data_names, label_names,
                           self._exec.arg_dict)
+        self._capture_pair(is_train)
         self._exec.forward(is_train=is_train, **feed)
         return self
 

@@ -28,7 +28,7 @@ import struct
 import numpy as np
 import torch
 
-from .base import MXNetError
+from .base import DTYPE_CODES, MXNetError
 from .context import Context, current_context, place
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
@@ -438,11 +438,7 @@ _NDAR_MAGIC = 0x112
 _NAMED_MAGIC = 0x1121
 
 # the JAX package's dtype codes (mxnet_tpu/base.py:98-129)
-_CODES = {
-    torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.uint8: 3,
-    torch.int32: 4, torch.int8: 5, torch.int64: 6, torch.bool: 7,
-    torch.bfloat16: 8,
-}
+_CODES = DTYPE_CODES
 _DTYPES = {v: k for k, v in _CODES.items()}
 
 

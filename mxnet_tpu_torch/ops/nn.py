@@ -404,15 +404,57 @@ def _bn_bshape(ndim, ch):
     return tuple(-1 if i == ch else 1 for i in range(ndim))
 
 
-def _bn_stats(x, eps, ch):
+# BatchNorm's statistics over the rows of every rank: the process group
+# ``[group]`` (None: the world) while a data-parallel step without
+# compression runs (``batch_statistics_over``), else None
+_RANK_STATS = [None]
+
+
+class batch_statistics_over:
+    """While the block runs, a training BatchNorm normalises over the batch
+    rows of every rank of ``group`` (None: the world), as the JAX
+    package's partitioned step over a mesh of processes does: its per
+    channel sums are summed over the ranks in the forward, and so are the
+    sums its backward reduces (the gradients of gamma and beta stay this
+    rank's share, which the gradient exchange sums). Set for the whole of
+    a step, forward and backward, since autograd may run the backward (and
+    a remat recompute) on a thread of its own; every rank must run the
+    same BatchNorms in the same order."""
+
+    def __init__(self, group=None):
+        self.group = [group]
+
+    def __enter__(self):
+        self._prev, _RANK_STATS[0] = _RANK_STATS[0], self.group
+        return self
+
+    def __exit__(self, *exc):
+        _RANK_STATS[0] = self._prev
+        return False
+
+
+def _over_ranks(sums, n, group):
+    """Per-channel sums (a tuple of tensors) and the row count ``n``
+    summed over the ranks of ``group[0]`` in one collective."""
+    from ..comm.allreduce import all_reduce_sum
+    import torch.distributed as dist
+
+    total = all_reduce_sum(torch.stack(sums), group[0])
+    return tuple(total.unbind(0)), n * dist.get_world_size(group[0])
+
+
+def _bn_stats(x, eps, ch, group=None):
     """One-pass batch statistics in f32 (mxnet_tpu/ops/nn.py:425-443):
     ``var = max(E[x²] - mean², 0)`` and ``inv = rsqrt(var + eps)``. Neither
-    ``torch.var`` nor cuDNN's batch norm, which round differently."""
+    ``torch.var`` nor cuDNN's batch norm, which round differently. With
+    ``group`` (``[process group]``) the sums are over every rank's rows."""
     axes = _bn_reduce_axes(x.ndim, ch)
     n = x.numel() // x.shape[ch]
     xf = at_least_f32(x)
     s1 = torch.sum(xf, dim=axes)
     s2 = torch.sum(xf * xf, dim=axes)
+    if group is not None:
+        (s1, s2), n = _over_ranks((s1, s2), n, group)
     mean = s1 / n
     var = torch.clamp_min(s2 / n - mean * mean, 0.0)
     return mean, var, torch.rsqrt(var + eps)
@@ -429,11 +471,12 @@ def _bn_affine(x, g, b, mean, inv, ch):
         shift.reshape(bshape).to(x.dtype)
 
 
-def _bn_core_bwd(x, g, mean, inv, dy, ch):
+def _bn_core_bwd(x, g, mean, inv, dy, ch, group=None):
     """BatchNorm's backward given the (already masked) cotangent, in the
     JAX package's order (mxnet_tpu/ops/nn.py:464-482): per-channel sums in
     f32, ``dx = g·inv · (dy - Σdy/n - x̂·Σ(dy·x̂)/n)`` elementwise in
-    dy.dtype. Returns (dx, dgamma, dbeta)."""
+    dy.dtype. Returns (dx, dgamma, dbeta). With ``group`` the sums in dx
+    are over every rank's rows; dgamma and dbeta stay this rank's."""
     axes = _bn_reduce_axes(x.ndim, ch)
     n = x.numel() // x.shape[ch]
     bshape = _bn_bshape(x.ndim, ch)
@@ -444,9 +487,12 @@ def _bn_core_bwd(x, g, mean, inv, dy, ch):
     dyf = at_least_f32(dy)
     dbeta = torch.sum(dyf, dim=axes)
     dgamma = torch.sum(dyf * xhat_f, dim=axes)
+    sb, sg = dbeta, dgamma
+    if group is not None:
+        (sb, sg), n = _over_ranks((dbeta, dgamma), n, group)
     k = (g * inv).reshape(bshape).to(dy.dtype)
-    dx = k * (dy - (dbeta / n).reshape(bshape).to(dy.dtype)
-              - xhat * (dgamma / n).reshape(bshape).to(dy.dtype))
+    dx = k * (dy - (sb / n).reshape(bshape).to(dy.dtype)
+              - xhat * (sg / n).reshape(bshape).to(dy.dtype))
     return dx.to(x.dtype), dgamma, dbeta
 
 
@@ -460,13 +506,13 @@ class _BnActTrain(torch.autograd.Function):
     running stats and carry no gradient."""
 
     @staticmethod
-    def forward(ctx, x, g, b, eps, ch, relu):
-        mean, var, inv = _bn_stats(x, eps, ch)
+    def forward(ctx, x, g, b, eps, ch, relu, group=None):
+        mean, var, inv = _bn_stats(x, eps, ch, group)
         y = _bn_affine(x, g, b, mean, inv, ch)
         if relu:
             y = torch.relu(y)
         ctx.save_for_backward(x, g, b, mean, inv)
-        ctx.ch, ctx.relu = ch, relu
+        ctx.ch, ctx.relu, ctx.group = ch, relu, group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -476,8 +522,9 @@ class _BnActTrain(torch.autograd.Function):
         if ctx.relu:
             dy = torch.where(_bn_affine(x, g, b, mean, inv, ctx.ch) > 0, dy,
                              torch.zeros((), dtype=dy.dtype, device=dy.device))
-        dx, dgamma, dbeta = _bn_core_bwd(x, g, mean, inv, dy, ctx.ch)
-        return dx, dgamma, dbeta, None, None, None
+        dx, dgamma, dbeta = _bn_core_bwd(x, g, mean, inv, dy, ctx.ch,
+                                         ctx.group)
+        return dx, dgamma, dbeta, None, None, None, None
 
 
 class _BnAddReluTrain(torch.autograd.Function):
@@ -486,11 +533,11 @@ class _BnAddReluTrain(torch.autograd.Function):
     block output is not saved and the mask is recomputed."""
 
     @staticmethod
-    def forward(ctx, x, g, b, z, eps, ch):
-        mean, var, inv = _bn_stats(x, eps, ch)
+    def forward(ctx, x, g, b, z, eps, ch, group=None):
+        mean, var, inv = _bn_stats(x, eps, ch, group)
         y = torch.relu(_bn_affine(x, g, b, mean, inv, ch) + z)
         ctx.save_for_backward(x, g, b, z, mean, inv)
-        ctx.ch = ch
+        ctx.ch, ctx.group = ch, group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -500,8 +547,9 @@ class _BnAddReluTrain(torch.autograd.Function):
         pre = _bn_affine(x, g, b, mean, inv, ctx.ch) + z  # the forward's
         dy = torch.where(pre > 0, dy,
                          torch.zeros((), dtype=dy.dtype, device=dy.device))
-        dx, dgamma, dbeta = _bn_core_bwd(x, g, mean, inv, dy, ctx.ch)
-        return dx, dgamma, dbeta, dy.to(z.dtype), None, None
+        dx, dgamma, dbeta = _bn_core_bwd(x, g, mean, inv, dy, ctx.ch,
+                                         ctx.group)
+        return dx, dgamma, dbeta, dy.to(z.dtype), None, None, None
 
 
 @register_op("BatchNorm")
@@ -512,7 +560,8 @@ class BatchNormOp(OpProp):
     f32, ``momentum * moving + (1 - momentum) * batch``, detached. Eval:
     normalise by the running stats. Gamma/beta are per-channel (``axis``;
     last axis for 2-D inputs). ``fix_gamma`` uses 1 for gamma, which then
-    gets no gradient."""
+    gets no gradient. Inside :class:`batch_statistics_over` the training
+    statistics are those of every rank's rows."""
 
     params = {
         "eps": (Range(float, lo=0.0), 1e-3, "numerical stability constant"),
@@ -556,10 +605,13 @@ class BatchNormOp(OpProp):
         g = at_least_f32(torch.ones_like(gamma) if self.fix_gamma else gamma)
         b = at_least_f32(beta)
         if is_train:
+            group = _RANK_STATS[0]
             if z is not None:
-                y, mean, var = _BnAddReluTrain.apply(x, g, b, z, self.eps, ch)
+                y, mean, var = _BnAddReluTrain.apply(x, g, b, z, self.eps, ch,
+                                                     group)
             else:
-                y, mean, var = _BnActTrain.apply(x, g, b, self.eps, ch, relu)
+                y, mean, var = _BnActTrain.apply(x, g, b, self.eps, ch, relu,
+                                                 group)
             m = self.momentum
             new_mean = m * moving_mean + (1 - m) * mean
             new_var = m * moving_var + (1 - m) * var

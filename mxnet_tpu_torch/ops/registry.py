@@ -118,6 +118,9 @@ class OpProp:
     def list_auxiliary_states(self):
         return []
 
+    def num_inputs(self):
+        return len(self.list_arguments())
+
     def num_outputs(self):
         return len(self.list_outputs())
 

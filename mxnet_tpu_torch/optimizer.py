@@ -143,6 +143,22 @@ class Optimizer:
     def tree_state(self, w):
         return None
 
+    def init_comm_residual(self, params: dict, compression, num_devices):
+        """The zero error-feedback state of a compressed gradient sync over
+        ``num_devices``: ``(num_devices, Lp)`` f32 on the parameters'
+        device, the JAX package's layout (a rank or replica holds its row,
+        ``convert.residual_rows_from_numpy``), or None when the mode needs
+        no feedback (mxnet_tpu/optimizer.py:71-82)."""
+        from .comm import CompressionSpec, flat_size, padded_flat_size
+
+        spec = CompressionSpec.resolve(compression)
+        if spec is None or not spec.error_feedback:
+            return None
+        device = next(iter(params.values())).device if params else None
+        return torch.zeros((int(num_devices), padded_flat_size(
+            flat_size(params), spec, num_devices)), dtype=torch.float32,
+            device=device)
+
     def apply(self, params: dict, grads: dict, states: dict, lr):
         """Per-leaf update over parameter dicts; returns new tensors."""
         new_p, new_s = {}, {}
@@ -158,9 +174,13 @@ class Optimizer:
         del names, states
         return np.array([lr], np.float32)
 
-    def apply_inplace(self, params: dict, grads: dict, states: dict, scal):
+    def apply_inplace(self, params: dict, grads: dict, states: dict, scal,
+                      table=None):
         """The device part of one step: the per-leaf update with lr read
-        from ``scal[0]``, written into the parameters and state tensors."""
+        from ``scal[0]``, written into the parameters and state tensors.
+        ``table`` is the fused kernel's leaf table where one is used (the
+        optimizer's own by default)."""
+        del table
         lr = scal[0]
         for k, w in params.items():
             new_w, new_s = self._apply_one(w, grads[k], states[k], lr)
@@ -274,16 +294,20 @@ class Adam(Optimizer):
             states[k] = (states[k][0], states[k][1], t_new[k])
         return kfa.step_vector(lr, c1, c2, wd)
 
-    def apply_inplace(self, params, grads, states, scal):
+    def apply_inplace(self, params, grads, states, scal, table=None):
         """The whole-tree step over ``scal``: the kernel when fused, else
-        its plain version (one torch operation per arithmetic operation)."""
+        its plain version (one torch operation per arithmetic operation).
+        ``table``: the kernel's :class:`LeafTable` (the optimizer's own by
+        default; a captured step that keeps its own gradient buffers passes
+        one of its own, so no other step moves its pointers)."""
         names = list(params)
         _, _, hyper = self._fused_args([], states)
         tensors = ([params[k] for k in names], [grads[k] for k in names],
                    [states[k][0] for k in names],
                    [states[k][1] for k in names], scal)
         if self._fused_active():
-            fused_adam_step(*tensors, table=self._leaf_table, **hyper)
+            fused_adam_step(*tensors, table=table if table is not None
+                            else self._leaf_table, **hyper)
         else:
             fused_adam_step_plain(*tensors, **hyper)
 

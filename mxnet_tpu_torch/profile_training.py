@@ -10,8 +10,9 @@ graph), then traces three more steps of the same training state replayed
 from the graph, and three run eager (forward, backward, update), in one
 process: the report has a ``captured`` and an ``eager`` part. ``transformer`` takes the
 full-width transformer LM of ``chip_smoke.py`` (bf16, batch 8 x 2048 tokens,
-seed 0) through two steps of ``make_train_step`` with the fused Adam step,
-then traces three more. Either prints one JSON object: the card's name and
+seed 0) through two steps of ``make_train_step`` with the fused Adam step
+(the second captures it), then traces three more replayed from the graph
+and three run eager (the step's ``mark=`` route), in one process. Either prints one JSON object: the card's name and
 power limit, wall and device time per step, the device's idle share of the
 window, and the kernels with the most device time. ``--precision`` is the
 f32 contractions' setting (``set_matmul_precision``; ``highest``, TF32
@@ -90,14 +91,21 @@ def transformer_step(ctx, compute_dtype=None):
     train_step = model.make_train_step(None, optimizer=opt)
     carry = [params, state]
 
-    def step():
+    def captured():
         carry[0], carry[1], loss = train_step(*carry, tokens, targets)
         return loss
 
-    for _ in range(2):
-        float(step())
-    # the LM's step is not captured yet (ROADMAP A6)
-    return {"eager": step}, {"batch": LM_BATCH, "seq": LM_SEQ}
+    def eager():
+        # mark= takes the step's eager route (the same parameters)
+        carry[0], carry[1], loss = train_step(*carry, tokens, targets,
+                                              mark=lambda phase: None)
+        return loss
+
+    for _ in range(2):  # the warm-up step, then the capture
+        float(captured())
+    float(eager())
+    return {"captured": captured, "eager": eager}, {"batch": LM_BATCH,
+                                                    "seq": LM_SEQ}
 
 
 def main(argv=None) -> int:

@@ -7,7 +7,8 @@ compile is a ``torch.cuda.CUDAGraph`` captured once per **program key** and
 replayed: the key is the graph's fingerprint, the bucket key, the input
 shapes and dtypes, ``compute_dtype``, ``pad_policy.key()`` and train or
 eval. :class:`ProgramRegistry` counts a key's first sight as one compile
-(``misses`` and ``compiles``) on every device, and later sights as hits, so
+(``compiles``, and ``misses`` unless a ``precompile`` saw it first) on
+every device, and later sights as hits, so
 on the CPU, where nothing is captured, its counts can be held to the JAX
 package's. On the card it also counts captures, their seconds and the bytes
 of the graphs' memory pools, and each step that ran eager with its reason.
@@ -15,7 +16,11 @@ of the graphs' memory pools, and each step that ran eager with its reason.
 :class:`CapturedProgram` is one captured step: warm-up calls run eager on a
 side stream (cuDNN's algorithm search and cuBLAS's workspace happen there),
 then the function is captured into a graph, with the generators it draws
-from registered, and every later call replays it. The kernel wrappers count
+from registered, and every later call replays it. :class:`CapturedPair` is
+a training forward and its backward captured into two graphs that share a
+memory pool (the JAX package's separate ``fwd_res`` and ``bwd`` programs):
+what autograd saves stays in the pool between the two replays. The kernel
+wrappers count
 their launches through :func:`..kernels._common.count_launch`: under capture
 the launches go into the program's record, and each replay adds them to the
 wrappers' counters, so a replayed step counts what an eager one counts.
@@ -47,8 +52,9 @@ from ..base import ENV_OFF_VALUES, ENV_ON_VALUES, MXNetError
 __all__ = [
     "configure_persistent_cache", "ProgramRegistry", "registry", "compile_stats", "reset_compile_stats",
     "graph_fingerprint", "program_key", "RecompileTracker", "RecompileError",
-    "PadPolicy", "CapturedProgram", "graphs_enabled", "eager_reason",
-    "note_eager",
+    "PadPolicy", "CapturedProgram", "CapturedPair", "graphs_enabled",
+    "eager_reason", "note_eager", "persistent_cache_dir",
+    "maybe_enable_persistent_cache_from_env", "DEFAULT_CACHE_DIR",
 ]
 
 _OFF_VALUES = ("",) + ENV_OFF_VALUES
@@ -73,6 +79,27 @@ def configure_persistent_cache(cache_dir=None, min_compile_seconds=None):
     return None
 
 
+DEFAULT_CACHE_DIR = os.path.join(os.path.expanduser("~"), ".cache",
+                                 "mxnet_tpu", "xla_cache")
+
+
+def persistent_cache_dir():
+    """The persistent cache directory in effect: None, as nothing of a
+    capture persists (:func:`configure_persistent_cache`), where the JAX
+    package returns its compilation cache's directory when one is on."""
+    return None
+
+
+def maybe_enable_persistent_cache_from_env():
+    """The JAX package's opt-in at import: resolves
+    ``MXNET_TPU_COMPILE_CACHE`` through :func:`configure_persistent_cache`,
+    which keeps nothing here. Returns None."""
+    if os.environ.get("MXNET_TPU_COMPILE_CACHE", "").strip().lower() \
+            in _OFF_VALUES:
+        return None
+    return configure_persistent_cache()
+
+
 # -- 2. the program registry --------------------------------------------------
 
 def _label_counters():
@@ -83,9 +110,9 @@ def _label_counters():
 
 
 class ProgramRegistry:
-    """Process-wide accounting of programs, by label. ``compiles`` and
-    ``misses`` count first sights of a program key, ``hits`` later ones,
-    ``precompiles`` first sights through a ``precompile``; ``captures``,
+    """Process-wide accounting of programs, by label. ``compiles`` counts
+    first sights of a program key, ``misses`` those at a dispatch and
+    ``precompiles`` those through a ``precompile``, ``hits`` later ones; ``captures``,
     ``capture_seconds`` and ``pool_bytes`` the CUDA graphs; ``eager`` the
     steps that ran eager, by reason."""
 
@@ -114,11 +141,14 @@ class ProgramRegistry:
                 seen.add((label, key))
                 c["signatures"].add(key)
                 c["compiles"] += 1
-                c["misses"] += 1
                 self._totals["compiles"] += 1
-                self._totals["misses"] += 1
                 if precompile:
+                    # ahead of time, as the JAX package's AOT compile: no
+                    # dispatch missed a cache
                     c["precompiles"] += 1
+                else:
+                    c["misses"] += 1
+                    self._totals["misses"] += 1
             else:
                 c["hits"] += 1
                 self._totals["hits"] += 1
@@ -425,6 +455,73 @@ def _flat_tensors(obj):
     return []
 
 
+def _on_side(side, device, fn, *args):
+    """``fn(*args)`` eager on the side stream ``side``, ordered after and
+    before the current stream's work; its outputs are marked used on the
+    current stream."""
+    cur = torch.cuda.current_stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn(*args)
+    cur.wait_stream(side)
+    _record_on(_flat_tensors(out), cur)
+    return out
+
+
+def _capture(device, side, steps):
+    """Capture each ``(graph, fn)`` of ``steps`` in turn on ``side`` (one
+    memory pool for all of them), ``fn`` called with the list of the
+    earlier functions' outputs. Returns each function's output,
+    each graph's launch record, the seconds taken and the bytes the
+    graphs' pool reserved.
+
+    Garbage from earlier programs is collected first and the collector
+    held off during the captures: a CUDA graph destroyed while another is
+    being captured invalidates that capture (torch no longer collects
+    before a capture by default). The capture empties the allocator's
+    cache first; so do we, so that what is reserved after it is the
+    graphs' pool."""
+    from ..kernels import _common
+
+    cur = torch.cuda.current_stream(device)
+    torch.cuda.synchronize(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(device)
+    pool = torch.cuda.graph_pool_handle()
+    outs, records = [], []
+    t0 = time.perf_counter()
+    side.wait_stream(cur)
+    gc.disable()
+    try:
+        for graph, fn in steps:
+            with _common.capture_launches() as counts:
+                with torch.cuda.graph(graph, pool=pool, stream=side,
+                                      capture_error_mode="thread_local"):
+                    outs.append(fn(outs))
+            records.append(dict(counts))
+    finally:
+        gc.enable()
+    cur.wait_stream(side)
+    seconds = time.perf_counter() - t0
+    return (outs, records, seconds,
+            max(0, torch.cuda.memory_reserved(device) - before))
+
+
+def _graph(generators=()):
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    return graph
+
+
+def _replay(graph, launch_counts, label):
+    graph.replay()
+    for fn, n in launch_counts.items():
+        fn.launches += n
+    registry().record_replay(label)
+
+
 class CapturedProgram:
     """One step function ``fn()`` (no arguments: it reads static buffers
     and writes its results into them or returns them) captured into a CUDA
@@ -455,67 +552,109 @@ class CapturedProgram:
     def captured(self):
         return self.graph is not None
 
-    def _eager(self):
-        cur = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(cur)
-        with torch.cuda.stream(self._side):
-            out = self.fn()
-        cur.wait_stream(self._side)
-        _record_on(_flat_tensors(out), cur)
-        return out
-
     def capture(self):
         """Capture the graph now (``fn`` does not run)."""
-        from ..kernels import _common
-
-        cur = torch.cuda.current_stream(self.device)
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.generators:
-            graph.register_generator_state(gen)
-        # Garbage from earlier programs is collected now and the collector
-        # held off during the capture: a CUDA graph destroyed while another
-        # is being captured invalidates that capture (torch no longer
-        # collects before a capture by default). The capture empties the
-        # allocator's cache first; so do we, so that what is reserved after
-        # it is the graph's pool.
-        torch.cuda.synchronize(self.device)
-        gc.collect()
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        self._side.wait_stream(cur)
-        gc.disable()
-        try:
-            with _common.capture_launches() as counts:
-                with torch.cuda.graph(graph, stream=self._side,
-                                      capture_error_mode="thread_local"):
-                    out = self.fn()
-        finally:
-            gc.enable()
-        cur.wait_stream(self._side)
-        self.capture_seconds = time.perf_counter() - t0
-        self.pool_bytes = max(
-            0, torch.cuda.memory_reserved(self.device) - before)
-        self.graph, self.outputs = graph, out
-        self.launch_counts = dict(counts)
+        graph = _graph(self.generators)
+        (out,), (counts,), self.capture_seconds, self.pool_bytes = _capture(
+            self.device, self._side, [(graph, lambda _: self.fn())])
+        self.graph, self.outputs, self.launch_counts = graph, out, counts
         registry().record_capture(self.label, self.capture_seconds,
                                   self.pool_bytes)
         return out
 
     def replay(self):
-        self.graph.replay()
-        for fn, n in self.launch_counts.items():
-            fn.launches += n
-        registry().record_replay(self.label)
+        _replay(self.graph, self.launch_counts, self.label)
         return self.outputs
 
     def __call__(self):
         self.calls += 1
         if self.graph is None:
             if self.calls <= self.warmup:
-                return self._eager()
+                return _on_side(self._side, self.device, self.fn)
             self.capture()
         return self.replay()
+
+
+class CapturedPair:
+    """A training forward and its backward over bound tensors, captured
+    into two CUDA graphs that share one memory pool, in the manner of
+    ``torch.cuda.make_graphed_callables``.
+
+    ``forward()`` takes no arguments (it reads static buffers, writes the
+    auxiliary states in place) and returns the outputs autograd
+    differentiates; ``backward(outputs)`` runs autograd from them, reading
+    a static head-gradient buffer the caller fills, and writes the
+    gradients into static buffers; it keeps the autograd graph
+    (``retain_graph``), so one forward may be followed by several
+    backwards. The first ``warmup`` forwards (and the backwards after
+    them) run eager on a side stream; the next forward captures both
+    graphs: the forward's keeps what autograd saves in the pool, where the
+    backward's reads it. Then every forward and backward replays. The
+    captured outputs are overwritten by each forward replay. Launches and
+    replays are counted as :class:`CapturedProgram` counts them, under
+    ``labels`` (forward, backward)."""
+
+    def __init__(self, forward, backward, device, labels, warmup=1,
+                 generators=()):
+        self.forward, self.backward = forward, backward
+        self.device = torch.device(device)
+        self.labels = tuple(labels)
+        self.warmup, self.generators = int(warmup), list(generators)
+        self.graphs = None
+        self.outputs = None
+        self.calls = 0
+        self.launch_counts = ({}, {})
+        self.capture_seconds = 0.0
+        self.pool_bytes = 0
+        self._eager_outs = None
+        self._side = torch.cuda.Stream(self.device)
+
+    @property
+    def captured(self):
+        return self.graphs is not None
+
+    def capture(self):
+        """Capture both graphs now (neither function runs)."""
+        self._eager_outs = None  # the warm-up's autograd graph
+        graphs = (_graph(self.generators), _graph())
+        # the backward captured from the forward's outputs: what autograd
+        # saved stays referenced through them, in the pool it reads
+        (outs, _), counts, self.capture_seconds, self.pool_bytes = _capture(
+            self.device, self._side,
+            [(graphs[0], lambda _: self.forward()),
+             (graphs[1], lambda done: self.backward(done[0]))])
+        self.graphs, self._graph_outs = graphs, outs
+        self.outputs = [o.detach() for o in outs]
+        self.launch_counts = tuple(counts)
+        for label in self.labels:
+            registry().record_capture(label, self.capture_seconds / 2,
+                                      self.pool_bytes // 2)
+        return self.outputs
+
+    def run_forward(self):
+        """The forward: eager during warm-up, else a replay (capturing
+        first). Returns the outputs."""
+        self.calls += 1
+        if self.graphs is None:
+            if self.calls <= self.warmup:
+                self._eager_outs = _on_side(self._side, self.device,
+                                            self.forward)
+                return [o.detach() for o in self._eager_outs]
+            self.capture()
+        _replay(self.graphs[0], self.launch_counts[0], self.labels[0])
+        return self.outputs
+
+    def run_backward(self):
+        """The backward of the last forward: eager after an eager forward,
+        else a replay."""
+        if self.graphs is None:
+            if self._eager_outs is None:
+                raise MXNetError("backward before a forward")
+            _on_side(self._side, self.device, self.backward,
+                     self._eager_outs)
+            return
+        _replay(self.graphs[1], self.launch_counts[1], self.labels[1])
+
 
 def note_eager(reason, logger=None):
     """Count one eager run under ``reason`` and log it: a fit, a

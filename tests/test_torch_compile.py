@@ -356,8 +356,72 @@ def test_executor_precompile_counts_the_program():
     stats = tcm.compile_stats()["per_function"][label]
     assert stats["precompiles"] == 1 and stats["compiles"] == 1
     assert stats["hits"] == 1
-    with pytest.raises(NotImplementedError, match="A6"):
-        exe.precompile(is_train=True)
+    # the training pair: nothing to capture on the CPU, the reason counted
+    assert exe.precompile(is_train=True) == 0.0
+    assert tcm.compile_stats()["eager"]["cpu context"] >= 1
+
+
+def _train_pair_counts(pkg, cm):
+    """precompile(is_train=True), then two forward/backward steps and one
+    backward more: the per-kind counts of the training programs."""
+    cm.reset_compile_stats()
+    exe = _mlp(pkg).simple_bind(pkg.cpu(), data=(4, 10), softmax_label=(4,))
+    seconds = exe.precompile(is_train=True)
+    for _ in range(2):
+        exe.forward(is_train=True)
+        exe.backward()
+    exe.backward()
+    out = {}
+    for label, c in cm.compile_stats()["per_function"].items():
+        kind = next((k for k in ("fwd_train_res", "bwd_apply", "bwd_fused")
+                     if k in label), None)
+        if kind is not None:
+            out[kind] = {f: c[f] for f in ("precompiles", "compiles",
+                                          "misses", "hits")}
+    return seconds, out
+
+
+def test_executor_train_precompile_counts_as_jax():
+    """The forward/backward pair's programs counted as the JAX package
+    counts its ``fwd_train_res`` and ``bwd_apply`` programs; a second
+    backward after one forward is one more sight of the backward (the JAX
+    package recomputes it as ``bwd_fused``, a program of its own)."""
+    seconds, port = _train_pair_counts(mt, tcm)
+    _, ref = _train_pair_counts(mx, jcm)
+    assert seconds == 0.0
+    assert port["fwd_train_res"] == ref["fwd_train_res"]
+    assert ref["fwd_train_res"]["precompiles"] == 1
+    # the port's one backward program serves both of the JAX package's:
+    # the JAX package's sights of bwd_fused are hits of bwd_apply here
+    want = dict(ref["bwd_apply"])
+    want["hits"] += ref["bwd_fused"]["misses"] + ref["bwd_fused"]["hits"]
+    assert port["bwd_apply"] == want
+
+
+def test_executor_train_after_precompile_matches_eager():
+    """On the CPU ``precompile(is_train=True)`` moves nothing: the
+    gradients and running statistics of the steps after it are bitwise
+    those of an executor that never precompiled."""
+    net = _mlp(mt)
+    rng = np.random.default_rng(2)
+    feed = {"data": torch.from_numpy(rng.standard_normal((4, 10)).astype(
+        np.float32)), "softmax_label": torch.tensor([0.0, 1, 1, 0])}
+    grads = []
+    for pre in (True, False):
+        exe = net.simple_bind(mt.cpu(), data=(4, 10), softmax_label=(4,))
+        for k, v in exe.arg_dict.items():
+            if k not in feed:
+                v.copy_(torch.from_numpy(rng.standard_normal(
+                    tuple(v.shape)).astype(np.float32)) if pre else
+                    grads[0][1][k])
+        if pre:
+            assert exe.precompile(is_train=True) == 0.0
+        exe.forward(is_train=True, **feed)
+        exe.backward()
+        grads.append(({k: v.clone() for k, v in exe.grad_dict.items()},
+                      {k: v.clone() for k, v in exe.arg_dict.items()}))
+    for k, g in grads[0][0].items():
+        assert torch.equal(g, grads[1][0][k]), k
 
 
 def test_monitor_compile_rows_named_as_jax():

@@ -390,3 +390,150 @@ def test_int8_replay_after_nan_filled_allocator(cuda_device):
     for _ in range(5):
         x.copy_(torch.randn(32, 2048, generator=gen, device="cuda"))
         assert torch.equal(prog().clone(), k8.int8_matmul_plain(x, wq, sw))
+
+
+# -- training captured through Executor, Module and the LM's step -----------
+
+def _head_net(hidden=64):
+    """An MLP without a loss head: backward's head gradients matter."""
+    net = mt.sym.FullyConnected(data=mt.sym.Variable("data"), name="fc1",
+                                num_hidden=hidden)
+    net = mt.sym.Activation(data=net, name="relu1", act_type="relu")
+    net = mt.sym.BatchNorm(data=net, name="bn1")
+    return mt.sym.FullyConnected(data=net, name="fc2", num_hidden=8)
+
+
+def _executor_steps(monkeypatch, graphs, steps=4):
+    monkeypatch.setenv("MXTPU_CUDA_GRAPHS", "1" if graphs else "0")
+    from mxnet_tpu_torch.convert import random_params
+
+    net = _head_net()
+    args, aux = random_params(net, 3, data=(32, 20))
+    exe = net.simple_bind(mt.gpu(0), data=(32, 20))
+    exe.copy_params_from({k: torch.from_numpy(v) for k, v in args.items()},
+                         {k: torch.from_numpy(v) for k, v in aux.items()})
+    seconds = exe.precompile(is_train=True)
+    rng = np.random.default_rng(5)
+    out = []
+    for _ in range(steps):
+        x = rng.standard_normal((32, 20)).astype(np.float32)
+        head = torch.from_numpy(rng.standard_normal((32, 8)).astype(
+            np.float32)).cuda()
+        outs = exe.forward(is_train=True, data=x)
+        exe.backward(head)
+        out.append(([o.clone() for o in outs],
+                    {k: v.clone() for k, v in exe.grad_dict.items()},
+                    {k: v.clone() for k, v in exe.aux_dict.items()}))
+    return seconds, exe, out
+
+
+def test_executor_train_pair_replays_bitwise_eager(cuda_device, monkeypatch):
+    tcm.reset_compile_stats()
+    seconds, exe, captured = _executor_steps(monkeypatch, True)
+    stats = tcm.compile_stats()
+    assert seconds > 0.0 and exe._pair is not None and exe._pair.captured
+    assert stats["captures"] == 2 and stats["replays"] == 2 * 4
+    _, eager_exe, eager = _executor_steps(monkeypatch, False)
+    assert eager_exe._pair is None
+    for (o1, g1, a1), (o2, g2, a2) in zip(captured, eager):
+        for a, b in zip(o1, o2):
+            assert torch.equal(a, b)
+        for k in g1:
+            assert torch.equal(g1[k], g2[k]), k
+        for k in a1:
+            assert torch.equal(a1[k], a2[k]), k
+
+
+def test_executor_precompile_moves_no_state(cuda_device, monkeypatch):
+    monkeypatch.setenv("MXTPU_CUDA_GRAPHS", "1")
+    exe = _head_net().simple_bind(mt.gpu(0), data=(32, 20))
+    for v in exe.grad_dict.values():
+        v.fill_(3.0)
+    before = {k: v.clone() for d in (exe.aux_dict, exe.grad_dict)
+              for k, v in d.items()}
+    state = mt.random.get_state()
+    assert exe.precompile(is_train=True) > 0.0
+    for d in (exe.aux_dict, exe.grad_dict):
+        for k, v in d.items():
+            assert torch.equal(v, before[k]), k
+    assert mt.random.get_state() == state
+
+
+def _module_fit(monkeypatch, graphs, buckets=False):
+    monkeypatch.setenv("MXTPU_CUDA_GRAPHS", "1" if graphs else "0")
+    X, y = _data()
+    mt.random.seed(0)
+    mod = mt.mod.Module(_mlp(), context=mt.gpu(0))
+    from mxnet_tpu_torch.convert import random_params
+
+    args = random_params(_mlp(), 2, data=(32, 20))[0]
+    mod.bind([("data", (32, 20))], [("softmax_label", (32,))])
+    mod.init_params(arg_params={k: torch.from_numpy(v)
+                                for k, v in args.items()})
+    mod.fit(mt.io.NDArrayIter(X, y, batch_size=32, shuffle=False),
+            num_epoch=2, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9})
+    return mod
+
+
+def test_module_fit_captured_is_bitwise_eager(cuda_device, monkeypatch):
+    tcm.reset_compile_stats()
+    captured = _module_fit(monkeypatch, True)
+    stats = tcm.compile_stats()
+    assert captured._exec._pair is not None
+    assert stats["captures"] == 2 and stats["replays"] == 2 * 16
+    eager = _module_fit(monkeypatch, False)
+    assert eager._exec._pair is None
+    a, b = captured.get_params()[0], eager.get_params()[0]
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def _lm_steps(monkeypatch, captured, steps=3, fresh=False):
+    monkeypatch.setenv("MXTPU_CUDA_GRAPHS", "1")
+    cfg = tmodels.transformer_lm_config(
+        vocab_size=256, d_model=64, n_heads=2, n_layers=2, d_ff=128,
+        max_len=128, dtype=torch.bfloat16, attn_impl="flash")
+    model = tmodels.TransformerLM(cfg)
+    opt = mt.optimizer.create("adam", learning_rate=1e-3, fused=True)
+    params, state = model.init_sharded(None, seed=1, optimizer=opt,
+                                       ctx=mt.gpu(0))
+    step = model.make_train_step(None, optimizer=opt)
+    rng = np.random.default_rng(2)
+    losses = []
+    for _ in range(steps):
+        tok, tgt = (torch.from_numpy(rng.integers(0, 256, (2, 128))).cuda()
+                    for _ in range(2))
+        kw = {} if captured else {"mark": lambda phase: None}
+        params, state, loss = step(params, state, tok, tgt, **kw)
+        losses.append(loss)
+    if fresh:
+        # other tensors: a capture of their own
+        params2 = {k: v.clone() for k, v in params.items()}
+        state2 = opt.init_state_tree(params2)
+        step(params2, state2, tok, tgt)
+        step(params2, state2, tok, tgt)
+    return step, params, losses
+
+
+def test_lm_train_step_captured_is_bitwise_eager(cuda_device, monkeypatch):
+    from mxnet_tpu_torch.kernels import flash_attention as tfa
+
+    tcm.reset_compile_stats()
+    counted = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv,
+               kfa.fused_adam)
+    before = [k.launches for k in counted]
+    step, p1, l1 = _lm_steps(monkeypatch, True, fresh=True)
+    stats = tcm.compile_stats()
+    label = stats["per_function"]["lm_train_step"]
+    assert label["compiles"] == 2 and label["captures"] == 2
+    assert len(step.programs) == 2
+    # 2 layers: 2 of each flash kernel a step (the backward's launched from
+    # autograd's thread, counted by replay too); one fused_adam; 5 steps
+    assert [k.launches - b for k, b in zip(counted, before)] == \
+        [2 * 5, 2 * 5, 2 * 5, 5]
+    _, p2, l2 = _lm_steps(monkeypatch, False)
+    for a, b in zip(l1, l2):
+        assert torch.equal(a, b)
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]), k

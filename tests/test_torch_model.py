@@ -290,11 +290,16 @@ def test_later_slice_fit_arguments_raise(arg):
 
 
 def test_more_than_one_device_raises():
+    """Two devices train as two replicas of one process; a batch they
+    cannot split evenly raises as the JAX package's placement does."""
     model = mt.FeedForward(tmodels.mlp(), ctx=[mt.cpu(0), mt.cpu(1)],
                            num_epoch=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        model.fit(np.zeros((8, 64), np.float32), np.zeros(8, np.float32),
-                  batch_size=8)
+    with pytest.raises(ValueError, match="should be divisible by 2"):
+        model.fit(np.zeros((9, 64), np.float32), np.zeros(9, np.float32),
+                  batch_size=9)
+    model.fit(np.zeros((8, 64), np.float32), np.zeros(8, np.float32),
+              batch_size=8)
+    assert len(model._train_state.members) == 2
 
 
 def test_default_context_is_current_context():
