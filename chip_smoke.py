@@ -188,6 +188,30 @@ together), and then:
    parameter tensors instead of copying into the captured buffers caught;
    lm_train and dp_train report fused_adam's leaf-table builds (one a
    run: fresh gradients upload only their pointers);
+5o. telemetry: full-width ResNet-50 (batch 32, bf16 ``compute_dtype``,
+   fused Adam, captured steps) fitted 20 steps with ``telemetry=`` (a
+   JSONL stream), ``health=True`` and ``profile=ProfileConfig(steps=4,
+   warmup=4)``, the lock watchdog armed and the flight recorder and run
+   ledger writing into a directory of their own, then one
+   ``predict(telemetry=, profile=)``; the same fit with all of it off
+   first, in this process. Gates: no eager step outside the profile
+   window (its 4 steps counted under ``profile window``), one capture and
+   14 replays, fused_adam once a step; the health vectors of step 11
+   within TELEMETRY_HEALTH_BOUND of an f64 recomputation on the card from
+   that step's weights before and after and its gradients, nonfinite
+   exactly 0, and a NaN planted in one leaf's gradient counted once on
+   its layer and blamed by ``HealthMonitor``; every device event of the
+   window's chrome trace in exactly one report row, the rows summing to
+   the trace's total, fused_adam one row under ``optimizer`` with one
+   launch a window step; the counted step's contraction FLOPs within 1%
+   of an analytic count from the 53 convolutions' and the FC layer's
+   shapes; every JSONL line with its golden keys, a flight dump that
+   validates, the fit's and predict's ledger records with their CRCs,
+   no lock-order cycle; each captured program's memory plan with
+   temporaries. Prints the coverage beside the timeline's phases, the
+   measured bf16 peak and the MFU, the armed watchdog's cost a step, the
+   live-array watermark beside ``max_memory_allocated`` and the step time
+   with everything on beside the same fit with it off;
 6. flash: holds the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the card, row by row, and lse at f32's
    precision, at the transformer LM's shape (q, k, v views of one packed
@@ -337,7 +361,8 @@ together), and then:
    replay, and 5l's fit from the JPEG shard; ``slice13_launches``: 5m's
    epoch, 10a's fits and 10b's one-worker fit; ``slice14_launches``: 5n's
    epoch; ``slice16_launches``: lm_graphs' captured run, by replay, and
-   ctx_list's exchanges; rows 3-7 also their times, bound, library time
+   ctx_list's exchanges; ``slice17_launches``: 5o's observed fit (its
+   counted step, warm-up, replays and window steps); rows 3-7 also their times, bound, library time
    and the launch floor at one bucket's shape and their launches on the
    overlap path, ``bucket_shape``);
 14. ends with ``{"ok": true, "device": {...}}``.
@@ -6524,6 +6549,413 @@ def graphs_module(torch, mt, tcm):
             f"graphs: Module.fit replays its pair every step: {cap}")
     return {**rows, **gate, "steps": MODULE_STEPS}
 
+# -- slice 17: observability -------------------------------------------------
+
+TELEMETRY_STEPS = 20
+TELEMETRY_WINDOW = dict(steps=4, warmup=4)
+# the health step read apart: snapshots after steps 10 and 11
+TELEMETRY_HEALTH_STEP = 11
+# the timed steps (the card drained before the first and after the last)
+TELEMETRY_TIMED = (13, 19)
+TELEMETRY_HEALTH_BOUND = 1e-5
+TELEMETRY_FLOP_BOUND = 1e-2
+TELEMETRY_DIR = "build/chip_smoke/telemetry"
+TELEMETRY_PREDICT_BATCHES = 3
+
+
+def analytic_contraction_flops(net, batch):
+    """ResNet-50's contraction FLOPs of one training step from its shapes:
+    for each convolution the forward, the input gradient (not for the
+    first, whose input is the data) and the weight gradient, each as
+    2 x the MACs of the convolution the JAX package's transpose makes
+    (mxnet_tpu/analysis/jaxpr_audit.py:94-123: output elements x 2 x the
+    kernel's elements per output feature), and the same three for the FC
+    layer's product."""
+    internals = net.get_internals()
+    shape = (batch,) + IMAGE
+    _, out_shapes, _ = internals.infer_shape(data=shape)
+    out_of = dict(zip(internals.list_outputs(), out_shapes))
+    arg_shapes, _, _ = net.infer_shape(data=shape)
+    arg_of = dict(zip(net.list_arguments(), arg_shapes))
+    convs = fcs = 0
+    total = 0
+    for node in net._topo():
+        if node.is_variable:
+            continue
+        op = node.op.name
+        if op not in ("Convolution", "FullyConnected"):
+            continue
+        src, k = node.inputs[0]
+        x_shape = arg_of["data"] if src.is_variable else \
+            out_of[src.output_names()[k]]
+        w = arg_of[f"{node.name}_weight"]
+        y = out_of[node.output_names()[0]]
+        x_n, w_n, y_n = (int(np.prod(v)) for v in (x_shape, w, y))
+        if op == "Convolution":
+            convs += 1
+            fwd = y_n * 2 * (w_n // w[0])
+            dw = w_n * 2 * (y_n // w[0])
+            dx = 0 if src.is_variable else x_n * 2 * (w_n // w[1])
+        else:
+            fcs += 1
+            fwd = dw = dx = 2 * batch * w[0] * w[1]
+        total += fwd + dw + dx
+    require(convs == 53 and fcs == 1, f"ResNet-50 has 53 convolutions and "
+            f"one FC layer ({convs}, {fcs})")
+    return total
+
+
+def telemetry_fit(torch, mt, net, args, aux, X, Y, on, hook):
+    """One fit of ResNet-50 (bf16 compute, fused Adam, captured steps) of
+    TELEMETRY_STEPS steps, with telemetry, health and the profile window
+    on (``on``: the JSONL path) or off; ``hook(i, model)`` after each
+    step."""
+    model = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1, optimizer="adam",
+                           fused=True, learning_rate=LEARNING_RATE,
+                           compute_dtype=torch.bfloat16,
+                           arg_params=args, aux_params=aux)
+    count = [0]
+
+    def step_hook(batch, arrays):
+        hook(count[0], model)
+        count[0] += 1
+
+    model._step_hook = step_hook
+    kw = {}
+    if on is not None:
+        kw = dict(telemetry=mt.telemetry.TelemetryConfig(jsonl=on),
+                  health=True,
+                  profile=mt.telemetry.ProfileConfig(
+                      log_dir=f"{TELEMETRY_DIR}/profile",
+                      **TELEMETRY_WINDOW))
+    model.fit(mt.io.NDArrayIter(X, Y, batch_size=BATCH, shuffle=False), **kw)
+    require(count[0] == TELEMETRY_STEPS, f"{TELEMETRY_STEPS} steps ran")
+    return model
+
+
+def health_f64(torch, groups, pre, post, grads):
+    """The four health vectors recomputed in f64 on the card from the
+    step's snapshots."""
+    out = {k: [] for k in ("grad_norm", "weight_norm", "update_ratio",
+                           "nonfinite")}
+    for names in groups.values():
+        g = sum(float((grads[n].double() ** 2).sum()) for n in names)
+        w = sum(float((pre[n].double() ** 2).sum()) for n in names)
+        d = sum(float(((post[n].double() - pre[n].double()) ** 2).sum())
+                for n in names)
+        out["grad_norm"].append(g ** 0.5)
+        out["weight_norm"].append(w ** 0.5)
+        out["update_ratio"].append(d ** 0.5 / (w ** 0.5 + 1e-12))
+        out["nonfinite"].append(sum(int((~torch.isfinite(grads[n])).sum())
+                                    for n in names))
+    return {k: np.array(v) for k, v in out.items()}
+
+
+def lock_pair_ns(lockwatch, armed, n=200_000):
+    """Nanoseconds of one acquire/release pair of a named lock."""
+    was = lockwatch.enabled()
+    if armed:
+        lockwatch.enable()
+    else:
+        lockwatch.disable()
+    lock = lockwatch.named_lock("chip_smoke.bench")
+    t0 = time.perf_counter()
+    for _ in range(n):
+        lock.acquire()
+        lock.release()
+    ns = (time.perf_counter() - t0) / n * 1e9
+    if was:
+        lockwatch.enable()
+    return ns
+
+
+def phase_telemetry(torch, mt):
+    """Full-width ResNet-50 (batch 32, bf16 compute_dtype, fused Adam,
+    captured steps) through ``fit(telemetry=, health=True, profile=)``
+    with the lock watchdog armed and the flight recorder and run ledger
+    writing into a directory of their own, then one ``predict(telemetry=,
+    profile=)``, and the same fit with all of it off; the gates of the
+    observability layer (module docstring, item 5o)."""
+    import glob
+    import gzip
+    import os
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.analysis import lockwatch
+    from mxnet_tpu_torch.kernels import fused_adam as kfa
+    from mxnet_tpu_torch.utils import compile as tcm
+
+    os.makedirs("build/chip_smoke", exist_ok=True)
+    shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
+    os.makedirs(TELEMETRY_DIR)
+    root = tempfile.mkdtemp(dir=TELEMETRY_DIR)
+    flight_dir, ledger_dir = f"{root}/flight", f"{root}/ledger"
+    set_graphs(True)
+    net, args, aux, batch_x, batch_y = resnet50_case()
+    rng = np.random.default_rng(SEED + 17)
+    X = rng.standard_normal((TELEMETRY_STEPS * BATCH,) + IMAGE, np.float32)
+    X[:BATCH] = batch_x
+    Y = rng.integers(0, 1000, TELEMETRY_STEPS * BATCH).astype(np.float32)
+    watermark = {}
+
+    def timing_hook(times):
+        def hook(i, model):
+            if i in TELEMETRY_TIMED:
+                torch.cuda.synchronize()
+                times[i] = time.perf_counter()
+        return hook
+
+    # the same fit with everything off, first, in this process
+    off_times = {}
+    tt.reset()
+    model = telemetry_fit(torch, mt, net, args, aux, X, Y, None,
+                          timing_hook(off_times))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the main path ------------------------------------------------------
+    os.environ["MXNET_TPU_FLIGHT_DIR"] = flight_dir
+    os.environ["MXNET_TPU_LEDGER_DIR"] = ledger_dir
+    os.environ["MXNET_TPU_LOCKWATCH"] = "1"
+    tt.reset()
+    tt.flight.reset()
+    lockwatch.enable()
+    lockwatch.reset()
+    tcm.reset_compile_stats()
+    torch.cuda.reset_peak_memory_stats()
+    jsonl = f"{root}/run.jsonl"
+    on_times, snaps = {}, {}
+    timed = timing_hook(on_times)
+
+    def hook(i, model):
+        timed(i, model)
+        if i in (TELEMETRY_HEALTH_STEP - 1, TELEMETRY_HEALTH_STEP):
+            torch.cuda.synchronize()
+            state = model._train_state
+            with torch.no_grad():
+                snaps[i] = {"params": {k: v.detach().clone()
+                                       for k, v in state.params.items()}}
+                if i == TELEMETRY_HEALTH_STEP:
+                    snaps[i]["grads"] = {k: v.clone()
+                                         for k, v in state.grads.items()}
+                    snaps[i]["health"] = {
+                        k: v.clone() for k, v in state.health.buffers.items()}
+                    snaps[i]["groups"] = state.health.groups
+        if i == TELEMETRY_STEPS - 1:
+            watermark["ledger"] = tt.memory.ledger().stats()
+
+    reset_launches()
+    model = telemetry_fit(torch, mt, net, args, aux, X, Y, jsonl, hook)
+    launches = read_launches()
+    fit_stats = tcm.compile_stats()
+    window = TELEMETRY_WINDOW["steps"]
+    # -- captured steps stay captured -------------------------------------
+    require(fit_stats["eager"] == {"profile window": window},
+            f"no eager step outside the profile window "
+            f"({fit_stats['eager']})")
+    train = {k: v for k, v in fit_stats["per_function"].items()
+             if k.startswith("train_step")}
+    require(len(train) == 1, f"one training program ({list(train)})")
+    (label, counts), = train.items()
+    # the counted step and the warm-up run eager, the window eager
+    require(counts["replays"] == TELEMETRY_STEPS - window - 2
+            and counts["captures"] == 1,
+            f"{TELEMETRY_STEPS - window - 2} replays and one capture "
+            f"({counts})")
+    require(launches["fused_adam"] == TELEMETRY_STEPS,
+            f"fused_adam once a step ({launches['fused_adam']})")
+    require(all(n == 0 for k, n in launches.items() if k != "fused_adam"),
+            f"no other kernel on this path ({launches})")
+
+    # -- health on the card -----------------------------------------------
+    snap = snaps[TELEMETRY_HEALTH_STEP]
+    groups = snap["groups"]
+    want = health_f64(torch, groups,
+                      snaps[TELEMETRY_HEALTH_STEP - 1]["params"],
+                      snap["params"], snap["grads"])
+    health_err = {}
+    for k in ("grad_norm", "weight_norm", "update_ratio"):
+        got = snap["health"][k].double().cpu().numpy()
+        health_err[k] = float(np.max(np.abs(got - want[k]) / want[k]))
+        require(health_err[k] < TELEMETRY_HEALTH_BOUND,
+                f"health {k} within {TELEMETRY_HEALTH_BOUND} of f64 "
+                f"({health_err[k]})")
+    got_nf = snap["health"]["nonfinite"].cpu().numpy()
+    require(not got_nf.any() and not want["nonfinite"].any(),
+            "nonfinite is exactly 0")
+    events = tt.hub().events("health")
+    require(len(events) == TELEMETRY_STEPS and all(e["finite"]
+                                                    for e in events),
+            f"one finite health event a step ({len(events)})")
+    # planted: one NaN in one leaf's gradient
+    names = list(groups)
+    victim_layer = "stage3_unit2_br2_conv"
+    victim = groups[victim_layer][0]
+    planted = dict(snap["grads"])
+    planted[victim] = planted[victim].clone()
+    planted[victim].view(-1)[123] = float("nan")
+    stats = tt.health.device_stats(
+        groups, snaps[TELEMETRY_HEALTH_STEP - 1]["params"], planted,
+        snap["params"], torch.tensor(1.0, device="cuda"))
+    nf = stats["nonfinite"].cpu().numpy()
+    require(nf[names.index(victim_layer)] == 1 and nf.sum() == 1,
+            f"the planted NaN counted once on {victim_layer}")
+    monitor = tt.HealthMonitor().attach()
+    try:
+        tt.health.observe_device_stats(groups, stats, 0, 99)
+        blamed = monitor.blamed_layer()
+    finally:
+        monitor.detach()
+    require(blamed == (victim_layer, "nonfinite"),
+            f"HealthMonitor blames {victim_layer} ({blamed})")
+
+    # -- profile ----------------------------------------------------------
+    report = model.profile_report
+    require(report is not None and report.steps == window,
+            "a profile report of the window")
+    trace_files = glob.glob(f"{report.log_dir}/*.pt.trace.json.gz")
+    require(len(trace_files) == 1, f"one trace file ({trace_files})")
+    with gzip.open(trace_files[0], "rt") as f:
+        trace_events = json.load(f)["traceEvents"]
+    device = [e for e in trace_events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    measured_us = sum(float(e.get("dur", 0.0)) for e in device)
+    rows_us = sum(r["us"] for r in report.ops)
+    rows_count = sum(r["count"] for r in report.ops)
+    require(rows_count == len(device),
+            f"every device event in one row ({rows_count} of {len(device)})")
+    require(abs(rows_us - measured_us) <= 1e-6 * measured_us
+            and abs(report.total_us - measured_us) <= 1e-6 * measured_us,
+            f"rows add up to the trace ({rows_us}, {report.total_us}, "
+            f"{measured_us} us)")
+    adam_rows = [r for r in report.ops if r["op"] == "fused_adam"]
+    require(len(adam_rows) == 1 and adam_rows[0]["layer"] == "optimizer"
+            and adam_rows[0]["count"] == window,
+            f"fused_adam once a window step under optimizer ({adam_rows})")
+    spans = model.telemetry.steps()
+    require(len(spans) == TELEMETRY_STEPS, "one span a step")
+    # an eager window step's device time mostly overlaps its dispatch
+    # (the host launches op by op): the spans' device phase reads only the
+    # tail, their dispatch + device phases the whole step
+    window_device_ms = sum(d for sp in spans[window:2 * window]
+                           for n, _, d in sp.phases() if n == "device") * 1e3
+    window_step_ms = sum(d for sp in spans[window:2 * window]
+                         for n, _, d in sp.phases()
+                         if n in ("dispatch", "device")) * 1e3
+    replay_device_ms = statistics.median(
+        d * 1e3 for sp in spans[2 * window + 1:]
+        for n, _, d in sp.phases() if n == "device")
+
+    # -- MFU ----------------------------------------------------------------
+    acct = model.mfu
+    analytic = analytic_contraction_flops(net, BATCH)
+    flop_err = abs(acct.contraction_flops - analytic) / analytic
+    require(flop_err < TELEMETRY_FLOP_BOUND,
+            f"contraction FLOPs within 1% of the analytic count "
+            f"({acct.contraction_flops} vs {analytic})")
+    peak = acct.peak_flops
+    on_ms = (on_times[TELEMETRY_TIMED[1]] - on_times[TELEMETRY_TIMED[0]]) \
+        / (TELEMETRY_TIMED[1] - TELEMETRY_TIMED[0]) * 1e3
+    off_ms = (off_times[TELEMETRY_TIMED[1]] - off_times[TELEMETRY_TIMED[0]]) \
+        / (TELEMETRY_TIMED[1] - TELEMETRY_TIMED[0]) * 1e3
+    mfu_pct = 100.0 * acct.flops_per_step / (off_ms / 1e3) / peak
+
+    # -- predict --------------------------------------------------------------
+    n_pred = TELEMETRY_PREDICT_BATCHES * BATCH
+    out = model.predict(X[:n_pred], batch_size=BATCH, telemetry=True,
+                        profile=mt.telemetry.ProfileConfig(steps=1, warmup=1))
+    require(out.shape == (n_pred, 1000) and np.isfinite(out).all(),
+            "predict's outputs")
+    pred_report = model.profile_report
+    require(pred_report is not None and pred_report.steps == 1
+            and pred_report.coverage_pct > 50.0,
+            "predict's profile window names its layers")
+    eval_labels = [k for k in tcm.compile_stats()["per_function"]
+                   if k.startswith("eval_step")]
+
+    # -- files ----------------------------------------------------------------
+    lines = [json.loads(line) for line in open(jsonl)]
+    for e in lines:
+        missing = set(tt.EVENT_GOLDEN_KEYS.get(e["kind"], ())) - set(e)
+        require(not missing, f"JSONL {e['kind']} line has its golden keys "
+                f"({missing})")
+    kinds = {e["kind"] for e in lines}
+    require({"span", "health", "profile", "epoch_summary", "memory_plan",
+             "memory_watermark"} <= kinds, f"the JSONL's kinds ({kinds})")
+    dump = model.telemetry.dump_flight(reason="chip_smoke")
+    ok, payload = tt.validate_flight(dump)
+    require(ok, f"the flight dump validates ({payload})")
+    records = tt.read_ledger(ledger_dir)
+    require([r["kind"] for r in records] == ["fit", "predict"],
+            f"the ledger's records ({[r.get('kind') for r in records]})")
+    sidecars = [mt.utils.checkpoint.check_sidecar(p) for p in
+                glob.glob(f"{ledger_dir}/run-*.json")]
+    require(sidecars == [True, True], f"the ledger's CRCs ({sidecars})")
+    locks = lockwatch.report()
+    require(locks["enabled"] and locks["cycles"] == [],
+            f"no lock-order cycle ({locks['cycles']})")
+    acquires_per_step = locks["acquires"] / TELEMETRY_STEPS
+    armed_ns = lock_pair_ns(lockwatch, True)
+    bare_ns = lock_pair_ns(lockwatch, False)
+    lockwatch.disable()
+
+    # -- memory -------------------------------------------------------------
+    plans = {k: tcm.memory_plan_for(k) for k in [label, *eval_labels]}
+    require(all(p is not None and p["temp_bytes"] > 0
+                for p in plans.values()),
+            f"each captured program's plan ({plans})")
+    for k in ("MXNET_TPU_FLIGHT_DIR", "MXNET_TPU_LEDGER_DIR",
+              "MXNET_TPU_LOCKWATCH"):
+        del os.environ[k]
+    emit({"phase": "telemetry", "model": "resnet50", "batch": BATCH,
+          "compute_dtype": "bfloat16", "steps": TELEMETRY_STEPS,
+          "window": TELEMETRY_WINDOW,
+          "eager": fit_stats["eager"], "train_program": label,
+          "replays": counts["replays"], "captures": counts["captures"],
+          "fused_adam_launches": launches["fused_adam"],
+          "health_step": TELEMETRY_HEALTH_STEP,
+          "health_rel_err_vs_f64": health_err,
+          "health_bound": TELEMETRY_HEALTH_BOUND,
+          "planted_nan": {"layer": victim_layer, "blamed": list(blamed)},
+          "profile": {"device_ms": report.total_us / 1e3,
+                      "coverage_pct": report.coverage_pct,
+                      "unattributed_ms": report.unattributed_us / 1e3,
+                      "device_events": len(device),
+                      "window_timeline_device_ms": window_device_ms,
+                      "window_timeline_dispatch_device_ms": window_step_ms,
+                      "layers_top_ms": [
+                          [k, v / 1e3] for k, v in sorted(
+                              report.layers.items(),
+                              key=lambda kv: -kv[1])[:6]],
+                      "fused_adam": adam_rows[0],
+                      "predict_coverage_pct": pred_report.coverage_pct},
+          "flops": {"per_step": acct.flops_per_step,
+                    "contraction": acct.contraction_flops,
+                    "analytic_contraction": analytic,
+                    "contraction_rel_err": flop_err},
+          "measured_bf16_peak_tflops": peak / 1e12,
+          "mfu_pct_at_off_step": mfu_pct,
+          "step_ms": {"telemetry_health_on": on_ms, "off": off_ms,
+                      "replay_device_phase_median": replay_device_ms},
+          "lockwatch": {"cycles": 0, "acquires_per_step": acquires_per_step,
+                        "armed_pair_ns": armed_ns, "bare_pair_ns": bare_ns,
+                        "armed_overhead_ms_per_step":
+                            acquires_per_step * (armed_ns - bare_ns) / 1e6},
+          "memory": {"plans": plans,
+                     "live_array_watermark_bytes":
+                         watermark["ledger"]["watermark_bytes"],
+                     "max_memory_allocated_bytes":
+                         torch.cuda.max_memory_allocated()},
+          "files": {"jsonl_lines": len(lines), "flight": dump,
+                    "ledger_records": len(records)}})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
 
 def main() -> int:
     import torch
@@ -6575,6 +7007,8 @@ def main() -> int:
     graphs_launches = phase_graphs(torch, mt, kfa, k8, io_path)
     torch.cuda.empty_cache()
     ckpt_launches = phase_ckpt(torch, mt, kfa, io_path)
+    torch.cuda.empty_cache()
+    slice17 = {"telemetry": phase_telemetry(torch, mt)}
     torch.cuda.empty_cache()
     flash_rows, flash_errs = phase_flash(torch, tfa, registry)
     serve_launches, lm_params, lm_grad_errs = phase_lm_serve(torch, mt, tfa)
@@ -6658,6 +7092,10 @@ def main() -> int:
         # steps (by replay) and the replicas' in-process exchanges
         kernels[-1]["slice16_launches"] = {p: got[name]
                                            for p, got in slice16.items()}
+        # the slice 17 path: the observed fit (counted step, warm-up,
+        # replays and the profile window's eager steps alike)
+        kernels[-1]["slice17_launches"] = {p: got[name]
+                                           for p, got in slice17.items()}
         if name in bucket_rows:
             # one 4 MB bucket's shapes; launches on the overlap path
             kernels[-1]["bucket_shape"] = bucket_rows[name]

@@ -32,6 +32,13 @@ progressive JPEG, and adds the overlapped per-bucket gradient exchange
 (``comm.bucketing``, ``comm.overlap``, ``fit(overlap=...)``),
 ``KVStore.push_bucketed``, the ``dist_async`` parameter host
 (``kvstore_async``), ``kvstore.create_group`` and ``kvstore_server``.
+Slice 17 adds observability: ``telemetry`` (the metrics hub, step
+timeline, MFU, JSONL/Prometheus exporters, flight recorder, memory
+plans and live-array ledger, training health computed inside the
+captured step, the device-time profiler, the run ledger and the CLI),
+``analysis.lockwatch``, ``utils.memory`` and ``utils.profiler``, behind
+``fit(telemetry=, health=, profile=)`` and ``predict(telemetry=,
+profile=)``.
 Entry points run on the card (``gpu(0)``) unless the caller passes
 ``ctx=cpu()``.
 """
@@ -56,6 +63,9 @@ from . import operator, resilience, utils, visualization  # noqa: F401
 from . import visualization as viz  # noqa: F401
 from .operator import NumpyOp
 from .utils import checkpoint as _checkpoint, compile as _compile  # noqa: F401
+from .utils import memory as _memory, profiler as _profiler  # noqa: F401
+from . import analysis  # noqa: F401
+from . import telemetry  # noqa: F401
 # a launcher's server-role process (DMLC_ROLE=server) exits here, as the
 # reference's does inside `import mxnet` (kvstore_server.py)
 from . import kvstore_server  # noqa: F401,E402
@@ -70,3 +80,7 @@ __all__ = ["MXNetError", "set_matmul_precision", "get_matmul_precision",
            "kv", "parallel", "engine", "filesystem", "recordio", "module",
            "mod", "bucketing", "operator", "NumpyOp", "resilience", "utils",
            "visualization", "viz"]
+
+# Background /metrics endpoint (Prometheus text): opt-in through
+# MXNET_TPU_METRICS_PORT, as in the JAX package
+telemetry.maybe_serve_http_from_env()

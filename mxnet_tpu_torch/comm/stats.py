@@ -16,6 +16,7 @@ from __future__ import annotations
 import threading
 
 from .compression import CompressionSpec, payload_nbytes, quantization_unit
+from ..analysis.lockwatch import named_lock
 
 __all__ = ["allreduce_plan", "overlap_plan", "fp32_allreduce_wire_bytes",
            "CommRegistry", "registry", "comm_stats", "reset_comm_stats"]
@@ -122,7 +123,7 @@ class CommRegistry:
     """Per-program comm plans + per-step wire counters (thread-safe)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = named_lock("comm.CommRegistry")
         self.reset()
 
     def reset(self):

@@ -20,6 +20,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as _FutureTimeout
 
 from .base import MXNetError, env_int, env_str
+from .analysis.lockwatch import named_lock
 
 __all__ = ["Engine", "Var", "engine", "naive_engine", "set_engine_type"]
 
@@ -57,7 +58,7 @@ class Engine:
 
     def __init__(self, num_workers=None, synchronous=False):
         self.synchronous = synchronous
-        self._lock = threading.Lock()
+        self._lock = named_lock("engine.Engine")
         self._inflight: set[Future] = set()
         self._pool = None if synchronous else ThreadPoolExecutor(
             max_workers=num_workers or env_int("MXNET_CPU_WORKER_NTHREADS", 4),
@@ -139,7 +140,7 @@ class Engine:
 
     def _chain(self, task, deps):
         remaining = [len(deps)]
-        lock = threading.Lock()
+        lock = named_lock("engine.Engine._chain")
 
         def _dep_done(_f):
             with lock:
@@ -170,7 +171,7 @@ class Engine:
                     pass
 
 
-_engine_lock = threading.Lock()
+_engine_lock = named_lock("engine.global")
 _engines: dict[str, Engine] = {}
 _TYPES = ("ThreadedEnginePerDevice", "ThreadedEnginePooled", "NaiveEngine")
 

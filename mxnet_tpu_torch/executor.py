@@ -28,6 +28,7 @@ from .base import MXNetError, env_int, env_str
 from .context import Context, current_context
 from .convert import to_tensor
 from .ops.registry import DrawTape
+from .telemetry import profiling as _profiling
 from .utils import compile as compile_mod
 
 __all__ = ["Executor", "simple_bind", "_fusion_plan", "_remat_segments",
@@ -233,12 +234,18 @@ class _NodeRunner:
         return node.op.fwd(ins, aux, is_train, key)
 
     def exec_node(self, node, env, aux_values, new_aux, rng, mask):
+        """Run one node. While a profile capture is active the node runs
+        in the range ``<layer>/<op>`` (the JAX package's
+        ``jax.named_scope``), which the device-time profiler joins the
+        node's kernels to."""
         if id(node) in self.skip_bn:  # runs inside its fused add below
             return
         ins = [env[r] for r in self.node_input_refs(node)]
         names = self.node_aux_names(node)
-        outs, updated = self.run(node, ins, [aux_values[a] for a in names],
-                                 rng, mask)
+        with _profiling.scope(f"{node.name}/{node.op.name}"):
+            outs, updated = self.run(node, ins,
+                                     [aux_values[a] for a in names], rng,
+                                     mask)
         for k, o in enumerate(outs):
             env[(id(node), k)] = o
         new_aux.update(zip(names, updated))
@@ -493,6 +500,13 @@ class Executor:
         return self._fwd_fns[is_train]
 
     def forward(self, is_train=False, **kwargs):
+        from . import telemetry
+
+        telemetry.counter("executor_forward_total")
+        with telemetry.phase("executor_forward"):
+            return self._forward_impl(is_train, **kwargs)
+
+    def _forward_impl(self, is_train=False, **kwargs):
         dev = self._ctx.torch_device
         with torch.no_grad():
             for k, v in kwargs.items():
@@ -560,6 +574,13 @@ class Executor:
         GraphExecutor::Backward). After ``precompile(is_train=True)`` on a
         card, the head gradients are copied into the pair's buffers and the
         backward graph replays."""
+        from . import telemetry
+
+        telemetry.counter("executor_backward_total")
+        with telemetry.phase("executor_backward"):
+            return self._backward_impl(out_grads)
+
+    def _backward_impl(self, out_grads=None):
         if self._graph is None:
             raise MXNetError("backward() requires a prior forward(is_train=True)")
         label, key = self._train_keys()[1]
@@ -651,7 +672,8 @@ class Executor:
                  "rng": _random.get_state()}
         pair = compile_mod.CapturedPair(
             forward, backward, dev, labels, warmup=1,
-            generators=[rng] if rng is not None else [])
+            generators=[rng] if rng is not None else [],
+            inputs=lambda: [self.arg_dict, self.aux_dict, self.grad_dict])
         outs = pair.run_forward()  # the warm-up pair, eager
         self._cots = [torch.ones_like(o) for o in outs]
         pair.run_backward()
@@ -713,7 +735,9 @@ class Executor:
             with torch.no_grad():
                 return fn(self.arg_dict, self.aux_dict, rng)[0]
 
-        program = compile_mod.CapturedProgram(run, dev, label, warmup=1)
+        program = compile_mod.CapturedProgram(
+            run, dev, label, warmup=1,
+            inputs=lambda: [self.arg_dict, self.aux_dict])
         program()  # the warm-up
         program.capture()
         self._eval_program = program

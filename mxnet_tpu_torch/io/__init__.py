@@ -909,13 +909,24 @@ class PrefetchingIter(DataIter):
                                          write_vars=[self._var]))
 
     def next(self):
+        import time as _time
+
+        from .. import telemetry
+
         while self._queue:
             fut = self._queue.popleft()
+            t0 = _time.perf_counter()
             try:
                 batch = fut.result()
             except StopIteration:
                 self._exhausted = True
                 continue
+            # prefetch-stall accounting: with the producer keeping up this
+            # wait is ~0; a positive tail is the data pipeline failing to
+            # hide under compute (the badput 'data_wait' side)
+            telemetry.counter("io_prefetch_wait_seconds_total",
+                              _time.perf_counter() - t0)
+            telemetry.counter("io_prefetch_batches_total")
             self._fill()
             return batch
         raise StopIteration

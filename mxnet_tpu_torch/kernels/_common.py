@@ -34,7 +34,7 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["use_kernel", "load_library", "NVCC_FLAGS", "count_launch",
-           "capture_launches"]
+           "capture_launches", "priced", "flop_counters"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mxnet_tpu_torch"
@@ -81,6 +81,29 @@ def capture_launches():
         yield counts
     finally:
         _CAPTURE["counts"] = prev
+
+
+# the FLOP counters entered in this process (telemetry.mfu.FlopCounter):
+# a kernel wrapper's call is priced from its cost model, and the torch
+# operations of its plain version are not counted
+flop_counters: list = []
+
+
+@contextlib.contextmanager
+def priced(name, ins, outs, **static):
+    """A call of the hand-written kernel ``name`` (either route), one unit
+    for the FLOP counter entered, if any: priced from the kernel
+    registry's cost model of ``(ins, outs, **static)``."""
+    if not flop_counters:
+        yield
+        return
+    counter = flop_counters[-1]
+    counter.kernel(name, ins, outs, **static)
+    counter._kernel_depth += 1
+    try:
+        yield
+    finally:
+        counter._kernel_depth -= 1
 
 
 def count_launch(wrapper, n=1):

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..base import ENV_OFF_VALUES, ENV_ON_VALUES, MXNetError
-from ._common import count_launch, load_library, use_kernel
+from ._common import count_launch, load_library, priced, use_kernel
 from .registry import KernelCost, register_kernel
 
 __all__ = ["fused_adam", "fused_adam_step", "fused_adam_step_plain",
@@ -240,7 +240,8 @@ def fused_adam_step(params, grads, ms, vs, scal, *, beta1, beta2, eps,
     hyper = dict(beta1=beta1, beta2=beta2, eps=eps,
                  rescale_grad=rescale_grad, clip_gradient=clip_gradient,
                  wd_l2=wd_l2, decoupled=decoupled)
-    with torch.no_grad():  # parameters are autograd leaves
+    with torch.no_grad(), priced("fused_adam", (params, grads, ms, vs),
+                                 (params, ms, vs)):
         if use_kernel(*params, *grads, *ms, *vs, scal):
             _launch(params, grads, ms, vs, scal,
                     table if table is not None else LeafTable(), **hyper)
@@ -269,7 +270,8 @@ def fused_adam(params, grads, ms, vs, c1, c2, wd, *, lr, beta1, beta2, eps,
                  rescale_grad=rescale_grad, clip_gradient=clip_gradient,
                  wd_l2=wd_l2, decoupled=decoupled)
     if not use_kernel(*params, *grads, *ms, *vs):
-        with torch.no_grad():
+        with torch.no_grad(), priced("fused_adam", (params, grads, ms, vs),
+                                     (params, ms, vs)):
             fused_adam_plain(params, grads, ms, vs, c1, c2, wd, lr=lr,
                              **hyper)
         return

@@ -10,10 +10,14 @@ rate and the sum of each type's operations over its peak rate.
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 
+from ..analysis.lockwatch import named_lock
+
 __all__ = ["KernelCost", "KernelSpec", "register_kernel", "get_kernel",
-           "H100_PEAK_OPS", "H100_HBM_BYTES_PER_S"]
+           "kernel_names", "kernel_of_symbol", "H100_PEAK_OPS",
+           "H100_HBM_BYTES_PER_S"]
 
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W power limit.
 H100_HBM_BYTES_PER_S = 3.35e12
@@ -67,16 +71,54 @@ class KernelSpec:
 
 
 _KERNELS: dict[str, KernelSpec] = {}
+_LOCK = named_lock("ops.pallas.KernelRegistry")
 
 
 def register_kernel(name: str, cost_fn, source: str,
                     replaces: str) -> KernelSpec:
     """Register (or idempotently re-register) a kernel's cost model, its
     CUDA source and the TPU kernel (file:line) it replaces."""
-    spec = _KERNELS[name] = KernelSpec(name, cost_fn, source, replaces)
+    spec = KernelSpec(name, cost_fn, source, replaces)
+    with _LOCK:
+        _KERNELS[name] = spec
     return spec
 
 
 def get_kernel(name: str):
-    return _KERNELS.get(name)
+    with _LOCK:
+        return _KERNELS.get(name)
 
+
+def kernel_names():
+    """The registered kernels' names (the profiler's kernel categories)."""
+    with _LOCK:
+        return sorted(_KERNELS)
+
+
+
+# CUDA symbols of the kernels in csrc/ -> the registry name of the kernel
+# they implement (the profiler names a device event by it). Checked in
+# order: the dequantize names before the quantize ones they contain.
+_SYMBOLS = (
+    ("fused_adam", r"fused_adam_kernel"),
+    ("int8_matmul", r"quantize_rows_kernel|int8_gemm_kernel"),
+    ("dequant_sum_int8", r"dequant_sum_int8_kernel"),
+    ("dequant_sum_twobit", r"dequant_sum_twobit(_byte)?_kernel"),
+    ("dequant_int8", r"dequant_int8_kernel"),
+    ("dequant_twobit", r"dequant_twobit_kernel"),
+    ("quant_int8", r"(?<![a-z_])quant_int8(_chunk)?_kernel"),
+    ("quant_twobit", r"(?<![a-z_])quant_twobit(_vec)?_kernel"),
+    ("flash_bwd_dkv", r"flash_bwd_dkv_(kernel|hopper)"),
+    ("flash_bwd_dq", r"flash_bwd_dq_(kernel|hopper)"),
+    ("flash_fwd", r"flash_fwd_(kernel|hopper)"),
+)
+_SYMBOL_RES = tuple((name, re.compile(pat)) for name, pat in _SYMBOLS)
+
+
+def kernel_of_symbol(symbol: str):
+    """The registry name of the hand-written kernel a CUDA symbol (a
+    device event's name in a trace) belongs to, or None."""
+    for name, pattern in _SYMBOL_RES:
+        if pattern.search(symbol):
+            return name
+    return None

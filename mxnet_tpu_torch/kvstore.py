@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -42,6 +43,7 @@ import torch.distributed as dist
 from .base import MXNetError
 from .comm import CompressionSpec
 from .comm.allreduce import _all_gather, _row_sum, all_reduce_sum
+from .analysis.lockwatch import named_condition, named_lock
 
 __all__ = ["KVStore", "create", "create_group", "wrap_np_updater"]
 
@@ -232,6 +234,9 @@ class _DistKVStore(KVStore):
         like ``push``). With bf16 compression set the slab crosses the
         wire as bf16 and is summed in f32 (mxnet_tpu/kvstore.py:312-353)."""
         del priority
+        from . import telemetry
+
+        telemetry.counter("kvstore_push_pull_total")
         arrays = {}
         for k, v in kvs.items():
             if k not in self._store:
@@ -297,8 +302,8 @@ class _GroupServer:
             op_timeout = float(raw) if raw else 0.0
         self.op_timeout = op_timeout or None  # 0 -> no deadline
         self.membership_epoch = 0
-        self.lock = threading.Lock()
-        self.cv = threading.Condition(self.lock)
+        self.lock = named_lock("kvstore.GroupServer")
+        self.cv = named_condition("kvstore.GroupServer.cv", self.lock)
         self.store: dict = {}
         self.updater = None
         self._accum: dict = {}
@@ -396,11 +401,30 @@ class _GroupServer:
             if key not in self.store:
                 self.store[key] = np.array(value, np.float32)
 
-    def push(self, key, value, worker=None, seq=None):
+    def push(self, key, value, worker=None, seq=None, trace=None):
         """The BSP push; returns True for a duplicate resend (absorbed,
-        not counted twice)."""
+        not counted twice). ``trace`` (``telemetry.trace_ctx()``) makes
+        the handling a ``server_span`` of the worker step that caused it,
+        when that step is open (mxnet_tpu/kvstore.py:528-551); the time
+        waited on the round's other workers is reported apart."""
+        if trace is None or trace.get("span_id") is None:
+            return self._push(key, value, worker, seq, [0.0])
+        from . import telemetry
+
+        t0 = telemetry.hub().now()
+        waited = [0.0]
+        dedup = self._push(key, value, worker, seq, waited)
+        telemetry.emit_server_span(
+            "push", trace, t0, dedup=dedup, key=key,
+            origin_rank=trace.get("rank", worker), wait_s=waited[0])
+        return dedup
+
+    def _push(self, key, value, worker, seq, waited):
         def wait(predicate, what):
-            if not self.cv.wait_for(predicate, timeout=self.op_timeout):
+            t0 = time.perf_counter()
+            ok = self.cv.wait_for(predicate, timeout=self.op_timeout)
+            waited[0] += time.perf_counter() - t0
+            if not ok:
                 self._timeout(what)
 
         with self.cv:
@@ -437,9 +461,17 @@ class _GroupServer:
                      f"push[{key}] round {my_round}")
             return False
 
-    def pull(self, key) -> np.ndarray:
+    def pull(self, key, trace=None) -> np.ndarray:
+        if trace is None or trace.get("span_id") is None:
+            with self.lock:
+                return self.store[key].copy()
+        from . import telemetry
+
+        t0 = telemetry.hub().now()
         with self.lock:
-            return self.store[key].copy()
+            value = self.store[key].copy()
+        telemetry.emit_server_span("pull", trace, t0, key=key)
+        return value
 
     def push_replica(self, origin, step, payload):
         """Hold ``origin``'s newest checkpoint snapshot (newest step wins;
@@ -521,8 +553,16 @@ class _GroupWorkerKVStore(KVStore):
     def push(self, key, value, priority=0):
         """Each logical push carries a stable ``(worker, seq)`` identity,
         so a resend cannot count twice at the server. The residual of a
-        compressed push is folded in once, at encode time."""
+        compressed push is folded in once, at encode time. The worker's
+        trace identity rides the push: the server's handling becomes a
+        child span of this worker's open step."""
         del priority
+        from . import telemetry
+
+        telemetry.counter("kvstore_push_pull_total")
+        self._maybe_beacon()
+        trace = telemetry.trace_ctx()
+        trace["rank"] = self._rank
         for k, vlist in self._as_pairs(key, value):
             value_np = _to_numpy(self._merge(vlist))
             if self._compression is not None:
@@ -534,12 +574,29 @@ class _GroupWorkerKVStore(KVStore):
                 value_np = ("enc", (spec.mode, spec.threshold, spec.chunk),
                             self._codec.encode(k, value_np.ravel()))
             seq = self._push_seq[k] = self._push_seq.get(k, -1) + 1
-            self._server.push(k, value_np, worker=self._rank, seq=seq)
+            self._server.push(k, value_np, worker=self._rank, seq=seq,
+                              trace=trace)
+
+    def _maybe_beacon(self):
+        """One clock-offset beacon with the server (in one process the
+        clocks coincide, but the merge protocol is dist_async's)."""
+        if getattr(self, "_beacon_sent", False):
+            return
+        self._beacon_sent = True
+        from . import telemetry
+
+        h = telemetry.hub()
+        t_send = h.now()
+        telemetry.record_clock_beacon("server", t_send, h.now(), h.now())
 
     def pull(self, key, out, priority=0):
         del priority
+        from . import telemetry
+
+        trace = telemetry.trace_ctx()
+        trace["rank"] = self._rank
         for k, outs in self._as_pairs(key, out):
-            value = torch.from_numpy(self._server.pull(k))
+            value = torch.from_numpy(self._server.pull(k, trace=trace))
             if isinstance(outs, torch.Tensor):
                 outs = [outs]
             for o in outs:
@@ -569,12 +626,20 @@ def create(kv_type="local", ctx=None) -> KVStore:
     if kv_type in ("dist", "dist_sync"):
         on_gpu = (ctx.device_type == "gpu") if ctx is not None \
             else torch.cuda.is_available()
-        return _DistKVStore("dist_sync", "nccl" if on_gpu else "gloo")
-    if kv_type == "dist_async":
+        store = _DistKVStore("dist_sync", "nccl" if on_gpu else "gloo")
+    elif kv_type == "dist_async":
         from .kvstore_async import AsyncKVStore
 
-        return AsyncKVStore()
-    raise MXNetError(f"unknown kvstore type {kv_type!r}")
+        store = AsyncKVStore()
+    else:
+        raise MXNetError(f"unknown kvstore type {kv_type!r}")
+    if store.num_workers > 1 or store.rank:
+        # a distributed store is the process's rank/world authority for
+        # telemetry (mxnet_tpu/kvstore.py:805-816)
+        from . import telemetry
+
+        telemetry.set_world(store.rank, store.num_workers)
+    return store
 
 
 def create_group(num_workers: int, kv_type="dist_sync", compression=None,

@@ -52,6 +52,7 @@ import torch
 
 from .base import MXNetError
 from .kvstore import KVStore, _to_numpy, wrap_np_updater
+from .analysis.lockwatch import named_condition, named_lock
 
 __all__ = ["AsyncKVStore"]
 
@@ -167,8 +168,8 @@ class _AsyncServer:
         self.num_workers = num_workers
         self.store: dict = {}
         self.updater = None
-        self.lock = threading.Lock()
-        self.cv = threading.Condition(self.lock)
+        self.lock = named_lock("kvstore_async.AsyncServer")
+        self.cv = named_condition("kvstore_async.AsyncServer.cv", self.lock)
         self._barrier_count = 0
         self._barrier_round = 0
         # membership: leave/join of a named rank are set operations, and
@@ -191,6 +192,7 @@ class _AsyncServer:
         # while it is being applied
         self._applied: dict = {}
         self.duplicate_count = 0
+        self._conn_tls = threading.local()  # per-connection-thread flags
         self._replicas: dict = {}  # origin -> (step, blob), newest wins
         self.replica_count = 0
         self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -265,6 +267,7 @@ class _AsyncServer:
                 self._applied[rank] = (seq, None)  # claimed: caller applies
                 return False
             self.duplicate_count += 1
+            self._conn_tls.dedup = True
             if prev[0] == seq and prev[1] is None:
                 self.cv.wait_for(
                     lambda: self._applied[rank][0] != seq or
@@ -296,8 +299,34 @@ class _AsyncServer:
                 self.store[k] = np.array(value, np.float32)
         return ("ok",)
 
+    _TRACED_OPS = frozenset({"push", "pull", "push_many", "pull_many",
+                             "push_pull", "push_many_enc", "push_pull_enc"})
+
     def _handle(self, conn, msg):
-        """Serve one request; True when the connection is done."""
+        """Serve one request; True when the connection is done. A request
+        may arrive in a ``("tr", ctx, inner)`` trace envelope
+        (``AsyncKVStore._call``): the host adopts the run's trace id and
+        emits a ``server_span`` parented under the worker step named in
+        ``ctx`` (mxnet_tpu/kvstore_async.py:317-344)."""
+        trace = None
+        if msg and msg[0] == "tr":
+            trace, msg = msg[1], msg[2]
+        if trace is None or trace.get("span_id") is None or \
+                msg[0] not in self._TRACED_OPS:
+            return self._handle_op(conn, msg)
+        from . import telemetry
+
+        telemetry.set_trace_id(trace.get("trace_id"), adopt=True)
+        t0 = telemetry.hub().now()
+        self._conn_tls.dedup = False
+        done = self._handle_op(conn, msg)
+        telemetry.emit_server_span(
+            msg[0], trace, t0,
+            dedup=bool(getattr(self._conn_tls, "dedup", False)),
+            origin_rank=trace.get("rank", -1))
+        return done
+
+    def _handle_op(self, conn, msg):
         op = msg[0]
         if op == "init":
             _, key, value = msg
@@ -520,7 +549,7 @@ class AsyncKVStore(KVStore):
         if self._rank == 0:
             self._server = _AsyncServer(host, port, self._nproc)
         self._sock = self._connect(host, port)
-        self._lock = threading.Lock()
+        self._lock = named_lock("kvstore_async.AsyncKVStore")
         self._next_seq = 0  # identity of mutating requests
         self._rpc_timeout = float(
             os.environ.get("MXNET_TPU_RPC_TIMEOUT", "30"))
@@ -584,6 +613,13 @@ class AsyncKVStore(KVStore):
             if mutating:
                 msg = msg + (self._rank, self._next_seq)
                 self._next_seq += 1
+            # trace envelope: the host parents its handling span under
+            # this worker's open step; a resend carries the same context
+            from . import telemetry
+
+            ctx = telemetry.trace_ctx()
+            ctx["rank"] = self._rank
+            msg = ("tr", ctx, msg)
             for attempt in range(_RETRIES if retry else 1):
                 try:
                     if self._sock is None:

@@ -67,6 +67,15 @@ and writes the sharded checkpoints of ``utils/checkpoint.py`` through
 ``resilience/ckpt_async.py``, with the JAX package's step-granular resume
 (``mxnet_tpu/model.py:1180-1244``).
 
+``fit(telemetry=, health=, profile=)`` and ``predict(telemetry=,
+profile=)`` turn the observability layer on (``telemetry/``,
+mxnet_tpu/model.py:1198-1201,1484-1498,1603-1672,2232-2390,2552-2640): a
+step timeline whose ``device`` phase ends on a CUDA event the host waits
+on after the step, MFU and goodput from one counted step, the JSONL
+stream, the live-array ledger, the per-layer health statistics computed
+inside the (captured) step, a bounded profile window whose steps run
+eager with the profiler's ranges on, and a run record in the ledger.
+
 Arguments of ``fit`` that belong to later slices of the port raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
@@ -78,6 +87,7 @@ import json
 import logging
 import os
 import queue
+import sys
 import threading
 import time
 
@@ -93,6 +103,7 @@ from . import ndarray as nd
 from . import optimizer as opt_mod
 from . import random as random_mod
 from . import symbol as sym_mod
+from . import telemetry as telemetry_mod
 from .base import MXNetError
 from .callback import BatchEndParam
 from .comm.allreduce import all_reduce_sum, broadcast_
@@ -101,6 +112,7 @@ from .convert import to_tensor
 from .executor import _build_graph_fn, _build_replica_graph_fn, has_native
 from .ops.nn import batch_statistics_over
 from .resilience import ckpt_async as ckpt_plane
+from .telemetry import profiling as prof_mod
 from .utils import checkpoint as ckpt_mod
 from .utils import compile as compile_mod
 from .utils.checkpoint import atomic_write, check_sidecar
@@ -116,9 +128,6 @@ _LATER_SLICES = {
     "guards": "A6 (resilience/)",
     "elastic": "A6 (resilience/)",
     "controller": "A6 (resilience/)",
-    "telemetry": "A6 (telemetry/)",
-    "health": "A6 (telemetry/)",
-    "profile": "A6 (telemetry/)",
     "shard_audit": "A6 (analysis/)",
 }
 
@@ -637,6 +646,11 @@ class _TrainState:
         self.rng = random_mod.generator(device)
         self.scalars = _StepScalars(device)
         self.programs = {}
+        # fit(health=): the statistics' static buffers and whether the
+        # step computes them (a part of the program key)
+        self.health = None
+        self.health_on = False
+        self._health_heads = ()
         self._loss = None
         self.grads = None
         self._grad_views = None
@@ -702,6 +716,32 @@ class _TrainState:
         self.load(snap["params"], snap["aux"], snap["opt"])
         random_mod.set_state(snap["rng"])
 
+    def enable_health(self, groups, heads, on=True):
+        """Compute the per-layer health statistics inside every step
+        (``telemetry.health.DeviceStats``, made once a state and kept, so
+        a captured step keeps writing the same buffers), or stop."""
+        self.health_on = bool(on)
+        if not on:
+            return
+        if self.health is None or self.health.groups != groups:
+            self.health = telemetry_mod.health.DeviceStats(
+                groups, self.params, self.device,
+                flat_grad=getattr(self, "_flat_grad", None),
+                grad_views=self._grad_views)
+        self._health_heads = heads
+
+    def health_loss(self, outs, batch, mask):
+        """The step's unscaled training loss for the health stream: the
+        loss heads' values, else the seed scalar backward starts from
+        (mxnet_tpu/model.py:636-650,721-725)."""
+        with torch.no_grad(), prof_mod.scope("health/loss"):
+            loss = telemetry_mod.health.loss_value(
+                self._health_heads, [o.detach() for o in outs], batch, mask)
+            if loss is None and self._loss is not None:
+                loss = self._loss.detach()
+            return torch.zeros((), device=self.device) if loss is None \
+                else loss
+
     def graph_fn_for(self, bucket_key):
         if bucket_key is None:
             return self.graph_fn
@@ -734,7 +774,9 @@ class _TrainState:
                                      mask)
             heads = [o for o in outs if o.requires_grad]
             # seed-ones cotangent: loss heads inject their own gradient
-            self._loss = sum(o.float().sum() for o in heads) if heads else None
+            with prof_mod.scope("loss/sum"):
+                self._loss = sum(o.float().sum() for o in heads) \
+                    if heads else None
         with torch.no_grad():
             for k, v in new_aux.items():
                 if v is not self.aux[k]:
@@ -770,7 +812,7 @@ class _TrainState:
         the auxiliary states averaged (already equal, and left as they are,
         where BatchNorm took every rank's rows). A no-op on one device."""
         if self.grad_sync is not None:
-            with torch.no_grad():
+            with torch.no_grad(), prof_mod.scope("comm/allreduce"):
                 self.grads = self.grad_sync.grads()
                 if self._rank_stats:
                     # every rank's statistics were the global batch's
@@ -782,7 +824,7 @@ class _TrainState:
     def update(self):
         """The optimizer step, in place, from the values :meth:`prepare`
         put on the device."""
-        with torch.no_grad():
+        with torch.no_grad(), prof_mod.scope("optimizer/update"):
             self.optimizer.apply_inplace(self.params, self.grads,
                                          self.opt_state, self.scalars.dev)
 
@@ -800,10 +842,19 @@ class _TrainState:
             mask = (torch.arange(rows, device=num_valid.device)
                     < num_valid).float()
         outs = self.forward(batch, bucket_key, data_names, mask)
+        health = self.health if self.health_on else None
+        h_loss = None if health is None else \
+            self.health_loss(outs, batch, mask)
         self.backward()
         self.sync()
+        if health is not None:
+            with prof_mod.scope("health/stats"):
+                health.before_update(self.params)
         if self.apply_update:
             self.update()
+        if health is not None:
+            with prof_mod.scope("health/stats"):
+                health.after_update(self.params, self.grads, h_loss)
         seen = None if probe is None else probe(batch)
         return [o.detach() for o in outs], seen
 
@@ -818,7 +869,9 @@ class _Program:
         self.static = {k: torch.empty_like(v) for k, v in arrays.items()}
         self.captured = compile_mod.CapturedProgram(
             lambda: state.step(self.static, bucket_key, data_names, probe),
-            state.device, label, warmup=1, generators=[state.rng])
+            state.device, label, warmup=1, generators=[state.rng],
+            inputs=lambda: [self.static, state.params, state.aux,
+                            opt_leaves(state.opt_state), state.scalars.dev])
 
     def copy_in(self, arrays):
         for k, v in arrays.items():
@@ -828,6 +881,40 @@ class _Program:
         self.copy_in(arrays)
         outs, seen = self.captured()
         return list(outs), seen
+
+
+def _timed_feed(feed, tl):
+    """Wrap the device feed so the time blocked waiting for the next batch
+    is banked on the timeline as the following step's ``data_wait``
+    phase."""
+    it = iter(feed)
+    while True:
+        t0 = tl.clock()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        tl.note_data_wait(tl.clock() - t0)
+        yield item
+
+
+def _wait_step(device):
+    """Wait for the step just launched on ``device``: the host waits on a
+    CUDA event recorded after it (the JAX package's
+    ``jax.block_until_ready`` on the step's outputs); the CPU's step has
+    run when it returned."""
+    if device.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        done.synchronize()
+
+
+def _ckpt_seconds():
+    """The seconds checkpoint saves took so far (the hub's
+    ``checkpoint_save_seconds`` histogram)."""
+    h = telemetry_mod.hub().snapshot()["histograms"].get(
+        "checkpoint_save_seconds")
+    return h["sum"] if h else 0.0
 
 
 def _split_rows(value, parts: int):
@@ -914,6 +1001,20 @@ class _ReplicaState:
         for m in self.members:
             m.prepare(lr)
 
+    @property
+    def health(self):
+        return self.members[0].health
+
+    @property
+    def health_on(self):
+        return self.members[0].health_on
+
+    def enable_health(self, groups, heads, on=True):
+        """The statistics of the first replica (the replicas' gradients
+        and updates are the exchanged, equal ones); the loss is the sum of
+        every replica's."""
+        self.members[0].enable_health(groups, heads, on)
+
     def _lockstep_fn(self, bucket_key):
         """The joined-statistics graph of ``bucket_key`` when it holds a
         BatchNorm, else None (the replicas' graphs are independent)."""
@@ -971,6 +1072,13 @@ class _ReplicaState:
         else:
             outs = [m.forward(b, bucket_key, data_names, mask)
                     for m, b, mask in zip(self.members, blocks, masks)]
+        first = self.members[0]
+        health = first.health if first.health_on else None
+        h_loss = None
+        if health is not None:
+            h_loss = sum(m.health_loss(o, b, mask).to(self.device)
+                         for m, o, b, mask in zip(self.members, outs, blocks,
+                                                  masks))
         sync = self.grad_sync
         sync.attach([m.params for m in self.members])
         losses = [m._loss.to(self.device) for m in self.members
@@ -992,8 +1100,12 @@ class _ReplicaState:
                             m.aux[k].copy_(v)
         for m, g in zip(self.members, grads):
             m.grads = g
+            if m is first and health is not None:
+                health.before_update(m.params)
             if m.apply_update:
                 m.update()
+            if m is first and health is not None:
+                health.after_update(m.params, g, h_loss)
         joined = [torch.cat([o[i].detach().to(self.device) for o in outs])
                   for i in range(len(outs[0]))]
         seen = None if probe is None else probe(batch)
@@ -1051,6 +1163,12 @@ class FeedForward(BASE_ESTIMATOR):
         self.feed_waits = []
         self.step_probes = []
         self.async_rounds = []
+        # observability handles of the last fit/predict (telemetry/)
+        self.telemetry = None
+        self.health_monitor = None
+        self.profile_report = None
+        self.mfu = None
+        self._active_timeline = None
 
     def _symbol_for_bucket(self, bucket_key):
         """The graph of one bucket; one symbol here (bucketing trainers
@@ -1176,21 +1294,29 @@ class FeedForward(BASE_ESTIMATOR):
         return state
 
     def _program_key(self, arrays, bucket_key, pad_policy, train=True):
-        return compile_mod.program_key(
+        key = compile_mod.program_key(
             self._fingerprint(bucket_key), bucket_key, arrays,
             self.compute_dtype, pad_policy, train)
+        state = self._train_state
+        if train and state is not None and state.health_on:
+            # the health statistics are part of the step, as health's key
+            # joins the JAX package's program cache key
+            key = key + (telemetry_mod.HealthConfig().key(),)
+        return key
 
     def _run_step(self, state, arrays, bucket_key, data_names, pad_policy,
-                  lr, captured, precompile=False):
+                  lr, captured, precompile=False, eager=False):
         """One training step of the program ``arrays`` select: counted in
         the program registry (a first sight is a compile), the optimizer's
         values put on the device, then the step, replayed from its graph
-        when ``captured``. Returns the outputs and the probe's value."""
+        when ``captured`` and not ``eager`` (the FLOP count and the
+        profile window run the step itself). Returns the outputs and the
+        probe's value."""
         key = self._program_key(arrays, bucket_key, pad_policy)
         compile_mod.registry().see(self._label("train_step", bucket_key),
                                    key, self._seen, precompile=precompile)
         state.prepare(lr)
-        if not captured:
+        if not captured or eager:
             return state.step(arrays, bucket_key, data_names,
                               self._step_probe)
         prog = state.programs.get(key)
@@ -1263,11 +1389,22 @@ class FeedForward(BASE_ESTIMATOR):
 
         On a card each step replays a CUDA graph captured once per program
         key, unless one of the cases of ``_eager_reason`` holds; the reason
-        is counted in ``utils.compile.compile_stats()["eager"]``."""
+        is counted in ``utils.compile.compile_stats()["eager"]``.
+
+        ``telemetry`` (None: env ``MXNET_TPU_TELEMETRY``; True; a JSONL
+        path; a ``telemetry.TelemetryConfig``) records a step timeline on
+        ``self.telemetry``, MFU and goodput per epoch (FLOPs from one
+        counted step), streams hub events to ``jsonl`` and tracks live
+        NDArrays. ``health`` (None: env ``MXNET_TPU_HEALTH``; True; a
+        ``telemetry.HealthConfig``) computes per-layer gradient, weight and
+        update norms and nonfinite counts inside the (captured) step and
+        feeds ``self.health_monitor``. ``profile`` (None: env
+        ``MXNET_TPU_PROFILE``; True; window steps; a
+        ``telemetry.ProfileConfig``) traces one window of steps, run eager
+        with the profiler's ranges on, into ``self.profile_report``."""
         del work_load_list
-        given = dict(guards=guards, telemetry=telemetry,
-                     elastic=elastic, controller=controller, health=health,
-                     profile=profile, shard_audit=shard_audit)
+        given = dict(guards=guards, elastic=elastic, controller=controller,
+                     shard_audit=shard_audit)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -1394,6 +1531,61 @@ class FeedForward(BASE_ESTIMATOR):
         reason = self._eager_reason(dist_sync, async_kv)
         if reason is not None:
             compile_mod.note_eager(reason, logger)
+        health_cfg = telemetry_mod.HealthConfig.resolve(health)
+        profile_cfg = telemetry_mod.ProfileConfig.resolve(profile)
+        tcfg = telemetry_mod.TelemetryConfig.resolve(telemetry)
+        if num_workers > 1:
+            # every event and metric of this process carries its rank
+            telemetry_mod.set_world(kv.rank, num_workers)
+        if health_cfg is not None and async_kv:
+            logger.info("health= ignored with kvstore='dist_async': the "
+                        "update happens on the parameter host")
+            health_cfg = None
+        health_groups = hmon = None
+        state.enable_health(None, (), on=False)
+        if health_cfg is not None:
+            health_groups = telemetry_mod.health.layer_groups(param_names)
+            state.enable_health(health_groups, telemetry_mod.health.
+                                loss_heads(self.symbol, data_names
+                                           + label_names))
+            hmon = telemetry_mod.HealthMonitor(health_cfg).attach()
+            self.health_monitor = hmon
+            logger.info("health: per-layer stats in the step over %d "
+                        "layer(s) (%r)", len(health_groups), health_cfg)
+        self._memory_preflight(state, sync, logger)
+        tl = mfu_acct = tel_sink = mem_prev = None
+        if tcfg is not None:
+            if tcfg.timeline:
+                tl = telemetry_mod.StepTimeline()
+                self.telemetry = tl
+            if tcfg.mfu:
+                mfu_acct = telemetry_mod.MFUAccountant(
+                    num_devices=len(replicas) if multi else num_workers,
+                    device=dev)
+                self.mfu = mfu_acct
+            if tcfg.jsonl:
+                tel_sink = telemetry_mod.hub().add_sink(
+                    telemetry_mod.JsonlWriter(tcfg.jsonl))
+            if tcfg.memory:
+                mem_prev = telemetry_mod.track_arrays(True)
+                telemetry_mod.memory.reset_leak_tracker()
+                telemetry_mod.memory.attach_sampler()
+        self._active_timeline = tl
+        ledger_t0 = telemetry_mod.hub().now()
+        ledger_tic = time.time()
+        ledger_comm0 = comm_mod.registry().stats()
+        prof_session = None
+        profile_badput = 0.0
+        if profile_cfg is not None:
+            layers = {n.name for n in self.symbol._topo()
+                      if not n.is_variable}
+            layers |= set(telemetry_mod.health.layer_groups(param_names))
+            prof_session = telemetry_mod.profiling.ProfileSession(
+                profile_cfg, layers=layers,
+                num_devices=len(replicas) if multi else num_workers,
+                mfu_acct=mfu_acct, logger=logger, owner="fit", device=dev)
+            logger.info("profile: %r armed (window opens after warmup on "
+                        "a capture-quiet step)", profile_cfg)
         eval_metric = metric_mod.create(eval_metric)
         device_metric = eval_metric.device_supported and \
             batch_end_callback is None
@@ -1444,6 +1636,9 @@ class FeedForward(BASE_ESTIMATOR):
         try:
             for epoch in range(self.begin_epoch, self.num_epoch):
                 tic = time.time()
+                compile_snap = compile_mod.registry().snapshot()
+                span_base = len(tl.spans) if tl is not None else 0
+                ckpt_base = _ckpt_seconds()
                 if async_comm_spec is not None:
                     host_snap = kv.compression_stats()
                 eval_metric.reset()
@@ -1454,23 +1649,61 @@ class FeedForward(BASE_ESTIMATOR):
                 feed = _DeviceFeed(train_data, extract, dev,
                                    depth=feed_depth) \
                     if feed_depth > 0 else _SyncFeed(train_data, extract, dev)
+                feed_src = _timed_feed(feed, tl) if tl is not None else feed
                 try:
-                    for batch, arrays in feed:
+                    for batch, arrays in feed_src:
                         if skip_batches > 0:
                             # a resumed epoch: past the batches it trained
                             skip_batches -= 1
                             nbatch += 1
                             continue
+                        span = tl.begin_step(epoch, nbatch) \
+                            if tl is not None else None
+                        if span is not None:
+                            span.mark("dispatch")
                         b_lnames = getattr(batch, "label_names", label_names)
                         lr = optimizer._get_lr()
                         optimizer.num_update = num_update
-                        outs, seen = self._run_step(
-                            state, arrays, getattr(batch, "bucket_key", None),
-                            getattr(batch, "data_names", None), pad_policy,
-                            lr, reason is None)
+                        window = prof_session is not None and \
+                            (prof_session.pending or prof_session.open) and \
+                            prof_session.before_step(
+                                compile_mod.registry().snapshot()["compiles"])
+                        if window and reason is None:
+                            # a replay's kernels belong to no range: the
+                            # window's steps run eager
+                            compile_mod.registry().record_eager(
+                                "profile window")
+
+                        def run_step(eager=False):
+                            return self._run_step(
+                                state, arrays,
+                                getattr(batch, "bucket_key", None),
+                                getattr(batch, "data_names", None),
+                                pad_policy, lr, reason is None, eager=eager)
+
+                        if mfu_acct is not None and mfu_acct.wants_count:
+                            outs, seen = mfu_acct.count_step(
+                                lambda: run_step(eager=True))
+                        else:
+                            outs, seen = run_step(eager=window)
+                        if span is not None:
+                            span.mark("device")
+                            if tcfg.sync:
+                                _wait_step(dev)
+                            span.mark("kvstore" if async_kv else "host")
+                        if health_cfg is not None and \
+                                nbatch % health_cfg.every == 0:
+                            telemetry_mod.health.observe_device_stats(
+                                health_groups, state.health.buffers, epoch,
+                                nbatch)
+                        if window:
+                            profile_badput += prof_session.after_step(
+                                outs, epoch=epoch)
                         if async_kv:
                             self.async_rounds.append(self._async_round(
                                 kv, state, param_names, stale_sync))
+                            if span is not None:
+                                span.mark("host")
                         if seen is not None:
                             self.step_probes.append((batch, seen.clone()))
                         if self._step_hook is not None:
@@ -1483,11 +1716,12 @@ class FeedForward(BASE_ESTIMATOR):
                                 getattr(batch, "pad", 0) or 0)
                             labels = [t[:nv] for t in labels]
                             preds = [t[:nv] for t in preds]
-                        if device_metric:
-                            mstate = eval_metric.device_update(mstate, labels,
-                                                               preds)
-                        else:
-                            eval_metric.update(labels, preds)
+                        with prof_mod.scope("metric/update"):
+                            if device_metric:
+                                mstate = eval_metric.device_update(
+                                    mstate, labels, preds)
+                            else:
+                                eval_metric.update(labels, preds)
                         nbatch += 1
                         if writer is not None and \
                                 num_update % ckpt_every == 0 and \
@@ -1502,15 +1736,26 @@ class FeedForward(BASE_ESTIMATOR):
                                       **comm_meta},
                                 symbol=self.symbol)
                             writer.submit(snap)
+                            writer.note_step(num_update)
                             self.ckpt_replicas.replicate(0, snap)
                         if batch_end_callback is not None:
                             param = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                                   eval_metric=eval_metric)
                             for cb in _as_list(batch_end_callback):
                                 cb(param)
+                        if span is not None:
+                            span.end()
+                        else:
+                            # the flight recorder's step mark, timeline or
+                            # not: a crash dump shows the last steps
+                            telemetry_mod.flight.note_step(epoch, nbatch - 1)
                 finally:
                     feed.close()
                     self.feed_waits.extend(feed.waits)
+                if prof_session is not None and prof_session.open:
+                    # the epoch ended inside the window: close with what
+                    # was captured
+                    profile_badput += prof_session.close(epoch=epoch)
                 if stale_sync:
                     # the last step's push must land before callbacks and
                     # checkpoints read the weights
@@ -1531,8 +1776,24 @@ class FeedForward(BASE_ESTIMATOR):
                     eval_metric.absorb_device_state(mstate)
                 name, value = eval_metric.get()
                 logger.info("Epoch[%d] Train-%s=%f", epoch, name, value)
+                if dev.type == "cuda":
+                    # the epoch's clock stops when its last step has run
+                    torch.cuda.synchronize(dev)
                 logger.info("Epoch[%d] Time cost=%.3f", epoch,
                             time.time() - tic)
+                cdiff = compile_mod.registry().snapshot()
+                if mfu_acct is not None and nbatch:
+                    spans_e = tl.spans[span_base:] if tl is not None else []
+                    mfu_acct.epoch_report(
+                        epoch, nbatch, time.time() - tic,
+                        compile_seconds=cdiff["compile_seconds"]
+                        - compile_snap["compile_seconds"],
+                        data_wait_seconds=sum(
+                            d for sp in spans_e for n, _, d in sp.phases()
+                            if n == "data_wait"),
+                        checkpoint_seconds=_ckpt_seconds() - ckpt_base,
+                        profile_seconds=profile_badput, logger=logger)
+                profile_badput = 0.0
                 if sharded_checkpoint_dir is not None:
                     if writer is not None:
                         # a queued snapshot may share this step id
@@ -1566,6 +1827,10 @@ class FeedForward(BASE_ESTIMATOR):
                     name, value = eval_metric.get()
                     logger.info("Epoch[%d] Validation-%s=%f", epoch, name,
                                 value)
+                if mem_prev is not None:
+                    # close the epoch's watermark window and run the leak
+                    # detector
+                    telemetry_mod.memory.epoch_mark(epoch, logger=logger)
                 if epoch_end_callback is not None:
                     for cb in _as_list(epoch_end_callback):
                         cb(epoch, self.symbol, self.arg_params,
@@ -1575,6 +1840,73 @@ class FeedForward(BASE_ESTIMATOR):
                 writer.close()
             if sync is not None:
                 sync.close()
+            if hmon is not None:
+                hmon.detach()
+            if prof_session is not None:
+                # an exception mid-window must not leave the profiler
+                # running
+                prof_session.close()
+                self.profile_report = prof_session.report
+            telemetry_mod.clear_current_span()
+            self._active_timeline = None
+            if tel_sink is not None:
+                telemetry_mod.hub().remove_sink(tel_sink)
+                tel_sink.close()
+            if mem_prev is not None:
+                telemetry_mod.memory.detach_sampler()
+                telemetry_mod.track_arrays(mem_prev)
+            try:
+                spec = comm_spec if comm_spec is not None \
+                    else async_comm_spec
+                telemetry_mod.ledger.record_run(
+                    "fit", fingerprint=str(self._fingerprint(None)),
+                    world_size=len(replicas) if multi else num_workers,
+                    knobs={
+                        "compression": spec.mode if spec is not None
+                        else "none",
+                        "overlap_bytes": overlap_cfg.bucket_bytes
+                        if overlap_cfg is not None else None,
+                        "comm_kernels": bool(comm_kernels),
+                        "fused_adam": bool(getattr(
+                            optimizer, "_fused_active", lambda: False)()),
+                        "pad_policy": pad_policy.mode
+                        if pad_policy is not None else None,
+                        "health": health_cfg is not None,
+                        "profile": profile_cfg is not None,
+                        "guards": False,
+                        "ckpt_every": ckpt_every,
+                    },
+                    completed=sys.exc_info()[0] is None,
+                    since_ts=ledger_t0, comm_start=ledger_comm0,
+                    wall_seconds=time.time() - ledger_tic, logger=logger)
+            except Exception as e:  # noqa: BLE001 - never mask the run
+                logger.warning("telemetry ledger: run record failed: %s", e)
+        return self
+
+    def _memory_preflight(self, state, sync, logger):
+        """The OOM preflight before the first step
+        (mxnet_tpu/model.py:1603-1620): the resident state (parameters,
+        optimizer state, auxiliary states, the exchange's residuals) and
+        the largest captured training program's plan of this trainer,
+        against ``telemetry.memory.hbm_budget()`` (the card's limit by
+        default; none on the CPU). A program's plan exists from its
+        capture on, so the first fit of a trainer checks the state alone:
+        the check never refuses a fit that fits."""
+        budget = telemetry_mod.memory.hbm_budget()
+        if budget is None:
+            return None
+        labels = [label for label in compile_mod.memory_plans()
+                  if label.startswith(self._label("train_step", None))]
+        plan_label, plan = telemetry_mod.memory.largest_plan(labels=labels)
+        resid = None
+        if sync is not None:
+            resid = sync.residuals() if sync.schedule is not None \
+                else sync.residual
+        entries = telemetry_mod.memory.preflight_entries(
+            dict(state.params), opt_leaves(state.opt_state), dict(state.aux),
+            resid=resid, plan_label=plan_label, plan=plan)
+        return telemetry_mod.memory.preflight(entries, budget, what="fit",
+                                              logger=logger)
 
     @staticmethod
     def _load_pulled(state, pulled: dict):
@@ -1626,16 +1958,19 @@ class FeedForward(BASE_ESTIMATOR):
         ``comm_kernels``, ``batch_end_callback`` and ``parallel`` are taken
         as the JAX package takes them and change no program here (a device
         metric and a host one run outside the captured step; an overlapped
-        exchange runs only in a multi-worker fit, which is eager). Returns
-        ``{"programs", "wall_seconds", "labels"}``."""
+        exchange runs only in a multi-worker fit, which is eager).
+        ``health`` captures the programs of a ``fit(health=...)``, whose
+        steps compute the health statistics. Returns ``{"programs",
+        "wall_seconds", "labels"}``."""
         del eval_metric, compression, comm_kernels, batch_end_callback, \
             parallel, overlap
-        for name, value in dict(guards=guards, health=health,
+        for name, value in dict(guards=guards,
                                 shard_audit=shard_audit).items():
             if value is not None:
                 raise NotImplementedError(
                     f"precompile({name}=...) is not ported yet: ROADMAP "
                     f"{_LATER_SLICES[name]}")
+        health_cfg = telemetry_mod.HealthConfig.resolve(health)
         if isinstance(kvstore, str) and "dist" in kvstore:
             raise MXNetError(
                 "precompile: multi-process kvstore strategies must warm up "
@@ -1679,6 +2014,11 @@ class FeedForward(BASE_ESTIMATOR):
                 optimizer, {k: self.arg_params[k] for k in param_names},
                 {k: self.aux_params[k] for k in aux_names}, None,
                 [k for k in programs[0][1]])
+            # the programs of a fit with health on carry its statistics
+            state.enable_health(
+                telemetry_mod.health.layer_groups(param_names),
+                telemetry_mod.health.loss_heads(self.symbol, ()),
+                on=health_cfg is not None)
             snap = state.snapshot() if captured else None
         labels = []
         for bucket_key, dshapes, lshapes in programs:
@@ -1768,16 +2108,19 @@ class FeedForward(BASE_ESTIMATOR):
                     return fn({**params, **static}, aux)[0]
 
             prog = self._eval_progs[key] = (static, compile_mod.CapturedProgram(
-                run, self._device, label, warmup=1))
+                run, self._device, label, warmup=1,
+                inputs=lambda: [params, aux, static]))
         static, program = prog
         for k, v in arrays.items():
             static[k].copy_(v, non_blocking=True)
         return [o.clone() for o in program()]
 
-    def _inference_batches(self, data_iter, data_names):
+    def _inference_batches(self, data_iter, data_names, before=None):
         """Yield (batch, outputs of its valid rows) in eval mode, padding a
         short tail batch up to the first batch's rows; each bucket runs its
-        own graph, captured once per program key on a card."""
+        own graph, captured once per program key on a card. ``before(i)``
+        runs before batch ``i``'s forward; True runs that forward eager
+        (a profile window's batch)."""
         if self.arg_params is None:
             raise MXNetError("model has no parameters; fit() or load first")
         fns = {}
@@ -1789,7 +2132,10 @@ class FeedForward(BASE_ESTIMATOR):
         captured = reason is None
         first_rows = None
         data_iter.reset()
-        for batch in data_iter:
+        for i, batch in enumerate(data_iter):
+            eager = before is not None and before(i)
+            if eager and captured:
+                compile_mod.registry().record_eager("profile window")
             key = getattr(batch, "bucket_key", None)
             symbol = self._symbol_for_bucket(key)
             if key not in fns:
@@ -1803,7 +2149,8 @@ class FeedForward(BASE_ESTIMATOR):
             arrays = _cast_floats(arrays, self.compute_dtype)
             outs = self._eval_forward(
                 fns[key], self._program_key(arrays, key, None, train=False),
-                self._label("eval_step", key), params, aux, arrays, captured)
+                self._label("eval_step", key), params, aux, arrays,
+                captured and not eager)
             nv = rows - batch.pad
             yield batch, [o[:nv].float() for o in outs]
 
@@ -1821,17 +2168,75 @@ class FeedForward(BASE_ESTIMATOR):
         if mstate is not None:
             eval_metric.absorb_device_state(mstate)
 
-    def predict(self, X, batch_size=128):
+    def predict(self, X, batch_size=128, telemetry=None, profile=None):
         """Run the eval forward over X and concatenate the outputs: one
-        numpy array for a single-output net, else a list."""
+        numpy array for a single-output net, else a list.
+
+        ``telemetry`` (None: env ``MXNET_TPU_TELEMETRY``; True; a
+        ``TelemetryConfig``) records a ``predict_step`` span per batch on
+        a fresh StepTimeline at ``self.telemetry``; ``profile`` traces one
+        window of batches, run eager with the ranges on, into
+        ``self.profile_report`` (mxnet_tpu/model.py:3061-3156)."""
+        tcfg = telemetry_mod.TelemetryConfig.resolve(telemetry)
+        profile_cfg = telemetry_mod.ProfileConfig.resolve(profile)
+        tl = None
+        if tcfg is not None and tcfg.timeline:
+            tl = telemetry_mod.StepTimeline()
+            self.telemetry = tl
+        dev = self._device
+        prof_session = None
+        if profile_cfg is not None:
+            prof_session = telemetry_mod.profiling.ProfileSession(
+                profile_cfg, layers={n.name for n in self.symbol._topo()
+                                     if not n.is_variable},
+                num_devices=1, owner="predict", device=dev)
         data_iter = _init_iter(X, None, batch_size, is_train=False)
         data_names = [x[0] for x in data_iter.provide_data]
+        ledger_t0 = telemetry_mod.hub().now()
+        ledger_tic = time.time()
+        spans = {}
+
+        def before(i):
+            if tl is not None:
+                spans[i] = tl.begin_step(0, i, kind="predict_step")
+                spans[i].mark("dispatch")
+            return prof_session is not None and \
+                (prof_session.pending or prof_session.open) and \
+                prof_session.before_step(
+                    compile_mod.registry().snapshot()["compiles"])
+
         chunks = None
-        for _, outs in self._inference_batches(data_iter, data_names):
-            if chunks is None:
-                chunks = [[] for _ in outs]
-            for lst, o in zip(chunks, outs):
-                lst.append(o.cpu().numpy())
+        try:
+            for i, (_, outs) in enumerate(self._inference_batches(
+                    data_iter, data_names, before)):
+                span = spans.pop(i, None)
+                if prof_session is not None and prof_session.open:
+                    prof_session.after_step(outs)
+                if span is not None:
+                    span.mark("device")
+                    _wait_step(dev)
+                    span.mark("host")
+                if chunks is None:
+                    chunks = [[] for _ in outs]
+                for lst, o in zip(chunks, outs):
+                    lst.append(o.cpu().numpy())
+                if span is not None:
+                    span.end()
+        finally:
+            if tl is not None:
+                telemetry_mod.clear_current_span()
+            if prof_session is not None:
+                prof_session.close()  # a short dataset closes its window
+                self.profile_report = prof_session.report
+            try:
+                telemetry_mod.ledger.record_run(
+                    "predict", fingerprint=str(self._fingerprint(None)),
+                    world_size=1, knobs={"profile": profile_cfg is not None},
+                    completed=sys.exc_info()[0] is None, since_ts=ledger_t0,
+                    span_name="predict_step",
+                    wall_seconds=time.time() - ledger_tic)
+            except Exception as e:  # noqa: BLE001 - never mask the run
+                logging.warning("telemetry ledger: run record failed: %s", e)
         results = [np.concatenate(lst, axis=0) for lst in chunks]
         return results[0] if len(results) == 1 else results
 

@@ -282,6 +282,12 @@ class Module:
                 for name in self._param_names:
                     broadcast_(self._exec.arg_dict[name])
             self._kv_ready = True
+        from . import telemetry as telemetry_mod
+
+        if kvstore is not None and (kvstore.num_workers > 1 or kvstore.rank):
+            # a distributed kvstore is the rank/world authority (the
+            # contract of FeedForward.fit)
+            telemetry_mod.set_world(kvstore.rank, kvstore.num_workers)
         eval_metric = metric_mod.create(eval_metric)
         # on a card each executor's forward and backward replay a captured
         # pair (one a bucket); the eager cases count their reason
@@ -300,6 +306,9 @@ class Module:
                 self.update(kvstore=kvstore)
                 self.update_metric(eval_metric, batch.label,
                                    pad=getattr(batch, "pad", 0))
+                # the always-on flight recorder sees every module step
+                telemetry_mod.flight.note_step(epoch, nbatch,
+                                               kind="module_step")
                 nbatch += 1
                 if batch_end_callback is not None:
                     p = BatchEndParam(epoch=epoch, nbatch=nbatch,

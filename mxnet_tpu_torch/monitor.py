@@ -125,7 +125,25 @@ class Monitor:
         else:
             res.extend(self._drain_recompiles())
         self.queue = res
+        self._publish(res)
         return res
+
+    def _publish(self, rows):
+        """Mirror the collected stat rows into the telemetry hub (gauges
+        labeled by stat name + one ``monitor`` event per collection), so
+        Monitor output reaches the same exporters as everything else
+        (mxnet_tpu/monitor.py:176-189)."""
+        from . import telemetry
+
+        published = 0
+        for _, name, stat in rows:
+            try:
+                value = float(stat)
+            except (TypeError, ValueError):
+                continue  # a non-scalar stat_func output stays queue-only
+            telemetry.gauge("monitor_stat", value, stat=name)
+            published += 1
+        telemetry.emit("monitor", rows=published, step=self.step)
 
     def toc_print(self):
         for step, name, stat in self.toc():

@@ -32,6 +32,7 @@ import torch
 
 from ..base import MXNetError
 from ..kernels._common import BUILD_DIR
+from ..analysis.lockwatch import named_lock
 
 __all__ = ["get_lib", "require_lib", "scan_offsets", "NativePipeline",
            "decode_jpeg", "encode_jpeg"]
@@ -40,7 +41,7 @@ SOURCE = Path(__file__).resolve().with_name("mxtpu_native.cc")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared")
 LDLIBS = ("-lz", "-lpthread")
 
-_lock = threading.Lock()
+_lock = named_lock("native.loader")
 _lib = None
 _error = None  # why the library is unavailable, once a build failed
 

@@ -54,6 +54,11 @@ def _ctx_of(t: torch.Tensor) -> Context:
     return Context("cpu", 0)
 
 
+# the live-array ledger (telemetry.memory.track_arrays installs it): every
+# NDArray made while it is set is accounted by bytes, weakly referenced
+_LEDGER = None
+
+
 class NDArray:
     """A tensor on a context, with the JAX package's NDArray surface."""
 
@@ -73,6 +78,8 @@ class NDArray:
         self._data = data
         self._ctx = ctx if ctx is not None else _ctx_of(data)
         self.writable = writable
+        if _LEDGER is not None:
+            _LEDGER.add(self)
 
     # -- properties -----------------------------------------------------------
     @property

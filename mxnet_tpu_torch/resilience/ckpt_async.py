@@ -15,9 +15,9 @@ step boundary is split in two:
 rank's newest snapshot held in its neighbour's memory. :func:`save_now` is
 the blocking save through the same format.
 
-The JAX package's telemetry counters, lockwatch-named locks and chaos
-sites are later items of the port (ROADMAP A6): the locks here are plain
-``threading`` ones, as in ``engine.py``.
+The JAX package's telemetry counters (``ckpt_*``, the ``checkpoint_save``
+phase, a flight dump on a failed write) and lockwatch-named locks are
+here; its chaos sites are a later item of the port (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..utils import checkpoint as ckpt_mod
+from ..analysis.lockwatch import named_condition, named_lock
 
 __all__ = ["Snapshot", "capture_snapshot", "AsyncCheckpointWriter",
            "ReplicaStore", "save_now", "resolve_every", "resolve_keep"]
@@ -105,7 +106,16 @@ def capture_snapshot(step, params, aux=None, opt_state=None,
                      comm_state=None, meta=None, symbol=None):
     """The T0 stall: one blocking device-to-host copy of the training
     state at a step boundary, as a :class:`Snapshot`. ``opt_state`` is the
-    flat list of optimizer-state leaves."""
+    flat list of optimizer-state leaves. It runs in the ``checkpoint_save``
+    phase, so the stall prices into the checkpoint badput bucket."""
+    from .. import telemetry
+
+    with telemetry.phase("checkpoint_save"):
+        return _capture(step, params, aux, opt_state, comm_state, meta,
+                        symbol)
+
+
+def _capture(step, params, aux, opt_state, comm_state, meta, symbol):
     groups = {"params": dict(params)}
     if aux:
         groups["aux"] = dict(aux)
@@ -136,8 +146,9 @@ class AsyncCheckpointWriter:
         self.queue_depth = resolve_queue_depth(queue_depth)
         self.keep_last_k = resolve_keep(keep_last_k)
         self.logger = logger or logging.getLogger(__name__)
-        self.lock = threading.Lock()
-        self.cv = threading.Condition(self.lock)
+        self.lock = named_lock("ckpt_async.AsyncCheckpointWriter")
+        self.cv = named_condition("ckpt_async.AsyncCheckpointWriter.cv",
+                                  self.lock)
         self._pending: deque = deque()
         self._inflight = None
         self._closed = False
@@ -150,19 +161,35 @@ class AsyncCheckpointWriter:
 
     def submit(self, snap: Snapshot):
         """Queue a snapshot; False once the writer is closed."""
+        from .. import telemetry
+
         with self.lock:
             if self._closed:
                 return False
             while len(self._pending) >= self.queue_depth:
                 victim = self._pending.popleft()
                 self.dropped += 1
+                telemetry.counter("ckpt_snapshots_dropped_total")
                 self.logger.warning(
                     "ckpt_async: queue full, dropped pending snapshot for "
                     "step %d (depth %d)", victim.step, self.queue_depth)
             self._pending.append(snap)
             self.submitted += 1
+            depth = len(self._pending)
             self.cv.notify_all()
+        telemetry.gauge("ckpt_queue_depth", float(depth))
         return True
+
+    def note_step(self, step):
+        """Publish staleness: how many optimizer steps the newest durable
+        checkpoint trails the live run (``ckpt_snapshot_age_steps``)."""
+        from .. import telemetry
+
+        with self.lock:
+            last = self._last_durable_step
+        if last is not None:
+            telemetry.gauge("ckpt_snapshot_age_steps",
+                            float(max(0, int(step) - last)))
 
     def flush(self, timeout=60.0):
         """Wait until every queued snapshot is written; True when the queue
@@ -190,6 +217,8 @@ class AsyncCheckpointWriter:
             return self._last_durable_step
 
     def _run(self):
+        from .. import telemetry
+
         while True:
             with self.lock:
                 while not self._pending and not self._closed:
@@ -198,6 +227,8 @@ class AsyncCheckpointWriter:
                     return
                 snap = self._pending.popleft()
                 self._inflight = snap
+                depth = len(self._pending)
+            telemetry.gauge("ckpt_queue_depth", float(depth))
             t0 = time.perf_counter()
             try:
                 self._write(snap)
@@ -207,9 +238,14 @@ class AsyncCheckpointWriter:
             except Exception as exc:  # noqa: BLE001 - never into training
                 with self.lock:
                     self.failures += 1
+                telemetry.counter("ckpt_write_failures_total")
+                telemetry.emit("checkpoint", step=snap.step, seconds=0.0,
+                               tier="t0",
+                               error=f"{type(exc).__name__}: {exc}")
                 self.logger.warning(
                     "ckpt_async: background write for step %d failed: %s",
                     snap.step, exc)
+                telemetry.flight.auto_dump("checkpoint")
             finally:
                 with self.lock:
                     self.write_seconds += time.perf_counter() - t0
@@ -235,7 +271,7 @@ class ReplicaStore:
 
     def __init__(self, world_size):
         self.world_size = int(world_size)
-        self.lock = threading.Lock()
+        self.lock = named_lock("ckpt_async.ReplicaStore")
         self._entries = {}  # origin rank -> {"seq", "holder", "snap"}
         self.duplicate_count = 0
 
@@ -244,6 +280,8 @@ class ReplicaStore:
             else int(rank)
 
     def replicate(self, rank, snap: Snapshot):
+        from .. import telemetry
+
         rank = int(rank)
         with self.lock:
             ent = self._entries.get(rank)
@@ -253,6 +291,7 @@ class ReplicaStore:
             self._entries[rank] = {"seq": snap.step,
                                    "holder": self.holder_of(rank),
                                    "snap": snap}
+        telemetry.counter("ckpt_replicas_total")
         return True
 
     def restore(self, alive=None):

@@ -107,10 +107,29 @@ def save_sharded(directory, step, params, aux=None, symbol=None,
     (:func:`mxnet_tpu_torch.model.opt_leaves`); ``comm_state`` a dict of
     gradient-sync state. Tensors are copied to the host here. Everything
     lands in ``.tmp.<step>`` first; the rename is the commit, so a crash
-    before it leaves the earlier steps as they were. ``tier`` names the
-    checkpoint plane's tier in the JAX package's telemetry and is accepted
-    for its signature."""
-    del tier
+    before it leaves the earlier steps as they were. The save runs in the
+    telemetry phase ``checkpoint_save`` and counts ``checkpoint_saves_total``
+    and ``ckpt_bytes_written``; a ``checkpoint`` event names ``tier``
+    (mxnet_tpu/utils/checkpoint.py:135-147)."""
+    from .. import telemetry
+
+    t0 = telemetry.hub().now()
+    with telemetry.phase("checkpoint_save"):
+        out = _save_sharded(directory, step, params, aux=aux, symbol=symbol,
+                            extra_meta=extra_meta, opt_state=opt_state,
+                            comm_state=comm_state)
+    nbytes = sum(os.path.getsize(os.path.join(root, f))
+                 for root, _, files in os.walk(out) for f in files)
+    telemetry.counter("checkpoint_saves_total")
+    if nbytes:
+        telemetry.counter("ckpt_bytes_written", float(nbytes))
+    telemetry.emit("checkpoint", step=int(step),
+                   seconds=telemetry.hub().now() - t0, tier=str(tier))
+    return out
+
+
+def _save_sharded(directory, step, params, aux=None, symbol=None,
+                  extra_meta=None, opt_state=None, comm_state=None):
     directory = os.path.abspath(os.fspath(directory))
     os.makedirs(directory, exist_ok=True)
     step = int(step)

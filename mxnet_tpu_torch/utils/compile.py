@@ -30,13 +30,25 @@ wrappers' counters, so a replayed step counts what an eager one counts.
 graph lives and dies with its process. The only artifacts that outlive a
 process are the kernels' shared libraries, which ``kernels/_common.py``
 builds once per source hash. The function reports that and returns None.
-The JAX package's AOT executables, persistent-cache counters and memory
-plans (``memory_plan_*``) have no counterpart here; memory plans are a
-later item (ROADMAP A6).
+The JAX package's AOT executables and persistent-cache counters have no
+counterpart here (``persistent_cache_*`` read 0).
+
+Memory plans (``MEMORY_PLAN_FIELDS``, :meth:`ProgramRegistry.
+record_memory_plan`, :func:`memory_plan_for`) are recorded at each capture:
+``argument_bytes`` are the bytes of the tensors the graph reads (its static
+inputs and the state it steps), ``output_bytes`` those of what it returns,
+``temp_bytes`` the bytes its memory pool reserved, and ``total_bytes``
+temp plus output, the JAX package's rule. Where XLA's ``memory_analysis()``
+plans a program before it runs, a CUDA graph's plan exists only after its
+capture, its temporaries are the caching allocator's pool rather than a
+static buffer assignment, ``generated_code_bytes`` is 0 (the kernels' code
+is not the graph's) and ``alias_bytes`` is 0 (in-place writes alias
+nothing that a donation would).
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import logging
@@ -47,6 +59,7 @@ import time
 import numpy as np
 import torch
 
+from ..analysis.lockwatch import named_lock
 from ..base import ENV_OFF_VALUES, ENV_ON_VALUES, MXNetError
 
 __all__ = [
@@ -55,6 +68,8 @@ __all__ = [
     "PadPolicy", "CapturedProgram", "CapturedPair", "graphs_enabled",
     "eager_reason", "note_eager", "persistent_cache_dir",
     "maybe_enable_persistent_cache_from_env", "DEFAULT_CACHE_DIR",
+    "MEMORY_PLAN_FIELDS", "add_memory_plan_listener", "memory_plan_for",
+    "memory_plans", "memory_plan_from_tensors",
 ]
 
 _OFF_VALUES = ("",) + ENV_OFF_VALUES
@@ -102,8 +117,50 @@ def maybe_enable_persistent_cache_from_env():
 
 # -- 2. the program registry --------------------------------------------------
 
+_UNTRACKED = "<untracked>"
+
+# Memory plans: every captured program registers one under its label (the
+# fields and order of the JAX package's); the telemetry layer subscribes
+# through add_memory_plan_listener to publish them as hub gauges/events.
+MEMORY_PLAN_FIELDS = ("argument_bytes", "output_bytes", "temp_bytes",
+                      "generated_code_bytes", "alias_bytes", "total_bytes")
+
+_MEMORY_PLAN_LISTENERS: list = []
+
+
+def add_memory_plan_listener(fn):
+    """Register ``fn(label, plan_dict)`` to run whenever a program's memory
+    plan is (re)recorded (the telemetry layer's hook)."""
+    _MEMORY_PLAN_LISTENERS.append(fn)
+    return fn
+
+
+def _tensor_bytes(tensors) -> int:
+    seen, total = set(), 0
+    for t in _flat_tensors(tensors):
+        key = (t.data_ptr(), t.numel(), t.dtype)
+        if key in seen:
+            continue
+        seen.add(key)
+        total += t.numel() * t.element_size()
+    return total
+
+
+def memory_plan_from_tensors(arguments, outputs, temp_bytes) -> dict:
+    """A memory plan from what a captured graph reads (``arguments``),
+    what it returns (``outputs``; nested lists, tuples and dicts of
+    tensors) and the bytes its pool reserved. ``total_bytes`` is temp plus
+    output, as the JAX package's ``memory_plan_from_compiled``."""
+    plan = {"argument_bytes": _tensor_bytes(arguments),
+            "output_bytes": _tensor_bytes(outputs),
+            "temp_bytes": int(temp_bytes),
+            "generated_code_bytes": 0, "alias_bytes": 0}
+    plan["total_bytes"] = plan["temp_bytes"] + plan["output_bytes"]
+    return plan
+
+
 def _label_counters():
-    return {"hits": 0, "misses": 0, "precompiles": 0,
+    return {"hits": 0, "misses": 0, "aot_hits": 0, "precompiles": 0,
             "compiles": 0, "compile_seconds": 0.0, "captures": 0,
             "capture_seconds": 0.0, "pool_bytes": 0, "replays": 0,
             "signatures": set()}
@@ -114,20 +171,111 @@ class ProgramRegistry:
     first sights of a program key, ``misses`` those at a dispatch and
     ``precompiles`` those through a ``precompile``, ``hits`` later ones; ``captures``,
     ``capture_seconds`` and ``pool_bytes`` the CUDA graphs; ``eager`` the
-    steps that ran eager, by reason."""
+    steps that ran eager, by reason. :meth:`attribute` names the program
+    dispatching on this thread (:meth:`current_label`), and
+    :meth:`record_call` takes the JAX package's dispatch kinds."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = named_lock("compile.ProgramRegistry")
+        self._tls = threading.local()
+        self._memory_plans = {}
         self.reset()
 
     def reset(self):
         with self._lock:
             self._labels = {}
+            self._memory_plans = {}
             self._totals = {"hits": 0, "misses": 0, "compiles": 0,
                             "compile_seconds": 0.0,
+                            "persistent_cache_hits": 0,
+                            "persistent_cache_saved_seconds": 0.0,
                             "captures": 0, "capture_seconds": 0.0,
                             "pool_bytes": 0, "replays": 0}
             self._eager = {}
+
+    # -- label attribution (thread-local) -------------------------------------
+    def _stack(self):
+        stack = getattr(self._tls, "stack", None)
+        if stack is None:
+            stack = self._tls.stack = []
+        return stack
+
+    def current_label(self):
+        """The label of the program dispatching on this thread, or None."""
+        stack = self._stack()
+        return stack[-1] if stack else None
+
+    @contextlib.contextmanager
+    def attribute(self, label):
+        """Name the program that work on this thread belongs to."""
+        stack = self._stack()
+        stack.append(label)
+        try:
+            yield
+        finally:
+            stack.pop()
+
+    def record_call(self, label, kind, seconds=0.0, signature=None):
+        """One dispatch of ``label``: ``kind`` is ``"hit"``, ``"miss"``,
+        ``"aot_hit"`` or ``"precompile"``, as in the JAX package (a
+        ``"miss"`` is one compile of ``seconds``)."""
+        with self._lock:
+            c = self._labels.setdefault(label, _label_counters())
+            if kind == "hit":
+                c["hits"] += 1
+                self._totals["hits"] += 1
+            elif kind == "aot_hit":
+                c["aot_hits"] += 1
+                c["hits"] += 1
+                self._totals["hits"] += 1
+            elif kind == "miss":
+                c["misses"] += 1
+                c["compiles"] += 1
+                c["compile_seconds"] += seconds
+                self._totals["misses"] += 1
+                self._totals["compiles"] += 1
+                self._totals["compile_seconds"] += seconds
+                if signature is not None:
+                    c["signatures"].add(signature)
+            elif kind == "precompile":
+                c["precompiles"] += 1
+                if signature is not None:
+                    c["signatures"].add(signature)
+        if kind == "miss":
+            _notify_trackers(label, signature)
+
+    # -- memory plans -----------------------------------------------------------
+    def record_memory_plan(self, label, plan):
+        """Store a program's memory plan under its label (a re-record
+        wins) and notify the plan listeners."""
+        plan = dict(plan)
+        with self._lock:
+            self._memory_plans[label] = plan
+        for fn in list(_MEMORY_PLAN_LISTENERS):
+            try:
+                fn(label, dict(plan))
+            except Exception:  # noqa: BLE001 - a sink must not fail a capture
+                logging.debug("memory-plan listener failed for %r", label,
+                              exc_info=True)
+
+    def memory_plan_for(self, label):
+        with self._lock:
+            plan = self._memory_plans.get(label)
+            return None if plan is None else dict(plan)
+
+    def memory_plans(self):
+        with self._lock:
+            return {k: dict(v) for k, v in self._memory_plans.items()}
+
+    def snapshot(self):
+        """A copy of the totals, for before/after differences."""
+        with self._lock:
+            return dict(self._totals)
+
+    def compiles_for(self, label):
+        with self._lock:
+            c = self._labels.get(label)
+            return 0 if c is None else c["compiles"]
 
     def see(self, label, key, seen: set, precompile=False):
         """Count one sight of program ``key`` under ``label`` by an owner
@@ -206,6 +354,17 @@ def compile_stats():
 
 def reset_compile_stats():
     registry().reset()
+
+
+def memory_plan_for(label):
+    """The memory plan recorded for ``label``'s captured program, or
+    None (nothing captured under it yet)."""
+    return registry().memory_plan_for(label)
+
+
+def memory_plans():
+    """Every recorded memory plan, by label."""
+    return registry().memory_plans()
 
 
 def graph_fingerprint(symbol) -> str:
@@ -535,11 +694,15 @@ class CapturedProgram:
     a memory pool of its own. ``launch_counts`` holds the kernel launches
     the graph holds, added to the wrappers' counters at each replay. A
     graph holds raw pointers: every buffer ``fn`` reads must stay
-    referenced for as long as the program lives."""
+    referenced for as long as the program lives. ``inputs`` (tensors, or a
+    callable giving them) are what the graph reads, for its memory plan,
+    recorded at the capture under ``label``."""
 
-    def __init__(self, fn, device, label, warmup=1, generators=()):
+    def __init__(self, fn, device, label, warmup=1, generators=(),
+                 inputs=()):
         self.fn, self.device, self.label = fn, torch.device(device), label
         self.warmup, self.generators = int(warmup), list(generators)
+        self.inputs = inputs
         self.graph = None
         self.outputs = None
         self.calls = 0
@@ -560,6 +723,9 @@ class CapturedProgram:
         self.graph, self.outputs, self.launch_counts = graph, out, counts
         registry().record_capture(self.label, self.capture_seconds,
                                   self.pool_bytes)
+        inputs = self.inputs() if callable(self.inputs) else self.inputs
+        registry().record_memory_plan(self.label, memory_plan_from_tensors(
+            inputs, out, self.pool_bytes))
         return out
 
     def replay(self):
@@ -592,11 +758,14 @@ class CapturedPair:
     backward's reads it. Then every forward and backward replays. The
     captured outputs are overwritten by each forward replay. Launches and
     replays are counted as :class:`CapturedProgram` counts them, under
-    ``labels`` (forward, backward)."""
+    ``labels`` (forward, backward), and each label gets a memory plan
+    (``inputs``: what the pair reads, as :class:`CapturedProgram`'s; the
+    pool is split between the two, as the capture seconds are)."""
 
     def __init__(self, forward, backward, device, labels, warmup=1,
-                 generators=()):
+                 generators=(), inputs=()):
         self.forward, self.backward = forward, backward
+        self.inputs = inputs
         self.device = torch.device(device)
         self.labels = tuple(labels)
         self.warmup, self.generators = int(warmup), list(generators)
@@ -626,9 +795,12 @@ class CapturedPair:
         self.graphs, self._graph_outs = graphs, outs
         self.outputs = [o.detach() for o in outs]
         self.launch_counts = tuple(counts)
-        for label in self.labels:
+        inputs = self.inputs() if callable(self.inputs) else self.inputs
+        for label, out in zip(self.labels, (self.outputs, ())):
             registry().record_capture(label, self.capture_seconds / 2,
                                       self.pool_bytes // 2)
+            registry().record_memory_plan(label, memory_plan_from_tensors(
+                inputs, out, self.pool_bytes // 2))
         return self.outputs
 
     def run_forward(self):

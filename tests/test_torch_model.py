@@ -276,8 +276,7 @@ def test_save_load_predict_score(tmp_path):
         mt.load_checkpoint(prefix, 3)
 
 
-LATER = ["guards", "elastic", "controller", "telemetry", "health",
-         "profile", "shard_audit"]
+LATER = ["guards", "elastic", "controller", "shard_audit"]
 
 
 @pytest.mark.parametrize("arg", LATER)
@@ -287,6 +286,28 @@ def test_later_slice_fit_arguments_raise(arg):
     with pytest.raises(NotImplementedError, match="ROADMAP A[0-9]"):
         model.fit(X, np.zeros(8, np.float32), batch_size=8, **{arg: True})
     assert model.arg_params is None  # raised before any work
+
+
+@pytest.mark.parametrize("arg", ["telemetry", "health", "profile"])
+def test_observability_fit_arguments_run(arg):
+    """The observability arguments train and leave their handles."""
+    model = mt.FeedForward(tmodels.mlp(), ctx=mt.cpu(), num_epoch=1,
+                           learning_rate=0.1)
+    rng = np.random.RandomState(0)
+    X = rng.randn(32, 64).astype(np.float32)
+    kwargs = {arg: mt.telemetry.ProfileConfig(steps=1, warmup=1)
+              if arg == "profile" else True}
+    model.fit(X, (X[:, 0] > 0).astype(np.float32), batch_size=8, **kwargs)
+    handle = {"telemetry": model.telemetry,
+              "health": model.health_monitor,
+              "profile": model.profile_report}[arg]
+    assert handle is not None
+    if arg == "telemetry":
+        assert len(handle.steps()) == 4
+    elif arg == "health":
+        assert set(handle.report()["layers"]) == {"fc1", "fc2", "fc3"}
+    else:
+        assert handle.steps == 1 and handle.coverage_pct > 50.0
 
 
 def test_more_than_one_device_raises():

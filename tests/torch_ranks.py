@@ -633,3 +633,23 @@ def kvstore_bucketed(rank, world, values, bf16):
     kv.pull(list(out), out=list(out.values()))
     kv.barrier()
     return {k: v.numpy() for k, v in out.items()}
+
+
+def telemetry_fit(rank, world, X, Y, pattern, steps):
+    """``fit(kvstore="dist_sync", telemetry=<path>)`` of the small net on
+    this rank's rows, ``steps`` steps of one epoch, every hub event
+    streamed to ``pattern.format(rank)``. Returns the path."""
+    import mxnet_tpu_torch as mt
+
+    per = X.shape[0] // (world * steps)
+    rows = np.concatenate([np.arange(s * world * per + rank * per,
+                                     s * world * per + (rank + 1) * per)
+                           for s in range(steps)])
+    model = mt.FeedForward(small_net(mt), ctx=mt.cpu(), num_epoch=1,
+                           learning_rate=0.1)
+    model.fit(mt.io.NDArrayIter(X[rows], Y[rows], batch_size=per,
+                                shuffle=False),
+              kvstore="dist_sync",
+              telemetry=mt.telemetry.TelemetryConfig(
+                  jsonl=pattern.format(rank)))
+    return pattern.format(rank)
