@@ -212,6 +212,19 @@ together), and then:
    measured bf16 peak and the MFU, the armed watchdog's cost a step, the
    live-array watermark beside ``max_memory_allocated`` and the step time
    with everything on beside the same fit with it off;
+5p. guards: full-width ResNet-50 (batch 32, f32, fused Adam, captured)
+   through ``fit(guards=True)`` with the ``step.nan`` chaos site poisoning
+   step 4: the parameters, both Adam moments and the running statistics
+   after it bitwise as before it, ``guard_stats`` one skip, fused_adam
+   once a step (by replay), Adam's step counts one short; the captured
+   guarded fit bitwise the eager one (cuDNN's deterministic algorithms in
+   both); a bf16 fit with a dynamic loss scale (2^15) backing off once;
+   the guarded captured step's median against the unguarded one's (host
+   clock around synchronised steps, 16-step fits in turn, twice),
+   reported beside the JAX package's 5% bound; SIGTERM after step 4 of a
+   fit with ``sharded_checkpoint_dir`` and a step cadence: the flush at
+   step 4, TrainingPreempted, and the resumed fit bitwise the
+   uninterrupted one;
 6. flash: holds the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the card, row by row, and lse at f32's
    precision, at the transformer LM's shape (q, k, v views of one packed
@@ -319,6 +332,16 @@ together), and then:
    and the gloo exchange's ms; ``FeedForward(ctx=[gpu(0), gpu(1)])`` on
    the one card: one replica after aliases are removed, captured, its fit
    bitwise the ``ctx=gpu(0)`` fit;
+10d. comm_table: dp_overlap's two ranks, model and batch, 2 steps of
+   ``fit(..., overlap=4 MB, comm_kernels=True)`` in int8 and twobit under
+   ``torch.profiler`` (every thread recorded: the schedule's comm thread
+   issues the buckets): the profiled collective table
+   (``comm.collective_table``) equal to ``comm.overlap_plan`` x 2 in
+   payload and wire bytes, op by op; a ``Monitor(track_comm=True)``'s
+   ``comm/*`` rows equal to the registry's delta; the largest bucket's
+   exchange alone runs no slab-sized quantize pass as a torch operation
+   with the kernels (``comm.quantize_pass_count``: 0) and some with the
+   codec;
 11. lm_mesh: two rank processes (spawn, gloo through pinned host buffers)
    share the card and train the full-width transformer LM (global batch 8
    x 2048 tokens, bf16) for 4 steps each through ``make_train_step(mesh,
@@ -362,7 +385,9 @@ together), and then:
    epoch, 10a's fits and 10b's one-worker fit; ``slice14_launches``: 5n's
    epoch; ``slice16_launches``: lm_graphs' captured run, by replay, and
    ctx_list's exchanges; ``slice17_launches``: 5o's observed fit (its
-   counted step, warm-up, replays and window steps); rows 3-7 also their times, bound, library time
+   counted step, warm-up, replays and window steps);
+   ``slice19_launches``: 5p's first guarded fit, by replay, and 10d's
+   profiled fits (rank 0, both modes); rows 3-7 also their times, bound, library time
    and the launch floor at one bucket's shape and their launches on the
    overlap path, ``bucket_shape``);
 14. ends with ``{"ok": true, "device": {...}}``.
@@ -6957,6 +6982,395 @@ def phase_telemetry(torch, mt):
     return launches
 
 
+# -- slice 19: the collective table, guards, chaos, preemption -----------------
+
+GUARD_STEPS = 8
+GUARD_NAN_STEP = 3          # the guarded step step.nan poisons (0-based)
+GUARD_BF16_STEPS = 6
+GUARD_BF16_SCALE = 2.0 ** 15
+GUARD_TIMED_STEPS = 16
+GUARD_TIMED_SKIP = 3        # warm-up, capture and one more left out
+GUARD_TIMED_RUNS = 2        # unguarded, guarded, in turn
+GUARD_COST_BOUND = 0.05     # tests/test_resilience.py:269's bound
+GUARD_SIGTERM_AFTER = 4     # SIGTERM after this many steps
+GUARD_DIR = "build/chip_smoke/guards"
+COMM_TABLE_STEPS = 2
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    """cuDNN's deterministic algorithms for a run whose result is compared
+    bitwise with another run's (a harness setting of this script, not of
+    the port)."""
+    det, bench = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = bench
+
+
+def guard_state_copy(torch, model):
+    """Device copies of what a guarded step moves: parameters, Adam's two
+    moments and the running statistics."""
+    from mxnet_tpu_torch.model import _moved_opt_leaves
+
+    st = model._train_state
+    with torch.no_grad():
+        return ([v.detach().clone() for v in st.params.values()]
+                + [t.clone() for t in _moved_opt_leaves(st.optimizer,
+                                                        st.opt_state)]
+                + [v.clone() for v in st.aux.values()])
+
+
+def guarded_fit(torch, mt, net, args, aux, X, Y, guards, rules=None,
+                hook=None, **kw):
+    """One ``fit(guards=)`` of ResNet-50 on the card (fused Adam), chaos
+    armed with ``rules``; ``hook(model, step)`` runs after each step (the
+    step's results on the card). Returns the model and the kernels'
+    launches read around the fit."""
+    from mxnet_tpu_torch.resilience import chaos_scope
+
+    kw = {"optimizer": "adam", "fused": True, "learning_rate": LEARNING_RATE,
+          **kw}
+    model = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1, arg_params=args,
+                           aux_params=aux, **kw)
+    done = [0]
+
+    def step_hook(_batch, _arrays):
+        done[0] += 1
+        if hook is not None:
+            hook(model, done[0])
+
+    model._step_hook = step_hook
+    torch.cuda.synchronize()
+    reset_launches()
+    with chaos_scope(seed=SEED, rules=rules or {}):
+        model.fit(mt.io.NDArrayIter(X, Y, batch_size=BATCH, shuffle=False),
+                  guards=guards)
+    torch.cuda.synchronize()
+    return model, read_launches()
+
+
+def phase_guards(torch, mt):
+    """``fit(guards=True)`` of the full-width ResNet-50 (batch 32, f32,
+    fused Adam, captured), ``step.nan`` poisoning one step: the skipped
+    step leaves parameters, moments and running statistics bitwise as they
+    were, ``fused_adam`` launched every step; the captured guarded fit
+    bitwise the eager one (cuDNN deterministic in both); a bf16 fit with a
+    dynamic loss scale backing off; the guarded captured step's median
+    against the unguarded one's; SIGTERM mid-epoch flushing a
+    step-granular checkpoint and raising TrainingPreempted, the resumed
+    fit bitwise the uninterrupted one. Returns the main path's launches
+    (the first guarded fit, counted by replay)."""
+    import os
+    import shutil
+    import signal
+
+    from mxnet_tpu_torch.resilience import GuardConfig, TrainingPreempted
+    from mxnet_tpu_torch.utils import checkpoint as tck
+
+    mt.set_matmul_precision("highest")
+    set_graphs(True)
+    shutil.rmtree(GUARD_DIR, ignore_errors=True)
+    os.makedirs(GUARD_DIR)
+    net, args, aux, batch_x, batch_y = resnet50_case()
+    rng = np.random.default_rng(SEED + 19)
+    X = rng.standard_normal((GUARD_STEPS * BATCH,) + IMAGE, np.float32)
+    X[:BATCH] = batch_x
+    Y = rng.integers(0, 1000, GUARD_STEPS * BATCH).astype(np.float32)
+    nan = {"step.nan": {GUARD_NAN_STEP}}
+
+    # the main path: the captured guarded fit, one step poisoned
+    seen = {}
+
+    def watch(model, step):
+        if step in (GUARD_NAN_STEP, GUARD_NAN_STEP + 1):
+            seen[step] = guard_state_copy(torch, model)
+
+    model, launches = guarded_fit(torch, mt, net, args, aux, X, Y, True,
+                                  rules=nan, hook=watch)
+    st = model._train_state
+    before, after = seen[GUARD_NAN_STEP], seen[GUARD_NAN_STEP + 1]
+    require(all(bits_equal(torch, a, b) for a, b in zip(before, after)),
+            "guards: the skipped step left parameters, moments and running "
+            "statistics bitwise as they were")
+    require(model.guard_stats == {"skipped_steps": 1, "step_retries": 0,
+                                  "loss_scale": 1.0},
+            f"guards: guard_stats {model.guard_stats}")
+    require(launches["fused_adam"] == GUARD_STEPS,
+            f"guards: fused_adam launched {launches['fused_adam']} times in "
+            f"{GUARD_STEPS} guarded steps (counted by replay)")
+    captured = [p for p in st.programs.values() if p.captured.captured]
+    require(len(st.programs) == 1 and len(captured) == 1,
+            "guards: the guarded step captured once")
+    require(all(bool(torch.isfinite(v).all())
+                for v in model.arg_params.values()),
+            "guards: finite parameters after the poisoned step")
+    t_counts = sorted({float(st.opt_state[k][2]) for k in st.opt_state})
+    require(t_counts == [GUARD_STEPS - 1.0],
+            f"guards: Adam's step counts {t_counts} skip the poisoned step")
+    moved = max_gap(torch, model.arg_params,
+                    {k: torch.from_numpy(v) for k, v in args.items()})
+    del model, st, seen, before, after, captured
+    torch.cuda.empty_cache()
+
+    # the captured guarded fit against the eager one, bitwise
+    runs = {}
+    with cudnn_deterministic(torch):
+        for mode in ("captured", "eager"):
+            set_graphs(mode == "captured")
+            m, _ = guarded_fit(torch, mt, net, args, aux, X, Y, True,
+                               rules=nan)
+            runs[mode] = (dict(m.arg_params), dict(m.aux_params),
+                          m.guard_stats)
+            del m
+            torch.cuda.empty_cache()
+    set_graphs(True)
+    require(runs["captured"][2] == runs["eager"][2],
+            "guards: captured and eager guard_stats")
+    for i, what in ((0, "parameters"), (1, "running statistics")):
+        require(all(bits_equal(torch, runs["captured"][i][k], v)
+                    for k, v in runs["eager"][i].items()),
+                f"guards: the captured guarded fit's {what} bitwise the "
+                "eager one's")
+    del runs
+
+    # bf16 with a dynamic loss scale: the poisoned step backs it off
+    cfg = GuardConfig(dynamic_loss_scale=True, init_scale=GUARD_BF16_SCALE,
+                      growth_interval=1000)
+    m, bf16_launches = guarded_fit(
+        torch, mt, net, args, aux, X[:GUARD_BF16_STEPS * BATCH],
+        Y[:GUARD_BF16_STEPS * BATCH], cfg, rules={"step.nan": {2}},
+        compute_dtype=torch.bfloat16)
+    bf16_stats = dict(m.guard_stats)
+    require(bf16_stats["skipped_steps"] == 1
+            and bf16_stats["loss_scale"] == GUARD_BF16_SCALE * 0.5,
+            f"guards: the bf16 scale backed off once: {bf16_stats}")
+    require(bf16_launches["fused_adam"] == GUARD_BF16_STEPS,
+            "guards: fused_adam once a bf16 guarded step")
+    del m
+    torch.cuda.empty_cache()
+
+    # the cost: the captured step's median, unguarded and guarded in turn
+    Xt, Yt = repeat_batch(batch_x, batch_y, GUARD_TIMED_STEPS)
+    times = {"unguarded": [], "guarded": []}
+    for _ in range(GUARD_TIMED_RUNS):
+        for tag, g in (("unguarded", None), ("guarded", True)):
+            stamps = []
+
+            def clock(_model, _step):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+
+            m, _ = guarded_fit(torch, mt, net, args, aux, Xt, Yt, g,
+                               hook=clock)
+            times[tag].extend((b - a) * 1e3 for a, b in zip(
+                stamps[GUARD_TIMED_SKIP:], stamps[GUARD_TIMED_SKIP + 1:]))
+            del m
+            torch.cuda.empty_cache()
+    medians = {k: statistics.median(v) for k, v in times.items()}
+    cost = medians["guarded"] / medians["unguarded"] - 1.0
+
+    # SIGTERM mid-epoch: the flush, TrainingPreempted, the resume
+    def ckpt_fit(d, after=None):
+        m = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1, optimizer="adam",
+                           fused=True, learning_rate=LEARNING_RATE,
+                           arg_params=args, aux_params=aux)
+        done = [0]
+
+        def term(*_a):
+            # the signal lands mid-epoch; fit flushes at the next step
+            done[0] += 1
+            if done[0] == after:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        m._step_hook = term
+        try:
+            m.fit(mt.io.NDArrayIter(X, Y, batch_size=BATCH, shuffle=False),
+                  guards=True, sharded_checkpoint_dir=d,
+                  checkpoint_every_n_steps=100)
+        except TrainingPreempted as e:
+            return m, e
+        return m, None
+
+    with cudnn_deterministic(torch):
+        ref, none = ckpt_fit(f"{GUARD_DIR}/ref")
+        require(none is None, "guards: the uninterrupted fit ran through")
+        ref_params = dict(ref.arg_params)
+        del ref
+        torch.cuda.empty_cache()
+        d = f"{GUARD_DIR}/sigterm"
+        t0 = time.perf_counter()
+        killed, exc = ckpt_fit(d, after=GUARD_SIGTERM_AFTER)
+        flush_s = time.perf_counter() - t0
+        require(exc is not None, "guards: SIGTERM raised TrainingPreempted")
+        step = tck.latest_step(d)
+        meta = tck.load_sharded(d, step)[3]
+        require(meta.get("preempted") and meta["batches_done"]
+                == GUARD_SIGTERM_AFTER and step == GUARD_SIGTERM_AFTER,
+                f"guards: the flush saved step {step} with {meta}")
+        del killed
+        torch.cuda.empty_cache()
+        resumed, none = ckpt_fit(d)
+        require(none is None and resumed.begin_epoch == 0,
+                "guards: the resumed fit ran through")
+        require(all(bits_equal(torch, resumed.arg_params[k], v)
+                    for k, v in ref_params.items()),
+                "guards: the resumed fit's parameters bitwise the "
+                "uninterrupted fit's")
+        del resumed, ref_params
+    torch.cuda.empty_cache()
+    shutil.rmtree(GUARD_DIR, ignore_errors=True)
+    emit({"phase": "guards", "model": "resnet50", "batch": BATCH,
+          "optimizer": "adam", "fused": True, "captured": True,
+          "steps": GUARD_STEPS, "nan_step": GUARD_NAN_STEP,
+          "skipped_step_bitwise": True, "guard_stats": {
+              "skipped_steps": 1, "step_retries": 0, "loss_scale": 1.0},
+          "launches": launches, "params_moved_max": moved,
+          "captured_bitwise_eager": True,
+          "bf16_dynamic_scale": bf16_stats,
+          "step_ms_median": medians, "step_ms": times,
+          "guard_cost": cost, "guard_cost_bound": GUARD_COST_BOUND,
+          "guard_cost_within_bound": cost < GUARD_COST_BOUND,
+          "card": nvidia_smi("name,power.limit"),
+          "sigterm_after_steps": GUARD_SIGTERM_AFTER,
+          "sigterm_flush_step": GUARD_SIGTERM_AFTER,
+          "sigterm_fit_s": flush_s, "resume_bitwise": True})
+    return launches
+
+
+def comm_table_rank(torch, rank, world, mode):
+    """One rank's comm_table run in ``mode``: dp_overlap's fit (4 MB
+    buckets, the comm kernels) for COMM_TABLE_STEPS steps under
+    ``torch.profiler``, its collective table, a ``Monitor(track_comm)``'s
+    rows and the registry's delta; then the largest bucket's exchange
+    alone, profiled with the kernels and with the codec."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import comm
+
+    net, args, aux, X, Y = dp_rank_data(rank, world)
+    Xs, Ys = repeat_batch(X, Y, COMM_TABLE_STEPS)
+    comm.reset_comm_stats()
+    model = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1, optimizer="adam",
+                           fused=True, learning_rate=LEARNING_RATE,
+                           arg_params=args, aux_params=aux)
+    mon = mt.Monitor(1, track_comm=True)
+    before = comm.registry().snapshot()
+    torch.cuda.synchronize()
+    reset_launches()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    # the schedule's comm thread issues the buckets: record every thread
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with profile(activities=activities, record_shapes=True,
+                 experimental_config=every_thread) as prof:
+        model.fit(mt.io.NDArrayIter(Xs, Ys, batch_size=BATCH),
+                  kvstore="dist_sync", compression=mode, comm_kernels=True,
+                  overlap=DP_OVERLAP_BUCKET_BYTES)
+        torch.cuda.synchronize()
+    launches = read_launches()
+    after = comm.registry().snapshot()
+    rows = {name: v for _s, name, v in mon.collect_comm()}
+    plan = model._train_state.grad_sync.plan
+    table = comm.collective_table(prof)
+    del model, prof
+    torch.cuda.empty_cache()
+    spec = comm.CompressionSpec(mode)
+    padded = max(comm.padded_flat_size(n, spec, world)
+                 for _, n in plan.bucket_elems())
+    flat = torch.from_numpy(np.random.default_rng(SEED + rank)
+                            .standard_normal(padded, np.float32)).cuda()
+    passes = {}
+    for tag, kernels in (("kernels", comm.CommKernelConfig()),
+                         ("codec", None)):
+        with profile(activities=activities, record_shapes=True) as prof:
+            comm.error_feedback_exchange(flat.clone(), spec, None, world,
+                                         kernels)
+            torch.cuda.synchronize()
+        passes[tag] = comm.quantize_pass_count(prof, padded)
+        del prof
+    return {"launches": launches, "table": table,
+            "bucket_elems": plan.bucket_elems(), "monitor": rows,
+            "registry_delta": {k: after[k] - before[k]
+                               for k in ("steps", "wire_bytes",
+                                         "fp32_wire_bytes")},
+            "slab_elements": padded, "passes": passes}
+
+
+def comm_table_body(torch, rank, world):
+    return {mode: comm_table_rank(torch, rank, world, mode)
+            for mode in DP_MODES}
+
+
+def phase_comm_table(torch, comm):
+    """dp_overlap's two ranks, int8 and twobit, 2 steps each under
+    ``torch.profiler``: the profiled collective table against
+    ``comm.overlap_plan``, exactly, op by op; the slab-sized quantize
+    passes with the kernels (0) and with the codec (more); the Monitor's
+    ``comm/*`` rows against the registry's delta. Returns rank 0's
+    launches, both modes together."""
+    ranks = run_ranks(torch, comm_table_body, DP_WORLD, DP_TIMEOUT_S,
+                      "comm_table")
+    launches = {n: 0 for n in port_kernels()}
+    for mode in DP_MODES:
+        r0 = ranks[0][mode]
+        plan = comm.overlap_plan(r0["bucket_elems"], DP_WORLD, mode)
+        buckets = len(r0["bucket_elems"])
+        want = {r["op"]: (COMM_TABLE_STEPS * r["payload_bytes"],
+                          COMM_TABLE_STEPS * r["wire_bytes"])
+                for r in plan["collectives"]}
+        for rank, res in enumerate(ranks):
+            got = res[mode]
+            table = {r["op"]: (r["payload_bytes"], r["wire_bytes"])
+                     for r in got["table"]}
+            require({op: table.get(op) for op in want} == want,
+                    f"comm_table {mode} rank {rank}: the profiled table "
+                    f"{table} against overlap_plan x {COMM_TABLE_STEPS} "
+                    f"{want}")
+            require(got["passes"]["kernels"] == 0
+                    and got["passes"]["codec"] > 0,
+                    f"comm_table {mode} rank {rank}: slab-sized quantize "
+                    f"passes {got['passes']} (kernels 0, codec more)")
+            delta = got["registry_delta"]
+            require(got["monitor"]["comm/wire_bytes"] == delta["wire_bytes"]
+                    == COMM_TABLE_STEPS * plan["wire_bytes"]
+                    and got["monitor"]["comm/steps"] == delta["steps"]
+                    == COMM_TABLE_STEPS
+                    and got["monitor"]["comm/fp32_wire_bytes"]
+                    == delta["fp32_wire_bytes"],
+                    f"comm_table {mode} rank {rank}: Monitor rows "
+                    f"{got['monitor']} against the registry's delta {delta}")
+            for name, count in got["launches"].items():
+                per = DP_LAUNCHES[mode].get(name, 0)
+                expect = COMM_TABLE_STEPS * (per if name == "fused_adam"
+                                             else per * buckets)
+                require(count == expect,
+                        f"comm_table {mode} rank {rank}: {name} launched "
+                        f"{count} times, expected {expect}")
+        emit({"phase": "comm_table", "mode": mode, "model": "resnet50",
+              "world": DP_WORLD, "steps": COMM_TABLE_STEPS,
+              "bucket_bytes": DP_OVERLAP_BUCKET_BYTES, "buckets": buckets,
+              "table_rank0": r0["table"],
+              "plan_collectives": plan["collectives"],
+              "table_equals_plan": True,
+              "other_ops": sorted({r["op"] for r in r0["table"]}
+                                  - set(want)),
+              "slab_elements": r0["slab_elements"],
+              "quantize_passes": r0["passes"],
+              "monitor_rows": r0["monitor"],
+              "registry_delta": r0["registry_delta"],
+              "launches": r0["launches"]})
+        for name, count in r0["launches"].items():
+            launches[name] += count
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -7010,6 +7424,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     slice17 = {"telemetry": phase_telemetry(torch, mt)}
     torch.cuda.empty_cache()
+    slice19 = {"guards": phase_guards(torch, mt)}
+    torch.cuda.empty_cache()
     flash_rows, flash_errs = phase_flash(torch, tfa, registry)
     serve_launches, lm_params, lm_grad_errs = phase_lm_serve(torch, mt, tfa)
     train_launches = phase_lm_train(torch, mt, topt, tfa, kfa, lm_params,
@@ -7027,6 +7443,11 @@ def main() -> int:
                                              bucket_rows)
     slice13["dp_async"] = phase_dp_async(torch, mt)
     slice16["ctx_list"] = phase_ctx_list(torch, mt, comm, ck)
+    slice19["comm_table"] = phase_comm_table(torch, comm)
+    for name in ("fused_adam", "quant_int8", "quant_twobit",
+                 "dequant_sum_int8", "dequant_sum_twobit", "dequant_int8"):
+        require(sum(got[name] for got in slice19.values()) > 0,
+                f"slice 19's paths launched {name}")
     for name in ("fused_adam", "quant_int8", "quant_twobit",
                  "dequant_sum_int8", "dequant_sum_twobit", "dequant_int8",
                  *FLASH_NAMES):
@@ -7096,6 +7517,11 @@ def main() -> int:
         # replays and the profile window's eager steps alike)
         kernels[-1]["slice17_launches"] = {p: got[name]
                                            for p, got in slice17.items()}
+        # the slice 19 paths, each read around itself: the guarded fit
+        # (by replay) and the profiled overlapped fits (rank 0, int8 and
+        # twobit together)
+        kernels[-1]["slice19_launches"] = {p: got[name]
+                                           for p, got in slice19.items()}
         if name in bucket_rows:
             # one 4 MB bucket's shapes; launches on the overlap path
             kernels[-1]["bucket_shape"] = bucket_rows[name]

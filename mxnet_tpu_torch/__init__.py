@@ -38,7 +38,10 @@ plans and live-array ledger, training health computed inside the
 captured step, the device-time profiler, the run ledger and the CLI),
 ``analysis.lockwatch``, ``utils.memory`` and ``utils.profiler``, behind
 ``fit(telemetry=, health=, profile=)`` and ``predict(telemetry=,
-profile=)``.
+profile=)``. Slice 19 adds the collective table (``comm.collective_table``
+over a ``torch.profiler`` trace, beside the JAX package's HLO parsers),
+``Monitor(track_comm=True)`` and ``resilience``'s chaos, retry, guards and
+preemption, behind ``fit(guards=)``.
 Entry points run on the card (``gpu(0)``) unless the caller passes
 ``ctx=cpu()``.
 """

@@ -8,8 +8,10 @@ Counterpart of ``mxnet_tpu/comm/``:
                   dequantize-accumulate -> all-gather) with error-feedback
                   residuals, over a process group or the replicas of
                   one process (ReplicaGroup)
-  stats.py        exact wire-byte plans (fused and per-bucket) and the
-                  process CommRegistry behind ``comm_stats()``
+  stats.py        exact wire-byte plans (fused and per-bucket), the
+                  process CommRegistry behind ``comm_stats()``, the JAX
+                  package's HLO collective parsers and their counterparts
+                  over a ``torch.profiler`` trace
   bucketing.py    GradBucketer (size-capped fused slabs) and HostCodec
                   (the numpy codec of the kvstore transports)
   overlap.py      the overlapped schedule: per-bucket exchanges in
@@ -20,8 +22,8 @@ Entry points: ``FeedForward.fit(kvstore="dist_sync", compression=...,
 overlap=..., comm_kernels=...)``, ``parallel.make_data_parallel_step(
 compression=..., overlap=...)``, ``kvstore.create("dist_sync")
 .set_gradient_compression("bf16")`` with ``push_bucketed``, the
-``dist_async`` transport's compressed pushes, ``comm.comm_stats()``. The
-JAX package's HLO parsers raise ``NotImplementedError`` naming ROADMAP A6.
+``dist_async`` transport's compressed pushes, ``comm.comm_stats()``,
+``comm.collective_table(profiler)``.
 """
 
 from .compression import (CompressionSpec, decode, encode, payload_nbytes,
@@ -36,9 +38,13 @@ from .overlap import (OverlapConfig, OverlapPlan, OverlapSchedule,
                       fused_layout_key, init_overlap_residuals,
                       overlap_allreduce, overlap_efficiency, plan_overlap,
                       residuals_match_plan, reverse_topo_param_order)
-from .stats import (CommRegistry, allreduce_plan, comm_stats,
-                    fp32_allreduce_wire_bytes, overlap_plan, registry,
-                    reset_comm_stats)
+from .stats import (CommRegistry, allreduce_plan, collective_rows,
+                    collective_table, collective_wire_bytes, comm_stats,
+                    elementwise_table, fp32_allreduce_wire_bytes,
+                    hlo_collective_rows, hlo_collective_table,
+                    hlo_collective_wire_bytes, hlo_elementwise_table,
+                    hlo_quantize_pass_count, overlap_plan,
+                    quantize_pass_count, registry, reset_comm_stats)
 
 __all__ = [
     "CompressionSpec", "encode", "decode", "payload_nbytes",
@@ -53,17 +59,9 @@ __all__ = [
     "reverse_topo_param_order", "fused_layout_key", "overlap_efficiency",
     "CommRegistry", "registry", "comm_stats", "reset_comm_stats",
     "allreduce_plan", "overlap_plan", "fp32_allreduce_wire_bytes",
+    "hlo_collective_rows", "hlo_collective_table",
+    "hlo_collective_wire_bytes",
+    "hlo_elementwise_table", "hlo_quantize_pass_count",
+    "collective_rows", "collective_table", "collective_wire_bytes",
+    "elementwise_table", "quantize_pass_count",
 ]
-
-# names of the JAX package's comm/ that later work brings
-_LATER = ("hlo_collective_rows", "hlo_collective_table",
-          "hlo_collective_wire_bytes", "hlo_elementwise_table",
-          "hlo_quantize_pass_count")
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"comm.{name} is not ported yet: ROADMAP A6 (a torch.profiler "
-            "table)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

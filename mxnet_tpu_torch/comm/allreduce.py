@@ -50,6 +50,7 @@ import torch.distributed as dist
 
 from ..base import ENV_OFF_VALUES, ENV_ON_VALUES, MXNetError
 from .compression import CompressionSpec, decode, encode, quantization_unit
+from .stats import collective_range
 
 __all__ = ["CommKernelConfig", "ReplicaGroup", "compressed_allreduce",
            "error_feedback_allreduce", "compressed_exchange",
@@ -298,7 +299,9 @@ def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     if staged:
         src = _to_host(src)
     dst = _buffer(src.shape, t, staged)
-    _wire("all_to_all", dst, src, group)
+    with collective_range("all-to-all", t.dtype, t.numel(),
+                          dist.get_world_size(group)):
+        _wire("all_to_all", dst, src, group)
     if staged:
         dst = _to_card(dst, t.device)
     return dst.view(t.dtype).reshape(t.shape)
@@ -311,7 +314,8 @@ def _all_gather(t: torch.Tensor, group, n: int) -> torch.Tensor:
     if staged:
         src = _to_host(src)
     dst = _buffer((n, src.shape[0]), t, staged)
-    _wire("all_gather", dst, src, group)
+    with collective_range("all-gather", t.dtype, n * t.numel(), n):
+        _wire("all_gather", dst, src, group)
     if staged:
         dst = _to_card(dst, t.device)
     return dst.view(t.dtype).reshape((n,) + tuple(t.shape))
@@ -322,8 +326,10 @@ def _all_to_all_members(ts: list, group) -> list:
     receives row j of every member, in member order."""
     if not _replicas(group):
         return [_all_to_all(ts[0], group)]
-    return [torch.stack([t[j].to(dev) for t in ts])
-            for j, dev in enumerate(group.devices)]
+    with collective_range("all-to-all", ts[0].dtype, ts[0].numel(),
+                          group.size):
+        return [torch.stack([t[j].to(dev) for t in ts])
+                for j, dev in enumerate(group.devices)]
 
 
 def _all_gather_members(ts: list, group, n: int) -> list:
@@ -333,9 +339,10 @@ def _all_gather_members(ts: list, group, n: int) -> list:
     if not _replicas(group):
         return [_all_gather(ts[0], group, n)]
     stacks = {}
-    for dev in group.devices:
-        if dev not in stacks:
-            stacks[dev] = torch.stack([t.to(dev) for t in ts])
+    with collective_range("all-gather", ts[0].dtype, n * ts[0].numel(), n):
+        for dev in group.devices:
+            if dev not in stacks:
+                stacks[dev] = torch.stack([t.to(dev) for t in ts])
     return [stacks[dev] for dev in group.devices]
 
 
@@ -345,15 +352,19 @@ def all_reduce_sum(t, group=None):
     gets the sum, taken in replica order, on its device."""
     if _replicas(group):
         ts = _members(t, group)
-        acc = ts[0].detach().clone(memory_format=torch.contiguous_format)
-        for other in ts[1:]:
-            acc = acc + other.detach().to(acc.device)
+        with collective_range("all-reduce", ts[0].dtype, ts[0].numel(),
+                              group.size):
+            acc = ts[0].detach().clone(memory_format=torch.contiguous_format)
+            for other in ts[1:]:
+                acc = acc + other.detach().to(acc.device)
         return [acc if dev == acc.device and m == 0 else acc.to(dev, copy=True)
                 for m, dev in enumerate(group.devices)]
     staged = _staged(t, group)
     buf = _to_host(t.detach()) if staged \
         else t.detach().clone(memory_format=torch.contiguous_format)
-    _wire("all_reduce", buf, buf, group)
+    with collective_range("all-reduce", t.dtype, t.numel(),
+                          dist.get_world_size(group)):
+        _wire("all_reduce", buf, buf, group)
     return _to_card(buf, t.device) if staged else buf
 
 

@@ -44,6 +44,8 @@ from .base import MXNetError
 from .comm import CompressionSpec
 from .comm.allreduce import _all_gather, _row_sum, all_reduce_sum
 from .analysis.lockwatch import named_condition, named_lock
+from .resilience import chaos
+from .resilience.retry import RetryPolicy, retry_call
 
 __all__ = ["KVStore", "create", "create_group", "wrap_np_updater"]
 
@@ -514,6 +516,8 @@ class _GroupWorkerKVStore(KVStore):
         self._rank = rank
         self._push_seq: dict = {}  # key -> last sequence number
         self._codec = None         # HostCodec, set by compression
+        # resends of a lost push or ack, jittered by rank
+        self._retry_policy = RetryPolicy(seed=rank)
 
     def set_gradient_compression(self, compression):
         spec = super().set_gradient_compression(compression)
@@ -574,8 +578,18 @@ class _GroupWorkerKVStore(KVStore):
                 value_np = ("enc", (spec.mode, spec.threshold, spec.chunk),
                             self._codec.encode(k, value_np.ravel()))
             seq = self._push_seq[k] = self._push_seq.get(k, -1) + 1
-            self._server.push(k, value_np, worker=self._rank, seq=seq,
-                              trace=trace)
+
+            def attempt(k=k, value_np=value_np, seq=seq):
+                # the request is lost before the server saw it
+                chaos.maybe_raise("group.push.send")
+                self._server.push(k, value_np, worker=self._rank, seq=seq,
+                                  trace=trace)
+                # the ack is lost after the server applied the push: the
+                # retry resends the same (worker, seq), which the server
+                # absorbs as a duplicate
+                chaos.maybe_raise("group.push.ack")
+
+            retry_call(attempt, self._retry_policy, what=f"group.push[{k}]")
 
     def _maybe_beacon(self):
         """One clock-offset beacon with the server (in one process the

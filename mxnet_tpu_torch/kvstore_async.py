@@ -52,6 +52,7 @@ import torch
 
 from .base import MXNetError
 from .kvstore import KVStore, _to_numpy, wrap_np_updater
+from .resilience import chaos
 from .analysis.lockwatch import named_condition, named_lock
 
 __all__ = ["AsyncKVStore"]
@@ -624,6 +625,10 @@ class AsyncKVStore(KVStore):
                 try:
                     if self._sock is None:
                         self._sock = self._connect(self._host, self._port)
+                    if chaos.fires("async.call"):
+                        # the connection dies mid-request: the send below
+                        # fails, and the loop reconnects and resends
+                        self._sock.close()
                     self._sock.settimeout(timeout)
                     _send_msg(self._sock, msg)
                     reply = _recv_msg(self._sock)

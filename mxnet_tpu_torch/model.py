@@ -76,6 +76,18 @@ stream, the live-array ledger, the per-layer health statistics computed
 inside the (captured) step, a bounded profile window whose steps run
 eager with the profiler's ranges on, and a run record in the ledger.
 
+``fit(guards=)`` guards each step as the JAX package does
+(``resilience/guards.py``, mxnet_tpu/model.py:655-806,1529-1543,2205-2240):
+the seed loss scaled by the device loss scale, the gradients unscaled, one
+``finite`` flag on the device, and a non-finite step's parameters,
+optimizer state, auxiliary states and metric put back from a snapshot
+taken before it (``_StepGuard``; the update itself, ``fused_adam``
+included, runs as it would unguarded). Transient step failures are
+retried, a watchdog can bound step time, and SIGTERM (with guards or a
+checkpoint directory) flushes a checkpoint and raises
+``TrainingPreempted``. The chaos sites ``step.raise``, ``step.nan``,
+``step.hang`` and ``ckpt.replica`` are in the step loop.
+
 Arguments of ``fit`` that belong to later slices of the port raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
@@ -110,8 +122,13 @@ from .comm.allreduce import all_reduce_sum, broadcast_
 from .context import Context, current_context, distinct_contexts
 from .convert import to_tensor
 from .executor import _build_graph_fn, _build_replica_graph_fn, has_native
+from .kernels import fused_adam as kfa
 from .ops.nn import batch_statistics_over
+from .resilience import chaos as chaos_mod
 from .resilience import ckpt_async as ckpt_plane
+from .resilience import guards as guards_mod
+from .resilience import preempt as preempt_mod
+from .resilience.retry import RetryingKVStore
 from .telemetry import profiling as prof_mod
 from .utils import checkpoint as ckpt_mod
 from .utils import compile as compile_mod
@@ -125,9 +142,8 @@ BASE_ESTIMATOR = object
 
 # fit() arguments of later slices -> the ROADMAP item that brings them
 _LATER_SLICES = {
-    "guards": "A6 (resilience/)",
-    "elastic": "A6 (resilience/)",
-    "controller": "A6 (resilience/)",
+    "elastic": "A6 (resilience/ elastic, controller)",
+    "controller": "A6 (resilience/ elastic, controller)",
     "shard_audit": "A6 (analysis/)",
 }
 
@@ -166,12 +182,12 @@ def load_checkpoint(prefix, epoch):
 def _create_kvstore(kvstore, num_device, ctx):
     """The kvstore of a fit (mxnet_tpu/model.py:338-350): None for None,
     and for a local strategy over one device (a single device trains
-    without a store); a store object as it is; else the named store (a
-    ``local`` or ``device`` store aggregates the pushes of several
-    devices)."""
+    without a store); a store object (a ``resilience.RetryingKVStore``
+    too) as it is; else the named store (a ``local`` or ``device`` store
+    aggregates the pushes of several devices)."""
     if kvstore is None:
         return None
-    if isinstance(kvstore, kvs_mod.KVStore):
+    if isinstance(kvstore, (kvs_mod.KVStore, RetryingKVStore)):
         return kvstore
     if isinstance(kvstore, str):
         if num_device == 1 and "dist" not in kvstore:
@@ -593,6 +609,152 @@ class _StepScalars:
         self.dev.copy_(host, non_blocking=True)
 
 
+def _moved_opt_leaves(optimizer, opt_state) -> list:
+    """The optimizer state a step writes on the device: Adam's moments
+    (its step counters are host tensors, advanced apart), else every
+    leaf."""
+    if isinstance(optimizer, opt_mod.Adam):
+        return [t for k in sorted(opt_state) for t in opt_state[k][:2]]
+    return opt_leaves(opt_state)
+
+
+class _StepGuard:
+    """The non-finite guard of one trainer's steps
+    (``resilience.guards``, mxnet_tpu/model.py:655-806), in tensors that
+    stay where they are, so a captured step replays it.
+
+    A step under the guard snapshots what it moves (parameters, the
+    optimizer's device state, auxiliary states) into preallocated buffers
+    before its forward (one ``torch._foreach_copy_``), scales the seed
+    loss by the device loss scale and unscales the gradients before the
+    exchange and the update, computes the ``finite`` flag after the
+    exchange, runs the update as it would unguarded (``fused_adam``
+    included, unchanged), then puts each moved tensor back from its
+    snapshot where the step was not finite (``torch.where`` a leaf: the
+    reference's select over the state after the update) and advances the
+    guard counters. Nothing is read back to the host.
+
+    Adam's per-leaf step counters advance on the host before each step
+    (``Optimizer.step_vector``), where a skip cannot be known; under the
+    guard they live on the device too (``counts``), the bias corrections
+    are computed there from them and written over the host's in the
+    step's vector, and a skipped step leaves them as they were, as the
+    reference's select leaves its counters. The host's counters take the
+    device's at each read (:meth:`read`). Without ``skip_nonfinite`` no
+    snapshot is taken and nothing is put back; with the scale pinned at
+    1.0 (``GuardConfig.pinned_unit_scale``) the loss and gradients are
+    not scaled."""
+
+    def __init__(self, cfg, state, scale=None):
+        self.cfg = cfg
+        self.device = state.device
+        self.gstate = guards_mod.init_guard_state(cfg, scale,
+                                                  device=self.device)
+        self.finite = torch.ones((), dtype=torch.bool, device=self.device)
+        self.scaled = not cfg.pinned_unit_scale(scale)
+        self._state = state
+        self._moved = self._snap = None
+        if cfg.skip_nonfinite:
+            self._moved = (list(state.params.values())
+                           + _moved_opt_leaves(state.optimizer,
+                                               state.opt_state)
+                           + list(state.aux.values()))
+            with torch.no_grad():
+                self._snap = [torch.empty_like(t) for t in self._moved]
+        opt = state.optimizer
+        self.counts = None
+        if state.apply_update and isinstance(opt, opt_mod.Adam):
+            self._betas = (np.float32(opt.beta1), np.float32(opt.beta2))
+            self.counts = torch.zeros(len(state.names), dtype=torch.float32,
+                                      device=self.device)
+        self.load_counts()
+
+    def key(self):
+        return self.cfg.key() + (self.scaled,)
+
+    def reset(self, scale=None):
+        """Fresh counters and ``scale`` (the config's when None), written
+        into the same tensors; the device step counts from the host's."""
+        fresh = guards_mod.init_guard_state(self.cfg, scale)
+        with torch.no_grad():
+            for k, v in fresh.items():
+                self.gstate[k].copy_(v)
+            self.finite.fill_(True)
+        self.load_counts()
+
+    def load_counts(self):
+        if self.counts is not None:
+            st = self._state.opt_state
+            host = [float(st[k][2]) for k in self._state.names]
+            with torch.no_grad():
+                self.counts.copy_(torch.tensor(host, dtype=torch.float32))
+
+    def begin(self):
+        """Before the forward: snapshot what the step moves."""
+        if self._snap is not None:
+            with torch.no_grad():
+                torch._foreach_copy_(self._snap,
+                                     [t.detach() for t in self._moved])
+
+    def scale_loss(self, loss):
+        return loss * self.gstate["scale"] if self.scaled else loss
+
+    def unscale_(self, flats):
+        """The gradient buffers times 1/scale, in place (before the
+        exchange, as the reference unscales before its allreduce)."""
+        if self.scaled:
+            inv = 1.0 / self.gstate["scale"]
+            with torch.no_grad():
+                for f in flats:
+                    f.mul_(inv)
+
+    def prescale_(self, flats):
+        """An error-feedback residual that backward accumulates onto,
+        times the scale, so that unscaling the buffer leaves ``r + g/s``
+        (exactly so for a power-of-two scale)."""
+        if self.scaled:
+            with torch.no_grad():
+                for f in flats:
+                    f.mul_(self.gstate["scale"])
+
+    def write_corrections(self, scal):
+        """Adam's bias corrections from the device step counts, written
+        over the host's in the step vector ``scal``."""
+        if self.counts is None:
+            return
+        t_new = self.counts + 1.0
+        b1, b2 = (torch.full_like(t_new, float(b)) for b in self._betas)
+        with torch.no_grad():
+            scal[kfa.HEADER::kfa.PER_LEAF].copy_(1.0 - b1.pow(t_new))
+            scal[kfa.HEADER + 1::kfa.PER_LEAF].copy_(1.0 - b2.pow(t_new))
+
+    def finish(self, finite):
+        """After the update: put back what a non-finite step moved, and
+        advance the counters, the counts and the scale."""
+        with torch.no_grad():
+            if self._snap is not None:
+                guards_mod.guard_select_(finite,
+                                         [t.detach() for t in self._moved],
+                                         self._snap)
+            else:
+                finite = torch.ones((), dtype=torch.bool, device=self.device)
+            if self.counts is not None:
+                torch.where(finite, self.counts + 1.0, self.counts,
+                            out=self.counts)
+            guards_mod.update_guard_state_(self.cfg, self.gstate, finite)
+            self.finite.copy_(finite)
+
+    def read(self) -> dict:
+        """The counters on the host (one read), the host's Adam step counts
+        set from the device's."""
+        if self.counts is not None:
+            st = self._state.opt_state
+            for k, t in zip(self._state.names, self.counts.tolist()):
+                st[k][2].fill_(t)
+        return {"skipped_steps": int(self.gstate["skipped"]),
+                "loss_scale": float(self.gstate["scale"])}
+
+
 class _TrainState:
     """The device state of a trainer: parameters (autograd leaves),
     auxiliary states, optimizer state and the gradients, each in a buffer
@@ -654,6 +816,11 @@ class _TrainState:
         self._loss = None
         self.grads = None
         self._grad_views = None
+        # fit(guards=): the step's guard (a part of the program key), and
+        # every guard made for this state by its key, kept so that a
+        # captured step's tensors stay referenced
+        self.guard = None
+        self._guards = {}
         if sync is None:
             sizes = [v.numel() for v in self.params.values()]
             flat = torch.zeros(sum(sizes), dtype=torch.float32, device=device)
@@ -742,6 +909,23 @@ class _TrainState:
             return torch.zeros((), device=self.device) if loss is None \
                 else loss
 
+    def set_guard(self, cfg, scale=None):
+        """Guard the steps with ``cfg`` (a ``GuardConfig``; None: no
+        guard), starting from loss scale ``scale`` (the config's when
+        None). A guard's tensors are made once a configuration and kept;
+        a later fit resets their values in place."""
+        if cfg is None:
+            self.guard = None
+            return None
+        key = cfg.key() + (not cfg.pinned_unit_scale(scale),)
+        guard = self._guards.get(key)
+        if guard is None:
+            guard = self._guards[key] = _StepGuard(cfg, self, scale)
+        else:
+            guard.reset(scale)
+        self.guard = guard
+        return guard
+
     def graph_fn_for(self, bucket_key):
         if bucket_key is None:
             return self.graph_fn
@@ -783,16 +967,33 @@ class _TrainState:
                     self.aux[k].copy_(v)
         return outs
 
+    def _scale_loss(self, guard):
+        """The seed loss times the guard's scale (what backward starts
+        from); returns it detached, or a zero when no head needs it."""
+        if self._loss is None:
+            return torch.zeros((), device=self.device)
+        self._loss = guard.scale_loss(self._loss)
+        return self._loss.detach()
+
     def _statistics(self):
         """BatchNorm over every rank's rows for uncompressed multi-rank
         training (``ops.nn.batch_statistics_over``), else nothing."""
         return batch_statistics_over(None) if self._rank_stats \
             else contextlib.nullcontext()
 
+    def _grad_flats(self) -> list:
+        """The buffers backward accumulates the gradients into."""
+        if self.grad_sync is not None:
+            return list(self.grad_sync.flats)
+        return [self._flat_grad]
+
     def backward(self):
         if self.grad_sync is not None:
             # into the sync's flat buffer, through each parameter's .grad
             self.grad_sync.attach(self.params)
+            if self.guard is not None and self.grad_sync.residual is not None:
+                # backward adds onto the residual: scale it alike
+                self.guard.prescale_(self._grad_flats())
         else:
             self._flat_grad.zero_()
             for k, p in self.params.items():
@@ -841,17 +1042,40 @@ class _TrainState:
             rows = next(iter(batch.values())).shape[0]
             mask = (torch.arange(rows, device=num_valid.device)
                     < num_valid).float()
+        guard = self.guard
+        if guard is not None:
+            with prof_mod.scope("guards/snapshot"):
+                guard.begin()
         outs = self.forward(batch, bucket_key, data_names, mask)
         health = self.health if self.health_on else None
         h_loss = None if health is None else \
             self.health_loss(outs, batch, mask)
+        loss = None
+        if guard is not None:
+            loss = self._scale_loss(guard)
         self.backward()
+        if guard is not None:
+            guard.unscale_(self._grad_flats())
         self.sync()
+        finite = None
+        if guard is not None and guard.cfg.skip_nonfinite:
+            with torch.no_grad(), prof_mod.scope("guards/finite"):
+                if self.grad_sync is not None and \
+                        not self.grad_sync.replicas:
+                    # every rank's loss, as the reference's psum: the
+                    # ranks skip together
+                    loss = all_reduce_sum(loss)
+                finite = guards_mod.finite_flag(loss, self.grads)
         if health is not None:
             with prof_mod.scope("health/stats"):
                 health.before_update(self.params)
         if self.apply_update:
+            if guard is not None:
+                guard.write_corrections(self.scalars.dev)
             self.update()
+        if guard is not None:
+            with prof_mod.scope("guards/select"):
+                guard.finish(finite)
         if health is not None:
             with prof_mod.scope("health/stats"):
                 health.after_update(self.params, self.grads, h_loss)
@@ -997,6 +1221,14 @@ class _ReplicaState:
         for m in self.members:
             m.restore_opt(leaves)
 
+    def set_guard(self, cfg, scale=None):
+        """One guard a replica; they see one flag and stay equal."""
+        return [m.set_guard(cfg, scale) for m in self.members][0]
+
+    @property
+    def guard(self):
+        return self.members[0].guard
+
     def prepare(self, lr):
         for m in self.members:
             m.prepare(lr)
@@ -1066,6 +1298,11 @@ class _ReplicaState:
                     < num_valid).float()
             masks = [part.to(d) for part, d in
                      zip(_split_rows(mask, n), self.devices)]
+        guards = [m.guard for m in self.members] \
+            if self.members[0].guard is not None else None
+        if guards is not None:
+            for g in guards:
+                g.begin()
         fn = self._lockstep_fn(bucket_key) if self.global_stats else None
         if fn is not None:
             outs = self._forward_joined(fn, blocks, data_names, masks)
@@ -1081,6 +1318,12 @@ class _ReplicaState:
                                                   masks))
         sync = self.grad_sync
         sync.attach([m.params for m in self.members])
+        scaled = None
+        if guards is not None:
+            scaled = [m._scale_loss(g) for m, g in zip(self.members, guards)]
+            if sync.residual is not None:
+                for g, f in zip(guards, sync.flats):
+                    g.prescale_([f])
         losses = [m._loss.to(self.device) for m in self.members
                   if m._loss is not None]
         if losses:
@@ -1089,6 +1332,9 @@ class _ReplicaState:
                                      for p in m.params.values()])
         for m in self.members:
             m._loss = None
+        if guards is not None:
+            for g, f in zip(guards, sync.flats):
+                g.unscale_([f])
         sync.finish_backward()
         with torch.no_grad():
             grads = sync.grads()
@@ -1098,12 +1344,23 @@ class _ReplicaState:
                     for k, v in new.items():
                         if v is not m.aux[k]:
                             m.aux[k].copy_(v)
-        for m, g in zip(self.members, grads):
+        finite = None
+        if guards is not None and guards[0].cfg.skip_nonfinite:
+            with torch.no_grad():
+                # the replicas' summed loss, as the reference's psum
+                finite = guards_mod.finite_flag(
+                    sum(t.to(self.device) for t in scaled), grads[0])
+        for i, (m, g) in enumerate(zip(self.members, grads)):
             m.grads = g
             if m is first and health is not None:
                 health.before_update(m.params)
             if m.apply_update:
+                if guards is not None:
+                    guards[i].write_corrections(m.scalars.dev)
                 m.update()
+            if guards is not None:
+                guards[i].finish(None if finite is None
+                                 else finite.to(m.device))
             if m is first and health is not None:
                 health.after_update(m.params, g, h_loss)
         joined = [torch.cat([o[i].detach().to(self.device) for o in outs])
@@ -1169,6 +1426,9 @@ class FeedForward(BASE_ESTIMATOR):
         self.profile_report = None
         self.mfu = None
         self._active_timeline = None
+        # fit(guards=): skipped steps, retries and the loss scale
+        self.guard_stats = None
+        self._warmup_step = False
 
     def _symbol_for_bucket(self, bucket_key):
         """The graph of one bucket; one symbol here (bucketing trainers
@@ -1302,6 +1562,9 @@ class FeedForward(BASE_ESTIMATOR):
             # the health statistics are part of the step, as health's key
             # joins the JAX package's program cache key
             key = key + (telemetry_mod.HealthConfig().key(),)
+        if train and state is not None and state.guard is not None:
+            # so is the guard (mxnet_tpu/model.py:531)
+            key = key + (state.guard.key(),)
         return key
 
     def _run_step(self, state, arrays, bucket_key, data_names, pad_policy,
@@ -1316,6 +1579,7 @@ class FeedForward(BASE_ESTIMATOR):
         compile_mod.registry().see(self._label("train_step", bucket_key),
                                    key, self._seen, precompile=precompile)
         state.prepare(lr)
+        self._warmup_step = False
         if not captured or eager:
             return state.step(arrays, bucket_key, data_names,
                               self._step_probe)
@@ -1324,16 +1588,19 @@ class FeedForward(BASE_ESTIMATOR):
             prog = state.programs[key] = _Program(
                 state, self._label("train_step", bucket_key), arrays,
                 bucket_key, data_names, self._step_probe)
+        cap = prog.captured
+        # the program's warm-up step runs eager before its capture
+        self._warmup_step = not cap.captured and cap.calls < cap.warmup
         return prog.run(arrays)
 
     def _resume(self, directory, logger):
         """Load the newest valid checkpoint under ``directory`` into the
         trainer's host parameters; returns ``(num_update, batches_done,
-        opt_leaves, (comm_state, comm_layout))`` (zeros and Nones when
-        there is none)."""
+        opt_leaves, (comm_state, comm_layout), loss_scale)`` (zeros and
+        Nones when there is none)."""
         last = ckpt_mod.latest_step(directory)
         if last is None:
-            return 0, 0, None, (None, None)
+            return 0, 0, None, (None, None), None
         params, aux, _, meta, leaves, comm_state = ckpt_mod.load_sharded(
             directory, last, with_comm=True)
         self.arg_params = {k: torch.from_numpy(v) for k, v in params.items()}
@@ -1345,7 +1612,7 @@ class FeedForward(BASE_ESTIMATOR):
         logger.info("resumed sharded checkpoint step %d (epoch %d, "
                     "batches_done %d)", last, self.begin_epoch, batches_done)
         return (int(meta.get("num_update", 0)), batches_done, leaves,
-                (comm_state, meta.get("comm_layout")))
+                (comm_state, meta.get("comm_layout")), meta.get("loss_scale"))
 
     def fit(self, X, y=None, eval_data=None, eval_metric="accuracy",
             epoch_end_callback=None, batch_end_callback=None, kvstore="local",
@@ -1391,6 +1658,17 @@ class FeedForward(BASE_ESTIMATOR):
         key, unless one of the cases of ``_eager_reason`` holds; the reason
         is counted in ``utils.compile.compile_stats()["eager"]``.
 
+        ``guards`` (None: env ``MXNET_TPU_GUARDS``; True; a
+        ``resilience.GuardConfig``) skips non-finite steps on the device,
+        with an optional dynamic loss scale, retries a step whose dispatch
+        raised ``TransientStepError`` (``max_step_retries``), and with
+        ``watchdog_deadline`` raises ``StepTimeoutError`` when no step
+        completes in time; ``self.guard_stats`` holds the skipped steps,
+        retries and loss scale, read once an epoch. With guards or a
+        ``sharded_checkpoint_dir``, SIGTERM flushes a checkpoint at the
+        next step boundary and raises ``TrainingPreempted``. A loss scale
+        other than a pinned 1.0 is refused with ``overlap``.
+
         ``telemetry`` (None: env ``MXNET_TPU_TELEMETRY``; True; a JSONL
         path; a ``telemetry.TelemetryConfig``) records a step timeline on
         ``self.telemetry``, MFU and goodput per epoch (FLOPs from one
@@ -1403,7 +1681,7 @@ class FeedForward(BASE_ESTIMATOR):
         ``telemetry.ProfileConfig``) traces one window of steps, run eager
         with the profiler's ranges on, into ``self.profile_report``."""
         del work_load_list
-        given = dict(guards=guards, elastic=elastic, controller=controller,
+        given = dict(elastic=elastic, controller=controller,
                      shard_audit=shard_audit)
         for name, value in given.items():
             if value is not None:
@@ -1411,6 +1689,7 @@ class FeedForward(BASE_ESTIMATOR):
                     f"fit({name}=...) is not ported yet: ROADMAP "
                     f"{_LATER_SLICES[name]}")
         logger = logger or logging
+        guard_cfg = guards_mod.GuardConfig.resolve(guards)
         pad_policy = compile_mod.PadPolicy.resolve(pad_policy)
         ckpt_every = ckpt_plane.resolve_every(checkpoint_every_n_steps)
         dev = self._device
@@ -1467,10 +1746,10 @@ class FeedForward(BASE_ESTIMATOR):
                             "compression= to arm it")
             overlap_cfg = None
         num_update, skip_batches, resume_leaves = 0, 0, None
-        resume_comm = (None, None)
+        resume_comm, resume_scale = (None, None), None
         if sharded_checkpoint_dir is not None:
-            num_update, skip_batches, resume_leaves, resume_comm = \
-                self._resume(sharded_checkpoint_dir, logger)
+            num_update, skip_batches, resume_leaves, resume_comm, \
+                resume_scale = self._resume(sharded_checkpoint_dir, logger)
         train_data = _init_iter(X, y, batch_size, shuffle=True)
         batch_size = train_data.batch_size or batch_size
         data_shapes = dict(train_data.provide_data)
@@ -1528,6 +1807,14 @@ class FeedForward(BASE_ESTIMATOR):
             # the residual ledgers are saved only under one process's
             # replicas, as in the JAX package
             sync.load_comm_state(*resume_comm, logger)
+        guard = state.set_guard(guard_cfg, resume_scale)
+        if guard is not None and guard.scaled and plan is not None:
+            raise MXNetError(
+                "guards with a loss scale other than 1.0 and overlap=: the "
+                "overlapped exchange starts buckets before backward ends, "
+                "before their gradients could be unscaled; use "
+                "GuardConfig(init_scale=1.0, dynamic_loss_scale=False) or "
+                "the fused exchange")
         reason = self._eager_reason(dist_sync, async_kv)
         if reason is not None:
             compile_mod.note_eager(reason, logger)
@@ -1626,7 +1913,58 @@ class FeedForward(BASE_ESTIMATOR):
             if ckpt_every is not None:
                 meta.update(batches_done=int(batches_done),
                             rng_state=random_mod.get_state())
+            if guard is not None:
+                # one read: the loss scale, and Adam's host step counts
+                # from the device's before the optimizer state is saved
+                meta["loss_scale"] = guard.read()["loss_scale"]
             return meta
+
+        # resilience (mxnet_tpu/model.py:1529-1543): nothing of it runs
+        # unguarded and without a checkpoint directory
+        watchdog = preempt = None
+        if guard is not None:
+            self.guard_stats = {
+                "skipped_steps": 0, "step_retries": 0,
+                "loss_scale": float(guard_cfg.init_scale
+                                    if resume_scale is None
+                                    else resume_scale)}
+            if guard_cfg.watchdog_deadline:
+                watchdog = guards_mod.StepWatchdog(
+                    guard_cfg.watchdog_deadline)
+        if sharded_checkpoint_dir is not None or guard is not None:
+            preempt = preempt_mod.PreemptionHandler.install()
+
+        def preempt_flush(epoch_, nbatch_):
+            """SIGTERM landed: flush the live state (the in-progress
+            epoch, or with a step cadence the step and the batches done)
+            and stop with TrainingPreempted (mxnet_tpu/model.py:1730-1776)."""
+            if stale_sync:
+                # a round may be in flight: the flush saves pulled weights
+                self._load_pulled(state, kv.flush_stale(param_names))
+            if sharded_checkpoint_dir is not None:
+                if writer is not None:
+                    writer.flush()
+                meta = state_meta(epoch_, nbatch_)
+                rows, comm_meta = comm_ckpt()
+                step_id = num_update if ckpt_every is not None else epoch_
+                ckpt_plane.save_now(
+                    sharded_checkpoint_dir, step_id, state.params,
+                    aux=state.aux, symbol=self.symbol,
+                    opt_state=opt_leaves(state.opt_state), comm_state=rows,
+                    extra_meta={**meta, "preempted": True, **comm_meta},
+                    keep=writer.keep_last_k if writer is not None else None)
+                logger.info("preemption: flushed checkpoint step %d "
+                            "(epoch %d, %d updates)", step_id, epoch_,
+                            num_update)
+            telemetry_mod.flight.auto_dump("preempt")
+            self.arg_params = {k: v.detach().to("cpu", copy=True)
+                               for k, v in state.params.items()}
+            self.aux_params = {k: v.detach().to("cpu", copy=True)
+                               for k, v in state.aux.items()}
+            raise preempt_mod.TrainingPreempted(
+                f"training preempted by SIGTERM during epoch {epoch_} "
+                f"(checkpoint flushed: {sharded_checkpoint_dir is not None})",
+                step=epoch_, epoch=epoch_)
 
         feed_depth = int(os.environ.get("MXTPU_FEED_PREFETCH", "2"))
         self.feed_waits, self.step_probes = [], []
@@ -1659,6 +1997,11 @@ class FeedForward(BASE_ESTIMATOR):
                             continue
                         span = tl.begin_step(epoch, nbatch) \
                             if tl is not None else None
+                        if preempt is not None and \
+                                preempt_mod.preemption_requested():
+                            preempt_flush(epoch, nbatch)
+                        if watchdog is not None:
+                            watchdog.check()
                         if span is not None:
                             span.mark("dispatch")
                         b_lnames = getattr(batch, "label_names", label_names)
@@ -1681,11 +2024,46 @@ class FeedForward(BASE_ESTIMATOR):
                                 getattr(batch, "data_names", None),
                                 pad_policy, lr, reason is None, eager=eager)
 
-                        if mfu_acct is not None and mfu_acct.wants_count:
-                            outs, seen = mfu_acct.count_step(
-                                lambda: run_step(eager=True))
+                        def dispatch():
+                            if mfu_acct is not None and \
+                                    mfu_acct.wants_count:
+                                return mfu_acct.count_step(
+                                    lambda: run_step(eager=True))
+                            return run_step(eager=window)
+
+                        if guard is None:
+                            outs, seen = dispatch()
                         else:
-                            outs, seen = run_step(eager=window)
+                            arrays = self._chaos_step_sites(
+                                arrays, getattr(batch, "data_names",
+                                                data_names), watchdog)
+                            retries = guard_cfg.max_step_retries
+                            while True:
+                                try:
+                                    # raised before dispatch: the state is
+                                    # as it was, so the step can run again
+                                    chaos_mod.maybe_raise(
+                                        "step.raise",
+                                        chaos_mod.TransientStepError)
+                                    outs, seen = dispatch()
+                                    break
+                                except chaos_mod.TransientStepError:
+                                    if retries <= 0:
+                                        telemetry_mod.flight.auto_dump(
+                                            "guard_trip")
+                                        raise
+                                    retries -= 1
+                                    self.guard_stats["step_retries"] += 1
+                                    telemetry_mod.counter(
+                                        "resilience_step_retries_total")
+                                    if span is not None:
+                                        span.event("step_retry")
+                            if watchdog is not None and \
+                                    not self._warmup_step:
+                                # monitoring starts after the warm-up and
+                                # the capture, as the reference's excludes
+                                # the compile
+                                watchdog.beat()
                         if span is not None:
                             span.mark("device")
                             if tcfg.sync:
@@ -1699,9 +2077,17 @@ class FeedForward(BASE_ESTIMATOR):
                         if window:
                             profile_badput += prof_session.after_step(
                                 outs, epoch=epoch)
+                        step_finite = True
+                        if guard is not None and (async_kv
+                                                  or not device_metric):
+                            # these paths read the host anyway; a captured
+                            # step with a device metric never does
+                            step_finite = bool(
+                                guard.gstate["last_finite"] > 0)
                         if async_kv:
                             self.async_rounds.append(self._async_round(
-                                kv, state, param_names, stale_sync))
+                                kv, state, param_names, stale_sync,
+                                finite=step_finite))
                             if span is not None:
                                 span.mark("host")
                         if seen is not None:
@@ -1718,9 +2104,16 @@ class FeedForward(BASE_ESTIMATOR):
                             preds = [t[:nv] for t in preds]
                         with prof_mod.scope("metric/update"):
                             if device_metric:
-                                mstate = eval_metric.device_update(
+                                new = eval_metric.device_update(
                                     mstate, labels, preds)
-                            else:
+                                if guard is not None and \
+                                        guard.cfg.skip_nonfinite:
+                                    # a skipped step leaves the metric too
+                                    new = tuple(guards_mod.guard_select(
+                                        guard.finite, list(new),
+                                        list(mstate)))
+                                mstate = new
+                            elif step_finite:
                                 eval_metric.update(labels, preds)
                         nbatch += 1
                         if writer is not None and \
@@ -1737,7 +2130,9 @@ class FeedForward(BASE_ESTIMATOR):
                                 symbol=self.symbol)
                             writer.submit(snap)
                             writer.note_step(num_update)
-                            self.ckpt_replicas.replicate(0, snap)
+                            # the peer copy can be lost mid-replication
+                            if not chaos_mod.fires("ckpt.replica"):
+                                self.ckpt_replicas.replicate(0, snap)
                         if batch_end_callback is not None:
                             param = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                                   eval_metric=eval_metric)
@@ -1794,6 +2189,26 @@ class FeedForward(BASE_ESTIMATOR):
                         checkpoint_seconds=_ckpt_seconds() - ckpt_base,
                         profile_seconds=profile_badput, logger=logger)
                 profile_badput = 0.0
+                if guard is not None:
+                    # the once-an-epoch read of the device counters
+                    read = guard.read()
+                    skipped_delta = read["skipped_steps"] - \
+                        self.guard_stats["skipped_steps"]
+                    self.guard_stats.update(
+                        skipped_steps=read["skipped_steps"],
+                        loss_scale=read["loss_scale"])
+                    if skipped_delta > 0:
+                        telemetry_mod.counter(
+                            "resilience_skipped_steps_total", skipped_delta)
+                    telemetry_mod.gauge("loss_scale", read["loss_scale"])
+                    if read["skipped_steps"] or \
+                            self.guard_stats["step_retries"]:
+                        logger.info(
+                            "Epoch[%d] Guard: skipped_steps=%d "
+                            "step_retries=%d loss_scale=%g", epoch,
+                            read["skipped_steps"],
+                            self.guard_stats["step_retries"],
+                            read["loss_scale"])
                 if sharded_checkpoint_dir is not None:
                     if writer is not None:
                         # a queued snapshot may share this step id
@@ -1832,10 +2247,18 @@ class FeedForward(BASE_ESTIMATOR):
                     # detector
                     telemetry_mod.memory.epoch_mark(epoch, logger=logger)
                 if epoch_end_callback is not None:
+                    if preempt is not None and \
+                            preempt_mod.preemption_requested():
+                        # no callbacks on a dead clock
+                        preempt_flush(epoch, nbatch)
                     for cb in _as_list(epoch_end_callback):
                         cb(epoch, self.symbol, self.arg_params,
                            self.aux_params)
         finally:
+            if watchdog is not None:
+                watchdog.stop()
+            if preempt is not None:
+                preempt_mod.PreemptionHandler.uninstall()
             if writer is not None:
                 writer.close()
             if sync is not None:
@@ -1873,7 +2296,7 @@ class FeedForward(BASE_ESTIMATOR):
                         if pad_policy is not None else None,
                         "health": health_cfg is not None,
                         "profile": profile_cfg is not None,
-                        "guards": False,
+                        "guards": guard_cfg is not None,
                         "ckpt_every": ckpt_every,
                     },
                     completed=sys.exc_info()[0] is None,
@@ -1909,19 +2332,53 @@ class FeedForward(BASE_ESTIMATOR):
                                               logger=logger)
 
     @staticmethod
+    def _chaos_step_sites(arrays, data_names, watchdog):
+        """The guarded loop's fault sites (no work unless chaos is armed,
+        mxnet_tpu/model.py:2896-2921): ``step.hang`` stalls until the
+        watchdog trips; ``step.nan`` poisons the first floating data
+        input, on the device, before it is copied into a captured step's
+        input buffer."""
+        cz = chaos_mod.active()
+        if cz is None:
+            return arrays
+        if cz.fires("step.hang"):
+            limit = time.monotonic() + (
+                3.0 * watchdog.deadline if watchdog is not None else 1.0)
+            while time.monotonic() < limit:
+                if watchdog is not None:
+                    watchdog.check()  # raises StepTimeoutError when tripped
+                time.sleep(0.01)
+        if cz.fires("step.nan"):
+            for name in data_names:
+                v = arrays.get(name)
+                if v is not None and v.is_floating_point():
+                    arrays = dict(arrays)
+                    arrays[name] = v * float("nan")
+                    break
+        return arrays
+
+    @staticmethod
     def _load_pulled(state, pulled: dict):
         """Copy weights pulled from the parameter host into the trainer's
         parameters, in place."""
         for k, v in pulled.items():
             _assign(state.params[k], v)
 
-    def _async_round(self, kv, state, names, stale):
+    def _async_round(self, kv, state, names, stale, finite=True):
         """One step's round trip with the dist_async parameter host: the
         gradients to the host (one copy of the flat buffer), ``push_pull``
         (or ``push_pull_stale``: the weights one round stale), the
-        returned weights into the parameters. Returns the host-clock
-        seconds of each part."""
+        returned weights into the parameters. A step the guard found not
+        ``finite`` pushes nothing: the in-flight round drains, or the
+        current weights are pulled (mxnet_tpu/model.py:2305-2330).
+        Returns the host-clock seconds of each part."""
         t0 = time.perf_counter()
+        if not finite:
+            pulled = kv.flush_stale(names) if stale else kv.pull_many(names)
+            t1 = time.perf_counter()
+            self._load_pulled(state, pulled)
+            return {"to_host_s": 0.0, "push_pull_s": t1 - t0,
+                    "to_card_s": time.perf_counter() - t1}
         flat = state._flat_grad.detach().to("cpu").numpy()
         grads, off = {}, 0
         for k in state.names:
@@ -1960,17 +2417,17 @@ class FeedForward(BASE_ESTIMATOR):
         metric and a host one run outside the captured step; an overlapped
         exchange runs only in a multi-worker fit, which is eager).
         ``health`` captures the programs of a ``fit(health=...)``, whose
-        steps compute the health statistics. Returns ``{"programs",
+        steps compute the health statistics, and ``guards`` those of a
+        ``fit(guards=...)``. Returns ``{"programs",
         "wall_seconds", "labels"}``."""
         del eval_metric, compression, comm_kernels, batch_end_callback, \
             parallel, overlap
-        for name, value in dict(guards=guards,
-                                shard_audit=shard_audit).items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"precompile({name}=...) is not ported yet: ROADMAP "
-                    f"{_LATER_SLICES[name]}")
+        if shard_audit is not None:
+            raise NotImplementedError(
+                "precompile(shard_audit=...) is not ported yet: ROADMAP "
+                f"{_LATER_SLICES['shard_audit']}")
         health_cfg = telemetry_mod.HealthConfig.resolve(health)
+        guard_cfg = guards_mod.GuardConfig.resolve(guards)
         if isinstance(kvstore, str) and "dist" in kvstore:
             raise MXNetError(
                 "precompile: multi-process kvstore strategies must warm up "
@@ -2019,6 +2476,8 @@ class FeedForward(BASE_ESTIMATOR):
                 telemetry_mod.health.layer_groups(param_names),
                 telemetry_mod.health.loss_heads(self.symbol, ()),
                 on=health_cfg is not None)
+            # and those of a fit(guards=...) carry its guard
+            state.set_guard(guard_cfg)
             snap = state.snapshot() if captured else None
         labels = []
         for bucket_key, dshapes, lshapes in programs:
@@ -2047,6 +2506,8 @@ class FeedForward(BASE_ESTIMATOR):
         if captured:
             torch.cuda.synchronize(dev)
             state.restore(snap)
+            if state.guard is not None:
+                state.guard.reset()
         return {"programs": len(programs),
                 "wall_seconds": time.perf_counter() - t0, "labels": labels}
 

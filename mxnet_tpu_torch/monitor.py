@@ -14,8 +14,12 @@ output as its op computed it (a BatchNorm before its ReLU, say).
 ``compile/count``, ``compile/seconds`` (capture seconds on a card),
 ``compile/jit_misses`` and ``compile/<label>`` for each program first seen
 since the last collection, with a ``RecompileTracker``'s ``recompile/<label>``
-rows. The communication rows (``track_comm``, ``collect_comm``) read a
-registry of a later item: they raise naming it.
+rows. ``track_comm`` does the same for the gradient-communication
+registry (``comm.registry()``): ``collect_comm`` returns ``comm/steps``,
+``comm/wire_bytes`` and ``comm/fp32_wire_bytes``, each the change of the
+registry's ``snapshot()`` since the last collection (or since the monitor
+was made), and each ``toc`` appends them
+(mxnet_tpu/monitor.py:59-62,92-95,169-170,191-209).
 """
 
 from __future__ import annotations
@@ -29,8 +33,6 @@ import torch
 from .executor import _build_graph_fn
 
 __all__ = ["Monitor", "nonfinite_count"]
-
-_A6 = "ROADMAP A6 (comm/stats)"
 
 
 def nonfinite_count(x) -> int:
@@ -64,10 +66,14 @@ class Monitor:
     def __init__(self, interval, stat_func=None, pattern=".*",
                  track_nonfinite=False, track_compiles=False,
                  track_comm=False):
-        if track_comm:
-            raise NotImplementedError(
-                f"Monitor(track_comm) is not ported yet: {_A6}")
         self.track_compiles = track_compiles
+        self.track_comm = track_comm
+        # the first collection reports what moved since the monitor was made
+        self._comm_snap = None
+        if track_comm:
+            from . import comm as comm_mod
+
+            self._comm_snap = comm_mod.registry().snapshot()
         self._compile_snap = None
         self._recompile_events = []
         self.interval = interval
@@ -124,6 +130,8 @@ class Monitor:
             res.extend(self.collect_compiles())
         else:
             res.extend(self._drain_recompiles())
+        if self.track_comm:
+            res.extend(self.collect_comm())
         self.queue = res
         self._publish(res)
         return res
@@ -150,8 +158,23 @@ class Monitor:
             logging.info("Batch: %7d %30s %s", step, name, stat)
 
     def collect_comm(self):
-        raise NotImplementedError(
-            f"Monitor.collect_comm is not ported yet: {_A6}")
+        """The comm registry's changes since the last collection, as rows
+        ``comm/steps``, ``comm/wire_bytes`` and ``comm/fp32_wire_bytes``
+        (what the same steps would have sent uncompressed)."""
+        from . import comm as comm_mod
+
+        stats = comm_mod.registry().snapshot()
+        prev = self._comm_snap or {"steps": 0, "wire_bytes": 0.0,
+                                   "fp32_wire_bytes": 0.0}
+        res = [
+            (self.step, "comm/steps", stats["steps"] - prev["steps"]),
+            (self.step, "comm/wire_bytes",
+             stats["wire_bytes"] - prev["wire_bytes"]),
+            (self.step, "comm/fp32_wire_bytes",
+             stats["fp32_wire_bytes"] - prev["fp32_wire_bytes"]),
+        ]
+        self._comm_snap = stats
+        return res
 
     def _drain_recompiles(self):
         events, self._recompile_events = self._recompile_events, []

@@ -16,8 +16,9 @@ rank's newest snapshot held in its neighbour's memory. :func:`save_now` is
 the blocking save through the same format.
 
 The JAX package's telemetry counters (``ckpt_*``, the ``checkpoint_save``
-phase, a flight dump on a failed write) and lockwatch-named locks are
-here; its chaos sites are a later item of the port (ROADMAP A6).
+phase, a flight dump on a failed write), lockwatch-named locks and the
+``ckpt.async_write`` chaos site (a background write that fails) are
+here.
 """
 
 from __future__ import annotations
@@ -253,6 +254,10 @@ class AsyncCheckpointWriter:
                     self.cv.notify_all()
 
     def _write(self, snap: Snapshot):
+        from . import chaos
+
+        if chaos.fires("ckpt.async_write"):
+            raise OSError("chaos: async checkpoint write lost")
         ckpt_mod.save_sharded(
             self.directory, snap.step, snap.state.get("params", {}),
             aux=snap.state.get("aux"), symbol=snap.symbol,

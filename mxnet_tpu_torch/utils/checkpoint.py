@@ -99,6 +99,31 @@ def _read_group(root, group):
             for name in sorted(os.listdir(folder)) if name.endswith(".npy")}
 
 
+def _chaos_corrupt(step_dir):
+    """The ``ckpt.corrupt`` chaos site: when it fires, flip 64 bytes in
+    the middle of the first (sorted) state shard, after the manifest was
+    written, so validation must catch it
+    (mxnet_tpu/utils/checkpoint.py:88-112)."""
+    from ..resilience import chaos
+
+    if not chaos.fires("ckpt.corrupt"):
+        return
+    victims = sorted(
+        os.path.join(dirpath, name)
+        for dirpath, _d, names in os.walk(os.path.join(step_dir, _STATE_DIR))
+        for name in names if os.path.getsize(os.path.join(dirpath, name)))
+    if not victims:
+        return
+    victim = victims[0]
+    size = os.path.getsize(victim)
+    with open(victim, "r+b") as f:
+        f.seek(size // 2)
+        chunk = f.read(min(64, size - size // 2))
+        f.seek(size // 2)
+        f.write(bytes(b ^ 0xFF for b in chunk))
+    logging.warning("chaos: corrupted checkpoint shard %s", victim)
+
+
 def save_sharded(directory, step, params, aux=None, symbol=None,
                  extra_meta=None, opt_state=None, comm_state=None,
                  tier="t2"):
@@ -154,6 +179,7 @@ def _save_sharded(directory, step, params, aux=None, symbol=None,
     meta.update(extra_meta or {})
     with open(os.path.join(tmp_dir, _META_FILE), "w") as f:
         json.dump(meta, f)
+    _chaos_corrupt(tmp_dir)
     if os.path.exists(step_dir):
         # overwrite: the old step moves aside for the rename; a kill in this
         # window loses this step only, and validation skips its leftovers

@@ -376,5 +376,10 @@ def test_comm_stats_registry():
                                   "hlo_elementwise_table",
                                   "hlo_quantize_pass_count"])
 def test_later_comm_names_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        getattr(tcomm, name)
+    """The HLO parsers that once raised naming ROADMAP A6 are ported: the
+    JAX package's functions, exported as its ``comm`` exports them
+    (tests/test_torch_comm_table.py holds their rows to the JAX
+    package's)."""
+    fn = getattr(tcomm, name)
+    assert callable(fn) and name in tcomm.__all__
+    assert fn.__module__ == "mxnet_tpu_torch.comm.stats"

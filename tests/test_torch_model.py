@@ -276,7 +276,7 @@ def test_save_load_predict_score(tmp_path):
         mt.load_checkpoint(prefix, 3)
 
 
-LATER = ["guards", "elastic", "controller", "shard_audit"]
+LATER = ["elastic", "controller", "shard_audit"]
 
 
 @pytest.mark.parametrize("arg", LATER)
@@ -286,6 +286,22 @@ def test_later_slice_fit_arguments_raise(arg):
     with pytest.raises(NotImplementedError, match="ROADMAP A[0-9]"):
         model.fit(X, np.zeros(8, np.float32), batch_size=8, **{arg: True})
     assert model.arg_params is None  # raised before any work
+
+
+def test_guarded_fit_runs():
+    """``fit(guards=True)`` trains and leaves its counters; a NaN batch is
+    skipped and the parameters stay finite."""
+    model = mt.FeedForward(tmodels.mlp(), ctx=mt.cpu(), num_epoch=1,
+                           learning_rate=0.1)
+    rng = np.random.RandomState(0)
+    X = rng.randn(32, 64).astype(np.float32)
+    X[9, 3] = np.nan  # the second of four batches
+    model.fit(X, (X[:, 0] > 0).astype(np.float32), batch_size=8,
+              guards=True)
+    assert model.guard_stats == {"skipped_steps": 1, "step_retries": 0,
+                                 "loss_scale": 1.0}
+    for v in model.arg_params.values():
+        assert torch.isfinite(v).all()
 
 
 @pytest.mark.parametrize("arg", ["telemetry", "health", "profile"])

@@ -143,10 +143,20 @@ def test_monitor_interval_nonfinite_and_later_parts():
         == 2
     assert nonfinite_count(np.array([1, 2])) == 0
     assert nonfinite_count([0.5, float("nan")]) == 1
-    with pytest.raises(NotImplementedError, match="A6"):
-        mt.Monitor(1, track_comm=True)
-    with pytest.raises(NotImplementedError, match="A6"):
-        mon.collect_comm()
+    # track_comm: the comm registry's changes since the last collection
+    reg = mt.comm.registry()
+    reg.register_plan("monitor_test", mt.comm.allreduce_plan(1000, 2,
+                                                             "int8"))
+    comm_mon = mt.Monitor(1, track_comm=True)
+    reg.record_step("monitor_test", 3)
+    rows = dict((name, v) for _s, name, v in comm_mon.collect_comm())
+    plan = reg.stats()["per_program"]["monitor_test"]
+    assert rows == {"comm/steps": 3,
+                    "comm/wire_bytes": 3 * plan["wire_bytes"],
+                    "comm/fp32_wire_bytes": 3 * plan["fp32_wire_bytes"]}
+    assert dict((n, v) for _s, n, v in comm_mon.collect_comm()) == {
+        "comm/steps": 0, "comm/wire_bytes": 0.0,
+        "comm/fp32_wire_bytes": 0.0}
 
 
 def test_monitor_on_a_bf16_executor():

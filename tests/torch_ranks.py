@@ -653,3 +653,74 @@ def telemetry_fit(rank, world, X, Y, pattern, steps):
               telemetry=mt.telemetry.TelemetryConfig(
                   jsonl=pattern.format(rank)))
     return pattern.format(rank)
+
+
+def comm_table_cases(rank, world, cases):
+    """Each case's exchange under ``torch.profiler``: ``{"mode", "grads":
+    {name: (world, ...) array}, "cap": overlap bucket bytes or None,
+    "feedback": bool}``; this rank feeds row ``rank``. Returns, a case,
+    the profiled collective table and rows (from the profiler object and
+    from its exported chrome trace) and the quantize passes at the flat
+    size."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch import comm
+
+    out = []
+    for case in cases:
+        spec = comm.CompressionSpec.resolve(case["mode"])
+        grads = {k: torch.from_numpy(v[rank].copy())
+                 for k, v in case["grads"].items()}
+        flat = comm.flat_size(grads)
+        with profile(activities=[ProfilerActivity.CPU],
+                     record_shapes=True) as prof:
+            if case["cap"] is not None:
+                plan = comm.plan_overlap(
+                    {k: tuple(v.shape) for k, v in grads.items()}, spec,
+                    world, max_bytes=case["cap"])
+                resid = comm.init_overlap_residuals(plan) \
+                    if case["feedback"] else None
+                comm.overlap_allreduce(grads, resid, plan)
+            elif case["feedback"]:
+                resid = comm.init_error_feedback(grads, spec, world)
+                comm.error_feedback_allreduce(grads, resid, spec,
+                                              axis_size=world)
+            else:
+                comm.compressed_allreduce(grads, spec, axis_size=world)
+        path = os.path.join(tempfile.mkdtemp(), "trace.json")
+        prof.export_chrome_trace(path)
+        out.append({"table": comm.collective_table(prof),
+                    "rows": comm.collective_rows(prof),
+                    "trace_table": comm.collective_table(path),
+                    "passes": comm.quantize_pass_count(prof, flat),
+                    "trace_passes": comm.quantize_pass_count(path, flat)})
+    return out
+
+
+def fit_guarded(rank, world, args, aux, X, Y, batch, poison_rank, fit_kw):
+    """``fit_dist_sync``'s fit, global batches of ``batch`` rows, with
+    ``guards=True`` and the batch of rank ``poison_rank``'s second step
+    poisoned (the ``step.nan`` chaos site, armed on that rank only).
+    Returns the final parameters, ``guard_stats`` and the chaos sites
+    that fired."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.resilience import chaos_scope
+
+    per = batch // world
+    rows = np.concatenate([np.arange(b + rank * per, b + (rank + 1) * per)
+                           for b in range(0, X.shape[0], batch)])
+    model = mt.FeedForward(small_net(mt), ctx=mt.cpu(), num_epoch=1,
+                           arg_params=args, aux_params=aux,
+                           learning_rate=0.1, momentum=0.9)
+    rules = {"step.nan": {1}} if rank == poison_rank else {}
+    with chaos_scope(seed=0, rules=rules) as cz:
+        model.fit(mt.io.NDArrayIter(X[rows], Y[rows], batch_size=per,
+                                    shuffle=False),
+                  kvstore="dist_sync", guards=True, **fit_kw)
+    return {"params": _numpy(model.arg_params),
+            "aux": _numpy(model.aux_params),
+            "guard_stats": dict(model.guard_stats), "fired": dict(cz.fired)}
