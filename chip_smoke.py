@@ -225,6 +225,27 @@ together), and then:
    fit with ``sharded_checkpoint_dir`` and a step cadence: the flush at
    step 4, TrainingPreempted, and the resumed fit bitwise the
    uninterrupted one;
+5q. elastic: full-width ResNet-50 (f32, fused Adam, int8 with overlap,
+   the comm kernels, epoch checkpoints) through ``fit(elastic=)`` over
+   ``[gpu(0)] * 4`` (one replica an entry), batch 48, 6 steps an epoch, 3
+   epochs, cuDNN deterministic: a seeded ``elastic.kill`` before epoch
+   1's fourth step and ``elastic.rejoin`` in epoch 2 (history [3, 4]);
+   the redone epoch's checkpoint bitwise that of a fresh world-3 fit
+   resumed from the copied pre-kill checkpoint (parameters, Adam
+   moments, residual ledgers); resize badput above 0 and one resize span
+   a resize; fused_adam and the int8 comm kernels launched on every
+   world; the allocated memory after the regrow within 5% of before the
+   kill at the same step of an epoch. Prints each resize's downtime;
+5r. controller: the same model and world, uncompressed at the start,
+   through ``fit(elastic=, controller=)`` with the JAX package's e2e
+   faults (tests/test_controller.py:515-576): a straggler stalled by a
+   real sleep and blamed through scripted spans, a flaky rank whose
+   heartbeats stop and resume, the wire's rate scaled to a comm:compute
+   ratio of 0.5: the straggler evicted once, the flaky rank backfilled,
+   one retier (int8) whose kernels launch after it, the breaker closed, a
+   valid flight dump with controller incidents, no controller or
+   heartbeat thread left; then a short fit that stages an unappliable
+   tier twice: the controller frozen, the fit finished;
 6. flash: holds the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the card, row by row, and lse at f32's
    precision, at the transformer LM's shape (q, k, v views of one packed
@@ -387,7 +408,9 @@ together), and then:
    ctx_list's exchanges; ``slice17_launches``: 5o's observed fit (its
    counted step, warm-up, replays and window steps);
    ``slice19_launches``: 5p's first guarded fit, by replay, and 10d's
-   profiled fits (rank 0, both modes); rows 3-7 also their times, bound, library time
+   profiled fits (rank 0, both modes); ``slice20_launches``: 5q's elastic
+   fit over its three worlds and 5r's first fit (eager replicas); rows
+   3-7 also their times, bound, library time
    and the launch floor at one bucket's shape and their launches on the
    overlap path, ``bucket_shape``);
 14. ends with ``{"ok": true, "device": {...}}``.
@@ -7371,6 +7394,413 @@ def phase_comm_table(torch, comm):
     return launches
 
 
+# -- slice 20: elastic resizing and the fleet controller ----------------------
+
+ELASTIC_WORLD = 4           # ranks: [gpu(0)] * 4, aliased replicas
+ELASTIC_BATCH = 48          # divides 4, 3 and 2: every world the phases take
+ELASTIC_STEPS = 6           # steps an epoch
+ELASTIC_EPOCHS = 3
+# elastic.kill's and elastic.rejoin's occurrences (one poll a step): the
+# kill before epoch 1's 4th step, the rejoin before epoch 2's 3rd (after
+# epoch 1 was redone on 3)
+ELASTIC_KILL_AT = ELASTIC_STEPS + 3
+ELASTIC_REJOIN_AT = ELASTIC_KILL_AT + ELASTIC_STEPS + 3
+ELASTIC_MEMORY_BOUND = 0.05
+ELASTIC_DIR = "build/chip_smoke/elastic"
+CTL_STRAGGLER, CTL_FLAKY = 3, 2
+CTL_STALL_S = 0.05          # the straggler's real sleep a step
+CTL_SPAN_MS = 2.0           # a healthy rank's step in the scripted spans
+CTL_HEARTBEAT_S = 1.0
+CTL_OUTAGE_STEP = 1         # the flaky rank falls silent from this step
+CTL_RATIO = 0.5             # comm:compute the scaled wire gives: int8
+CTL_FREEZE_STEPS = 3
+
+
+def elastic_data(shape_rows):
+    rng = np.random.default_rng(SEED + 20)
+    X = rng.standard_normal((shape_rows,) + IMAGE, np.float32)
+    Y = rng.integers(0, 1000, shape_rows).astype(np.float32)
+    return X, Y
+
+
+def elastic_model(mt, net, args, aux, world, epochs):
+    import torch
+
+    return mt.FeedForward(
+        net, ctx=[mt.gpu(0)] * world, num_epoch=epochs, optimizer="adam",
+        fused=True, learning_rate=LEARNING_RATE,
+        arg_params={k: torch.from_numpy(v) for k, v in args.items()},
+        aux_params={k: torch.from_numpy(v) for k, v in aux.items()})
+
+
+class LaunchesByKey:
+    """A batch-end callback: the kernels' launches of each step, summed
+    under ``key()`` (the world, the tier), and the card's allocated bytes
+    after each step with ``key()`` and the step's place in its epoch; with
+    ``collect``, after a garbage collection, so the bytes are what is
+    reachable (earlier phases leave cycles that hold tensors)."""
+
+    def __init__(self, torch, key, also=None, collect=False):
+        self.torch, self.key, self.also = torch, key, also
+        self.collect = collect
+        self.by_key, self.memory = {}, []
+        self.last = read_launches()
+
+    def __call__(self, param):
+        if self.collect:
+            gc.collect()
+        self.torch.cuda.synchronize()
+        now = read_launches()
+        got = self.by_key.setdefault(self.key(), {n: 0 for n in now})
+        for n in now:
+            got[n] += now[n] - self.last[n]
+        self.last = now
+        self.memory.append((self.key(), param.nbatch,
+                            self.torch.cuda.memory_allocated()))
+        if self.also is not None:
+            self.also(param)
+
+
+def fleet_threads():
+    import threading
+
+    return [t.name for t in threading.enumerate()
+            if t.name in ("mx-fleet-ctl", "mx-heartbeat")]
+
+
+def phase_elastic(torch, mt):
+    """``fit(elastic=)`` of the full-width ResNet-50 (f32, fused Adam) over
+    ``[gpu(0)] * 4``, batch 48, int8 with overlap, epoch checkpoints: a
+    seeded ``elastic.kill`` mid-epoch 1 and ``elastic.rejoin`` in epoch 2
+    (history [3, 4]); the redone epoch's checkpoint bitwise a fresh
+    world-3 fit resumed from the copied pre-kill checkpoint (params, Adam
+    moments, residual ledgers; cuDNN deterministic in both); resize badput
+    above 0 and one resize span a resize; fused_adam and the int8 comm
+    kernels launched on every world; the card's allocated memory after the
+    regrow within 5% of before the kill. Returns the main path's launches
+    (the elastic fit)."""
+    import os
+    import shutil
+
+    from mxnet_tpu_torch import telemetry as ttel
+    from mxnet_tpu_torch.resilience import ElasticCoordinator, chaos_scope
+    from mxnet_tpu_torch.utils import checkpoint as tck
+
+    mt.set_matmul_precision("highest")
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    os.makedirs(ELASTIC_DIR)
+    net, args, aux, _, _ = resnet50_case()
+    X, Y = elastic_data(ELASTIC_STEPS * ELASTIC_BATCH)
+    d_el, d_ref = f"{ELASTIC_DIR}/elastic", f"{ELASTIC_DIR}/replay"
+    jsonl = f"{ELASTIC_DIR}/events.jsonl"
+    co = ElasticCoordinator(ELASTIC_WORLD)
+    watch = LaunchesByKey(torch, lambda: (co.resizes, co.world_size),
+                          collect=True)
+    rules = {"elastic.kill": {ELASTIC_KILL_AT},
+             "elastic.rejoin": {ELASTIC_REJOIN_AT}}
+    with cudnn_deterministic(torch):
+        model = elastic_model(mt, net, args, aux, ELASTIC_WORLD,
+                              ELASTIC_EPOCHS)
+        torch.cuda.synchronize()
+        # the main path: each count set to 0 just before the fit
+        reset_launches()
+        watch.last = read_launches()
+        t0 = time.perf_counter()
+        with chaos_scope(seed=SEED, rules=rules):
+            model.fit(mt.io.NDArrayIter(X, Y, batch_size=ELASTIC_BATCH,
+                                        shuffle=False),
+                      batch_size=ELASTIC_BATCH, elastic=co,
+                      sharded_checkpoint_dir=d_el, compression="int8",
+                      overlap=True, comm_kernels=True,
+                      batch_end_callback=watch,
+                      telemetry=ttel.TelemetryConfig(jsonl=jsonl,
+                                                     memory=False))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_launches()
+        require(co.resizes == 2 and [h["to"] for h in co.history]
+                == [ELASTIC_WORLD - 1, ELASTIC_WORLD],
+                f"elastic: two resizes, history {co.history}")
+        require(len(model._train_state.members) == ELASTIC_WORLD,
+                "elastic: the fit ended on 4 replicas")
+        require(len(model.telemetry.steps(kind="resize")) == 2,
+                "elastic: one resize span a resize")
+        events = ttel.read_events(jsonl)
+        badput = sum(e["seconds"] for e in events
+                     if e.get("kind") == "badput"
+                     and e.get("reason") == "resize")
+        require(badput > 0, f"elastic: resize badput {badput}")
+        worlds = {}
+        for (resizes, world), got in watch.by_key.items():
+            for name in ("fused_adam", "quant_int8", "dequant_sum_int8",
+                         "dequant_int8"):
+                require(got[name] > 0, f"elastic: {name} launched on world "
+                        f"{world} (after {resizes} resizes): {got}")
+            worlds[f"{resizes}:{world}"] = got
+        # before the kill and after the regrow at the same place in an
+        # epoch (the feed holds as many batches ahead at both)
+        at, before_kill = [(n, b) for (r, _), n, b in watch.memory
+                           if r == 0][-1]
+        after_regrow = [b for (r, _), n, b in watch.memory
+                        if r == 2 and n == at][-1]
+        require(abs(after_regrow - before_kill)
+                <= ELASTIC_MEMORY_BOUND * before_kill,
+                f"elastic: allocated {after_regrow} bytes after the regrow, "
+                f"{before_kill} before the kill, {at} steps into an epoch: "
+                f"{watch.memory}")
+        require(all(bool(torch.isfinite(v).all())
+                     for v in model.arg_params.values()),
+                "elastic: finite parameters")
+        history = [dict(h, ranks=list(h["ranks"])) for h in co.history]
+        del model
+        torch.cuda.empty_cache()
+
+        # the replay: a fresh world-3 fit resumed from the pre-kill
+        # checkpoint (hard links of its files; an elastic coordinator with
+        # no event, since a plain ctx list of one card is one replica)
+        os.makedirs(d_ref)
+        for step in (0, 1):
+            shutil.copytree(f"{d_el}/{step}", f"{d_ref}/{step}",
+                            copy_function=os.link)
+        ref = elastic_model(mt, net, args, aux, ELASTIC_WORLD - 1, 2)
+        t0 = time.perf_counter()
+        ref.fit(mt.io.NDArrayIter(X, Y, batch_size=ELASTIC_BATCH,
+                                  shuffle=False),
+                batch_size=ELASTIC_BATCH,
+                elastic=ElasticCoordinator(ELASTIC_WORLD - 1),
+                sharded_checkpoint_dir=d_ref, compression="int8",
+                overlap=True, comm_kernels=True)
+        replay_s = time.perf_counter() - t0
+        require(ref.begin_epoch == 1, "elastic: the replay resumed epoch 1")
+        del ref
+    torch.cuda.empty_cache()
+    el = tck.load_sharded(d_el, 2, with_comm=True)
+    rf = tck.load_sharded(d_ref, 2, with_comm=True)
+    require(set(el[0]) == set(rf[0]) and all(
+        np.array_equal(el[0][k], rf[0][k]) for k in el[0]),
+        "elastic: the redone epoch's parameters bitwise the replay's")
+    require(len(el[4]) == len(rf[4]) and all(
+        np.array_equal(a, b) for a, b in zip(el[4], rf[4])),
+        "elastic: the redone epoch's Adam moments bitwise the replay's")
+    require(el[5] and set(el[5]) == set(rf[5]) and all(
+        np.array_equal(el[5][k], rf[5][k]) for k in el[5]),
+        "elastic: the redone epoch's residual ledgers bitwise the replay's")
+    require(el[3]["num_update"] == rf[3]["num_update"]
+            == 2 * ELASTIC_STEPS, "elastic: both at step 12")
+    del el, rf
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    emit({"phase": "elastic", "model": "resnet50", "batch": ELASTIC_BATCH,
+          "ctx": f"[gpu(0)] * {ELASTIC_WORLD}", "compression": "int8",
+          "overlap": True, "optimizer": "adam", "fused": True,
+          "steps_an_epoch": ELASTIC_STEPS, "epochs": ELASTIC_EPOCHS,
+          "chaos": {k: sorted(v) for k, v in rules.items()},
+          "history": history,
+          "downtime_s": [h["downtime_s"] for h in history],
+          "resize_badput_s": badput,
+          "memory_allocated": {
+              "steps_into_epoch": at, "before_kill": before_kill,
+              "after_regrow": after_regrow,
+              "by_step": [[list(k), n, b] for k, n, b in watch.memory]},
+          "replay_bitwise": True, "fit_s": fit_s, "replay_s": replay_s,
+          "launches": launches, "launches_by_world": worlds,
+          "card": nvidia_smi("name,power.limit")})
+    return launches
+
+
+class FleetFaults:
+    """The controller phase's faults (tests/test_controller.py:467-513):
+    the straggler rank stalls every step by a real sleep and its scripted
+    span blames it; the flaky rank's heartbeats stop from CTL_OUTAGE_STEP
+    until the coordinator buries it, then resume; a beater thread
+    heartbeats every other rank every 20 ms."""
+
+    def __init__(self, co):
+        import threading
+
+        self.co = co
+        self.step = 0
+        self._outage = self._recovered = False
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=self._beat, daemon=True,
+                                       name="chip-smoke-beater")
+        self.thread.start()
+
+    def _beat(self):
+        while not self._stop.wait(0.02):
+            if self._outage and not self._recovered and \
+                    self.co.last_heartbeat(CTL_FLAKY) is None:
+                self._recovered = True
+            silent = self._outage and not self._recovered
+            for r in range(self.co.full_world_size):
+                if not (r == CTL_FLAKY and silent):
+                    self.co.heartbeat(r)
+
+    def close(self):
+        self._stop.set()
+        self.thread.join(timeout=2.0)
+
+    def __call__(self, param):
+        from mxnet_tpu_torch import telemetry as ttel
+
+        s = self.step
+        self.step += 1
+        if s >= CTL_OUTAGE_STEP:
+            self._outage = True
+        alive = self.co.alive
+        if CTL_STRAGGLER in alive:
+            time.sleep(CTL_STALL_S)
+        for r in alive:
+            d = CTL_STALL_S * 1e3 + CTL_SPAN_MS if r == CTL_STRAGGLER \
+                else CTL_SPAN_MS
+            ttel.emit("span", rank=r, name="step", epoch=0, step=s,
+                      dur_ms=d, phases=[{"name": "device", "dur_ms": d}])
+
+
+def phase_controller(torch, mt):
+    """``fit(elastic=, controller=)`` of phase elastic's model and world,
+    uncompressed at the start, with the JAX package's e2e faults
+    (tests/test_controller.py:515-576): a straggler stalled by a real sleep
+    and blamed through scripted spans, a flaky rank whose heartbeats stop
+    and resume, the wire's rate scaled so the tier policy reads a
+    comm:compute ratio of 0.5. Checks the straggler evicted once, the
+    flaky rank backfilled, one retier actuated and its tier's comm kernels
+    launched after it, the breaker closed, a valid flight dump with
+    controller incidents, and no controller or heartbeat thread left. A
+    second short fit stages an unappliable tier twice: the controller
+    freezes and the fit finishes. Returns the main path's launches (the
+    first fit)."""
+    import os
+    import shutil
+
+    from mxnet_tpu_torch import comm
+    from mxnet_tpu_torch import telemetry as ttel
+    from mxnet_tpu_torch.resilience import (CircuitBreaker,
+                                            ElasticCoordinator,
+                                            FleetController)
+
+    mt.set_matmul_precision("highest")
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    os.makedirs(ELASTIC_DIR)
+    net, args, aux, _, _ = resnet50_case()
+    X, Y = elastic_data(ELASTIC_STEPS * ELASTIC_BATCH)
+    elements = sum(int(v.size) for v in args.values())
+    fp32_wire = comm.fp32_allreduce_wire_bytes(elements, ELASTIC_WORLD)
+    wire_gbps = fp32_wire / (CTL_RATIO * CTL_SPAN_MS * 1e-3) / 1e9
+    ttel.reset()
+    ttel.flight.reset()
+    co = ElasticCoordinator(ELASTIC_WORLD, heartbeat_timeout=CTL_HEARTBEAT_S)
+    ctl = FleetController(
+        interval=0.0, window=4, min_report_steps=4, evict_k=2, evict_n=4,
+        max_evictions=1, rejoin_after=0.05, evaluate_after=0.5,
+        cooldowns={"evict": 0.0, "backfill": 0.0, "retier": 0.0},
+        wire_gbps=wire_gbps)
+    faults = FleetFaults(co)
+    watch = LaunchesByKey(torch, lambda: ctl._comm_mode, also=faults)
+    model = elastic_model(mt, net, args, aux, ELASTIC_WORLD, ELASTIC_EPOCHS)
+    torch.cuda.synchronize()
+    reset_launches()
+    watch.last = read_launches()
+    t0 = time.perf_counter()
+    try:
+        model.fit(mt.io.NDArrayIter(X, Y, batch_size=ELASTIC_BATCH,
+                                    shuffle=False),
+                  batch_size=ELASTIC_BATCH, elastic=co, controller=ctl,
+                  sharded_checkpoint_dir=f"{ELASTIC_DIR}/ctl",
+                  comm_kernels=True, batch_end_callback=watch,
+                  telemetry=ttel.TelemetryConfig(timeline=False,
+                                                 memory=False))
+    finally:
+        faults.close()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    acted = [(d["lever"], d.get("rank"), d.get("mode"))
+             for d in ctl.decisions if d["outcome"] == "actuated"]
+    evicts = [r for lever, r, _ in acted if lever == "evict"]
+    require(evicts == [CTL_STRAGGLER],
+            f"controller: the straggler evicted once: {acted}")
+    require(CTL_STRAGGLER not in co.alive and CTL_FLAKY in co.alive,
+            f"controller: alive {co.alive}")
+    require(CTL_FLAKY in [r for lever, r, _ in acted if lever == "backfill"],
+            f"controller: the flaky rank backfilled: {acted}")
+    tiers = [m for lever, _, m in acted if lever == "retier"]
+    require(len(tiers) == 1 and tiers[0] in ("int8", "twobit")
+            and ctl._comm_mode == tiers[0],
+            f"controller: one retier to int8 or twobit: {acted}")
+    tier = tiers[0]
+    after = watch.by_key.get(tier, {})
+    for name in (("quant_int8", "dequant_sum_int8", "dequant_int8")
+                 if tier == "int8" else ("quant_twobit",
+                                         "dequant_sum_twobit")):
+        require(after.get(name, 0) > 0, f"controller: {name} launched "
+                f"after the retier to {tier}: {after}")
+    require(sum(g["fused_adam"] for g in watch.by_key.values()) > 0,
+            "controller: fused_adam launched")
+    require(ctl.breaker.state == CircuitBreaker.CLOSED,
+            f"controller: the breaker {ctl.breaker.state}")
+    dump = f"{ELASTIC_DIR}/flight.json"
+    ttel.flight.dump(dump, reason="chip_smoke")
+    ok, payload = ttel.validate_flight(dump)
+    require(ok and "controller" in {e["kind"]
+                                    for e in payload["incidents"]},
+            "controller: the flight dump validates with controller "
+            "incidents")
+    require(fleet_threads() == [], f"controller: threads left after fit: "
+            f"{fleet_threads()}")
+    decisions = [(d["lever"], d["action"], d["outcome"])
+                 for d in ctl.decisions]
+    history = [dict(h, ranks=list(h["ranks"])) for h in co.history]
+    applied = [e for e in ttel.hub().events(kind="controller")
+               if e.get("lever") == "retier" and e.get("outcome")
+               == "applied"]
+    del model
+    torch.cuda.empty_cache()
+
+    # a tier the fit cannot apply, staged twice: frozen, not killed
+    ttel.reset()
+    co2 = ElasticCoordinator(ELASTIC_WORLD)
+    ctl2 = FleetController(interval=0.0, window=8, min_report_steps=8,
+                           auto_tier=False, auto_evict=False)
+    staged = [0]
+
+    def sabotage(_param):
+        if staged[0] < 2:
+            staged[0] += 1
+            ctl2._pending_retier = {"mode": "bogus-tier"}
+
+    m2 = elastic_model(mt, net, args, aux, ELASTIC_WORLD, 1)
+    n = CTL_FREEZE_STEPS * ELASTIC_BATCH
+    m2.fit(mt.io.NDArrayIter(X[:n], Y[:n], batch_size=ELASTIC_BATCH,
+                             shuffle=False),
+           batch_size=ELASTIC_BATCH, elastic=co2, controller=ctl2,
+           sharded_checkpoint_dir=f"{ELASTIC_DIR}/freeze",
+           batch_end_callback=sabotage)
+    fails = [d["lever"] for d in ctl2.decisions if d["outcome"] == "failed"]
+    require(fails == ["retier", "retier"] and ctl2.state == "frozen"
+            and ctl2.breaker.state == CircuitBreaker.OPEN,
+            f"controller: frozen after two failed retiers: {ctl2.decisions}")
+    require(all(bool(torch.isfinite(v).all())
+                for v in m2.arg_params.values()),
+            "controller: the frozen fit finished with finite parameters")
+    del m2
+    torch.cuda.empty_cache()
+    ttel.reset()
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    emit({"phase": "controller", "model": "resnet50",
+          "batch": ELASTIC_BATCH, "ctx": f"[gpu(0)] * {ELASTIC_WORLD}",
+          "straggler": CTL_STRAGGLER, "flaky": CTL_FLAKY,
+          "stall_s": CTL_STALL_S, "heartbeat_timeout_s": CTL_HEARTBEAT_S,
+          "wire_gbps": wire_gbps, "ratio": CTL_RATIO,
+          "decisions": decisions, "history": history,
+          "downtime_s": [h["downtime_s"] for h in history],
+          "retier": tier, "retier_s": [e.get("seconds") for e in applied],
+          "launches": launches, "launches_by_tier": watch.by_key,
+          "fit_s": fit_s, "freeze": {"failed": fails,
+                                     "state": "frozen"},
+          "card": nvidia_smi("name,power.limit")})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -7426,6 +7856,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     slice19 = {"guards": phase_guards(torch, mt)}
     torch.cuda.empty_cache()
+    slice20 = {"elastic": phase_elastic(torch, mt)}
+    torch.cuda.empty_cache()
+    slice20["controller"] = phase_controller(torch, mt)
+    torch.cuda.empty_cache()
+    for name in ("fused_adam", "quant_int8", "dequant_sum_int8",
+                 "dequant_int8"):
+        require(sum(got[name] for got in slice20.values()) > 0,
+                f"slice 20's paths launched {name}")
     flash_rows, flash_errs = phase_flash(torch, tfa, registry)
     serve_launches, lm_params, lm_grad_errs = phase_lm_serve(torch, mt, tfa)
     train_launches = phase_lm_train(torch, mt, topt, tfa, kfa, lm_params,
@@ -7522,6 +7960,10 @@ def main() -> int:
         # twobit together)
         kernels[-1]["slice19_launches"] = {p: got[name]
                                            for p, got in slice19.items()}
+        # the slice 20 paths, each read around itself: the elastic fit
+        # over its three worlds and the controller's fit (eager replicas)
+        kernels[-1]["slice20_launches"] = {p: got[name]
+                                           for p, got in slice20.items()}
         if name in bucket_rows:
             # one 4 MB bucket's shapes; launches on the overlap path
             kernels[-1]["bucket_shape"] = bucket_rows[name]

@@ -324,11 +324,18 @@ class _GroupServer:
         self.raw_bytes_received = 0
 
     def _timeout(self, what):
-        raise MXNetError(
+        """A stalled round is a presumed dead worker: raise
+        ``resilience.elastic.MembershipTimeout`` (an ``MXNetError``)
+        carrying the membership epoch, which the elastic layer reads as a
+        membership change."""
+        from .resilience.elastic import MembershipTimeout
+
+        raise MembershipTimeout(
             f"kvstore {what} stalled past {self.op_timeout}s at membership "
             f"epoch {self.membership_epoch} with {self.num_workers} "
             "worker(s) expected: presumed dead worker; deregister it "
-            "(deregister_worker) and resize")
+            "(ElasticCoordinator.kill and deregister_worker) and resize",
+            membership_epoch=self.membership_epoch)
 
     def _maybe_release_key_locked(self, key):
         """Release ``key``'s open round once every current member has

@@ -837,7 +837,17 @@ class AsyncKVStore(KVStore):
     def barrier(self):
         # counted on arrival, so never resent and without a client
         # deadline: the host bounds the round (MXNET_TPU_KV_OP_TIMEOUT)
-        self._call("barrier", retry=False, timeout=None)
+        # and answers a stalled one with a membership error, raised here
+        # as MembershipTimeout, which the elastic layer reads as a dead
+        # worker
+        try:
+            self._call("barrier", retry=False, timeout=None)
+        except MXNetError as e:
+            if "membership:" not in str(e):
+                raise
+            from .resilience.elastic import MembershipTimeout
+
+            raise MembershipTimeout(str(e)) from None
 
     def leave_group(self, rank=None):
         """Tell the host a worker leaves (this one, or a dead one by rank):

@@ -88,13 +88,30 @@ checkpoint directory) flushes a checkpoint and raises
 ``TrainingPreempted``. The chaos sites ``step.raise``, ``step.nan``,
 ``step.hang`` and ``ckpt.replica`` are in the step loop.
 
-Arguments of ``fit`` that belong to later slices of the port raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+``fit(elastic=, controller=)`` resize the world of replicas mid-run and
+close the loop from telemetry to actuation, as the JAX package does
+(``resilience/elastic.py``, ``resilience/controller.py``,
+mxnet_tpu/model.py:1368-1409,1502-1527,1790-1990,2026-2055,2108-2130,
+2395-2403): one rank a ctx entry (aliases of one device included, so a
+world of replicas runs on one card), a coordinator polled once a step
+(chaos sites, heartbeats, then any pending change), and on a change the
+replicas quiesce, the newest snapshot of the peer tier (else the newest
+checkpoint on disk) is restored onto a new :class:`_ReplicaState` and
+``_GradSync`` over the alive ranks, and the interrupted epoch is redone
+from the snapshot's step. The controller ticks once a step before the
+poll; a tier it stages is applied between two steps by rebuilding the
+exchange (residuals start at zero), and a failure to apply it freezes
+the controller, never the fit. Replica steps run eager, so a new world
+has no program to warm.
+
+``fit(shard_audit=)`` belongs to a later slice of the port and raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import logging
 import os
@@ -126,6 +143,8 @@ from .kernels import fused_adam as kfa
 from .ops.nn import batch_statistics_over
 from .resilience import chaos as chaos_mod
 from .resilience import ckpt_async as ckpt_plane
+from .resilience import controller as fleetctl_mod
+from .resilience import elastic as elastic_mod
 from .resilience import guards as guards_mod
 from .resilience import preempt as preempt_mod
 from .resilience.retry import RetryingKVStore
@@ -142,8 +161,6 @@ BASE_ESTIMATOR = object
 
 # fit() arguments of later slices -> the ROADMAP item that brings them
 _LATER_SLICES = {
-    "elastic": "A6 (resilience/ elastic, controller)",
-    "controller": "A6 (resilience/ elastic, controller)",
     "shard_audit": "A6 (analysis/)",
 }
 
@@ -1221,6 +1238,15 @@ class _ReplicaState:
         for m in self.members:
             m.restore_opt(leaves)
 
+    def set_sync(self, sync):
+        """Exchange through ``sync`` from the next step on (a retier): its
+        compression decides, as at construction, whether BatchNorm joins
+        the replicas' rows."""
+        self.grad_sync = sync
+        self.global_stats = sync.spec is None
+        for m in self.members:
+            m.grad_sync = sync
+
     def set_guard(self, cfg, scale=None):
         """One guard a replica; they see one flag and stay equal."""
         return [m.set_guard(cfg, scale) for m in self.members][0]
@@ -1429,6 +1455,8 @@ class FeedForward(BASE_ESTIMATOR):
         # fit(guards=): skipped steps, retries and the loss scale
         self.guard_stats = None
         self._warmup_step = False
+        # True during fit(elastic=): one rank a ctx entry, aliases included
+        self._rank_per_ctx = False
 
     def _symbol_for_bucket(self, bucket_key):
         """The graph of one bucket; one symbol here (bucketing trainers
@@ -1439,7 +1467,11 @@ class FeedForward(BASE_ESTIMATOR):
     @property
     def _replicas(self) -> list:
         """The ctx list's distinct devices, aliases removed, in list order
-        (mxnet_tpu/model.py:449-460): one replica each."""
+        (mxnet_tpu/model.py:449-460): one replica each. During an elastic
+        fit every entry is a rank and a replica of its own, aliases
+        included."""
+        if self._rank_per_ctx:
+            return list(self.ctx)
         return distinct_contexts(self.ctx)
 
     @property
@@ -1679,19 +1711,34 @@ class FeedForward(BASE_ESTIMATOR):
         feeds ``self.health_monitor``. ``profile`` (None: env
         ``MXNET_TPU_PROFILE``; True; window steps; a
         ``telemetry.ProfileConfig``) traces one window of steps, run eager
-        with the profiler's ranges on, into ``self.profile_report``."""
+        with the profiler's ranges on, into ``self.profile_report``.
+
+        ``elastic`` (None: env ``MXNET_TPU_ELASTIC``; True; a
+        ``resilience.ElasticCoordinator``) resizes the world of replicas
+        mid-run: it needs a ctx list (one rank an entry, aliases
+        included), ``sharded_checkpoint_dir`` and a batch every world it
+        may take divides; each step polls the coordinator, and a change
+        restores the newest snapshot of the peer tier (else the disk's)
+        onto the alive ranks and redoes the epoch from the snapshot's
+        step (``co.history`` holds each resize and its downtime).
+        ``controller`` (None: env ``MXNET_TPU_CONTROLLER``, ``dry`` to
+        recommend only; True; a ``resilience.FleetControllerConfig`` or
+        ``FleetController``) ticks the fleet controller once a step (or
+        leaves it to its own thread after ``start()``): evictions and
+        backfills go through ``elastic``'s coordinator, a tier it stages
+        is applied between two steps, and a failure freezes the
+        controller, not the fit. Its thread and the coordinator's
+        heartbeat monitor stop when fit returns or raises."""
         del work_load_list
-        given = dict(elastic=elastic, controller=controller,
-                     shard_audit=shard_audit)
-        for name, value in given.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"fit({name}=...) is not ported yet: ROADMAP "
-                    f"{_LATER_SLICES[name]}")
+        if shard_audit is not None:
+            raise NotImplementedError(
+                "fit(shard_audit=...) is not ported yet: ROADMAP "
+                f"{_LATER_SLICES['shard_audit']}")
         logger = logger or logging
         guard_cfg = guards_mod.GuardConfig.resolve(guards)
         pad_policy = compile_mod.PadPolicy.resolve(pad_policy)
         ckpt_every = ckpt_plane.resolve_every(checkpoint_every_n_steps)
+        self._rank_per_ctx = False
         dev = self._device
         replicas = self._replicas
         kv = _create_kvstore(kvstore, len(self.ctx), replicas[0])
@@ -1699,6 +1746,39 @@ class FeedForward(BASE_ESTIMATOR):
         async_kv = kv is not None and kv.type == "dist_async"
         dist_sync = kv is not None and "dist" in kv.type and \
             not async_kv and num_workers > 1
+        # elastic membership (mxnet_tpu/model.py:1368-1409): one rank a
+        # ctx entry, which the coordinator resizes over
+        elastic_co = elastic_mod.ElasticCoordinator.resolve(
+            elastic, len(self.ctx))
+        elastic_base_ctx = list(self.ctx)  # rank r -> its device, always
+        if elastic_co is not None:
+            if len(self.ctx) < 2:
+                raise MXNetError(
+                    "elastic= needs a multi-device world: give fit a ctx "
+                    "list spanning the devices the world may resize over")
+            if async_kv or num_workers > 1:
+                raise MXNetError(
+                    "elastic= resizes the world of replicas in one "
+                    "process; multi-process worker membership is the "
+                    "kvstore layer's job (membership epochs and leave/join "
+                    "ops)")
+            if sharded_checkpoint_dir is None:
+                raise MXNetError(
+                    "elastic= needs sharded_checkpoint_dir: a resize "
+                    "restores optimizer state and EF residuals from the "
+                    "CRC-manifest checkpoints")
+            if elastic_co.full_world_size != len(self.ctx):
+                raise MXNetError(
+                    f"elastic coordinator world "
+                    f"({elastic_co.full_world_size}) does not match the "
+                    f"ctx list's length ({len(self.ctx)})")
+            if elastic_co.min_world < 2:
+                raise MXNetError(
+                    "elastic= needs min_world >= 2: a resize must leave a "
+                    "world of replicas to rebuild (single-device training "
+                    "has no world to reshard onto)")
+            self._rank_per_ctx = True
+            replicas = self._replicas
         # several devices in one process: the replicas' exchange (the JAX
         # package's single-process dp mesh)
         multi = len(replicas) > 1
@@ -1784,6 +1864,13 @@ class FeedForward(BASE_ESTIMATOR):
         params = {k: self.arg_params[k] for k in param_names}
         aux = {k: self.aux_params[k] for k in aux_names}
         sync = None
+
+        def replica_sync(spec, plan_, host_params):
+            """The replicas' exchange over the current world."""
+            return _GradSync(spec, comm_kernels, host_params, axis, dev,
+                             plan=plan_, group=comm_mod.ReplicaGroup(
+                                 [c.torch_device for c in replicas]))
+
         if dist_sync:
             params, aux = self._on_device(params), self._on_device(aux)
             # rank 0's initialization wins, like kvstore.init from rank 0
@@ -1796,9 +1883,7 @@ class FeedForward(BASE_ESTIMATOR):
                              dev, plan=plan)
         elif multi:
             # every replica starts from the same host arrays
-            sync = _GradSync(comm_spec, comm_kernels, params, axis, dev,
-                             plan=plan, group=comm_mod.ReplicaGroup(
-                                 [c.torch_device for c in replicas]))
+            sync = replica_sync(comm_spec, plan, params)
         state = self._state_for(optimizer, params, aux, sync, data_names,
                                 apply_update=not async_kv)
         if resume_leaves is not None:
@@ -1839,6 +1924,36 @@ class FeedForward(BASE_ESTIMATOR):
             self.health_monitor = hmon
             logger.info("health: per-layer stats in the step over %d "
                         "layer(s) (%r)", len(health_groups), health_cfg)
+        elastic_prev_world = None
+        if elastic_co is not None:
+            # every event and metric carries the world of replicas, until
+            # fit returns (mxnet_tpu/model.py:1400-1409)
+            elastic_prev_world = (telemetry_mod.current_rank(),
+                                  telemetry_mod.world_size())
+            telemetry_mod.set_world(elastic_prev_world[0], len(replicas))
+            telemetry_mod.gauge("elastic_world_size", float(len(replicas)))
+        # the fleet controller (mxnet_tpu/model.py:1502-1527): membership
+        # levers act through the coordinator; a tier it stages is applied
+        # by this loop (apply_retier)
+        fleet_ctl = fleetctl_mod.FleetController.resolve(controller)
+        if fleet_ctl is not None:
+            world_now = len(replicas) if multi else num_workers
+            fleet_ctl.bind(
+                coordinator=elastic_co,
+                model_key=str(self._fingerprint(None)),
+                world_size=world_now,
+                comm_mode=comm_spec.mode if comm_spec is not None
+                else "none",
+                can_retier=multi and not async_kv,
+                fp32_wire_bytes=comm_mod.fp32_allreduce_wire_bytes(
+                    comm_mod.flat_size(params), world_now)
+                if world_now > 1 else 0.0,
+                health=hmon,
+                ckpt_every=(ckpt_every if sharded_checkpoint_dir is not None
+                            else None),
+                logger=logger)
+            logger.info("controller: %s (%r)", fleet_ctl.state,
+                        fleet_ctl.cfg)
         self._memory_preflight(state, sync, logger)
         tl = mfu_acct = tel_sink = mem_prev = None
         if tcfg is not None:
@@ -1898,8 +2013,10 @@ class FeedForward(BASE_ESTIMATOR):
         if sharded_checkpoint_dir is not None and ckpt_every is not None:
             writer = ckpt_plane.AsyncCheckpointWriter(sharded_checkpoint_dir,
                                                       logger=logger)
-            # the peer tier of one process (the JAX package's handle)
-            self.ckpt_replicas = ckpt_plane.ReplicaStore(1)
+            # the peer tier: one rank a replica (the JAX package's handle)
+            self.ckpt_replicas = ckpt_plane.ReplicaStore(
+                elastic_co.world_size if elastic_co is not None
+                else len(replicas) if multi else 1)
 
         def comm_ckpt():
             """The replicas' residual ledgers and their layout key."""
@@ -1971,9 +2088,185 @@ class FeedForward(BASE_ESTIMATOR):
         # dist_async: the host-clock seconds of each step's round trip
         self.async_rounds = []
         last_snapshot = -1
+        epoch = self.begin_epoch
+        resize_badput = 0.0  # seconds of the epoch lost to resizes
+
+        def quiesce():
+            """The replicas' queued work retires before their world or
+            their exchange changes."""
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        def apply_resize(ev):
+            """Commit a polled membership change (mxnet_tpu/model.py:
+            1790-1929): quiesce, restore the newest snapshot of the peer
+            tier, else the newest checkpoint on disk, onto replicas of the
+            alive ranks, re-plan the exchange, and let the loop redo the
+            snapshot's epoch from its step. The downtime is a span of kind
+            ``resize`` in the timeline and ``resize`` badput in goodput."""
+            nonlocal state, sync, plan, guard, replicas, dev, axis, \
+                num_update, skip_batches, epoch
+            t0 = time.time()
+            if batch_size % ev.world_size:
+                raise MXNetError(
+                    f"elastic resize to {ev.world_size} worker(s) "
+                    f"impossible: global batch {batch_size} is not "
+                    f"divisible by the new world; pick a batch divisible "
+                    f"by every world size the job may shrink to")
+            rspan = tl.begin_step(epoch, elastic_co.resizes, kind="resize") \
+                if tl is not None else None
+            try:
+                quiesce()
+                elastic_co.commit(ev, logger=logger)
+                self.ctx = [elastic_base_ctx[r] for r in ev.ranks]
+                if writer is not None:
+                    # queued snapshots become the disk's newest state
+                    writer.flush()
+                restored = None
+                store = self.ckpt_replicas if writer is not None else None
+                if store is not None:
+                    # a departed rank's copies are forgotten first, so a
+                    # rejoin cannot bring stale state back
+                    for r in range(store.world_size):
+                        if r not in ev.ranks:
+                            store.drop_rank(r)
+                    restored = store.restore(alive=ev.ranks)
+                if restored is not None:
+                    host_params = restored.state.get("params", {})
+                    host_aux = restored.state.get("aux", {})
+                    meta = dict(restored.meta)
+                    leaves = restored.state.get("opt")
+                    comm_saved = restored.state.get("comm")
+                    telemetry_mod.counter("ckpt_peer_restores_total")
+                    telemetry_mod.emit("checkpoint", step=restored.step,
+                                       seconds=time.time() - t0, tier="t1")
+                    logger.info("elastic: restored step %d from the "
+                                "in-memory peer tier (no disk read)",
+                                restored.step)
+                else:
+                    host_params, host_aux, _, meta, leaves, comm_saved = \
+                        ckpt_mod.load_resharded(sharded_checkpoint_dir,
+                                                None)
+                # the old world's device state goes before the new one is
+                # made: aliased replicas share one allocator
+                sync.close()
+                state = sync = guard = None
+                self._train_state = None
+                # the hooks of the old replicas' parameters make cycles
+                gc.collect()
+                replicas = self._replicas
+                dev = self._device
+                axis = len(replicas)
+                if plan is not None:
+                    plan = plan.replan(axis)
+                host = {k: torch.from_numpy(np.asarray(host_params[k]))
+                        for k in param_names}
+                sync = replica_sync(comm_spec, plan, host)
+                state = self._state_for(
+                    optimizer, host,
+                    {k: torch.from_numpy(np.asarray(host_aux[k]))
+                     for k in aux_names}, sync, data_names)
+                if leaves is not None:
+                    state.restore_opt(leaves)
+                # residuals survive only where their layout key matches,
+                # which a changed world never does
+                sync.load_comm_state(comm_saved, meta.get("comm_layout"),
+                                     logger)
+                guard = state.set_guard(guard_cfg, meta.get("loss_scale"))
+                if guard is not None:
+                    # the rolled-back device skip counter starts at 0
+                    self.guard_stats["skipped_steps"] = 0
+                if health_cfg is not None:
+                    state.enable_health(
+                        health_groups, telemetry_mod.health.loss_heads(
+                            self.symbol, data_names + label_names))
+                if mfu_acct is not None:
+                    mfu_acct.set_num_devices(axis)
+                num_update = int(meta.get("num_update", num_update))
+                # the snapshot's epoch from the batches it had trained,
+                # with the random state rewound to that step
+                epoch = int(meta.get("epoch", epoch))
+                skip_batches = int(meta.get("batches_done", 0))
+                if meta.get("rng_state") is not None:
+                    random_mod.set_state(meta["rng_state"])
+            finally:
+                if rspan is not None:
+                    rspan.end()
+            down = time.time() - t0
+            elastic_co.record_downtime(down)
+            logger.info(
+                "elastic: redoing epoch %d on %d replica(s) after %.2fs "
+                "resize (ranks %s, checkpoint step %s, %d update(s))",
+                epoch, axis, down, list(ev.ranks), meta.get("step", "?"),
+                num_update)
+
+        def apply_retier(action):
+            """A tier the controller staged (mxnet_tpu/model.py:1931-1990):
+            the exchange rebuilt on the new compression, and optionally a
+            bucket plan, between two steps; the residuals start at zero.
+            Transactional: on an exception the old exchange stays, the
+            failure counts against the controller's breaker, and training
+            goes on."""
+            nonlocal comm_spec, overlap_cfg, plan, sync
+            old = (comm_spec, overlap_cfg, plan, sync)
+            t0 = time.time()
+            try:
+                quiesce()
+                mode = action["mode"]
+                comm_spec = None if mode == "none" \
+                    else comm_mod.CompressionSpec(mode)
+                overlap_cfg = plan = None
+                if comm_spec is not None and action.get("bucket_bytes"):
+                    overlap_cfg = comm_mod.OverlapConfig(
+                        action["bucket_bytes"])
+                    plan = comm_mod.plan_overlap(
+                        {k: tuple(v.shape) for k, v in state.params.items()},
+                        comm_spec, axis, max_bytes=overlap_cfg.bucket_bytes,
+                        symbol=self.symbol)
+                if guard is not None and guard.scaled and plan is not None:
+                    raise MXNetError(
+                        "a loss scale other than 1.0 cannot take the "
+                        "overlapped exchange")
+                sync = replica_sync(comm_spec, plan, state.params)
+                state.set_sync(sync)
+                old[3].close()
+                fleet_ctl.retier_applied(action, time.time() - t0)
+                logger.info(
+                    "controller: compression re-tiered to %s%s in %.2fs "
+                    "(ratio %s)", mode,
+                    f" + overlap cap {overlap_cfg.bucket_bytes}"
+                    if overlap_cfg is not None else "",
+                    time.time() - t0, action.get("ratio"))
+            except Exception as e:  # noqa: BLE001 - the fit carries on
+                if sync is not old[3]:
+                    sync.close()
+                comm_spec, overlap_cfg, plan, sync = old
+                state.set_sync(sync)
+                fleet_ctl.actuation_failed("retier", e, logger=logger)
+
+        if elastic_co is not None and \
+                ckpt_mod.latest_step(sharded_checkpoint_dir) is None:
+            # a membership change in the first epoch needs a source to
+            # restore from: the starting state is the floor checkpoint
+            rows, comm_meta = comm_ckpt()
+            ckpt_plane.save_now(
+                sharded_checkpoint_dir,
+                num_update if ckpt_every is not None else epoch,
+                state.params, aux=state.aux, symbol=self.symbol,
+                opt_state=opt_leaves(state.opt_state), comm_state=rows,
+                extra_meta={**state_meta(epoch, skip_batches),
+                            **comm_meta})
         try:
-            for epoch in range(self.begin_epoch, self.num_epoch):
-                tic = time.time()
+            epoch_tic = None
+            while epoch < self.num_epoch:
+                # the epoch's clock survives a redo: the aborted attempt
+                # and the resize price into this epoch's wall and its
+                # resize badput, never into throughput
+                if epoch_tic is None:
+                    epoch_tic = time.time()
+                tic = epoch_tic
+                attempt_tic = time.time()
+                resize_ev = None
                 compile_snap = compile_mod.registry().snapshot()
                 span_base = len(tl.spans) if tl is not None else 0
                 ckpt_base = _ckpt_seconds()
@@ -1995,6 +2288,23 @@ class FeedForward(BASE_ESTIMATOR):
                             skip_batches -= 1
                             nbatch += 1
                             continue
+                        if fleet_ctl is not None:
+                            # the policy tick, then a staged tier; the
+                            # membership moves it makes surface through
+                            # the elastic poll below
+                            if not fleet_ctl.threaded:
+                                fleet_ctl.tick()
+                            retier_act = fleet_ctl.take_retier()
+                            if retier_act is not None:
+                                apply_retier(retier_act)
+                        if elastic_co is not None:
+                            # once a step: chaos sites, heartbeat expiry,
+                            # then a pending change, which ends the attempt
+                            elastic_co.chaos_poll()
+                            elastic_co.check_heartbeats()
+                            resize_ev = elastic_co.poll()
+                            if resize_ev is not None:
+                                break
                         span = tl.begin_step(epoch, nbatch) \
                             if tl is not None else None
                         if preempt is not None and \
@@ -2130,9 +2440,24 @@ class FeedForward(BASE_ESTIMATOR):
                                 symbol=self.symbol)
                             writer.submit(snap)
                             writer.note_step(num_update)
-                            # the peer copy can be lost mid-replication
-                            if not chaos_mod.fires("ckpt.replica"):
-                                self.ckpt_replicas.replicate(0, snap)
+                            # to every alive rank's peer; a copy can be
+                            # lost mid-replication
+                            store = self.ckpt_replicas
+                            for r in (elastic_co.alive
+                                      if elastic_co is not None
+                                      else range(store.world_size)):
+                                if not chaos_mod.fires("ckpt.replica"):
+                                    store.replicate(r, snap)
+                        if writer is not None and fleet_ctl is not None:
+                            ckpt_act = fleet_ctl.take_ckpt_cadence()
+                            if ckpt_act is not None:
+                                # a staged cadence: a step-loop counter,
+                                # nothing is rebuilt
+                                ckpt_every = max(1, int(ckpt_act["every"]))
+                                fleet_ctl.ckpt_cadence_applied(ckpt_act)
+                                logger.info("controller: checkpoint "
+                                            "cadence -> every %d step(s)",
+                                            ckpt_every)
                         if batch_end_callback is not None:
                             param = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                                   eval_metric=eval_metric)
@@ -2147,6 +2472,12 @@ class FeedForward(BASE_ESTIMATOR):
                 finally:
                     feed.close()
                     self.feed_waits.extend(feed.waits)
+                if resize_ev is not None:
+                    # the attempt's steps are redone on the new world: they
+                    # and the resize are this epoch's resize badput
+                    apply_resize(resize_ev)
+                    resize_badput += time.time() - attempt_tic
+                    continue
                 if prof_session is not None and prof_session.open:
                     # the epoch ended inside the window: close with what
                     # was captured
@@ -2187,6 +2518,7 @@ class FeedForward(BASE_ESTIMATOR):
                             d for sp in spans_e for n, _, d in sp.phases()
                             if n == "data_wait"),
                         checkpoint_seconds=_ckpt_seconds() - ckpt_base,
+                        resize_seconds=resize_badput,
                         profile_seconds=profile_badput, logger=logger)
                 profile_badput = 0.0
                 if guard is not None:
@@ -2254,7 +2586,18 @@ class FeedForward(BASE_ESTIMATOR):
                     for cb in _as_list(epoch_end_callback):
                         cb(epoch, self.symbol, self.arg_params,
                            self.aux_params)
+                epoch_tic = None
+                resize_badput = 0.0
+                epoch += 1
         finally:
+            if fleet_ctl is not None:
+                # no controller thread outlives the fit
+                fleet_ctl.stop()
+                fleet_ctl.unbind()
+            if elastic_co is not None:
+                elastic_co.stop_heartbeat_monitor()
+                telemetry_mod.set_world(*elastic_prev_world)
+            self._rank_per_ctx = False
             if watchdog is not None:
                 watchdog.stop()
             if preempt is not None:

@@ -15,11 +15,22 @@ Counterpart of ``mxnet_tpu/resilience/``:
                                        and ``latest_step`` skipping them
   work lost to coarse checkpoints   -> ckpt_async: snapshots, the peer
                                        tier and the step-granular disk tier
+  worker churn (die / rejoin)       -> elastic.ElasticCoordinator: resize
+                                       the world of replicas mid-run
+                                       without a process restart
+                                       (``fit(elastic=)``; kvstore stalls
+                                       raise MembershipTimeout, a detected
+                                       membership change)
+  nobody watching the dashboards    -> controller.FleetController: the
+                                       policy loop from telemetry to
+                                       actuation (evict blamed stragglers,
+                                       backfill, retier the compression,
+                                       world size by goodput per chip,
+                                       checkpoint cadence) with
+                                       hysteresis, cooldowns, dry run and
+                                       its own circuit breaker
+                                       (``fit(controller=)``)
   proving any of it works           -> chaos (seeded fault injection)
-
-Elastic resizing and the fleet controller (``elastic.py``,
-``controller.py``) are a later item of the port: ``fit(elastic=...)`` and
-``fit(controller=...)`` raise naming ROADMAP A6.
 """
 
 from .chaos import (Chaos, ChaosConfig, TransientError, TransientStepError,
@@ -28,6 +39,11 @@ from . import chaos
 from . import ckpt_async
 from .ckpt_async import (AsyncCheckpointWriter, ReplicaStore, Snapshot,
                          capture_snapshot)
+from . import controller
+from . import elastic
+from .controller import FleetController, FleetControllerConfig
+from .elastic import (ElasticCoordinator, MembershipChanged,
+                      MembershipTimeout, ResizeEvent)
 from .guards import GuardConfig, StepTimeoutError, StepWatchdog
 from .preempt import PreemptionHandler, TrainingPreempted
 from .retry import CircuitBreaker, CircuitOpenError, RetryingKVStore, \
@@ -37,6 +53,9 @@ __all__ = ["chaos", "Chaos", "ChaosConfig", "chaos_scope",
            "TransientError", "TransientStepError",
            "ckpt_async", "AsyncCheckpointWriter", "ReplicaStore",
            "Snapshot", "capture_snapshot",
+           "controller", "FleetController", "FleetControllerConfig",
+           "elastic", "ElasticCoordinator", "MembershipChanged",
+           "MembershipTimeout", "ResizeEvent",
            "GuardConfig", "StepTimeoutError", "StepWatchdog",
            "PreemptionHandler", "TrainingPreempted",
            "CircuitBreaker", "CircuitOpenError", "RetryingKVStore",

@@ -34,6 +34,10 @@ Sites wired through the port:
                                         dispatching the train step
   ``step.hang``                         fit: a hung step (host sleep until
                                         the watchdog trips)
+  ``elastic.kill``                      ElasticCoordinator.chaos_poll: the
+                                        highest alive rank dies
+  ``elastic.rejoin``                    ElasticCoordinator.chaos_poll: every
+                                        departed rank rejoins
 
 Triggers are a probability in [0, 1) (each query of the site draws from a
 per-site ``random.Random`` seeded by ``(seed, site)``) or a set of

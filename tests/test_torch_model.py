@@ -276,7 +276,7 @@ def test_save_load_predict_score(tmp_path):
         mt.load_checkpoint(prefix, 3)
 
 
-LATER = ["elastic", "controller", "shard_audit"]
+LATER = ["shard_audit"]
 
 
 @pytest.mark.parametrize("arg", LATER)
