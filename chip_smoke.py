@@ -363,6 +363,23 @@ together), and then:
    exchange alone runs no slab-sized quantize pass as a torch operation
    with the kernels (``comm.quantize_pass_count``: 0) and some with the
    codec;
+10e. verify: full-width ResNet-50 at batch 32 bound for training on the
+   card in f32 and bf16 with ``MXNET_TPU_VERIFY`` on and off: the median
+   host ms of a bind each way and of ``Symbol.verify`` alone, and its
+   share of one captured training step (forward and backward replayed);
+   a seeded shape conflict raises MX402 naming its node;
+10f. program_audit: ``analysis.audit_executor`` of the bf16 training
+   executor: its findings (rule, node, range) those of the same graph on
+   the CPU, its contraction FLOPs a ``FlopCounter``'s, a ``_Native`` node
+   one MX501; the launches and host seconds around it;
+10g. shard_audit: comm_table's two ranks, int8 and twobit, each fit of 2
+   steps without and then with ``shard_audit=True``: each audited fit
+   trains with one clean report (matched rows, BatchNorm's averaged
+   statistics a planned row, int8's codes and scales a named note of
+   twice the plan's collectives at the plan's bytes), and a twobit fit
+   held to int8's plan raises MX802 with the parameters bitwise rank 0's
+   initial ones; prints what the audit adds to a fit and each rank's
+   launches;
 11. lm_mesh: two rank processes (spawn, gloo through pinned host buffers)
    share the card and train the full-width transformer LM (global batch 8
    x 2048 tokens, bf16) for 4 steps each through ``make_train_step(mesh,
@@ -409,7 +426,9 @@ together), and then:
    counted step, warm-up, replays and window steps);
    ``slice19_launches``: 5p's first guarded fit, by replay, and 10d's
    profiled fits (rank 0, both modes); ``slice20_launches``: 5q's elastic
-   fit over its three worlds and 5r's first fit (eager replicas); rows
+   fit over its three worlds and 5r's first fit (eager replicas);
+   ``slice21_launches``: 10e's binds, 10f's audit and 10g's audited fits
+   (rank 0, both modes, the audit's step included); rows
    3-7 also their times, bound, library time
    and the launch floor at one bucket's shape and their launches on the
    overlap path, ``bucket_shape``);
@@ -7394,6 +7413,312 @@ def phase_comm_table(torch, comm):
     return launches
 
 
+# -- slice 21: the analysis passes ------------------------------------------
+
+VERIFY_REPS = 7             # binds a setting, the median kept
+SHARD_AUDIT_STEPS = 2       # steps of each audited fit
+
+
+def resnet_tensors(torch, args, aux, batch_x, batch_y, dtype, device="cuda"):
+    """ResNet-50's arguments (labels f32), zero gradients and auxiliary
+    states at ``dtype`` on ``device``: what a training bind takes."""
+    values = {k: torch.from_numpy(v).to(device, dtype) for k, v in args.items()}
+    values["data"] = torch.from_numpy(batch_x).to(device, dtype)
+    values["softmax_label"] = torch.from_numpy(batch_y).to(device)
+    return (values, {k: torch.zeros_like(values[k]) for k in args},
+            {k: torch.from_numpy(v).to(device, dtype) for k, v in aux.items()})
+
+
+def bind_resnet(mt, net, tensors, device="cuda"):
+    """A training bind of ResNet-50 over ``resnet_tensors``' tensors,
+    gradients written."""
+    values, grads, aux = tensors
+    return net.bind(mt.gpu(0) if device == "cuda" else mt.cpu(), values,
+                    args_grad=grads,
+                    grad_req={k: "write" if k in grads else "null"
+                              for k in net.list_arguments()},
+                    aux_states=aux)
+
+
+def phase_verify(torch, mt):
+    """Graph verification on every bind: full-width ResNet-50 at batch 32
+    bound on the card in f32 and bf16 with ``MXNET_TPU_VERIFY`` on and off,
+    the median host time of each bind and of ``Symbol.verify`` alone, and
+    verify's share of one captured training step (forward and backward
+    replayed, device time); a seeded shape conflict raises MXNetError
+    naming MX402 and its node. Returns the launches (none: binds run no
+    kernel) and the bf16 executor, for program_audit."""
+    import os
+
+    from mxnet_tpu_torch.base import MXNetError
+
+    net, args, aux, batch_x, batch_y = resnet50_case()
+    reset_launches()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tensors = resnet_tensors(torch, args, aux, batch_x, batch_y, dtype)
+        binds = {}
+        for flag in ("1", "0"):
+            os.environ["MXNET_TPU_VERIFY"] = flag
+            samples = []
+            for _ in range(VERIFY_REPS):
+                t0 = time.perf_counter()
+                bind_resnet(mt, net, tensors)
+                samples.append(time.perf_counter() - t0)
+            binds[flag] = statistics.median(samples) * 1e3
+        del os.environ["MXNET_TPU_VERIFY"]
+        ex = bind_resnet(mt, net, tensors)
+        shapes = {k: tuple(v.shape) for k, v in ex.arg_dict.items()}
+        dtypes = {k: mt.ops.registry.as_dtype(v.dtype)
+                  for k, v in ex.arg_dict.items()}
+        samples = []
+        for _ in range(VERIFY_REPS):
+            t0 = time.perf_counter()
+            findings = net.verify(arg_shapes=shapes, arg_dtypes=dtypes)
+            samples.append(time.perf_counter() - t0)
+        verify_ms = statistics.median(samples) * 1e3
+        require(not [f for f in findings if f.is_error],
+                f"verify: ResNet-50 {dtype} verifies clean")
+        ex.precompile(is_train=True)
+
+        def step():
+            ex.forward(is_train=True)
+            ex.backward()
+
+        step_ms = time_ms(torch, step, reps=5)
+        out[str(dtype).split(".")[-1]] = (ex, {
+            "bind_ms_verify_on": binds["1"], "bind_ms_verify_off": binds["0"],
+            "verify_ms": verify_ms, "captured_step_ms": step_ms,
+            "verify_share_of_step": verify_ms / step_ms,
+            "findings": sorted({f.rule.id for f in findings})})
+    # a seeded shape conflict: the first convolution's weight one filter short
+    weight = next(k for k in net.list_arguments() if k.endswith("_weight"))
+    node = weight[:-len("_weight")]
+    bad = {k: np.zeros((v.shape[0] - 1,) + v.shape[1:], np.float32)
+           if k == weight else v for k, v in args.items()}
+    try:
+        bind_resnet(mt, net, resnet_tensors(torch, bad, aux, batch_x, batch_y,
+                                            torch.float32))
+    except MXNetError as e:
+        message = str(e)
+    else:
+        message = ""
+    require("MX402" in message and f"'{node}'" in message,
+            f"verify: a seeded shape conflict at {node} raised MX402 naming "
+            f"it ({message[:200]!r})")
+    launches = read_launches()
+    emit({"phase": "verify", "model": "resnet50", "batch": BATCH,
+          **{dt: row for dt, (_, row) in out.items()},
+          "seeded_conflict": {"node": node, "rule": "MX402"},
+          "launches": launches})
+    return launches, out["bfloat16"][0]
+
+
+def phase_program_audit(torch, mt, ex):
+    """The program audit of verify's bf16 ResNet-50 training executor on
+    the card: its findings (rule, node, range) equal to the CPU's audit of
+    the same graph (batch 2) and all MX502, its contraction FLOPs equal to
+    a ``FlopCounter`` over the same forward, a ``_Native`` node one MX501,
+    and the launches and host seconds around the audit."""
+    import re
+
+    from mxnet_tpu_torch import analysis
+    from mxnet_tpu_torch.executor import _build_graph_fn
+    from mxnet_tpu_torch.telemetry.mfu import FlopCounter
+
+    def keyed(findings):
+        return sorted((f.rule.id, f.node,
+                       (re.findall(r" in '([^']+)'$", f.message) or [""])[0])
+                      for f in findings)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    card = analysis.audit_executor(ex, is_train=True,
+                                   intended_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    audit_s = time.perf_counter() - t0
+    launches = read_launches()
+    net = ex._symbol
+    fn = _build_graph_fn(net, True)
+    args = dict(ex.arg_dict)
+    aux = {k: v.clone() for k, v in ex.aux_dict.items()}
+    dev = ex._ctx.torch_device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    counter = FlopCounter()
+    with counter, torch.no_grad():
+        fn(args, aux, gen)
+    require(card.totals["contraction_flops"] == counter.contraction_flops > 0,
+            f"program_audit: contraction FLOPs {card.totals} against the "
+            f"FlopCounter's {counter.contraction_flops}")
+    _, cargs, caux, batch_x, batch_y = resnet50_case()
+    host_ex = bind_resnet(mt, net, resnet_tensors(
+        torch, cargs, caux, batch_x[:2], batch_y[:2], torch.bfloat16, "cpu"),
+        device="cpu")
+    host = analysis.audit_executor(host_ex, is_train=True,
+                                   intended_dtype=torch.bfloat16)
+    require(keyed(card.findings) == keyed(host.findings)
+            and {f.rule.id for f in card.findings} <= {"MX502"},
+            f"program_audit: card findings {keyed(card.findings)} against "
+            f"the CPU's {keyed(host.findings)}")
+
+    class Twice(mt.operator.NumpyOp):
+        def forward(self, in_data, out_data):
+            out_data[0][:] = 2 * in_data[0]
+
+    native = Twice()(data=mt.sym.Variable("data"), name="twice")
+    nex = native.bind(mt.gpu(0), {"data": torch.ones(4, 3, device=dev)})
+    nrep = analysis.audit_executor(nex)
+    require([(f.rule.id, f.node) for f in nrep.findings]
+            == [("MX501", "twice")],
+            f"program_audit: a _Native node gives one MX501 "
+            f"({[f.format() for f in nrep.findings]})")
+    emit({"phase": "program_audit", "model": "resnet50", "batch": BATCH,
+          "dtype": "bfloat16", "findings": keyed(card.findings),
+          "cpu_findings_equal": True, "totals": card.totals,
+          "flop_counter_contraction_flops": counter.contraction_flops,
+          "native_findings": [f.format() for f in nrep.findings],
+          "audit_host_s": audit_s, "launches": launches})
+    return launches
+
+
+def shard_audit_rank(torch, rank, world, mode, audit=True, wrong_plan=None):
+    """One rank's fit: dp_overlap's model, rows and overlapped exchange
+    with the comm kernels for SHARD_AUDIT_STEPS steps of
+    ``fit(shard_audit=audit)``; with ``wrong_plan`` the audit holds the
+    step to that mode's plan and must raise MX802 before a step moves a
+    parameter. Returns the reports, the launches read around the fit, the
+    audit's seconds and the fit's."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import comm
+    from mxnet_tpu_torch.base import MXNetError
+
+    net, args, aux, X, Y = dp_rank_data(rank, world)
+    Xs, Ys = repeat_batch(X, Y, SHARD_AUDIT_STEPS)
+    model = mt.FeedForward(net, ctx=mt.gpu(0), num_epoch=1, optimizer="adam",
+                           fused=True, learning_rate=LEARNING_RATE,
+                           arg_params=args, aux_params=aux)
+    if wrong_plan is not None:
+        def plan_of(sync):
+            return (comm.allreduce_plan(sync.size, sync.num_workers,
+                                        wrong_plan),
+                    comm.CompressionSpec(wrong_plan))
+
+        model._shard_audit_plan = plan_of
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    error = None
+    try:
+        model.fit(mt.io.NDArrayIter(Xs, Ys, batch_size=BATCH),
+                  kvstore="dist_sync", compression=mode, comm_kernels=True,
+                  overlap=DP_OVERLAP_BUCKET_BYTES, shard_audit=audit)
+    except MXNetError as e:
+        error = str(e)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    res = {"launches": read_launches(), "fit_s": fit_s,
+           "audit_s": model.shard_audit_seconds, "error": error,
+           "reports": [{
+               "findings": [f.format() for f in rep.findings],
+               "matched": rep.reconciliation.get("matched"),
+               "stat_rows": rep.reconciliation.get("stat_rows"),
+               "unplanned": rep.reconciliation.get("unplanned"),
+               "notes": rep.reconciliation.get("notes"),
+               "aux_elements": rep.reconciliation.get("aux_elements"),
+               "table": rep.table} for rep in model.shard_audit_reports]}
+    if wrong_plan is not None:
+        # every rank starts from rank 0's weights (the broadcast)
+        first = dp_rank_data(0, world)[1]
+        res["params_initial"] = all(
+            np.array_equal(v.detach().cpu().numpy(), first[k])
+            for k, v in model._train_state.params.items())
+    return res
+
+
+def shard_audit_body(torch, rank, world):
+    """Each mode's fit without the audit, then with it (the first warms the
+    process, so the difference is what the audit adds), then a twobit fit
+    held to int8's plan."""
+    out = {}
+    for mode in DP_MODES:
+        out[f"{mode}_plain"] = shard_audit_rank(torch, rank, world, mode,
+                                                audit=None)
+        out[mode] = shard_audit_rank(torch, rank, world, mode)
+    out["wrong_plan"] = shard_audit_rank(torch, rank, world, "twobit",
+                                         wrong_plan="int8")
+    return out
+
+
+def phase_shard_audit(torch, comm):
+    """The sharding audit through ``fit(shard_audit=True)`` on comm_table's
+    two ranks (int8 and twobit, overlap and the comm kernels on): each fit
+    trains, its one report holds matched rows and no finding, int8's codes
+    and scales a named note (twice the plan's collectives, payload and wire
+    bytes the plan's), BatchNorm's averaged statistics a planned row; a
+    twobit fit held to int8's plan raises MX802 with the parameters
+    bitwise the initial ones. Prints what the audit adds to a fit: the
+    audited fit's seconds less the same fit's without it, run just before
+    in the same process. Returns rank 0's launches of the audited fits,
+    both modes."""
+    ranks = run_ranks(torch, shard_audit_body, DP_WORLD, DP_TIMEOUT_S,
+                      "shard_audit")
+    launches = {n: 0 for n in port_kernels()}
+    for mode in DP_MODES:
+        for rank, res in enumerate(ranks):
+            got = res[mode]
+            require(res[f"{mode}_plain"]["error"] is None
+                    and res[f"{mode}_plain"]["reports"] == [],
+                    f"shard_audit {mode} rank {rank}: the fit without the "
+                    f"audit trained unaudited")
+            require(got["error"] is None and len(got["reports"]) == 1,
+                    f"shard_audit {mode} rank {rank}: trained with one "
+                    f"report ({got['error']})")
+            (rep,) = got["reports"]
+            require(rep["findings"] == [] and rep["matched"]
+                    and rep["unplanned"] == [] and rep["aux_elements"] > 0,
+                    f"shard_audit {mode} rank {rank}: report {rep}")
+            notes = {r["op"]: r for r in rep["notes"]}
+            want = {"all-to-all", "all-gather"} if mode == "int8" else set()
+            require(set(notes) == want and all(
+                r["profiled_count"] == 2 * r["plan_count"]
+                and r["payload_bytes"] == r["plan_payload_bytes"]
+                and r["wire_bytes"] == r["plan_wire_bytes"]
+                for r in notes.values()),
+                f"shard_audit {mode} rank {rank}: notes {rep['notes']}")
+        r0 = ranks[0][mode]
+        emit({"phase": "shard_audit", "mode": mode, "model": "resnet50",
+              "world": DP_WORLD, "steps": SHARD_AUDIT_STEPS,
+              "bucket_bytes": DP_OVERLAP_BUCKET_BYTES,
+              "matched_rows": len(r0["reports"][0]["matched"]),
+              "notes": r0["reports"][0]["notes"],
+              "stat_rows": r0["reports"][0]["stat_rows"],
+              "aux_elements": r0["reports"][0]["aux_elements"],
+              "audit_s": [r[mode]["audit_s"] for r in ranks],
+              "fit_s": [r[mode]["fit_s"] for r in ranks],
+              "fit_s_without_audit": [r[f"{mode}_plain"]["fit_s"]
+                                      for r in ranks],
+              "audit_adds_s": [r[mode]["fit_s"] - r[f"{mode}_plain"]["fit_s"]
+                               for r in ranks],
+              "launches": [r[mode]["launches"] for r in ranks]})
+        for name, count in r0["launches"].items():
+            launches[name] += count
+    for rank, res in enumerate(ranks):
+        got = res["wrong_plan"]
+        require(got["error"] is not None and "MX802" in got["error"]
+                and got["params_initial"],
+                f"shard_audit wrong plan rank {rank}: raised MX802 with the "
+                f"parameters initial ({got['error']}, "
+                f"{got.get('params_initial')})")
+    emit({"phase": "shard_audit", "mode": "twobit_on_int8_plan",
+          "error": ranks[0]["wrong_plan"]["error"][:300],
+          "params_initial": True,
+          "audit_s": [r["wrong_plan"]["audit_s"] for r in ranks]})
+    for name in ("quant_int8", "dequant_sum_int8"):
+        require(launches[name] > 0, f"shard_audit launched {name}")
+    return launches
+
+
 # -- slice 20: elastic resizing and the fleet controller ----------------------
 
 ELASTIC_WORLD = 4           # ranks: [gpu(0)] * 4, aliased replicas
@@ -7882,6 +8207,14 @@ def main() -> int:
     slice13["dp_async"] = phase_dp_async(torch, mt)
     slice16["ctx_list"] = phase_ctx_list(torch, mt, comm, ck)
     slice19["comm_table"] = phase_comm_table(torch, comm)
+    torch.cuda.empty_cache()
+    slice21 = {}
+    slice21["verify"], audit_ex = phase_verify(torch, mt)
+    slice21["program_audit"] = phase_program_audit(torch, mt, audit_ex)
+    del audit_ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    slice21["shard_audit"] = phase_shard_audit(torch, comm)
     for name in ("fused_adam", "quant_int8", "quant_twobit",
                  "dequant_sum_int8", "dequant_sum_twobit", "dequant_int8"):
         require(sum(got[name] for got in slice19.values()) > 0,
@@ -7964,6 +8297,11 @@ def main() -> int:
         # over its three worlds and the controller's fit (eager replicas)
         kernels[-1]["slice20_launches"] = {p: got[name]
                                            for p, got in slice20.items()}
+        # the slice 21 paths, each read around itself: the binds, the
+        # program audit and the audited fits (rank 0, int8 and twobit
+        # together, the audit's step included)
+        kernels[-1]["slice21_launches"] = {p: got[name]
+                                           for p, got in slice21.items()}
         if name in bucket_rows:
             # one 4 MB bucket's shapes; launches on the overlap path
             kernels[-1]["bucket_shape"] = bucket_rows[name]

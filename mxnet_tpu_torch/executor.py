@@ -24,10 +24,10 @@ import torch
 import torch.utils.checkpoint
 
 from . import random as _random
-from .base import MXNetError, env_int, env_str
+from .base import MXNetError, env_bool, env_int, env_str
 from .context import Context, current_context
 from .convert import to_tensor
-from .ops.registry import DrawTape
+from .ops.registry import DrawTape, as_dtype
 from .telemetry import profiling as _profiling
 from .utils import compile as compile_mod
 
@@ -458,6 +458,16 @@ class Executor:
             self.grad_req = dict(_normalize(arg_names, grad_req, "grad_req"))
         for n in arg_names:
             self.grad_req.setdefault(n, "null")
+        # graph verification before the bind (mxnet_tpu/executor.py:
+        # 388-400): shape and dtype inference against the bound tensors,
+        # so a conflict fails here with its op named; host work over
+        # shapes and dtypes only. MXNET_TPU_VERIFY=0 turns it off.
+        if env_bool("MXNET_TPU_VERIFY", True):
+            symbol.verify(
+                arg_shapes={n: tuple(t.shape)
+                            for n, t in self.arg_dict.items()},
+                arg_dtypes={n: as_dtype(t.dtype)
+                            for n, t in self.arg_dict.items()})
         self._fwd_fns = {}  # is_train -> graph function
         self._eval_program = None  # the captured eval forward (precompile)
         self._eval_label = None

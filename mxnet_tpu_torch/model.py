@@ -104,8 +104,12 @@ exchange (residuals start at zero), and a failure to apply it freezes
 the controller, never the fit. Replica steps run eager, so a new world
 has no program to warm.
 
-``fit(shard_audit=)`` belongs to a later slice of the port and raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+``fit(shard_audit=)`` and ``precompile(shard_audit=)`` (or
+``MXNET_TPU_SHARD_AUDIT``) audit each program of a fit with more than one
+replica or rank before its first real step (``analysis/sharding.py``):
+one step on zero inputs under the profiler, its collectives reconciled
+against the exchange's plan, then every tensor, residual, guard counter
+and generator it moved put back; a drift raises MXNetError naming MX802.
 """
 
 from __future__ import annotations
@@ -158,12 +162,6 @@ __all__ = ["FeedForward", "save_checkpoint", "load_checkpoint",
 
 # the base class of FeedForward (mxnet_tpu/model.py:66)
 BASE_ESTIMATOR = object
-
-# fit() arguments of later slices -> the ROADMAP item that brings them
-_LATER_SLICES = {
-    "shard_audit": "A6 (analysis/)",
-}
-
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
     """Write ``prefix-symbol.json`` and ``prefix-%04d.params`` (names
@@ -381,6 +379,22 @@ class _GradSync:
             views = comm_mod.flat_views(flat, self.shapes)
             for k, t in p.items():
                 t.grad = views[k]
+
+    def residual_copies(self):
+        """Copies of the residual rows (:meth:`comm_state`'s), or None."""
+        state, _ = self.comm_state()
+        return None if state is None else \
+            {k: v.clone() for k, v in state.items()}
+
+    def restore_residuals(self, rows):
+        """Put back rows :meth:`residual_copies` took."""
+        if rows is None:
+            return
+        if self.schedule is not None:
+            self.schedule.load_residuals(rows)
+            return
+        for m, r in enumerate(self._rows):
+            r.copy_(rows["__fused__"][m:m + 1].to(r.device))
 
     def finish_backward(self):
         """After backward: under a plan, start the buckets backward left
@@ -1457,6 +1471,13 @@ class FeedForward(BASE_ESTIMATOR):
         self._warmup_step = False
         # True during fit(elastic=): one rank a ctx entry, aliases included
         self._rank_per_ctx = False
+        # fit/precompile(shard_audit=): the reports of the last fit, and
+        # the seconds the audits' steps took
+        self.shard_audit_reports = []
+        self.shard_audit_seconds = 0.0
+        # False until a fit's first step: a fit that raises before it puts
+        # the telemetry world back
+        self._fit_stepping = False
 
     def _symbol_for_bucket(self, bucket_key):
         """The graph of one bucket; one symbol here (bucketing trainers
@@ -1625,6 +1646,106 @@ class FeedForward(BASE_ESTIMATOR):
         self._warmup_step = not cap.captured and cap.calls < cap.warmup
         return prog.run(arrays)
 
+    @staticmethod
+    def _shard_audit_plan(sync):
+        """The closed-form plan ``sync`` registers with the comm registry
+        (the per-bucket wire plan under overlap, else ``allreduce_plan``)
+        and its compression: what the shard audit holds a step to."""
+        if sync.plan is not None:
+            return sync.plan.wire_plan(), sync.spec
+        return comm_mod.allreduce_plan(sync.size, sync.num_workers,
+                                       sync.spec), sync.spec
+
+    @staticmethod
+    def _step_snapshot(state):
+        """Copies of everything one training step of ``state`` moves
+        (each member's parameters, auxiliary states, optimizer state and
+        guard, the exchange's residuals, the random state); returns the
+        function that puts them back and forgets the step in the comm
+        registry."""
+        members = getattr(state, "members", [state])
+        sync = state.grad_sync
+        snaps = [m.snapshot() for m in members]
+        guards = []
+        with torch.no_grad():
+            for m in members:
+                g = m.guard
+                if g is not None:
+                    guards.append((g, {k: v.clone()
+                                       for k, v in g.gstate.items()},
+                                   None if g.counts is None
+                                   else g.counts.clone(), g.finite.clone()))
+        rows = sync.residual_copies()
+
+        def restore():
+            for m, snap in zip(members, snaps):
+                m.restore(snap)
+            with torch.no_grad():
+                for g, gstate, counts, finite in guards:
+                    for k, v in gstate.items():
+                        g.gstate[k].copy_(v)
+                    if counts is not None:
+                        g.counts.copy_(counts)
+                    g.finite.copy_(finite)
+            sync.restore_residuals(rows)
+            comm_mod.registry().record_step(sync.LABEL, -1)
+
+        return restore
+
+    def _shard_audit_program(self, state, arrays, bucket_key, data_names,
+                             lr, *, raise_on_error=True, logger=None):
+        """The sharding audit of one program (analysis/sharding.py,
+        mxnet_tpu/model.py:2855-2893): one step of ``state`` on zero inputs
+        of ``arrays``' shapes under the profiler, its collectives reconciled
+        against the plan its exchange registers, then everything the step
+        moved put back, so no real step runs before a drift raises.
+        Returns the report; raises MXNetError on an error-grade finding
+        when ``raise_on_error``. The seconds it took add up in
+        ``self.shard_audit_seconds``."""
+        from .analysis import sharding as shard_mod
+
+        log = logger or logging
+        t0 = time.perf_counter()
+        sync = state.grad_sync
+        plan, spec = self._shard_audit_plan(sync)
+        members = getattr(state, "members", [state])
+        # the members average their float auxiliary states unless
+        # BatchNorm took every member's rows (replicas or ranks)
+        averages_aux = not getattr(state, "global_stats",
+                                   getattr(state, "_rank_stats", False))
+        aux_elements = sum(v.numel() for v in members[0].aux.values()
+                           if v.is_floating_point()) if averages_aux else 0
+        zeros = {k: v.clone() if k == "__num_valid__" else torch.zeros_like(v)
+                 for k, v in arrays.items()}
+        dev = state.device
+        label = self._label("train_step", bucket_key)
+        restore = self._step_snapshot(state)
+        try:
+            state.prepare(lr)
+
+            def step():
+                state.step(zeros, bucket_key, data_names)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+
+            report = shard_mod.audit_step_program(
+                step, plan=plan, compression=spec,
+                axis_size=sync.num_workers, aux_elements=aux_elements)
+        finally:
+            restore()
+        self.shard_audit_seconds += time.perf_counter() - t0
+        for f in report.findings:
+            log.warning("shard audit [%s]: %s", label, f.format())
+        if raise_on_error and report.errors:
+            first = report.errors[0]
+            raise MXNetError(
+                f"shard audit [{label}]: the step's collective set drifted "
+                f"from the declared comm plan ({len(report.errors)} "
+                f"error(s); first: {first.rule.id} {first.message}). Fix "
+                f"the drift or disable the gate (shard_audit=False / unset "
+                f"MXNET_TPU_SHARD_AUDIT)")
+        return report
+
     def _resume(self, directory, logger):
         """Load the newest valid checkpoint under ``directory`` into the
         trainer's host parameters; returns ``(num_update, batches_done,
@@ -1729,11 +1850,29 @@ class FeedForward(BASE_ESTIMATOR):
         is applied between two steps, and a failure freezes the
         controller, not the fit. Its thread and the coordinator's
         heartbeat monitor stop when fit returns or raises."""
-        del work_load_list
-        if shard_audit is not None:
-            raise NotImplementedError(
-                "fit(shard_audit=...) is not ported yet: ROADMAP "
-                f"{_LATER_SLICES['shard_audit']}")
+        # a fit that raises before its first step leaves the process's
+        # telemetry world as it found it: the kvstore it made set the
+        # world, and goes with the fit
+        world = (telemetry_mod.current_rank(), telemetry_mod.world_size())
+        self._fit_stepping = False
+        try:
+            return self._fit(
+                X, y, eval_data, eval_metric, epoch_end_callback,
+                batch_end_callback, kvstore, logger, batch_size,
+                sharded_checkpoint_dir, guards, pad_policy, compression,
+                overlap, comm_kernels, telemetry, elastic, controller, health,
+                profile, shard_audit, checkpoint_every_n_steps)
+        except BaseException:
+            if not self._fit_stepping:
+                telemetry_mod.set_world(*world)
+            raise
+
+    def _fit(self, X, y, eval_data, eval_metric, epoch_end_callback,
+             batch_end_callback, kvstore, logger, batch_size,
+             sharded_checkpoint_dir, guards, pad_policy, compression, overlap,
+             comm_kernels, telemetry, elastic, controller, health, profile,
+             shard_audit, checkpoint_every_n_steps):
+        """The body of :meth:`fit`."""
         logger = logger or logging
         guard_cfg = guards_mod.GuardConfig.resolve(guards)
         pad_policy = compile_mod.PadPolicy.resolve(pad_policy)
@@ -1903,6 +2042,15 @@ class FeedForward(BASE_ESTIMATOR):
         reason = self._eager_reason(dist_sync, async_kv)
         if reason is not None:
             compile_mod.note_eager(reason, logger)
+        # the sharding audit (mxnet_tpu/model.py:1338-1346): each program
+        # of a fit with more than one replica or rank is audited once, by
+        # a step put back after, before its first real step
+        from .analysis.sharding import shard_audit_enabled
+
+        shard_audit_on = shard_audit_enabled(shard_audit)
+        shard_audited = set()
+        self.shard_audit_reports = []
+        self.shard_audit_seconds = 0.0
         health_cfg = telemetry_mod.HealthConfig.resolve(health)
         profile_cfg = telemetry_mod.ProfileConfig.resolve(profile)
         tcfg = telemetry_mod.TelemetryConfig.resolve(telemetry)
@@ -2341,6 +2489,21 @@ class FeedForward(BASE_ESTIMATOR):
                                     lambda: run_step(eager=True))
                             return run_step(eager=window)
 
+                        if shard_audit_on and sync is not None:
+                            akey = (self._program_key(
+                                arrays, getattr(batch, "bucket_key", None),
+                                pad_policy), axis,
+                                None if comm_spec is None else comm_spec.mode,
+                                plan is not None)
+                            if akey not in shard_audited:
+                                shard_audited.add(akey)
+                                self.shard_audit_reports.append(
+                                    self._shard_audit_program(
+                                        state, arrays,
+                                        getattr(batch, "bucket_key", None),
+                                        getattr(batch, "data_names", None),
+                                        lr, logger=logger))
+                        self._fit_stepping = True
                         if guard is None:
                             outs, seen = dispatch()
                         else:
@@ -2761,14 +2924,19 @@ class FeedForward(BASE_ESTIMATOR):
         exchange runs only in a multi-worker fit, which is eager).
         ``health`` captures the programs of a ``fit(health=...)``, whose
         steps compute the health statistics, and ``guards`` those of a
-        ``fit(guards=...)``. Returns ``{"programs",
-        "wall_seconds", "labels"}``."""
-        del eval_metric, compression, comm_kernels, batch_end_callback, \
-            parallel, overlap
-        if shard_audit is not None:
-            raise NotImplementedError(
-                "precompile(shard_audit=...) is not ported yet: ROADMAP "
-                f"{_LATER_SLICES['shard_audit']}")
+        ``fit(guards=...)``.
+
+        ``shard_audit`` (True, or env ``MXNET_TPU_SHARD_AUDIT``) audits
+        each program of a ctx list of several devices as ``fit`` would
+        (``compression``, ``overlap`` and ``comm_kernels`` make its
+        exchange) and raises MXNetError on drift; ``"report"`` collects
+        the reports without raising. Returns ``{"programs",
+        "wall_seconds", "labels", "shard_audit"}``."""
+        del eval_metric, batch_end_callback, parallel
+        from .analysis.sharding import shard_audit_enabled
+
+        report_only = shard_audit == "report"
+        audit_on = report_only or shard_audit_enabled(shard_audit)
         health_cfg = telemetry_mod.HealthConfig.resolve(health)
         guard_cfg = guards_mod.GuardConfig.resolve(guards)
         if isinstance(kvstore, str) and "dist" in kvstore:
@@ -2822,37 +2990,85 @@ class FeedForward(BASE_ESTIMATOR):
             # and those of a fit(guards=...) carry its guard
             state.set_guard(guard_cfg)
             snap = state.snapshot() if captured else None
-        labels = []
-        for bucket_key, dshapes, lshapes in programs:
-            arrays = {}
-            for name, spec in {**dshapes, **lshapes}.items():
-                shape, dtype = split(spec)
-                arrays[name] = torch.zeros(shape, device=dev,
-                                           dtype=getattr(torch, dtype.name))
-            if pad_policy is not None:
-                arrays["__num_valid__"] = torch.tensor(
-                    next(iter(arrays.values())).shape[0], dtype=torch.int32,
-                    device=dev)
-            labels.append(self._label("train_step", bucket_key))
-            key = self._program_key(arrays, bucket_key, pad_policy)
-            if not captured:
-                compile_mod.registry().see(labels[-1], key, self._seen,
-                                           precompile=True)
-                continue
-            if key in state.programs:
-                continue
-            # the warm-up step (eager, on zeros), then the capture
-            self._run_step(state, arrays, bucket_key, list(dshapes),
-                           pad_policy, optimizer._get_lr(), True,
-                           precompile=True)
-            state.programs[key].captured.capture()
+        audit_state = None
+        if audit_on and len(self._replicas) > 1:
+            # the replicas' state and exchange fit would build
+            # (mxnet_tpu/model.py:2834-2853), audited and then dropped
+            audit_state = self._audit_replicas(
+                optimizer, param_names, aux_names, [k for k in programs[0][1]],
+                compression, overlap, comm_kernels, health_cfg, guard_cfg)
+        labels, shard_reports = [], []
+        try:
+            for bucket_key, dshapes, lshapes in programs:
+                arrays = {}
+                for name, spec in {**dshapes, **lshapes}.items():
+                    shape, dtype = split(spec)
+                    arrays[name] = torch.zeros(
+                        shape, device=dev, dtype=getattr(torch, dtype.name))
+                if pad_policy is not None:
+                    arrays["__num_valid__"] = torch.tensor(
+                        next(iter(arrays.values())).shape[0],
+                        dtype=torch.int32, device=dev)
+                labels.append(self._label("train_step", bucket_key))
+                if audit_state is not None:
+                    shard_reports.append(self._shard_audit_program(
+                        audit_state, arrays, bucket_key, list(dshapes),
+                        optimizer._get_lr(), raise_on_error=not report_only))
+                key = self._program_key(arrays, bucket_key, pad_policy)
+                if not captured:
+                    compile_mod.registry().see(labels[-1], key, self._seen,
+                                               precompile=True)
+                    continue
+                if key in state.programs:
+                    continue
+                # the warm-up step (eager, on zeros), then the capture
+                self._run_step(state, arrays, bucket_key, list(dshapes),
+                               pad_policy, optimizer._get_lr(), True,
+                               precompile=True)
+                state.programs[key].captured.capture()
+        finally:
+            if audit_state is not None:
+                # the audited replicas' exchange and state go
+                audit_state.grad_sync.close()
+                self._train_state = None
         if captured:
             torch.cuda.synchronize(dev)
             state.restore(snap)
             if state.guard is not None:
                 state.guard.reset()
         return {"programs": len(programs),
-                "wall_seconds": time.perf_counter() - t0, "labels": labels}
+                "wall_seconds": time.perf_counter() - t0, "labels": labels,
+                "shard_audit": shard_reports}
+
+    def _audit_replicas(self, optimizer, param_names, aux_names, data_names,
+                        compression, overlap, comm_kernels, health_cfg,
+                        guard_cfg):
+        """The replicas' training state of a fit over this ctx list with
+        these exchange settings, for :meth:`precompile`'s shard audit."""
+        replicas = self._replicas
+        axis = len(replicas)
+        spec = comm_mod.CompressionSpec.resolve(compression)
+        overlap_cfg = comm_mod.OverlapConfig.resolve(overlap) \
+            if spec is not None else None
+        plan = None
+        if overlap_cfg is not None:
+            plan = comm_mod.plan_overlap(
+                {k: tuple(self.arg_params[k].shape) for k in param_names},
+                spec, axis, max_bytes=overlap_cfg.bucket_bytes,
+                symbol=self.symbol)
+        params = {k: self.arg_params[k] for k in param_names}
+        sync = _GradSync(spec, comm_mod.CommKernelConfig.resolve(comm_kernels),
+                         params, axis, self._device, plan=plan,
+                         group=comm_mod.ReplicaGroup(
+                             [c.torch_device for c in replicas]))
+        state = self._state_for(optimizer, params,
+                                {k: self.aux_params[k] for k in aux_names},
+                                sync, data_names)
+        state.enable_health(telemetry_mod.health.layer_groups(param_names),
+                            telemetry_mod.health.loss_heads(self.symbol, ()),
+                            on=health_cfg is not None)
+        state.set_guard(guard_cfg)
+        return state
 
     # -- inference --------------------------------------------------------
     def _fill_missing_args(self, symbol, params, arrays):

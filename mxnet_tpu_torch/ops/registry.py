@@ -15,15 +15,38 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import numpy as np
 import torch
 
 from ..base import MXNetError, Registry
 from ..params import REQUIRED, Range, TupleParam, apply_params, autodoc
 
 __all__ = ["OpProp", "OPS", "register_op", "REQUIRED", "Range", "TupleParam",
-           "draw", "DrawTape"]
+           "draw", "DrawTape", "as_dtype"]
 
 OPS = Registry("operator")
+
+
+_NUMPY_OF = {}  # torch dtype -> its numpy dtype
+
+
+def as_dtype(dtype):
+    """A dtype as the port names it, NDArray's ``dtype`` rule:
+    ``torch.bfloat16`` for bfloat16 (numpy has none; a numpy bfloat16
+    dtype or the name ``"bfloat16"`` too), else the numpy dtype of a torch
+    dtype or of anything ``numpy.dtype`` takes. Graph verification calls
+    it for every node on every bind, so each case is a lookup."""
+    if isinstance(dtype, np.dtype):
+        return torch.bfloat16 if dtype.type.__name__ == "bfloat16" \
+            else dtype
+    if dtype is torch.bfloat16 or dtype == "bfloat16":
+        return torch.bfloat16
+    if isinstance(dtype, torch.dtype):
+        if dtype not in _NUMPY_OF:
+            _NUMPY_OF[dtype] = torch.empty(0, dtype=dtype).numpy().dtype
+        return _NUMPY_OF[dtype]
+    return as_dtype(np.dtype(dtype))
+
 
 _TAPE = threading.local()
 
@@ -83,6 +106,7 @@ class OpProp:
       params       : dict name -> (type, default|REQUIRED, doc)
       list_arguments / list_outputs / list_auxiliary_states
       infer_shape(in_shapes) -> (in_shapes, out_shapes, aux_shapes)
+      infer_dtype(in_dtypes) -> (in_dtypes, out_dtypes, aux_dtypes)
       fwd(ins, aux, is_train, rng) -> (outs, new_aux)
       need_rng     : True if fwd draws random numbers in training mode
       is_loss      : the op is a loss head whose backward injects its own
@@ -140,6 +164,32 @@ class OpProp:
                 f"{self.name}: shape of input '{self.list_arguments()[idx]}' unknown"
             )
         return tuple(s)
+
+    # -- dtype inference ------------------------------------------------------
+    def infer_dtype(self, in_dtypes):
+        """Complete partial input dtypes; return (in, out, aux) dtype lists
+        (mxnet_tpu/ops/registry.py:99-129), dtypes as :func:`as_dtype`
+        names them. The default propagates the first known input dtype
+        everywhere and requires the known inputs to agree, except a loss
+        head's ``label``, whose dtype is independent of the data path.
+        Ops with heterogeneous inputs (Embedding) override."""
+        args = self.list_arguments()
+        known = [(i, as_dtype(d)) for i, d in enumerate(in_dtypes)
+                 if d is not None]
+        if not known:
+            raise MXNetError(f"{self.name}: no input dtype known")
+        d = known[0][1]
+        for i, dt in known:
+            if self.is_loss and args[i] == "label":
+                continue
+            if dt != d:
+                raise MXNetError(
+                    f"{self.name}: input '{args[i]}' has dtype {dt} but "
+                    f"'{args[known[0][0]]}' has dtype {d}")
+        completed = [as_dtype(in_dtypes[i]) if in_dtypes[i] is not None
+                     else d for i in range(len(in_dtypes))]
+        return (completed, [d] * self.num_outputs(),
+                [d] * len(self.list_auxiliary_states()))
 
     def fwd(self, ins, aux, is_train, rng):
         raise NotImplementedError

@@ -11,10 +11,11 @@ from __future__ import annotations
 
 import ast
 
+import numpy as np
 import torch
 
 from ..base import MXNetError
-from .registry import OpProp, Range, REQUIRED, register_op
+from .registry import OpProp, Range, REQUIRED, as_dtype, register_op
 
 
 class _BinaryOp(OpProp):
@@ -310,6 +311,14 @@ class EmbeddingOp(OpProp):
         d = self._known(in_shapes, 0)
         w = (self.input_dim, self.output_dim)
         return [d, w], [d + (self.output_dim,)], []
+
+    def infer_dtype(self, in_dtypes):
+        # heterogeneous: integer token ids, and an output in the table's
+        # float dtype (mxnet_tpu/ops/tensor.py:328-336)
+        data, weight = in_dtypes
+        w = as_dtype(weight) if weight is not None else np.dtype("float32")
+        d = as_dtype(data) if data is not None else np.dtype("int32")
+        return [d, w], [w], []
 
     def fwd(self, ins, aux, is_train, rng):
         data, weight = ins

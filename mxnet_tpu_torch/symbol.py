@@ -20,14 +20,15 @@ __all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
 
 
 class _Node:
-    __slots__ = ("op", "name", "inputs", "declared_shape")
+    __slots__ = ("op", "name", "inputs", "declared_shape", "declared_dtype")
 
     def __init__(self, op: OpProp | None, name: str, inputs,
-                 declared_shape=None):
+                 declared_shape=None, declared_dtype=None):
         self.op = op  # None => variable node
         self.name = name
         self.inputs = inputs  # list of (Node, out_index)
-        self.declared_shape = declared_shape
+        self.declared_shape = declared_shape  # optional, for variables
+        self.declared_dtype = declared_dtype  # optional, for variables
 
     @property
     def is_variable(self):
@@ -190,6 +191,34 @@ class Symbol:
         except MXNetError:
             return None, None, None
 
+    # -- pre-bind verification (reference: StaticGraph::InferShape) -----------
+    def verify(self, arg_shapes=None, arg_dtypes=None, raise_on_error=True,
+               **shape_kwargs):
+        """Static verification of the whole graph before a bind
+        (mxnet_tpu/symbol.py:216-246; :mod:`.analysis.graph`): shape and
+        dtype inference over the node DAG plus structural checks
+        (duplicate argument names, unused outputs), each problem named
+        with its op and input chain. ``bind`` runs it with the bound
+        tensors' shapes and dtypes unless ``MXNET_TPU_VERIFY=0``.
+
+        ``arg_shapes``/``arg_dtypes``: dicts name -> shape/dtype for (a
+        subset of) the arguments; shapes may also come as keywords, as to
+        ``infer_shape``. Variable-declared shapes and dtypes fill the rest.
+        Returns every finding (warnings included); raises MXNetError
+        listing the error-grade ones unless ``raise_on_error=False``."""
+        from .analysis.graph import verify_symbol
+
+        shapes = dict(arg_shapes or {})
+        shapes.update(shape_kwargs)
+        findings = verify_symbol(self, shapes or None, arg_dtypes)
+        errors = [f for f in findings if f.is_error]
+        if errors and raise_on_error:
+            raise MXNetError(
+                "Symbol.verify failed with "
+                f"{len(errors)} error(s):\n  "
+                + "\n  ".join(f.format() for f in errors))
+        return findings
+
     def tojson(self) -> str:
         nodes = self._topo()
         nid = {id(n): i for i, n in enumerate(nodes)}
@@ -246,13 +275,14 @@ class Symbol:
         return simple_bind(self, ctx, grad_req, **input_shapes)
 
 
-def Variable(name, shape=None) -> Symbol:
-    """A named input/parameter placeholder; ``shape`` declares its shape for
-    graph-wide ``infer_shape``."""
+def Variable(name, shape=None, dtype=None) -> Symbol:
+    """A named input/parameter placeholder; ``shape`` and ``dtype`` declare
+    its shape and dtype for graph-wide ``infer_shape`` and ``verify``."""
     if not isinstance(name, str):
         raise TypeError("Variable name must be str")
     return Symbol([(_Node(None, name, [],
-                          declared_shape=tuple(shape) if shape else None), 0)])
+                          declared_shape=tuple(shape) if shape else None,
+                          declared_dtype=dtype), 0)])
 
 
 def Group(symbols) -> Symbol:

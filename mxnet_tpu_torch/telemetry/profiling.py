@@ -63,7 +63,8 @@ from .hub import hub as _hub
 
 __all__ = ["ProfileConfig", "ProfileSession", "ProfileReport",
            "start_capture", "stop_capture", "capture", "capture_active",
-           "ranges_on", "scope", "parse_trace_dir", "attribute_op_name",
+           "ranges_on", "node_ranges", "scope", "parse_trace_dir",
+           "attribute_op_name",
            "build_report", "measured_peak_bandwidth",
            "last_capture_summary", "CATEGORY_SCOPES", "WRAPPER_SEGMENTS"]
 
@@ -164,6 +165,19 @@ def capture_active():
 def ranges_on():
     """True while a capture is active: the ranges are worth emitting."""
     return _RANGES[0]
+
+
+@contextlib.contextmanager
+def node_ranges():
+    """Emit the executor's and the step's ranges while the block runs,
+    capture or not (the program audit reads them to know the node an
+    operation belongs to); the previous setting is put back after."""
+    prev = _RANGES[0]
+    _RANGES[0] = True
+    try:
+        yield
+    finally:
+        _RANGES[0] = prev
 
 
 def scope(name):

@@ -158,8 +158,24 @@ def _events(kind, rng):
     return out
 
 
+@pytest.fixture
+def one_rank_world():
+    """Both packages' process world pinned to (0, 1) around a comparison
+    of stamped records, and what it was put back after: each hub's
+    ``emit`` stamps ``rank`` and ``world_size``, which the comparison
+    keeps, and a test that ran before in this process may have left
+    either package's world elsewhere."""
+    prev = (tt.current_rank(), tt.world_size(), jt.current_rank(),
+            jt.world_size())
+    tt.set_world(0, 1)
+    jt.set_world(0, 1)
+    yield
+    tt.set_world(*prev[:2])
+    jt.set_world(*prev[2:])
+
+
 @pytest.mark.parametrize("kind", list(jt.health.ANOMALY_REASONS))
-def test_monitor_same_events_same_anomalies(kind):
+def test_monitor_same_events_same_anomalies(kind, one_rank_world):
     assert tt.health.ANOMALY_REASONS == jt.health.ANOMALY_REASONS
     events = _events(kind, np.random.RandomState(11))
     cfg = dict(min_steps=4, dead_steps=10, drift_tol=0.1, drift_steps=10)

@@ -587,6 +587,36 @@ def test_fit_dist_async_weights_are_the_hosts_replay(monkeypatch):
         assert losses[-1] < losses[0]
 
 
+def test_fit_raising_before_its_first_step_restores_the_world(monkeypatch,
+                                                             tmp_path):
+    """The store a fit makes sets the process's telemetry world (rank 0
+    of 2 here); a fit that raises before its first step puts back the
+    world it found, so no later record of the process carries a world of
+    a store that is gone."""
+    from mxnet_tpu_torch import telemetry as tt
+
+    monkeypatch.setenv("MXTPU_NUM_WORKERS", "2")
+    monkeypatch.setenv("MXTPU_WORKER_RANK", "0")
+    monkeypatch.setenv("MXTPU_COORDINATOR", f"127.0.0.1:{_free_port()}")
+    monkeypatch.setenv("MXTPU_ASYNC_PORT", str(_free_port()))
+    prev = (tt.current_rank(), tt.world_size())
+    tt.set_world(0, 1)
+    seen = []
+    real_set_world = tt.set_world
+    monkeypatch.setattr(tt, "set_world", lambda r, w: (
+        seen.append((r, w)), real_set_world(r, w))[1])
+    try:
+        model = mt.FeedForward(_mlp(mt), ctx=mt.cpu(), num_epoch=1)
+        X, y = _blobs(40)
+        with pytest.raises(MXNetError, match="multi-worker"):
+            model.fit(X, y, batch_size=40, kvstore="dist_async",
+                      sharded_checkpoint_dir=str(tmp_path / "ck"))
+        assert (0, 2) in seen  # the store set it
+        assert (tt.current_rank(), tt.world_size()) == (0, 1)
+    finally:
+        real_set_world(*prev)
+
+
 def test_fit_dist_async_multi_worker_checkpoint_raises(monkeypatch, tmp_path):
     """Rank 0 of two (it hosts the parameter host, so the store is made
     for real): a shared sharded checkpoint directory raises with the

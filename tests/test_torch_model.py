@@ -276,16 +276,30 @@ def test_save_load_predict_score(tmp_path):
         mt.load_checkpoint(prefix, 3)
 
 
+# the fit/precompile arguments that raised until their slice was ported
 LATER = ["shard_audit"]
 
 
 @pytest.mark.parametrize("arg", LATER)
 def test_later_slice_fit_arguments_raise(arg):
+    """``fit`` and ``precompile`` take every argument the JAX package's
+    take, and the last later-slice one no longer raises: on one device
+    there is no exchange to audit, so both run as without it."""
+    import inspect
+
+    for name in ("fit", "precompile"):
+        assert set(inspect.signature(
+            getattr(mx.FeedForward, name)).parameters) <= set(
+            inspect.signature(getattr(mt.FeedForward, name)).parameters)
     model = mt.FeedForward(tmodels.mlp(), ctx=mt.cpu(), num_epoch=1)
+    out = model.precompile(data_shapes={"data": (8, 64)},
+                           label_shapes={"softmax_label": (8,)},
+                           **{arg: True})
+    assert out["shard_audit"] == []
     X = np.zeros((8, 64), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A[0-9]"):
-        model.fit(X, np.zeros(8, np.float32), batch_size=8, **{arg: True})
-    assert model.arg_params is None  # raised before any work
+    model.fit(X, np.zeros(8, np.float32), batch_size=8, **{arg: True})
+    assert model.arg_params is not None
+    assert model.shard_audit_reports == []
 
 
 def test_guarded_fit_runs():

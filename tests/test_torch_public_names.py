@@ -113,3 +113,83 @@ def test_comm_kernel_config_key(block):
 def test_base_estimator():
     assert tmodel.BASE_ESTIMATOR is jmodel.BASE_ESTIMATOR is object
     assert issubclass(mt.FeedForward, tmodel.BASE_ESTIMATOR)
+
+
+# -- the analysis slice (ROADMAP C.1.8's names with A item 7) -------------------
+
+# JAX-only names and the port's counterpart (ROADMAP C.2, "JAX-only names")
+JAX_ONLY = {
+    ("analysis", "audit_jaxpr"): ("analysis", "audit_program"),
+    ("analysis", "audit_jaxpr_sharding"): ("analysis", "audit_step_program"),
+    ("context.Context", "jax_device"): ("context.Context", "torch_device"),
+    ("telemetry.mfu.MFUAccountant", "maybe_trace"):
+        ("telemetry.mfu.MFUAccountant", "count_step"),
+    ("utils.compile", "memory_plan_from_compiled"):
+        ("utils.compile", "memory_plan_from_tensors"),
+    ("telemetry.profiling", "hlo_texts_from_tracked"):
+        ("telemetry.profiling", "parse_trace_dir"),
+    ("telemetry.profiling", "hlo_op_metadata"):
+        ("telemetry.profiling", "attribute_op_name"),
+}
+# names whose module comes with the source passes (ROADMAP A7)
+SOURCE_PASSES = ("lint_file", "lint_paths", "lint_source",
+                 "concurrency_lint_paths", "concurrency_lint_source", "main")
+
+
+def _resolve(pkg, dotted):
+    import importlib
+
+    obj, parts = pkg, dotted.split(".")
+    for i, part in enumerate(parts):
+        if not hasattr(obj, part):
+            obj = importlib.import_module(
+                f"{pkg.__name__}.{'.'.join(parts[:i + 1])}")
+        else:
+            obj = getattr(obj, part)
+    return obj
+
+
+def _analysis_names():
+    import mxnet_tpu.analysis as jan
+
+    return sorted(jan.__all__)
+
+
+@pytest.mark.parametrize("name", _analysis_names())
+def test_analysis_reexports(name):
+    import mxnet_tpu_torch.analysis as tan
+
+    if ("analysis", name) in JAX_ONLY:
+        assert not hasattr(tan, name)
+        where, other = JAX_ONLY[("analysis", name)]
+        assert callable(getattr(_resolve(mt, where), other))
+        return
+    assert name in tan.__all__ and hasattr(tan, name)
+    if name in SOURCE_PASSES:
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            getattr(tan, name)("x")
+
+
+@pytest.mark.parametrize("where,name", sorted(
+    k for k in JAX_ONLY if k[0] != "analysis"))
+def test_jax_only_names_have_a_counterpart(where, name):
+    assert hasattr(_resolve(mx, where), name)
+    assert not hasattr(_resolve(mt, where), name)
+    other_where, other = JAX_ONLY[(where, name)]
+    assert hasattr(_resolve(mt, other_where), other)
+
+
+def test_verify_and_dtype_inference_names():
+    import inspect
+
+    from mxnet_tpu.ops.tensor import EmbeddingOp as JEmbedding
+    from mxnet_tpu_torch.ops.tensor import EmbeddingOp as TEmbedding
+
+    for tfn, jfn in ((mt.symbol.Symbol.verify, mx.symbol.Symbol.verify),
+                     (tops.OpProp.infer_dtype, jops.OpProp.infer_dtype),
+                     (TEmbedding.infer_dtype, JEmbedding.infer_dtype)):
+        assert list(inspect.signature(tfn).parameters) == \
+            list(inspect.signature(jfn).parameters)
+    # Embedding overrides the default, in both packages
+    assert TEmbedding.infer_dtype is not tops.OpProp.infer_dtype
+    assert JEmbedding.infer_dtype is not jops.OpProp.infer_dtype

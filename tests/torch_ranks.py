@@ -724,3 +724,55 @@ def fit_guarded(rank, world, args, aux, X, Y, batch, poison_rank, fit_kw):
     return {"params": _numpy(model.arg_params),
             "aux": _numpy(model.aux_params),
             "guard_stats": dict(model.guard_stats), "fired": dict(cz.fired)}
+
+
+def shard_audit_fit(rank, world, args, aux, X, Y, batch, cases):
+    """``fit_dist_sync``'s fit, global batches of ``batch`` rows, once a
+    case: ``{"mode", "overlap", "audit", "plan_mode"}``. ``audit`` passes
+    ``shard_audit=True``; ``plan_mode`` seeds a wrong plan (the shard
+    audit holds the step to that mode's plan). Returns, a case, the
+    final parameters, the audit's reports (findings, matched rows, notes,
+    the aux elements reconciled) or the error it raised, with the
+    parameters the trainer held then."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.base import MXNetError
+
+    per = batch // world
+    rows = np.concatenate([np.arange(b + rank * per, b + (rank + 1) * per)
+                           for b in range(0, X.shape[0], batch)])
+    real_plan = mt.model.FeedForward.__dict__["_shard_audit_plan"]
+    out = []
+    for case in cases:
+        if case.get("plan_mode"):
+            def wrong(sync, mode=case["plan_mode"]):
+                plan = mt.comm.allreduce_plan(sync.size, sync.num_workers,
+                                              mode)
+                return plan, mt.comm.CompressionSpec.resolve(mode)
+
+            mt.model.FeedForward._shard_audit_plan = staticmethod(wrong)
+        model = mt.FeedForward(small_net(mt), ctx=mt.cpu(), num_epoch=1,
+                               arg_params=args, aux_params=aux,
+                               learning_rate=0.1, momentum=0.9)
+        res = {"error": None}
+        try:
+            model.fit(mt.io.NDArrayIter(X[rows], Y[rows], batch_size=per,
+                                        shuffle=False),
+                      kvstore="dist_sync", compression=case["mode"],
+                      overlap=case["overlap"], comm_kernels=True,
+                      shard_audit=case["audit"])
+            res["params"] = _numpy(model.arg_params)
+        except MXNetError as e:
+            res["error"] = str(e)
+            res["params"] = _numpy(model._train_state.params)
+        finally:
+            mt.model.FeedForward._shard_audit_plan = real_plan
+        res["reports"] = [{
+            "findings": [(f.rule.id, f.node) for f in rep.findings],
+            "matched": rep.reconciliation.get("matched"),
+            "stat_rows": rep.reconciliation.get("stat_rows"),
+            "notes": rep.reconciliation.get("notes"),
+            "aux_elements": rep.reconciliation.get("aux_elements"),
+            "audit_notes": list(rep.notes)}
+            for rep in model.shard_audit_reports]
+        out.append(res)
+    return out
