@@ -413,6 +413,19 @@ together), and then:
    agreement with the yardstick, the step time, global tokens per second
    and one step's forward / backward / gradient sum / update split per
    rank with the gloo time;
+12a. mxlint: the linted source run on the card. The timing fixture (20
+   replays of fused_adam captured at ResNet-50's 161 leaves, the clock read
+   after the loop) is flagged by the port's ``lint_source`` with exactly
+   MX306, and its copy that calls ``torch.cuda.synchronize()`` before the
+   read is not; on the card the flagged copy reads at most half the clean
+   one, and the clean one at least 20 x PERF.md's row time x MXLINT_FLOOR.
+   The capture fixture (a step that calls ``.item()``, given to
+   ``utils.compile.CapturedProgram``) is flagged with exactly MX202, and its
+   capture raises on the card; its copy that returns the tensor is not
+   flagged, captures and replays the right sum. Then ``python -m
+   mxnet_tpu_torch.analysis --all`` (the source lint and the concurrency
+   lint of the port's tree, and the sharding audit over eight CPU
+   replicas) exits 0; prints its seconds and file count;
 13. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
    main path, error, times and bound (the flash kernels and fused_adam also
    their launches in lm_mesh; fused_adam its launches in train_bf16 and zoo;
@@ -428,7 +441,9 @@ together), and then:
    profiled fits (rank 0, both modes); ``slice20_launches``: 5q's elastic
    fit over its three worlds and 5r's first fit (eager replicas);
    ``slice21_launches``: 10e's binds, 10f's audit and 10g's audited fits
-   (rank 0, both modes, the audit's step included); rows
+   (rank 0, both modes, the audit's step included);
+   ``slice22_launches``: 12a's timing fixtures (120 replays of the
+   captured fused_adam step: each copy three times, 20 a time); rows
    3-7 also their times, bound, library time
    and the launch floor at one bucket's shape and their launches on the
    overlap path, ``bucket_shape``);
@@ -8126,6 +8141,190 @@ def phase_controller(torch, mt):
     return launches
 
 
+MXLINT_LAUNCHES = 20        # fused_adam launches each timing fixture times
+MXLINT_ROW_MS = 0.2714      # PERF.md §6 row 2: fused_adam at 161 leaves
+MXLINT_FLOOR = 0.8          # the clean read is at least this share of rows
+MXLINT_REPS = 3             # each timing fixture, in turns; the median kept
+MXLINT_CLI_TIMEOUT_S = 300
+
+# the timing fixture: the clock read after 20 launches, with or without a
+# barrier before it (MX306)
+MXLINT_TIMED = """import time
+
+import torch
+
+
+def timed(step, n):
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+{barrier}    return time.perf_counter() - t0
+"""
+# the capture fixture: a step given to CapturedProgram that reads a value
+# back to the host, or returns the tensor (MX202)
+MXLINT_CAPTURED = """from mxnet_tpu_torch.utils import compile as compile_mod
+
+
+def make(x):
+    def step():
+        y = x * 2
+        return {ret}
+    return compile_mod.CapturedProgram(step, x.device, "mxlint_capture")
+"""
+
+
+def mxlint_fixtures():
+    """The four fixture sources: (timed flagged, timed clean, captured
+    flagged, captured clean)."""
+    return (MXLINT_TIMED.format(barrier=""),
+            MXLINT_TIMED.format(barrier="    torch.cuda.synchronize()\n"),
+            MXLINT_CAPTURED.format(ret="y.sum().item()"),
+            MXLINT_CAPTURED.format(ret="y.sum()"))
+
+
+def mxlint_load(src, name):
+    """The namespace of a fixture source, run as a module would be."""
+    ns = {"__name__": name}
+    exec(compile(src, name, "exec"), ns)  # noqa: S102 - the lint's fixture
+    return ns
+
+
+def mxlint_adam_program(torch, topt, compile_mod, kfa):
+    """fused_adam's step at ResNet-50's 161 leaves (the Adam config of phase
+    fused_adam), captured: each replay launches the kernel once, and the
+    host's share of a launch is the replay's."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    shapes = resnet50_leaf_shapes()
+    names = list(shapes)
+    opt = adam_configs(topt)["adam"](True)
+    ws = [torch.randn(shapes[k], generator=gen, device="cuda")
+          for k in names]
+    gs = [torch.randn(shapes[k], generator=gen, device="cuda") * BATCH
+          for k in names]
+    states = opt.init_state_tree(dict(zip(names, ws)))
+    ms = [states[k][0] for k in names]
+    vs = [states[k][1] for k in names]
+    _, scalars, hyper = opt._fused_args(names, states)
+    scal = torch.from_numpy(kfa.step_vector(
+        LEARNING_RATE, *scalars)).cuda()
+    table = kfa.LeafTable()
+    held = (ws, gs, ms, vs, scal, table)
+    prog = compile_mod.CapturedProgram(
+        lambda: kfa.fused_adam_step(*held[:5], table=table, **hyper),
+        "cuda", "mxlint_adam", warmup=1)
+    prog()          # the warm-up, eager: builds the leaf table
+    prog.capture()
+    torch.cuda.synchronize()
+    return prog, held
+
+
+def phase_mxlint(torch, mt):
+    """The linted source run on the card: the fixture the port's lint flags
+    misbehaves there, its clean copy does not (MX306: a clock read without
+    a barrier times the launches' enqueue; MX202: a host read inside a
+    CUDA-graph capture makes the capture raise); then the CLI over the
+    port's tree with every pass. Returns the timing fixtures' launches."""
+    import os
+
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.analysis import lint_source
+    from mxnet_tpu_torch.kernels import fused_adam as kfa
+    from mxnet_tpu_torch.utils import compile as compile_mod
+
+    t_start = time.perf_counter()
+    timed_bad, timed_ok, cap_bad, cap_ok = mxlint_fixtures()
+    lint = {name: [(f.rule.id, f.line) for f in lint_source(src, name)]
+            for name, src in (("timed_flagged", timed_bad),
+                              ("timed_clean", timed_ok),
+                              ("captured_flagged", cap_bad),
+                              ("captured_clean", cap_ok))}
+    require([r for r, _ in lint["timed_flagged"]] == ["MX306"],
+            f"mxlint: the unsynchronised delta is exactly MX306 "
+            f"({lint['timed_flagged']})")
+    require([r for r, _ in lint["captured_flagged"]] == ["MX202"],
+            f"mxlint: the host read under capture is exactly MX202 "
+            f"({lint['captured_flagged']})")
+    require(lint["timed_clean"] == [] and lint["captured_clean"] == [],
+            f"mxlint: the clean copies lint clean ({lint})")
+
+    # (a) MX306: both copies time 20 launches of fused_adam, in turns
+    prog, held = mxlint_adam_program(torch, topt, compile_mod, kfa)
+    timers = {"flagged": mxlint_load(timed_bad, "mxlint_timed_flagged"),
+              "clean": mxlint_load(timed_ok, "mxlint_timed_clean")}
+    reset_launches()
+    reads = {"flagged": [], "clean": []}
+    for _ in range(MXLINT_REPS):
+        for name, ns in timers.items():
+            torch.cuda.synchronize()  # both start on an idle card
+            reads[name].append(ns["timed"](prog, MXLINT_LAUNCHES) * 1e3)
+            torch.cuda.synchronize()
+    launches = read_launches()
+    flagged_ms = statistics.median(reads["flagged"])
+    clean_ms = statistics.median(reads["clean"])
+    floor_ms = MXLINT_LAUNCHES * MXLINT_ROW_MS * MXLINT_FLOOR
+    require(clean_ms >= floor_ms,
+            f"mxlint: the synchronised read {clean_ms:.3f} ms covers "
+            f"{MXLINT_LAUNCHES} launches ({floor_ms:.3f} ms at least)")
+    require(flagged_ms <= 0.5 * clean_ms,
+            f"mxlint: the flagged read {flagged_ms:.3f} ms is at most half "
+            f"the synchronised one ({clean_ms:.3f} ms)")
+    require(launches["fused_adam"] == 2 * MXLINT_REPS * MXLINT_LAUNCHES,
+            f"mxlint: the timing fixtures launched fused_adam "
+            f"{launches['fused_adam']} times")
+    del prog, held, timers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) MX202: the flagged step's capture raises; the clean one captures
+    # and replays
+    x = torch.arange(1024, dtype=torch.float32, device="cuda")
+    want = float(2 * x.sum())
+    bad = mxlint_load(cap_bad, "mxlint_captured_flagged")["make"](x)
+    warm = bad()   # the warm-up runs eager, where a host read is allowed
+    try:
+        bad()
+    except Exception as e:  # noqa: BLE001 - which error the capture raises
+        raised = f"{type(e).__name__}: {e}"
+    else:
+        raised = None
+    require(raised is not None and not bad.captured,
+            "mxlint: the capture of the MX202 step raised")
+    torch.cuda.synchronize()
+    good = mxlint_load(cap_ok, "mxlint_captured_clean")["make"](x)
+    outs = [float(good()) for _ in range(3)]  # warm-up, capture, replay
+    require(good.captured and outs == [want] * 3 and warm == want,
+            f"mxlint: the clean step captured and replayed {outs} "
+            f"(want {want})")
+
+    # (c) the CLI over the port's tree, every pass, on this machine
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.analysis", "--all"],
+        capture_output=True, text=True, timeout=MXLINT_CLI_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    summary = proc.stdout.strip().splitlines()[-1] if proc.stdout else ""
+    require(proc.returncode == 0 and ": 0 error(s)" in summary
+            and "(0 findings)" in proc.stdout,
+            f"mxlint: the CLI exits 0 over the port ({proc.returncode}: "
+            f"{proc.stdout[-1500:]} {proc.stderr[-1500:]})")
+    files = int(summary.split("checked ")[1].split()[0])
+    emit({"phase": "mxlint", "lint": lint,
+          "timed": {"launches": MXLINT_LAUNCHES, "flagged_ms": flagged_ms,
+                    "clean_ms": clean_ms, "floor_ms": floor_ms,
+                    "flagged_reads_ms": reads["flagged"],
+                    "clean_reads_ms": reads["clean"],
+                    "row_ms": MXLINT_ROW_MS},
+          "captured": {"flagged_capture_raised": raised[:300],
+                       "clean_outputs": outs},
+          "cli": {"argv": "--all", "seconds": cli_s, "files": files,
+                  "summary": summary},
+          "phase_s": time.perf_counter() - t_start,
+          "launches": launches})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -8227,6 +8426,10 @@ def main() -> int:
     mesh_launches = phase_lm_mesh(torch, mt, lm_params)
     del lm_params
     moe_launches = phase_moe_mesh(torch)
+    torch.cuda.empty_cache()
+    slice22 = {"mxlint": phase_mxlint(torch, mt)}
+    require(slice22["mxlint"]["fused_adam"] > 0,
+            "slice 22's path launched fused_adam")
     # not on fit's path: twobit gathers in bf16 (comm/allreduce.py)
     launches["dequant_twobit"] = 0
     require(not any(m.split(".")[0] in ("jax", "mxnet_tpu")
@@ -8302,6 +8505,10 @@ def main() -> int:
         # together, the audit's step included)
         kernels[-1]["slice21_launches"] = {p: got[name]
                                            for p, got in slice21.items()}
+        # the slice 22 path: the timing fixtures of phase mxlint (replays
+        # of the captured fused_adam step)
+        kernels[-1]["slice22_launches"] = {p: got[name]
+                                           for p, got in slice22.items()}
         if name in bucket_rows:
             # one 4 MB bucket's shapes; launches on the overlap path
             kernels[-1]["bucket_shape"] = bucket_rows[name]

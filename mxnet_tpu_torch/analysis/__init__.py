@@ -1,5 +1,12 @@
 """Analysis passes of the port (counterpart of ``mxnet_tpu/analysis/``).
 
+  Pass 1  source lint (:mod:`.source_lint`) — an AST walk over .py files:
+          imports of JAX or the JAX package (MX101), hazards inside code
+          captured into a CUDA graph (MX201-MX203, MX302, MX313), graphs
+          re-captured per call (MX303), raw gradient collectives (MX304),
+          un-barriered timing (MX306), and the layers' disciplines (spans,
+          kernels, profiler, checkpoints, ledger, placement, robustness).
+          Pure AST work: linted files are never imported or run.
   Pass 2  graph verification (:mod:`.graph`) — ``Symbol.verify()``: shape
           and dtype inference over the node DAG plus structural checks
           (MX401-MX406), run on every bind (``MXNET_TPU_VERIFY=0`` turns
@@ -8,18 +15,26 @@
           ``jaxpr_audit.py``) — one eager step under a dispatch mode: host
           round trips (MX501), dtype promotions (MX502) and per-operation
           FLOP/byte rows.
+  Pass 4  concurrency (:mod:`.concurrency`) — a whole-package model of
+          thread entry points and lock scopes: shared-state races
+          (MX701), lock-order cycles (MX702), bare cv.wait (MX703), leaked
+          non-daemon threads (MX704), fresh-lock locking (MX705). The
+          runtime complement is the lock-order watchdog (:mod:`.lockwatch`,
+          ``MXNET_TPU_LOCKWATCH``).
   Pass 5  the sharding audit (:mod:`.sharding`) — a data-parallel step's
           collectives reconciled against the comm layer's closed-form
           plan (MX802), over compiled HLO text or one profiled step of the
           port, and partition-spec sanity over the port's mesh (MX804);
           behind ``fit/precompile(shard_audit=)`` and
-          ``MXNET_TPU_SHARD_AUDIT``.
+          ``MXNET_TPU_SHARD_AUDIT``; placement outside the owner layers
+          (MX805) rides with Pass 1.
 
 Every check reports through the rule registry (:mod:`.rules`, the JAX
-package's ids). :mod:`.lockwatch` is the runtime lock-order watchdog. The
-source passes (Pass 1's lint, Pass 4's concurrency lint) and the command
-line come with ROADMAP A item 7's source passes: their names raise
-``NotImplementedError`` until then. ``audit_jaxpr`` and
+package's ids). CLI: ``python -m mxnet_tpu_torch.analysis [paths]``
+(``--concurrency``, ``--shardcheck``, ``--all``, ``--ci``,
+``--baseline``; with no path it lints the port's tree, which tier-1 keeps
+clean). Suppression: ``# mxlint: disable=MX306`` on the offending line, or
+``# mxlint: skip-file`` in the first five lines. ``audit_jaxpr`` and
 ``audit_jaxpr_sharding`` read a jaxpr and have no counterpart here
 (ROADMAP C.2): ``audit_program`` and ``audit_step_program`` take their
 place.
@@ -28,6 +43,7 @@ place.
 from . import lockwatch
 from .graph import verify_json, verify_json_file, verify_symbol
 from .rules import RULES, Finding, Rule, get_rule, register_rule
+from .source_lint import lint_file, lint_paths, lint_source
 
 __all__ = [
     "RULES", "Finding", "Rule", "get_rule", "register_rule",
@@ -39,25 +55,18 @@ __all__ = [
     "expected_collectives", "selfcheck_report", "shard_audit_enabled",
 ]
 
-_SOURCE_PASSES = "ROADMAP A7 (analysis/ source passes and the CLI)"
+
+def concurrency_lint_paths(paths):
+    """Pass 4 over a file set (lazy import keeps the package light)."""
+    from . import concurrency
+
+    return concurrency.lint_paths(paths)
 
 
-def _later(name):
-    def later(*args, **kwargs):
-        raise NotImplementedError(
-            f"analysis.{name} is not ported yet: {_SOURCE_PASSES}")
+def concurrency_lint_source(text, path="<string>"):
+    from . import concurrency
 
-    later.__name__ = name
-    later.__doc__ = f"Not ported yet: {_SOURCE_PASSES}."
-    return later
-
-
-lint_file = _later("lint_file")
-lint_paths = _later("lint_paths")
-lint_source = _later("lint_source")
-concurrency_lint_paths = _later("concurrency_lint_paths")
-concurrency_lint_source = _later("concurrency_lint_source")
-main = _later("main")
+    return concurrency.lint_source(text, path)
 
 
 def audit_executor(*args, **kwargs):
@@ -114,3 +123,9 @@ def shard_audit_enabled(*args, **kwargs):
     from .sharding import shard_audit_enabled as impl
 
     return impl(*args, **kwargs)
+
+
+def main(argv=None) -> int:
+    from .__main__ import main as impl
+
+    return impl(argv)

@@ -1,31 +1,42 @@
 """Rule registry and finding types of the analysis passes.
 
 Counterpart of ``mxnet_tpu/analysis/rules.py``: every check of the port's
-passes (graph verification, the program audit, the sharding audit) is a
-registered ``Rule`` with a stable id, a severity and a fixit hint, under
-the JAX package's 41 ids, severities and summaries, so a message or a test
-can match on ``MX402`` in either package. ``Finding.format()`` writes the
-JAX package's text. Four summaries leave out the JAX text's references to
-the JAX package's own change history; nothing else differs.
+passes (the source lint, graph verification, the program audit, the
+concurrency lint, the sharding audit) is a registered ``Rule`` with a
+stable id, a severity and a fixit hint, under the JAX package's 41 ids and
+severities, so a message, a pragma or a test can match on ``MX402`` in
+either package. ``Finding.format()`` writes the JAX package's text.
 
 Rule id bands:
   MX1xx  API compatibility (source pass)
-  MX2xx  traced-code hazards (source pass)
-  MX3xx  recompilation risks (source pass)
+  MX2xx  hazards inside captured code (source pass)
+  MX3xx  re-capture and discipline risks (source pass)
   MX4xx  graph verifier (``Symbol.verify``, :mod:`.graph`)
   MX5xx  program audit (host round trips, dtype promotions,
          :mod:`.program_audit`)
   MX6xx  robustness (source pass)
-  MX7xx  concurrency (source pass; :mod:`.lockwatch` is its runtime
-         complement)
-  MX8xx  sharding and collective audit (:mod:`.sharding`)
+  MX7xx  concurrency (:mod:`.concurrency`; :mod:`.lockwatch` is its
+         runtime complement)
+  MX8xx  sharding and collective audit (:mod:`.sharding`; MX805 rides
+         with the source pass)
 
-The source-pass bands (MX1xx-MX3xx, MX6xx, MX7xx and MX805) are registered
-with the JAX package's text; what each means over torch code is settled
-with the source passes (ROADMAP A item 7's source passes).
+What a rule says of JAX and Pallas it says here of torch and CUDA
+(:data:`TORCH_MEANING`): "traced" code is code captured into a CUDA graph
+(the body of ``with torch.cuda.graph(...)``, the functions given to
+``utils.compile.CapturedProgram`` / ``CapturedPair`` or
+``torch.cuda.make_graphed_callables``, and what is nested in them), a
+barrier is ``torch.cuda.synchronize`` or a host read of a tensor, a kernel
+is a CUDA or Triton kernel of ``kernels/``, and MX101 forbids any import
+of JAX or of the JAX package. :data:`JAX_ONLY` rules stay registered with
+the JAX package's text and never fire over torch code. The other rules
+(MX100, MX307, MX310, MX311, MX315, MX316, MX6xx, MX7xx and the runtime
+passes' bands) keep the JAX package's text; four summaries leave out its
+references to the JAX package's own change history, and MX316's fixit
+names only what the port has.
 
-Severities: ``error`` fails a pass and makes ``Symbol.verify`` raise;
-``warning`` is reported but non-fatal; ``info`` is advisory output.
+Severities: ``error`` fails a pass (CLI exit 1) and makes
+``Symbol.verify`` raise; ``warning`` is reported but non-fatal; ``info``
+is advisory output.
 """
 
 from __future__ import annotations
@@ -33,9 +44,16 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 __all__ = ["Rule", "Finding", "RULES", "register_rule", "get_rule",
-           "SEVERITIES"]
+           "SEVERITIES", "TORCH_MEANING", "JAX_ONLY"]
 
 SEVERITIES = ("error", "warning", "info")
+
+# rules whose summary and fixit speak of torch and CUDA in the port
+TORCH_MEANING = ("MX101", "MX201", "MX202", "MX203", "MX302", "MX303",
+                 "MX304", "MX306", "MX309", "MX312", "MX313", "MX314",
+                 "MX805")
+# rules with no meaning over torch code: registered, never fired
+JAX_ONLY = ("MX102", "MX301", "MX308")
 
 
 @dataclass(frozen=True)
@@ -105,40 +123,46 @@ class Finding:
 
 
 # -- the built-in catalog ------------------------------------------------------
-# MX1xx — API compatibility (source pass: its torch meaning comes with the
-# source passes, ROADMAP A item 7)
+# MX1xx — API compatibility (source pass; MX102 is JAX-only)
 register_rule(
     "MX100", "error",
     "file does not parse",
     "fix the syntax error; nothing else can be checked until it parses")
 register_rule(
     "MX101", "error",
-    "version-fragile JAX import",
-    "import it from mxnet_tpu.compat (the one place allowed to probe JAX "
-    "API locations)")
+    "import of JAX or of the JAX package: the port imports torch, never "
+    "jax, jaxlib or mxnet_tpu (not even a module there that does not "
+    "import JAX)",
+    "keep a copy of what the port needs inside mxnet_tpu_torch; only the "
+    "tests import both packages")
 register_rule(
     "MX102", "warning",
     "deprecated JAX API path (works today, scheduled for removal)",
     "migrate to the stable path or add a shim in mxnet_tpu.compat")
 
-# MX2xx — traced-code hazards (source pass, as above)
+# MX2xx — hazards inside captured code (source pass)
 register_rule(
     "MX201", "warning",
-    "numpy call inside a traced function (runs on host at trace time; "
-    "silently constant-folds traced values or fails on tracers)",
-    "use jax.numpy / jax.lax inside jit/shard_map/scan bodies")
+    "numpy call inside a captured function (runs once, on the host, at "
+    "capture: its result is frozen into the CUDA graph and every replay "
+    "reuses it)",
+    "use torch operations on tensors inside the function given to "
+    "CapturedProgram/CapturedPair or a torch.cuda.graph block; compute "
+    "host values before the capture and pass them in a device tensor")
 register_rule(
     "MX202", "error",
-    "host synchronization inside a traced function",
-    "remove .item()/.tolist()/float()/int() from traced code; return the "
-    "array and read it outside the jitted function")
+    "host synchronization inside a captured function",
+    "remove .item()/.tolist()/.cpu()/.numpy()/float()/int() from captured "
+    "code (a CUDA-graph capture forbids a sync: the capture raises); "
+    "return the tensor and read it after the replay")
 register_rule(
     "MX203", "warning",
-    "Python control flow on a possibly-traced value",
-    "use jax.lax.cond/select or jnp.where; Python `if` on a tracer raises "
-    "TracerBoolConversionError at trace time")
+    "Python control flow on a possibly-captured tensor",
+    "use torch.where or masked arithmetic; a Python `if` on a tensor "
+    "syncs, and the capture freezes the branch it took for every replay")
 
-# MX3xx — recompilation risks (source pass, as above)
+# MX3xx — re-capture and discipline risks (source pass; MX301 and MX308
+# are JAX-only)
 register_rule(
     "MX301", "warning",
     "non-hashable container for static argument",
@@ -146,24 +170,25 @@ register_rule(
     "freshly-rebuilt containers defeat or break the compile cache")
 register_rule(
     "MX302", "warning",
-    "string formatting inside a traced function",
-    "move logging/formatting out of the traced function (or use "
-    "jax.debug.print); f-strings on tracers sync or embed shapes that "
-    "force recompiles")
+    "string formatting inside a captured function",
+    "move logging/formatting out of the captured function; an f-string "
+    "on a tensor syncs, and any formatting runs once, at capture, never "
+    "at a replay")
 register_rule(
     "MX303", "warning",
-    "jit wrapper re-created per call / unstable static argument (the two "
-    "classic recompile bugs: every invocation traces and compiles afresh, "
-    "or the static-arg cache key changes every call)",
-    "hoist jax.jit out of the loop/call and cache the wrapper (e.g. "
-    "utils.compile.tracked_jit stored on the instance); pass static args "
-    "as stable hashable values, not freshly computed ones")
+    "CUDA graph re-captured per call: a CapturedProgram/CapturedPair/"
+    "torch.cuda.CUDAGraph built per call or per loop iteration, so every "
+    "invocation captures afresh and the graph's memory pool is rebuilt",
+    "build the program once per program key and keep it (e.g. "
+    "utils.compile.CapturedProgram stored on the instance or in a dict "
+    "by key), then call or replay it")
 register_rule(
     "MX304", "warning",
-    "raw jax.lax.psum over a gradient pytree outside mxnet_tpu.comm — "
-    "full-precision, unbucketed, unaccounted gradient sync on the hot "
-    "path (the comm subsystem owns that wire)",
-    "route gradient allreduce through mxnet_tpu.comm "
+    "raw torch.distributed collective over gradients outside "
+    "mxnet_tpu_torch.comm and parallel/ — full-precision, unbucketed, "
+    "unaccounted gradient sync on the hot path (the comm subsystem owns "
+    "that wire)",
+    "route gradient allreduce through mxnet_tpu_torch.comm "
     "(compressed_allreduce / error_feedback_allreduce) or "
     "parallel.allreduce_grads, which add quantized wire formats, fused "
     "bucketing, and comm_stats() byte accounting")
@@ -195,13 +220,12 @@ register_rule(
 
 register_rule(
     "MX309", "warning",
-    "implicit host sync inside a step loop: `.asnumpy()`/`.item()`/"
-    "`np.asarray(...)`/`float(x)` on device values in the same loop that "
-    "dispatches "
-    "the train/eval/predict step — each one blocks the host on a "
-    "device-to-host transfer, serializing the async dispatch pipeline "
-    "(and the comm/compute overlap schedule) and skewing live-array "
-    "memory accounting with transient host copies",
+    "implicit host sync inside a step loop: `.item()`/`.cpu()`/"
+    "`.numpy()`/`.asnumpy()`/`np.asarray(...)`/`float(x)` on device "
+    "values in the same loop that dispatches the train/eval/predict step "
+    "— each one blocks the host until the card drains, serializing the "
+    "asynchronous launch queue (and the comm/compute overlap schedule) "
+    "and skewing memory accounting with transient host copies",
     "hoist the read out of the loop (pull once per epoch, like the device "
     "metric path), keep values on device, or — when the sync is the "
     "point (guard verdicts, host metrics) — annotate the line with "
@@ -238,28 +262,27 @@ register_rule(
 
 register_rule(
     "MX312", "warning",
-    "Pallas kernel outside the kernel layer, or unpriced: a "
-    "`pl.pallas_call` outside mxnet_tpu/ops/pallas/ bypasses the kernel "
-    "registry, the shared interpret-mode gate, and the catalog/roofline "
-    "discipline; a module inside ops/pallas/ that emits a pallas_call "
-    "without registering a FLOP/byte model leaves that kernel invisible "
-    "to the jaxpr auditor — the MFU accountant and `bench_roofline "
-    "--jaxpr-table` under-count every program using it (the bug class "
-    "that hid flash attention's FLOPs from the MFU path)",
-    "move the kernel into mxnet_tpu/ops/pallas/ and call "
-    "registry.register_kernel(name, cost_fn) with the `name=` the "
-    "pallas_call is emitted under; a deliberate out-of-layer kernel "
-    "(prototype, vendored code) carries `# mxlint: disable=MX312` with "
-    "a justification")
+    "CUDA kernel outside the kernel layer, or unpriced: a "
+    "torch.utils.cpp_extension.load/load_inline or a @triton.jit kernel "
+    "outside mxnet_tpu_torch/kernels/, or a kernel launch counted there, "
+    "bypasses the kernel layer's route by device, its launch counts and "
+    "the kernel registry; a module inside kernels/ that launches a kernel "
+    "without registering a FLOP/byte model leaves that kernel out of the "
+    "MFU count and the bounds every kernel is measured against",
+    "move the kernel into mxnet_tpu_torch/kernels/ (its source in csrc/, "
+    "built by _common.load_library) and call "
+    "registry.register_kernel(name, cost_fn, ...) for it; a deliberate "
+    "out-of-layer kernel (prototype, vendored code) carries "
+    "`# mxlint: disable=MX312` with a justification")
 
 register_rule(
     "MX313", "warning",
-    "per-leaf Python loop over a gradient pytree inside a traced "
-    "function that materializes per-leaf host statistics: each "
-    "`float(...)`/`.item()`/numpy call inside the loop blocks the host "
-    "on a device round-trip per parameter per step — the pattern the "
-    "in-graph health stats engine (telemetry.health) replaces "
-    "with ONE fused per-layer reduction pass and a single tiny pull",
+    "per-leaf Python loop over gradients inside a captured function that "
+    "materializes per-leaf host statistics: each "
+    "`float(...)`/`.item()`/`.cpu()`/numpy call inside the loop is a sync "
+    "per parameter per step (and raises under capture) — the pattern the "
+    "in-graph health stats engine (telemetry.health) replaces with ONE "
+    "fused per-layer reduction pass and a single tiny pull",
     "compute the statistics inside the step program — fit(health=True) "
     "gives per-layer grad/weight/update norms + nonfinite counts on "
     "device (telemetry.health.device_stats for custom stats) — and pull "
@@ -269,15 +292,16 @@ register_rule(
 
 register_rule(
     "MX314", "warning",
-    "raw jax.profiler capture outside the profiling layer, or a "
-    "start_trace without a finally-guarded stop: jax's profiler is "
-    "process-global (one trace at a time), so a stray "
-    "`jax.profiler.start_trace`/`jax.profiler.trace` outside "
-    "utils/profiler.py / telemetry/profiling.py races the framework's "
-    "bounded capture windows, is invisible to the JSONL stream (no hub "
-    "event), and is never priced as `profile` badput; a start_trace "
-    "whose stop is not in a `finally` leaks a running trace past the "
-    "first exception — every later capture then fails",
+    "raw torch profiler capture outside the profiling layer, or a "
+    "start_trace/start_capture without a finally-guarded stop: the "
+    "profiler holds one trace per process, so a stray "
+    "`torch.profiler.profile` / `torch.autograd.profiler.profile` / "
+    "`torch.cuda.profiler.start` outside utils/profiler.py / "
+    "telemetry/profiling.py races the framework's bounded capture "
+    "windows, is invisible to the JSONL stream (no hub event), and is "
+    "never priced as `profile` badput; a start whose stop is not in a "
+    "`finally` leaks a running trace past the first exception — every "
+    "later capture then fails",
     "route captures through telemetry.profiling (capture() / "
     "start_capture + finally-guarded stop_capture) or "
     "utils.profiler.profile_step; a deliberate raw capture carries "
@@ -311,20 +335,23 @@ register_rule(
     "gates cannot read, un-CRC'd files that read_ledger must treat as "
     "corrupt, and duplicate summary events that skew incident counts",
     "route run records through telemetry.ledger (record_run / "
-    "append_record / publish_bench) and resolve the store directory via "
+    "append_record) and resolve the store directory via "
     "telemetry.ledger.ledger_dir(); a deliberate bypass carries "
     "`# mxlint: disable=MX316` with a justification")
 
 register_rule(
     "MX306", "warning",
-    "un-barriered wall-clock delta around device dispatch: a "
+    "un-barriered wall-clock delta around device work: a "
     "time.time()/perf_counter() start/stop pair with work between and no "
-    "block_until_ready/barrier/wait — under async dispatch this measures "
-    "enqueue cost, not execution (the timing footgun the telemetry layer "
-    "exists to prevent)",
-    "block on the outputs before reading the clock (utils.profiler.Timer "
-    "with t.block(out), or jax.block_until_ready), or route the "
-    "measurement through mxnet_tpu.telemetry (timed() / StepTimeline)")
+    "torch.cuda.synchronize / Event.synchronize / host read of a tensor "
+    "(.item()/.cpu()/.numpy()) — kernels launch asynchronously, so this "
+    "measures the enqueue, not the execution (the timing footgun the "
+    "telemetry layer exists to prevent)",
+    "synchronize before reading the clock (torch.cuda.synchronize(), an "
+    "event's synchronize(), or utils.profiler.Timer with t.block(out)), "
+    "time the card with CUDA events (Event.elapsed_time), or route the "
+    "measurement through mxnet_tpu_torch.telemetry (timed() / "
+    "StepTimeline)")
 
 # MX4xx — graph verifier (Symbol.verify)
 register_rule(
@@ -368,13 +395,13 @@ register_rule(
     "check preferred_element_type / explicit casts; a f32 leak in a bf16 "
     "program doubles that tensor's HBM traffic")
 
-# MX6xx — robustness (source pass, as above)
+# MX6xx — robustness (source pass)
 register_rule(
     "MX601", "error",
     "bare `except:` swallows KeyboardInterrupt/SystemExit and masks the "
     "real failure",
     "catch a concrete exception type (at minimum `except Exception:`)")
-# MX7xx — concurrency (source pass, as above)
+# MX7xx — concurrency (analysis/concurrency.py)
 register_rule(
     "MX701", "warning",
     "shared mutable state written from two or more thread entry points "
@@ -422,8 +449,8 @@ register_rule(
     "construct the lock once (in __init__, via analysis.lockwatch."
     "named_lock) and reuse that single instance at every site")
 
-# MX8xx — sharding / collective audit (analysis/sharding.py; MX805 is a
-# source-pass rule, as above)
+# MX8xx — sharding / collective audit (analysis/sharding.py; MX805 rides
+# with the source pass)
 register_rule(
     "MX801", "warning",
     "large intermediate fully replicated while the mesh has dp>1: a "
@@ -471,15 +498,17 @@ register_rule(
 register_rule(
     "MX805", "warning",
     "raw sharding placement outside parallel/ + comm/: a "
-    "with_sharding_constraint or device_put(..., NamedSharding(...)) "
-    "call site outside the owner layers scatters placement decisions "
-    "across the codebase — the audit pass and the comm plan can only "
-    "vouch for wire traffic whose placement flows through the owners "
-    "(parallel.shard_batch / replicate_params, the model's _place)",
-    "route the placement through mxnet_tpu.parallel (shard_batch, "
-    "replicate_params) or the model entry points; a deliberate "
-    "placement site (checkpoint restore, a model's declared weight "
-    "shardings) carries `# mxlint: disable=MX805` with a justification")
+    "torch.distributed.tensor placement (distribute_tensor, "
+    "DTensor.from_local) or a `Sharding(...).shard(...)` call site "
+    "outside the owner layers scatters placement decisions across the "
+    "codebase — the audit pass and the comm plan can only vouch for wire "
+    "traffic whose placement flows through the owners "
+    "(parallel.shard_batch / replicate_params, a model's param_shardings)",
+    "route the placement through mxnet_tpu_torch.parallel (shard_batch, "
+    "replicate_params, the Sharding a model's param_shardings gives) or "
+    "the model entry points; a deliberate placement site (checkpoint "
+    "restore, a model's declared weight shardings) carries "
+    "`# mxlint: disable=MX805` with a justification")
 
 register_rule(
     "MX602", "error",

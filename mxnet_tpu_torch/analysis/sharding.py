@@ -447,7 +447,10 @@ def profile_step(step):
 
     every_thread = torch._C._profiler._ExperimentalConfig(
         profile_all_threads=True)
-    with profile(activities=[ProfilerActivity.CPU],
+    # a raw profiler (pragma below): the audit reads the profile object of
+    # every thread, which a capture window does not give; one step, closed
+    # by the block
+    with profile(activities=[ProfilerActivity.CPU],  # mxlint: disable=MX314
                  experimental_config=every_thread) as prof:
         result = step()
     return result, prof

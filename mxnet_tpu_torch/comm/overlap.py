@@ -483,9 +483,11 @@ class OverlapSchedule:
                         if self._closed:
                             return
                         marker = self._ready[i]
-                    self._results[i] = self._exchange(i, marker)
+                    # handoffs, not races: wait() reads both only after
+                    # _done is set under _cv, below
+                    self._results[i] = self._exchange(i, marker)  # mxlint: disable=MX701
             except BaseException as e:  # noqa: BLE001 - raised by wait()
-                self._error = e
+                self._error = e  # mxlint: disable=MX701
             with self._cv:
                 self._done = True
                 self._cv.notify_all()

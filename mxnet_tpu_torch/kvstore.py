@@ -678,5 +678,5 @@ def create_group(num_workers: int, kv_type="dist_sync", compression=None,
     workers = [_GroupWorkerKVStore(server, r) for r in range(num_workers)]
     if compression is not None:
         for w in workers:
-            w.set_gradient_compression(compression)
+            w.set_gradient_compression(compression)  # mxlint: disable=MX311 - launch config, not mid-run actuation
     return workers

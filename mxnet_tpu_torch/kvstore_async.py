@@ -705,10 +705,13 @@ class AsyncKVStore(KVStore):
         from .comm import CompressionSpec, HostCodec
 
         spec = CompressionSpec.resolve(compression)
-        self._compression = spec
-        self._codec = HostCodec(spec) if spec is not None else None
-        self._bucketer = None
-        self._layouts_sent = set()
+        # under the socket's lock: a stale round's pusher thread encodes
+        # with this state (_call_enc) while the main thread may reset it
+        with self._lock:
+            self._compression = spec
+            self._codec = HostCodec(spec) if spec is not None else None
+            self._bucketer = None
+            self._layouts_sent = set()
         self._call("set_compression",
                    None if spec is None
                    else (spec.mode, spec.threshold, spec.chunk))
@@ -741,10 +744,11 @@ class AsyncKVStore(KVStore):
         after that only its hash. On a host cache miss the same slabs are
         resent with the layout (not encoded again: the residual already
         moved)."""
-        spec = self._compression
-        spec_args = (spec.mode, spec.threshold, spec.chunk)
-        lhash, layout, slabs = self._encode_slabs(kvs)
-        send_layout = layout if lhash not in self._layouts_sent else None
+        with self._lock:  # the encoding state, as set_gradient_compression
+            spec = self._compression
+            spec_args = (spec.mode, spec.threshold, spec.chunk)
+            lhash, layout, slabs = self._encode_slabs(kvs)
+            send_layout = layout if lhash not in self._layouts_sent else None
         try:
             out = self._call(op, spec_args, lhash, send_layout, slabs,
                              mutating=True)
@@ -752,10 +756,12 @@ class AsyncKVStore(KVStore):
             if "unknown bucket layout" not in str(e) or \
                     send_layout is not None:
                 raise
-            self._layouts_sent.discard(lhash)
+            with self._lock:
+                self._layouts_sent.discard(lhash)
             out = self._call(op, spec_args, lhash, layout, slabs,
                              mutating=True)
-        self._layouts_sent.add(lhash)
+        with self._lock:
+            self._layouts_sent.add(lhash)
         return out
 
     def push_many(self, kvs: dict, priority=0):

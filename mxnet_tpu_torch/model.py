@@ -593,7 +593,9 @@ class _SyncFeed:
                 return
             dev = {k: v.to(self._device) for k, v in
                    self._extract(batch).items()}
-            self.waits.append(time.perf_counter() - t0)
+            # a blocking host-to-card copy returns once it is done (torch
+            # synchronizes the stream), so the wait is the feed's
+            self.waits.append(time.perf_counter() - t0)  # mxlint: disable=MX306
             yield batch, dev
 
 
@@ -1733,6 +1735,8 @@ class FeedForward(BASE_ESTIMATOR):
                 axis_size=sync.num_workers, aux_elements=aux_elements)
         finally:
             restore()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)  # the put-back copies, timed
         self.shard_audit_seconds += time.perf_counter() - t0
         for f in report.findings:
             log.warning("shard audit [%s]: %s", label, f.format())
@@ -1941,7 +1945,7 @@ class FeedForward(BASE_ESTIMATOR):
         if comm_spec is not None and async_kv:
             # gradients cross the parameter host's socket quantized and
             # bucketed (kvstore_async.py); no collective exchange
-            kv.set_gradient_compression(comm_spec)
+            kv.set_gradient_compression(comm_spec)  # mxlint: disable=MX311 - launch config, not mid-run actuation
             async_comm_spec, comm_spec = comm_spec, None
         elif comm_spec is not None and not dist_sync and not multi:
             logger.info("compression=%s ignored: single-device training "
@@ -2286,8 +2290,10 @@ class FeedForward(BASE_ESTIMATOR):
                     leaves = restored.state.get("opt")
                     comm_saved = restored.state.get("comm")
                     telemetry_mod.counter("ckpt_peer_restores_total")
+                    # the peer tier restores host copies, and quiesce()
+                    # synchronized the card: the seconds are the host's
                     telemetry_mod.emit("checkpoint", step=restored.step,
-                                       seconds=time.time() - t0, tier="t1")
+                                       seconds=time.time() - t0, tier="t1")  # mxlint: disable=MX306
                     logger.info("elastic: restored step %d from the "
                                 "in-memory peer tier (no disk read)",
                                 restored.step)
@@ -2883,6 +2889,8 @@ class FeedForward(BASE_ESTIMATOR):
             pulled = kv.flush_stale(names) if stale else kv.pull_many(names)
             t1 = time.perf_counter()
             self._load_pulled(state, pulled)
+            if state.device.type == "cuda":
+                torch.cuda.synchronize(state.device)
             return {"to_host_s": 0.0, "push_pull_s": t1 - t0,
                     "to_card_s": time.perf_counter() - t1}
         flat = state._flat_grad.detach().to("cpu").numpy()

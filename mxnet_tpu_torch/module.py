@@ -315,6 +315,12 @@ class Module:
                                       eval_metric=eval_metric)
                     for cb in _as_list(batch_end_callback):
                         cb(p)
+            # stop the epoch clock only once the card has run the epoch's
+            # queued work (a launched kernel is not a finished step — the
+            # un-barriered-timing footgun, MX306)
+            dev = self._context.torch_device
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
             name, value = eval_metric.get()
             self._logger.info("Epoch[%d] Train-%s=%f", epoch, name, value)
             self._logger.info("Epoch[%d] Time cost=%.3f", epoch,
@@ -347,7 +353,7 @@ class Module:
         for batch in eval_data:
             self.forward(batch, is_train=False)
             pad = getattr(batch, "pad", 0)
-            arr = self._exec.outputs[0].float().cpu().numpy()
+            arr = self._exec.outputs[0].float().cpu().numpy()  # mxlint: disable=MX309 - predict's output materialization
             outs.append(arr[:len(arr) - pad] if pad else arr)
         return np.concatenate(outs, axis=0)
 

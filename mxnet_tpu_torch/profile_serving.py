@@ -63,7 +63,9 @@ def device_report(run_once, repeats: int, unit: str) -> dict:
     device time."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    # a command of its own, alone in its process: the report reads the
+    # profile object's device rows, which a capture window does not give
+    with torch.profiler.profile(activities=activities) as prof:  # mxlint: disable=MX314
         t0 = time.perf_counter()
         for _ in range(repeats):
             run_once()

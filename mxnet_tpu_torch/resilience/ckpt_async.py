@@ -249,7 +249,7 @@ class AsyncCheckpointWriter:
                 telemetry.flight.auto_dump("checkpoint")
             finally:
                 with self.lock:
-                    self.write_seconds += time.perf_counter() - t0
+                    self.write_seconds += time.perf_counter() - t0  # mxlint: disable=MX306 - host file writes of a host snapshot
                     self._inflight = None
                     self.cv.notify_all()
 

@@ -202,8 +202,11 @@ def test_bucketed_fit_programs_match_jax():
     counts = {}
     for names, cm in ((mx, jcm), (_TorchBucketing, tcm)):
         cm.reset_compile_stats()
-        model, it = _bucketed(names)
-        model.fit(it, batch_size=8)
+        # fresh name managers: lstm_unroll's auto-named nodes count from
+        # zero in both, whatever graphs earlier tests built in the process
+        with names.name.NameManager():
+            model, it = _bucketed(names)
+            model.fit(it, batch_size=8)
         stats = cm.compile_stats()
         counts[cm.__name__] = (
             _tracked_compiles(stats) if cm is jcm else stats["compiles"],
@@ -219,6 +222,7 @@ class _TorchBucketing:
 
     models = tmodels
     init = mt.init
+    name = mt.name
     cpu = mt.cpu
     BucketSentenceIter = mt.bucketing.BucketSentenceIter
     BucketingFeedForward = mt.bucketing.BucketingFeedForward
