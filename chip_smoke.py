@@ -8,7 +8,9 @@ the port from ``mxnet_tpu_torch/csrc`` (one nvcc per source, all started
 together), and then:
 
 1. card: prints the card's name and power limit as nvidia-smi reports them,
-   and the kernels' build time;
+   and the kernels' build time; the host compiler builds the native data
+   pipeline and the bindings' libraries beside nvcc, and the lint's CLI
+   (phase mxlint's part (c)) runs beside them too;
 2. kernels: holds int8_matmul against its plain PyTorch version on the card,
    bitwise, at the shapes the serving path gives it and a few more (split K
    at small M, none at the large shape), also after the allocator's free
@@ -78,7 +80,7 @@ together), and then:
 5e. monitor: a ``Monitor`` on a bf16 ResNet-50 executor for two training
    steps, one finite statistic for each of the 16 unit outputs, named as
    ``get_internals().list_outputs()`` names them;
-5f. io_feed: writes a RecordIO shard of 1,024 PNG records (smooth
+5f. io_feed: writes a RecordIO shard of 512 PNG records (smooth
    gradients, sides drawn from 256-480, the port's own PNG encoder), reads
    one epoch through ``ImageRecordIter`` at the JAX package's io bench
    settings (batch 32, 3x224x224, shuffle, random crop and mirror,
@@ -87,7 +89,7 @@ together), and then:
    iterator's with the same seed, and prints the feed-only images per
    second;
 5g. io_fit: bf16 ResNet-50 (Xavier, SGD lr 0.01, momentum 0.9) trained
-   for one epoch (32 steps, the first a warm-up) through
+   for one epoch (16 steps, the first a warm-up) through
    ``FeedForward.fit`` from that iterator, with the device feed (a thread,
    pinned buffers, its own stream and an event), again with
    ``MXTPU_FEED_PREFETCH=0`` and on one cached batch; checks at every step
@@ -96,7 +98,7 @@ together), and then:
    reads the previous step's batch) is caught at every step after the
    first, that the loss is finite and the parameters moved; prints the
    step time, images per second and the feed's wait a step of each run,
-   and over steps 21-32 (the steady state) the card's idle share;
+   and over steps 13-16 (the steady state) the card's idle share;
 5h. lstm_bucketing: ``BucketingModule.fit`` of ``lstm_unroll`` at the
    widths of MXNet's PTB bucketing example (2 layers, 200 hidden, 200
    embedding, vocabulary 10,000, buckets 10-60, batch 32, SGD lr 0.5) over
@@ -178,7 +180,8 @@ together), and then:
    momentum, 8 steps) captured against eager by the same rule;
 5k. ckpt: save_sharded, load_sharded, one capture_snapshot's stall and
    the writer's background time at ResNet-50's 161 leaves (fused Adam's
-   state); a fit with ``checkpoint_every_n_steps=2`` killed after step 5
+   state); a fit of 6 steps with ``checkpoint_every_n_steps=2`` killed
+   after step 5
    (an exception from a batch callback) and resumed on the same object
    (its captured steps reused) against the uninterrupted fit: bf16
    ResNet-50 with fused Adam within twice the spread of two uninterrupted
@@ -227,7 +230,7 @@ together), and then:
    uninterrupted one;
 5q. elastic: full-width ResNet-50 (f32, fused Adam, int8 with overlap,
    the comm kernels, epoch checkpoints) through ``fit(elastic=)`` over
-   ``[gpu(0)] * 4`` (one replica an entry), batch 48, 6 steps an epoch, 3
+   ``[gpu(0)] * 4`` (one replica an entry), batch 48, 4 steps an epoch, 3
    epochs, cuDNN deterministic: a seeded ``elastic.kill`` before epoch
    1's fourth step and ``elastic.rejoin`` in epoch 2 (history [3, 4]);
    the redone epoch's checkpoint bitwise that of a fresh world-3 fit
@@ -236,7 +239,8 @@ together), and then:
    a resize; fused_adam and the int8 comm kernels launched on every
    world; the allocated memory after the regrow within 5% of before the
    kill at the same step of an epoch. Prints each resize's downtime;
-5r. controller: the same model and world, uncompressed at the start,
+5r. controller: the same model and world (6 steps an epoch),
+   uncompressed at the start,
    through ``fit(elastic=, controller=)`` with the JAX package's e2e
    faults (tests/test_controller.py:515-576): a straggler stalled by a
    real sleep and blamed through scripted spans, a flaky rank whose
@@ -303,7 +307,7 @@ together), and then:
    and times each at the two-rank exchange's shapes beside its bound, its
    plain version and the codec path's torch composition (``quant_twobit``
    with its error, as the exchange runs it);
-10. dp_train: two rank processes (spawn, gloo through pinned host buffers)
+10. dp_train: two rank processes (forked, gloo through pinned host buffers)
    share the card and train the full-width ResNet-50 (batch 32 a rank) for
    8 steps through ``FeedForward(ctx=gpu(0), optimizer="adam",
    fused=True).fit(kvstore="dist_sync", compression=..., comm_kernels=True)``
@@ -380,7 +384,7 @@ together), and then:
    held to int8's plan raises MX802 with the parameters bitwise rank 0's
    initial ones; prints what the audit adds to a fit and each rank's
    launches;
-11. lm_mesh: two rank processes (spawn, gloo through pinned host buffers)
+11. lm_mesh: two rank processes (forked, gloo through pinned host buffers)
    share the card and train the full-width transformer LM (global batch 8
    x 2048 tokens, bf16) for 4 steps each through ``make_train_step(mesh,
    optimizer=Adam(fused=True))`` on a mesh of sp = 2 (ring flash attention:
@@ -396,7 +400,7 @@ together), and then:
    and dk given the ring's output); prints
    the step time, global tokens per second and one step's forward /
    backward / gradient sum / update split per rank with the gloo time;
-12. moe_mesh: four rank processes (spawn, gloo through pinned host
+12. moe_mesh: four rank processes (forked, gloo through pinned host
    buffers) share the card and train the MoE pipeline LM (vocab 32000,
    d_model 512, 8 heads, d_ff 2048, 8 experts, one block on each of 2
    stages, 4 microbatches, f32, seeded random weights, Zipf-distributed
@@ -425,7 +429,33 @@ together), and then:
    flagged, captures and replays the right sum. Then ``python -m
    mxnet_tpu_torch.analysis --all`` (the source lint and the concurrency
    lint of the port's tree, and the sharding audit over eight CPU
-   replicas) exits 0; prints its seconds and file count;
+   replicas), which phase card ran beside the builds, exited 0; prints its
+   seconds and file count;
+12b. bindings: (a) ResNet-50 (batch 32, f32, TF32 off, cuDNN
+   deterministic) trained CAPI_STEPS steps through the flat C API loaded
+   with ctypes: the symbol from MXSymbolCreateFromJSON, every argument made
+   by MXNDArrayCreate(dev_type=2) and MXNDArraySyncCopyFromCPU,
+   MXExecutorBind(dev_type=2) with each of the 161 parameters' gradients
+   written, MXExecutorForward(1), MXExecutorBackward and SGD through
+   MXFuncInvoke; each step's output and gradients (MXNDArraySyncCopyToCPU)
+   held to the port's Python ``Executor`` on gpu(0) over the same
+   arguments within CAPI_BOUND (relative Frobenius; bitwise expected);
+   MXNDArrayGetContext reads (2, 0) for an argument and an output; a
+   planted stale-handle fault (a rebound handle not copied into the
+   executor) reads above the bound and a one-ulp change of one weight is
+   not bitwise equal; a KVStore's C updater calls back into MX* on card
+   arrays. (b) tests/torch_capi_host.cc, a C program linked against the
+   library, embeds Python and trains the MLP on dev_type 2 for
+   CAPI_MLP_STEPS SGD steps: it exits 0, its loss falls and its first loss
+   equals the same sequence's run here through ctypes (under the package's
+   default precision, TF32 on, which the host's process keeps). (c) ResNet-50 at
+   batch 1 exported by the port's ``Predictor`` on the card runs through
+   the native predictor, the amalgamated build and the standalone module
+   on this machine's CPU: bitwise equal to each other and within
+   PREDICT_TOL of the card's output. Prints each path's host ms a step or
+   a request (the predictor's: CPU time of the card's machine), the build
+   seconds (phase card's, beside nvcc), and the phase's seconds against
+   its 120 s budget;
 13. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
    main path, error, times and bound (the flash kernels and fused_adam also
    their launches in lm_mesh; fused_adam its launches in train_bf16 and zoo;
@@ -443,7 +473,9 @@ together), and then:
    ``slice21_launches``: 10e's binds, 10f's audit and 10g's audited fits
    (rank 0, both modes, the audit's step included);
    ``slice22_launches``: 12a's timing fixtures (120 replays of the
-   captured fused_adam step: each copy three times, 20 a time); rows
+   captured fused_adam step: each copy three times, 20 a time);
+   ``slice23_launches``: 12b's C API steps, embedded host and native
+   predictor (0: no hand-written kernel on that path); rows
    3-7 also their times, bound, library time
    and the launch floor at one bucket's shape and their launches on the
    overlap path, ``bucket_shape``);
@@ -691,34 +723,34 @@ PROGRESSIVE_FIRST = 64
 # iterator settings; io_fit trains bf16 ResNet-50 from it with bench.py's
 # SGD (run_io_bench, bench.py:339-341)
 IO_DIR = "build/chip_smoke/io"
-IO_RECORDS = 1024
+IO_RECORDS = 512
 IO_SIDES = (256, 481)
 IO_ITER = dict(data_shape=(3, 224, 224), batch_size=32, shuffle=True,
                rand_crop=True, rand_mirror=True, resize=256,
                prefetch_buffer=8, seed=7, output_dtype="uint8")
-IO_FIT_STEPS = 16
+IO_EPOCH_STEPS = IO_RECORDS // IO_ITER["batch_size"]
 IO_LR, IO_MOMENTUM = 0.01, 0.9
 # slice 12, io_native: the same images as JPEG records (the port's codec at
 # pack_img's quality 95, 4:2:0, which writes PIL's bytes) through the
 # native pipeline. The fits of a whole epoch at IO_ITER's settings (io_fit's
 # from the PNG shard, io_native's from the JPEG shard and the cached
-# batch) read steps 21-32, by which the 8 prefetched batches and those
+# batch) read steps 13-16, by which the 8 prefetched batches and those
 # decoded during the warm-up and capture steps are spent, so that they read
 # the steady state, the decode threads busy; they are the thread sweep's
 # row at the host's cores (8 on the card's machine). The sweep's rows
-# below the cores train half the shard (num_parts 2, 16 steps) with as
-# many prefetched batches as threads, spent by step 8, and read steps
-# 9-16: both routes decode a batch a task (an engine task, a ticket) and
+# below the cores train half the shard (num_parts 2, 8 steps) with as
+# many prefetched batches as threads, spent by step 4, and read steps
+# 5-8: both routes decode a batch a task (an engine task, a ticket) and
 # start no more than the prefetch depth, so a shallower one idles
 # threads. Feed-only rates are read at IO_THREADS
 IO_THREADS = (1, 2, 4, 8)
-IO_STEADY_WINDOW = (20, 32)
+IO_STEADY_WINDOW = (12, 16)
 IO_SWEEP_THREADS = (1, 2, 4)
 IO_SWEEP_PARTS = 2
-IO_SWEEP_WINDOW = (8, 16)
+IO_SWEEP_WINDOW = (4, 8)
 # the profiler reads this many steps of a window: its trace of a
-# captured ResNet-50 step holds hundreds of kernels, and turning a longer
-# one into per-kernel sums costs seconds on the host
+# captured ResNet-50 step holds hundreds of kernels, and stopping it on a
+# longer one holds the host for seconds
 IO_PROFILE_STEPS = 4
 IO_JPEG_QUALITY = 95
 # the native codec against PIL (which the card's machine has) on sampled
@@ -738,12 +770,17 @@ LSTM_BUCKETS = [10, 20, 30, 40, 50, 60]
 LSTM_BATCH = 32
 LSTM_OPT = {"learning_rate": 0.5, "rescale_grad": 1 / LSTM_BATCH}
 LSTM_SENTENCES = 768
+# the corpus of the LSTM fits of phases graphs and ckpt, drawn as the one
+# above: 13 steps an epoch, every bucket in it
+LSTM_GRAPH_SENTENCES = 320
 LSTM_LENGTHS = (5, 60)
 LSTM_ZIPF = 1.2
 # the card's first-step loss (a mean NLL near log(10000)) against the same
 # step on the CPU, relative: f32 throughout, only summation orders differ
 LSTM_CPU_BOUND = 1e-5
 GRAPH_STEPS = 8
+# ckpt's ResNet-50 fits: snapshots after steps 2, 4 and 6, killed after 5
+CKPT_STEPS = 6
 LSTM_SCAN_SEQ = 64
 LSTM_SCAN_STEPS = 8
 LSTM_SCAN_LR = 0.5
@@ -794,6 +831,37 @@ def time_ms(torch, fn, reps=25, spin=2_000_000):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def card_device_us(torch, prof):
+    """The card's busy microseconds in a ``torch.profiler`` trace: the
+    durations of its kernels, copies and sets, summed as the tracer hands
+    them over. ``key_averages`` gives the same sum, but it first builds a
+    table of every event, which on a trace of tens of thousands of kernels
+    costs tens of seconds on the host."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda and not e.is_user_annotation()
+               ) / 1e3
+
+
+def card_report(torch, run_once, repeats, unit):
+    """Wall and device ms per call of ``run_once`` over ``repeats`` calls
+    under ``torch.profiler`` (the card's activity only) and the card's idle
+    share of that window."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            run_once()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_us = card_device_us(torch, prof)
+    require(device_us > 0, "the profiler recorded the card's activity")
+    return {f"wall_ms_per_{unit}": wall_us / repeats / 1e3,
+            f"device_ms_per_{unit}": device_us / repeats / 1e3,
+            "device_idle_share": 1.0 - device_us / wall_us}
+
+
 def centered_logits(p):
     """Log-probabilities less their row mean: the logits up to a per-row
     constant, which the softmax output determines."""
@@ -805,10 +873,56 @@ def rel_fro(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
+def start_mxlint_cli():
+    """The lint's CLI over the port's tree with every pass, started in the
+    background (a CPU process that touches no card); its output goes to
+    files, so that a full pipe cannot stall it. Returns what
+    :func:`finish_mxlint_cli` takes."""
+    import os
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    files = [open(os.path.join(out_dir, f"mxlint_cli.{ext}"), "w+")
+             for ext in ("out", "err")]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.analysis", "--all"],
+        stdout=files[0], stderr=files[1],
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, files, time.perf_counter()
+
+
+def finish_mxlint_cli(started):
+    """(exit code, stdout, stderr, seconds) of the CLI that
+    :func:`start_mxlint_cli` started; killed past MXLINT_CLI_TIMEOUT_S."""
+    proc, files, t0 = started
+    try:
+        proc.wait(timeout=MXLINT_CLI_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    text = []
+    for f in files:
+        f.seek(0)
+        text.append(f.read())
+        f.close()
+    return proc.returncode, text[0], text[1], seconds
+
+
 def phase_card(torch, common):
+    """The card's name and power limit, then every build of the run at
+    once: nvcc for each kernel source, the host compiler for the native
+    data pipeline and for the bindings' libraries, and the lint's CLI
+    beside them (phase mxlint reads its result). Returns the nvidia-smi
+    line, the CLI's result and the bindings' builds."""
+    from pathlib import Path
+
     smi = nvidia_smi("name,power.limit")
     print(smi, flush=True)
     t0 = time.perf_counter()
+    cli = start_mxlint_cli()
 
     def build(stem):
         common.load_library(stem)
@@ -821,20 +935,28 @@ def phase_card(torch, common):
         return time.perf_counter() - t0
 
     # nvcc on a fresh checkout: one compiler per source, all at once, and
-    # the host compiler for the native data pipeline beside them
-    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
-        native_s = pool.submit(build_native)
-        library_s = dict(zip(KERNEL_SOURCES, pool.map(build, KERNEL_SOURCES)))
-        library_s["mxtpu_native (g++)"] = native_s.result()
-    build_s = time.perf_counter() - t0
+    # the host compiler for the native data pipeline and the bindings
+    # beside them
+    try:
+        with ThreadPoolExecutor(len(KERNEL_SOURCES) + 2) as pool:
+            native_s = pool.submit(build_native)
+            bindings = pool.submit(bindings_builds, Path(BINDINGS_DIR))
+            library_s = dict(zip(KERNEL_SOURCES,
+                                 pool.map(build, KERNEL_SOURCES)))
+            library_s["mxtpu_native (g++)"] = native_s.result()
+            bindings = bindings.result()
+        build_s = time.perf_counter() - t0
+    finally:
+        cli = finish_mxlint_cli(cli)
     emit({"phase": "card", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernels_loaded": list(KERNEL_SOURCES), "build_s": build_s,
           # each library's build, from the common start (they run at once)
-          "library_build_s": library_s})
-    return smi
+          "library_build_s": library_s, "bindings_build_s": bindings[3],
+          "mxlint_cli_s": cli[3]})
+    return smi, cli, bindings
 
 
 def phase_kernels(torch, k8, registry):
@@ -2444,9 +2566,13 @@ def rank_process(body, rank, world, init_method, timeout_s, queue):
 
 
 def run_ranks(torch, body, world, timeout_s, what):
-    """Start ``world`` rank processes (spawn) that run ``body`` and share
-    the card, and collect their results; a rank that fails or a run past
-    the time limit kills every rank and raises."""
+    """Start ``world`` rank processes that run ``body`` and share the card,
+    and collect their results; a rank that fails or a run past the time
+    limit kills every rank and raises. The ranks fork from one server
+    process, started at the first call, that has imported this script,
+    torch and the port but touched no CUDA: each rank starts in well under
+    a second instead of importing torch anew, and makes its own CUDA
+    context."""
     import multiprocessing as mp
     import os
     import queue as queue_mod
@@ -2459,7 +2585,9 @@ def run_ranks(torch, body, world, timeout_s, what):
     rdv = rdv_dir / f"rendezvous-{os.getpid()}"
     if rdv.exists():
         rdv.unlink()
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(["__main__", "torch", "torch.distributed",
+                                "mxnet_tpu_torch"])
     queue = ctx.Queue()
     procs = [ctx.Process(target=rank_process, daemon=True,
                          args=(body, rank, world, f"file://{rdv}", timeout_s,
@@ -4695,10 +4823,9 @@ def io_fit(torch, mt, net, args, aux, data, steps_floor, fault=False,
         require(stop in at and profile_start >= start,
                 f"io_fit: the window {window} and its {IO_PROFILE_STEPS} "
                 f"profiled steps lie in the {n} steps")
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        require(events, "io_fit: the profiler recorded the card's activity")
-        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        device_ms = card_device_us(torch, prof) / 1e3
+        require(device_ms > 0,
+                "io_fit: the profiler recorded the card's activity")
         wall_ms = (at[stop] - at[start]) * 1e3
         k = stop - start
         measured = {"window": [start + 1, stop],
@@ -4776,7 +4903,7 @@ def phase_io_fit(torch, mt, path):
 
     mt.set_matmul_precision("highest")
     net, args, aux = xavier_resnet50(torch, mt)
-    steps_floor = IO_FIT_STEPS + 1
+    steps_floor = IO_EPOCH_STEPS
     reset_launches()
     model, overlap = io_fit(torch, mt, net, args, aux, io_iter(mt, path),
                             steps_floor, window=IO_STEADY_WINDOW)
@@ -4976,7 +5103,7 @@ def phase_io_native(torch, mt, png_path, io_fit_rows):
     require(data._native is not None, "io_native: the fit's iterator takes "
             "the native route")
     model, jpeg_fit = io_fit(torch, mt, net, args, aux, data,
-                             IO_FIT_STEPS + 1, window=IO_STEADY_WINDOW)
+                             IO_EPOCH_STEPS, window=IO_STEADY_WINDOW)
     launches = read_launches()
     moved = max(float((model.arg_params[k] - args[k]).abs().max())
                 for k in args)
@@ -5236,16 +5363,16 @@ def phase_native_arith(torch, mt, png_path):
     return launches
 
 
-def lstm_sentences():
-    """The synthetic corpus: lengths uniform over ``LSTM_LENGTHS``, ids
-    with Zipf(``LSTM_ZIPF``) frequencies over a fixed order of the
-    vocabulary (the repository holds no PTB text)."""
+def lstm_sentences(count=LSTM_SENTENCES):
+    """The synthetic corpus of ``count`` sentences: lengths uniform over
+    ``LSTM_LENGTHS``, ids with Zipf(``LSTM_ZIPF``) frequencies over a fixed
+    order of the vocabulary (the repository holds no PTB text)."""
     rng = np.random.default_rng(SEED + 11)
     vocab = LSTM_CONFIG["vocab"]
     freq = 1.0 / np.arange(1, vocab + 1) ** LSTM_ZIPF
     order = rng.permutation(vocab)
     lengths = rng.integers(LSTM_LENGTHS[0], LSTM_LENGTHS[1] + 1,
-                           LSTM_SENTENCES)
+                           count)
     ids = order[rng.choice(vocab, size=int(lengths.sum()),
                            p=freq / freq.sum())]
     return np.split(ids.astype(np.int32), np.cumsum(lengths)[:-1])
@@ -5572,9 +5699,7 @@ def graph_stats(tcm):
 def step_profile(torch, model, arrays, captured):
     """Device time and the card's idle share of 3 more steps of ``model``'s
     training state after its fit, replayed from the graph or eager
-    (torch.profiler, as profile_training does)."""
-    from mxnet_tpu_torch.profile_serving import device_report
-
+    (torch.profiler)."""
     state = model._train_state
     progs = [p for p in state.programs.values() if p.captured.captured]
 
@@ -5587,9 +5712,7 @@ def step_profile(torch, model, arrays, captured):
 
     step()
     torch.cuda.synchronize()
-    rep = device_report(step, 3, "step")
-    return {k: rep[k] for k in ("wall_ms_per_step", "device_ms_per_step",
-                                "device_idle_share")}
+    return card_report(torch, step, 3, "step")
 
 
 def graphs_fit(torch, mt, tcm, net, args, aux, data, captured, batch,
@@ -5862,8 +5985,8 @@ def lstm_model(mt, captured, **kw):
 
 def lstm_iter(mt):
     return mt.bucketing.BucketSentenceIter(
-        lstm_sentences(), buckets=LSTM_BUCKETS, batch_size=LSTM_BATCH,
-        init_states=lstm_states(), seed=SEED)
+        lstm_sentences(LSTM_GRAPH_SENTENCES), buckets=LSTM_BUCKETS,
+        batch_size=LSTM_BATCH, init_states=lstm_states(), seed=SEED)
 
 
 def graphs_lstm(torch, mt, tcm, add):
@@ -5871,8 +5994,6 @@ def graphs_lstm(torch, mt, tcm, add):
     and eager, bitwise; a FactorScheduler moves lr mid-epoch. The
     precompiled and eager models then train one more epoch under the
     profiler for the card's idle share."""
-    from mxnet_tpu_torch.profile_serving import device_report
-
     params, rows = {}, {}
     for name, captured, pre in (("precompiled", True, True),
                                 ("captured", True, False),
@@ -5913,11 +6034,8 @@ def graphs_lstm(torch, mt, tcm, add):
         params[name] = dict(model.arg_params)
         if name != "captured":
             # one more epoch under the profiler: the card's idle share
-            rep = device_report(lambda: model.fit(lstm_iter(mt)), 1,
-                                "epoch")
-            rows[name].update({k: rep[k] for k in (
-                "wall_ms_per_epoch", "device_ms_per_epoch",
-                "device_idle_share")})
+            rows[name].update(card_report(
+                torch, lambda: model.fit(lstm_iter(mt)), 1, "epoch"))
         del model
         torch.cuda.empty_cache()
     same = all(torch.equal(params["precompiled"][k], params[o][k])
@@ -5937,8 +6055,6 @@ def graphs_predictor(torch, mt, tcm, k8, add):
     """Request latency of the int8 Predictor, replayed and eager, and the
     card's idle share over 4 more requests; the logits bitwise and
     int8_matmul counted once a request."""
-    from mxnet_tpu_torch.profile_serving import device_report
-
     from mxnet_tpu_torch.convert import random_params
     from mxnet_tpu_torch.models import resnet50
 
@@ -5960,11 +6076,10 @@ def graphs_predictor(torch, mt, tcm, k8, add):
         n = k8.int8_matmul.launches - before
         if captured:
             add({"int8_matmul": n})
-        rep = device_report(lambda: pred.forward(data=image).get_output(0),
-                            4, "request")
-        rows[name] = {**{k: rep[k] for k in ("wall_ms_per_request",
-                                             "device_ms_per_request",
-                                             "device_idle_share")},
+        rep = card_report(
+            torch, lambda: pred.forward(data=image).get_output(0), 4,
+            "request")
+        rows[name] = {**rep,
                       "requests": REQUESTS,
                       "latency_ms_median": statistics.median(ms[2:]),
                       "images_per_s": BATCH * 1e3 / statistics.median(ms[2:]),
@@ -6064,25 +6179,16 @@ def phase_ckpt(torch, mt, kfa, io_path):
     root = os.path.join(IO_DIR, "..", "ckpt")
     shutil.rmtree(root, ignore_errors=True)
     net, args, aux, batch_x, batch_y = resnet50_case()
-    steps = GRAPH_STEPS
+    steps = CKPT_STEPS
     X = np.ascontiguousarray(np.broadcast_to(
         batch_x, (steps,) + batch_x.shape).reshape((-1,) + IMAGE))
     Y = np.tile(batch_y, steps)
     kw = dict(ctx=mt.gpu(0), num_epoch=1, optimizer="adam", fused=True,
               learning_rate=LEARNING_RATE, arg_params=args, aux_params=aux)
-
-    def fit(model, d, kill=None):
-        try:
-            model.fit(mt.io.NDArrayIter(X, Y, batch_size=BATCH),
-                      sharded_checkpoint_dir=d, checkpoint_every_n_steps=2,
-                      batch_end_callback=kill)
-        except Killed:
-            return False
-        return True
-
+    # the times, on a fitted state (161 leaves); the fit writes no
+    # checkpoint of its own
     whole = mt.FeedForward(net, **kw)
-    fit(whole, os.path.join(root, "whole"))
-    # the times, on the uninterrupted run's state (161 leaves)
+    whole.fit(mt.io.NDArrayIter(X, Y, batch_size=BATCH))
     state = whole._train_state
     leaves = model_mod.opt_leaves(state.opt_state)
     torch.cuda.synchronize()
@@ -6105,8 +6211,7 @@ def phase_ckpt(torch, mt, kfa, io_path):
                  os.walk(os.path.join(root, "timed", "2")) for f in fs)
     del whole, state, leaves, snap
     torch.cuda.empty_cache()
-    for name in ("whole", "timed"):
-        shutil.rmtree(os.path.join(root, name))
+    shutil.rmtree(os.path.join(root, "timed"))
 
     # the resume gates: io_fit's bf16 step on one cached batch (whose
     # cuDNN kernels ran bitwise from run to run in phase graphs) with
@@ -6421,13 +6526,9 @@ def phase_ctx_list(torch, mt, comm, ck):
 
 def lm_profile(torch, step_fn):
     """Device time and idle share of 3 more steps (torch.profiler)."""
-    from mxnet_tpu_torch.profile_serving import device_report
-
     step_fn()
     torch.cuda.synchronize()
-    rep = device_report(step_fn, 3, "step")
-    return {k: rep[k] for k in ("wall_ms_per_step", "device_ms_per_step",
-                                "device_idle_share")}
+    return card_report(torch, step_fn, 3, "step")
 
 
 def lm_graph_run(torch, mt, topt, tcm, model, params0, batches, captured,
@@ -7738,11 +7839,11 @@ def phase_shard_audit(torch, comm):
 
 ELASTIC_WORLD = 4           # ranks: [gpu(0)] * 4, aliased replicas
 ELASTIC_BATCH = 48          # divides 4, 3 and 2: every world the phases take
-ELASTIC_STEPS = 6           # steps an epoch
+ELASTIC_STEPS = 4           # steps an epoch
 ELASTIC_EPOCHS = 3
-# elastic.kill's and elastic.rejoin's occurrences (one poll a step): the
-# kill before epoch 1's 4th step, the rejoin before epoch 2's 3rd (after
-# epoch 1 was redone on 3)
+# elastic.kill's and elastic.rejoin's occurrences (one poll a step,
+# counted from 0): the kill before epoch 1's 4th step, the rejoin before
+# epoch 2's 3rd (after epoch 1 was redone on 3)
 ELASTIC_KILL_AT = ELASTIC_STEPS + 3
 ELASTIC_REJOIN_AT = ELASTIC_KILL_AT + ELASTIC_STEPS + 3
 ELASTIC_MEMORY_BOUND = 0.05
@@ -7754,6 +7855,7 @@ CTL_HEARTBEAT_S = 1.0
 CTL_OUTAGE_STEP = 1         # the flaky rank falls silent from this step
 CTL_RATIO = 0.5             # comm:compute the scaled wire gives: int8
 CTL_FREEZE_STEPS = 3
+CTL_STEPS = 6               # steps an epoch of the controller's first fit
 
 
 def elastic_data(shape_rows):
@@ -7926,7 +8028,8 @@ def phase_elastic(torch, mt):
         np.array_equal(el[5][k], rf[5][k]) for k in el[5]),
         "elastic: the redone epoch's residual ledgers bitwise the replay's")
     require(el[3]["num_update"] == rf[3]["num_update"]
-            == 2 * ELASTIC_STEPS, "elastic: both at step 12")
+            == 2 * ELASTIC_STEPS,
+            f"elastic: both at step {2 * ELASTIC_STEPS}")
     del el, rf
     shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
     emit({"phase": "elastic", "model": "resnet50", "batch": ELASTIC_BATCH,
@@ -8022,7 +8125,7 @@ def phase_controller(torch, mt):
     shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
     os.makedirs(ELASTIC_DIR)
     net, args, aux, _, _ = resnet50_case()
-    X, Y = elastic_data(ELASTIC_STEPS * ELASTIC_BATCH)
+    X, Y = elastic_data(CTL_STEPS * ELASTIC_BATCH)
     elements = sum(int(v.size) for v in args.values())
     fp32_wire = comm.fp32_allreduce_wire_bytes(elements, ELASTIC_WORLD)
     wire_gbps = fp32_wire / (CTL_RATIO * CTL_SPAN_MS * 1e-3) / 1e9
@@ -8219,14 +8322,13 @@ def mxlint_adam_program(torch, topt, compile_mod, kfa):
     return prog, held
 
 
-def phase_mxlint(torch, mt):
+def phase_mxlint(torch, mt, cli):
     """The linted source run on the card: the fixture the port's lint flags
     misbehaves there, its clean copy does not (MX306: a clock read without
     a barrier times the launches' enqueue; MX202: a host read inside a
-    CUDA-graph capture makes the capture raise); then the CLI over the
-    port's tree with every pass. Returns the timing fixtures' launches."""
-    import os
-
+    CUDA-graph capture makes the capture raise); then the result of the CLI
+    over the port's tree with every pass (``cli``: phase card ran it beside
+    the builds). Returns the timing fixtures' launches."""
     from mxnet_tpu_torch import optimizer as topt
     from mxnet_tpu_torch.analysis import lint_source
     from mxnet_tpu_torch.kernels import fused_adam as kfa
@@ -8298,17 +8400,12 @@ def phase_mxlint(torch, mt):
             f"(want {want})")
 
     # (c) the CLI over the port's tree, every pass, on this machine
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "mxnet_tpu_torch.analysis", "--all"],
-        capture_output=True, text=True, timeout=MXLINT_CLI_TIMEOUT_S,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    cli_s = time.perf_counter() - t0
-    summary = proc.stdout.strip().splitlines()[-1] if proc.stdout else ""
-    require(proc.returncode == 0 and ": 0 error(s)" in summary
-            and "(0 findings)" in proc.stdout,
-            f"mxlint: the CLI exits 0 over the port ({proc.returncode}: "
-            f"{proc.stdout[-1500:]} {proc.stderr[-1500:]})")
+    returncode, stdout, stderr, cli_s = cli
+    summary = stdout.strip().splitlines()[-1] if stdout else ""
+    require(returncode == 0 and ": 0 error(s)" in summary
+            and "(0 findings)" in stdout,
+            f"mxlint: the CLI exits 0 over the port ({returncode}: "
+            f"{stdout[-1500:]} {stderr[-1500:]})")
     files = int(summary.split("checked ")[1].split()[0])
     emit({"phase": "mxlint", "lint": lint,
           "timed": {"launches": MXLINT_LAUNCHES, "flagged_ms": flagged_ms,
@@ -8319,9 +8416,669 @@ def phase_mxlint(torch, mt):
           "captured": {"flagged_capture_raised": raised[:300],
                        "clean_outputs": outs},
           "cli": {"argv": "--all", "seconds": cli_s, "files": files,
-                  "summary": summary},
+                  "summary": summary, "ran": "in phase card, beside the "
+                  "builds"},
           "phase_s": time.perf_counter() - t_start,
           "launches": launches})
+    return launches
+
+
+# -- 12b. bindings: the flat C API on the card, an embedded C host, and the
+# native predictor on the card's host ------------------------------------------
+CAPI_STEPS = 3              # ResNet-50 training steps through the C API
+CAPI_LR = 0.05              # SGD through MXFuncInvoke: w -= lr / batch * g
+CAPI_BOUND = 1e-6           # relative Frobenius, C API against Executor
+CAPI_MLP_SEED = 0
+CAPI_MLP_STEPS = 20         # tests/torch_capi_host.cc's SGD steps
+CAPI_MLP_ROWS, CAPI_MLP_BATCH = 40, 8
+CAPI_MLP_LR, CAPI_MLP_SD = 0.5, 0.3
+CAPI_HOST_TIMEOUT_S = 180
+CAPI_HOST = "tests/torch_capi_host.cc"
+PREDICT_TOL = dict(atol=2e-4, rtol=1e-3)  # tests/test_native_predict.py's
+PREDICT_REQUESTS = 1
+BINDINGS_DIR = "build/chip_smoke/bindings"
+BINDINGS_BUDGET_S = 120
+
+
+def capi_load(path):
+    """The C API library at ``path`` through ctypes (hosted: it joins this
+    interpreter), with the argument types of the functions the helpers
+    below call (mxtpu_c_api.h)."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(path))
+    lib.MXGetLastError.restype = ctypes.c_char_p
+    u, i, vp = ctypes.c_uint, ctypes.c_int, ctypes.c_void_p
+    pu, pi, pvp = (ctypes.POINTER(t) for t in (u, i, vp))
+    pf = ctypes.POINTER(ctypes.c_float)
+    for name, argtypes in (
+            ("MXRandomSeed", [i]),
+            ("MXNDArrayCreate", [pu, u, i, i, i, pvp]),
+            ("MXNDArraySyncCopyFromCPU", [vp, pf, ctypes.c_size_t]),
+            ("MXNDArraySyncCopyToCPU", [vp, pf, ctypes.c_size_t]),
+            ("MXNDArrayGetShape", [vp, pu, ctypes.POINTER(pu)]),
+            ("MXNDArrayGetContext", [vp, pi, pi]),
+            ("MXNDArrayFree", [vp]),
+            ("MXGetFunction", [ctypes.c_char_p, pvp]),
+            ("MXFuncInvoke", [vp, pvp, pf, pvp]),
+            ("MXSymbolCreateFromJSON", [ctypes.c_char_p, pvp]),
+            ("MXExecutorBind", [vp, i, i, u, pvp, pvp, pu, u, pvp, pvp]),
+            ("MXExecutorForward", [vp, i]),
+            ("MXExecutorBackward", [vp, u, pvp]),
+            ("MXExecutorOutputs", [vp, pu, ctypes.POINTER(pvp)]),
+            ("MXExecutorFree", [vp])):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, i
+    return lib
+
+
+def capi_check(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what}: {lib.MXGetLastError().decode()}")
+
+
+def capi_array(lib, shape, dev_type, values=None):
+    """A new NDArrayHandle of ``shape`` on ``dev_type``, filled from the f32
+    numpy array ``values`` when given."""
+    import ctypes
+
+    h = ctypes.c_void_p()
+    capi_check(lib, lib.MXNDArrayCreate(
+        (ctypes.c_uint * len(shape))(*shape), len(shape), dev_type, 0, 0,
+        ctypes.byref(h)), "MXNDArrayCreate")
+    if values is not None:
+        capi_copy_in(lib, h, values)
+    return h
+
+
+def capi_copy_in(lib, h, values):
+    import ctypes
+
+    values = np.ascontiguousarray(values, np.float32)
+    capi_check(lib, lib.MXNDArraySyncCopyFromCPU(
+        h, values.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_size_t(values.size)), "MXNDArraySyncCopyFromCPU")
+
+
+def capi_read(lib, h):
+    """An NDArrayHandle's value through MXNDArrayGetShape and
+    MXNDArraySyncCopyToCPU."""
+    import ctypes
+
+    ndim, pdata = ctypes.c_uint(), ctypes.POINTER(ctypes.c_uint)()
+    capi_check(lib, lib.MXNDArrayGetShape(h, ctypes.byref(ndim),
+                                          ctypes.byref(pdata)),
+               "MXNDArrayGetShape")
+    out = np.empty(tuple(pdata[i] for i in range(ndim.value)), np.float32)
+    capi_check(lib, lib.MXNDArraySyncCopyToCPU(
+        h, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_size_t(out.size)), "MXNDArraySyncCopyToCPU")
+    return out
+
+
+def capi_context(lib, h):
+    import ctypes
+
+    dt, di = ctypes.c_int(), ctypes.c_int()
+    capi_check(lib, lib.MXNDArrayGetContext(h, ctypes.byref(dt),
+                                            ctypes.byref(di)),
+               "MXNDArrayGetContext")
+    return dt.value, di.value
+
+
+def capi_function(lib, name):
+    import ctypes
+
+    f = ctypes.c_void_p()
+    capi_check(lib, lib.MXGetFunction(name.encode(), ctypes.byref(f)),
+               "MXGetFunction")
+    return f
+
+
+def capi_invoke(lib, fn, use, scalars, mutate):
+    import ctypes
+
+    capi_check(lib, lib.MXFuncInvoke(
+        fn, (ctypes.c_void_p * max(1, len(use)))(*use),
+        (ctypes.c_float * max(1, len(scalars)))(*scalars),
+        (ctypes.c_void_p * len(mutate))(*mutate)), "MXFuncInvoke")
+
+
+def capi_bind(lib, sym, dev_type, args, grads, reqs, aux=()):
+    import ctypes
+
+    n = len(args)
+    h = ctypes.c_void_p()
+    capi_check(lib, lib.MXExecutorBind(
+        sym, dev_type, 0, n, (ctypes.c_void_p * n)(*args),
+        (ctypes.c_void_p * n)(*grads), (ctypes.c_uint * n)(*reqs), len(aux),
+        (ctypes.c_void_p * max(1, len(aux)))(*aux), ctypes.byref(h)),
+        "MXExecutorBind")
+    return h
+
+
+def capi_outputs(lib, ex):
+    import ctypes
+
+    n, outs = ctypes.c_uint(), ctypes.POINTER(ctypes.c_void_p)()
+    capi_check(lib, lib.MXExecutorOutputs(ex, ctypes.byref(n),
+                                          ctypes.byref(outs)),
+               "MXExecutorOutputs")
+    return [ctypes.c_void_p(outs[i]) for i in range(n.value)]
+
+
+def capi_free(lib, *handles):
+    for h in handles:
+        capi_check(lib, lib.MXNDArrayFree(h), "MXNDArrayFree")
+
+
+def capi_mlp_symbol(lib):
+    """tests/test_c_api.py's MLP through CreateAtomicSymbol + Compose, as
+    tests/torch_capi_host.cc builds it."""
+    import ctypes
+
+    n, creators = ctypes.c_uint(), ctypes.POINTER(ctypes.c_void_p)()
+    capi_check(lib, lib.MXSymbolListAtomicSymbolCreators(
+        ctypes.byref(n), ctypes.byref(creators)), "ListAtomicSymbolCreators")
+    by_name = {}
+    for i in range(n.value):
+        c = ctypes.c_void_p(creators[i])
+        name, desc, kv = (ctypes.c_char_p() for _ in range(3))
+        nargs = ctypes.c_uint()
+        an, at, ad = (ctypes.POINTER(ctypes.c_char_p)() for _ in range(3))
+        capi_check(lib, lib.MXSymbolGetAtomicSymbolInfo(
+            c, ctypes.byref(name), ctypes.byref(desc), ctypes.byref(nargs),
+            ctypes.byref(an), ctypes.byref(at), ctypes.byref(ad),
+            ctypes.byref(kv)), "GetAtomicSymbolInfo")
+        by_name[name.value.decode()] = c
+
+    def layer(op, name, inp, **params):
+        s = ctypes.c_void_p()
+        keys = (ctypes.c_char_p * max(1, len(params)))(
+            *[k.encode() for k in params])
+        vals = (ctypes.c_char_p * max(1, len(params)))(
+            *[str(v).encode() for v in params.values()])
+        capi_check(lib, lib.MXSymbolCreateAtomicSymbol(
+            by_name[op], len(params), keys, vals, ctypes.byref(s)),
+            "CreateAtomicSymbol")
+        capi_check(lib, lib.MXSymbolCompose(
+            s, name.encode(), 1, (ctypes.c_char_p * 1)(b"data"),
+            (ctypes.c_void_p * 1)(inp)), "Compose")
+        return s
+
+    data = ctypes.c_void_p()
+    capi_check(lib, lib.MXSymbolCreateVariable(b"data", ctypes.byref(data)),
+               "CreateVariable")
+    net = layer("FullyConnected", "fc1", data, num_hidden=4)
+    net = layer("Activation", "relu1", net, act_type="relu")
+    net = layer("FullyConnected", "fc2", net, num_hidden=2)
+    return layer("SoftmaxOutput", "softmax", net)
+
+
+def capi_mlp_rows(step):
+    """The host's batch of a step: rows of eighths and their labels."""
+    r = (step * CAPI_MLP_BATCH + np.arange(CAPI_MLP_BATCH)) % CAPI_MLP_ROWS
+    x = (((r[:, None] * 7 + np.arange(3) * 13 + 5) % 17 - 8) / 8.0
+         ).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] - x[:, 2] > 0).astype(np.float32)
+    return x, y
+
+
+def capi_mlp(lib, dev_type, steps, seed=CAPI_MLP_SEED, init=None):
+    """tests/torch_capi_host.cc's sequence through ``lib`` from this
+    process: MXRandomSeed(seed), the MLP on ``dev_type``, weights drawn by
+    ``_random_gaussian`` (or copied from ``init``, a list of the four
+    parameters' arrays), then ``steps`` SGD steps through MXFuncInvoke.
+    Returns each step's mean cross-entropy, computed as the host computes
+    it (in double, rows in order)."""
+    import math
+
+    capi_check(lib, lib.MXRandomSeed(seed), "MXRandomSeed")
+    sym = capi_mlp_symbol(lib)
+    shapes = [(CAPI_MLP_BATCH, 3), (4, 3), (4,), (2, 4), (2,),
+              (CAPI_MLP_BATCH,)]
+    gaussian, set_value = (capi_function(lib, n)
+                           for n in ("_random_gaussian", "_set_value"))
+    args, grads = [], []
+    for i, shape in enumerate(shapes):
+        args.append(capi_array(lib, shape, dev_type))
+        param = 0 < i < len(shapes) - 1
+        grads.append(capi_array(lib, shape, dev_type) if param else None)
+        if not param:
+            continue
+        if init is not None:
+            capi_copy_in(lib, args[i], init[i - 1])
+        elif i in (1, 3):
+            capi_invoke(lib, gaussian, [], [0.0, CAPI_MLP_SD], [args[i]])
+        else:
+            capi_invoke(lib, set_value, [], [0.0], [args[i]])
+    ex = capi_bind(lib, sym, dev_type, args, grads,
+                   [1 if g is not None else 0 for g in grads])
+    mul_scalar, minus = (capi_function(lib, n)
+                         for n in ("_mul_scalar", "_minus"))
+    scratch = [capi_array(lib, s, dev_type) for s in shapes]
+    losses = []
+    for step in range(steps):
+        x, y = capi_mlp_rows(step)
+        capi_copy_in(lib, args[0], x)
+        capi_copy_in(lib, args[-1], y)
+        capi_check(lib, lib.MXExecutorForward(ex, 1), "MXExecutorForward")
+        outs = capi_outputs(lib, ex)
+        prob = capi_read(lib, outs[0])
+        capi_free(lib, *outs)
+        loss = 0.0
+        for b in range(CAPI_MLP_BATCH):
+            loss -= math.log(float(prob[b, int(y[b])]))
+        losses.append(loss / CAPI_MLP_BATCH)
+        capi_check(lib, lib.MXExecutorBackward(ex, 0, None),
+                   "MXExecutorBackward")
+        for i in range(1, len(shapes) - 1):
+            capi_invoke(lib, mul_scalar, [grads[i]],
+                        [CAPI_MLP_LR / CAPI_MLP_BATCH], [scratch[i]])
+            capi_invoke(lib, minus, [args[i], scratch[i]], [], [args[i]])
+    return losses
+
+
+def capi_host_build(lib_path, out):
+    """tests/torch_capi_host.cc linked against the C API library at
+    ``lib_path``; returns the program's path."""
+    import os
+
+    from mxnet_tpu_torch.native import capi
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        ["g++", "-O2", "-std=c++17", "-Wall",
+         os.path.join(root, CAPI_HOST), "-o", str(out),
+         "-I" + str(capi.HEADER.parent), f"-L{lib_path.parent}",
+         "-lmxtpu_torch_capi", f"-Wl,-rpath,{lib_path.parent}"],
+        capture_output=True, text=True, timeout=300)
+    require(proc.returncode == 0,
+            f"bindings: the embedded host builds ({proc.stderr[-1500:]})")
+    return out
+
+
+def capi_host_run(host, dev_type, steps, timeout_s=CAPI_HOST_TIMEOUT_S):
+    """(exit code, losses, seconds, stderr) of the embedded host."""
+    from mxnet_tpu_torch.native import capi
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(host), str(dev_type), str(CAPI_MLP_SEED),
+                           str(steps)], capture_output=True, text=True,
+                          timeout=timeout_s, env=capi.embedding_env())
+    losses = [float(line.split()[2]) for line in proc.stdout.splitlines()
+              if line.startswith("loss ")]
+    return proc.returncode, losses, time.perf_counter() - t0, proc.stderr
+
+
+def bindings_builds(tmp):
+    """Every library of the phase, built in parallel: the C API (then the
+    embedded host against it), the native predictor, and the amalgamated
+    predictor. Returns their paths and each build's seconds."""
+    from mxnet_tpu_torch.bindings import amalgamation
+    from mxnet_tpu_torch.native import capi
+    from mxnet_tpu_torch.native import predict as npredict
+
+    tmp.mkdir(parents=True, exist_ok=True)
+
+    def timed_call(fn):
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
+
+    def capi_and_host():
+        lib_path = capi.build_capi()
+        return lib_path, capi_host_build(lib_path, tmp / "torch_capi_host")
+
+    def amalgamated():
+        src = amalgamation.amalgamate(output=str(tmp / "mxtpu_predict-all.cc"))
+        return amalgamation.compile_check(src)
+
+    with ThreadPoolExecutor(3) as pool:
+        jobs = {"capi": pool.submit(timed_call, capi_and_host),
+                "predict": pool.submit(timed_call, npredict.get_predict_lib),
+                "amalgamation": pool.submit(timed_call, amalgamated)}
+        got = {k: j.result() for k, j in jobs.items()}
+    require(got["predict"][0] is not None,
+            f"bindings: the native predictor builds ({npredict._error})")
+    (lib_path, host), _ = got["capi"]
+    return (lib_path, host, got["amalgamation"][0],
+            {k: v[1] for k, v in got.items()})
+
+
+def capi_resnet_run(torch, mt, lib, net, args, aux, batches, fault=None):
+    """ResNet-50 through the C API on the card: the symbol from JSON, every
+    argument made with MXNDArrayCreate(dev_type=2) and
+    MXNDArraySyncCopyFromCPU, MXExecutorBind(dev_type=2) with each
+    parameter's gradient written, then per batch MXExecutorForward(1),
+    MXExecutorBackward and SGD through MXFuncInvoke. Returns each step's
+    outputs and gradients (MXNDArraySyncCopyToCPU), host ms a step and the
+    contexts of an argument and an output. ``fault``: ("ulp", name) binds
+    that argument one ulp up at its first element; "stale" drops the copy
+    of rebound handles into the executor."""
+    import ctypes
+
+    from mxnet_tpu_torch import capi_support
+
+    sym = ctypes.c_void_p()
+    capi_check(lib, lib.MXSymbolCreateFromJSON(net.tojson().encode(),
+                                               ctypes.byref(sym)),
+               "MXSymbolCreateFromJSON")
+    names = net.list_arguments()
+    args = dict(args)
+    if fault is not None and fault[0] == "ulp":
+        w = args[fault[1]].copy()
+        w.flat[0] = np.nextafter(w.flat[0], np.float32(np.inf))
+        args[fault[1]] = w
+    first_x, first_y = batches[0]
+    handles, grads = [], []
+    for n in names:
+        value = {"data": first_x, "softmax_label": first_y}.get(n, args.get(n))
+        handles.append(capi_array(lib, value.shape, 2, value))
+        grads.append(capi_array(lib, value.shape, 2) if n in args else None)
+    aux_h = [capi_array(lib, aux[n].shape, 2, aux[n])
+             for n in net.list_auxiliary_states()]
+    saved = capi_support._BoundExecutor._sync_in
+    if fault == "stale":
+        capi_support._BoundExecutor._sync_in = lambda self: None
+    try:
+        ex = capi_bind(lib, sym, 2, handles, grads,
+                       [1 if g is not None else 0 for g in grads], aux_h)
+        mul_scalar, minus = (capi_function(lib, n)
+                             for n in ("_mul_scalar", "_minus"))
+        scratch = {i: capi_array(lib, args[n].shape, 2)
+                   for i, n in enumerate(names) if n in args}
+        scale = float(np.float32(CAPI_LR / BATCH))
+        steps, step_ms = [], []
+        for x, y in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            capi_copy_in(lib, handles[names.index("data")], x)
+            capi_copy_in(lib, handles[names.index("softmax_label")], y)
+            capi_check(lib, lib.MXExecutorForward(ex, 1), "Forward")
+            capi_check(lib, lib.MXExecutorBackward(ex, 0, None), "Backward")
+            outs = capi_outputs(lib, ex)
+            got = {"out": capi_read(lib, outs[0]),
+                   "grads": {n: capi_read(lib, grads[i])
+                             for i, n in enumerate(names) if n in args}}
+            for i in scratch:
+                capi_invoke(lib, mul_scalar, [grads[i]], [scale],
+                            [scratch[i]])
+                capi_invoke(lib, minus, [handles[i], scratch[i]], [],
+                            [handles[i]])
+            capi_check(lib, lib.MXNDArrayWaitAll(), "MXNDArrayWaitAll")
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append(got)
+        contexts = {"argument": capi_context(lib, handles[0]),
+                    "output": capi_context(lib, outs[0])}
+        capi_free(lib, *outs, *handles, *aux_h, *scratch.values(),
+                  *[g for g in grads if g is not None])
+        capi_check(lib, lib.MXExecutorFree(ex), "MXExecutorFree")
+    finally:
+        capi_support._BoundExecutor._sync_in = saved
+    return steps, step_ms, contexts
+
+
+def python_resnet_run(torch, mt, net, args, aux, batches):
+    """The same steps through the port's Python ``Executor`` on gpu(0):
+    the batch copied in, forward, backward, and the same SGD through the
+    NDArray functions MXFuncInvoke calls."""
+    from mxnet_tpu_torch import ndarray as nd
+
+    ctx = mt.gpu(0)
+    first_x, first_y = batches[0]
+    values = {n: nd.array(np.array({"data": first_x, "softmax_label": first_y}
+                                   .get(n, args.get(n))), ctx)
+              for n in net.list_arguments()}
+    grads = {n: nd.zeros(args[n].shape, ctx) for n in args}
+    ex = net.bind(ctx, {n: v.data for n, v in values.items()},
+                  args_grad={n: g.data for n, g in grads.items()},
+                  grad_req={n: "write" if n in args else "null"
+                            for n in net.list_arguments()},
+                  aux_states={n: torch.from_numpy(v.copy()).cuda()
+                              for n, v in aux.items()})
+    scale = float(np.float32(CAPI_LR / BATCH))
+    steps, step_ms = [], []
+    for x, y in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.arg_dict["data"].copy_(torch.from_numpy(x).cuda())
+        ex.arg_dict["softmax_label"].copy_(torch.from_numpy(y).cuda())
+        out = ex.forward(is_train=True)[0]
+        ex.backward()
+        got = {"out": out.cpu().numpy().copy(),  # a copy on a CPU rehearsal
+               "grads": {n: ex.grad_dict[n].cpu().numpy().copy()
+                         for n in args}}
+        for n in args:
+            w = nd.NDArray(ex.arg_dict[n], ctx)
+            step = nd._mul_scalar(nd.NDArray(ex.grad_dict[n], ctx), scale)
+            ex.arg_dict[n].copy_(nd._minus(w, step).data)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(got)
+    return steps, step_ms
+
+
+def capi_errors(steps, ref):
+    """(the largest relative Frobenius error of a step's output or of its
+    gradients taken together, the largest absolute error, whether every
+    array is bitwise equal) over the steps."""
+    worst, worst_abs, bitwise = 0.0, 0.0, True
+    for got, want in zip(steps, ref):
+        names = sorted(want["grads"])
+        for a, b in ((got["out"], want["out"]),
+                     (np.concatenate([got["grads"][n].ravel() for n in names]),
+                      np.concatenate([want["grads"][n].ravel()
+                                      for n in names]))):
+            bitwise &= bool(np.array_equal(a, b))
+            worst = max(worst, rel_fro(a, b))
+            worst_abs = max(worst_abs, float(np.abs(a - b).max()))
+    return worst, worst_abs, bitwise
+
+
+def capi_kvstore_on_card(lib):
+    """A local KVStore with a C updater over card arrays: the updater calls
+    back into MX* functions (the GIL taken again while held)."""
+    import ctypes
+
+    updater_t = ctypes.CFUNCTYPE(None, ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_void_p)
+    calls = []
+
+    @updater_t
+    def sgd(key, recv, local, _):
+        recv, local = ctypes.c_void_p(recv), ctypes.c_void_p(local)
+        calls.append((key, capi_context(lib, recv), capi_context(lib, local)))
+        capi_copy_in(lib, local, capi_read(lib, local)
+                     - np.float32(0.1) * capi_read(lib, recv))
+
+    kv = ctypes.c_void_p()
+    capi_check(lib, lib.MXKVStoreCreate(b"local", ctypes.byref(kv)),
+               "MXKVStoreCreate")
+    capi_check(lib, lib.MXKVStoreSetUpdater(kv, sgd, None), "SetUpdater")
+    keys = (ctypes.c_int * 1)(3)
+    w = capi_array(lib, (4,), 2, np.ones(4, np.float32))
+    capi_check(lib, lib.MXKVStoreInit(kv, 1, keys, (ctypes.c_void_p * 1)(w)),
+               "MXKVStoreInit")
+    g = capi_array(lib, (4,), 2, np.full(4, 2.0, np.float32))
+    capi_check(lib, lib.MXKVStorePush(kv, 1, keys, (ctypes.c_void_p * 1)(g),
+                                      0), "MXKVStorePush")
+    out = capi_array(lib, (4,), 2)
+    capi_check(lib, lib.MXKVStorePull(kv, 1, keys,
+                                      (ctypes.c_void_p * 1)(out), 0),
+               "MXKVStorePull")
+    pulled = capi_read(lib, out)
+    ctx = capi_context(lib, out)
+    capi_free(lib, w, g, out)
+    capi_check(lib, lib.MXKVStoreFree(kv), "MXKVStoreFree")
+    del sgd
+    return calls, pulled, ctx
+
+
+def native_predictions(bundle, amalgamated_so, x, requests):
+    """The bundle through the port's NativePredictor, the amalgamated
+    build and the standalone module: {route: (output, host ms each)}."""
+    import importlib.util
+    import os
+
+    from mxnet_tpu_torch.native import predict as npredict
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "chip_standalone_predict",
+        os.path.join(root, "mxnet_tpu_torch", "bindings", "mxtpu_predict.py"))
+    standalone = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(standalone)
+
+    def through(pred, run):
+        ms, out = [], None
+        for _ in range(requests):
+            t0 = time.perf_counter()
+            out = run(pred)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    def native(pred):
+        pred.forward(data=x)
+        return pred.get_output(0)
+
+    return {
+        "native": through(npredict.NativePredictor(bundle), native),
+        "amalgamated": through(npredict.NativePredictor(
+            bundle, lib=npredict.load_lib(amalgamated_so)), native),
+        "standalone": through(standalone.Predictor(bundle),
+                              lambda p: p.predict({"data": x})[0])}
+
+
+def phase_bindings(torch, mt, built):
+    """12b. The bindings: (a) ResNet-50 at batch 32 trained 3 steps through
+    the flat C API on the card (ctypes, the library hosted in this
+    process), held to the Python ``Executor`` on gpu(0) with the same
+    arguments (TF32 off, cuDNN deterministic): bitwise expected, gated at
+    CAPI_BOUND; MXNDArrayGetContext (2, 0); a stale-handle fault above the
+    bound and a one-ulp one not bitwise; a KVStore whose C updater calls
+    back into MX* on card arrays. (b) tests/torch_capi_host.cc, an embedded
+    C host, trains the MLP on dev_type 2: exit 0, a falling loss, its first
+    loss equal to the same sequence run hosted here. (c) ResNet-50 at batch
+    1 exported by the port's Predictor on the card and run on this
+    machine's CPU through NativePredictor, the amalgamated build and the
+    standalone module: bitwise equal to each other, within PREDICT_TOL of
+    the card's output. Returns the kernels' launches across (a)-(c)."""
+    from pathlib import Path
+
+    from mxnet_tpu_torch.native import capi
+
+    t_start = time.perf_counter()
+    tmp = Path(BINDINGS_DIR)
+    # built in phase card, beside the kernels (bindings_builds)
+    lib_path, host, amalgamated_so, build_s = built
+    lib = capi_load(lib_path)
+    reset_launches()
+
+    # (a) the C API on the card
+    net, args, aux, batch_x, batch_y = resnet50_case()
+    rng = np.random.default_rng(SEED + 23)
+    batches = [(batch_x, batch_y)] + [
+        (rng.standard_normal(batch_x.shape, np.float32),
+         rng.integers(0, 1000, BATCH).astype(np.float32))
+        for _ in range(CAPI_STEPS - 1)]
+    with cudnn_deterministic(torch):
+        c_steps, c_ms, contexts = capi_resnet_run(torch, mt, lib, net, args,
+                                                  aux, batches)
+        py_steps, py_ms = python_resnet_run(torch, mt, net, args, aux,
+                                            batches)
+        err, err_abs, bitwise = capi_errors(c_steps, py_steps)
+        stale_err = capi_errors(capi_resnet_run(
+            torch, mt, lib, net, args, aux, batches, fault="stale")[0],
+            py_steps)[0]
+        ulp_name = next(n for n in net.list_arguments() if n in args)
+        ulp_err, _, ulp_bitwise = capi_errors(capi_resnet_run(
+            torch, mt, lib, net, args, aux, batches,
+            fault=("ulp", ulp_name))[0], py_steps)
+    n_grads = len(c_steps[0]["grads"])
+    require(err <= CAPI_BOUND,
+            f"bindings: the C API's ResNet-50 steps read {err:.3e} against "
+            f"the Executor's (bound {CAPI_BOUND})")
+    require(stale_err > CAPI_BOUND,
+            f"bindings: the stale-handle fault reads {stale_err:.3e}, above "
+            f"{CAPI_BOUND}")
+    require(not ulp_bitwise,
+            f"bindings: a one-ulp change of {ulp_name} is not bitwise equal")
+    require(contexts == {"argument": (2, 0), "output": (2, 0)},
+            f"bindings: MXNDArrayGetContext reads {contexts}")
+    kv_calls, kv_pulled, kv_ctx = capi_kvstore_on_card(lib)
+    require(kv_calls == [(3, (2, 0), (2, 0))] and kv_ctx == (2, 0)
+            and np.array_equal(kv_pulled,
+                               np.full(4, np.float32(1) - np.float32(0.1)
+                                       * np.float32(2), np.float32)),
+            f"bindings: the C updater ran on card arrays ({kv_calls}, "
+            f"{kv_pulled}, {kv_ctx})")
+    del c_steps, py_steps
+
+    # (b) the embedded C host on the card, and its sequence hosted here under
+    # the package's default precision, which the host's fresh process has
+    # (TF32 on)
+    precision = mt.get_matmul_precision()
+    mt.set_matmul_precision("default")
+    try:
+        hosted = capi_mlp(lib, 2, CAPI_MLP_STEPS)
+    finally:
+        mt.set_matmul_precision(precision)
+    rc, host_losses, host_s, host_err = capi_host_run(host, 2, CAPI_MLP_STEPS)
+    require(rc == 0 and len(host_losses) == CAPI_MLP_STEPS,
+            f"bindings: the embedded host exits 0 with {CAPI_MLP_STEPS} "
+            f"losses (exit {rc}: {host_err[-1500:]})")
+    require(host_losses[-1] < host_losses[0],
+            f"bindings: the embedded host's loss falls ({host_losses})")
+    require(host_losses[0] == hosted[0],
+            f"bindings: the embedded host's first loss {host_losses[0]!r} "
+            f"equals the hosted sequence's {hosted[0]!r}")
+
+    # (c) the native predictor over a bundle the card's Predictor exported
+    x1 = batch_x[:1]
+    pred = mt.Predictor(net, args, aux, ctx=mt.gpu(0), input_names=["data"])
+    pred.forward(data=x1)
+    card_out = pred.get_output(0)
+    bundle = str(tmp / "resnet50_b1.mxtpu")
+    t0 = time.perf_counter()
+    pred.export(bundle)
+    export_s = time.perf_counter() - t0
+    routes = native_predictions(bundle, amalgamated_so, x1, PREDICT_REQUESTS)
+    outs = {k: v[0] for k, v in routes.items()}
+    require(all(np.array_equal(outs["native"], o) for o in outs.values()),
+            "bindings: the three native predictor builds are bitwise equal")
+    require(outs["native"].shape == card_out.shape and np.allclose(
+        outs["native"], card_out, **PREDICT_TOL),
+        f"bindings: the native predictor is within {PREDICT_TOL} of the "
+        f"card ({np.abs(outs['native'] - card_out).max():.3e})")
+    launches = read_launches()
+    require(not any(launches.values()),
+            f"bindings: no hand-written kernel launched ({launches})")
+    phase_s = time.perf_counter() - t_start
+    emit({"phase": "bindings", "python": sys.version.split()[0],
+          "py_enable_shared": capi._python_flags()[1] != (),
+          "build_s": build_s,
+          "capi": {"model": "resnet50", "batch": BATCH, "steps": CAPI_STEPS,
+                   "grads": n_grads, "max_rel_fro": err,
+                   "max_abs_err": err_abs, "bitwise": bitwise,
+                   "bound": CAPI_BOUND, "stale_fault_rel_fro": stale_err,
+                   "ulp_fault": {"arg": ulp_name, "rel_fro": ulp_err},
+                   "contexts": contexts, "capi_step_host_ms": c_ms,
+                   "python_step_host_ms": py_ms,
+                   "kvstore_updater_calls": kv_calls},
+          "host": {"exit": rc, "seconds": host_s, "losses": host_losses,
+                   "hosted_losses": hosted,
+                   "equal_steps": sum(a == b for a, b in
+                                      zip(host_losses, hosted))},
+          "predict": {"model": "resnet50", "batch": 1, "export_s": export_s,
+                      "max_abs_err": float(np.abs(outs["native"]
+                                                  - card_out).max()),
+                      "host_cpu_ms_per_request": {
+                          k: v[1] for k, v in routes.items()}},
+          "phase_s": phase_s, "budget_s": BINDINGS_BUDGET_S,
+          "launches": launches})
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -8345,7 +9102,7 @@ def main() -> int:
     from mxnet_tpu_torch.kernels import int8_matmul as k8
     from mxnet_tpu_torch.kernels import registry
 
-    smi = phase_card(torch, common)
+    smi, mxlint_cli, bindings_built = phase_card(torch, common)
     rows, max_err = phase_kernels(torch, k8, registry)
     launches = phase_slice(torch, mt, k8)
     adam_row, adam_err = phase_fused_adam(torch, topt, kfa, registry)
@@ -8427,9 +9184,11 @@ def main() -> int:
     del lm_params
     moe_launches = phase_moe_mesh(torch)
     torch.cuda.empty_cache()
-    slice22 = {"mxlint": phase_mxlint(torch, mt)}
+    slice22 = {"mxlint": phase_mxlint(torch, mt, mxlint_cli)}
     require(slice22["mxlint"]["fused_adam"] > 0,
             "slice 22's path launched fused_adam")
+    torch.cuda.empty_cache()
+    slice23 = {"bindings": phase_bindings(torch, mt, bindings_built)}
     # not on fit's path: twobit gathers in bf16 (comm/allreduce.py)
     launches["dequant_twobit"] = 0
     require(not any(m.split(".")[0] in ("jax", "mxnet_tpu")
@@ -8509,6 +9268,11 @@ def main() -> int:
         # of the captured fused_adam step)
         kernels[-1]["slice22_launches"] = {p: got[name]
                                            for p, got in slice22.items()}
+        # the slice 23 path: the C API's ResNet-50 steps on the card, the
+        # embedded host and the native predictor (cuBLAS, cuDNN and the
+        # host's CPU: no hand-written kernel)
+        kernels[-1]["slice23_launches"] = {p: got[name]
+                                           for p, got in slice23.items()}
         if name in bucket_rows:
             # one 4 MB bucket's shapes; launches on the overlap path
             kernels[-1]["bucket_shape"] = bucket_rows[name]

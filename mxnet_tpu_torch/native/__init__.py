@@ -35,7 +35,7 @@ from ..kernels._common import BUILD_DIR
 from ..analysis.lockwatch import named_lock
 
 __all__ = ["get_lib", "require_lib", "scan_offsets", "NativePipeline",
-           "decode_jpeg", "encode_jpeg"]
+           "decode_jpeg", "encode_jpeg", "compile_cxx"]
 
 SOURCE = Path(__file__).resolve().with_name("mxtpu_native.cc")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared")
@@ -52,20 +52,23 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmxtpu_native-{digest}.so"
 
 
-def _build() -> Path:
-    out = library_path()
+def compile_cxx(source: Path, out: Path, flags, libs=()) -> Path:
+    """``out`` built from ``source`` by the host's C++ compiler (``CXX``,
+    else ``g++``) with ``flags`` and ``libs``, unless it exists; raises
+    ``MXNetError`` with the compiler's output when the build fails. The
+    native libraries and the bindings' libraries are built through it."""
     if out.exists():
         return out
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if not cxx:
-        raise MXNetError("no C++ compiler (set CXX); the native pipeline is "
+        raise MXNetError(f"no C++ compiler (set CXX); {source.name} is "
                          "built from source at first use")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE),
-                        *LDLIBS], capture_output=True, text=True, timeout=600)
+    r = subprocess.run([cxx, *flags, "-o", str(tmp), str(source), *libs],
+                       capture_output=True, text=True, timeout=600)
     if r.returncode != 0:
-        raise MXNetError(f"{cxx} failed for {SOURCE.name} (exit "
+        raise MXNetError(f"{cxx} failed for {source.name} (exit "
                          f"{r.returncode}):\n{r.stdout}{r.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build sees all or none
     return out
@@ -112,7 +115,8 @@ def require_lib():
             if _error is not None:
                 raise MXNetError(_error)
             try:
-                _lib = _bind(ctypes.CDLL(str(_build())))
+                _lib = _bind(ctypes.CDLL(str(compile_cxx(
+                    SOURCE, library_path(), CXX_FLAGS, LDLIBS))))
             except (MXNetError, OSError, subprocess.SubprocessError) as e:
                 _error = f"native library unavailable: {e}"
                 raise MXNetError(_error) from e

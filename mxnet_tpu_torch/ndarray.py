@@ -421,6 +421,13 @@ def clip(src, a_min, a_max, out=None):
                      _ctx_from(src))
 
 
+def _copyto(src, out=None):
+    """The registered ``_copyto``: ``src`` copied into ``out``."""
+    if out is None:
+        raise MXNetError("_copyto requires out=")
+    return src.copyto(out)
+
+
 def concatenate(arrays, axis=0):
     return NDArray(torch.cat([a._data for a in arrays], dim=axis),
                    arrays[0]._ctx)

@@ -200,3 +200,38 @@ def test_verify_and_dtype_inference_names():
     # Embedding overrides the default, in both packages
     assert TEmbedding.infer_dtype is not tops.OpProp.infer_dtype
     assert JEmbedding.infer_dtype is not jops.OpProp.infer_dtype
+
+
+def test_capi_methods_match():
+    """The port's C API brain has exactly the JAX package's public methods
+    (one per MX* entry point), so the C layer stays the same glue."""
+    from mxnet_tpu import capi_support as jcapi
+    from mxnet_tpu_torch import capi_support as tcapi
+
+    def public(cls):
+        return sorted(n for n in dir(cls) if not n.startswith("_"))
+
+    assert public(tcapi.CApi) == public(jcapi.CApi)
+    assert tcapi.__all__ == jcapi.__all__
+
+
+@pytest.mark.parametrize("which", ["native_predict", "standalone"])
+def test_predict_module_names(which):
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if which == "native_predict":
+        from mxnet_tpu.native import predict as jmod
+        from mxnet_tpu_torch.native import predict as tmod
+    else:
+        mods = []
+        for path in (("predict", "python", "mxtpu_predict.py"),
+                     ("mxnet_tpu_torch", "bindings", "mxtpu_predict.py")):
+            spec = importlib.util.spec_from_file_location(
+                f"names_{len(mods)}", os.path.join(root, *path))
+            mods.append(importlib.util.module_from_spec(spec))
+            spec.loader.exec_module(mods[-1])
+        jmod, tmod = mods
+    assert tmod.__all__ == jmod.__all__
+    assert all(hasattr(tmod, n) for n in tmod.__all__)
