@@ -456,6 +456,18 @@ together), and then:
    a request (the predictor's: CPU time of the card's machine), the build
    seconds (phase card's, beside nvcc), and the phase's seconds against
    its 120 s budget;
+12c. tools_examples: the port's tools and launched examples
+   (``mxnet_tpu_torch.tools``, ``mxnet_tpu_torch.examples``; see
+   ``phase_tools_examples``): the repo's ``tools/launch.py -n 2`` running
+   the dist_sync MLP example on the card (two workers sharing it over
+   gloo, the kvstore's backend choice), ``elastic_train`` over ``[gpu(0)]
+   * 8`` (rows 3, 5, 7 launched and held bitwise at its bucket shapes),
+   ``train_long_lm --dp 2 --sp 2 --flash`` on four ranks (its loss
+   assertion, the flash launches derived from steps, layers and ring
+   blocks, the kernels held row by row at its shape), ``im2rec`` on the
+   card's host (the JAX script's bytes, read back through
+   ``ImageRecordIter``) and the Caffe converter (its LeNet on the card
+   against the CPU); prints the phase's seconds against its 100 s budget;
 13. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
    main path, error, times and bound (the flash kernels and fused_adam also
    their launches in lm_mesh; fused_adam its launches in train_bf16 and zoo;
@@ -475,7 +487,10 @@ together), and then:
    ``slice22_launches``: 12a's timing fixtures (120 replays of the
    captured fused_adam step: each copy three times, 20 a time);
    ``slice23_launches``: 12b's C API steps, embedded host and native
-   predictor (0: no hand-written kernel on that path); rows
+   predictor (0: no hand-written kernel on that path);
+   ``slice24_launches``: 12c's elastic fit, the four train_long_lm ranks
+   summed and the tools (the launched workers count in their own
+   processes); rows
    3-7 also their times, bound, library time
    and the launch floor at one bucket's shape and their launches on the
    overlap path, ``bucket_shape``);
@@ -873,31 +888,25 @@ def rel_fro(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def start_mxlint_cli():
-    """The lint's CLI over the port's tree with every pass, started in the
-    background (a CPU process that touches no card); its output goes to
-    files, so that a full pipe cannot stall it. Returns what
-    :func:`finish_mxlint_cli` takes."""
+def start_logged(cmd, out_dir, name, cwd=None):
+    """``cmd`` in the background, its output in files under ``out_dir``
+    (a full pipe cannot stall it); what :func:`finish_logged` takes."""
     import os
 
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "build", "chip_smoke")
-    os.makedirs(out_dir, exist_ok=True)
-    files = [open(os.path.join(out_dir, f"mxlint_cli.{ext}"), "w+")
+    files = [open(os.path.join(out_dir, f"{name}.{ext}"), "w+")
              for ext in ("out", "err")]
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "mxnet_tpu_torch.analysis", "--all"],
-        stdout=files[0], stderr=files[1],
-        cwd=os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(cmd, stdout=files[0], stderr=files[1], cwd=cwd)
     return proc, files, time.perf_counter()
 
 
-def finish_mxlint_cli(started):
-    """(exit code, stdout, stderr, seconds) of the CLI that
-    :func:`start_mxlint_cli` started; killed past MXLINT_CLI_TIMEOUT_S."""
+def finish_logged(started, timeout_s):
+    """(exit code, stdout, stderr, seconds) of a :func:`start_logged`
+    process; killed past ``timeout_s`` from its start."""
     proc, files, t0 = started
     try:
-        proc.wait(timeout=MXLINT_CLI_TIMEOUT_S)
+        proc.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -909,6 +918,25 @@ def finish_mxlint_cli(started):
         text.append(f.read())
         f.close()
     return proc.returncode, text[0], text[1], seconds
+
+
+def start_mxlint_cli():
+    """The lint's CLI over the port's tree with every pass, started in the
+    background (a CPU process that touches no card). Returns what
+    :func:`finish_mxlint_cli` takes."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(repo, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    return start_logged([sys.executable, "-m", "mxnet_tpu_torch.analysis",
+                         "--all"], out_dir, "mxlint_cli", cwd=repo)
+
+
+def finish_mxlint_cli(started):
+    """(exit code, stdout, stderr, seconds) of the CLI that
+    :func:`start_mxlint_cli` started; killed past MXLINT_CLI_TIMEOUT_S."""
+    return finish_logged(started, MXLINT_CLI_TIMEOUT_S)
 
 
 def phase_card(torch, common):
@@ -9082,6 +9110,544 @@ def phase_bindings(torch, mt, built):
     return launches
 
 
+# -- slice 24: the tools and the launched examples ----------------------------
+
+TOOLS_DIR = "build/chip_smoke/tools"
+TOOLS_BUDGET_S = 100
+TOOLS_LAUNCH_TIMEOUT_S = 240
+TOOLS_IM2REC_TIMEOUT_S = 180
+# the launched tier: the launcher, two workers sharing the card
+TOOLS_LAUNCH_WORKERS = 2
+TOOLS_MLP_ACCURACY = 0.95   # dist_sync_mlp.py's own assertion
+# im2rec: 64 seeded PNG sources (the port's encoder), 4 classes a folder,
+# packed with --resize 40 --center-crop
+TOOLS_IMAGES = 64
+TOOLS_CLASSES = 4
+TOOLS_RESIZE = 40
+# sha256 of the .rec that the JAX package's tools/im2rec.py writes from
+# tools_images() with --resize 40 --center-crop (PIL 12.1.0's JPEG encoder;
+# tests/test_torch_tools.py asserts it against that script)
+TOOLS_REC_SHA256 = ("52da705d6fee17c332cebc96990e0189"
+                    "ca660445014f747194b3f2875190222c")
+# elastic_train.py's membership history, as the JAX script prints it
+ELASTIC_EXAMPLE_HISTORY = [(8, 6, "kill:7:failure;kill:6:failure"),
+                           (6, 8, "join:6:rejoin;join:7:rejoin")]
+ELASTIC_EXAMPLE_ACCURACY = 0.95  # this phase's gate; the script asserts none
+# train_long_lm.py at dp 2 x sp 2 with the flash kernels, its defaults
+# otherwise: 600 steps, 2 layers, d_model 64 over 4 heads, seq 128
+LONGLM_DP, LONGLM_SP = 2, 2
+LONGLM_STEPS = 600
+LONGLM_LAYERS = 2
+LONGLM_TIMEOUT_S = 300
+LONGLM_LOSS_BOUND = 1.5     # the script's own assertion
+# the flash kernels at the example's rank-local shape: (batch per dp rank,
+# heads, seq per sp rank, head_dim), f32
+LONGLM_FLASH_SHAPE = (2, 4, 64, 16)
+# the converted LeNet on the card against the CPU, TF32 off, max abs
+CAFFE_BOUND = 1e-5
+# tests/test_caffe_converter.py's LeNet prototxt
+CAFFE_LENET = """
+name: "LeNet"
+input: "data"
+input_dim: 2
+input_dim: 1
+input_dim: 28
+input_dim: 28
+layer {
+  name: "conv1"
+  type: "Convolution"
+  bottom: "data"
+  top: "conv1"
+  convolution_param { num_output: 8 kernel_size: 5 stride: 1 }
+}
+layer {
+  name: "relu1"
+  type: "ReLU"
+  bottom: "conv1"
+  top: "conv1"
+}
+layer {
+  name: "pool1"
+  type: "Pooling"
+  bottom: "conv1"
+  top: "pool1"
+  pooling_param { pool: MAX kernel_size: 2 stride: 2 }
+}
+layer {
+  name: "ip1"
+  type: "InnerProduct"
+  bottom: "pool1"
+  top: "ip1"
+  inner_product_param { num_output: 10 }
+}
+layer {
+  name: "prob"
+  type: "Softmax"
+  bottom: "ip1"
+  top: "prob"
+}
+"""
+# a launched worker: the example's module as `python -m` runs it, then the
+# card bytes the worker held at its peak (0 for a worker that stayed off
+# the card), in a file of its own: the workers share one stdout, where one
+# worker's line can land inside the other's
+TOOLS_WORKER = (
+    "import os, runpy, sys\n"
+    "sys.argv = ['{module}']\n"
+    "runpy.run_module('{module}', run_name='__main__', alter_sys=True)\n"
+    "import torch\n"
+    "rank = os.environ['MXTPU_WORKER_RANK']\n"
+    "with open(os.path.join({out_dir!r}, 'card_peak_bytes.' + rank), "
+    "'w') as f:\n"
+    "    f.write(str(torch.cuda.max_memory_allocated()))\n")
+
+
+def tools_images():
+    """The im2rec sources: ``(relative path, HWC uint8)`` for 64 smooth
+    images of 44-96 pixels a side, 16 a class folder."""
+    rng = np.random.default_rng(SEED + 24)
+    out = []
+    for i in range(TOOLS_IMAGES):
+        h, w = (int(v) for v in rng.integers(44, 97, 2))
+        out.append((f"class{i % TOOLS_CLASSES}/img{i:02d}.png",
+                    io_image(rng, h, w)))
+    return out
+
+
+def write_tool_images(root):
+    """Write :func:`tools_images` under ``root`` as PNG (the port's
+    encoder)."""
+    from pathlib import Path
+
+    from mxnet_tpu_torch.io import _imaging
+
+    for rel, img in tools_images():
+        path = Path(root) / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(_imaging.png_encode(img))
+
+
+def caffe_blobs():
+    """tests/test_caffe_converter.py's seeded LeNet blobs."""
+    rng = np.random.RandomState(0)
+    return {"conv1": [rng.randn(8, 1, 5, 5).astype(np.float32),
+                      rng.randn(8).astype(np.float32)],
+            "ip1": [rng.randn(10, 8 * 12 * 12).astype(np.float32),
+                    rng.randn(10).astype(np.float32)]}
+
+
+def start_tools_launch(out_dir):
+    """(a)'s command: ``tools/launch.py -n 2`` running
+    ``mxnet_tpu_torch.examples.distributed.dist_sync_mlp`` on the card in
+    each worker (no ``--cpu``), each worker writing its peak card bytes
+    to a file of its own after the script."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    module = "mxnet_tpu_torch.examples.distributed.dist_sync_mlp"
+    out_dir = os.path.abspath(out_dir)
+    return start_logged(
+        [sys.executable, os.path.join(repo, "tools", "launch.py"), "-n",
+         str(TOOLS_LAUNCH_WORKERS), sys.executable, "-c",
+         TOOLS_WORKER.format(module=module, out_dir=out_dir)], out_dir,
+        "launch", cwd=repo)
+
+
+def start_tools_im2rec(out_dir):
+    """(d)'s command: the 64 sources written, listed with ``--make-list``
+    and packed by ``python -m mxnet_tpu_torch.tools.im2rec --resize 40
+    --center-crop`` in one shell, started in the background."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(out_dir, "images")
+    write_tool_images(root)
+    lst, rec = (os.path.join(out_dir, f"tools.{e}") for e in ("lst", "rec"))
+    tool = f"{sys.executable} -m mxnet_tpu_torch.tools.im2rec"
+    script = (f"{tool} --make-list {root} {lst} && {tool} {lst} {root} "
+              f"{rec} --resize {TOOLS_RESIZE} --center-crop")
+    return start_logged(["bash", "-c", script], out_dir, "im2rec",
+                        cwd=repo), rec
+
+
+class CommCalls:
+    """Keeps the first int8 call of each of the exchange's kernel entry
+    points (``fused_quantize``, ``fused_dequant_sum``, ``fused_dequant``):
+    the kernels' inputs at the example's bucket shapes."""
+
+    NAMES = ("fused_quantize", "fused_dequant_sum", "fused_dequant")
+
+    def __init__(self, ck):
+        self.ck, self.first, self.saved = ck, {}, {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            self.saved[name] = getattr(self.ck, name)
+            setattr(self.ck, name, self._wrap(name, self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ck, name, fn)
+
+    def _wrap(self, name, fn):
+        def call(spec, value, **kw):
+            if spec.mode == "int8" and name not in self.first:
+                kept = ({k: v.detach().clone() for k, v in value.items()}
+                        if isinstance(value, dict)
+                        else value.detach().clone())
+                self.first[name] = (spec, kept, dict(kw))
+            return fn(spec, value, **kw)
+
+        return call
+
+
+def comm_example_holds(torch, ck, calls):
+    """Rows 3, 5 and 7 at the example's bucket shapes: one call of each
+    kernel on the inputs the exchange gave it, bitwise against its plain
+    version on the card."""
+    rows = {}
+    spec, value, kw = calls.first["fused_quantize"]
+    r = value.to(torch.float32).contiguous()
+    r = r[None] if r.dim() == 1 else r
+    err = kw.get("error_rounding") or ("sub" if kw.get("want_error")
+                                       else None)
+    got = ck.quant_int8(r, spec.chunk, True, err)
+    want = ck.quant_int8_plain(r, spec.chunk, True, err)
+    rows["quant_int8"] = {
+        "shape": list(r.shape), "chunk": spec.chunk, "err": err,
+        "bitwise": all(torch.equal(a, b) for a, b in zip(got, want)
+                       if a is not None)}
+    for name, kernel, plain in (
+            ("fused_dequant_sum", ck.dequant_sum_int8,
+             ck.dequant_sum_int8_plain),
+            ("fused_dequant", ck.dequant_int8, ck.dequant_int8_plain)):
+        spec, payload, _ = calls.first[name]
+        q, scale = payload["q"].contiguous(), payload["scale"].contiguous()
+        if q.dim() == 1:
+            q, scale = q[None], scale[None]
+        got = kernel(q, scale, spec.chunk)
+        rows[kernel.__name__] = {
+            "shape": list(q.shape), "chunk": spec.chunk,
+            "bitwise": torch.equal(got, plain(q, scale, spec.chunk))}
+    torch.cuda.synchronize()
+    for name, row in rows.items():
+        require(row["bitwise"], f"tools_examples: {name} at the example's "
+                f"bucket shape {row['shape']} equals its plain version "
+                "bitwise")
+    return rows
+
+
+def longlm_expected(coords):
+    """The flash kernels' launches on one rank of train_long_lm's run, each
+    of flash_fwd, flash_bwd_dq and flash_bwd_dkv alike: causal ring
+    attention over sp = 2 runs, in each layer's forward, the diagonal
+    block on every rank and the block of the earlier shard on the rank of
+    sp index 1 (the later shard's block is masked out whole and skipped),
+    and the backward's dq and dk/dv the same blocks: steps x layers x
+    (sp index + 1)."""
+    return LONGLM_STEPS * LONGLM_LAYERS * (coords["sp"] + 1)
+
+
+def longlm_body(torch, rank, world):
+    """One rank of train_long_lm ``--dp 2 --sp 2 --flash`` on the card:
+    the launcher's variables, then the script's ``main(argv)``. Returns its
+    losses, launches, coordinates and seconds."""
+    import contextlib
+    import io
+    import os
+
+    from mxnet_tpu_torch.examples.long_context import train_long_lm
+    from mxnet_tpu_torch.parallel.mesh import AXES
+
+    os.environ.update(MXTPU_NUM_WORKERS=str(world),
+                      MXTPU_WORKER_RANK=str(rank))
+    sizes = {a: 1 for a in AXES}
+    sizes.update(dp=LONGLM_DP, sp=LONGLM_SP)
+    coords = dict(zip(AXES, (int(c) for c in np.unravel_index(
+        rank, [sizes[a] for a in AXES]))))
+    reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        first, last, losses = train_long_lm.main(
+            ["--dp", str(LONGLM_DP), "--sp", str(LONGLM_SP), "--flash",
+             "--steps", str(LONGLM_STEPS), "--layers", str(LONGLM_LAYERS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"coords": coords, "first": first, "last": last,
+            "losses_every_100": losses[::100], "seconds": seconds,
+            "launches": read_launches(), "printed": out.getvalue()}
+
+
+def longlm_flash_holds(torch, tfa):
+    """The three flash kernels at the example's rank-local shape, f32, row
+    by row against their plain versions as phase flash holds them: the
+    ring's diagonal block (causal, views of one packed qkv) and its
+    off-diagonal block (k and v of their own)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    bound = flash_row_bound(torch, torch.float32)
+    worst = {}
+    for causal, seq_k in ((True, None), (False, LONGLM_FLASH_SHAPE[2])):
+        q, k, v, do = flash_operands(torch, LONGLM_FLASH_SHAPE,
+                                     torch.float32, gen, seq_k)
+        o, lse = tfa.flash_fwd(q, k, v, causal)
+        delta = tfa.attention_delta(o, do)
+        dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        po, plse = tfa.flash_fwd_plain(q, k, v, causal)
+        pdq, pdk, pdv = tfa.flash_bwd_plain(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        lse_err = float(((lse - plse).abs() / plse.abs().clamp_min(1)).max())
+        require(lse_err <= LSE_BOUND, f"tools_examples: flash_fwd's lse at "
+                f"{LONGLM_FLASH_SHAPE} causal={causal} reads {lse_err}")
+        for kernel, name, got, want in (
+                ("flash_fwd", "o", o, po), ("flash_bwd_dq", "dq", dq, pdq),
+                ("flash_bwd_dkv", "dk", dk, pdk),
+                ("flash_bwd_dkv", "dv", dv, pdv)):
+            share = float(row_errors(torch, got, want, bound)[0].max())
+            key = f"{name}_{'diagonal' if causal else 'off_diagonal'}"
+            worst[key] = {"kernel": kernel, "share_of_bound_max": share,
+                          "max_abs_err": float((got - want).abs().max())}
+            require(share <= 1.0,
+                    f"tools_examples: {kernel} at {LONGLM_FLASH_SHAPE} f32 "
+                    f"causal={causal}: a row of {name} reads {share} of its "
+                    "bound")
+    return worst
+
+
+def caffe_card_check(torch, mt, out_dir):
+    """The LeNet prototxt and seeded blobs through the converter's CLIs
+    (``convert_symbol``, ``convert_model`` from an ``.npz`` dump) into a
+    checkpoint pair, loaded by ``FeedForward.load`` on gpu(0) and on the
+    CPU; the two forwards (TF32 off) within CAFFE_BOUND."""
+    import contextlib
+    import io
+    import os
+
+    from mxnet_tpu_torch.tools.caffe_converter import (convert_model,
+                                                       convert_symbol)
+
+    proto = os.path.join(out_dir, "lenet.prototxt")
+    with open(proto, "w") as f:
+        f.write(CAFFE_LENET)
+    npz = os.path.join(out_dir, "lenet_blobs.npz")
+    np.savez(npz, **{f"{layer}/{i}": a
+                     for layer, arrs in caffe_blobs().items()
+                     for i, a in enumerate(arrs)})
+    prefix = os.path.join(out_dir, "lenet")
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_symbol.main([proto, prefix + "-converted-symbol.json"])
+        convert_model.main([proto, npz, prefix])
+    x = np.random.RandomState(1).rand(2, 1, 28, 28).astype(np.float32)
+    outs = {}
+    for name, ctx in (("gpu", mt.gpu(0)), ("cpu", mt.cpu())):
+        model = mt.FeedForward.load(prefix, 0, ctx=ctx)
+        outs[name] = np.asarray(model.predict(x))
+    err = float(np.abs(outs["gpu"] - outs["cpu"]).max())
+    require(outs["gpu"].shape == (2, 10) and np.isfinite(outs["gpu"]).all()
+            and err <= CAFFE_BOUND,
+            f"tools_examples: the converted LeNet on the card against the "
+            f"CPU reads {err:.3e} (bound {CAFFE_BOUND})")
+    return {"max_abs_err": err, "bound": CAFFE_BOUND,
+            "outputs": list(outs["gpu"].shape)}
+
+
+def phase_tools_examples(torch, mt):
+    """12c. The port's tools and launched examples on the card. (a) The
+    repo's ``tools/launch.py -n 2`` runs ``mxnet_tpu_torch.examples.
+    distributed.dist_sync_mlp`` (no ``--cpu``) in two workers that share the
+    card: exit 0, both accuracy lines above the script's 0.95, each worker's
+    peak card bytes above 0 (its model on the card), each joined with gloo
+    (the kvstore's log line); started first, read last. (b)
+    ``elastic_train.main`` in this process over ``[gpu(0)] * 8``, with the
+    exchange's kernels armed through ``MXNET_TPU_COMM_KERNELS=1`` (the
+    script, as the JAX one, passes no ``comm_kernels``): the JAX
+    script's membership history (8 -> 6, then 6 -> 8, with its reasons),
+    a final accuracy above ELASTIC_EXAMPLE_ACCURACY (this phase's gate; the
+    script asserts none), rows 3, 5 and 7 launched around the fit and held
+    bitwise against their plain versions at the example's bucket shapes.
+    (c) ``train_long_lm.main`` with ``--dp 2 --sp 2 --flash`` on four ranks
+    sharing the card over gloo: the script's own assertion (loss below
+    1.5), each rank's flash launches the count :func:`longlm_expected`
+    derives, and the three flash kernels held row by row at the example's
+    shape. (d) 64 seeded PNG sources packed by ``python -m
+    mxnet_tpu_torch.tools.im2rec --resize 40 --center-crop`` on the card's
+    host: the ``.rec``'s sha256 the JAX script's (TOOLS_REC_SHA256), read
+    back through ``ImageRecordIter``; the Caffe LeNet converted through the
+    CLIs and forwarded on gpu(0) against the CPU within CAFFE_BOUND.
+    Returns the kernels' launches across (a)-(d) (the launched workers'
+    are their own processes' and read 0 here)."""
+    import hashlib
+    import os
+    import re
+    from pathlib import Path
+
+    from mxnet_tpu_torch.examples.distributed import elastic_train
+    from mxnet_tpu_torch.kernels import comm_kernels as ck
+    from mxnet_tpu_torch.kernels import flash_attention as tfa
+
+    t_start = time.perf_counter()
+    out_dir = Path(TOOLS_DIR)
+    if out_dir.exists():
+        import shutil
+
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    launch = start_tools_launch(str(out_dir))
+    im2rec, rec_path = start_tools_im2rec(str(out_dir))
+    reset_launches()
+    total = {n: 0 for n in read_launches()}
+
+    def add(got):
+        for n, c in got.items():
+            total[n] += c
+
+    # (b) elastic_train over [gpu(0)] * 8
+    import contextlib
+    import io
+
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    # the script passes no comm_kernels, as the JAX script does: its
+    # exchange takes the kernels through the package's own gate
+    prior = os.environ.get("MXNET_TPU_COMM_KERNELS")
+    os.environ["MXNET_TPU_COMM_KERNELS"] = "1"
+    try:
+        with CommCalls(ck) as calls, contextlib.redirect_stdout(printed):
+            co, acc = elastic_train.main([str(out_dir / "elastic")])
+    finally:
+        if prior is None:
+            del os.environ["MXNET_TPU_COMM_KERNELS"]
+        else:
+            os.environ["MXNET_TPU_COMM_KERNELS"] = prior
+    torch.cuda.synchronize()
+    elastic_s = time.perf_counter() - t0
+    elastic_launches = read_launches()
+    add(elastic_launches)
+    history = [(h["from"], h["to"], h["reason"]) for h in co.history]
+    require(history == ELASTIC_EXAMPLE_HISTORY,
+            f"tools_examples: elastic_train's history {history} is the JAX "
+            f"script's {ELASTIC_EXAMPLE_HISTORY}")
+    require(">>> losing ranks 7 and 6" in printed.getvalue()
+            and ">>> capacity returned: [6, 7]" in printed.getvalue(),
+            "tools_examples: elastic_train printed its churn")
+    require(acc > ELASTIC_EXAMPLE_ACCURACY,
+            f"tools_examples: elastic_train's final accuracy {acc} is above "
+            f"{ELASTIC_EXAMPLE_ACCURACY} (this phase's gate)")
+    for name in ("quant_int8", "dequant_sum_int8", "dequant_int8"):
+        require(elastic_launches[name] > 0,
+                f"tools_examples: elastic_train launched {name}")
+    reset_launches()
+    comm_rows = comm_example_holds(torch, ck, calls)
+    reset_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) train_long_lm --dp 2 --sp 2 --flash on four ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch, longlm_body, LONGLM_DP * LONGLM_SP,
+                      LONGLM_TIMEOUT_S, "tools_examples train_long_lm")
+    longlm_s = time.perf_counter() - t0
+    for rank, res in enumerate(ranks):
+        add(res["launches"])
+        want = longlm_expected(res["coords"])
+        for name in FLASH_NAMES:
+            require(res["launches"][name] == want,
+                    f"tools_examples: train_long_lm rank {rank} "
+                    f"({res['coords']}) launched {name} "
+                    f"{res['launches'][name]} times, derived {want}")
+        require(np.isfinite(res["last"]) and res["last"] < LONGLM_LOSS_BOUND,
+                f"tools_examples: train_long_lm rank {rank}'s last loss "
+                f"{res['last']} is below {LONGLM_LOSS_BOUND}")
+    require(len({r["last"] for r in ranks}) == 1,
+            "tools_examples: every rank of train_long_lm reads one loss")
+    flash_rows = longlm_flash_holds(torch, tfa)
+    reset_launches()
+
+    # (d) the tools: im2rec's records, then the Caffe converter
+    rc, out, err, im2rec_s = finish_logged(im2rec, TOOLS_IM2REC_TIMEOUT_S)
+    require(rc == 0, f"tools_examples: im2rec exits 0 (exit {rc}: "
+            f"{err[-1500:]})")
+    sha = hashlib.sha256(Path(rec_path).read_bytes()).hexdigest()
+    require(sha == TOOLS_REC_SHA256,
+            f"tools_examples: im2rec's .rec sha256 {sha} is the JAX "
+            f"script's {TOOLS_REC_SHA256}")
+    it = mt.io.ImageRecordIter(
+        path_imgrec=rec_path, data_shape=(3, TOOLS_RESIZE, TOOLS_RESIZE),
+        batch_size=16)
+    read = 0
+    labels = []
+    for batch in it:
+        read += batch.data[0].shape[0] - getattr(batch, "pad", 0)
+        labels.append(np.asarray(batch.label[0]).ravel())
+    require(read == TOOLS_IMAGES
+            and sorted(set(np.concatenate(labels).tolist())) ==
+            [float(c) for c in range(TOOLS_CLASSES)],
+            f"tools_examples: ImageRecordIter read {read} records of "
+            f"{TOOLS_IMAGES} with every class")
+    caffe = caffe_card_check(torch, mt, str(out_dir))
+    add(read_launches())
+
+    # (a) the launcher's run, read last
+    rc, out, err, launch_s = finish_logged(launch, TOOLS_LAUNCH_TIMEOUT_S)
+    require(rc == 0, f"tools_examples: tools/launch.py -n 2 dist_sync_mlp "
+            f"exits 0 (exit {rc}: {err[-2000:]})")
+    # the two workers print into one pipe: a line of one may split another
+    accs = [float(a) for a in
+            re.findall(r"dist_sync_mlp accuracy = (\d\.\d+)", out)]
+    peaks = [int(p.read_text()) for p in
+             sorted(out_dir.glob("card_peak_bytes.*"))]
+    joined = re.findall(r"rank \d joined the 2-rank world with gloo", err)
+    require(len(accs) == TOOLS_LAUNCH_WORKERS
+            and min(accs) > TOOLS_MLP_ACCURACY,
+            f"tools_examples: both workers' accuracy lines above "
+            f"{TOOLS_MLP_ACCURACY}: {accs}")
+    require(len(peaks) == TOOLS_LAUNCH_WORKERS and min(peaks) > 0,
+            f"tools_examples: both workers held their models on the card "
+            f"(peak bytes {peaks})")
+    require(len(joined) == TOOLS_LAUNCH_WORKERS,
+            f"tools_examples: both workers joined gloo: {joined}")
+
+    phase_s = time.perf_counter() - t_start
+    r0 = ranks[0]
+    emit({"phase": "tools_examples",
+          "launch": {"command": "tools/launch.py -n 2 python -m mxnet_tpu_"
+                                "torch.examples.distributed.dist_sync_mlp",
+                     "exit": rc, "seconds": launch_s, "accuracy": accs,
+                     "card_peak_bytes": peaks, "joined": joined},
+          "elastic": {"replicas": "[gpu(0)] * 8", "seconds": elastic_s,
+                      "history": [{"from": h["from"], "to": h["to"],
+                                   "reason": h["reason"],
+                                   "downtime_s": h["downtime_s"]}
+                                  for h in co.history],
+                      "accuracy": acc, "accuracy_gate":
+                      ELASTIC_EXAMPLE_ACCURACY,
+                      "launches": elastic_launches,
+                      "bucket_holds": comm_rows},
+          "train_long_lm": {"dp": LONGLM_DP, "sp": LONGLM_SP,
+                            "steps": LONGLM_STEPS, "seconds": longlm_s,
+                            "step_ms": 1e3 * r0["seconds"] / LONGLM_STEPS,
+                            "first_loss": r0["first"],
+                            "final_loss": r0["last"],
+                            "losses_every_100": r0["losses_every_100"],
+                            "launches_by_rank": [
+                                {"coords": r["coords"],
+                                 "launches": {n: r["launches"][n]
+                                              for n in FLASH_NAMES},
+                                 "derived": longlm_expected(r["coords"])}
+                                for r in ranks],
+                            "flash_holds": flash_rows},
+          "im2rec": {"images": TOOLS_IMAGES, "resize": TOOLS_RESIZE,
+                     "sha256": sha, "seconds": im2rec_s, "read": read},
+          "caffe": caffe,
+          "phase_s": phase_s, "budget_s": TOOLS_BUDGET_S,
+          "launches": total})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -9189,6 +9755,12 @@ def main() -> int:
             "slice 22's path launched fused_adam")
     torch.cuda.empty_cache()
     slice23 = {"bindings": phase_bindings(torch, mt, bindings_built)}
+    torch.cuda.empty_cache()
+    slice24 = {"tools_examples": phase_tools_examples(torch, mt)}
+    for name in ("int8_matmul", "fused_adam", "quant_twobit",
+                 "dequant_sum_twobit", "dequant_twobit"):
+        require(slice24["tools_examples"][name] == 0,
+                f"slice 24's paths launched no {name}")
     # not on fit's path: twobit gathers in bf16 (comm/allreduce.py)
     launches["dequant_twobit"] = 0
     require(not any(m.split(".")[0] in ("jax", "mxnet_tpu")
@@ -9273,6 +9845,11 @@ def main() -> int:
         # host's CPU: no hand-written kernel)
         kernels[-1]["slice23_launches"] = {p: got[name]
                                            for p, got in slice23.items()}
+        # the slice 24 path: elastic_train's fit over [gpu(0)] * 8 (rows
+        # 3, 5, 7), train_long_lm's four ranks summed (the flash kernels),
+        # the tools and the launched workers' run (their own processes)
+        kernels[-1]["slice24_launches"] = {p: got[name]
+                                           for p, got in slice24.items()}
         if name in bucket_rows:
             # one 4 MB bucket's shapes; launches on the overlap path
             kernels[-1]["bucket_shape"] = bucket_rows[name]

@@ -32,6 +32,7 @@ compiled program.
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 import time
@@ -50,8 +51,37 @@ from .resilience.retry import RetryPolicy, retry_call
 __all__ = ["KVStore", "create", "create_group", "wrap_np_updater"]
 
 
+def _unwrap(value):
+    """An ``NDArray`` (or a list of them, one a device) as its tensor(s):
+    the stores take NDArrays as the JAX package's do, and tensors."""
+    from .ndarray import NDArray
+
+    if isinstance(value, NDArray):
+        return value.data
+    if isinstance(value, (list, tuple)):
+        return [_unwrap(v) for v in value]
+    return value
+
+
+def _write_outs(outs, value: torch.Tensor):
+    """Write a pulled ``value`` into ``outs``: a tensor (in place), an
+    ``NDArray`` (which rebinds, as its every write does) or a list of
+    either, one a device."""
+    from .ndarray import NDArray
+
+    if not isinstance(outs, (list, tuple)):
+        outs = [outs]
+    for o in outs:
+        if isinstance(o, NDArray):
+            o[:] = value.reshape(o.shape)
+        else:
+            with torch.no_grad():
+                o.copy_(value.reshape(o.shape))
+
+
 def _to_numpy(value) -> np.ndarray:
     """A tensor's (or array's) values as a host f32 array."""
+    value = _unwrap(value)
     if isinstance(value, torch.Tensor):
         return value.detach().to("cpu", torch.float32).numpy()
     return np.asarray(value, np.float32)
@@ -86,6 +116,7 @@ class KVStore:
     def _merge(vlist) -> torch.Tensor:
         """Sum a list of per-device tensors on the first one's device
         (reference: MergePushValue)."""
+        vlist = _unwrap(vlist)
         if isinstance(vlist, torch.Tensor):
             return vlist
         total = vlist[0]
@@ -99,7 +130,7 @@ class KVStore:
                 raise MXNetError(f"key {k!r} already initialized")
             if isinstance(v, (list, tuple)):
                 v = v[0]
-            self._store[k] = v.detach().clone()
+            self._store[k] = _unwrap(v).detach().clone()
 
     def _reduce(self, merged: torch.Tensor) -> torch.Tensor:
         return merged
@@ -121,11 +152,7 @@ class KVStore:
         for k, outs in self._as_pairs(key, out):
             if k not in self._store:
                 raise MXNetError(f"key {k!r} not initialized")
-            if isinstance(outs, torch.Tensor):
-                outs = [outs]
-            for o in outs:
-                with torch.no_grad():
-                    o.copy_(self._store[k])
+            _write_outs(outs, self._store[k])
 
     def set_updater(self, updater):
         """updater(key, merged_grad, stored_weight) (reference: set_updater)."""
@@ -153,13 +180,50 @@ class KVStore:
         del head, body
 
 
+def _local_world() -> int:
+    """The ranks on this host: ``LOCAL_WORLD_SIZE`` where a launcher sets
+    it (torchrun), else the ``MXTPU_NUM_WORKERS`` that ``tools/launch.py``
+    starts, all on its own host, else the joined world's size, else 1."""
+    for name in ("LOCAL_WORLD_SIZE", "MXTPU_NUM_WORKERS"):
+        raw = os.environ.get(name)
+        if raw:
+            return int(raw)
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _local_rank() -> int:
+    """This rank's index on its host, as ``parallel.mesh`` reads it:
+    ``LOCAL_RANK``, else the rank (the world's, else the launcher's)."""
+    local = os.environ.get("LOCAL_RANK")
+    if local is not None:
+        return int(local)
+    if dist.is_initialized():
+        return dist.get_rank()
+    return int(os.environ.get("MXTPU_WORKER_RANK", "0"))
+
+
+def _dist_backend(ctx=None) -> str:
+    """The backend a ``dist_sync`` world joins with: nccl only where every
+    rank on the host has a card of its own, else gloo. nccl refuses two
+    ranks on one card, so where the host's ranks outnumber its cards (or
+    ``ctx`` is a cpu context, or there is no card) the ranks join gloo and
+    the exchange goes through pinned host buffers (``comm/allreduce.py``),
+    as ranks that share a card must."""
+    if ctx is not None and ctx.device_type != "gpu":
+        return "gloo"
+    if not torch.cuda.is_available():
+        return "gloo"
+    return "nccl" if _local_world() <= torch.cuda.device_count() else "gloo"
+
+
 def _maybe_init_distributed(backend: str):
     """Join the world the ``MXTPU_*`` variables describe (``tools/launch.py``:
     ``MXTPU_COORDINATOR`` host:port, ``MXTPU_NUM_WORKERS``,
-    ``MXTPU_WORKER_RANK``) with ``backend``. A no-op when the caller already
-    called ``dist.init_process_group`` (kvstore.py:195-198) or when the
-    variables describe one process. Unlike the JAX package, a failed join
-    raises: it does not go on as one process."""
+    ``MXTPU_WORKER_RANK``) with ``backend``, and say so in one log line. A
+    no-op when the caller already called ``dist.init_process_group``
+    (kvstore.py:195-198) or when the variables describe one process.
+    Unlike the JAX package, a failed join raises: it does not go on as one
+    process."""
     if dist.is_initialized():
         return
     coord = os.environ.get("MXTPU_COORDINATOR")
@@ -168,12 +232,21 @@ def _maybe_init_distributed(backend: str):
     if not coord or nproc <= 1 or rank is None:
         return
     init_method = coord if "://" in coord else f"tcp://{coord}"
+    if backend == "nccl":
+        # the rank's own card, as parallel.mesh picks it
+        torch.cuda.set_device(_local_rank() % torch.cuda.device_count())
     try:
         dist.init_process_group(backend, init_method=init_method,
                                 world_size=nproc, rank=int(rank))
     except (RuntimeError, ValueError) as e:
         raise MXNetError(f"joining the {nproc}-rank world at {init_method} "
                          f"as rank {rank} failed: {e}") from e
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    logging.getLogger(__name__).log(
+        logging.WARNING if backend == "gloo" and cards else logging.INFO,
+        "mxnet_tpu_torch: rank %s joined the %d-rank world with %s "
+        "(%d rank(s) on this host, %d card(s))", rank, nproc, backend,
+        _local_world(), cards)
 
 
 class _DistKVStore(KVStore):
@@ -618,11 +691,7 @@ class _GroupWorkerKVStore(KVStore):
         trace["rank"] = self._rank
         for k, outs in self._as_pairs(key, out):
             value = torch.from_numpy(self._server.pull(k, trace=trace))
-            if isinstance(outs, torch.Tensor):
-                outs = [outs]
-            for o in outs:
-                with torch.no_grad():
-                    o.copy_(value.reshape(o.shape))
+            _write_outs(outs, value)
 
     def set_updater(self, updater):
         """The updater runs at the server on its numpy buffers, once a
@@ -635,9 +704,10 @@ class _GroupWorkerKVStore(KVStore):
 
 def create(kv_type="local", ctx=None) -> KVStore:
     """Create a KVStore (reference: kvstore.cc:17-49 type-string factory).
-    For 'dist_sync', ``ctx`` picks the backend of a world joined from the
-    ``MXTPU_*`` variables: nccl for a gpu context, gloo for a cpu one (the
-    default: nccl where CUDA is available)."""
+    For 'dist_sync', :func:`_dist_backend` picks the backend of a world
+    joined from the ``MXTPU_*`` variables: gloo for a cpu ``ctx`` or where
+    the host's ranks outnumber its cards, else nccl; the join says which in
+    one log line."""
     kv_type = kv_type.lower()
     if kv_type in ("local", "local_update_cpu", "local_allreduce_cpu"):
         return KVStore(kv_type)
@@ -645,9 +715,7 @@ def create(kv_type="local", ctx=None) -> KVStore:
         # the merge already runs on the device of the first pushed value
         return KVStore(kv_type)
     if kv_type in ("dist", "dist_sync"):
-        on_gpu = (ctx.device_type == "gpu") if ctx is not None \
-            else torch.cuda.is_available()
-        store = _DistKVStore("dist_sync", "nccl" if on_gpu else "gloo")
+        store = _DistKVStore("dist_sync", _dist_backend(ctx))
     elif kv_type == "dist_async":
         from .kvstore_async import AsyncKVStore
 

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from .base import MXNetError
-from .kvstore import KVStore, _to_numpy, wrap_np_updater
+from .kvstore import KVStore, _to_numpy, _write_outs, wrap_np_updater
 from .resilience import chaos
 from .analysis.lockwatch import named_condition, named_lock
 
@@ -673,12 +673,7 @@ class AsyncKVStore(KVStore):
     def pull(self, key, out, priority=0):
         del priority
         for k, outs in self._as_pairs(key, out):
-            value = torch.from_numpy(self._call("pull", k))
-            if isinstance(outs, torch.Tensor):
-                outs = [outs]
-            for o in outs:
-                with torch.no_grad():
-                    o.copy_(value.reshape(o.shape))
+            _write_outs(outs, torch.from_numpy(self._call("pull", k)))
 
     def push_replica(self, origin, step, payload):
         """Ship ``origin``'s step-``step`` snapshot (any picklable tree) to

@@ -1,0 +1,17 @@
+"""The port's counterparts of the JAX package's user tools under
+``tools/``, each run as ``python -m mxnet_tpu_torch.tools.<name>`` with the
+JAX script's command line:
+
+- ``caffe_converter``: a Caffe prototxt and its weights to a Symbol and a
+  checkpoint pair (``tools/caffe_converter/``);
+- ``im2rec``: images to a RecordIO file (``tools/im2rec.py``);
+- ``gen_op_docs``: the operator reference page ``doc/ops.md`` of this
+  package (``tools/gen_op_docs.py``);
+- ``gen_r_ops``: the R binding's generated wrappers
+  ``bindings/r/mxtpu_generated.R`` (``tools/gen_r_ops.py``);
+- ``run_mxlint``: the lint over this package (``tools/run_mxlint.py``).
+
+``import mxnet_tpu_torch`` imports none of them. ``tools/launch.py`` needs
+no counterpart: it imports neither package and only sets the ``MXTPU_*``
+and ``DMLC_*`` variables that the port's kvstores read.
+"""

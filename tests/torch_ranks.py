@@ -776,3 +776,37 @@ def shard_audit_fit(rank, world, args, aux, X, Y, batch, cases):
             for rep in model.shard_audit_reports]
         out.append(res)
     return out
+
+
+def train_long_lm_runs(rank, world, runs, params, card=False):
+    """mxnet_tpu_torch/examples/long_context/train_long_lm.py's ``train`` on
+    one rank, once for each argv of ``runs`` (the launcher's variables set
+    by ``run_ranks(join=False)``; the script joins the world itself), from
+    the global ``params`` (numpy) when given. Returns each run's losses,
+    and with ``card`` its flash launches and this rank's mesh coordinates."""
+    import torch
+
+    from mxnet_tpu_torch import set_matmul_precision
+    from mxnet_tpu_torch.examples.long_context import train_long_lm
+    from mxnet_tpu_torch.kernels import flash_attention as tfa
+    from mxnet_tpu_torch.parallel.mesh import AXES
+
+    set_matmul_precision("highest")
+    if card:
+        torch.cuda.set_device(0)
+    kernels = [getattr(tfa, n) for n in ("flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv")]
+    out = []
+    for argv in runs:
+        for k in kernels:
+            k.launches = 0
+        _, _, losses = train_long_lm.train(list(argv), params)
+        out.append({"losses": losses,
+                    "launches": {k.__name__: k.launches for k in kernels}})
+    sizes = dict.fromkeys(AXES, 1)
+    for i, a in enumerate(runs[0]):
+        if a in ("--dp", "--sp"):
+            sizes[a[2:]] = int(runs[0][i + 1])
+    coords = dict(zip(AXES, (int(c) for c in np.unravel_index(
+        rank, [sizes[a] for a in AXES]))))
+    return {"runs": out, "coords": coords}
