@@ -468,6 +468,20 @@ together), and then:
    card's host (the JAX script's bytes, read back through
    ``ImageRecordIter``) and the Caffe converter (its LeNet on the card
    against the CPU); prints the phase's seconds against its 100 s budget;
+12d. examples: the port's fifteen single-process examples (``mxnet_tpu_
+   torch.examples.{mnist,cifar10,imagenet,rnn,notebooks,numpy_ops,
+   python_howto,adversary,memcost}``; see ``phase_examples``), each run in
+   this process through its ``main(argv)`` at the JAX script's default
+   arguments (ResNet-50 at batch 128 on the 512 synthetic 256x256 JPEGs,
+   Inception-BN at batch 128 on 2,048 CIFAR records, the LSTMs at their
+   widths), on the card: each script's own assertions and printed lines,
+   its peak card bytes above what the card held before it, the synthetic
+   data's sha256 the JAX functions', and ``lstm_bucketing`` under the
+   package's gate ``MXNET_TPU_FUSED_ADAM=1``: fused_adam launched once a
+   batch (the count derived from its corpus), counted by the wrapper and
+   in a ``torch.profiler`` trace, and its first launch's inputs held
+   bitwise against ``fused_adam_step_plain``; prints each script's
+   seconds and the phase's against its 150 s budget;
 13. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
    main path, error, times and bound (the flash kernels and fused_adam also
    their launches in lm_mesh; fused_adam its launches in train_bf16 and zoo;
@@ -490,7 +504,8 @@ together), and then:
    predictor (0: no hand-written kernel on that path);
    ``slice24_launches``: 12c's elastic fit, the four train_long_lm ranks
    summed and the tools (the launched workers count in their own
-   processes); rows
+   processes); ``slice25_launches``: 12d's fifteen scripts, each read
+   around its own run; rows
    3-7 also their times, bound, library time
    and the launch floor at one bucket's shape and their launches on the
    overlap path, ``bucket_shape``);
@@ -888,14 +903,16 @@ def rel_fro(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def start_logged(cmd, out_dir, name, cwd=None):
-    """``cmd`` in the background, its output in files under ``out_dir``
-    (a full pipe cannot stall it); what :func:`finish_logged` takes."""
+def start_logged(cmd, out_dir, name, cwd=None, env=None):
+    """``cmd`` in the background (in ``env``, else this process's), its
+    output in files under ``out_dir`` (a full pipe cannot stall it); what
+    :func:`finish_logged` takes."""
     import os
 
     files = [open(os.path.join(out_dir, f"{name}.{ext}"), "w+")
              for ext in ("out", "err")]
-    proc = subprocess.Popen(cmd, stdout=files[0], stderr=files[1], cwd=cwd)
+    proc = subprocess.Popen(cmd, stdout=files[0], stderr=files[1], cwd=cwd,
+                            env=env)
     return proc, files, time.perf_counter()
 
 
@@ -9648,6 +9665,459 @@ def phase_tools_examples(torch, mt):
     return total
 
 
+# -- slice 25: the single-process examples ------------------------------------
+
+EXAMPLES_DIR = "build/chip_smoke/examples"
+EXAMPLES_BUDGET_S = 150
+# each script at the JAX script's defaults, in examples/README.md's order;
+# every run is one main(argv) in this process, on gpu(0)
+EXAMPLE_RUNS = (
+    ("mnist", "mnist.train_mnist", ()),
+    ("cifar10", "cifar10.train_cifar10", ()),
+    ("imagenet", "imagenet.train_imagenet", ()),
+    ("lstm_ptb", "rnn.lstm_ptb", ()),
+    ("lstm_scan", "rnn.lstm_scan", ()),
+    ("lstm_bucketing", "rnn.lstm_bucketing", ()),
+    ("composite_symbol", "notebooks.composite_symbol", ()),
+    ("simple_bind", "notebooks.simple_bind", ()),
+    ("module_api", "notebooks.module_api", ()),
+    ("cifar_recipe", "notebooks.cifar_recipe", ()),
+    ("cifar100_advanced", "notebooks.cifar100_advanced", ()),
+    ("numpy_softmax", "numpy_ops.numpy_softmax", ()),
+    ("basics", "python_howto.basics", ()),
+    ("fgsm", "adversary.fgsm", ()),
+    ("memcost", "memcost.memcost", ()),
+)
+# sha256 of what the JAX scripts' functions write, computed from them
+# (tests/test_torch_examples_{vision,notebooks}.py hold the port's functions
+# to them byte for byte): synthetic_mnist's X then y bytes, and the JPEG
+# shards (PIL 12.1.0's encoder), by their paths under TMPDIR
+EXAMPLES_SHA256 = {
+    "mnist": "c3fb8b3d948895f90a0bada90108ae2eb0a3996ef93f5fe4f2bd29bcc9be2ec7",
+    "cifar_synth.rec":
+        "8c2da9aae720b3ae8f0004fa128cfe1a2464bc1be4c5f0ddeeaa405e4503f077",
+    "imagenet_synth_512.rec":
+        "4496b6607247a199ea164c9044240ab050b9c745b8d6e927c7de5c5b20f614c0",
+    "cifar_recipe_*/train.rec":
+        "c56835852abf65a9548618fc0ecbd549d8e24d9afbced974aa4ab9e5dc5a746f",
+    "cifar_recipe_*/val.rec":
+        "81dfc22526dca395e2341b4ebeecbfceea2b6a5ac40bb5259dcda652b598b05d",
+    "cifar100_*/train.rec":
+        "acd452fa10a1af10dff7374d5b60d247b74097b3314304dc980c025b01974aa1",
+    "cifar100_*/val.rec":
+        "8db47461c26a761384dcbb25854c7ef4d8fec0b4c1fa97e8afc4c5e699a782a7",
+}
+EXAMPLES_MNIST_ACCURACY = 0.95  # this phase's gate; the JAX script asserts none
+# the launched tier, tests/test_multiprocess_dist.py:101-128's for the JAX
+# script: AlexNet, dist_sync, two workers sharing the card, 64 synthetic
+# images (2 batches of 16 a worker), started first and read last
+EXAMPLES_LAUNCH_ARGV = ("--network", "alexnet", "--kv-store", "dist_sync",
+                        "--batch-size", "16", "--num-epochs", "1")
+EXAMPLES_LAUNCH_IMAGES = 64
+EXAMPLES_LAUNCH_TIMEOUT_S = 300
+# a launched worker: the script as `python -m` runs it, then its peak card
+# bytes in a file of its own (two workers share one stdout)
+EXAMPLES_WORKER = (
+    "import os, runpy, sys\n"
+    "sys.argv = ['{module}', *{argv!r}]\n"
+    "runpy.run_module('{module}', run_name='__main__', alter_sys=True)\n"
+    "import torch\n"
+    "rank = os.environ['MXTPU_WORKER_RANK']\n"
+    "with open(os.path.join({out_dir!r}, 'card_peak_bytes.' + rank), "
+    "'w') as f:\n"
+    "    f.write(str(torch.cuda.max_memory_allocated()))\n")
+# the JAX script's no_optimization number (tests/test_torch_examples_misc.py)
+MEMCOST_NO_OPT_BYTES = 438962344
+FUSED_ADAM_KERNEL = "fused_adam_kernel"  # csrc/fused_adam.cu's __global__
+
+
+def run_example(torch, module, argv):
+    """``mxnet_tpu_torch.examples.<module>.main(argv)`` in this process: its
+    result, what it printed and logged, its seconds, the card bytes it
+    held at its peak above what the card held before it, and the kernels'
+    launches, set to 0 just before it and read just after."""
+    import importlib
+    import io
+    import logging
+
+    mod = importlib.import_module(f"mxnet_tpu_torch.examples.{module}")
+    printed, logged = io.StringIO(), io.StringIO()
+    root = logging.getLogger()
+    saved = root.level, root.handlers[:]
+    # the scripts' basicConfig finds this handler and adds none
+    root.handlers = [logging.StreamHandler(logged)]
+    root.setLevel(logging.INFO)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            result = mod.main(list(argv))
+        torch.cuda.synchronize()
+    finally:
+        root.handlers, root.level = saved[1], saved[0]
+    return {"result": result, "printed": printed.getvalue(),
+            "logged": logged.getvalue(),
+            "seconds": time.perf_counter() - t0,
+            "peak_bytes": torch.cuda.max_memory_allocated() - base,
+            "launches": read_launches()}
+
+
+class FirstAdamStep:
+    """Keeps the inputs of the first eager ``fused_adam_step`` the
+    optimizer calls (``mxnet_tpu_torch.optimizer``'s name), to hold that
+    launch against its plain version at the example's leaves."""
+
+    def __init__(self, torch, topt):
+        self.torch, self.topt, self.kept = torch, topt, None
+
+    def __enter__(self):
+        self.orig = self.topt.fused_adam_step
+
+        def keep(params, grads, ms, vs, scal, **kw):
+            if self.kept is None and \
+                    not self.torch.cuda.is_current_stream_capturing():
+                self.kept = ([[t.detach().clone() for t in group]
+                              for group in (params, grads, ms, vs)],
+                             scal.detach().clone(),
+                             {k: v for k, v in kw.items() if k != "table"})
+            return self.orig(params, grads, ms, vs, scal, **kw)
+
+        self.topt.fused_adam_step = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.topt.fused_adam_step = self.orig
+
+    def hold(self, kfa):
+        """The kept step through the kernel and through
+        ``fused_adam_step_plain`` on copies: bitwise, as phase fused_adam
+        holds it."""
+        torch = self.torch
+        groups, scal, hyper = self.kept
+        a = [[t.clone() for t in g] for g in groups]
+        b = [[t.clone() for t in g] for g in groups]
+        kfa.fused_adam_step(*a, scal.clone(), table=kfa.LeafTable(), **hyper)
+        kfa.fused_adam_step_plain(*b, scal.clone(), **hyper)
+        torch.cuda.synchronize()
+        err = max(float((x - y).abs().max()) for ga, gb in zip(a, b)
+                  for x, y in zip(ga, gb) if x.numel())
+        bitwise = all(torch.equal(x, y) for ga, gb in zip(a, b)
+                      for x, y in zip(ga, gb))
+        return {"leaves": len(groups[0]),
+                "elements": sum(t.numel() for t in groups[0]),
+                "bitwise": bitwise, "max_abs_err": err}
+
+
+def start_examples_launch(out_dir):
+    """``tools/launch.py -n 2`` running ``mxnet_tpu_torch.examples.imagenet.
+    train_imagenet`` with EXAMPLES_LAUNCH_ARGV on the card (no ``--cpu``),
+    TMPDIR ``out_dir`` (rank 0 writes the shard and the checkpoint there)."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    module = "mxnet_tpu_torch.examples.imagenet.train_imagenet"
+    out_dir = os.path.abspath(out_dir)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MXTPU_", "DMLC_"))}
+    env.update(TMPDIR=out_dir,
+               MXTPU_SYNTH_IMAGES=str(EXAMPLES_LAUNCH_IMAGES))
+    return start_logged(
+        [sys.executable, os.path.join(repo, "tools", "launch.py"), "-n", "2",
+         sys.executable, "-c",
+         EXAMPLES_WORKER.format(module=module, argv=list(EXAMPLES_LAUNCH_ARGV),
+                                out_dir=out_dir)],
+        out_dir, "launch", cwd=repo, env=env)
+
+
+def finish_examples_launch(started, out_dir):
+    """The launched tier's checks: exit 0, both ranks logged their epoch
+    (four or more ``Epoch[0]`` lines) in a real two-rank world over gloo,
+    no fallback to one process, each worker's model on the card, rank 0's
+    shard and its checkpoint alone."""
+    import glob
+    import os
+    import re
+
+    rc, out, err, seconds = finish_logged(started, EXAMPLES_LAUNCH_TIMEOUT_S)
+    text = out + err
+    require(rc == 0, f"examples: the launched imagenet tier exits 0 (exit "
+            f"{rc}: {text[-2000:]})")
+    peaks = [int(open(p).read()) for p in
+             sorted(glob.glob(os.path.join(out_dir, "card_peak_bytes.*")))]
+    joined = re.findall(r"rank \d joined the 2-rank world with gloo", text)
+    ckpts = sorted(os.path.basename(p) for p in
+                   glob.glob(os.path.join(out_dir, "alexnet-*.params")))
+    require(text.count("Epoch[0]") >= 4
+            and "continuing single-process" not in text
+            and len(joined) == 2 and len(peaks) == 2 and min(peaks) > 0
+            and ckpts == ["alexnet-0001.params"] and os.path.exists(
+                os.path.join(out_dir,
+                             f"imagenet_synth_{EXAMPLES_LAUNCH_IMAGES}.rec")),
+            f"examples: the launched tier's two ranks trained on the card "
+            f"(Epoch[0] lines {text.count('Epoch[0]')}, joined {joined}, "
+            f"peaks {peaks}, checkpoints {ckpts})")
+    return {"command": "tools/launch.py -n 2 python -m mxnet_tpu_torch."
+                       "examples.imagenet.train_imagenet "
+                       + " ".join(EXAMPLES_LAUNCH_ARGV),
+            "exit": rc, "seconds": seconds, "card_peak_bytes": peaks,
+            "joined": joined, "checkpoints": ckpts}
+
+
+def example_summary(name, run):
+    """The numbers a script's run ends with, for its row."""
+    import re
+
+    res = run["result"]
+    trained = re.findall(r"Train-accuracy=([\d.]+)", run["logged"])
+    if name == "mnist":
+        return {"val_accuracy": float(res)}
+    if name in ("cifar10", "imagenet", "lstm_bucketing"):
+        return {"train_accuracy_by_epoch": [float(a) for a in trained]}
+    if name == "lstm_ptb":
+        return {"perplexity_by_epoch": res["perplexity"]}
+    if name == "lstm_scan":
+        return {"steps": len(res["losses"]), "first_loss": res["losses"][0],
+                "last_loss": res["losses"][-1],
+                "final_perplexity": res["final_perplexity"],
+                "tokens_per_s": res["tokens_per_s"]}
+    if name == "composite_symbol":
+        return {"out_shape": list(res["out_shape"]),
+                "json_bytes": len(res["json"])}
+    if name == "simple_bind":
+        return {"val_acc_by_epoch": res["val_acc"]}
+    if name == "module_api":
+        return dict(res)
+    if name == "cifar_recipe":
+        return {"restored_val_accuracy": res["accuracy"],
+                "features": list(res["features"])}
+    if name == "cifar100_advanced":
+        return {"predicted": list(res.shape)}
+    if name == "numpy_softmax":
+        return {"train_accuracy": float(res)}
+    if name == "basics":
+        return {"device": res["card"]}
+    if name == "fgsm":
+        return {"clean_acc": res["clean_acc"], "adv_acc": res["adv_acc"]}
+    if name == "memcost":
+        return {"bytes": res[0], "card_peak_bytes": res[1]}
+    return {}
+
+
+def example_gates(torch, name, run, tmp):
+    """Each script's result beyond its own assertions (which raised if they
+    failed): the printed lines the JAX script prints, finite values that
+    moved, and what the script wrote."""
+    import os
+
+    res, printed, logged = run["result"], run["printed"], run["logged"]
+
+    def finite(params):
+        return all(bool(torch.isfinite(v).all()) for v in params.values())
+
+    if name == "mnist":
+        require(res >= EXAMPLES_MNIST_ACCURACY
+                and "final val accuracy:" in printed,
+                f"examples: mnist's final val accuracy {res} is at least "
+                f"{EXAMPLES_MNIST_ACCURACY} (this phase's gate)")
+    elif name in ("cifar10", "imagenet"):
+        epochs = 2 if name == "cifar10" else 1
+        require(finite(res.arg_params) and finite(res.aux_params)
+                and f"Epoch[{epochs - 1}] Train-accuracy" in logged,
+                f"examples: {name} trained {epochs} epoch(s) to finite "
+                "parameters")
+        if name == "imagenet":
+            require(os.path.exists(os.path.join(tmp, "resnet-50-0001.params")),
+                    "examples: imagenet's rank 0 wrote its checkpoint")
+    elif name == "lstm_ptb":
+        ppl = res["perplexity"]
+        require(len(ppl) == 2 and np.isfinite(ppl).all() and ppl[1] < ppl[0]
+                and logged.count("perplexity=") == 2,
+                f"examples: lstm_ptb's perplexity falls over its 2 epochs: "
+                f"{ppl}")
+    elif name == "lstm_scan":
+        # --steps 200, cut to the batches of its 100,000-character stream
+        steps = min(200, (100000 - 1) // (64 * 32))
+        losses = res["losses"]
+        require(len(losses) == steps and np.isfinite(losses).all()
+                and losses[-1] < losses[0] and "final perplexity=" in logged,
+                f"examples: lstm_scan's {steps} losses fall: {losses[0]} -> "
+                f"{losses[-1]}")
+    elif name == "lstm_bucketing":
+        require(finite(res.arg_params) and "Epoch[4] Train-accuracy" in logged,
+                "examples: lstm_bucketing trained 5 epochs to finite "
+                "parameters")
+    elif name == "composite_symbol":
+        path = os.path.join(tmp, "composite_symbol.dot")
+        with open(path) as f:
+            dot = f.read()
+        require(res["out_shape"] == (2, 1000) and dot == res["dot"]
+                and "JSON round-trip OK" in printed,
+                "examples: composite_symbol's shapes, .dot and JSON")
+    elif name == "simple_bind":
+        require("simple_bind training converged." in printed,
+                "examples: simple_bind converged")
+    elif name == "cifar_recipe":
+        require(res["features"][1:] == (64, 1, 1)
+                and "cifar recipe complete." in printed,
+                "examples: cifar_recipe's restore and features")
+    elif name == "cifar100_advanced":
+        require(res.shape == (500, 100)
+                and "walkthrough complete; predicted (500, 100)" in printed,
+                "examples: cifar100_advanced predicted")
+    elif name == "basics":
+        require(res["card"].startswith("cuda")
+                and "symbol JSON roundtrip ok" in printed,
+                f"examples: basics' NDArrays on the card ({res['card']})")
+    elif name == "memcost":
+        got, card = res
+        require(got["no_optimization"] == MEMCOST_NO_OPT_BYTES,
+                f"examples: memcost's no_optimization {got['no_optimization']}"
+                f" is the JAX script's {MEMCOST_NO_OPT_BYTES}")
+        require(got["train"] > got["remat"] > got["forward_only"] > 0
+                and all(v and v > 0 for v in card.values())
+                and "unavailable" not in printed,
+                f"examples: memcost's counts ordered and the card's peaks "
+                f"read: {got} {card}")
+    if name != "composite_symbol":  # it builds symbols only
+        require(run["peak_bytes"] > 0,
+                f"examples: {name} held its tensors on the card (peak "
+                f"{run['peak_bytes']} bytes above the card's before)")
+
+
+def examples_shards(tmp):
+    """The sha256 of the data the scripts made, against the JAX functions'."""
+    import glob
+    import hashlib
+    import os
+
+    from mxnet_tpu_torch.examples.mnist import train_mnist
+
+    h = hashlib.sha256()
+    for a in train_mnist.synthetic_mnist():
+        h.update(a.tobytes())
+    got = {"mnist": h.hexdigest()}
+    for key in EXAMPLES_SHA256:
+        if key == "mnist":
+            continue
+        paths = glob.glob(os.path.join(tmp, key))
+        require(len(paths) == 1, f"examples: one {key} under {tmp}: {paths}")
+        with open(paths[0], "rb") as f:
+            got[key] = hashlib.sha256(f.read()).hexdigest()
+    for key, want in EXAMPLES_SHA256.items():
+        require(got[key] == want, f"examples: {key}'s sha256 {got[key]} is "
+                f"the JAX function's {want}")
+    return got
+
+
+def phase_examples(torch, mt):
+    """12d. The fifteen single-process examples on the card, each through
+    its ``main(argv)`` at the JAX script's defaults (no ``--cpu``), in this
+    process, with TMPDIR a directory of the phase's own (their shards,
+    checkpoints and ``.dot`` land there). ``lstm_bucketing`` runs under the
+    package's gate ``MXNET_TPU_FUSED_ADAM=1`` (the script passes no
+    ``fused``, as the JAX one) and under ``torch.profiler``: fused_adam
+    launched once a batch, ``batches_per_epoch() * EPOCHS`` as derived
+    from the script's corpus, by the wrapper's count and by the trace's
+    kernels; its first launch held bitwise against its plain version.
+    Beside them, in the background from the phase's start, the repo's
+    ``tools/launch.py -n 2`` runs ``imagenet``'s ``dist_sync`` tier on the
+    card (AlexNet, two workers sharing it over gloo), read last. Returns the
+    kernels' launches over the fifteen runs, each read around its own run
+    (the launched workers count in their own processes)."""
+    import os
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.examples.rnn import lstm_bucketing
+    from mxnet_tpu_torch.kernels import fused_adam as kfa
+
+    t_start = time.perf_counter()
+    mt.set_matmul_precision("highest")
+    tmp = os.path.abspath(os.path.join(EXAMPLES_DIR, "tmp"))
+    if os.path.exists(EXAMPLES_DIR):
+        shutil.rmtree(EXAMPLES_DIR)
+    os.makedirs(tmp)
+    launch_dir = os.path.join(EXAMPLES_DIR, "launch")
+    os.makedirs(launch_dir)
+    launch = start_examples_launch(launch_dir)
+    prior = {k: os.environ.get(k) for k in ("TMPDIR", "MXNET_TPU_FUSED_ADAM")}
+    prior_tempdir = tempfile.tempdir
+    os.environ["TMPDIR"], tempfile.tempdir = tmp, tmp
+    total = {n: 0 for n in read_launches()}
+    rows, adam = {}, {}
+    cuda = torch.autograd.DeviceType.CUDA
+    try:
+        for name, module, argv in EXAMPLE_RUNS:
+            if name != "lstm_bucketing":
+                run = run_example(torch, module, argv)
+            else:
+                os.environ["MXNET_TPU_FUSED_ADAM"] = "1"
+                with FirstAdamStep(torch, topt) as first, \
+                        torch.profiler.profile(activities=[
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    run = run_example(torch, module, argv)
+                del os.environ["MXNET_TPU_FUSED_ADAM"]
+                traced = sum(
+                    1 for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == cuda
+                    and FUSED_ADAM_KERNEL in e.name())
+                derived = lstm_bucketing.batches_per_epoch() * \
+                    lstm_bucketing.EPOCHS
+                counted = run["launches"]["fused_adam"]
+                require(counted == traced == derived,
+                        f"examples: lstm_bucketing launched fused_adam "
+                        f"{counted} times (the trace: {traced}), derived "
+                        f"{derived}")
+                reset_launches()
+                adam = {"derived": derived, "counted": counted,
+                        "traced": traced, **first.hold(kfa)}
+                reset_launches()
+                require(adam["bitwise"],
+                        "examples: lstm_bucketing's first fused_adam launch "
+                        "equals fused_adam_step_plain bitwise "
+                        f"(max abs {adam['max_abs_err']})")
+            for k, v in run["launches"].items():
+                total[k] += v
+            rows[name] = {"seconds": run["seconds"],
+                          "result": example_summary(name, run),
+                          "peak_card_bytes": run["peak_bytes"],
+                          "launches": {k: v for k, v in run["launches"]
+                                       .items() if v}}
+            emit({"phase": "examples_script", "name": name, **rows[name]})
+            example_gates(torch, name, run, tmp)
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+        shards = examples_shards(tmp)
+        launched = finish_examples_launch(launch, launch_dir)
+    finally:
+        # a failed check leaves the launcher running: it passes SIGTERM on
+        # to its workers
+        if launch[0].poll() is None:
+            launch[0].terminate()
+            try:
+                launch[0].wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                launch[0].kill()
+                launch[0].wait()
+        tempfile.tempdir = prior_tempdir
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    phase_s = time.perf_counter() - t_start
+    emit({"phase": "examples", "scripts": rows, "fused_adam": adam,
+          "sha256": shards, "launched": launched, "phase_s": phase_s,
+          "budget_s": EXAMPLES_BUDGET_S, "launches": total})
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -9761,6 +10231,13 @@ def main() -> int:
                  "dequant_sum_twobit", "dequant_twobit"):
         require(slice24["tools_examples"][name] == 0,
                 f"slice 24's paths launched no {name}")
+    torch.cuda.empty_cache()
+    slice25 = {"examples": phase_examples(torch, mt)}
+    for name in ("int8_matmul", "quant_int8", "quant_twobit",
+                 "dequant_sum_int8", "dequant_sum_twobit", "dequant_int8",
+                 "dequant_twobit", *FLASH_NAMES):
+        require(slice25["examples"][name] == 0,
+                f"slice 25's paths launched no {name}")
     # not on fit's path: twobit gathers in bf16 (comm/allreduce.py)
     launches["dequant_twobit"] = 0
     require(not any(m.split(".")[0] in ("jax", "mxnet_tpu")
@@ -9850,6 +10327,10 @@ def main() -> int:
         # the tools and the launched workers' run (their own processes)
         kernels[-1]["slice24_launches"] = {p: got[name]
                                            for p, got in slice24.items()}
+        # the slice 25 path: the fifteen single-process examples, each read
+        # around its own run (fused_adam: lstm_bucketing's batches)
+        kernels[-1]["slice25_launches"] = {p: got[name]
+                                           for p, got in slice25.items()}
         if name in bucket_rows:
             # one 4 MB bucket's shapes; launches on the overlap path
             kernels[-1]["bucket_shape"] = bucket_rows[name]

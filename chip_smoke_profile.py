@@ -15,10 +15,10 @@ start-up reads against its body. The first ``card_device_us`` of each
 phase is also held to ``key_averages``' device rows. Writes
 ``smoke_profile.json`` (and ``smoke_profile_rank_<pid>.json``) under
 ``build/chip_smoke/profile``; prints what ``chip_smoke.py`` prints and
-exits with its code. Every phase is timed, the last one
-(``phase_tools_examples``, 12c) too; its background processes (the
-launcher's two workers, ``im2rec``) are other interpreters, timed by the
-phase itself in its row.
+exits with its code. Every phase is timed, the last ones
+(``phase_tools_examples``, 12c, and ``phase_examples``, 12d) too; their
+background processes (the launcher's workers, ``im2rec``) are other
+interpreters, timed by the phase itself in its row.
 """
 import functools
 import json

@@ -62,6 +62,7 @@ from . import models  # noqa: F401
 from . import comm, kvstore, kvstore as kv, parallel  # noqa: F401
 from . import engine, filesystem, recordio  # noqa: F401
 from . import module, module as mod, bucketing  # noqa: F401
+from .bucketing import BucketingFeedForward, BucketSentenceIter
 from . import operator, resilience, utils, visualization  # noqa: F401
 from . import visualization as viz  # noqa: F401
 from .operator import NumpyOp
@@ -81,7 +82,8 @@ __all__ = ["MXNetError", "set_matmul_precision", "get_matmul_precision",
            "ndarray", "random", "init", "initializer", "io", "lr_scheduler",
            "metric", "optimizer", "callback", "models", "comm", "kvstore",
            "kv", "parallel", "engine", "filesystem", "recordio", "module",
-           "mod", "bucketing", "operator", "NumpyOp", "resilience", "utils",
+           "mod", "bucketing", "BucketingFeedForward", "BucketSentenceIter",
+           "operator", "NumpyOp", "resilience", "utils",
            "visualization", "viz"]
 
 # Background /metrics endpoint (Prometheus text): opt-in through

@@ -1,12 +1,16 @@
-"""The port's counterparts of the JAX package's launched examples:
-``distributed/`` (``examples/distributed/``) and ``long_context/``
-(``examples/long_context/``). Each runs as ``python -m
-mxnet_tpu_torch.examples.<path>``, most of them under the repo's
+"""The port's counterparts of the JAX package's examples, one folder each
+under ``examples/``: the launched ``distributed/`` and ``long_context/``,
+and the single-process ``mnist/``, ``cifar10/``, ``imagenet/``, ``rnn/``,
+``notebooks/``, ``numpy_ops/``, ``python_howto/``, ``adversary/`` and
+``memcost/``. Each runs as ``python -m mxnet_tpu_torch.examples.<path>``
+with the JAX script's command line; the launched ones (and
+``imagenet/train_imagenet --kv-store dist_sync``) under the repo's
 ``tools/launch.py``, which starts the workers and sets the ``MXTPU_*``
 variables the port's kvstores read:
 
     python tools/launch.py -n 2 python -m \\
         mxnet_tpu_torch.examples.distributed.dist_sync_mlp [--cpu]
+    python -m mxnet_tpu_torch.examples.mnist.train_mnist [--cpu]
 
 Each runs on the card unless ``--cpu`` is given; without CUDA and without
 ``--cpu`` it raises and names CUDA. ``import mxnet_tpu_torch`` imports
@@ -36,6 +40,20 @@ def example_context(use_cpu: bool) -> Context:
         raise MXNetError("this example runs on the card, and CUDA is not "
                          "available: pass --cpu to run it on the CPU")
     return gpu(_local_rank())
+
+
+def example_contexts(use_cpu: bool, n: int) -> list:
+    """The ``n`` contexts of ``--num-devices n`` (the JAX scripts' ``[mx.tpu(i)
+    for i in range(n)]``): ``cpu(i)`` with ``--cpu``, else card ``i % cards``
+    counted from this worker's card (:func:`example_context`; card 0 in one
+    process), the rule ``parallel.mesh`` uses, so one card gives ``n``
+    contexts on it. Raises as :func:`example_context` does where there is
+    no CUDA."""
+    if use_cpu:
+        return [cpu(i) for i in range(n)]
+    first = example_context(False).device_id
+    cards = torch.cuda.device_count()
+    return [gpu((first + i) % cards) for i in range(n)]
 
 
 def cpu_parser(description: str) -> argparse.ArgumentParser:

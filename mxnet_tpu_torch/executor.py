@@ -217,6 +217,23 @@ class _NodeRunner:
             return [(id(s), k) for s, k in bn.inputs] + [(id(z_src), z_k)]
         return [(id(s), k) for s, k in node.inputs]
 
+    def release_plan(self, heads):
+        """For each node (by topological index), the env refs that no later
+        node reads and that are no head: dropped after that node runs, so a
+        pass holds only its live intermediates (what autograd saves for the
+        backward it keeps itself), as XLA's buffer assignment reuses the
+        JAX package's dead buffers."""
+        keep = {(id(h), i) for h, i in heads}
+        last = {}
+        for i, node in enumerate(self.nodes):
+            for ref in self.node_input_refs(node):
+                last[ref] = i
+        plan = [[] for _ in self.nodes]
+        for ref, i in last.items():
+            if ref not in keep:
+                plan[i].append(ref)
+        return plan
+
     def run(self, node, ins, aux, rng, mask):
         """``node``'s forward on its inputs and auxiliary states: ``(outs,
         updated aux)``."""
@@ -324,14 +341,18 @@ def _build_graph_fn(symbol, is_train: bool = False):
 
     segments = _remat_segments(nodes)
     if segments is None:
+        release = runner.release_plan(symbol._heads)
+
         def fn(arg_values: dict, aux_values: dict, rng=None, mask=None):
             env = {}
             new_aux = dict(aux_values)
-            for node in nodes:
+            for node, dead in zip(nodes, release):
                 if node.is_variable:
                     env[(id(node), 0)] = arg_values[node.name]
                 else:
                     exec_node(node, env, aux_values, new_aux, rng, mask)
+                for ref in dead:
+                    env.pop(ref, None)
             return tuple(env[(id(n), i)] for n, i in symbol._heads), new_aux
 
         return fn

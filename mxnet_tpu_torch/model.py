@@ -1481,6 +1481,25 @@ class FeedForward(BASE_ESTIMATOR):
         # the telemetry world back
         self._fit_stepping = False
 
+    # session state that pickle drops (mxnet_tpu/model.py:385-406): the
+    # trainers, their captured programs and closures, the hooks and the
+    # observability handles; the programs are rebuilt on first use
+    _SESSION = {"_opt_cache": None, "_train_state": None, "_fps": dict,
+                "_seen": set, "_eval_state": None, "_eval_progs": dict,
+                "_step_hook": None, "_step_probe": None, "telemetry": None,
+                "health_monitor": None, "_active_timeline": None}
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        for name in self._SESSION:
+            state.pop(name, None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        for name, default in self._SESSION.items():
+            setattr(self, name, default() if callable(default) else default)
+
     def _symbol_for_bucket(self, bucket_key):
         """The graph of one bucket; one symbol here (bucketing trainers
         make one a key)."""

@@ -13,6 +13,10 @@ still launches each kernel, through its helpers.
   index + 1), and the kernels row by row at the example's shape.
 - ``im2rec`` on the card's host writes the JAX script's bytes; the Caffe
   LeNet on gpu(0) within ``CAFFE_BOUND`` of the CPU.
+- Phase 12d's single-process ``lstm_bucketing`` on the card under the
+  package's gate ``MXNET_TPU_FUSED_ADAM=1``: fused_adam launched once a
+  batch (``batches_per_epoch() * EPOCHS``, from the script's corpus), and
+  its first launch bitwise its plain version at the example's leaves.
 
 Run on the card with
 ``python3 -m pytest tests/test_torch_examples_card.py -m cuda -q``.
@@ -111,3 +115,19 @@ def test_tools_on_the_card_host(tmp_path):
         assert hashlib.sha256(f.read()).hexdigest() == cs.TOOLS_REC_SHA256
     caffe = cs.caffe_card_check(torch, mt, str(tmp_path))
     assert caffe["max_abs_err"] <= cs.CAFFE_BOUND
+
+
+def test_lstm_bucketing_example_launches_fused_adam(monkeypatch):
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.examples.rnn import lstm_bucketing
+    from mxnet_tpu_torch.kernels import fused_adam as kfa
+
+    monkeypatch.setenv("MXNET_TPU_FUSED_ADAM", "1")
+    with cs.FirstAdamStep(torch, topt) as first:
+        run = cs.run_example(torch, "rnn.lstm_bucketing", [])
+    derived = lstm_bucketing.batches_per_epoch() * lstm_bucketing.EPOCHS
+    assert run["launches"]["fused_adam"] == derived, run["launches"]
+    assert run["peak_bytes"] > 0
+    held = first.hold(kfa)
+    assert held["bitwise"], held
+    assert "Epoch[4] Train-accuracy" in run["logged"]
