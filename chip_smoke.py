@@ -10,7 +10,8 @@ together), and then:
 1. card: prints the card's name and power limit as nvidia-smi reports them,
    and the kernels' build time; the host compiler builds the native data
    pipeline and the bindings' libraries beside nvcc, and the lint's CLI
-   (phase mxlint's part (c)) runs beside them too;
+   (phase mxlint's part (c)) starts beside them and runs on beside the
+   phases that follow until phase mxlint reads it;
 2. kernels: holds int8_matmul against its plain PyTorch version on the card,
    bitwise, at the shapes the serving path gives it and a few more (split K
    at small M, none at the large shape), also after the allocator's free
@@ -255,8 +256,10 @@ together), and then:
    precision, at the transformer LM's shape (q, k, v views of one packed
    qkv, 8x8x2048x64 bf16, causal), at a non-causal shape, at a ragged f32
    one, at the bf16 Hopper kernels' edges (head_dim 32, 40 and 128,
-   sequences of 77 and 1000, seq_q != seq_k) and at batch x heads 65,536
-   (one linear grid), checks that two launches agree bitwise, and times
+   sequences of 77 and 1000, seq_q != seq_k), at batch x heads 65,536
+   (one linear grid) and at the forms bench_flash times in 12e (f32 at
+   head_dim 64 and 128, causal and not, and bf16 causal at 128, at 1 x 4 x
+   2048), checks that two launches agree bitwise, and times
    each beside its bound, its plain version and
    ``F.scaled_dot_product_attention`` (forward, or its backward), with its
    share of the bound and its compiled registers, shared memory and spills
@@ -482,6 +485,19 @@ together), and then:
    in a ``torch.profiler`` trace, and its first launch's inputs held
    bitwise against ``fused_adam_step_plain``; prints each script's
    seconds and the phase's against its 150 s budget;
+12e. bench_tools: the six measurement tools (``mxnet_tpu_torch.tools.
+   {bench_flash,bench_longctx,bench_mnist,bench_roofline,
+   scaling_projection,bench_io_scaling}``; see ``phase_bench_tools``),
+   each through its ``main(argv)`` in this process at full width, only
+   repeat counts cut, its JSON in the phase's directory: each names the
+   card as nvidia-smi does, bench_flash ran every configuration, its
+   LM-shape flash_fwd within 15% of phase flash's time and its launches
+   what its sweep derives, no bf16 rate above the measured bf16 GEMM rate
+   and no f32 rate above the card's f32 rate, the roofline's step no
+   faster than its own traffic's floor, bench_longctx a row a sequence and
+   remat, and at most 1 GiB left allocated by the earlier phases as it
+   starts; prints each tool's seconds and the phase's against its 150 s
+   budget, and fails past it;
 13. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
    main path, error, times and bound (the flash kernels and fused_adam also
    their launches in lm_mesh; fused_adam its launches in train_bf16 and zoo;
@@ -505,6 +521,7 @@ together), and then:
    ``slice24_launches``: 12c's elastic fit, the four train_long_lm ranks
    summed and the tools (the launched workers count in their own
    processes); ``slice25_launches``: 12d's fifteen scripts, each read
+   around its own run; ``slice26_launches``: 12e's six tools, each read
    around its own run; rows
    3-7 also their times, bound, library time
    and the launch floor at one bucket's shape and their launches on the
@@ -652,7 +669,10 @@ MOE_STEP_BOUND = 1e-5
 # :35), and the Hopper kernels' edges at small size: head_dim 32 and 40
 # (TMA's zero fill), 128 (two boxes a row), sequences of 77 and 1000 (a
 # multiple of neither the 64-row tile nor the 128-row block), seq_q != seq_k,
-# and batch x heads 65,536 (past gridDim.y's 65,535: one linear grid)
+# and batch x heads 65,536 (past gridDim.y's 65,535: one linear grid); then
+# the forms bench_flash times at 16,384 (phase bench_tools), at its batch x
+# heads of 4 and 2,048 rows: the f32 SIMT kernels at head_dim 64 and 128,
+# causal and not, and bf16 causal at 128
 FLASH_CASES = (((LM_BATCH, 8, LM_SEQ, 64), "bfloat16", True, None),
                ((4, 8, 1024, 64), "bfloat16", False, None),
                ((1, 2, 48, 24), "float32", True, None),
@@ -671,7 +691,10 @@ FLASH_CASES = (((LM_BATCH, 8, LM_SEQ, 64), "bfloat16", True, None),
                # a rank's attention at tp = 2: half the heads, views of its
                # packed (b, s, 3, h / tp, d) qkv
                ((LM_BATCH, 8 // LM_MESH_WORLD, LM_SEQ, 64), "bfloat16", True,
-                None))
+                None),
+               *(((1, 4, 2048, d), "float32", causal, None)
+                 for d in (64, 128) for causal in (False, True)),
+               ((1, 4, 2048, 128), "bfloat16", True, None))
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # data-parallel training: ranks sharing the card, steps, modes, time limit
 DP_WORLD = 2
@@ -939,29 +962,49 @@ def finish_logged(started, timeout_s):
 
 def start_mxlint_cli():
     """The lint's CLI over the port's tree with every pass, started in the
-    background (a CPU process that touches no card). Returns what
-    :func:`finish_mxlint_cli` takes."""
+    background (a CPU process that touches no card), and killed at exit if
+    the run ends before :func:`finish_mxlint_cli`. Returns what that
+    takes: the started process and its seconds once it ends."""
+    import atexit
     import os
+    import threading
 
     repo = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(repo, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
-    return start_logged([sys.executable, "-m", "mxnet_tpu_torch.analysis",
-                         "--all"], out_dir, "mxlint_cli", cwd=repo)
+    started = start_logged([sys.executable, "-m", "mxnet_tpu_torch.analysis",
+                            "--all"], out_dir, "mxlint_cli", cwd=repo)
+    proc, ended = started[0], {}
+
+    def wait():
+        proc.wait()
+        ended["seconds"] = time.perf_counter() - started[2]
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    threading.Thread(target=wait, daemon=True).start()
+    atexit.register(stop)
+    return started, ended
 
 
 def finish_mxlint_cli(started):
-    """(exit code, stdout, stderr, seconds) of the CLI that
+    """(exit code, stdout, stderr, seconds it ran) of the CLI that
     :func:`start_mxlint_cli` started; killed past MXLINT_CLI_TIMEOUT_S."""
-    return finish_logged(started, MXLINT_CLI_TIMEOUT_S)
+    started, ended = started
+    rc, out, err, seconds = finish_logged(started, MXLINT_CLI_TIMEOUT_S)
+    return rc, out, err, ended.get("seconds", seconds)
 
 
 def phase_card(torch, common):
     """The card's name and power limit, then every build of the run at
     once: nvcc for each kernel source, the host compiler for the native
     data pipeline and for the bindings' libraries, and the lint's CLI
-    beside them (phase mxlint reads its result). Returns the nvidia-smi
-    line, the CLI's result and the bindings' builds."""
+    beside them, left running beside the phases that follow until phase
+    mxlint reads its result. Returns the nvidia-smi line, what
+    :func:`finish_mxlint_cli` takes and the bindings' builds."""
     from pathlib import Path
 
     smi = nvidia_smi("name,power.limit")
@@ -982,25 +1025,21 @@ def phase_card(torch, common):
     # nvcc on a fresh checkout: one compiler per source, all at once, and
     # the host compiler for the native data pipeline and the bindings
     # beside them
-    try:
-        with ThreadPoolExecutor(len(KERNEL_SOURCES) + 2) as pool:
-            native_s = pool.submit(build_native)
-            bindings = pool.submit(bindings_builds, Path(BINDINGS_DIR))
-            library_s = dict(zip(KERNEL_SOURCES,
-                                 pool.map(build, KERNEL_SOURCES)))
-            library_s["mxtpu_native (g++)"] = native_s.result()
-            bindings = bindings.result()
-        build_s = time.perf_counter() - t0
-    finally:
-        cli = finish_mxlint_cli(cli)
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 2) as pool:
+        native_s = pool.submit(build_native)
+        bindings = pool.submit(bindings_builds, Path(BINDINGS_DIR))
+        library_s = dict(zip(KERNEL_SOURCES,
+                             pool.map(build, KERNEL_SOURCES)))
+        library_s["mxtpu_native (g++)"] = native_s.result()
+        bindings = bindings.result()
+    build_s = time.perf_counter() - t0
     emit({"phase": "card", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernels_loaded": list(KERNEL_SOURCES), "build_s": build_s,
           # each library's build, from the common start (they run at once)
-          "library_build_s": library_s, "bindings_build_s": bindings[3],
-          "mxlint_cli_s": cli[3]})
+          "library_build_s": library_s, "bindings_build_s": bindings[3]})
     return smi, cli, bindings
 
 
@@ -8372,8 +8411,9 @@ def phase_mxlint(torch, mt, cli):
     misbehaves there, its clean copy does not (MX306: a clock read without
     a barrier times the launches' enqueue; MX202: a host read inside a
     CUDA-graph capture makes the capture raise); then the result of the CLI
-    over the port's tree with every pass (``cli``: phase card ran it beside
-    the builds). Returns the timing fixtures' launches."""
+    over the port's tree with every pass (``cli``: phase card started it
+    beside the builds, and it ran beside the phases after). Returns the
+    timing fixtures' launches."""
     from mxnet_tpu_torch import optimizer as topt
     from mxnet_tpu_torch.analysis import lint_source
     from mxnet_tpu_torch.kernels import fused_adam as kfa
@@ -8461,8 +8501,8 @@ def phase_mxlint(torch, mt, cli):
           "captured": {"flagged_capture_raised": raised[:300],
                        "clean_outputs": outs},
           "cli": {"argv": "--all", "seconds": cli_s, "files": files,
-                  "summary": summary, "ran": "in phase card, beside the "
-                  "builds"},
+                  "summary": summary, "ran": "from phase card, beside the "
+                  "builds and the phases after"},
           "phase_s": time.perf_counter() - t_start,
           "launches": launches})
     return launches
@@ -10118,6 +10158,241 @@ def phase_examples(torch, mt):
     return total
 
 
+
+# -- slice 26: the measurement tools -------------------------------------------
+
+BENCH_TOOLS_DIR = "build/chip_smoke/bench_tools"
+BENCH_TOOLS_BUDGET_S = 150
+# each tool's main(argv) in this process, on gpu(0), at full width, in this
+# order (scaling_projection reads bench_roofline's step); only repeat counts
+# and bench_io_scaling's thread list may be cut, and every cut is listed
+BENCH_TOOL_RUNS = (
+    ("bench_flash", ("--iters", "5")),
+    ("bench_longctx", ("--iters", "2")),
+    ("bench_mnist", ("--iters", "20")),
+    ("bench_roofline", ("--iters", "3")),
+    ("scaling_projection", ("--roofline", "{dir}/bench_roofline.json")),
+    ("bench_io_scaling", ("--threads", "1,4,8")),
+)
+BENCH_TOOLS_CUTS = {
+    "bench_flash": "--iters 5 (default 10)",
+    "bench_longctx": "--iters 2 (default 4)",
+    "bench_mnist": "--iters 20 (default 50)",
+    "bench_roofline": "--iters 3 (default 16)",
+    "scaling_projection": "the step read from bench_roofline's JSON "
+                          "(--roofline) instead of measured again",
+    "bench_io_scaling": "--threads 1,4,8 (default 1,2,4,8 and the host's "
+                        "cores where more)",
+}
+# bench_flash's flash_fwd at the LM's shape against phase flash's row 9 in
+# the same run: both time single launches with L2 flushed (medians of 5 and
+# 25), so they differ by the spread of the medians alone
+BENCH_FLASH_ROW_BOUND = 0.15
+# what the card may hold allocated when the phase starts, after every earlier
+# phase, a collection and an empty cache: the cuBLAS workspaces PyTorch keeps
+# for each handle and stream (32 MiB each; 4 of them, 135 MB in all, with one
+# side stream a thread for the captured programs), against some 50 when each
+# program took a stream of its own (2.27 GB by phase dp_train)
+BENCH_TOOLS_START_BYTES = 1 << 30
+# over the f32 rate outside the tensor cores (kernels/registry.py's
+# H100_PEAK_OPS, the data sheet's) for a boost clock above the sheet's
+F32_PEAK_MARGIN = 1.05
+BENCH_LONGCTX_SEQS = (2048, 8192, 16384, 32768)
+
+
+def bench_flash_library_rows(torch, records):
+    """The yardstick of ROADMAP B's return rule at bench_flash's new shapes
+    (every configuration but the LM's, which phase flash times): one
+    ``F.scaled_dot_product_attention`` call and its backward (dq, dk and
+    dv together) on contiguous copies of the same operands, timed as phase
+    flash times them (median of 5). Beside them, the kernels' forward and
+    their two backward kernels summed, from bench_flash's records."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for r in records:
+        if (r["batch"], r["heads"], r["seq"]) == (LM_BATCH, 8, LM_SEQ):
+            continue
+        dtype = getattr(torch, r["dtype"])
+        shape = (r["batch"], r["heads"], r["seq"], r["d"])
+        q, k, v, do = flash_operands(torch, shape, dtype, gen)
+        qc, kc, vc = (t.detach().contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qc, kc, vc, is_causal=r["causal"])
+        fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=r["causal"]), reps=5)
+        bwd = time_ms(torch, lambda: torch.autograd.grad(
+            o, (qc, kc, vc), do, retain_graph=True), reps=5)
+        kern = r["kernels"]
+        rows.append({"shape": list(shape), "dtype": r["dtype"],
+                     "causal": r["causal"], "library_fwd_ms": fwd,
+                     "library_bwd_ms": bwd,
+                     "flash_fwd_ms": kern["flash_fwd"]["ms"],
+                     "flash_bwd_ms": kern["flash_bwd_dq"]["ms"]
+                     + kern["flash_bwd_dkv"]["ms"]})
+        del q, k, v, do, qc, kc, vc, o
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bench_tool_summary(name, got):
+    """What the phase's line keeps of a tool's JSON: all of it but the
+    roofline's per-op table past its first 10 rows."""
+    if name == "bench_roofline":
+        return {**got, "per_op_top": got["per_op_top"][:10]}
+    return got
+
+
+def bench_tool_gates(name, got, launches, flash_rows):
+    """The phase's gates on one tool's JSON and its launches."""
+    from mxnet_tpu_torch.kernels.registry import H100_PEAK_OPS
+
+    f32_peak = H100_PEAK_OPS["f32"] / 1e12 * F32_PEAK_MARGIN
+    if name == "bench_flash":
+        recs = got["records"]
+        require(not [r for r in recs if "error" in r],
+                f"bench_tools: bench_flash ran every configuration: "
+                f"{[r for r in recs if 'error' in r]}")
+        # bf16 under the measured bf16 GEMM rate, the f32 SIMT forms under
+        # the card's f32 rate outside the tensor cores
+        peaks = {"bfloat16": got["measured_bf16_matmul_peak_tflops"],
+                 "float32": f32_peak}
+        for dtype, peak in peaks.items():
+            rates = [r[k] for r in recs if r["dtype"] == dtype
+                     for k in ("fwd_tflops", "fwdbwd_tflops")]
+            rates += [k["tflops"] for r in recs if r["dtype"] == dtype
+                      for k in r["kernels"].values()]
+            require(rates and 0 < min(rates) and max(rates) <= peak,
+                    f"bench_tools: bench_flash's {dtype} rates ({max(rates)} "
+                    f"TF/s at most) under {peak} TF/s")
+        lm = next(r for r in recs if (r["batch"], r["heads"], r["seq"],
+                                      r["d"], r["causal"]) ==
+                  (LM_BATCH, 8, LM_SEQ, 64, True))
+        ratio = lm["kernels"]["flash_fwd"]["ms"] / flash_rows["flash_fwd"]["ms"]
+        require(abs(ratio - 1) <= BENCH_FLASH_ROW_BOUND,
+                f"bench_tools: bench_flash's flash_fwd at the LM's shape "
+                f"({lm['kernels']['flash_fwd']['ms']} ms) within "
+                f"{BENCH_FLASH_ROW_BOUND:.0%} of phase flash's "
+                f"({flash_rows['flash_fwd']['ms']} ms)")
+        for n in FLASH_NAMES:
+            derived = sum(r["launches"][n] for r in recs)
+            require(launches[n] == derived,
+                    f"bench_tools: bench_flash launched {n} {launches[n]} "
+                    f"times, its sweep derives {derived}")
+    elif name == "bench_longctx":
+        got_cells = {(r["seq"], r["remat"]) for r in got["records"]
+                     if r.get("oom") or r.get("step_ms", 0) > 0}
+        want = {(s, m) for s in BENCH_LONGCTX_SEQS for m in (False, True)}
+        require(got_cells == want and launches["flash_fwd"] > 0,
+                f"bench_tools: bench_longctx has a row a seq and remat, "
+                f"timed or oom: {sorted(got_cells)}")
+    elif name == "bench_mnist":
+        require(all(r["images_per_sec"] > 0 for r in got["records"])
+                and len(got["records"]) == 2,
+                "bench_tools: bench_mnist timed the MLP and LeNet")
+    elif name == "bench_roofline":
+        # the port's own traffic (what the tool publishes), not the
+        # ideal-fusion floors, which sit ten times under the step
+        floor = got["memory_floor_port_traffic_ms"]
+        require(got["measured_step_ms"] >= floor,
+                f"bench_tools: the roofline's step {got['measured_step_ms']} "
+                f"ms is no faster than its traffic's floor {floor} ms")
+        # the f32 step (TF32 off) under the card's f32 rate
+        require(0 < got["step_tflops"] <= f32_peak,
+                f"bench_tools: the f32 step's {got['step_tflops']} TF/s under "
+                f"{f32_peak} TF/s")
+    elif name == "scaling_projection":
+        require(got["allreduce_payload_bytes_per_step"]
+                == got["param_bytes_f32"]
+                == got["profiled_allreduce"]["payload_bytes"],
+                "bench_tools: the projection's payload is the gradient's "
+                "bytes, as profiled")
+    elif name == "bench_io_scaling":
+        require(all(r["img_per_sec"] > 0 for r in got["records"]),
+                "bench_tools: bench_io_scaling measured every thread count")
+
+
+def phase_bench_tools(torch, smi, flash_rows):
+    """12e. The six measurement tools on the card, each through its
+    ``main(argv)`` in this process with ``--out`` in the phase's directory
+    (never the JAX tools' files): bench_flash, bench_longctx, bench_mnist,
+    bench_roofline, scaling_projection (from the roofline's JSON) and
+    bench_io_scaling. Each tool's launches are set to 0 just before it and
+    read just after. Gates: each exits and writes its JSON with this card's
+    ``nvidia-smi`` line; bench_flash ran every configuration, its LM-shape
+    flash_fwd within ``BENCH_FLASH_ROW_BOUND`` of phase flash's time and
+    its launches what its sweep derives; no bf16 rate above the measured
+    bf16 GEMM rate, no f32 rate above the card's f32 rate (the f32 SIMT
+    flash forms, the roofline's f32 step); the roofline's step no faster
+    than its traffic's floor (``memory_floor_port_traffic_ms``);
+    bench_longctx a row for every seq and remat; the phase within its
+    budget; and, as it starts, at most ``BENCH_TOOLS_START_BYTES`` left
+    allocated by the earlier phases. Beside bench_flash, the library's
+    attention at its shapes
+    (:func:`bench_flash_library_rows`, outside the tools' launch counts).
+    Returns the kernels' launches over the six tools."""
+    import importlib
+    import io
+    import json
+    import os
+    import shutil
+
+    t_start = time.perf_counter()
+    if os.path.exists(BENCH_TOOLS_DIR):
+        shutil.rmtree(BENCH_TOOLS_DIR)
+    os.makedirs(BENCH_TOOLS_DIR)
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_bytes = {"allocated": torch.cuda.memory_allocated(),
+                  "reserved": torch.cuda.memory_reserved()}
+    require(card_bytes["allocated"] <= BENCH_TOOLS_START_BYTES,
+            f"bench_tools: the earlier phases left {card_bytes['allocated']} "
+            f"bytes allocated on the card (at most {BENCH_TOOLS_START_BYTES})")
+    total = {n: 0 for n in read_launches()}
+    rows, library = {}, []
+    for name, argv in BENCH_TOOL_RUNS:
+        mod = importlib.import_module(f"mxnet_tpu_torch.tools.{name}")
+        out_path = os.path.join(BENCH_TOOLS_DIR, f"{name}.json")
+        argv = [a.format(dir=BENCH_TOOLS_DIR) for a in argv] + [
+            "--out", out_path]
+        gc.collect()
+        torch.cuda.empty_cache()
+        printed = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        with open(out_path) as f:
+            got = json.load(f)
+        for k, v in launches.items():
+            total[k] += v
+        rows[name] = {"seconds": seconds, "argv": argv,
+                      "launches": {k: v for k, v in launches.items() if v}}
+        emit({"phase": "bench_tool", "name": name, **rows[name],
+              "result": bench_tool_summary(name, got)})
+        require(got["card"] == smi,
+                f"bench_tools: {name}'s JSON names the card {got['card']!r}"
+                f" ({smi!r})")
+        bench_tool_gates(name, got, launches, flash_rows)
+        if name == "bench_flash":
+            library = bench_flash_library_rows(torch, got["records"])
+            emit({"phase": "bench_flash_library", "rows": library})
+    reset_launches()
+    phase_s = time.perf_counter() - t_start
+    require(phase_s <= BENCH_TOOLS_BUDGET_S,
+            f"bench_tools: the phase took {phase_s:.1f} s of its "
+            f"{BENCH_TOOLS_BUDGET_S} s budget")
+    emit({"phase": "bench_tools", "tools": rows, "cuts": BENCH_TOOLS_CUTS,
+          "library_beside_bench_flash": library,
+          "phase_s": phase_s, "budget_s": BENCH_TOOLS_BUDGET_S,
+          "card": smi, "card_bytes_at_start": card_bytes,
+          "launches": total})
+    return total
+
 def main() -> int:
     import torch
 
@@ -10220,7 +10495,8 @@ def main() -> int:
     del lm_params
     moe_launches = phase_moe_mesh(torch)
     torch.cuda.empty_cache()
-    slice22 = {"mxlint": phase_mxlint(torch, mt, mxlint_cli)}
+    slice22 = {"mxlint": phase_mxlint(torch, mt,
+                                      finish_mxlint_cli(mxlint_cli))}
     require(slice22["mxlint"]["fused_adam"] > 0,
             "slice 22's path launched fused_adam")
     torch.cuda.empty_cache()
@@ -10238,6 +10514,11 @@ def main() -> int:
                  "dequant_twobit", *FLASH_NAMES):
         require(slice25["examples"][name] == 0,
                 f"slice 25's paths launched no {name}")
+    torch.cuda.empty_cache()
+    slice26 = {"bench_tools": phase_bench_tools(torch, smi, flash_rows)}
+    for name in FLASH_NAMES:
+        require(slice26["bench_tools"][name] > 0,
+                f"slice 26's paths launched {name}")
     # not on fit's path: twobit gathers in bf16 (comm/allreduce.py)
     launches["dequant_twobit"] = 0
     require(not any(m.split(".")[0] in ("jax", "mxnet_tpu")
@@ -10331,6 +10612,11 @@ def main() -> int:
         # around its own run (fused_adam: lstm_bucketing's batches)
         kernels[-1]["slice25_launches"] = {p: got[name]
                                            for p, got in slice25.items()}
+        # the slice 26 path: the six measurement tools, each read around
+        # its own run (the flash kernels: bench_flash's sweep and
+        # bench_longctx's steps)
+        kernels[-1]["slice26_launches"] = {p: got[name]
+                                           for p, got in slice26.items()}
         if name in bucket_rows:
             # one 4 MB bucket's shapes; launches on the overlap path
             kernels[-1]["bucket_shape"] = bucket_rows[name]

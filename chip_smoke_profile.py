@@ -16,8 +16,8 @@ phase is also held to ``key_averages``' device rows. Writes
 ``smoke_profile.json`` (and ``smoke_profile_rank_<pid>.json``) under
 ``build/chip_smoke/profile``; prints what ``chip_smoke.py`` prints and
 exits with its code. Every phase is timed, the last ones
-(``phase_tools_examples``, 12c, and ``phase_examples``, 12d) too; their
-background processes (the launcher's workers, ``im2rec``) are other
+(``phase_tools_examples``, 12c, ``phase_examples``, 12d, and
+``phase_bench_tools``, 12e) too; their background processes (the launcher's workers, ``im2rec``) are other
 interpreters, timed by the phase itself in its row.
 """
 import functools

@@ -31,8 +31,7 @@ of JAX or of the JAX package. :data:`JAX_ONLY` rules stay registered with
 the JAX package's text and never fire over torch code. The other rules
 (MX100, MX307, MX310, MX311, MX315, MX316, MX6xx, MX7xx and the runtime
 passes' bands) keep the JAX package's text; four summaries leave out its
-references to the JAX package's own change history, and MX316's fixit
-names only what the port has.
+references to the JAX package's own change history.
 
 Severities: ``error`` fails a pass (CLI exit 1) and makes
 ``Symbol.verify`` raise; ``warning`` is reported but non-fatal; ``info``
@@ -335,7 +334,7 @@ register_rule(
     "gates cannot read, un-CRC'd files that read_ledger must treat as "
     "corrupt, and duplicate summary events that skew incident counts",
     "route run records through telemetry.ledger (record_run / "
-    "append_record) and resolve the store directory via "
+    "append_record / publish_bench) and resolve the store directory via "
     "telemetry.ledger.ledger_dir(); a deliberate bypass carries "
     "`# mxlint: disable=MX316` with a justification")
 

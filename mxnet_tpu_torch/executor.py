@@ -164,6 +164,21 @@ def _checkpointed(block_fn, ext_vals, aux_vals, rng, mask):
         body, *ext_vals, use_reentrant=False, preserve_rng_state=False)
 
 
+def _release_plan(reads, keep):
+    """For each step of a pass, given ``reads[i]``, the env refs step ``i``
+    reads: the refs whose last reader it is, less those in ``keep``. The
+    pass drops them from its env after that step."""
+    last = {}
+    for i, refs in enumerate(reads):
+        for ref in refs:
+            last[ref] = i
+    plan = [[] for _ in reads]
+    for ref, i in last.items():
+        if ref not in keep:
+            plan[i].append(ref)
+    return plan
+
+
 class _NodeRunner:
     """How the graph functions run one node: the fusion plan's rewrites
     (:func:`_fusion_plan`), each node's input refs and auxiliary state
@@ -223,16 +238,8 @@ class _NodeRunner:
         pass holds only its live intermediates (what autograd saves for the
         backward it keeps itself), as XLA's buffer assignment reuses the
         JAX package's dead buffers."""
-        keep = {(id(h), i) for h, i in heads}
-        last = {}
-        for i, node in enumerate(self.nodes):
-            for ref in self.node_input_refs(node):
-                last[ref] = i
-        plan = [[] for _ in self.nodes]
-        for ref, i in last.items():
-            if ref not in keep:
-                plan[i].append(ref)
-        return plan
+        return _release_plan([self.node_input_refs(n) for n in self.nodes],
+                             {(id(h), i) for h, i in heads})
 
     def run(self, node, ins, aux, rng, mask):
         """``node``'s forward on its inputs and auxiliary states: ``(outs,
@@ -284,42 +291,53 @@ def _build_replica_graph_fn(symbol, is_train: bool = True):
     its parameters' to the first replica's. ``MXNET_TPU_REMAT`` is not
     applied here (it changes memory, not results)."""
     runner = _NodeRunner(symbol, is_train)
+    release = runner.release_plan(symbol._heads)
 
     def fn(arg_values, aux_values, rngs, masks):
         n = len(arg_values)
         envs = [{} for _ in range(n)]
         new_aux = [dict(a) for a in aux_values]
-        for node in runner.nodes:
-            if node.is_variable:
-                for env, args in zip(envs, arg_values):
-                    env[(id(node), 0)] = args[node.name]
-                continue
-            if not runner.batch_coupled(node):
-                for r in range(n):
-                    runner.exec_node(node, envs[r], aux_values[r],
-                                     new_aux[r], rngs[r], masks[r])
-                continue
-            refs = runner.node_input_refs(node)
-            joined = set(runner.batch_inputs(node))
-            dev = envs[0][refs[0]].device
-            rows = [env[refs[0]].shape[0] for env in envs]
-            ins = [torch.cat([env[r].to(dev) for env in envs])
-                   if i in joined else envs[0][r]
-                   for i, r in enumerate(refs)]
-            names = runner.node_aux_names(node)
-            outs, updated = runner.run(
-                node, ins, [aux_values[0][a] for a in names], None, None)
-            for k, o in enumerate(outs):
-                for env, part in zip(envs, torch.split(o, rows)):
-                    dst = env[refs[0]].device
-                    env[(id(node), k)] = part.to(dst) if dst != dev else part
-            for r in range(n):
-                dst = envs[r][refs[0]].device
-                new_aux[r].update((a, u.to(dst) if u.device != dst else u)
-                                  for a, u in zip(names, updated))
+        for node, dead in zip(runner.nodes, release):
+            run_node(node, envs, arg_values, aux_values, new_aux, rngs,
+                     masks)
+            for env in envs:
+                for ref in dead:
+                    env.pop(ref, None)
         heads = [tuple(env[(id(h), i)] for h, i in symbol._heads)
                  for env in envs]
         return heads, new_aux
+
+    def run_node(node, envs, arg_values, aux_values, new_aux, rngs, masks):
+        """``node`` for every replica: apart, or once on their joined rows
+        when it is batch-coupled."""
+        n = len(envs)
+        if node.is_variable:
+            for env, args in zip(envs, arg_values):
+                env[(id(node), 0)] = args[node.name]
+            return
+        if not runner.batch_coupled(node):
+            for r in range(n):
+                runner.exec_node(node, envs[r], aux_values[r], new_aux[r],
+                                 rngs[r], masks[r])
+            return
+        refs = runner.node_input_refs(node)
+        joined = set(runner.batch_inputs(node))
+        dev = envs[0][refs[0]].device
+        rows = [env[refs[0]].shape[0] for env in envs]
+        ins = [torch.cat([env[r].to(dev) for env in envs])
+               if i in joined else envs[0][r]
+               for i, r in enumerate(refs)]
+        names = runner.node_aux_names(node)
+        outs, updated = runner.run(
+            node, ins, [aux_values[0][a] for a in names], None, None)
+        for k, o in enumerate(outs):
+            for env, part in zip(envs, torch.split(o, rows)):
+                dst = env[refs[0]].device
+                env[(id(node), k)] = part.to(dst) if dst != dev else part
+        for r in range(n):
+            dst = envs[r][refs[0]].device
+            new_aux[r].update((a, u.to(dst) if u.device != dst else u)
+                              for a, u in zip(names, updated))
 
     return fn
 
@@ -392,12 +410,19 @@ def _build_graph_fn(symbol, is_train: bool = False):
         note_consumption((id(n), i), -1)
 
     def make_block_fn(members, exts, out_refs, aux_names):
+        # inside a block, each member's output goes after its last reader
+        # there unless the block exports it
+        dead_after = _release_plan([node_input_refs(n) for n in members],
+                                   set(out_refs))
+
         def block_fn(ext_vals, aux_vals, rng, mask):
             env = dict(zip(exts, ext_vals))
             aux_in = dict(zip(aux_names, aux_vals))
             new_aux = {}
-            for node in members:
+            for node, dead in zip(members, dead_after):
                 exec_node(node, env, aux_in, new_aux, rng, mask)
+                for ref in dead:
+                    env.pop(ref, None)
             return (tuple(env[r] for r in out_refs),
                     tuple(new_aux.get(a, aux_in[a]) for a in aux_names))
 
@@ -406,24 +431,32 @@ def _build_graph_fn(symbol, is_train: bool = False):
     runs = [seg if seg[0] == "inline" else
             ("blk", make_block_fn(*seg[1:]), seg[2], seg[3], seg[4])
             for seg in blocks]
+    # the outer env drops an inline node's output or a block's export after
+    # the last segment that reads it (an inline node reads its inputs, a
+    # block its external inputs); the heads stay
+    release = _release_plan(
+        [(node_input_refs(seg[2]) if seg[0] == "inline" else seg[2])
+         for seg in runs], {(id(h), i) for h, i in symbol._heads})
 
     def fn(arg_values: dict, aux_values: dict, rng=None, mask=None):
         env = {}
         new_aux = dict(aux_values)
-        for seg in runs:
+        for seg, dead in zip(runs, release):
             if seg[0] == "inline":
                 node = seg[2]
                 if node.is_variable:
                     env[(id(node), 0)] = arg_values[node.name]
                 else:
                     exec_node(node, env, aux_values, new_aux, rng, mask)
-                continue
-            _, block_fn, exts, out_refs, aux_names = seg
-            outs, updated = _checkpointed(
-                block_fn, tuple(env[r] for r in exts),
-                tuple(aux_values[a] for a in aux_names), rng, mask)
-            env.update(zip(out_refs, outs))
-            new_aux.update(zip(aux_names, updated))
+            else:
+                _, block_fn, exts, out_refs, aux_names = seg
+                outs, updated = _checkpointed(
+                    block_fn, tuple(env[r] for r in exts),
+                    tuple(aux_values[a] for a in aux_names), rng, mask)
+                env.update(zip(out_refs, outs))
+                new_aux.update(zip(aux_names, updated))
+            for ref in dead:
+                env.pop(ref, None)
         return tuple(env[(id(n), i)] for n, i in symbol._heads), new_aux
 
     return fn

@@ -46,9 +46,12 @@ to persist into. This module is that store:
   retier starts from the measured winner instead of exploring blind
   (the seed of ROADMAP item 4's offline store).
 
-Every write lands here or nowhere. The JAX package's ``publish_bench``
-(its benchmark headlines) has no counterpart: the port has no benchmark
-harness.
+  **bench integration** — :func:`publish_bench` is the one writer of a
+  benchmark's headline: its per-bench JSON file (full runs only), a
+  ``kind="bench"`` RunRecord, and :data:`BENCH_LEDGER_NAME`, every bench
+  record the ledger holds in one file.
+
+Every write lands here or nowhere.
 """
 
 from __future__ import annotations
@@ -63,9 +66,13 @@ from ..analysis.lockwatch import named_lock
 __all__ = ["LEDGER_SCHEMA", "ledger_dir", "distill", "append_record",
            "record_run", "read_ledger", "match", "metric_direction",
            "trend_gate", "knob_attribution", "best_record",
-           "warm_start_tier"]
+           "warm_start_tier", "publish_bench", "BENCH_LEDGER_NAME"]
 
 LEDGER_SCHEMA = 1
+
+# the per-bench headline aggregation: the trajectory as ONE
+# machine-readable file instead of N ad-hoc JSONs
+BENCH_LEDGER_NAME = "BENCH_LEDGER_r20.json"
 
 # knob vector keys every fit record carries (absent knobs read as None so
 # compare() can pair records across versions)
@@ -477,3 +484,60 @@ def warm_start_tier(fingerprint, world, backend=None, directory=None,
             "record_id": best.get("record_id"),
             "runs": len(recs),
             metric: _metric_of(best, metric)}
+
+
+# -- bench integration ---------------------------------------------------------
+
+def publish_bench(result, filename=None, bench_dir=None, smoke=False,
+                  fingerprint=None, logger=None):
+    """The ONE writer a benchmark's headline flows through (no N ad-hoc
+    JSON files with no history).
+
+    - writes the per-bench JSON file (``filename`` under ``bench_dir``;
+      full runs only — smoke keeps CI file-free),
+    - appends a ``kind="bench"`` RunRecord to the ledger when
+      ``MXNET_TPU_LEDGER_DIR`` is configured,
+    - regenerates :data:`BENCH_LEDGER_NAME` — every bench record the
+      ledger holds, one machine-readable trajectory (full runs write it
+      next to the per-bench file; smoke runs write it into the ledger
+      dir when one is configured, so gating tests can assert on it).
+
+    Returns {"bench_path", "record", "ledger_path", "bench_ledger_path"}.
+    """
+    out = {"bench_path": None, "record": None, "ledger_path": None,
+           "bench_ledger_path": None}
+    if filename and bench_dir and not smoke:
+        path = os.path.join(bench_dir, filename)
+        with open(path, "w") as f:
+            json.dump(result, f, indent=2)
+            f.write("\n")
+        out["bench_path"] = path
+
+    headline = {k: result.get(k) for k in
+                ("metric", "value", "unit", "vs_baseline")
+                if k in result}
+    record = distill(
+        "bench", fingerprint=fingerprint,
+        world_size=result.get("world"),
+        completed=True, since_ts=float("inf"),  # no ring events: the
+        # headline row IS the outcome (bench functions own their numbers)
+        knobs={}, extra_outcomes=headline)
+    record["outcomes"]["smoke"] = bool(smoke)
+    out["record"] = record
+
+    directory = ledger_dir()
+    if directory is not None:
+        out["ledger_path"] = append_record(record, directory=directory,
+                                           logger=logger)
+
+    bench_rows = [r for r in read_ledger(directory)
+                  if r.get("kind") == "bench"] if directory else [record]
+    target_dir = bench_dir if (bench_dir and not smoke) else directory
+    if target_dir:
+        bl_path = os.path.join(target_dir, BENCH_LEDGER_NAME)
+        with open(bl_path, "w") as f:
+            json.dump({"ledger_schema": LEDGER_SCHEMA,
+                       "records": bench_rows}, f, indent=1, default=str)
+            f.write("\n")
+        out["bench_ledger_path"] = bl_path
+    return out

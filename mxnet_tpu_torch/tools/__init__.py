@@ -9,7 +9,16 @@ JAX script's command line:
   package (``tools/gen_op_docs.py``);
 - ``gen_r_ops``: the R binding's generated wrappers
   ``bindings/r/mxtpu_generated.R`` (``tools/gen_r_ops.py``);
-- ``run_mxlint``: the lint over this package (``tools/run_mxlint.py``).
+- ``run_mxlint``: the lint over this package (``tools/run_mxlint.py``);
+- the measurement tools, each on the card and writing its ``--out`` (a
+  name of its own, never the JAX tools' files at the repository's root):
+  ``bench_flash`` (the flash kernels' rates), ``bench_longctx`` (the LM's
+  step by sequence length), ``bench_mnist`` (MLP and LeNet steps),
+  ``bench_roofline`` (ResNet-50's step against the card's bandwidth;
+  ``--analyze-only --cpu`` counts on the CPU), ``bench_io_scaling`` (the
+  native pipeline by thread count) and ``scaling_projection`` (data
+  parallel scaling projected from one card); ``_bench`` holds what they
+  share (``bench.py``'s helpers).
 
 ``import mxnet_tpu_torch`` imports none of them. ``tools/launch.py`` needs
 no counterpart: it imports neither package and only sets the ``MXTPU_*``

@@ -14,7 +14,8 @@ package's. On the card it also counts captures, their seconds and the bytes
 of the graphs' memory pools, and each step that ran eager with its reason.
 
 :class:`CapturedProgram` is one captured step: warm-up calls run eager on a
-side stream (cuDNN's algorithm search and cuBLAS's workspace happen there),
+side stream, one a device a thread shared by every program (cuDNN's
+algorithm search and cuBLAS's workspace happen there),
 then the function is captured into a graph, with the generators it draws
 from registered, and every later call replays it. :class:`CapturedPair` is
 a training forward and its backward captured into two graphs that share a
@@ -614,6 +615,30 @@ def _flat_tensors(obj):
     return []
 
 
+_SIDE = threading.local()
+
+
+def _side_stream(device):
+    """The side stream this thread's programs on ``device`` warm up and
+    capture on: one a device a thread, shared by every program, as
+    ``torch.cuda.graph`` shares one capture stream. The caching allocator
+    keeps what a stream freed for that stream alone, and PyTorch keeps a
+    cuBLAS workspace for each handle and stream it sees (32 MiB on Hopper)
+    for the process's life: with a stream a program, a long run held some
+    50 workspaces on 30 streams, and a program's warm-up could not reuse
+    the blocks the others had freed (it ran out of memory with 63.5 GB of
+    the card reserved and idle)."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    streams = getattr(_SIDE, "streams", None)
+    if streams is None:
+        streams = _SIDE.streams = {}
+    if index not in streams:
+        streams[index] = torch.cuda.Stream(index)
+    return streams[index]
+
+
 def _on_side(side, device, fn, *args):
     """``fn(*args)`` eager on the side stream ``side``, ordered after and
     before the current stream's work; its outputs are marked used on the
@@ -709,7 +734,7 @@ class CapturedProgram:
         self.launch_counts = {}
         self.capture_seconds = 0.0
         self.pool_bytes = 0
-        self._side = torch.cuda.Stream(self.device)
+        self._side = _side_stream(self.device)
 
     @property
     def captured(self):
@@ -776,7 +801,7 @@ class CapturedPair:
         self.capture_seconds = 0.0
         self.pool_bytes = 0
         self._eager_outs = None
-        self._side = torch.cuda.Stream(self.device)
+        self._side = _side_stream(self.device)
 
     @property
     def captured(self):

@@ -294,3 +294,60 @@ def test_forward_holds_its_working_set():
     peak, card = tex.forward_only(sym, args, aux)
     assert card is None
     assert 0 < peak < tex.no_optimization_bytes(sym, shapes) / 10
+
+
+def _inception_tensors(batch):
+    sym = mt.models.inception_bn_cifar()
+    arg_shapes, _, aux_shapes = sym.infer_shape(
+        data=(batch, 3, 28, 28), softmax_label=(batch,))
+    args = {n: torch.zeros(s) for n, s in zip(sym.list_arguments(),
+                                              arg_shapes)}
+    aux = {n: torch.zeros(s) for n, s in zip(sym.list_auxiliary_states(),
+                                             aux_shapes)}
+    return sym, args, aux
+
+
+def test_replica_pass_holds_its_working_set():
+    """The lockstep replica pass (a ctx list's BatchNorm step) drops each
+    replica's intermediates after their last reader too: a training
+    forward of Inception-BN (CIFAR) over two replicas of batch 16 holds
+    under a tenth of the sum of the intermediates of batch 32 at its
+    peak."""
+    from mxnet_tpu_torch.examples.memcost import memcost as tex
+    from mxnet_tpu_torch.executor import _build_replica_graph_fn
+
+    reps = [_inception_tensors(16) for _ in range(2)]
+    sym = reps[0][0]
+    fn = _build_replica_graph_fn(sym, is_train=True)
+    held = tex.storages([t for _, a, x in reps
+                         for t in (*a.values(), *x.values())])
+    with torch.no_grad(), tex.LiveBytes(held) as live:
+        outs, _ = fn([a for _, a, _ in reps], [x for _, _, x in reps],
+                     [None, None], [None, None])
+        assert len(outs) == 2 and outs[0][0].shape == (16, 10)
+        del outs
+    total = tex.no_optimization_bytes(
+        sym, {"data": (32, 3, 28, 28), "softmax_label": (32,)})
+    assert 0 < live.peak < total / 10
+
+
+@pytest.mark.parametrize("is_train", [False, True])
+def test_remat_pass_holds_its_working_set(is_train, monkeypatch):
+    """Under ``MXNET_TPU_REMAT`` the outer env drops each inline node's
+    output and each block's export after its last reader, and a block drops
+    its members' outputs that it does not export: a forward of
+    Inception-BN (CIFAR) at batch 32 with a block a ``concat`` holds under
+    a tenth of the sum of its intermediates at its peak."""
+    from mxnet_tpu_torch.examples.memcost import memcost as tex
+    from mxnet_tpu_torch.executor import _build_graph_fn
+
+    monkeypatch.setenv("MXNET_TPU_REMAT", r"concat$")
+    sym, args, aux = _inception_tensors(32)
+    fn = _build_graph_fn(sym, is_train=is_train)
+    with torch.no_grad(), tex.LiveBytes(tex.storages(
+            [*args.values(), *aux.values()])) as live:
+        outs, _ = fn(args, aux, torch.Generator())
+        del outs
+    total = tex.no_optimization_bytes(
+        sym, {"data": (32, 3, 28, 28), "softmax_label": (32,)})
+    assert 0 < live.peak < total / 10

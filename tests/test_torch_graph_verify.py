@@ -43,11 +43,6 @@ def _ids(findings):
     return [(f.rule.id, f.node) for f in findings]
 
 
-# MX316's fixit names only what the port has (no publish_bench)
-_PORT_FIXITS = {"MX316": lambda fixit: fixit.replace(
-    "append_record / publish_bench)", "append_record)")}
-
-
 @pytest.mark.parametrize("rule_id", sorted(jrules.RULES))
 def test_registry_matches_jax(rule_id):
     j, t = jrules.RULES[rule_id], trules.RULES[rule_id]
@@ -58,7 +53,7 @@ def test_registry_matches_jax(rule_id):
         assert t.summary != j.summary
         return
     assert t.summary == _HISTORY.sub("", j.summary)
-    assert t.fixit == _PORT_FIXITS.get(rule_id, lambda f: f)(j.fixit)
+    assert t.fixit == j.fixit
 
 
 def test_registry_ids_and_finding_text():

@@ -235,3 +235,19 @@ def test_predict_module_names(which):
         jmod, tmod = mods
     assert tmod.__all__ == jmod.__all__
     assert all(hasattr(tmod, n) for n in tmod.__all__)
+
+
+def test_ledger_names_are_the_jax_packages():
+    """``telemetry.ledger`` has the JAX module's public names, the bench
+    writer's included, with the same trajectory file name and the same
+    parameters."""
+    import inspect
+
+    from mxnet_tpu.telemetry import ledger as jledger
+    from mxnet_tpu_torch.telemetry import ledger as tledger
+
+    assert tledger.__all__ == jledger.__all__
+    assert all(hasattr(tledger, n) for n in tledger.__all__)
+    assert tledger.BENCH_LEDGER_NAME == jledger.BENCH_LEDGER_NAME
+    assert list(inspect.signature(tledger.publish_bench).parameters) == \
+        list(inspect.signature(jledger.publish_bench).parameters)

@@ -206,6 +206,87 @@ def test_ledger_records_read_across_packages(tmp_path, writer, reader):
     assert reader.read_ledger(d) == []
 
 
+def test_publish_bench_full_and_smoke(tmp_path, monkeypatch):
+    """tests/test_ledger.py::test_publish_bench_full_and_smoke over the
+    port's ledger."""
+    d = str(tmp_path / "ledger")
+    bench_dir = str(tmp_path / "bench")
+    os.makedirs(bench_dir)
+    monkeypatch.setenv("MXNET_TPU_LEDGER_DIR", d)
+    result = {"metric": "widget_bench_ms", "value": 3.5, "unit": "ms",
+              "vs_baseline": 1.2, "detail": {"x": 1}}
+    out = tt.ledger.publish_bench(result, filename="BENCH_WIDGET_r99.json",
+                                  bench_dir=bench_dir)
+    assert json.load(open(out["bench_path"]))["value"] == 3.5
+    assert out["record"]["kind"] == "bench"
+    assert out["record"]["outcomes"]["metric"] == "widget_bench_ms"
+    assert out["ledger_path"] is not None
+    combined = json.load(open(out["bench_ledger_path"]))
+    assert os.path.dirname(out["bench_ledger_path"]) == bench_dir
+    assert os.path.basename(out["bench_ledger_path"]) == \
+        jt.ledger.BENCH_LEDGER_NAME
+    assert combined["records"][-1]["outcomes"]["value"] == 3.5
+
+    # smoke: no per-bench artifact; the trajectory regenerates into the
+    # ledger dir (so CI gating can still read it) and marks the record
+    out2 = tt.ledger.publish_bench({"metric": "widget_bench_ms",
+                                    "value": 4.0, "unit": "ms"},
+                                   filename="BENCH_WIDGET_r99.json",
+                                   bench_dir=bench_dir, smoke=True)
+    assert out2["bench_path"] is None
+    assert os.path.dirname(out2["bench_ledger_path"]) == d
+    assert out2["record"]["outcomes"]["smoke"] is True
+    rows = [r for r in tt.ledger.read_ledger(d) if r["kind"] == "bench"]
+    assert len(rows) == 2
+
+
+_IDS_AND_TIMES = ("record_id", "run_id", "trace_id", "wall_ts")
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_publish_bench_writes_what_jax_writes(tmp_path, monkeypatch, smoke):
+    """The same headline through both packages' ``publish_bench``: the same
+    files (per-bench JSON and trajectory, by name and content) and the same
+    record, field by field, apart from its ids and times."""
+    result = {"metric": "widget_bench_ms", "value": 3.5, "unit": "ms",
+              "vs_baseline": 1.2, "world": 2, "detail": {"x": [1, 2]}}
+    outs, files = {}, {}
+    for name, pkg in (("jax", jt), ("port", tt)):
+        root = tmp_path / name
+        (root / "bench").mkdir(parents=True)
+        monkeypatch.setenv("MXNET_TPU_LEDGER_DIR", str(root / "ledger"))
+        outs[name] = pkg.ledger.publish_bench(
+            result, filename="BENCH_WIDGET_r99.json",
+            bench_dir=str(root / "bench"), smoke=smoke)
+        files[name] = {
+            os.path.relpath(os.path.join(dp, f), root)
+            for dp, _, fs in os.walk(root) for f in fs
+            if not f.startswith("run-")}
+    jrec, trec = outs["jax"]["record"], outs["port"]["record"]
+    assert sorted(jrec) == sorted(trec)
+    for key in jrec:
+        if key not in _IDS_AND_TIMES:
+            assert trec[key] == jrec[key], key
+    assert files["port"] == files["jax"]
+    assert (outs["port"]["bench_path"] is None) == smoke
+    if not smoke:
+        with open(outs["port"]["bench_path"]) as f, \
+                open(outs["jax"]["bench_path"]) as g:
+            assert f.read() == g.read()
+    trail = [json.load(open(outs[n]["bench_ledger_path"]))
+             for n in ("jax", "port")]
+    assert [_strip_ids(r) for r in trail[1]["records"]] == \
+        [_strip_ids(r) for r in trail[0]["records"]]
+    assert trail[1]["ledger_schema"] == trail[0]["ledger_schema"]
+
+
+def _strip_ids(record):
+    """A trajectory row without its ids, times and the path ``read_ledger``
+    read it from."""
+    return {k: v for k, v in record.items()
+            if k not in _IDS_AND_TIMES and k != "_path"}
+
+
 def test_fit_and_predict_land_ledger_records(tmp_path, monkeypatch):
     monkeypatch.setenv("MXNET_TPU_LEDGER_DIR", str(tmp_path / "ledger"))
     rng = np.random.RandomState(1)
