@@ -498,6 +498,22 @@ together), and then:
    remat, and at most 1 GiB left allocated by the earlier phases as it
    starts; prints each tool's seconds and the phase's against its 150 s
    budget, and fails past it;
+12f. bench_subsystems: bench.py's thirteen subsystem benches
+   (``mxnet_tpu_torch.tools.bench_<name>``; see
+   ``phase_bench_subsystems``), each through its ``main(argv)`` in this
+   process at full size (bench_compile's four children in processes of
+   their own), no count cut, eight replicas time-sharing the card where
+   the JAX benches run a dp-8 mesh: each JSON names the card as
+   nvidia-smi does; each bench's ``check`` holds (no lock-order cycle, the
+   health detectors' latencies, rank 7 evicted and rank 6 backfilled,
+   worlds [6, 8] and [3, 4], recovery tiers t1 and t2, wire bytes the
+   plan's, bucket plans summing to the fused plan, the kernel path with
+   no slab-sized quantize pass, fused_adam bitwise, coverage of at least
+   80%, a memory plan recorded by bench_mem's own capture, the cold
+   child's kernel build and none in the warm child);
+   bench_kernels launches every kernel; the JAX overhead bounds are
+   printed with each headline, met or missed; prints each bench's
+   seconds and the phase's against its 300 s budget, and fails past it;
 13. prints one line ``{"kernels": [...]}`` with each kernel's launches on its
    main path, error, times and bound (the flash kernels and fused_adam also
    their launches in lm_mesh; fused_adam its launches in train_bf16 and zoo;
@@ -522,7 +538,8 @@ together), and then:
    summed and the tools (the launched workers count in their own
    processes); ``slice25_launches``: 12d's fifteen scripts, each read
    around its own run; ``slice26_launches``: 12e's six tools, each read
-   around its own run; rows
+   around its own run; ``slice27_launches``: 12f's thirteen benches, each
+   read around its own run; rows
    3-7 also their times, bound, library time
    and the launch floor at one bucket's shape and their launches on the
    overlap path, ``bucket_shape``);
@@ -10393,6 +10410,97 @@ def phase_bench_tools(torch, smi, flash_rows):
           "launches": total})
     return total
 
+
+BENCH_SUBSYSTEMS_DIR = "build/chip_smoke/bench_subsystems"
+BENCH_SUBSYSTEMS_BUDGET_S = 300
+# each bench's main(argv) in this process (bench_compile's four children in
+# processes of their own), on gpu(0), at full size, in bench.py's order of
+# the issues that set their bounds; no count is cut
+BENCH_SUBSYSTEMS = ("telemetry", "trace", "mem", "health", "profile", "comm",
+                    "overlap", "kernels", "elastic", "ckpt", "lockwatch",
+                    "controller", "compile")
+BENCH_SUBSYSTEMS_CUTS = {}
+
+
+def bench_subsystem_headline(got, path):
+    """What the phase prints of a bench's JSON: its metric, value and unit,
+    the JAX bounds it flags beside them (a miss on the card is a finding,
+    ROADMAP C.1, not a failed run), and the path of the whole JSON."""
+    return {**{k: got.get(k) for k in ("metric", "value", "unit",
+                                       "bounds")}, "json": path}
+
+
+def phase_bench_subsystems(torch, smi):
+    """12f. bench.py's thirteen subsystem benches through the port's
+    ``mxnet_tpu_torch.tools.bench_<name>``, each ``main(["--out", ...])``
+    in this process at full size (bench_compile's children in their own),
+    on eight replicas that time-share the card where the JAX bench runs a
+    dp-8 mesh. Each bench's launches are set to 0 just before it and read
+    just after. Gates: each JSON names this card as ``nvidia-smi`` does;
+    each bench's correctness gates, its ``check(result)`` (lock-order
+    cycles 0, the detection latencies, the evicted straggler and the
+    backfilled flaky rank, worlds [6, 8] and [3, 4], recovery tiers t1/t2,
+    wire bytes equal to the plan, bucket plans summing to the fused plan,
+    the kernel path's zero quantize passes, fused_adam bitwise, coverage
+    of at least 80%, a memory plan recorded by bench_mem's capture, the
+    cold child's kernel build); bench_kernels launching every kernel; the
+    phase within its budget. The JAX package's overhead bounds are printed
+    with each bench's figures, met or missed. Returns the kernels'
+    launches by bench."""
+    import importlib
+    import io
+    import json
+    import os
+    import shutil
+
+    t_start = time.perf_counter()
+    if os.path.exists(BENCH_SUBSYSTEMS_DIR):
+        shutil.rmtree(BENCH_SUBSYSTEMS_DIR)
+    os.makedirs(BENCH_SUBSYSTEMS_DIR)
+    by_bench, rows = {}, {}
+    for name in BENCH_SUBSYSTEMS:
+        mod = importlib.import_module(f"mxnet_tpu_torch.tools.bench_{name}")
+        out_path = os.path.join(BENCH_SUBSYSTEMS_DIR,
+                                f"BENCH_{name.upper()}_torch.json")
+        gc.collect()
+        torch.cuda.empty_cache()
+        printed = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            mod.main(["--out", out_path])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        with open(out_path) as f:
+            got = json.load(f)
+        by_bench[name] = launches
+        rows[name] = {"seconds": seconds,
+                      "launches": {k: v for k, v in launches.items() if v}}
+        emit({"phase": "bench_subsystem", "name": name, **rows[name],
+              "headline": bench_subsystem_headline(got, out_path)})
+        require(got["device"] == smi,
+                f"bench_subsystems: {name}'s JSON names the card "
+                f"{got['device']!r} ({smi!r})")
+        try:
+            mod.check(got)
+        except AssertionError as e:
+            require(False, f"bench_subsystems: {e}")
+        if name == "kernels":
+            for n in port_kernels():
+                require(launches[n] > 0,
+                        f"bench_subsystems: bench_kernels launched {n}")
+    reset_launches()
+    phase_s = time.perf_counter() - t_start
+    require(phase_s <= BENCH_SUBSYSTEMS_BUDGET_S,
+            f"bench_subsystems: the phase took {phase_s:.1f} s of its "
+            f"{BENCH_SUBSYSTEMS_BUDGET_S} s budget")
+    emit({"phase": "bench_subsystems", "benches": rows,
+          "cuts": BENCH_SUBSYSTEMS_CUTS, "phase_s": phase_s,
+          "budget_s": BENCH_SUBSYSTEMS_BUDGET_S, "card": smi})
+    return by_bench
+
+
 def main() -> int:
     import torch
 
@@ -10519,6 +10627,11 @@ def main() -> int:
     for name in FLASH_NAMES:
         require(slice26["bench_tools"][name] > 0,
                 f"slice 26's paths launched {name}")
+    torch.cuda.empty_cache()
+    slice27 = phase_bench_subsystems(torch, smi)
+    for name in port_kernels():
+        require(slice27["kernels"][name] > 0,
+                f"slice 27's bench_kernels launched {name}")
     # not on fit's path: twobit gathers in bf16 (comm/allreduce.py)
     launches["dequant_twobit"] = 0
     require(not any(m.split(".")[0] in ("jax", "mxnet_tpu")
@@ -10617,6 +10730,12 @@ def main() -> int:
         # bench_longctx's steps)
         kernels[-1]["slice26_launches"] = {p: got[name]
                                            for p, got in slice26.items()}
+        # the slice 27 path: the thirteen subsystem benches, each read
+        # around its own run (bench_kernels: its roofline rows and the
+        # exchange on the kernel path; elastic, ckpt, lockwatch and
+        # controller: their replicas' eager steps)
+        kernels[-1]["slice27_launches"] = {p: got[name]
+                                           for p, got in slice27.items()}
         if name in bucket_rows:
             # one 4 MB bucket's shapes; launches on the overlap path
             kernels[-1]["bucket_shape"] = bucket_rows[name]

@@ -16,9 +16,11 @@ phase is also held to ``key_averages``' device rows. Writes
 ``smoke_profile.json`` (and ``smoke_profile_rank_<pid>.json``) under
 ``build/chip_smoke/profile``; prints what ``chip_smoke.py`` prints and
 exits with its code. Every phase is timed, the last ones
-(``phase_tools_examples``, 12c, ``phase_examples``, 12d, and
-``phase_bench_tools``, 12e) too; their background processes (the launcher's workers, ``im2rec``) are other
-interpreters, timed by the phase itself in its row.
+(``phase_tools_examples``, 12c, ``phase_examples``, 12d,
+``phase_bench_tools``, 12e, and ``phase_bench_subsystems``, 12f) too;
+their background processes (the launcher's workers, ``im2rec``,
+bench_compile's children) are other interpreters, timed by the phase
+itself in its row.
 """
 import functools
 import json

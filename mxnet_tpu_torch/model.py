@@ -1330,21 +1330,26 @@ class _ReplicaState:
         batch = dict(batch)
         num_valid = batch.pop("__num_valid__", None)
         n = len(self.members)
-        cut = {k: _split_rows(v, n) for k, v in batch.items()}
-        blocks = [{k: parts[r].to(d) for k, parts in cut.items()}
-                  for r, d in enumerate(self.devices)]
-        masks = [None] * n
-        if num_valid is not None:
-            rows = next(iter(batch.values())).shape[0]
-            mask = (torch.arange(rows, device=num_valid.device)
-                    < num_valid).float()
-            masks = [part.to(d) for part, d in
-                     zip(_split_rows(mask, n), self.devices)]
+        # the named ranges are the single device step's (the profiler's
+        # attribution), with the batch's scatter to the replicas and the
+        # outputs' gather as comm
+        with prof_mod.scope("comm/scatter"):
+            cut = {k: _split_rows(v, n) for k, v in batch.items()}
+            blocks = [{k: parts[r].to(d) for k, parts in cut.items()}
+                      for r, d in enumerate(self.devices)]
+            masks = [None] * n
+            if num_valid is not None:
+                rows = next(iter(batch.values())).shape[0]
+                mask = (torch.arange(rows, device=num_valid.device)
+                        < num_valid).float()
+                masks = [part.to(d) for part, d in
+                         zip(_split_rows(mask, n), self.devices)]
         guards = [m.guard for m in self.members] \
             if self.members[0].guard is not None else None
         if guards is not None:
-            for g in guards:
-                g.begin()
+            with prof_mod.scope("guards/snapshot"):
+                for g in guards:
+                    g.begin()
         fn = self._lockstep_fn(bucket_key) if self.global_stats else None
         if fn is not None:
             outs = self._forward_joined(fn, blocks, data_names, masks)
@@ -1355,19 +1360,23 @@ class _ReplicaState:
         health = first.health if first.health_on else None
         h_loss = None
         if health is not None:
-            h_loss = sum(m.health_loss(o, b, mask).to(self.device)
-                         for m, o, b, mask in zip(self.members, outs, blocks,
-                                                  masks))
+            with prof_mod.scope("health/loss"):
+                h_loss = sum(m.health_loss(o, b, mask).to(self.device)
+                             for m, o, b, mask in zip(self.members, outs,
+                                                      blocks, masks))
         sync = self.grad_sync
         sync.attach([m.params for m in self.members])
         scaled = None
         if guards is not None:
-            scaled = [m._scale_loss(g) for m, g in zip(self.members, guards)]
-            if sync.residual is not None:
-                for g, f in zip(guards, sync.flats):
-                    g.prescale_([f])
-        losses = [m._loss.to(self.device) for m in self.members
-                  if m._loss is not None]
+            with prof_mod.scope("guards/scale"):
+                scaled = [m._scale_loss(g)
+                          for m, g in zip(self.members, guards)]
+                if sync.residual is not None:
+                    for g, f in zip(guards, sync.flats):
+                        g.prescale_([f])
+        with prof_mod.scope("loss/sum"):
+            losses = [m._loss.to(self.device) for m in self.members
+                      if m._loss is not None]
         if losses:
             torch.autograd.backward(
                 sum(losses), inputs=[p for m in self.members
@@ -1375,10 +1384,11 @@ class _ReplicaState:
         for m in self.members:
             m._loss = None
         if guards is not None:
-            for g, f in zip(guards, sync.flats):
-                g.unscale_([f])
+            with prof_mod.scope("guards/unscale"):
+                for g, f in zip(guards, sync.flats):
+                    g.unscale_([f])
         sync.finish_backward()
-        with torch.no_grad():
+        with torch.no_grad(), prof_mod.scope("comm/allreduce"):
             grads = sync.grads()
             if not self.global_stats:
                 for m, new in zip(self.members,
@@ -1388,25 +1398,31 @@ class _ReplicaState:
                             m.aux[k].copy_(v)
         finite = None
         if guards is not None and guards[0].cfg.skip_nonfinite:
-            with torch.no_grad():
+            with torch.no_grad(), prof_mod.scope("guards/finite"):
                 # the replicas' summed loss, as the reference's psum
                 finite = guards_mod.finite_flag(
                     sum(t.to(self.device) for t in scaled), grads[0])
         for i, (m, g) in enumerate(zip(self.members, grads)):
             m.grads = g
             if m is first and health is not None:
-                health.before_update(m.params)
+                with prof_mod.scope("health/stats"):
+                    health.before_update(m.params)
             if m.apply_update:
                 if guards is not None:
-                    guards[i].write_corrections(m.scalars.dev)
+                    with prof_mod.scope("guards/corrections"):
+                        guards[i].write_corrections(m.scalars.dev)
                 m.update()
             if guards is not None:
-                guards[i].finish(None if finite is None
-                                 else finite.to(m.device))
+                with prof_mod.scope("guards/select"):
+                    guards[i].finish(None if finite is None
+                                     else finite.to(m.device))
             if m is first and health is not None:
-                health.after_update(m.params, g, h_loss)
-        joined = [torch.cat([o[i].detach().to(self.device) for o in outs])
-                  for i in range(len(outs[0]))]
+                with prof_mod.scope("health/stats"):
+                    health.after_update(m.params, g, h_loss)
+        with prof_mod.scope("comm/gather"):
+            joined = [torch.cat([o[i].detach().to(self.device)
+                                 for o in outs])
+                      for i in range(len(outs[0]))]
         seen = None if probe is None else probe(batch)
         return joined, seen
 

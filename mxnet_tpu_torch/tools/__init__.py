@@ -18,7 +18,16 @@ JAX script's command line:
   ``--analyze-only --cpu`` counts on the CPU), ``bench_io_scaling`` (the
   native pipeline by thread count) and ``scaling_projection`` (data
   parallel scaling projected from one card); ``_bench`` holds what they
-  share (``bench.py``'s helpers).
+  share (``bench.py``'s helpers);
+- ``bench.py``'s thirteen subsystem acceptance benches, each pricing one
+  subsystem against the bound its JAX counterpart set and publishing one
+  JSON line through ``telemetry.ledger.publish_bench`` (full runs under
+  ``build/bench_subsystems/``): ``bench_telemetry``, ``bench_trace``,
+  ``bench_mem``, ``bench_health``, ``bench_profile``, ``bench_comm``,
+  ``bench_overlap``, ``bench_kernels``, ``bench_elastic``, ``bench_ckpt``,
+  ``bench_lockwatch``, ``bench_controller`` and ``bench_compile``;
+  ``_subsystem`` holds what they share (the dp-8 MLP over eight replicas
+  of one device, the host timer, the arguments, the exit).
 
 ``import mxnet_tpu_torch`` imports none of them. ``tools/launch.py`` needs
 no counterpart: it imports neither package and only sets the ``MXTPU_*``

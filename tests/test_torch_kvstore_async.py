@@ -491,7 +491,10 @@ def test_launcher_server_process_retires(tmp_path):
         "kv.barrier()\n"
         "out = torch.empty(2)\n"
         "kv.pull(1, out=out)\n"
-        "print('worker', kv.rank, 'value', float(out[0]))\n"
+        # one write a line: under PYTHONUNBUFFERED each argument of a
+        # print is a write of its own, and the two workers, released by
+        # one barrier, print at once into one pipe
+        "sys.stdout.write(f'worker {kv.rank} value {float(out[0])}\\n')\n"
         "kv.barrier()\n"
         "kv.close()\n")
     env = {k: v for k, v in os.environ.items() if not k.startswith("MXTPU")}
@@ -500,7 +503,8 @@ def test_launcher_server_process_retires(tmp_path):
          "-s", "1", sys.executable, str(script)],
         capture_output=True, text=True, timeout=240, env=env)
     assert res.returncode == 0, res.stderr[-2000:]
-    # the two workers print into one pipe: their lines may interleave
+    # the two workers print into one pipe: their lines may come in
+    # either order, each whole
     assert res.stdout.count("value 2.0") == 2, res.stdout
     assert "DMLC_ROLE=server" in res.stderr
 

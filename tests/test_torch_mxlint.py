@@ -1115,14 +1115,27 @@ def test_tree_parity(tree_parity, rule_id):
         [r for r in j if r[0] == rule_id], tree
 
 
+# the MX311 sites each tree suppresses: both packages' launch-config
+# compression sites, and in the port the subsystem benches' planted
+# failures (two kills of bench_ckpt's and bench_elastic's resize, one of
+# bench_lockwatch's, bench_controller's flaky rank) and bench_overlap's
+# store setup
+SUPPRESSED_MX311 = {
+    "mxnet_tpu": ["kvstore.py", "model.py"],
+    "mxnet_tpu_torch": ["bench_ckpt.py", "bench_ckpt.py",
+                        "bench_controller.py", "bench_elastic.py",
+                        "bench_elastic.py", "bench_lockwatch.py",
+                        "bench_overlap.py", "kvstore.py", "model.py"],
+}
+
+
 def test_tree_parity_sees_the_suppressed_sites(tree_parity):
-    """With the pragmas off both lints see the launch-config compression
-    sites both packages suppress (MX311)."""
+    """With the pragmas off both lints see the sites each tree suppresses
+    (MX311)."""
     tree, j, _ = tree_parity
     sites = [r for r in j if r[0] == "MX311"]
-    assert len(sites) == 2, (tree, sites)
-    assert {os.path.basename(p) for _, p, _ in sites} == \
-        {"kvstore.py", "model.py"}
+    assert sorted(os.path.basename(p) for _, p, _ in sites) == \
+        SUPPRESSED_MX311[tree], (tree, sites)
 
 
 # -- the self-lint: the port's tree -------------------------------------------
